@@ -1,0 +1,160 @@
+"""Multi-channel FM broadcast receiver (channelizer), the flagship model.
+
+Counterpart of ``gsdr_tpu/pipelines/fm_radio.py``. One wideband planar RF
+stream in; C demodulated, de-emphasized audio channels out:
+complex-tap-bank mix + FIR + decimate -> LO rotor -> quadrature
+discriminator -> first-order TDF-II de-emphasis, with the streaming state
+(n0, rf_tail, disc_carry, deemph_zi) carried from block to block in the
+same order, shapes and meaning as the JAX model.
+"""
+
+import math
+
+import torch
+from torch import nn
+
+from gsdr_tpu_torch.carray import ComplexArray
+from gsdr_tpu_torch.kernels.fm_chain import fm_chain, fm_chain_reference
+from gsdr_tpu_torch.ops.channelize import make_complex_tap_bank
+from gsdr_tpu_torch.utils.phase import phase_digit_table
+
+_TWO_PI = 6.283185307179586
+_IMPLS = ("auto", "torch", "cuda")
+
+
+def fm_deemphasis_coeffs(tau_seconds, sample_rate):
+    """First-order de-emphasis IIR (b, a) via bilinear transform of
+    H(s)=1/(1+s*tau); sample_rate is the post-decimation audio rate.
+
+    Raises when the prewarp argument 1/(2*tau*fs) reaches pi/2: past it
+    the mapped pole leaves the unit circle and the filter is unstable.
+    The validity condition is tau > 1/(pi * audio_rate)."""
+    arg = 1.0 / (2.0 * float(tau_seconds) * float(sample_rate))
+    if arg >= math.pi / 2.0:
+        raise ValueError(
+            f"de-emphasis tau={tau_seconds} is below the bilinear "
+            f"validity limit 1/(pi*audio_rate) = "
+            f"{1.0 / (math.pi * float(sample_rate)):.3g} s at audio rate "
+            f"{sample_rate:.6g} Hz — the mapped pole is unstable. Use a "
+            "larger tau or a higher post-decimation audio rate.")
+    k = math.tan(arg)
+    b0 = k / (1.0 + k)
+    a1 = (k - 1.0) / (k + 1.0)
+    return (b0, b0), (1.0, a1)
+
+
+class FmChannelizer(nn.Module):
+    """C-channel FM receiver on torch tensors.
+
+    State: (n0 int32 scalar tensor, rf_tail planar (T-1,),
+    disc_carry planar (C, 1), deemph_zi float32 (C, 1)).
+    ``step(state, rf)`` takes a planar (N,) block with N % decimation == 0
+    and returns (state', audio (C, N/decimation) float32).
+
+    ``impl``: 'auto' runs the fused CUDA kernel for a model on the card and
+    the plain chain for a model on the CPU; 'torch' forces the plain
+    chain; 'cuda' forces the kernel. ``precision``: 'f32' (FP32 FMA).
+    ``device`` defaults to 'cuda' and raises where CUDA is missing.
+    """
+
+    def __init__(self, sample_rate, tuning_frequency, channel_frequencies,
+                 frequency_deviation, decimation, low_pass_taps,
+                 deemphasis_tau=75e-6, impl="auto", precision="f32",
+                 device="cuda"):
+        super().__init__()
+        if impl in ("pfb", "pfb_pallas"):
+            raise NotImplementedError(
+                f"impl={impl!r}: the PFB front (ROADMAP kernel B2) is not "
+                "ported yet")
+        if impl not in _IMPLS:
+            raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
+        if precision in ("bf16x3", "bf16x2"):
+            raise NotImplementedError(
+                f"precision={precision!r}: only the 'f32' grade is ported "
+                "(tensor-core grades are on the ROADMAP)")
+        if precision != "f32":
+            raise ValueError(f"unknown precision {precision!r}")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "FmChannelizer: device 'cuda' requested but CUDA is not "
+                "available; pass device='cpu' to run the plain chain")
+        if impl == "cuda" and device.type != "cuda":
+            raise ValueError("impl='cuda' runs the CUDA kernel: it needs "
+                             "device='cuda'")
+        self.sample_rate = float(sample_rate)
+        self.tuning_frequency = float(tuning_frequency)
+        self.channel_frequencies = tuple(float(f) for f in channel_frequencies)
+        self.frequency_deviation = float(frequency_deviation)
+        self.decimation = int(decimation)
+        self.low_pass_taps = tuple(float(h) for h in low_pass_taps)
+        self.deemphasis_tau = float(deemphasis_tau)
+        self.impl = impl
+        self.precision = precision
+        self.device = device
+
+        shifts = [self.tuning_frequency - f for f in self.channel_frequencies]
+        self.register_buffer("tap_bank", torch.as_tensor(
+            make_complex_tap_bank(self.low_pass_taps, shifts, self.sample_rate),
+            device=device))
+        self.register_buffer("lo_table", torch.as_tensor(
+            phase_digit_table(shifts, self.sample_rate), device=device))
+        (b0, _), (_, a1) = fm_deemphasis_coeffs(self.deemphasis_tau,
+                                                self.audio_rate)
+        # TDF-II form: z[j] = cc*d[j] + a*z[j-1], out[j] = b0*d[j] + z[j-1]
+        self.register_buffer("deemph", torch.tensor(
+            [b0, b0 - a1 * b0, -a1], dtype=torch.float32, device=device))
+
+    @property
+    def num_channels(self):
+        return len(self.channel_frequencies)
+
+    @property
+    def num_taps(self):
+        return len(self.low_pass_taps)
+
+    @property
+    def gain(self):
+        """Discriminator gain Fs/(2*pi*deviation)."""
+        return self.sample_rate / (_TWO_PI * self.frequency_deviation)
+
+    @property
+    def audio_rate(self):
+        return self.sample_rate / self.decimation
+
+    def init(self, first_sample_index=0):
+        c, t = self.num_channels, self.num_taps
+        dev = self.tap_bank.device
+        fs = int(round(self.sample_rate))
+        return (
+            torch.tensor(int(first_sample_index) % fs, dtype=torch.int32,
+                         device=dev),
+            ComplexArray.zeros((t - 1,), device=dev),
+            ComplexArray.zeros((c, 1), device=dev),
+            torch.zeros((c, 1), dtype=torch.float32, device=dev),
+        )
+
+    def step(self, state, rf):
+        if not isinstance(rf, ComplexArray):
+            rf = ComplexArray.from_complex(rf, device=self.tap_bank.device)
+        n0, rf_tail, disc_carry, deemph_zi = state
+        n = rf.shape[-1]
+        t = self.num_taps
+        fs = int(round(self.sample_rate))
+        if n % self.decimation != 0:
+            raise ValueError("block length must be a multiple of decimation")
+
+        # window j starts at global index n0 - (T-1) + j*D
+        buf = ComplexArray(torch.cat([rf_tail.re, rf.re], dim=-1),
+                           torch.cat([rf_tail.im, rf.im], dim=-1))
+        rot0 = torch.remainder(n0 + (fs - (t - 1) % fs), fs).to(torch.int32)
+        chain = fm_chain_reference if self.impl == "torch" else fm_chain
+        audio, new_carry, new_zi = chain(
+            buf, self.tap_bank, self.lo_table, rot0, self.decimation,
+            self.gain, self.deemph, disc_carry, deemph_zi)
+        new_tail = buf[..., buf.shape[-1] - (t - 1):]
+        n0_new = torch.remainder(n0 + n % fs, fs).to(torch.int32)
+        return (n0_new, new_tail, new_carry, new_zi), audio
+
+    def forward(self, state, rf):
+        return self.step(state, rf)

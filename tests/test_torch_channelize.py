@@ -1,0 +1,98 @@
+"""Port parity: complex tap bank, mix+FIR+decimate, LO rotation,
+channelize and the quadrature demodulators (JAX on CPU as reference)."""
+
+import importlib
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from gsdr_tpu.carray import ComplexArray as JCA
+from gsdr_tpu.utils.phase import phase_digit_table as j_table
+from gsdr_tpu_torch.carray import ComplexArray as TCA
+
+# the packages' ops/__init__ re-export functions under the module names
+jch = importlib.import_module("gsdr_tpu.ops.channelize")
+jqd = importlib.import_module("gsdr_tpu.ops.quad_demod")
+tch = importlib.import_module("gsdr_tpu_torch.ops.channelize")
+tqd = importlib.import_module("gsdr_tpu_torch.ops.quad_demod")
+
+FS = 1_000_000.0
+SHIFTS = [float(-480_000 + 60_000 * i) for i in range(16)]
+
+
+def _taps(t, cut=0.03):
+    k = np.arange(t) - (t - 1) / 2.0
+    h = np.sinc(2 * cut * k) * np.hamming(t)
+    return (h / h.sum()).astype(np.float32)
+
+
+def _planar(n, seed, lead=()):
+    rng = np.random.default_rng(seed)
+    re = rng.standard_normal(lead + (n,)).astype(np.float32)
+    im = rng.standard_normal(lead + (n,)).astype(np.float32)
+    return re, im
+
+
+def _both(re, im):
+    return JCA(jnp.asarray(re), jnp.asarray(im)), TCA(torch.from_numpy(re),
+                                                      torch.from_numpy(im))
+
+
+def _rel(got, want):
+    return np.max(np.abs(got - want)) / np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("shifts,fs", [(SHIFTS, FS), ([12.5, -3_333.3], 48_000.0)])
+def test_tap_bank_array_equal(shifts, fs):
+    taps = _taps(64)
+    np.testing.assert_array_equal(tch.make_complex_tap_bank(taps, shifts, fs),
+                                  jch.make_complex_tap_bank(taps, shifts, fs))
+
+
+@pytest.mark.parametrize("t,d,lead", [(64, 4, ()), (33, 3, (2,)), (7, 1, ())])
+def test_mix_fir_decimate_bank_matches_jax(t, d, lead):
+    bank = jch.make_complex_tap_bank(_taps(t), SHIFTS[:5], FS)
+    jx, tx = _both(*_planar(2048, 1, lead))
+    want = jch.mix_fir_decimate_bank(jx, bank, d)
+    got = tch.mix_fir_decimate_bank(tx, torch.from_numpy(bank), d)
+    assert tuple(got.shape) == want.shape == lead + (5, (2048 - t) // d + 1)
+    # f32 convolutions summed in different orders: ~T ulps of the output
+    assert _rel(got.re.numpy(), np.asarray(want.re)) < 1e-5
+    assert _rel(got.im.numpy(), np.asarray(want.im)) < 1e-5
+
+
+@pytest.mark.parametrize("n0", [0, 999_000, 123_457])
+def test_rotate_bank_matches_jax(n0):
+    table = j_table(SHIFTS, FS)
+    jy, ty = _both(*_planar(1000, 2, (16,)))
+    want = jch.rotate_bank(jy, jnp.asarray(table), jnp.int32(n0), 4)
+    got = tch.rotate_bank(ty, torch.from_numpy(table),
+                          torch.tensor(n0, dtype=torch.int32), 4)
+    # cos/sin of a float32 phase: libm vs XLA's polynomial, a few ulps
+    np.testing.assert_allclose(got.re.numpy(), np.asarray(want.re), atol=2e-5)
+    np.testing.assert_allclose(got.im.numpy(), np.asarray(want.im), atol=2e-5)
+
+
+def test_channelize_matches_jax():
+    taps = _taps(64)
+    jx, tx = _both(*_planar(4096, 3))
+    want = jch.channelize(jx, taps, SHIFTS, FS, 4, first_sample_index=77)
+    got = tch.channelize(tx, taps, SHIFTS, FS, 4, first_sample_index=77)
+    assert _rel(got.re.numpy(), np.asarray(want.re)) < 2e-5
+    assert _rel(got.im.numpy(), np.asarray(want.im)) < 2e-5
+
+
+def test_quad_demods_match_jax():
+    # slowly turning phasor, clear of the atan2 branch cut
+    t = np.arange(3000)
+    z = (0.7 + 0.2 * np.sin(t / 50.0)) * np.exp(1j * (0.3 * np.sin(t / 40.0) + t * 0.01))
+    re, im = z.real.astype(np.float32), z.imag.astype(np.float32)
+    jx, tx = _both(re, im)
+    np.testing.assert_allclose(tqd.quad_fm_demod(tx, 2.1).numpy(),
+                               np.asarray(jqd.quad_fm_demod(jx, 2.1)),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tqd.quad_am_demod(tx).numpy(),
+                               np.asarray(jqd.quad_am_demod(jx)),
+                               rtol=1e-6, atol=1e-6)

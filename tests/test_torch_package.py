@@ -1,0 +1,77 @@
+"""The port stands alone: no JAX, no gsdr_tpu, no silent CPU fallback,
+and an sm_90a build command."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from gsdr_tpu_torch.kernels import _build
+from gsdr_tpu_torch.pipelines import FmChannelizer
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "gsdr_tpu_torch"
+CFG = dict(sample_rate=1e6, tuning_frequency=0.0,
+           channel_frequencies=(100e3, 200e3), frequency_deviation=75e3,
+           decimation=4, low_pass_taps=(0.25, 0.25, 0.25, 0.25))
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = ("import sys, gsdr_tpu_torch, gsdr_tpu_torch.utils.convert, "
+            "gsdr_tpu_torch.kernels._build; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'gsdr_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(ROOT) for p in
+                                        list(PORT.rglob("*.py"))
+                                        + [ROOT / "chip_smoke.py"]),
+                         ids=str)
+def test_no_jax_or_gsdr_tpu_import(path):
+    assert not _imported_roots(ROOT / path) & {"jax", "jaxlib", "gsdr_tpu"}
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FmChannelizer(**CFG)
+
+
+def test_impl_checks():
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        FmChannelizer(**CFG, impl="cuda", device="cpu")
+    for impl in ("pfb", "pfb_pallas"):
+        with pytest.raises(NotImplementedError, match="B2"):
+            FmChannelizer(**CFG, impl=impl, device="cpu")
+    for grade in ("bf16x3", "bf16x2"):
+        with pytest.raises(NotImplementedError, match="f32"):
+            FmChannelizer(**CFG, precision=grade, device="cpu")
+    with pytest.raises(ValueError):
+        FmChannelizer(**CFG, impl="xla", device="cpu")
+
+
+def test_nvcc_command_targets_sm_90a():
+    out = _build.library_path("fm_chain")
+    cmd = _build.nvcc_command("fm_chain", out)
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert {"-std=c++17", "-O3", "-shared", "-fPIC"} <= set(cmd)
+    assert cmd[-1].endswith("csrc/fm_chain.cu") and Path(cmd[-1]).exists()
+    assert out.parent == ROOT / "build" / "gsdr_tpu_torch"
+    assert _build.sources() == ["fm_chain"]
