@@ -6,7 +6,9 @@ boundaries carry planar float32 re/im, and every streaming state has the
 order, shapes and meaning of its JAX counterpart, so states move between
 the packages through numpy. The package never imports JAX or gsdr_tpu.
 
-This slice holds the flagship FM channelizer and the ops it runs.
+It holds the flagship FM channelizer, the wideband uniform-grid
+receivers (FmChannelizer and AmReceiver with the PFB front) and the ops
+they run.
 """
 
 from gsdr_tpu_torch.carray import ComplexArray, expj
@@ -17,11 +19,19 @@ from gsdr_tpu_torch.ops import (
     iir_reference,
     make_complex_tap_bank,
     mix_fir_decimate_bank,
+    mix_fir_decimate_bank_uniform,
+    pfb_preferred,
+    pfb_taps_to_polyphase,
     quad_am_demod,
     quad_fm_demod,
     rotate_bank,
+    uniform_grid,
 )
-from gsdr_tpu_torch.pipelines import FmChannelizer, fm_deemphasis_coeffs
+from gsdr_tpu_torch.pipelines import (
+    AmReceiver,
+    FmChannelizer,
+    fm_deemphasis_coeffs,
+)
 
 __all__ = [
     "ComplexArray",
@@ -32,9 +42,14 @@ __all__ = [
     "iir_reference",
     "make_complex_tap_bank",
     "mix_fir_decimate_bank",
+    "mix_fir_decimate_bank_uniform",
+    "pfb_preferred",
+    "pfb_taps_to_polyphase",
     "quad_am_demod",
     "quad_fm_demod",
     "rotate_bank",
+    "uniform_grid",
+    "AmReceiver",
     "FmChannelizer",
     "fm_deemphasis_coeffs",
 ]

@@ -1,46 +1,53 @@
 // Fused C-channel FM receive chain for Hopper (sm_90a), float32 grade.
 //
-// Replaces gsdr_tpu/kernels/fm_chain_pallas.py::_fm_chain_kernel with its
-// dense (toeplitz) front. Per decimated output j and channel c it computes
-//   y[c,j]  = sum_t x[j*D + t] * g_c[t]               complex tap bank
+// Replaces gsdr_tpu/kernels/fm_chain_pallas.py::_fm_chain_kernel with both
+// of its fronts (fronts.cuh): fm_chain_launch runs the dense (toeplitz)
+// front, pfb_fm_chain_launch the uniform-grid PFB front
+// (_pfb_fold_dot). Per decimated output j and channel c it computes
+//   y[c,j]  = sum_t x[j*D + t] * g_c[t]               front
 //   f[c,j]  = y[c,j] * e^{i 2 pi frac(f_c (n0 + j D) / Fs)}   LO rotor
 //   d[c,j]  = gain * atan2(f[c,j] * conj(f[c,j-1]))   discriminator
 //   z[c,j]  = cc*d[c,j] + a*z[c,j-1],  out[c,j] = b0*d[c,j] + z[c,j-1]
 // with f[c,-1] and z[c,-1] carried in from the previous block and the
 // carries exported at j = M-1.
 //
-// What bounds it on the card: the contraction is C*T*8/D FP32 operations
-// per input sample (2048 at the flagship 16 channels, 64 taps, D=4: 2.15
-// GFLOP per 2^20-sample step) against about 25 MB of HBM traffic, so it is
-// bound by non-tensor FP32 FMA, not by memory.
+// What bounds it on the card: as written, non-tensor FP32 FMA. The dense
+// front issues C*T*8/D FP32 operations per input sample (2048 at the
+// flagship 16 channels, 64 taps, D=4: 2.15 GFLOP per 2^20-sample step,
+// against about 25 MB of HBM traffic). The PFB front issues (4T + 8CK)/D
+// (544 at 64 channels on the Fs/64 grid, 512 taps, D=64: 0.57 GFLOP per
+// step, 94% of it the dense DFT-bank product); a K-point FFT would do
+// that product's work in about 5*K*log2(K) operations instead of 8*C*K, and
+// the function then needs fewer operations than its ~13 MB of HBM traffic
+// takes time, so its bound is memory.
 //
 // What the design does about that:
 //  - one thread per decimated output accumulates all CG=16 channels in
-//    registers, so every input sample loaded is reused for 16 channels;
-//  - the tap bank sits in shared memory interleaved as (re, im) pairs per
-//    tap, read as float4 broadcasts: 8 vector loads feed 64 FMAs per tap;
-//  - the block's input window sits in shared memory in polyphase order,
-//    xp[p][k] = x[k*D + p], so x[j*D + t] = xp[t % D][j + t / D] and
-//    neighbouring threads read neighbouring words (no D-strided conflicts);
+//    registers, so every input sample (dense) or fold value (PFB) is reused
+//    for 16 channels, with the taps or the bank read as shared-memory
+//    broadcasts (fronts.cuh);
 //  - the rotor uses the exact digit-table phase with the same float32
 //    operation order as the plain chain, then one sincosf per output;
 //  - the discriminator takes f[j-1] from the neighbouring lane by shuffle
 //    (shared memory at warp edges); thread 0 of every block recomputes the
-//    previous block's last output, so blocks need no ordering;
+//    previous block's last output (one extra window, or one extra fold and
+//    bank row with the PFB front), so blocks need no ordering;
 //  - the de-emphasis is linear, so blocks scan their tile from z = 0
 //    (launch 1), a small scan over tiles finds every tile's true start
 //    state (launch 2), and a last pass adds a^(j-j0) * z_start (launch 3).
-// Moving the contraction onto the tensor cores is the next step.
+// Moving the contractions onto the tensor cores is the next step.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "fronts.cuh"
+
 namespace {
 
-constexpr int kTile = 256;            // threads per block, one output each
+using gsdr::kCG;
+using gsdr::kTile;
 constexpr int kOut = kTile - 1;       // new outputs per block
-constexpr int kCG = 16;               // channels per block (grid.y covers C)
 constexpr int kWarps = kTile / 32;
 constexpr int kScan = 1024;           // threads of the tile-scan block
 constexpr float kTwoPi = 6.283185307179586f;
@@ -56,23 +63,23 @@ __device__ __forceinline__ float ipow(float a, int k) {
   return r;
 }
 
-// Launch 1: contraction, rotor, discriminator and the zero-state
-// de-emphasis of one tile of kOut outputs for kCG channels.
+// Launch 1: front, rotor, discriminator and the zero-state de-emphasis of
+// one tile of kOut outputs for kCG channels. kPfb selects the front: the
+// dense one reads bank (2C, 2, T); the PFB one reads hp (Q, K) and the
+// planes-major bank (2C, 2K).
+template <bool kPfb>
 __global__ void __launch_bounds__(kTile) fm_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
-    int nb, const float* __restrict__ bank, int C, int T, int D, int M,
-    int ntiles, const float* __restrict__ table,
-    const int* __restrict__ n0_rot, const float* __restrict__ coef,
-    float gain, const float* __restrict__ cf_re_in,
-    const float* __restrict__ cf_im_in, float* __restrict__ audio,
-    float* __restrict__ cf_re_out, float* __restrict__ cf_im_out,
-    float* __restrict__ zend) {
+    int nb, const float* __restrict__ bank, const float* __restrict__ hp,
+    int C, int T, int K, int Q, int D, int M, int ntiles,
+    const float* __restrict__ table, const int* __restrict__ n0_rot,
+    const float* __restrict__ coef, float gain,
+    const float* __restrict__ cf_re_in, const float* __restrict__ cf_im_in,
+    float* __restrict__ audio, float* __restrict__ cf_re_out,
+    float* __restrict__ cf_im_out, float* __restrict__ zend) {
   extern __shared__ float4 smem4[];
-  float* taps = reinterpret_cast<float*>(smem4);   // [T][kCG][2]
-  float* tab = taps + T * kCG * 2;                 // [kCG][4]
-  const int K = kTile + (T - 1) / D;               // polyphase row length
-  float* xp_re = tab + kCG * 4;                    // [D][K]
-  float* xp_im = xp_re + D * K;                    // [D][K]
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ float tab[kCG * 4];
   __shared__ float y_edge[kWarps][kCG][2];
   __shared__ float z_edge[kWarps][kCG];
   __shared__ float z_last[kWarps][kCG];
@@ -85,46 +92,21 @@ __global__ void __launch_bounds__(kTile) fm_chain_tile(
   const int j0 = tile * kOut;
   const int j = j0 - 1 + tid;                      // this thread's output
 
-  for (int idx = tid; idx < T * kCG; idx += kTile) {
-    const int t = idx / kCG, c = idx % kCG, cg = c0 + c;
-    taps[2 * idx] = cg < C ? bank[(4 * cg) * T + t] : 0.f;           // gr
-    taps[2 * idx + 1] = cg < C ? bank[(4 * cg + 2) * T + t] : 0.f;   // gi
-  }
+  // read after the front's __syncthreads
   for (int idx = tid; idx < kCG * 4; idx += kTile) {
     const int cg = c0 + idx / 4;
     tab[idx] = cg < C ? table[cg * 4 + idx % 4] : 0.f;
   }
-  const long g0 = (long)(j0 - 1) * D;
-  for (int l = tid; l < D * K; l += kTile) {
-    const long g = g0 + l;
-    const bool in = g >= 0 && g < nb;
-    const int s = (l % D) * K + l / D;
-    xp_re[s] = in ? buf_re[g] : 0.f;
-    xp_im[s] = in ? buf_im[g] : 0.f;
-  }
-  __syncthreads();
 
-  // ---- 1) tap-bank contraction ------------------------------------------
+  // ---- 1) front ------------------------------------------------------------
   float acc_re[kCG], acc_im[kCG];
-#pragma unroll
-  for (int c = 0; c < kCG; ++c) acc_re[c] = acc_im[c] = 0.f;
-  const float4* taps4 = reinterpret_cast<const float4*>(taps);
-  int p = 0, q = 0;
-  for (int t = 0; t < T; ++t) {
-    const float xr = xp_re[p * K + tid + q];
-    const float xi = xp_im[p * K + tid + q];
-#pragma unroll
-    for (int c2 = 0; c2 < kCG / 2; ++c2) {
-      const float4 g = taps4[t * (kCG / 2) + c2];
-      acc_re[2 * c2] = fmaf(xr, g.x, fmaf(-xi, g.y, acc_re[2 * c2]));
-      acc_im[2 * c2] = fmaf(xr, g.y, fmaf(xi, g.x, acc_im[2 * c2]));
-      acc_re[2 * c2 + 1] = fmaf(xr, g.z, fmaf(-xi, g.w, acc_re[2 * c2 + 1]));
-      acc_im[2 * c2 + 1] = fmaf(xr, g.w, fmaf(xi, g.z, acc_im[2 * c2 + 1]));
-    }
-    if (++p == D) {
-      p = 0;
-      ++q;
-    }
+  const long g0 = (long)(j0 - 1) * D;
+  if constexpr (kPfb) {
+    gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D, c0, g0,
+                    acc_re, acc_im);
+  } else {
+    gsdr::toeplitz_front(smem, buf_re, buf_im, nb, bank, C, T, D, c0, g0,
+                         acc_re, acc_im);
   }
 
   // ---- 2) LO rotor from the digit table ---------------------------------
@@ -313,40 +295,25 @@ __global__ void fm_chain_inject(float* __restrict__ audio,
                   audio[i]);
 }
 
-}  // namespace
-
-extern "C" int fm_chain_tile_outputs() { return kOut; }
-
-extern "C" const char* fm_chain_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
-// Runs the chain on `stream`; returns 0 or the first CUDA error code.
-// Shapes: buf planes (nb,), bank (2C, 2, T), table (C, 4), n0_rot (1,) int32,
-// coef (3,) = (b0, cc, a), carries (C,), audio (C, M), zend/zstart
-// (C, ntiles) scratch.
-extern "C" int fm_chain_launch(
-    const void* buf_re, const void* buf_im, const void* bank,
-    const void* table, const void* n0_rot, const void* coef,
-    const void* cf_re_in, const void* cf_im_in, const void* cz_in,
-    void* audio, void* cf_re_out, void* cf_im_out, void* cz_out, void* zend,
-    void* zstart, int nb, int C, int T, int D, int M, int ntiles, float gain,
-    void* stream) {
-  if (C < 1 || T < 1 || D < 1 || M < 1 || M != (nb - T) / D + 1 ||
-      ntiles != (M + kOut - 1) / kOut)
-    return (int)cudaErrorInvalidValue;
+// The three launches of one chain call; returns 0 or the first CUDA error.
+template <bool kPfb>
+int run_chain(const void* buf_re, const void* buf_im, const void* bank,
+              const void* hp, const void* table, const void* n0_rot,
+              const void* coef, const void* cf_re_in, const void* cf_im_in,
+              const void* cz_in, void* audio, void* cf_re_out,
+              void* cf_im_out, void* cz_out, void* zend, void* zstart, int nb,
+              int C, int T, int K, int Q, int D, int M, int ntiles,
+              float gain, size_t smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int K = kTile + (T - 1) / D;
-  const size_t smem = sizeof(float) * ((size_t)T * kCG * 2 + kCG * 4 +
-                                       2 * (size_t)D * K);
   cudaError_t err = cudaFuncSetAttribute(
-      fm_chain_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fm_chain_tile<kPfb>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(ntiles, (C + kCG - 1) / kCG);
-  fm_chain_tile<<<grid, kTile, smem, st>>>(
-      (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank, C,
-      T, D, M, ntiles, (const float*)table, (const int*)n0_rot,
-      (const float*)coef, gain, (const float*)cf_re_in,
+  fm_chain_tile<kPfb><<<grid, kTile, smem, st>>>(
+      (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank,
+      (const float*)hp, C, T, K, Q, D, M, ntiles, (const float*)table,
+      (const int*)n0_rot, (const float*)coef, gain, (const float*)cf_re_in,
       (const float*)cf_im_in, (float*)audio, (float*)cf_re_out,
       (float*)cf_im_out, (float*)zend);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -358,4 +325,65 @@ extern "C" int fm_chain_launch(
   fm_chain_inject<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
       (float*)audio, (const float*)zstart, (const float*)coef, C, M, ntiles);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int fm_chain_tile_outputs() { return kOut; }
+
+// *fits = 1 when a block of the front (pfb = 0: dense, T and D; pfb = 1:
+// PFB, K, Q and D) fits the current device's shared memory. Returns 0 or
+// the CUDA error.
+extern "C" int fm_chain_fits(int pfb, int T, int K, int Q, int D, int* fits) {
+  if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1)))
+    return (int)cudaErrorInvalidValue;
+  return pfb ? (int)gsdr::block_fits((const void*)fm_chain_tile<true>,
+                                     gsdr::pfb_smem_bytes(K, Q, D), fits)
+             : (int)gsdr::block_fits((const void*)fm_chain_tile<false>,
+                                     gsdr::toeplitz_smem_bytes(T, D), fits);
+}
+
+extern "C" const char* fm_chain_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// Dense front. Shapes: buf planes (nb,), bank (2C, 2, T), table (C, 4),
+// n0_rot (1,) int32, coef (3,) = (b0, cc, a), carries (C,), audio (C, M),
+// zend/zstart (C, ntiles) scratch.
+extern "C" int fm_chain_launch(
+    const void* buf_re, const void* buf_im, const void* bank,
+    const void* table, const void* n0_rot, const void* coef,
+    const void* cf_re_in, const void* cf_im_in, const void* cz_in,
+    void* audio, void* cf_re_out, void* cf_im_out, void* cz_out, void* zend,
+    void* zstart, int nb, int C, int T, int D, int M, int ntiles, float gain,
+    void* stream) {
+  if (C < 1 || T < 1 || D < 1 || M < 1 || M != (nb - T) / D + 1 ||
+      ntiles != (M + kOut - 1) / kOut)
+    return (int)cudaErrorInvalidValue;
+  return run_chain<false>(buf_re, buf_im, bank, nullptr, table, n0_rot, coef,
+                          cf_re_in, cf_im_in, cz_in, audio, cf_re_out,
+                          cf_im_out, cz_out, zend, zstart, nb, C, T, 0, 0, D,
+                          M, ntiles, gain, gsdr::toeplitz_smem_bytes(T, D),
+                          stream);
+}
+
+// PFB front: channels on the Fs/K grid, D | K. hp (Q, K) polyphase taps,
+// bank planes-major (2C, 2K); T is the prototype's tap count (Q*K >= T),
+// which sets M. Other shapes as fm_chain_launch.
+extern "C" int pfb_fm_chain_launch(
+    const void* buf_re, const void* buf_im, const void* hp, const void* bank,
+    const void* table, const void* n0_rot, const void* coef,
+    const void* cf_re_in, const void* cf_im_in, const void* cz_in,
+    void* audio, void* cf_re_out, void* cf_im_out, void* cz_out, void* zend,
+    void* zstart, int nb, int C, int T, int K, int Q, int D, int M,
+    int ntiles, float gain, void* stream) {
+  if (C < 1 || T < 1 || D < 1 || K < 1 || K % D != 0 || Q < 1 ||
+      Q * K < T || M < 1 || M != (nb - T) / D + 1 ||
+      ntiles != (M + kOut - 1) / kOut)
+    return (int)cudaErrorInvalidValue;
+  return run_chain<true>(buf_re, buf_im, bank, hp, table, n0_rot, coef,
+                         cf_re_in, cf_im_in, cz_in, audio, cf_re_out,
+                         cf_im_out, cz_out, zend, zstart, nb, C, T, K, Q, D,
+                         M, ntiles, gain, gsdr::pfb_smem_bytes(K, Q, D),
+                         stream);
 }

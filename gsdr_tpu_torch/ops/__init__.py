@@ -1,4 +1,4 @@
-"""Ops of the port's first slice (counterparts of gsdr_tpu.ops)."""
+"""Ops of the port (counterparts of gsdr_tpu.ops)."""
 
 from gsdr_tpu_torch.ops.channelize import (
     channelize,
@@ -7,4 +7,10 @@ from gsdr_tpu_torch.ops.channelize import (
     rotate_bank,
 )
 from gsdr_tpu_torch.ops.iir import iir, iir_block, iir_reference
+from gsdr_tpu_torch.ops.pfb import (
+    mix_fir_decimate_bank_uniform,
+    pfb_preferred,
+    pfb_taps_to_polyphase,
+    uniform_grid,
+)
 from gsdr_tpu_torch.ops.quad_demod import quad_am_demod, quad_fm_demod

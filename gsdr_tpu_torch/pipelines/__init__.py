@@ -1,5 +1,6 @@
 """End-to-end pipelines of the port (counterparts of gsdr_tpu.pipelines)."""
 
+from gsdr_tpu_torch.pipelines.am_radio import AmReceiver
 from gsdr_tpu_torch.pipelines.fm_radio import FmChannelizer, fm_deemphasis_coeffs
 
-__all__ = ["FmChannelizer", "fm_deemphasis_coeffs"]
+__all__ = ["AmReceiver", "FmChannelizer", "fm_deemphasis_coeffs"]

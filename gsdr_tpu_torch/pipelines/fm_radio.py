@@ -2,7 +2,8 @@
 
 Counterpart of ``gsdr_tpu/pipelines/fm_radio.py``. One wideband planar RF
 stream in; C demodulated, de-emphasized audio channels out:
-complex-tap-bank mix + FIR + decimate -> LO rotor -> quadrature
+complex-tap-bank mix + FIR + decimate (or, for channels on a uniform
+Fs/K grid, the polyphase fold + DFT bank) -> LO rotor -> quadrature
 discriminator -> first-order TDF-II de-emphasis, with the streaming state
 (n0, rf_tail, disc_carry, deemph_zi) carried from block to block in the
 same order, shapes and meaning as the JAX model.
@@ -14,12 +15,19 @@ import torch
 from torch import nn
 
 from gsdr_tpu_torch.carray import ComplexArray
-from gsdr_tpu_torch.kernels.fm_chain import fm_chain, fm_chain_reference
+from gsdr_tpu_torch.kernels.chain import select_front
+from gsdr_tpu_torch.kernels.fm_chain import (
+    fm_chain,
+    fm_chain_reference,
+    pfb_fm_chain,
+    pfb_fm_chain_reference,
+)
 from gsdr_tpu_torch.ops.channelize import make_complex_tap_bank
+from gsdr_tpu_torch.ops.pfb import _dft_bank_stacked, _poly_taps
 from gsdr_tpu_torch.utils.phase import phase_digit_table
 
 _TWO_PI = 6.283185307179586
-_IMPLS = ("auto", "torch", "cuda")
+_IMPLS = ("auto", "torch", "cuda", "pfb", "pfb_torch")
 
 
 def fm_deemphasis_coeffs(tau_seconds, sample_rate):
@@ -51,10 +59,16 @@ class FmChannelizer(nn.Module):
     ``step(state, rf)`` takes a planar (N,) block with N % decimation == 0
     and returns (state', audio (C, N/decimation) float32).
 
-    ``impl``: 'auto' runs the fused CUDA kernel for a model on the card and
-    the plain chain for a model on the CPU; 'torch' forces the plain
-    chain; 'cuda' forces the kernel. ``precision``: 'f32' (FP32 FMA).
-    ``device`` defaults to 'cuda' and raises where CUDA is missing.
+    ``impl``: 'auto' runs a fused CUDA kernel for a model on the card and
+    the plain dense chain for a model on the CPU; on the card it takes the
+    PFB front where ``pfb_preferred`` holds and the kernel takes the grid,
+    else the dense front. 'torch' forces the plain dense chain; 'cuda'
+    forces the dense kernel. 'pfb' runs the PFB front (every shift on an
+    Fs/K grid with D | K): the kernel on the card, the plain PFB chain on
+    the CPU; 'pfb_torch' forces the plain PFB chain. Every impl keeps the
+    same state, so a stream may change impl at any block.
+    ``precision``: 'f32' (FP32 FMA). ``device`` defaults to 'cuda' and
+    raises where CUDA is missing.
     """
 
     def __init__(self, sample_rate, tuning_frequency, channel_frequencies,
@@ -62,10 +76,6 @@ class FmChannelizer(nn.Module):
                  deemphasis_tau=75e-6, impl="auto", precision="f32",
                  device="cuda"):
         super().__init__()
-        if impl in ("pfb", "pfb_pallas"):
-            raise NotImplementedError(
-                f"impl={impl!r}: the PFB front (ROADMAP kernel B2) is not "
-                "ported yet")
         if impl not in _IMPLS:
             raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
         if precision in ("bf16x3", "bf16x2"):
@@ -104,6 +114,16 @@ class FmChannelizer(nn.Module):
         # TDF-II form: z[j] = cc*d[j] + a*z[j-1], out[j] = b0*d[j] + z[j-1]
         self.register_buffer("deemph", torch.tensor(
             [b0, b0 - a1 * b0, -a1], dtype=torch.float32, device=device))
+        self.pfb_grid = select_front(
+            "FmChannelizer", "fm_chain", impl, shifts, self.sample_rate,
+            self.decimation, self.num_taps, device)
+        self.front = "toeplitz" if self.pfb_grid is None else "pfb"
+        if self.pfb_grid is not None:
+            k, bins = self.pfb_grid
+            self.register_buffer("poly_taps", torch.as_tensor(
+                _poly_taps(self.low_pass_taps, k), device=device))
+            self.register_buffer("dft_bank", torch.as_tensor(
+                _dft_bank_stacked(bins, k), device=device))
 
     @property
     def num_channels(self):
@@ -148,10 +168,16 @@ class FmChannelizer(nn.Module):
         buf = ComplexArray(torch.cat([rf_tail.re, rf.re], dim=-1),
                            torch.cat([rf_tail.im, rf.im], dim=-1))
         rot0 = torch.remainder(n0 + (fs - (t - 1) % fs), fs).to(torch.int32)
-        chain = fm_chain_reference if self.impl == "torch" else fm_chain
-        audio, new_carry, new_zi = chain(
-            buf, self.tap_bank, self.lo_table, rot0, self.decimation,
-            self.gain, self.deemph, disc_carry, deemph_zi)
+        back = (self.lo_table, rot0, self.decimation, self.gain, self.deemph,
+                disc_carry, deemph_zi)
+        if self.front == "pfb":
+            chain = (pfb_fm_chain_reference if self.impl == "pfb_torch"
+                     else pfb_fm_chain)
+            audio, new_carry, new_zi = chain(
+                buf, self.poly_taps, self.dft_bank, t, *back)
+        else:
+            chain = fm_chain_reference if self.impl == "torch" else fm_chain
+            audio, new_carry, new_zi = chain(buf, self.tap_bank, *back)
         new_tail = buf[..., buf.shape[-1] - (t - 1):]
         n0_new = torch.remainder(n0 + n % fs, fs).to(torch.int32)
         return (n0_new, new_tail, new_carry, new_zi), audio

@@ -1,5 +1,6 @@
-"""Carry a JAX ``FmChannelizer`` configuration and its streaming state
-across to the port, through plain Python scalars and numpy arrays.
+"""Carry a JAX ``FmChannelizer`` or ``AmReceiver`` configuration and its
+streaming state across to the port, through plain Python scalars and numpy
+arrays.
 
 Nothing here imports JAX: the caller hands over
 ``dataclasses.asdict(jax_model)`` and numpy copies of the state leaves.
@@ -9,18 +10,20 @@ import numpy as np
 import torch
 
 from gsdr_tpu_torch.carray import ComplexArray
+from gsdr_tpu_torch.pipelines.am_radio import AmReceiver
 from gsdr_tpu_torch.pipelines.fm_radio import FmChannelizer
 
-_IMPL_MAP = {"auto": "auto", "xla": "torch", "pallas": "cuda"}
+_IMPL_MAP = {"auto": "auto", "xla": "torch", "pallas": "cuda",
+             "pfb": "pfb", "pfb_pallas": "pfb"}
 
 
-def fm_channelizer_from_fields(fields, device="cuda"):
-    """The port's FmChannelizer from the fields of a JAX FmChannelizer.
+def _port_fields(fields):
+    """The JAX model's fields with impl and precision mapped to the port's.
 
-    impl maps 'xla' -> 'torch' and 'pallas' -> 'cuda'; the PFB impls raise
-    until the PFB front is ported. The JAX default grade 'bf16x3' has no
-    port yet, so it carries over as the port's default 'f32'; 'bf16x2'
-    raises.
+    impl maps 'xla' -> 'torch', 'pallas' -> 'cuda', and both 'pfb' and
+    'pfb_pallas' -> 'pfb' (the PFB kernel on the card, the plain PFB chain
+    on the CPU). The JAX default grade 'bf16x3' has no port yet, so it
+    carries over as the port's default 'f32'; 'bf16x2' raises.
     """
     fields = dict(fields)
     impl = fields.pop("impl", "auto")
@@ -30,8 +33,17 @@ def fm_channelizer_from_fields(fields, device="cuda"):
     precision = fields.pop("precision", "f32")
     if precision == "bf16x3":
         precision = "f32"
-    return FmChannelizer(**fields, impl=_IMPL_MAP[impl], precision=precision,
-                         device=device)
+    return dict(fields, impl=_IMPL_MAP[impl], precision=precision)
+
+
+def fm_channelizer_from_fields(fields, device="cuda"):
+    """The port's FmChannelizer from the fields of a JAX FmChannelizer."""
+    return FmChannelizer(**_port_fields(fields), device=device)
+
+
+def am_receiver_from_fields(fields, device="cuda"):
+    """The port's AmReceiver from the fields of a JAX AmReceiver."""
+    return AmReceiver(**_port_fields(fields), device=device)
 
 
 def _leaf_to_torch(leaf, device):
@@ -45,23 +57,25 @@ def _leaf_to_torch(leaf, device):
 
 
 def state_from_numpy(state_np, device):
-    """Four-leaf numpy state -> torch state. A leaf is either a (re, im)
-    pair of arrays (planar) or a plain array."""
-    n0, tail, disc, zi = state_np
-    return (
-        torch.tensor(int(np.asarray(n0)), dtype=torch.int32, device=device),
-        _leaf_to_torch(tail, device),
-        _leaf_to_torch(disc, device),
-        _leaf_to_torch(zi, device),
-    )
+    """numpy state -> torch state, for either model: (n0, *leaves), where a
+    leaf is a (re, im) pair of arrays (planar) or a plain array. The FM
+    state has four leaves (n0, rf_tail, disc_carry, deemph_zi), the AM
+    state two (n0, rf_tail)."""
+    n0, *leaves = state_np
+    return (torch.tensor(int(np.asarray(n0)), dtype=torch.int32,
+                         device=device),
+            *(_leaf_to_torch(leaf, device) for leaf in leaves))
 
 
 def state_to_numpy(state):
-    """Torch state -> (n0, (re, im), (re, im), zi) numpy leaves."""
-    n0, tail, disc, zi = state
+    """Torch state of either model -> (n0, leaf, ...) numpy leaves, planar
+    leaves as (re, im) pairs."""
+    n0, *leaves = state
 
-    def planar(x):
-        return (x.re.detach().cpu().numpy(), x.im.detach().cpu().numpy())
+    def leaf_np(x):
+        if isinstance(x, ComplexArray):
+            return (x.re.detach().cpu().numpy(), x.im.detach().cpu().numpy())
+        return x.detach().cpu().numpy()
 
-    return (np.asarray(n0.detach().cpu().numpy(), np.int32), planar(tail),
-            planar(disc), zi.detach().cpu().numpy())
+    return (np.asarray(n0.detach().cpu().numpy(), np.int32),
+            *(leaf_np(x) for x in leaves))

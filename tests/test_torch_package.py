@@ -57,9 +57,12 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_impl_checks():
     with pytest.raises(ValueError, match="impl='cuda'"):
         FmChannelizer(**CFG, impl="cuda", device="cpu")
-    for impl in ("pfb", "pfb_pallas"):
-        with pytest.raises(NotImplementedError, match="B2"):
-            FmChannelizer(**CFG, impl=impl, device="cpu")
+    # the PFB impls are the port's names; the JAX name 'pfb_pallas' maps
+    # to 'pfb' in utils/convert.py and is no impl of the model
+    for impl in ("pfb", "pfb_torch"):
+        assert FmChannelizer(**CFG, impl=impl, device="cpu").front == "pfb"
+    with pytest.raises(ValueError, match="impl must be"):
+        FmChannelizer(**CFG, impl="pfb_pallas", device="cpu")
     for grade in ("bf16x3", "bf16x2"):
         with pytest.raises(NotImplementedError, match="f32"):
             FmChannelizer(**CFG, precision=grade, device="cpu")
@@ -74,4 +77,6 @@ def test_nvcc_command_targets_sm_90a():
     assert {"-std=c++17", "-O3", "-shared", "-fPIC"} <= set(cmd)
     assert cmd[-1].endswith("csrc/fm_chain.cu") and Path(cmd[-1]).exists()
     assert out.parent == ROOT / "build" / "gsdr_tpu_torch"
-    assert _build.sources() == ["fm_chain"]
+    assert _build.sources() == ["am_chain", "fm_chain"]
+    # every source's digest covers the shared fronts
+    assert (_build.CSRC / "fronts.cuh").exists()
