@@ -22,8 +22,21 @@ full width, 2^20 planar complex samples per step:
      the plain versions and each other, 8 steps of each through
      impl='auto' counted (PFB front on the grid, dense off it), tones
      checked, then timing;
-  7. prints one JSON `kernels` line (B1, B2, B3-dense, B3-PFB) and, last,
-     {"ok": true, "device": {...}}.
+  7. the channelized QPSK link (examples/qpsk_transmux.py at K=32, Q=8):
+     32 x 32768 symbols per block through pfb_synthesize_block, AWGN at
+     25 dB, then 8 blocks of 2^20 samples through
+     pfb_channelize_block(impl='auto') counted (it must take B4), the
+     one-tap LS equalizer and EVM < 0.3 on every channel; decisions equal
+     to the fold path's on the same blocks but for ties, and error-free
+     without the noise; B4 against its plain version and the fold path
+     on those blocks; B4 timing there and at run_all.py bench_pfb's shape;
+  8. the table-exact QPSK256 receiver, Qpsk256Modem(CIRCULAR,
+     exact_tables=True), 8 blocks of 2^19 noisy symbols (sigma 0.05)
+     through rx counted (it must take B6), decisions against the plain
+     version and a float64 nearest neighbour on the host, the ideal
+     loopback of all 256 symbols for both geometries, then B6 timing;
+  9. prints one JSON `kernels` line (B1, B2, B3-dense, B3-PFB, B4, B6)
+     and, last, {"ok": true, "device": {...}}.
 
 Timing: CUDA events around bursts of back-to-back calls (median of
 bursts) and device time per kernel from torch.profiler. Launches made to
@@ -45,6 +58,15 @@ import torch
 import torch.nn.functional as F
 
 from gsdr_tpu_torch.carray import ComplexArray
+from gsdr_tpu_torch.examples.qpsk_transmux import (
+    awgn,
+    decide,
+    equalize,
+    link_quality,
+    receive,
+    transmit,
+)
+from gsdr_tpu_torch.examples.qpsk_transmux import lowpass as lowpass64
 from gsdr_tpu_torch.kernels import _build
 from gsdr_tpu_torch.kernels.am_chain import (
     am_chain,
@@ -52,14 +74,32 @@ from gsdr_tpu_torch.kernels.am_chain import (
     pfb_am_chain,
     pfb_am_chain_reference,
 )
+from gsdr_tpu_torch.kernels.channelize import (
+    channelize_kernel,
+    channelize_reference,
+)
 from gsdr_tpu_torch.kernels.fm_chain import (
     fm_chain,
     fm_chain_reference,
     pfb_fm_chain,
     pfb_fm_chain_reference,
 )
-from gsdr_tpu_torch.ops.pfb import uniform_bank_front, uniform_grid
-from gsdr_tpu_torch.pipelines import AmReceiver, FmChannelizer
+from gsdr_tpu_torch.kernels.qpsk256 import (
+    qpsk256_kernel,
+    qpsk256_reference,
+    score_table,
+)
+from gsdr_tpu_torch.ops.pfb import (
+    _analysis_tables,
+    _taps_key,
+    pfb_channelize,
+    pfb_channelize_block,
+    uniform_bank_front,
+    uniform_grid,
+)
+from gsdr_tpu_torch.ops.qpsk import qpsk_modulate_symbols
+from gsdr_tpu_torch.ops.qpsk256 import CIRCULAR, RECTANGULAR
+from gsdr_tpu_torch.pipelines import AmReceiver, FmChannelizer, Qpsk256Modem
 from gsdr_tpu_torch.utils.precision import full_f32
 
 N = 1 << 20            # complex input samples per step
@@ -75,7 +115,26 @@ GRID = 64              # the wideband receivers' Fs/64 grid
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 COUNTERS = {"fm_chain": fm_chain, "pfb_fm_chain": pfb_fm_chain,
-            "am_chain": am_chain, "pfb_am_chain": pfb_am_chain}
+            "am_chain": am_chain, "pfb_am_chain": pfb_am_chain,
+            "channelize": channelize_kernel, "qpsk256": qpsk256_kernel}
+# the channelized link: examples/qpsk_transmux.py at the largest K that
+# 'auto' sends to B4 (the K of examples/wideband_duplex.py)
+TMX_K, TMX_Q, TMX_SNR_DB = 32, 8, 25.0
+TMX_FRAMES = N // TMX_K      # symbols per channel per 2^20-sample block
+# B4 vs plain: float32 sums of T = 256 products in other orders; vs the
+# fold path: another factorisation of the same float32 sums
+B4_REL_TOL, B4_FOLD_REL_TOL = 1e-5, 2e-5
+# At 25 dB the critical cascade's own inter-symbol interference (noiseless
+# worst decision margin ~0.03 of 1) lets the noise flip a few of the 8.4M
+# symbols, through any implementation: the noisy link is held to the fold
+# path's decisions (equal but for ties closer than TMX_TIE to a quadrant
+# edge) and to TMX_SER_MAX; the noiseless link must be error-free.
+TMX_TIE, TMX_SER_MAX = 1e-3, 1e-5
+Q256_N, Q256_SIGMA = 1 << 19, 0.05     # benchmarks/run_all.py's qpsk256 size
+# a decision may differ from another's only where the two points' float64
+# squared distances lie within float32 rounding of the scores (|score|
+# <= ~12 here, a few ulps of it): an exact tie
+Q256_TIE = 1e-5
 DENSE_LIBRARY = "F.conv1d of the tap bank (front only), TF32 off"
 PFB_LIBRARY = ("grouped F.conv1d fold + torch.matmul DFT bank "
                "(front only), TF32 off")
@@ -220,20 +279,27 @@ def cuda_ms(fn, reps, bursts=5, warmup=3):
     return statistics.median(per_call)
 
 
-def device_us(fn, reps):
-    """Device time per call of fn() by kernel name (torch.profiler)."""
+def device_us(fn, reps, tries=3):
+    """Device time per call of fn() by kernel name (torch.profiler). A
+    trace that records no device activity is taken again, up to ``tries``
+    times; an empty result means not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
-            out[e.key[:60]] = e.self_device_time_total / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if (str(e.device_type).endswith("CUDA")
+                    and e.self_device_time_total > 0):
+                out[e.key[:60]] = e.self_device_time_total / reps
+        if out:
+            break
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
@@ -330,21 +396,32 @@ def compare_am(models, signal, steps=2):
     return worst
 
 
-def main_path(model, blocks, want_counts):
-    """Stream blocks through the model with every counter set to 0 just
-    before and read just after; the counts must equal want_counts."""
+def counted(what, run, want_counts):
+    """run() with every counter set to 0 just before and read just after;
+    the counts must equal want_counts. Returns (run(), counts)."""
     torch.cuda.synchronize()
     reset_counts()
-    state = model.init()
-    outs = []
-    for rf in blocks:
-        state, audio = model.step(state, rf)
-        outs.append(audio)
+    out = run()
     torch.cuda.synchronize()
     got = counts()
     want = {name: want_counts.get(name, 0) for name in COUNTERS}
-    check(got == want, f"{type(model).__name__}(impl={model.impl!r}) "
-          f"launches {got}, want {want}")
+    check(got == want, f"{what} launches {got}, want {want}")
+    return out, got
+
+
+def main_path(model, blocks, want_counts):
+    """Stream blocks through the model, counted; the counts must equal
+    want_counts."""
+    def run():
+        state = model.init()
+        outs = []
+        for rf in blocks:
+            state, audio = model.step(state, rf)
+            outs.append(audio)
+        return outs
+
+    outs, got = counted(f"{type(model).__name__}(impl={model.impl!r})", run,
+                        want_counts)
     for a in outs:
         check(tuple(a.shape) == (model.num_channels, N // model.decimation),
               f"audio shape {tuple(a.shape)}")
@@ -352,18 +429,27 @@ def main_path(model, blocks, want_counts):
     return outs, got
 
 
+def time_calls(fn):
+    """(ms per call back to back, device us per call by kernel, idle
+    share); launch counters are restored."""
+    before = counts()
+    ms = cuda_ms(fn, reps=20)
+    dev = device_us(fn, reps=10)
+    for name, k in COUNTERS.items():
+        k.launches = before[name]
+    idle = 1.0 - sum(dev.values()) / (ms * 1e3) if dev else None
+    return ms, dev, idle
+
+
 def time_step(model, rf):
-    """(ms per step back to back, device us per step by kernel, idle share)."""
+    """time_calls of the model's step, the state carried."""
     state = model.init()
 
     def one_step():
         nonlocal state
         state, _ = model.step(state, rf)
 
-    step_ms = cuda_ms(one_step, reps=20)
-    step_dev = device_us(one_step, reps=10)
-    idle = 1.0 - sum(step_dev.values()) / (step_ms * 1e3)
-    return step_ms, step_dev, idle
+    return time_calls(one_step)
 
 
 def time_kernel(kernel, plain, library, args, plain_reps=4):
@@ -659,6 +745,265 @@ def am_phase():
     return entries
 
 
+def planar_err(got, want):
+    """(max-abs error over both planes, max|want| over both planes)."""
+    err = max(float((got.re - want.re).abs().max()),
+              float((got.im - want.im).abs().max()))
+    scale = max(float(want.re.abs().max()), float(want.im.abs().max()))
+    return err, scale
+
+
+def b4_bound(k, t, n, c, m):
+    """(FLOPs, bytes) of one channelizer call on an n-sample buffer: the
+    cheapest known algorithm for channels on the Fs/K grid at D = K, the
+    4*T fold plus a K-point FFT (~5*K*log2 K) per frame; the buffer and
+    the bank read, the (C, M) planes written."""
+    flops = (4.0 * t + 5.0 * k * math.log2(k)) * m
+    return flops, 4.0 * (2 * n + 2 * c * 2 * t + 2 * c * m)
+
+
+def b4_timing(what, buf, taps, k):
+    """Time B4, its plain version, its library twin (F.conv1d of the bank)
+    and the fold path on one buffer; returns (timing, bound, line)."""
+    bank = _analysis_tables(_taps_key(taps), k, buf.device)[0]
+    lhs = torch.stack([buf.re, buf.im])[None]
+
+    def conv():
+        with full_f32():
+            F.conv1d(lhs, bank, stride=k)
+
+    timing = time_kernel(channelize_kernel, channelize_reference, conv,
+                         (buf, bank, k))
+    fold_ms = cuda_ms(lambda: pfb_channelize(buf, taps, k, impl="torch"),
+                      reps=10)
+    n, t = buf.re.shape[-1], bank.shape[-1]
+    m = (n - t) // k + 1
+    bnd = bound(*b4_bound(k, t, n, k, m))
+    line = {"phase": what, "K": k, "T": t, "N": n, "M": m,
+            "kernel_ms": timing[0], "kernel_device_us": timing[1],
+            "plain_ms": timing[2], "library_ms": timing[3],
+            "library": "F.conv1d of the (2K, 2, T) bank, TF32 off",
+            "fold_path_ms": fold_ms,
+            "fold_path": "grouped F.conv1d fold + torch.matmul DFT, TF32 off",
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "dense_gflop": 8.0 * k * t * m / 1e9, "card": CARD}
+    return timing, bnd, line
+
+
+def transmux_phase():
+    """Phase 7: the channelized QPSK link through B4; returns its entry."""
+    k, q = TMX_K, TMX_Q
+    taps = lowpass64(q * k, 0.5 / k)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    syms = torch.randint(0, 4, (k, STEPS * TMX_FRAMES), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    tx = qpsk_modulate_symbols(syms, 1.0)
+    clean = transmit(tx, taps, k, STEPS)
+    blocks = awgn(clean, TMX_SNR_DB, gen)
+    check(all(tuple(b.shape) == (N,) for b in blocks), "wideband block shape")
+
+    y, got = counted("pfb_channelize_block(impl='auto') at K=32",
+                     lambda: receive(blocks, taps, k, impl="auto"),
+                     {"channelize": STEPS})
+    frames = STEPS * TMX_FRAMES - (q - 1)
+    check(tuple(y.shape) == (k, frames), f"channel outputs {tuple(y.shape)}")
+    check(bool(torch.isfinite(y.re).all() and torch.isfinite(y.im).all()),
+          "non-finite channel outputs")
+    ser, evm, n_sym = link_quality(y, tx, q)
+    check(float(ser.max()) <= TMX_SER_MAX, f"transmux SER {ser.max():.3g}")
+    check(float(evm.max()) < 0.3, f"transmux EVM {evm.max():.3f}")
+
+    # the same blocks through the fold path, and the buffers B4 read (each
+    # block behind the last (Q-1)*K samples before it) through its plain
+    # version
+    y_fold = receive(blocks, taps, k, impl="torch")
+    hist = (q - 1) * k
+    bank = _analysis_tables(_taps_key(taps), k, blocks[0].device)[0]
+    bufs, prev = [], ComplexArray.zeros((hist,), device="cuda")
+    for rf in blocks:
+        bufs.append(ComplexArray(torch.cat([prev.re, rf.re]),
+                                 torch.cat([prev.im, rf.im])))
+        prev = rf[..., N - hist:]
+    plain = [channelize_reference(buf, bank, k) for buf in bufs]
+    y_plain = ComplexArray(torch.cat([p.re for p in plain], -1)[..., q - 1:],
+                           torch.cat([p.im for p in plain], -1)[..., q - 1:])
+    err, scale = planar_err(y, y_plain)
+    err_fold, _ = planar_err(y, y_fold)
+    z, ref = equalize(y, tx, q)
+    z_fold, _ = equalize(y_fold, tx, q)
+    edge = torch.minimum(z_fold.real.abs(), z_fold.imag.abs())
+    differ = decide(z) != decide(z_fold)
+    check(bool((edge[differ] < TMX_TIE).all()),
+          "B4 and the fold path decide apart away from a tie")
+    err_fold_sym = int((decide(z_fold) != decide(ref)).sum())
+    # the same symbols without noise, through B4 again (not the main path);
+    # the worst decision margin of the cascade alone, in units of the
+    # symbols' +-1 components
+    y0 = receive(clean, taps, k, impl="auto")
+    ser0, evm0, _ = link_quality(y0, tx, q)
+    check(float(ser0.max()) == 0.0, f"noiseless transmux SER {ser0.max():.3g}")
+    z0, ref0 = equalize(y0, tx, q)
+    margin0 = float(torch.minimum(z0.real * ref0.real,
+                                  z0.imag * ref0.imag).min())
+    print(f"main path: transmux K={k}, {STEPS} blocks of {N} samples, "
+          f"launches {got}; {TMX_SNR_DB} dB: {int(round(ser.sum() * n_sym / k))}"
+          f" symbol errors in {n_sym} (fold path on the same blocks "
+          f"{err_fold_sym}, decisions apart {int(differ.sum())}), SER max "
+          f"{ser.max():.3g}, EVM mean {evm.mean():.4f} max {evm.max():.4f}; "
+          f"noiseless: SER 0, EVM max {evm0.max():.4f}, worst decision "
+          f"margin {margin0:.4f}")
+    check(err <= B4_REL_TOL * scale,
+          f"B4 vs plain: max-abs {err:.3g}, max|y| {scale:.3g}")
+    check(err_fold <= B4_FOLD_REL_TOL * scale,
+          f"B4 vs fold path: max-abs {err_fold:.3g}, max|y| {scale:.3g}")
+    print(f"channelize (K={k}, T={q * k}, D={k}) vs plain: max-abs {err:.3g} "
+          f"(tol {B4_REL_TOL} x max|y| = {B4_REL_TOL * scale:.3g}); vs fold "
+          f"path {err_fold:.3g} (tol {B4_FOLD_REL_TOL} x max|y|)")
+
+    timing, bnd, line = b4_timing("transmux_b4", bufs[0], taps, k)
+    tail = blocks[0][..., N - hist:]
+    step_ms, step_dev, idle = time_calls(
+        lambda: pfb_channelize_block(blocks[1], taps, k, tail=tail,
+                                     impl="auto"))
+    line.update({"metric": "transmux_32ch_receive_input_msps",
+                 "value": N / (step_ms * 1e-3) / 1e6, "unit": "Msamples/s",
+                 "step_ms": step_ms, "device_us_per_step": step_dev,
+                 "device_idle_share": idle, "ser_max": float(ser.max()),
+                 "symbol_errors": int(round(ser.sum() * n_sym / k)),
+                 "fold_path_symbol_errors": err_fold_sym,
+                 "evm_max": float(evm.max()),
+                 "noiseless_evm_max": float(evm0.max()),
+                 "noiseless_worst_margin": margin0, "max_abs_err": err})
+    print(json.dumps(line))
+
+    # benchmarks/run_all.py bench_pfb: K=16, 128 taps, 2^20 samples, one shot
+    k16 = 16
+    taps16 = lowpass64(8 * k16, 0.4 / k16)
+    x = ComplexArray(torch.randn(N, generator=gen, device="cuda"),
+                     torch.randn(N, generator=gen, device="cuda"))
+    bank16 = _analysis_tables(_taps_key(taps16), k16, x.device)[0]
+    got16, _ = counted("pfb_channelize(impl='auto') at K=16",
+                       lambda: pfb_channelize(x, taps16, k16),
+                       {"channelize": 1})
+    err16, scale16 = planar_err(got16, channelize_reference(x, bank16, k16))
+    check(err16 <= B4_REL_TOL * scale16, f"B4 at K=16 vs plain: {err16:.3g}")
+    _, _, line16 = b4_timing("bench_pfb_b4", x, taps16, k16)
+    line16["max_abs_err"] = err16
+    print(json.dumps(line16))
+    return kernel_entry(
+        "channelize", "gsdr_tpu_torch/kernels/csrc/channelize.cu",
+        "gsdr_tpu/kernels/channelize_pallas.py:57", got["channelize"],
+        max(err, err16), timing, bnd)
+
+
+def nearest64(x, table):
+    """Float64 nearest neighbour on the host: (index of the first minimum,
+    its squared distance, the squared distance of every table point)
+    for planar x (n,) on the card, in chunks."""
+    xr = x.re.double().cpu().numpy()
+    xi = x.im.double().cpu().numpy()
+    cr = table.re.double().cpu().numpy()
+    ci = table.im.double().cpu().numpy()
+    idx = np.empty(xr.shape[0], np.int64)
+    best = np.empty(xr.shape[0])
+    for s in range(0, xr.shape[0], 1 << 16):
+        d2 = ((xr[s:s + (1 << 16), None] - cr) ** 2
+              + (xi[s:s + (1 << 16), None] - ci) ** 2)
+        idx[s:s + (1 << 16)] = np.argmin(d2, axis=1)
+        best[s:s + (1 << 16)] = np.min(d2, axis=1)
+    return idx, best, (xr, xi, cr, ci)
+
+
+def d64(pts, choice):
+    """Float64 squared distance of each sample to its chosen point."""
+    xr, xi, cr, ci = pts
+    return (xr - cr[choice]) ** 2 + (xi - ci[choice]) ** 2
+
+
+def qpsk256_phase():
+    """Phase 8: the table-exact QPSK256 receiver through B6; returns its
+    entry."""
+    modem = Qpsk256Modem(CIRCULAR, 1.0, exact_tables=True, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    syms = torch.randint(0, 256, (STEPS, Q256_N), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    rx_in = []
+    for i in range(STEPS):
+        x = modem.tx(syms[i])
+        noise = Q256_SIGMA * torch.randn((2, Q256_N), generator=gen,
+                                         device="cuda")
+        rx_in.append(ComplexArray(x.re + noise[0], x.im + noise[1]))
+    outs, got = counted("Qpsk256Modem(CIRCULAR, exact_tables=True).rx",
+                        lambda: [modem.rx(x) for x in rx_in],
+                        {"qpsk256": STEPS})
+    ties_plain = ties_ref = 0
+    max_abs = tie_gap = 0.0
+    for x, out in zip(rx_in, outs):
+        check(out.dtype == torch.uint8 and tuple(out.shape) == (Q256_N,),
+              f"decisions {out.dtype} {tuple(out.shape)}")
+        k_idx = out.long().cpu().numpy()
+        p_idx = qpsk256_reference(x, modem.table).long().cpu().numpy()
+        nn, best, pts = nearest64(x, modem.table)
+        dk, dp = d64(pts, k_idx), d64(pts, p_idx)
+        # decisions that differ must be exact ties of the two points
+        diff = k_idx != p_idx
+        check(bool(np.all(np.abs(dk - dp)[diff] <= Q256_TIE)),
+              "B6 and its plain version disagree away from a tie")
+        off = k_idx != nn
+        check(bool(np.all((dk - best)[off] <= Q256_TIE)),
+              "B6 disagrees with the float64 nearest neighbour off a tie")
+        ties_plain += int(diff.sum())
+        ties_ref += int(off.sum())
+        if off.any():
+            tie_gap = max(tie_gap, float(np.max((dk - best)[off])))
+        max_abs = max(max_abs, float(np.max(np.abs(np.sqrt(dk)
+                                                   - np.sqrt(dp)))))
+    ser = float(np.mean(torch.stack(outs).long().cpu().numpy()
+                        != syms.long().cpu().numpy()))
+    print(f"main path: Qpsk256Modem(CIRCULAR, exact_tables=True), {STEPS} "
+          f"blocks of {Q256_N} symbols at sigma {Q256_SIGMA}, launches {got}; "
+          f"decisions differing from the plain version {ties_plain}, from the "
+          f"float64 nearest neighbour {ties_ref}, all ties within {Q256_TIE} "
+          f"(largest {tie_gap:.3g}); "
+          f"symbol error rate {ser:.4g}")
+    for ctype in (RECTANGULAR, CIRCULAR):
+        m = Qpsk256Modem(ctype, 1.0, exact_tables=True, device="cuda")
+        s = torch.arange(256, device="cuda", dtype=torch.int32)
+        check(torch.equal(m.rx(m.tx(s), out_dtype=torch.int32), s),
+              f"ideal loopback, geometry {ctype}")
+
+    x0 = rx_in[0]
+    ct, c2 = score_table(modem.table)
+    xf = torch.stack([x0.re, x0.im], dim=-1)
+
+    def library():
+        with full_f32():
+            torch.argmin(c2 - 2 * (xf @ ct), -1)
+
+    timing = time_kernel(qpsk256_kernel, qpsk256_reference, library,
+                         (x0, modem.table))
+    # 4 FLOP per (sample, point) score: two FMAs; compare and select left out
+    bnd = bound(4.0 * 256 * Q256_N, 4.0 * (2 * Q256_N + Q256_N + 4 * 256))
+    step_ms, step_dev, idle = time_calls(lambda: modem.rx(x0))
+    print(json.dumps({
+        "metric": "qpsk256_exact_rx_msym_per_s",
+        "value": Q256_N / (step_ms * 1e-3) / 1e6, "unit": "Msym/s",
+        "step_ms": step_ms, "device_us_per_step": step_dev,
+        "device_idle_share": idle, "kernel_ms": timing[0],
+        "kernel_device_us": timing[1], "plain_ms": timing[2],
+        "library_ms": timing[3],
+        "library": "torch.argmin(c2 - 2 * (x @ ct), -1), TF32 off",
+        "bound_ms": bnd[0], "bound_by": bnd[1], "ties_vs_plain": ties_plain,
+        "ties_vs_float64": ties_ref, "largest_tie_gap": tie_gap,
+        "card": CARD}))
+    return kernel_entry(
+        "qpsk256", "gsdr_tpu_torch/kernels/csrc/qpsk256.cu",
+        "gsdr_tpu/kernels/qpsk256_pallas.py:46", got["qpsk256"], max_abs,
+        timing, bnd)
+
+
 CARD = None
 
 
@@ -686,13 +1031,14 @@ def main():
     for src, rep in reports.items():
         print(f"ptxas {src}:\n{rep.strip()}", file=sys.stderr)
 
-    # 3-6) the receivers
+    # 3-8) the receivers, the channelized link and the QPSK256 receiver
     kernels = [flagship_phase(), fm_wideband_phase()]
     fm_d8_phase()
     kernels += am_phase()
+    kernels += [transmux_phase(), qpsk256_phase()]
     print(json.dumps({"kernels": kernels}))
 
-    # 7) the result
+    # 9) the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -43,6 +43,10 @@ class ComplexArray:
                    torch.zeros(shape, dtype=torch.float32, device=device))
 
     # -- conversion --------------------------------------------------------
+    def to_complex(self):
+        """Recombine into one complex64 tensor."""
+        return torch.complex(self.re, self.im)
+
     def to_numpy(self):
         return (self.re.detach().cpu().numpy()
                 + 1j * self.im.detach().cpu().numpy())
@@ -51,6 +55,10 @@ class ComplexArray:
     @property
     def shape(self):
         return self.re.shape
+
+    @property
+    def ndim(self):
+        return self.re.ndim
 
     @property
     def device(self):
@@ -70,6 +78,14 @@ class ComplexArray:
 
     def conj(self):
         return ComplexArray(self.re, -self.im)
+
+
+def as_planar(x, device=None):
+    """``x`` as it is when it is already planar; else a numpy array or a
+    (complex or real) tensor split into float32 planes."""
+    if isinstance(x, ComplexArray):
+        return x
+    return ComplexArray.from_complex(x, device=device)
 
 
 def expj(theta):

@@ -1,0 +1,2 @@
+"""Runnable examples of the port (counterparts of the repository's
+``examples/``)."""

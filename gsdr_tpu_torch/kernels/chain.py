@@ -1,13 +1,14 @@
-"""What the fused chain kernels (``fm_chain``, ``am_chain``) share.
+"""What the port's kernel wrappers share (the fused chains ``fm_chain`` and
+``am_chain``, the standalone ``channelize`` and ``qpsk256``).
 
   - ``ChainKernel``, the wrapper of one kernel entry point: it launches the
     kernel for CUDA tensors, counts the launches, and takes the plain
     version only for tensors on the CPU;
   - the operand checks made before a launch;
   - the check, also made before a launch, that a block of a front fits the
-    card's shared memory. The libraries answer it themselves
-    (``<library>_fits`` in ``csrc/``), from the same geometry they launch
-    with, so no copy of the geometry lives here;
+    card's shared memory. The libraries that launch a front answer it
+    themselves (``<library>_fits`` in ``csrc/``), from the same geometry
+    they launch with, so no copy of the geometry lives here;
   - ``select_front``, the receivers' choice between the dense and the PFB
     front, made once at construction.
 """
@@ -24,7 +25,7 @@ from gsdr_tpu_torch.ops.pfb import pfb_preferred, uniform_grid
 class ChainKernel:
     """Wrapper of one kernel entry point. ``launch(buf, *args)`` runs the
     kernel; ``plain(buf, *args)`` is its plain version, taken when the
-    planar RF buffer ``buf`` lies on the CPU. ``launches`` counts kernel
+    planar input ``buf`` lies on the CPU. ``launches`` counts kernel
     launches and nothing else."""
 
     def __init__(self, name, plain, launch):
@@ -59,13 +60,14 @@ def check_operands(fn, operands, dev):
 
 @functools.lru_cache(maxsize=None)
 def load_chain_library(library):
-    """The built library of a chain (``csrc/<library>.cu``), with the C
-    signatures every chain library exports declared: ``<library>_fits``
-    and ``<library>_error_string``."""
+    """The built library ``csrc/<library>.cu``, with the C signatures the
+    libraries share declared: ``<library>_error_string`` and, in those that
+    launch a front, ``<library>_fits``."""
     lib = load_library(library)
-    fits = getattr(lib, library + "_fits")
-    fits.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
-    fits.restype = ctypes.c_int
+    if hasattr(lib, library + "_fits"):
+        fits = getattr(lib, library + "_fits")
+        fits.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        fits.restype = ctypes.c_int
     errs = getattr(lib, library + "_error_string")
     errs.argtypes = [ctypes.c_int]
     errs.restype = ctypes.c_char_p

@@ -47,13 +47,28 @@ def make_complex_tap_bank(taps, shifts_hz, sample_rate):
     return kernel.astype(np.float32)
 
 
-def mix_fir_decimate_bank(x, kernel, decimation):
+def mix_fir_decimate_bank(x, kernel, decimation, impl="auto"):
     """Apply a complex tap bank to planar x (..., N) -> planar (..., C, M).
 
-    ``kernel`` is a (2C, 2, T) tensor from make_complex_tap_bank;
+    ``kernel`` is a (2C, 2, T) tap bank from make_complex_tap_bank;
     M = (N - T)//D + 1. The output is un-rotated: apply ``rotate_bank``
-    for the mixed semantics. Runs in full float32 (TF32 off).
+    for the mixed semantics.
+
+    impl: 'auto' and 'torch' run the strided ``F.conv1d`` in full float32
+    (TF32 off), as the JAX package's 'auto' runs its XLA convolution;
+    'cuda' runs the channelizer kernel (``kernels/channelize.py``), which
+    takes a 1-D x on the card and raises for a tensor elsewhere.
     """
+    if impl not in ("auto", "torch", "cuda"):
+        raise ValueError(f"impl must be 'auto', 'torch' or 'cuda', got {impl!r}")
+    if impl == "cuda":
+        if x.device.type != "cuda":
+            raise ValueError("impl='cuda' runs the channelizer kernel: it "
+                             f"needs a CUDA tensor, got one on {x.device}")
+        from gsdr_tpu_torch.kernels.channelize import channelize_kernel
+
+        return channelize_kernel(x, torch.as_tensor(
+            kernel, dtype=torch.float32, device=x.device), decimation)
     lead = tuple(x.shape[:-1])
     n = x.shape[-1]
     kernel = torch.as_tensor(kernel, dtype=torch.float32, device=x.device)

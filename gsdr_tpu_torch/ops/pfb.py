@@ -14,8 +14,15 @@ so the filter costs T multiply-adds per output shared by every channel
 instead of C*T, and the channels cost one (2C, 2K) product. The output is
 un-rotated, exactly as ``mix_fir_decimate_bank``'s: the caller applies
 ``rotate_bank``.
+
+The rest of the module is the channelized digital link's pair of banks:
+``pfb_channelize`` (critically sampled analysis, channel c at +c*Fs/K) and
+``pfb_synthesize`` (its transmit-side inverse, critical or with a hop
+D | K), each with a streaming block form whose carried tail lets a block
+split reproduce the one-shot output.
 """
 
+import functools
 from fractions import Fraction
 from math import lcm
 
@@ -23,7 +30,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gsdr_tpu_torch.carray import ComplexArray
+from gsdr_tpu_torch.carray import ComplexArray, as_planar
+from gsdr_tpu_torch.ops.channelize import (
+    make_complex_tap_bank,
+    mix_fir_decimate_bank,
+)
 from gsdr_tpu_torch.utils.precision import full_f32
 
 
@@ -57,6 +68,15 @@ def pfb_taps_to_polyphase(taps, num_channels):
     padded = np.zeros(k * q)
     padded[:len(taps)] = taps
     return padded.reshape(q, k).T.astype(np.float32)
+
+
+def _dft_matrices(k):
+    """Real and imaginary parts of the K-point DFT matrix
+    W[c, r] = e^{-2i pi cr/K}, float64-accurate, as float32."""
+    c = np.arange(k)[:, None]
+    r = np.arange(k)[None, :]
+    ang = -2.0 * np.pi * c * r / k
+    return (np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
 
 
 def _poly_taps(taps, k):
@@ -173,3 +193,234 @@ def mix_fir_decimate_bank_uniform(x, taps, grid_bins, k_grid, decimation):
         x, torch.as_tensor(_poly_taps(taps, k), device=x.device),
         torch.as_tensor(_dft_bank_stacked(grid_bins, k), device=x.device),
         len(np.asarray(taps)), decimation)
+
+
+# ---------------------------------------------------------------------------
+# The channelized link's banks
+# ---------------------------------------------------------------------------
+
+def _taps_key(taps):
+    """The prototype as a tuple of Python floats: a cache key that holds
+    its values exactly."""
+    return tuple(np.asarray(taps, np.float64).reshape(-1).tolist())
+
+
+@functools.lru_cache(maxsize=32)
+def _analysis_tables(taps, k, device):
+    """Device tables of ``pfb_channelize`` for the prototype ``taps`` (a
+    tuple, see ``_taps_key``), built once per (taps, K, device): the
+    kernel's (2K, 2, Q*K) tap bank and the fold path's (K, 1, Q) polyphase
+    weight and the two (K, K) DFT planes. Callers must not write to them."""
+    q = -(-len(taps) // k)
+    padded = np.zeros(k * q)
+    padded[:len(taps)] = taps
+    # shift ratio f_c/Fs = -c/K with integral (f, Fs), so the bank's phases
+    # are exact rationals (gsdr_tpu/ops/pfb.py:456-462)
+    bank = make_complex_tap_bank(padded, [-c for c in range(k)], k)
+    wr, wi = _dft_matrices(k)
+    poly = pfb_taps_to_polyphase(np.asarray(taps), k)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (bank, poly[:, None, :], wr, wi))
+
+
+def pfb_channelize(x, taps, num_channels, impl="auto"):
+    """Critically sampled PFB analysis: planar (..., N) -> planar
+    (..., K, N//K - Q + 1), Q = ceil(T/K).
+
+    Channel c carries the band centred at c*Fs/K (channels above K/2 are
+    negative frequencies), filtered by the prototype ``taps`` and decimated
+    by K, with output windows starting at j*K: the same as ``channelize``
+    with shifts -c*Fs/K and decimation K.
+
+    impl: 'torch' runs the polyphase fold as a grouped ``F.conv1d`` and the
+    K-point DFT as ``torch.matmul``, in full float32. 'cuda' runs the
+    uniform grid as a complex tap bank, g_c[t] = h[t] e^{-2i pi ct/K}
+    (the rotor is 1 at critical decimation), through the channelizer
+    kernel; it takes 1-D signals on the card and raises otherwise, also
+    when a block of the kernel does not fit the card's shared memory.
+    'auto' (the default) takes the kernel for a 1-D signal on the card
+    with K <= 32, else the fold path, as the JAX package's 'auto' does on
+    a TPU.
+    """
+    k = int(num_channels)
+    if impl not in ("auto", "torch", "cuda"):
+        raise ValueError(f"impl must be 'auto', 'torch' or 'cuda', got {impl!r}")
+    x = as_planar(x)
+    if impl == "auto":
+        impl = ("cuda" if k <= 32 and x.ndim == 1 and x.device.type == "cuda"
+                else "torch")
+    bank, weight, wr, wi = _analysis_tables(_taps_key(taps), k, x.device)
+    if impl == "cuda":
+        return mix_fir_decimate_bank(x, bank, k, impl="cuda")
+    q = weight.shape[-1]
+    n = x.shape[-1]
+    m = n // k - q + 1                  # output frames
+    if m <= 0:
+        raise ValueError(f"need at least {k * q} samples, got {n}")
+    lead = tuple(x.shape[:-1])
+
+    def fold(plane):
+        # (..., N) -> (B, K phases, N//K) -> one Q-tap FIR per phase
+        ph = plane[..., :(n // k) * k].reshape(-1, n // k, k).transpose(1, 2)
+        return F.conv1d(ph, weight, groups=k)                # (B, K, M)
+
+    with full_f32():
+        u_re, u_im = fold(x.re), fold(x.im)
+        # filt[c, j] = sum_r W[c, r] u[j, r], complex W times complex u
+        f_re = torch.matmul(wr, u_re) - torch.matmul(wi, u_im)
+        f_im = torch.matmul(wi, u_re) + torch.matmul(wr, u_im)
+    return ComplexArray(f_re.reshape(lead + (k, m)), f_im.reshape(lead + (k, m)))
+
+
+def pfb_channelize_block(x, taps, num_channels, tail=None, impl="auto"):
+    """Streaming ``pfb_channelize``: (filt (..., K, N//K), new_tail).
+
+    ``tail`` is the previous block's last (Q-1)*K raw samples, planar
+    (zeros at stream start). N must be a multiple of K: a block of another
+    length would restart every later frame at a wrong offset. A block
+    split gives the one-shot output."""
+    k = int(num_channels)
+    xp = as_planar(x)
+    if xp.shape[-1] % k != 0:
+        raise ValueError(
+            f"block length {xp.shape[-1]} must be a multiple of "
+            f"num_channels={k} (frame alignment across blocks)")
+    q = -(-len(np.asarray(taps)) // k)
+    hist = (q - 1) * k
+    if tail is None:
+        tail = ComplexArray.zeros(tuple(xp.shape[:-1]) + (hist,),
+                                  device=xp.device)
+    buf = ComplexArray(torch.cat([tail.re, xp.re], dim=-1),
+                       torch.cat([tail.im, xp.im], dim=-1))
+    out = pfb_channelize(buf, taps, k, impl=impl)
+    # the tail of the joined stream: a block shorter than the tail keeps
+    # part of the previous one
+    return out, buf[..., buf.shape[-1] - hist:]
+
+
+def _idft_channels(yr, yi, k):
+    """u[b, r, m] = sum_c y[b, c, m] e^{+2i pi cr/K}: the synthesis banks'
+    inverse DFT over the channel axis, two (K, K) products per plane in
+    full float32."""
+    wr, wi = (torch.as_tensor(a, device=yr.device).t()
+              for a in _dft_matrices(k))       # e^{+...} = (wr, -wi)
+    with full_f32():
+        u_re = torch.matmul(wr, yr) + torch.matmul(wi, yi)
+        u_im = torch.matmul(wr, yi) - torch.matmul(wi, yr)
+    return u_re, u_im
+
+
+def pfb_synthesize(channels, taps, num_channels=None, hop=None):
+    """PFB synthesis: planar (..., K, M) channel streams -> planar
+    (..., M*hop) wideband stream, the transmit-side inverse of
+    ``pfb_channelize``. Channel c is placed at +c*Fs/K.
+
+    Critically sampled (hop = K, the default):
+
+        x[jK + r] = sum_q hp[r, q] v[r, j - q],
+        v[r, j]   = sum_c y[c, j] e^{+2i pi cr/K}            (inverse DFT)
+
+    with hp the (K, Q) polyphase split of the interpolation prototype and
+    gain K folded in. The one-shot form zero-primes the filter; streams use
+    ``pfb_synthesize_block``.
+
+    hop = D < K with D | K: oversampled synthesis, each channel's frame
+    rate Fs/D,
+
+        x[n] = D sum_j h[n - jD] u_j[n mod K],   u_j = IDFT_K(y[:, j]),
+
+    evaluated per output phase (gain D folded in).
+    """
+    y = as_planar(channels)
+    k = int(num_channels) if num_channels is not None else y.shape[-2]
+    if y.shape[-2] != k:
+        raise ValueError(f"channels axis {y.shape[-2]} != K={k}")
+    if hop is not None and int(hop) != k:
+        return _pfb_synthesize_hop(y, taps, k, int(hop))
+    poly = torch.as_tensor(pfb_taps_to_polyphase(taps, k),
+                           device=y.device) * float(k)       # (K, Q)
+    lead = tuple(y.shape[:-2])
+    m = y.shape[-1]
+    v_re, v_im = _idft_channels(y.re.reshape(-1, k, m), y.im.reshape(-1, k, m),
+                                k)
+
+    def interp(v):
+        # output phase r at frame j: causal per-lane FIR over j, zero-primed
+        with full_f32():
+            out = F.conv1d(F.pad(v, (poly.shape[1] - 1, 0)),
+                           torch.flip(poly, [1])[:, None, :],
+                           groups=k)                         # (B, K, M)
+        return out.transpose(1, 2).reshape(lead + (m * k,))
+
+    return ComplexArray(interp(v_re), interp(v_im))
+
+
+def _pfb_synthesize_hop(y, taps, k, d):
+    """Oversampled synthesis (hop D < K, D | K), see ``pfb_synthesize``."""
+    if d <= 0 or k % d != 0:
+        raise ValueError(f"hop {d} must be a positive divisor of K={k}")
+    p_cnt = k // d
+    # hd[dph, qq] = h[qq*D + dph] * D: the tap row of output phase dph
+    hd = torch.as_tensor(pfb_taps_to_polyphase(taps, d),
+                         device=y.device) * float(d)         # (D, Qd)
+    lead = tuple(y.shape[:-2])
+    m = y.shape[-1]
+    # frames padded to a P multiple so every output phase carries the same
+    # frame count; the zero frames reach only outputs past M*D, dropped
+    m_pad = -(-m // p_cnt) * p_cnt
+    ypr = F.pad(y.re, (0, m_pad - m)).reshape(-1, k, m_pad)
+    ypi = F.pad(y.im, (0, m_pad - m)).reshape(-1, k, m_pad)
+    # the modulator e^{+2i pi cn/K} has period K, so u_j at lane n mod K
+    # is the whole modulated sum
+    u_re, u_im = _idft_channels(ypr, ypi, k)
+    w_cnt = m_pad // p_cnt
+
+    def interp(u):
+        # x[mD + dph] = sum_qq hd[dph, qq] u[m - qq, (m mod P) D + dph]:
+        # for frame phase p = m mod P, lanes [pD, (p+1)D) of u through a
+        # causal stride-P FIR evaluated at m = wP + p
+        q_d = hd.shape[1]
+        upad = F.pad(u, (q_d - 1, 0))
+        outs = []
+        for p in range(p_cnt):
+            up = upad[:, p * d:(p + 1) * d, p:]
+            with full_f32():
+                xp = F.conv1d(up, torch.flip(hd, [1])[:, None, :],
+                              stride=p_cnt, groups=d)        # (B, D, W_p)
+            outs.append(xp[..., :w_cnt])
+        x = torch.stack(outs, dim=2).permute(0, 3, 2, 1)     # (B, W, P, D)
+        x = x.reshape(x.shape[0], w_cnt * p_cnt * d)[..., :m * d]
+        return x.reshape(lead + (m * d,))
+
+    return ComplexArray(interp(u_re), interp(u_im))
+
+
+def pfb_synthesize_block(channels, taps, num_channels=None, tail=None,
+                         hop=None):
+    """Streaming ``pfb_synthesize``: (out (..., M*hop), new_tail).
+
+    ``tail`` is the previous block's last channel columns, planar
+    (..., K, L) with L = ceil((Qh-1)/P)*P, Qh = ceil(T/hop), P = K/hop
+    (zeros at stream start). For hop < K the modulator rides on n mod K of
+    the joined stream, so block frame counts must be multiples of P
+    (checked) and the carried history is rounded up to a P multiple. A
+    block split gives the one-shot output."""
+    y = as_planar(channels)
+    k = int(num_channels) if num_channels is not None else y.shape[-2]
+    d = int(hop) if hop is not None else k
+    if d <= 0 or k % d != 0:
+        raise ValueError(f"hop {d} must be a positive divisor of K={k}")
+    p_cnt = k // d
+    if d != k and y.shape[-1] % p_cnt != 0:
+        raise ValueError(
+            f"block frame count {y.shape[-1]} must be a multiple of "
+            f"P = K/hop = {p_cnt} (output-phase alignment across blocks)")
+    q = -(-len(np.asarray(taps)) // d)
+    t_len = -(-(q - 1) // p_cnt) * p_cnt   # P-aligned carried history
+    if tail is None:
+        tail = ComplexArray.zeros(tuple(y.shape[:-1]) + (t_len,),
+                                  device=y.device)
+    buf = ComplexArray(torch.cat([tail.re, y.re], dim=-1),
+                       torch.cat([tail.im, y.im], dim=-1))
+    out = pfb_synthesize(buf, taps, k, hop=d)
+    return out[..., t_len * d:], buf[..., buf.shape[-1] - t_len:]

@@ -1,9 +1,13 @@
-"""Carry a JAX ``FmChannelizer`` or ``AmReceiver`` configuration and its
-streaming state across to the port, through plain Python scalars and numpy
-arrays.
+"""Carry JAX models and streaming states across to the port, through plain
+Python scalars and numpy arrays: the receivers ``FmChannelizer`` and
+``AmReceiver`` with their states, the modems ``QpskModem`` and
+``Qpsk256Modem``, and the planar tails of the PFB block streams
+(``pfb_channelize_block``, ``pfb_synthesize_block``).
 
 Nothing here imports JAX: the caller hands over
 ``dataclasses.asdict(jax_model)`` and numpy copies of the state leaves.
+Taps and constellation tables cross as numpy arrays; there are no learned
+weights.
 """
 
 import numpy as np
@@ -12,6 +16,7 @@ import torch
 from gsdr_tpu_torch.carray import ComplexArray
 from gsdr_tpu_torch.pipelines.am_radio import AmReceiver
 from gsdr_tpu_torch.pipelines.fm_radio import FmChannelizer
+from gsdr_tpu_torch.pipelines.qpsk_modem import Qpsk256Modem, QpskModem
 
 _IMPL_MAP = {"auto": "auto", "xla": "torch", "pallas": "cuda",
              "pfb": "pfb", "pfb_pallas": "pfb"}
@@ -46,13 +51,36 @@ def am_receiver_from_fields(fields, device="cuda"):
     return AmReceiver(**_port_fields(fields), device=device)
 
 
-def _leaf_to_torch(leaf, device):
+def qpsk_modem_from_fields(fields, device="cuda"):
+    """The port's QpskModem from the fields of a JAX QpskModem."""
+    return QpskModem(**fields, device=device)
+
+
+def qpsk256_modem_from_fields(fields, device="cuda"):
+    """The port's Qpsk256Modem from the fields of a JAX Qpsk256Modem."""
+    return Qpsk256Modem(**fields, device=device)
+
+
+def planar_from_numpy(pair, device):
+    """A (re, im) pair of numpy arrays -> a planar float32 tensor pair on
+    ``device``: a JAX stream tail, such as the ``new_tail`` of
+    ``pfb_channelize_block`` or ``pfb_synthesize_block``, ready to continue
+    the stream in the port."""
+    re, im = pair
     # copies: arrays handed over from JAX are read-only views
+    return ComplexArray(
+        torch.tensor(np.asarray(re), dtype=torch.float32, device=device),
+        torch.tensor(np.asarray(im), dtype=torch.float32, device=device))
+
+
+def planar_to_numpy(x):
+    """A planar tensor pair -> a (re, im) pair of numpy arrays."""
+    return (x.re.detach().cpu().numpy(), x.im.detach().cpu().numpy())
+
+
+def _leaf_to_torch(leaf, device):
     if isinstance(leaf, (tuple, list)):
-        re, im = leaf
-        return ComplexArray(
-            torch.tensor(np.asarray(re), dtype=torch.float32, device=device),
-            torch.tensor(np.asarray(im), dtype=torch.float32, device=device))
+        return planar_from_numpy(leaf, device)
     return torch.tensor(np.asarray(leaf), dtype=torch.float32, device=device)
 
 
@@ -74,7 +102,7 @@ def state_to_numpy(state):
 
     def leaf_np(x):
         if isinstance(x, ComplexArray):
-            return (x.re.detach().cpu().numpy(), x.im.detach().cpu().numpy())
+            return planar_to_numpy(x)
         return x.detach().cpu().numpy()
 
     return (np.asarray(n0.detach().cpu().numpy(), np.int32),

@@ -119,3 +119,35 @@ def test_quad_demods_match_jax():
     np.testing.assert_allclose(tqd.quad_am_demod(tx).numpy(),
                                np.asarray(jqd.quad_am_demod(jx)),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", ["auto", "torch"])
+def test_mix_fir_decimate_bank_impls_match_jax(impl):
+    """'auto' and 'torch' run the strided conv, as JAX's 'auto'/'xla' run
+    its XLA conv: f32 sums in different orders, 1e-5 of max|y|."""
+    bank = jch.make_complex_tap_bank(_taps(33), SHIFTS[:7], FS)
+    jx, tx = _both(*_planar(2048, 6))
+    want = jch.mix_fir_decimate_bank(jx, bank, 3, impl="auto")
+    got = tch.mix_fir_decimate_bank(tx, torch.from_numpy(bank), 3, impl=impl)
+    assert tuple(got.shape) == want.shape == (7, (2048 - 33) // 3 + 1)
+    assert _rel(got.re.numpy(), np.asarray(want.re)) < 1e-5
+    assert _rel(got.im.numpy(), np.asarray(want.im)) < 1e-5
+
+
+def test_mix_fir_decimate_bank_cuda_needs_the_card():
+    """impl='cuda' runs kernel B4 and raises for a tensor on the CPU: it
+    never falls back to the conv."""
+    from gsdr_tpu_torch.kernels.channelize import channelize_kernel
+
+    bank = tch.make_complex_tap_bank(_taps(16), SHIFTS[:2], FS)
+    _, tx = _both(*_planar(256, 7))
+    before = channelize_kernel.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tch.mix_fir_decimate_bank(tx, bank, 4, impl="cuda")
+    with pytest.raises(ValueError, match="impl must be"):
+        tch.mix_fir_decimate_bank(tx, bank, 4, impl="pallas")
+    # the wrapper itself takes its plain version for CPU tensors, uncounted
+    y = channelize_kernel(tx, torch.from_numpy(bank), 4)
+    want = tch.mix_fir_decimate_bank(tx, bank, 4, impl="torch")
+    torch.testing.assert_close(y.re, want.re, rtol=0, atol=0)
+    assert channelize_kernel.launches == before

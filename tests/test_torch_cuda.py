@@ -12,8 +12,21 @@ import torch
 from gsdr_tpu_torch.carray import ComplexArray as TCA
 from gsdr_tpu_torch.kernels.am_chain import am_chain, pfb_am_chain
 from gsdr_tpu_torch.kernels.chain import front_supported
+from gsdr_tpu_torch.kernels.channelize import (
+    channelize_kernel,
+    channelize_reference,
+)
 from gsdr_tpu_torch.kernels.fm_chain import fm_chain, pfb_fm_chain
-from gsdr_tpu_torch.pipelines import AmReceiver, FmChannelizer
+from gsdr_tpu_torch.kernels.qpsk256 import qpsk256_kernel, qpsk256_reference
+from gsdr_tpu_torch.ops.channelize import make_complex_tap_bank
+from gsdr_tpu_torch.ops.pfb import pfb_channelize
+from gsdr_tpu_torch.ops.qpsk256 import (
+    CIRCULAR,
+    RECTANGULAR,
+    qpsk256_constellation,
+    qpsk256_demodulate,
+)
+from gsdr_tpu_torch.pipelines import AmReceiver, FmChannelizer, Qpsk256Modem
 
 FS = 1_000_000.0
 SKIP = 256  # zero-primed warm-up outputs
@@ -254,3 +267,156 @@ def test_am_dense_kernel_at_am_d_shape_on_card(card):
     _, yp = plain.step(plain.init(), TCA(re, im))
     assert am_chain.launches == before + 1
     torch.testing.assert_close(ya, yp, rtol=0, atol=1e-5)
+
+
+def _planar_cuda(shape, seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return TCA(torch.randn(shape, generator=g, device="cuda"),
+               torch.randn(shape, generator=g, device="cuda"))
+
+
+def _bank(c, t, fs=1000.0):
+    k = np.arange(t) - (t - 1) / 2.0
+    h = np.sinc(2 * 0.05 * k) * np.hamming(t)
+    shifts = [-(fs / (2 * c + 3)) * i for i in range(c)]
+    return torch.from_numpy(make_complex_tap_bank(h / h.sum(), shifts,
+                                                  fs)).cuda()
+
+
+# (C, T, D): C below, at and above one 16-channel group, T not a multiple
+# of D, and the transmux shape (K=32, Q=8)
+CHANNELIZE_GEOMETRIES = [(8, 32, 8), (13, 61, 4), (16, 128, 16),
+                         (32, 256, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t,d", CHANNELIZE_GEOMETRIES)
+def test_channelize_kernel_matches_plain_on_card(card, c, t, d):
+    """B4 against its plain version (the full-float32 strided conv): f32
+    sums of T products in other orders, within 1e-5 of max|y|. N is chosen
+    so that M is not a multiple of the 256-output tile; the launch counts."""
+    n = t + d * (5 * 256 + 37)
+    x = _planar_cuda(n, seed=c)
+    bank = _bank(c, t)
+    before = channelize_kernel.launches
+    y = channelize_kernel(x, bank, d)
+    want = channelize_reference(x, bank, d)
+    torch.cuda.synchronize()
+    assert channelize_kernel.launches == before + 1
+    m = (n - t) // d + 1
+    assert tuple(y.shape) == tuple(want.shape) == (c, m) and m % 256 != 0
+    scale = float(torch.maximum(want.re.abs().max(), want.im.abs().max()))
+    for a, b in ((y.re, want.re), (y.im, want.im)):
+        assert float((a - b).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_channelize_refuses_a_block_too_large_on_card(card):
+    """K=32 with Q=127 (T=4064): the taps alone need 520 KB of a block's
+    shared memory. The library's check refuses it, and 'auto' and 'cuda'
+    raise before any launch instead of taking the fold path."""
+    k, q = 32, 127
+    assert not front_supported("channelize", "cuda", k * q, k)
+    assert front_supported("channelize", "cuda", k * 8, k)
+    taps = np.hamming(k * q) / np.hamming(k * q).sum()
+    x = _planar_cuda(k * (q + 64), seed=3)
+    before = channelize_kernel.launches
+    for impl in ("auto", "cuda"):
+        with pytest.raises(ValueError, match="shared memory"):
+            pfb_channelize(x, taps, k, impl=impl)
+    assert channelize_kernel.launches == before
+    assert pfb_channelize(x, taps, k, impl="torch").shape == (k, 65)
+
+
+@pytest.mark.cuda
+def test_pfb_channelize_auto_routes_to_kernel_on_card(card):
+    """'auto' launches B4 once for a 1-D signal at K=32 and agrees with the
+    fold path within 2e-5 of max|y|; at K=64, or for a batch, it takes
+    the fold path."""
+    k = 32
+    n = np.arange(8 * k) - (8 * k - 1) / 2.0
+    taps = np.sinc(2 * (0.5 / k) * n) * np.hamming(8 * k)
+    x = _planar_cuda(k * 2000, seed=4)
+    before = channelize_kernel.launches
+    y = pfb_channelize(x, taps, k)
+    assert channelize_kernel.launches == before + 1
+    fold = pfb_channelize(x, taps, k, impl="torch")
+    scale = float(fold.re.abs().max())
+    assert float((y.re - fold.re).abs().max()) <= 2e-5 * scale
+    assert float((y.im - fold.im).abs().max()) <= 2e-5 * scale
+    pfb_channelize(x, np.ones(4 * 64) / 256, 64)
+    pfb_channelize(TCA(x.re.reshape(2, -1), x.im.reshape(2, -1)), taps, k)
+    assert channelize_kernel.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctype", [RECTANGULAR, CIRCULAR])
+def test_qpsk256_kernel_matches_plain_on_card(card, ctype):
+    """B6 against its plain version: decisions bit-equal on noisy input
+    with leading axes; on exact midpoints of point pairs the chosen
+    point's distance equals the plain choice's within float32 rounding
+    (rtol 2e-5, atol 2e-6), since the two round the cross term apart."""
+    table = qpsk256_constellation(ctype, 2.0, planar=True, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(ctype)
+    s = torch.randint(0, 256, (3, 40_001), generator=g, device="cuda")
+    noise = 0.04 * torch.randn((2, 3, 40_001), generator=g, device="cuda")
+    x = TCA(table.re[s] + noise[0], table.im[s] + noise[1])
+    before = qpsk256_kernel.launches
+    got = qpsk256_kernel(x, table)
+    want = qpsk256_reference(x, table)
+    torch.cuda.synchronize()
+    assert qpsk256_kernel.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (3, 40_001)
+    assert torch.equal(got, want)
+    cn = torch.complex(table.re, table.im)
+    i = torch.randint(0, 256, (4096,), generator=g, device="cuda")
+    j = torch.randint(0, 256, (4096,), generator=g, device="cuda")
+    mids = (cn[i] + cn[j]) / 2
+    xm = TCA(mids.real.contiguous(), mids.imag.contiguous())
+    dk = (mids - cn[qpsk256_kernel(xm, table).long()]).abs()
+    dp = (mids - cn[qpsk256_reference(xm, table).long()]).abs()
+    torch.testing.assert_close(dk, dp, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctype", [RECTANGULAR, CIRCULAR])
+def test_qpsk256_modem_exact_tables_on_card(card, ctype):
+    """All 256 symbols loop back exact through the table-exact modem, whose
+    rx launches B6; uint8 by default, int32 on request."""
+    modem = Qpsk256Modem(ctype, 1.5, exact_tables=True)
+    s = torch.arange(256, device="cuda").repeat(4).reshape(2, 512)
+    before = qpsk256_kernel.launches
+    out = modem.rx(modem.tx(s))
+    assert qpsk256_kernel.launches == before + 1
+    assert out.dtype == torch.uint8 and torch.equal(out.long(), s)
+    x = modem.tx(s)
+    assert torch.equal(qpsk256_demodulate(x, modem.table, torch.int32).long(),
+                       s)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_bad_input_on_card(card):
+    x = _planar_cuda(4096, seed=5)
+    bank = _bank(4, 32)
+    table = qpsk256_constellation(CIRCULAR, planar=True, device="cuda")
+    with pytest.raises(ValueError, match="float64"):
+        channelize_kernel(x, bank.double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        channelize_kernel(TCA(x.re[::2], x.im[::2]), bank, 4)
+    with pytest.raises(ValueError, match="1-D"):
+        channelize_kernel(TCA(x.re.reshape(2, -1), x.im.reshape(2, -1)),
+                          bank, 4)
+    with pytest.raises(ValueError, match="tap_bank shape"):
+        channelize_kernel(x, bank[:, :1], 4)
+    with pytest.raises(ValueError, match="float64"):
+        qpsk256_kernel(TCA(x.re.double(), x.im.double()), table)
+    with pytest.raises(ValueError, match="contiguous"):
+        qpsk256_kernel(TCA(x.re[::2], x.im[::2]), table)
+    with pytest.raises(ValueError, match="shape"):
+        qpsk256_kernel(x, TCA(table.re[:128], table.im[:128]))
+    # the op-level entry makes a strided input contiguous for the kernel
+    strided = TCA(x.re[::2], x.im[::2])
+    assert torch.equal(qpsk256_demodulate(strided, table, torch.int32),
+                       qpsk256_reference(strided, table))

@@ -15,7 +15,9 @@ from gsdr_tpu.kernels import fm_chain_pallas as jfc
 from gsdr_tpu_torch.carray import ComplexArray as TCA
 from gsdr_tpu_torch.kernels import chain
 from gsdr_tpu_torch.kernels.am_chain import am_chain, pfb_am_chain
+from gsdr_tpu_torch.kernels.channelize import channelize_kernel
 from gsdr_tpu_torch.kernels.fm_chain import fm_chain, pfb_fm_chain
+from gsdr_tpu_torch.kernels.qpsk256 import qpsk256_kernel
 
 jpfb = importlib.import_module("gsdr_tpu.ops.pfb")
 tpfb = importlib.import_module("gsdr_tpu_torch.ops.pfb")
@@ -144,7 +146,8 @@ def test_select_front_rejects_off_grid_pfb():
 
 
 @pytest.mark.parametrize("kernel", [fm_chain, pfb_fm_chain, am_chain,
-                                    pfb_am_chain], ids=lambda k: k.name)
+                                    pfb_am_chain, channelize_kernel,
+                                    qpsk256_kernel], ids=lambda k: k.name)
 def test_wrapper_rejects_a_device_other_than_cuda_or_cpu(kernel):
     """A wrapper takes its plain version only for CPU tensors and counts
     only kernel launches: tensors on any other device raise."""
