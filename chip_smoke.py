@@ -35,7 +35,21 @@ full width, 2^20 planar complex samples per step:
      through rx counted (it must take B6), decisions against the plain
      version and a float64 nearest neighbour on the host, the ideal
      loopback of all 256 symbols for both geometries, then B6 timing;
-  9. prints one JSON `kernels` line (B1, B2, B3-dense, B3-PFB, B4, B6)
+  9. iir_standalone: IirStream at bench_iir's size, 8 blocks of 2^20
+     samples, for bench_iir's biquad, hw_parity.py's order 4, an order-8
+     filter of four complex pole pairs and the biquad on a planar signal,
+     counted (each block one B5 launch); y and the final state against
+     the plain blocked scan and scipy's float64 lfilter; B5 timing; then a
+     double-pole biquad, which 'auto' must send to the plain scan (no
+     launch) and impl='cuda' must refuse;
+ 10. stream_fm: a single-station FM receiver as a streaming Chain (mixer,
+     the flagship's 64-tap low-pass at D=4, discriminator, de-emphasis,
+     an order-8 Butterworth audio low-pass as 4 biquads), 8 steps of 2^20
+     samples of an FM carrier (1-kHz tone, 75-kHz deviation) counted
+     after Chain.init (40 B5 launches and nothing else), against the same
+     chain with plain IIR stages, the tone checked, step time and idle
+     share;
+ 11. prints one JSON `kernels` line (B1, B2, B3-dense, B3-PFB, B4, B6, B5)
      and, last, {"ok": true, "device": {...}}.
 
 Timing: CUDA events around bursts of back-to-back calls (median of
@@ -84,11 +98,13 @@ from gsdr_tpu_torch.kernels.fm_chain import (
     pfb_fm_chain,
     pfb_fm_chain_reference,
 )
+from gsdr_tpu_torch.kernels.iir import iir_filter, iir_kernel
 from gsdr_tpu_torch.kernels.qpsk256 import (
     qpsk256_kernel,
     qpsk256_reference,
     score_table,
 )
+from gsdr_tpu_torch.ops.iir import iir_block
 from gsdr_tpu_torch.ops.pfb import (
     _analysis_tables,
     _taps_key,
@@ -99,7 +115,21 @@ from gsdr_tpu_torch.ops.pfb import (
 )
 from gsdr_tpu_torch.ops.qpsk import qpsk_modulate_symbols
 from gsdr_tpu_torch.ops.qpsk256 import CIRCULAR, RECTANGULAR
-from gsdr_tpu_torch.pipelines import AmReceiver, FmChannelizer, Qpsk256Modem
+from gsdr_tpu_torch.pipelines import (
+    AmReceiver,
+    FmChannelizer,
+    Qpsk256Modem,
+    fm_deemphasis_coeffs,
+)
+from gsdr_tpu_torch.stream import (
+    Chain,
+    FirStream,
+    IirStream,
+    MixerStream,
+    QuadFmStream,
+    SosStream,
+    run_stream,
+)
 from gsdr_tpu_torch.utils.precision import full_f32
 
 N = 1 << 20            # complex input samples per step
@@ -116,7 +146,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 COUNTERS = {"fm_chain": fm_chain, "pfb_fm_chain": pfb_fm_chain,
             "am_chain": am_chain, "pfb_am_chain": pfb_am_chain,
-            "channelize": channelize_kernel, "qpsk256": qpsk256_kernel}
+            "channelize": channelize_kernel, "qpsk256": qpsk256_kernel,
+            "iir": iir_kernel}
 # the channelized link: examples/qpsk_transmux.py at the largest K that
 # 'auto' sends to B4 (the K of examples/wideband_duplex.py)
 TMX_K, TMX_Q, TMX_SNR_DB = 32, 8, 25.0
@@ -1004,6 +1035,233 @@ def qpsk256_phase():
         timing, bnd)
 
 
+def butter2(fc):
+    """A second-order Butterworth low-pass at fc (cycles per sample)."""
+    c = 1.0 / math.tan(math.pi * fc)
+    a0 = c * c + math.sqrt(2.0) * c + 1.0
+    return ((1.0 / a0, 2.0 / a0, 1.0 / a0),
+            (1.0, 2.0 * (1.0 - c * c) / a0, (c * c - math.sqrt(2.0) * c + 1.0) / a0))
+
+
+def cascade(*fcs):
+    """The monolithic (b, a) of Butterworth biquads in series."""
+    b, a = np.array([1.0]), np.array([1.0])
+    for fc in fcs:
+        bb, aa = butter2(fc)
+        b, a = np.convolve(b, bb), np.convolve(a, aa)
+    return tuple(b.tolist()), tuple(a.tolist())
+
+
+# the iir_standalone filters: bench_iir's biquad (benchmarks/run_all.py),
+# hw_parity.py's order 4, an order-8 filter with four distinct complex
+# pole pairs (the kernel's limit), and bench_iir's biquad on a planar
+# complex signal
+IIR_FILTERS = (
+    ("biquad", (0.0675, 0.135, 0.0675), (1.0, -1.143, 0.413), False),
+    ("order4", (0.05, 0.1, 0.12, 0.1, 0.05),
+     (1.0, -1.2, 0.9, -0.33, 0.06), False),
+    ("order8", *cascade(0.06, 0.14, 0.24, 0.36), False),
+    ("biquad_planar", (0.0675, 0.135, 0.0675), (1.0, -1.143, 0.413), True),
+)
+# a critically damped biquad: a double real pole at 0.5
+DOUBLE_POLE = ((0.25, 0.5, 0.25), (1.0, -1.0, 0.25))
+# B5 vs the plain blocked scan and vs scipy's float64 lfilter: float32
+# scans in other orders, max-abs error over max|y| (hw_parity.py's gate)
+IIR_REL_TOL = 1e-5
+IIR_LIBRARY = ("none: no single torch call computes a recursive filter "
+               "(torchaudio's lfilter is not installed)")
+
+
+def iir_bound(rows, n, filt):
+    """(FLOPs, bytes) of one B5 call: per sample b0*x (2), and per pole
+    pair the complex update (10) and its output term (4), per real pole 3
+    and 2; x read and y written once per row, the table read once."""
+    pairs = sum(1 for p in filt.diag.poles if p.imag != 0.0)
+    real = len(filt.diag.poles) - pairs
+    flops = rows * n * (2.0 + 14.0 * pairs + 5.0 * real)
+    return flops, 4.0 * (2 * rows * n + filt.table.numel())
+
+
+def scipy_stream(b, a, blocks):
+    """scipy.signal.lfilter in float64 on the host over the blocks, the
+    state carried: the concatenated output and the final TDF-II state."""
+    import scipy.signal as ss
+
+    x = torch.cat(blocks).double().cpu().numpy()
+    zi = np.zeros(len(b) - 1)
+    y, zf = ss.lfilter(np.float64(np.float32(b)), np.float64(np.float32(a)),
+                       x, zi=zi)
+    return y, zf
+
+
+def iir_standalone_phase():
+    """Phase 9: B5 through IirStream at bench_iir's size, 8 blocks of 2^20
+    samples per filter, against the plain blocked scan and scipy float64;
+    then the double-pole routing. Returns (launches, worst max-abs error,
+    per-filter timing lines)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    launches, worst, lines = 0, 0.0, {}
+    for name, b, a, planar in IIR_FILTERS:
+        rows = 2 if planar else 1
+        planes = [[torch.randn(N, generator=gen, device="cuda")
+                   for _ in range(rows)] for _ in range(STEPS)]
+        blocks = [ComplexArray(*p) if planar else p[0] for p in planes]
+        kern, plain = IirStream(b, a), IirStream(b, a, impl="torch")
+
+        def run(op):
+            st, outs = op.init(blocks[0]), []
+            for x in blocks:
+                st, y = op.step(st, x)
+                outs.append(y)
+            return outs, st
+
+        (outs, st), got = counted(f"IirStream({name})", lambda: run(kern),
+                                  {"iir": STEPS})
+        launches += got["iir"]
+        outs_p, st_p = run(plain)
+        split = (lambda v: [v.re, v.im]) if planar else (lambda v: [v])
+        err = ref_err = max_abs = 0.0
+        for r in range(rows):
+            y = torch.cat([split(o)[r] for o in outs])
+            yp = torch.cat([split(o)[r] for o in outs_p])
+            check(bool(torch.isfinite(y).all()), f"{name}: non-finite y")
+            scale = float(yp.abs().max())
+            zf, zfp = split(st)[r], split(st_p)[r]
+            d = max(float((y - yp).abs().max()),
+                    float((zf - zfp).abs().max()))
+            max_abs = max(max_abs, d)
+            err = max(err, d / scale)
+            y64, zf64 = scipy_stream(b, a, [p[r] for p in planes])
+            ref_err = max(ref_err,
+                          float(np.abs(y.double().cpu().numpy() - y64).max())
+                          / scale,
+                          float(np.abs(zf.double().cpu().numpy() - zf64).max())
+                          / scale)
+        check(err <= IIR_REL_TOL, f"B5 {name} vs plain: rel {err:.3g}")
+        check(ref_err <= IIR_REL_TOL, f"B5 {name} vs float64: rel "
+              f"{ref_err:.3g}")
+        worst = max(worst, max_abs)
+
+        # one call at 2^20 samples per row, the state of the stream as zi
+        filt = iir_filter(b, a, blocks[0].device)
+        args = (blocks[0], filt, st)
+        before = iir_kernel.launches
+        k_ms = cuda_ms(lambda: iir_kernel(*args), reps=50)
+        k_dev = device_us(lambda: iir_kernel(*args), reps=20)
+        iir_kernel.launches = before
+        p_ms = cuda_ms(lambda: plain.step(st, blocks[0]), reps=2, bursts=3)
+        bnd = bound(*iir_bound(rows, N, filt))
+        lines[name] = {
+            "phase": f"iir_standalone_{name}", "rows": rows, "n": N,
+            "order": len(b) - 1, "poles": len(filt.diag.poles),
+            "launches": got["iir"], "max_abs_err": max_abs,
+            "vs_plain_rel": err, "vs_float64_rel": ref_err,
+            "kernel_ms": k_ms, "kernel_device_us": k_dev, "plain_ms": p_ms,
+            "library_ms": None, "library": IIR_LIBRARY, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "card": CARD}
+        print(json.dumps(lines[name]))
+
+    # the double real pole: 'auto' takes the plain scan, 'cuda' raises
+    x = torch.randn(N, generator=gen, device="cuda")
+    b, a = DOUBLE_POLE
+    check(iir_filter(b, a, x.device) is None, "double pole: B5 must refuse")
+    (y, _), _ = counted("iir_block(double pole, 'auto')",
+                        lambda: iir_block(b, a, x), {})
+    y_plain, _ = iir_block(b, a, x, impl="torch")
+    check(torch.equal(y, y_plain), "double pole: 'auto' is not the plain scan")
+    try:
+        iir_block(b, a, x, impl="cuda")
+    except ValueError:
+        pass
+    else:
+        check(False, "double pole: impl='cuda' did not raise")
+    print(f"main path: iir_standalone, {len(IIR_FILTERS)} filters x {STEPS} "
+          f"blocks of {N} samples, iir launches {launches}, worst B5 vs "
+          f"plain {worst:.3g} (tol {IIR_REL_TOL}); double pole: 'auto' "
+          "plain, 'cuda' raises, no launch")
+    return launches, worst, lines
+
+
+def stream_fm_chain(iir_impl):
+    """The single-station FM receiver as a streaming Chain: shift the
+    station at +100 kHz to DC, the flagship's 64-tap low-pass with D=4,
+    the discriminator at 75 kHz deviation, the 75-us de-emphasis and an
+    order-8 Butterworth audio low-pass at 15 kHz as 4 biquads, both IIR
+    stages with impl=iir_impl."""
+    import scipy.signal as ss
+
+    audio_rate = FS / 4
+    b, a = fm_deemphasis_coeffs(75e-6, audio_rate)
+    sos = ss.butter(8, 15e3, fs=audio_rate, output="sos")
+    return Chain((
+        MixerStream(freq_shift_hz=-100_000.0, sample_rate=FS),
+        FirStream(taps=lowpass(64, 0.03), decimation=4),
+        QuadFmStream(gain=audio_rate / (2 * math.pi * 75_000.0)),
+        IirStream(b, a, impl=iir_impl),
+        SosStream(tuple(tuple(r) for r in sos.tolist()), impl=iir_impl),
+    ))
+
+
+def stream_fm_phase():
+    """Phase 10: the streaming FM receiver, 8 steps of 2^20 samples,
+    counted (every IIR stage on B5: 1 + 4 launches a step), against the
+    same chain with plain IIR stages; tone, step time and idle share.
+    Returns (launches, audio max-abs difference)."""
+    t = _time_axis(0, STEPS * N)
+    ph = (2 * np.pi * 100_000.0 * t
+          + (75_000.0 / 1_000.0) * torch.sin(2 * np.pi * 1_000.0 * t))
+    rf = ComplexArray(torch.cos(ph).float(), torch.sin(ph).float())
+    blocks = [rf[i * N:(i + 1) * N] for i in range(STEPS)]
+    chain, plain = stream_fm_chain("auto"), stream_fm_chain("torch")
+    st0 = chain.init(blocks[0])
+    (st, outs), got = counted("stream_fm Chain.step",
+                              lambda: run_stream(chain, st0, blocks),
+                              {"iir": 5 * STEPS})
+    st_p, outs_p = run_stream(plain, plain.init(blocks[0]), blocks)
+    audio, audio_p = torch.cat(outs), torch.cat(outs_p)
+    check(tuple(audio.shape) == (STEPS * N // 4,), f"audio {audio.shape}")
+    check(bool(torch.isfinite(audio).all()), "non-finite audio")
+    max_abs = float((audio - audio_p)[SKIP:].abs().max())
+    err = max_abs / float(audio_p[SKIP:].abs().max())
+    check(err <= AUDIO_REL_TOL, f"stream_fm audio vs plain IIR: {err:.3g}")
+    zerr = max(float((st[3] - st_p[3]).abs().max()),
+               float((st[4] - st_p[4]).abs().max()))
+    check(zerr <= CARRY_ATOL, f"stream_fm IIR states differ by {zerr:.3g}")
+    check_tones(audio[None, -N // 4:], FS / 4, lambda k: 1_000.0,
+                "stream_fm")
+
+    def one_step():
+        nonlocal st
+        st, _ = chain.step(st, blocks[0])
+
+    step_ms, step_dev, idle = time_calls(one_step)
+    print(f"main path: stream_fm, {STEPS} steps of {N} samples, launches "
+          f"{got}; audio vs plain IIR stages {err:.3g} of max|audio| (tol "
+          f"{AUDIO_REL_TOL}), IIR states {zerr:.3g}; 1-kHz tone recovered")
+    print(json.dumps({
+        "metric": "stream_fm_input_msps", "unit": "Msamples/s",
+        "value": N / (step_ms * 1e-3) / 1e6, "step_ms": step_ms,
+        "device_us_per_step": step_dev, "device_idle_share": idle,
+        "iir_launches_per_step": got["iir"] / STEPS, "audio_vs_plain_rel": err,
+        "card": CARD}))
+    return got["iir"], max_abs
+
+
+def iir_entry(launches, max_abs, lines):
+    """The kernels-line entry of B5: its launches on both main paths, the
+    worst max-abs error against the plain scan, times at bench_iir's
+    biquad."""
+    line = lines["biquad"]
+    return {"name": "iir", "route": "cuda",
+            "source": "gsdr_tpu_torch/kernels/csrc/iir.cu",
+            "replaces": "gsdr_tpu/kernels/iir_pallas.py:154",
+            "launches": launches, "max_abs_err": max_abs,
+            "ms": line["kernel_ms"], "plain_ms": line["plain_ms"],
+            "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
+            "library_ms": None}
+
+
 CARD = None
 
 
@@ -1036,9 +1294,14 @@ def main():
     fm_d8_phase()
     kernels += am_phase()
     kernels += [transmux_phase(), qpsk256_phase()]
+
+    # 9-10) the IIR kernel alone and the streaming FM receiver
+    n_alone, err_alone, lines = iir_standalone_phase()
+    n_fm, err_fm = stream_fm_phase()
+    kernels.append(iir_entry(n_alone + n_fm, max(err_alone, err_fm), lines))
     print(json.dumps({"kernels": kernels}))
 
-    # 9) the result
+    # 11) the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """What the port's kernel wrappers share (the fused chains ``fm_chain`` and
-``am_chain``, the standalone ``channelize`` and ``qpsk256``).
+``am_chain``, the standalone ``channelize``, ``qpsk256`` and ``iir``).
 
   - ``ChainKernel``, the wrapper of one kernel entry point: it launches the
     kernel for CUDA tensors, counts the launches, and takes the plain
@@ -25,8 +25,8 @@ from gsdr_tpu_torch.ops.pfb import pfb_preferred, uniform_grid
 class ChainKernel:
     """Wrapper of one kernel entry point. ``launch(buf, *args)`` runs the
     kernel; ``plain(buf, *args)`` is its plain version, taken when the
-    planar input ``buf`` lies on the CPU. ``launches`` counts kernel
-    launches and nothing else."""
+    input ``buf`` (planar, or a real tensor) lies on the CPU. ``launches``
+    counts kernel launches and nothing else."""
 
     def __init__(self, name, plain, launch):
         self.name = name
@@ -35,7 +35,7 @@ class ChainKernel:
         self.launches = 0
 
     def __call__(self, buf, *args):
-        dev = buf.re.device
+        dev = buf.device
         if dev.type == "cpu":
             return self.plain(buf, *args)
         if dev.type != "cuda":

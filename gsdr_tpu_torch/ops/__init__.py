@@ -6,7 +6,15 @@ from gsdr_tpu_torch.ops.channelize import (
     mix_fir_decimate_bank,
     rotate_bank,
 )
-from gsdr_tpu_torch.ops.iir import iir, iir_block, iir_reference
+from gsdr_tpu_torch.ops.fir import fir, fir_output_length
+from gsdr_tpu_torch.ops.iir import (
+    iir,
+    iir_block,
+    iir_reference,
+    iir_sos,
+    iir_sos_block,
+)
+from gsdr_tpu_torch.ops.mixer import freq_shift, lo_signal
 from gsdr_tpu_torch.ops.pfb import (
     mix_fir_decimate_bank_uniform,
     pfb_channelize,

@@ -1,6 +1,8 @@
-"""IIR filtering as an exact blocked parallel scan.
+"""IIR filtering as an exact blocked parallel scan, with the
+pole-diagonalized kernel B5 for 1-D signals on the card.
 
-Counterpart of ``gsdr_tpu/ops/iir.py`` (its XLA path). scipy-style Direct
+Counterpart of ``gsdr_tpu/ops/iir.py``, its routing included (the Pallas
+route there is kernel B5 here, ``kernels/iir.py``). scipy-style Direct
 Form semantics with a[0] = 1,
 
     y[n] = sum_i b[i] x[n-i] - sum_{i>=1} a[i] y[n-i],
@@ -21,12 +23,15 @@ recurrence is linear, so it block-decomposes exactly:
   3. correction: the start-state contribution to in-block outputs is
      Z_start @ K^T with K[t] = e0^T M^t, one matmul.
 
-``block_len`` only changes speed; results are exact for any value.
+``block_len`` only changes speed; results are exact for any value. For
+high orders prefer ``iir_sos`` (cascaded biquads).
 """
 
+import numpy as np
 import torch
 
 from gsdr_tpu_torch.carray import ComplexArray
+from gsdr_tpu_torch.kernels.iir import iir_filter, iir_kernel
 from gsdr_tpu_torch.utils.precision import full_f32
 
 _MIN_COEFFS = 2
@@ -117,18 +122,93 @@ def _iir_batched(b, a, x, zi, block_len):
     return y.reshape(r_rows, -1)[:, :n], z_final
 
 
-def iir_block(b, a, x, zi=None, block_len=128):
+def _concrete(c):
+    """Host coefficients: a Python sequence, a numpy array or a CPU tensor
+    (the port's counterpart of JAX's "not a tracer")."""
+    return not isinstance(c, torch.Tensor) or c.device.type == "cpu"
+
+
+def _kernel_filter(b, a, x, impl):
+    """The IirFilter of kernel B5 when it takes this call, else None.
+
+    'auto' takes B5 for a 1-D float32 signal (a planar 1-D signal counts)
+    on the card with concrete coefficients of a filter the kernel takes;
+    'cuda' requires all of that and raises otherwise; 'torch' never takes
+    it."""
+    if impl == "torch":
+        return None
+    on_card = x.device.type == "cuda"
+    one_d = x.ndim == 1
+    concrete = _concrete(b) and _concrete(a)
+    filt = iir_filter(b, a, x.device) if concrete and on_card else None
+    if impl == "auto":
+        if one_d and filt is not None and (
+                isinstance(x, ComplexArray) or x.dtype == torch.float32):
+            return filt
+        return None
+    if not on_card:
+        raise ValueError("impl='cuda' runs the IIR kernel: it needs a CUDA "
+                         f"tensor, got one on {x.device}")
+    if not one_d:
+        raise ValueError("impl='cuda' takes a 1-D signal; batched signals "
+                         "run the plain blocked scan")
+    if not concrete:
+        raise ValueError("impl='cuda' needs host coefficients (a sequence, "
+                         "a numpy array or a CPU tensor)")
+    if filt is None:
+        raise ValueError("impl='cuda': the IIR kernel takes order 1..8 with "
+                         "distinct poles; use impl='torch' for this filter")
+    return filt
+
+
+def _contiguous(x):
+    if isinstance(x, ComplexArray):
+        return ComplexArray(x.re.contiguous(), x.im.contiguous())
+    return x.contiguous()
+
+
+def _kernel_state(zi, device, m):
+    """The initial state (planar or real) as contiguous float32 (m,) on
+    ``device``, not copied where it is that already."""
+    if isinstance(zi, ComplexArray):
+        return ComplexArray(_kernel_state(zi.re, device, m),
+                            _kernel_state(zi.im, device, m))
+    return torch.as_tensor(zi, dtype=torch.float32,
+                           device=device).reshape(m).contiguous()
+
+
+def iir_block(b, a, x, zi=None, block_len=128, impl="auto"):
     """IIR filter returning (y, final_state) for streaming continuation.
 
     ``zi`` / the returned state are transposed-DF-II state vectors of
     length coeff_count - 1, with the leading batch axes of ``x``. A planar
     ComplexArray ``x`` with real coefficients filters its two planes
     independently (exact by linearity).
+
+    ``impl``: 'auto' runs the pole-diagonalized kernel B5
+    (``kernels/iir.py``) for a 1-D signal on the card with host
+    coefficients of order 1..8 and distinct poles, and the plain blocked
+    scan otherwise (batched signals, the CPU, other filters); 'torch'
+    forces the plain scan; 'cuda' forces B5 and raises where it cannot run.
+    B5 runs the float32-rounded coefficients, as the plain scan does.
     """
+    if impl not in ("auto", "torch", "cuda"):
+        raise ValueError(f"impl must be 'auto', 'torch' or 'cuda', got {impl!r}")
+    if not isinstance(x, ComplexArray):
+        x = torch.as_tensor(x)
+    filt = _kernel_filter(b, a, x, impl)
+    if filt is not None:
+        zk = None if zi is None else _kernel_state(zi, x.device, filt.diag.m)
+        return iir_kernel(_contiguous(x), filt, zk)
+    return _iir_block_plain(b, a, x, zi, block_len)
+
+
+def _iir_block_plain(b, a, x, zi, block_len):
+    """The exact blocked scan (module docstring algorithm)."""
     if isinstance(x, ComplexArray):
         xs = torch.stack([x.re, x.im], dim=0)
         zis = None if zi is None else torch.stack([zi.re, zi.im], dim=0)
-        y, zf = iir_block(b, a, xs, zi=zis, block_len=block_len)
+        y, zf = _iir_block_plain(b, a, xs, zis, block_len)
         return ComplexArray(y[0], y[1]), ComplexArray(zf[0], zf[1])
 
     x = torch.as_tensor(x)
@@ -147,9 +227,9 @@ def iir_block(b, a, x, zi=None, block_len=128):
     return y.reshape(batch_shape + (x.shape[-1],)), zf.reshape(batch_shape + (m,))
 
 
-def iir(b, a, x, zi=None, block_len=128):
-    """Exact IIR filter along the last axis."""
-    y, _ = iir_block(b, a, x, zi=zi, block_len=block_len)
+def iir(b, a, x, zi=None, block_len=128, impl="auto"):
+    """Exact IIR filter along the last axis (``impl`` as in iir_block)."""
+    y, _ = iir_block(b, a, x, zi=zi, block_len=block_len, impl=impl)
     return y
 
 
@@ -174,3 +254,42 @@ def iir_reference(b, a, x, zi=None):
             ys.append(b0 * x_t + z[:, 0])
             z = z @ M.T + c * x_t[:, None]
     return torch.stack(ys, dim=-1).reshape(batch_shape + (x.shape[-1],))
+
+
+def _sos_sections(sos):
+    """The (b, a) rows of an (S, 6) [b0 b1 b2 a0 a1 a2] cascade: float32
+    numpy rows for host coefficients (so that each section stays concrete
+    for the kernel route), tensor slices for a tensor on the card."""
+    if not _concrete(sos):
+        return [(sos[s, :3], sos[s, 3:]) for s in range(sos.shape[0])]
+    rows = np.asarray(sos, np.float32)
+    if rows.ndim != 2 or rows.shape[1] != 6:
+        raise ValueError(f"sos must be (S, 6), got shape {rows.shape}")
+    return [(rows[s, :3], rows[s, 3:]) for s in range(rows.shape[0])]
+
+
+def iir_sos_block(sos, x, zi=None, block_len=128, impl="auto"):
+    """Cascade of second-order sections returning (y, final_state).
+
+    ``sos`` is (S, 6) scipy-style [b0 b1 b2 a0 a1 a2] rows. ``zi`` / the
+    returned state stack the sections' transposed-DF-II states on a
+    LEADING axis, shape (S,) + batch + (2,), planar for a planar ``x``.
+    Every section goes through ``iir_block`` with ``impl``.
+    """
+    y = x
+    zfs = []
+    for s, (b, a) in enumerate(_sos_sections(sos)):
+        zi_s = None if zi is None else zi[s]
+        y, zf = iir_block(b, a, y, zi=zi_s, block_len=block_len, impl=impl)
+        zfs.append(zf)
+    if zfs and isinstance(zfs[0], ComplexArray):
+        return y, ComplexArray(torch.stack([z.re for z in zfs]),
+                               torch.stack([z.im for z in zfs]))
+    return y, torch.stack(zfs)
+
+
+def iir_sos(sos, x, zi=None, block_len=128, impl="auto"):
+    """Cascade of second-order sections (numerically robust high-order
+    IIR); pass ``zi`` (see iir_sos_block) for streaming continuation."""
+    y, _ = iir_sos_block(sos, x, zi=zi, block_len=block_len, impl=impl)
+    return y

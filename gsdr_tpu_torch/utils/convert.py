@@ -1,8 +1,9 @@
 """Carry JAX models and streaming states across to the port, through plain
 Python scalars and numpy arrays: the receivers ``FmChannelizer`` and
 ``AmReceiver`` with their states, the modems ``QpskModem`` and
-``Qpsk256Modem``, and the planar tails of the PFB block streams
-(``pfb_channelize_block``, ``pfb_synthesize_block``).
+``Qpsk256Modem``, the planar tails of the PFB block streams
+(``pfb_channelize_block``, ``pfb_synthesize_block``), and the streaming
+layer's stages, chains and chain states (``stream.py``).
 
 Nothing here imports JAX: the caller hands over
 ``dataclasses.asdict(jax_model)`` and numpy copies of the state leaves.
@@ -17,6 +18,14 @@ from gsdr_tpu_torch.carray import ComplexArray
 from gsdr_tpu_torch.pipelines.am_radio import AmReceiver
 from gsdr_tpu_torch.pipelines.fm_radio import FmChannelizer
 from gsdr_tpu_torch.pipelines.qpsk_modem import Qpsk256Modem, QpskModem
+from gsdr_tpu_torch.stream import (
+    Chain,
+    FirStream,
+    IirStream,
+    MixerStream,
+    QuadFmStream,
+    SosStream,
+)
 
 _IMPL_MAP = {"auto": "auto", "xla": "torch", "pallas": "cuda",
              "pfb": "pfb", "pfb_pallas": "pfb"}
@@ -79,9 +88,18 @@ def planar_to_numpy(x):
 
 
 def _leaf_to_torch(leaf, device):
+    """A (re, im) pair -> planar; an integer array -> int32 (a mixer's n0);
+    a complex array -> complex64; any other array -> float32."""
     if isinstance(leaf, (tuple, list)):
         return planar_from_numpy(leaf, device)
-    return torch.tensor(np.asarray(leaf), dtype=torch.float32, device=device)
+    leaf = np.asarray(leaf)
+    if np.issubdtype(leaf.dtype, np.integer):
+        dtype = torch.int32
+    elif np.iscomplexobj(leaf):
+        dtype = torch.complex64
+    else:
+        dtype = torch.float32
+    return torch.tensor(leaf, dtype=dtype, device=device)
 
 
 def state_from_numpy(state_np, device):
@@ -95,15 +113,64 @@ def state_from_numpy(state_np, device):
             *(_leaf_to_torch(leaf, device) for leaf in leaves))
 
 
+def _leaf_to_numpy(x):
+    if isinstance(x, ComplexArray):
+        return planar_to_numpy(x)
+    return x.detach().cpu().numpy()
+
+
 def state_to_numpy(state):
     """Torch state of either model -> (n0, leaf, ...) numpy leaves, planar
     leaves as (re, im) pairs."""
     n0, *leaves = state
-
-    def leaf_np(x):
-        if isinstance(x, ComplexArray):
-            return planar_to_numpy(x)
-        return x.detach().cpu().numpy()
-
     return (np.asarray(n0.detach().cpu().numpy(), np.int32),
-            *(leaf_np(x) for x in leaves))
+            *(_leaf_to_numpy(x) for x in leaves))
+
+
+# ---------------------------------------------------------------------------
+# The streaming layer
+# ---------------------------------------------------------------------------
+
+_STAGES = {"MixerStream": MixerStream, "FirStream": FirStream,
+           "IirStream": IirStream, "SosStream": SosStream,
+           "QuadFmStream": QuadFmStream}
+
+
+def _host_value(v):
+    """Numpy scalars and arrays, and nested sequences of them, as Python
+    floats and tuples (the stages keep their coefficients as host
+    tuples)."""
+    if isinstance(v, (tuple, list, np.ndarray)):
+        return tuple(_host_value(e) for e in v)
+    if isinstance(v, np.generic):
+        return v.item()
+    return v
+
+
+def stream_stage_from_fields(name, fields):
+    """The port's stream stage from the class name and the fields
+    (``dataclasses.asdict``) of a JAX stream stage; IirStream and SosStream
+    take the port's default impl, 'auto'."""
+    if name not in _STAGES:
+        raise NotImplementedError(f"stream stage {name!r} has no "
+                                  "counterpart in the port")
+    return _STAGES[name](**{k: _host_value(v) for k, v in fields.items()})
+
+
+def chain_from_fields(stages):
+    """The port's Chain from [(class name, fields), ...] of the stages of a
+    JAX Chain, in order."""
+    return Chain(tuple(stream_stage_from_fields(name, fields)
+                       for name, fields in stages))
+
+
+def chain_state_from_numpy(states_np, device):
+    """A chain state from numpy leaves, one per stage: int32 n0 of a mixer,
+    (re, im) pairs for planar tails, zi vectors and SOS (S,) + batch + (2,)
+    stacks, plain arrays for real ones."""
+    return tuple(_leaf_to_torch(leaf, device) for leaf in states_np)
+
+
+def chain_state_to_numpy(states):
+    """A chain state -> numpy leaves, planar leaves as (re, im) pairs."""
+    return tuple(_leaf_to_numpy(x) for x in states)

@@ -36,6 +36,36 @@ def digit_fractions(freq_hz, sample_rate):
     return fr
 
 
+def phase_fraction(n, freq_hz, sample_rate):
+    """frac(freq * n / Fs) in [0, 1) for an int32 tensor of sample indices.
+
+    ``n`` must be non-negative and < 2^31; ``freq_hz`` and ``sample_rate``
+    are Python scalars. A negative frequency takes frac(-x) = 1 - frac(x).
+    Same operation order as the JAX function.
+    """
+    neg = float(freq_hz) < 0
+    fr = digit_fractions(abs(float(freq_hz)), sample_rate)
+    n = torch.as_tensor(n, dtype=torch.int32)
+    acc = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    for d in range(_NUM_DIGITS):
+        digit = ((n >> (_BASE_BITS * d)) & (_BASE - 1)).to(torch.float32)
+        acc = acc + digit * float(np.float32(fr[d]))
+    frac = acc - torch.floor(acc)
+    if neg:
+        frac = torch.where(frac > 0, 1.0 - frac, torch.zeros_like(frac))
+    return frac
+
+
+def phase_fraction_offset(first_sample_index, freq_hz, sample_rate):
+    """Exact host-side frac(freq * n0 / Fs) for an integer offset n0, as a
+    Python float: folds an arbitrarily large global stream offset into one
+    starting fraction, frac(f*(n0+i)/Fs) = frac(frac(f*n0/Fs) + frac(f*i/Fs))."""
+    x = (Fraction(float(freq_hz)) / Fraction(float(sample_rate))
+         * int(first_sample_index))
+    x -= x.numerator // x.denominator  # frac(), exact for any float f/Fs
+    return x.numerator / x.denominator
+
+
 def phase_digit_table(freqs_hz, sample_rate):
     """Host-side (len(freqs), 4) float32 digit-fraction table; row c holds
     frac(f_c * 256^d / Fs) for d = 0..3."""

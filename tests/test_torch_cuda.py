@@ -420,3 +420,196 @@ def test_new_wrappers_reject_bad_input_on_card(card):
     strided = TCA(x.re[::2], x.im[::2])
     assert torch.equal(qpsk256_demodulate(strided, table, torch.int32),
                        qpsk256_reference(strided, table))
+
+
+# ---------------------------------------------------------------------------
+# B5: the pole-diagonalized IIR kernel
+# ---------------------------------------------------------------------------
+
+def _butter2(fc):
+    c = 1.0 / np.tan(np.pi * fc)
+    a0 = c * c + np.sqrt(2.0) * c + 1.0
+    return (np.array([1.0, 2.0, 1.0]) / a0,
+            np.array([1.0, 2.0 * (1.0 - c * c) / a0,
+                      (c * c - np.sqrt(2.0) * c + 1.0) / a0]))
+
+
+def _cascade(*fcs):
+    b, a = np.array([1.0]), np.array([1.0])
+    for fc in fcs:
+        bb, aa = _butter2(fc)
+        b, a = np.convolve(b, bb), np.convolve(a, aa)
+    return b, a
+
+
+IIR_FILTERS = {
+    "bench_biquad": ((0.0675, 0.135, 0.0675), (1.0, -1.143, 0.413)),
+    "parity_order4": ((0.05, 0.1, 0.12, 0.1, 0.05), (1.0, -1.2, 0.9, -0.33, 0.06)),
+    "order8": _cascade(0.06, 0.14, 0.24, 0.36),
+    "deemph": ((0.025955, 0.025955), (1.0, -0.94809)),
+    "real_poles": ((1.0, 0.3, 0.02), tuple(np.poly([0.5, -0.3]))),
+    "third_order": (np.convolve((0.025955, 0.025955), _butter2(0.15)[0]),
+                    np.convolve((1.0, -0.94809), _butter2(0.15)[1])),
+}
+IIR_TILE = 4096   # samples of one tile of csrc/iir.cu (kSpan * kThreads)
+
+
+def _iir_plain(b, a, x, zi):
+    from gsdr_tpu_torch.ops.iir import iir_block
+
+    return iir_block(b, a, x, zi=zi, impl="torch")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, IIR_TILE - 1, IIR_TILE, IIR_TILE + 1,
+                               1 << 20])
+@pytest.mark.parametrize("name", sorted(IIR_FILTERS))
+def test_iir_kernel_matches_plain_and_float64_on_card(card, name, n):
+    """B5 from a nonzero state against the plain blocked scan and scipy's
+    float64 lfilter: y and zf within 1e-5 of max|y| (float32 scans in
+    other orders); one launch per call."""
+    import scipy.signal as ss
+    from gsdr_tpu_torch.ops.iir import iir_block
+    from gsdr_tpu_torch.kernels.iir import iir_kernel
+
+    b, a = (np.float32(v) for v in IIR_FILTERS[name])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(n)
+    x = torch.randn(n, generator=g, device="cuda")
+    zi = torch.randn(len(b) - 1, generator=g, device="cuda")
+    before = iir_kernel.launches
+    y, zf = iir_block(b, a, x, zi=zi, impl="cuda")
+    torch.cuda.synchronize()
+    assert iir_kernel.launches == before + 1
+    yp, zp = _iir_plain(b, a, x, zi)
+    y64, z64 = ss.lfilter(np.float64(b), np.float64(a), x.double().cpu().numpy(),
+                          zi=zi.double().cpu().numpy())
+    scale = float(yp.abs().max())
+    assert float((y - yp).abs().max()) <= 1e-5 * scale
+    assert float((zf - zp).abs().max()) <= 1e-5 * scale
+    assert np.abs(y.double().cpu().numpy() - y64).max() <= 1e-5 * scale
+    assert np.abs(zf.double().cpu().numpy() - z64).max() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_iir_kernel_state_hands_off_with_plain_on_card(card):
+    """kernel -> plain -> kernel over three segments equals one pass."""
+    from gsdr_tpu_torch.ops.iir import iir_block
+
+    b, a = IIR_FILTERS["parity_order4"]
+    x = torch.randn(3 * 50_000 + 17, device="cuda")
+    whole, zw = iir_block(b, a, x, impl="torch")
+    y1, z1 = iir_block(b, a, x[:50_000], impl="cuda")
+    y2, z2 = iir_block(b, a, x[50_000:100_000], zi=z1, impl="torch")
+    y3, z3 = iir_block(b, a, x[100_000:], zi=z2, impl="cuda")
+    scale = float(whole.abs().max())
+    assert float((torch.cat([y1, y2, y3]) - whole).abs().max()) <= 1e-5 * scale
+    assert float((z3 - zw).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_iir_kernel_planar_is_one_launch_on_card(card):
+    from gsdr_tpu_torch.kernels.iir import iir_kernel
+    from gsdr_tpu_torch.ops.iir import iir_block
+
+    b, a = IIR_FILTERS["bench_biquad"]
+    x = _planar_cuda(100_003, seed=9)
+    zi = TCA(torch.randn(2, device="cuda"), torch.randn(2, device="cuda"))
+    before = iir_kernel.launches
+    y, zf = iir_block(b, a, x, zi=zi)
+    torch.cuda.synchronize()
+    assert iir_kernel.launches == before + 1
+    yp, zp = iir_block(b, a, x, zi=zi, impl="torch")
+    for got, want in ((y.re, yp.re), (y.im, yp.im), (zf.re, zp.re),
+                      (zf.im, zp.im)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(yp.re.abs().max())
+
+
+@pytest.mark.cuda
+def test_iir_auto_routing_on_card(card):
+    """'auto': a 1-D signal with host coefficients takes B5; a batched
+    signal, coefficients on the card and a double pole take the plain
+    scan; 'cuda' refuses the last three."""
+    from gsdr_tpu_torch.kernels.iir import iir_kernel
+    from gsdr_tpu_torch.ops.iir import iir_block
+
+    b, a = IIR_FILTERS["bench_biquad"]
+    x = torch.randn(5000, device="cuda")
+    before = iir_kernel.launches
+    iir_block(b, a, x)
+    assert iir_kernel.launches == before + 1
+    batched = x.reshape(2, 2500)
+    y, _ = iir_block(b, a, batched)
+    yp, _ = iir_block(b, a, batched, impl="torch")
+    assert torch.equal(y, yp)
+    bd, ad = torch.tensor(b, device="cuda"), torch.tensor(a, device="cuda")
+    assert torch.equal(iir_block(bd, ad, x)[0], iir_block(b, a, x, impl="torch")[0])
+    double = ((0.25, 0.5, 0.25), (1.0, -1.0, 0.25))
+    assert torch.equal(iir_block(*double, x)[0],
+                       iir_block(*double, x, impl="torch")[0])
+    assert iir_kernel.launches == before + 1
+    for args in ((b, a, batched), (bd, ad, x), (*double, x)):
+        with pytest.raises(ValueError, match="impl='cuda'"):
+            iir_block(*args, impl="cuda")
+
+
+@pytest.mark.cuda
+def test_iir_wrapper_rejects_bad_input_on_card(card):
+    from gsdr_tpu_torch.kernels.iir import iir_filter, iir_kernel
+
+    b, a = IIR_FILTERS["bench_biquad"]
+    filt = iir_filter(b, a, "cuda")
+    x = torch.randn(4096, device="cuda")
+    with pytest.raises(ValueError, match="float64"):
+        iir_kernel(x.double(), filt, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        iir_kernel(x[::2], filt, None)
+    with pytest.raises(ValueError, match="1-D"):
+        iir_kernel(x.reshape(2, -1), filt, None)
+    with pytest.raises(ValueError, match="shape"):
+        iir_kernel(x, filt, torch.zeros(3, device="cuda"))
+    with pytest.raises(ValueError, match="table"):
+        iir_kernel(x, iir_filter(b, a, "cpu"), None)
+
+
+@pytest.mark.cuda
+def test_stream_fm_chain_launches_b5_on_card(card):
+    """The streaming FM receiver takes B5 for both IIR stages (1 + 4
+    launches a step) and matches the chain with plain IIR stages."""
+    import math
+
+    import scipy.signal as ss
+    from gsdr_tpu_torch.kernels.iir import iir_kernel
+    from gsdr_tpu_torch.pipelines import fm_deemphasis_coeffs
+    from gsdr_tpu_torch.stream import (Chain, FirStream, IirStream,
+                                       MixerStream, QuadFmStream, SosStream)
+
+    rate = FS / 4
+    b, a = fm_deemphasis_coeffs(75e-6, rate)
+    sos = tuple(tuple(r) for r in ss.butter(8, 15e3, fs=rate, output="sos").tolist())
+    h = np.sinc(2 * 0.03 * (np.arange(64) - 31.5)) * np.hamming(64)
+
+    def chain(impl):
+        return Chain((MixerStream(-100_000.0, FS),
+                      FirStream(tuple((h / h.sum()).tolist()), 4),
+                      QuadFmStream(rate / (2 * math.pi * 75_000.0)),
+                      IirStream(b, a, impl=impl), SosStream(sos, impl=impl)))
+
+    t = torch.arange(3 * 65536, dtype=torch.float64, device="cuda") / FS
+    ph = 2 * np.pi * 100_000.0 * t + 10.0 * torch.sin(2 * np.pi * 1000.0 * t)
+    rf = TCA(torch.cos(ph).float(), torch.sin(ph).float())
+    blocks = [rf[i * 65536:(i + 1) * 65536] for i in range(3)]
+    kern, plain = chain("auto"), chain("torch")
+    sk, sp = kern.init(blocks[0]), plain.init(blocks[0])
+    before = iir_kernel.launches
+    outs_k, outs_p = [], []
+    for blk in blocks:
+        sk, yk = kern.step(sk, blk)
+        sp, yp = plain.step(sp, blk)
+        outs_k.append(yk)
+        outs_p.append(yp)
+    torch.cuda.synchronize()
+    assert iir_kernel.launches == before + 15
+    yk, yp = torch.cat(outs_k)[SKIP:], torch.cat(outs_p)[SKIP:]
+    assert float((yk - yp).abs().max()) <= 1e-4 * float(yp.abs().max())
+    assert float((sk[4] - sp[4]).abs().max()) <= 1e-4

@@ -77,7 +77,7 @@ def test_nvcc_command_targets_sm_90a():
     assert {"-std=c++17", "-O3", "-shared", "-fPIC"} <= set(cmd)
     assert cmd[-1].endswith("csrc/fm_chain.cu") and Path(cmd[-1]).exists()
     assert out.parent == ROOT / "build" / "gsdr_tpu_torch"
-    assert _build.sources() == ["am_chain", "channelize", "fm_chain",
+    assert _build.sources() == ["am_chain", "channelize", "fm_chain", "iir",
                                 "qpsk256"]
     # every source's digest covers the shared fronts
     assert (_build.CSRC / "fronts.cuh").exists()
