@@ -7,10 +7,15 @@ full width, 2^20 planar complex samples per step:
   2. builds every kernel from gsdr_tpu_torch/kernels/csrc with nvcc, one
      process per source, all at once;
   3. the flagship FmChannelizer (16 channels spaced 60 kHz around 100 MHz,
-     64-tap Hamming low-pass, D=4, Fs = 1 MHz): kernel B1 against its plain
-     version over two streamed steps, then 8 steps through impl='auto'
-     with the launch counters set to 0 just before (audio, counts, tones,
-     block invariance), then timing;
+     64-tap Hamming low-pass, D=4, Fs = 1 MHz): kernel B1 at each grade of
+     its dense front (bf16x3, the default, and bf16x2 on the tensor cores,
+     f32 on the FP32 FMAs) against its plain version at that grade and
+     against the f32 plain chain over two streamed steps, then 8 steps
+     through impl='auto' at each grade with the launch counters set to 0
+     just before (audio, counts; tones and block invariance at the
+     default grade), then timing of each grade (the step's time is the
+     host's: it swings with the process's history and does not rank the
+     grades, tools/probe_grades.py steps);
   4. FM wideband critical (64 channels on the Fs/64 grid, 512 taps, D=64;
      benchmarks/run_all.py bench_fm_wideband): B2 (PFB front) against its
      plain version and against B1 over two steps, 8 steps through
@@ -28,8 +33,11 @@ full width, 2^20 planar complex samples per step:
      pfb_channelize_block(impl='auto') counted (it must take B4), the
      one-tap LS equalizer and EVM < 0.3 on every channel; decisions equal
      to the fold path's on the same blocks but for ties, and error-free
-     without the noise; B4 against its plain version and the fold path
-     on those blocks; B4 timing there and at run_all.py bench_pfb's shape;
+     without the noise; B4 at each grade on those blocks (bf16x3 the
+     route's launches; bf16x2 and f32, which no main path runs, through
+     uncounted wrapper calls), against its plain version at that grade and
+     the fold path; B4 timing of each grade there and at run_all.py
+     bench_pfb's shape;
   8. the table-exact QPSK256 receiver, Qpsk256Modem(CIRCULAR,
      exact_tables=True), 8 blocks of 2^19 noisy symbols (sigma 0.05)
      through rx counted (it must take B6), decisions against the plain
@@ -49,8 +57,8 @@ full width, 2^20 planar complex samples per step:
      after Chain.init (40 B5 launches and nothing else), against the same
      chain with plain IIR stages, the tone checked, step time and idle
      share;
- 11. prints one JSON `kernels` line (B1, B2, B3-dense, B3-PFB, B4, B6, B5)
-     and, last, {"ok": true, "device": {...}}.
+ 11. prints one JSON `kernels` line (B1 and B4 once per grade, B2,
+     B3-dense, B3-PFB, B6, B5) and, last, {"ok": true, "device": {...}}.
 
 Timing: CUDA events around bursts of back-to-back calls (median of
 bursts) and device time per kernel from torch.profiler. Launches made to
@@ -143,7 +151,20 @@ TUNING = 100_000_000.0
 GRID = 64              # the wideband receivers' Fs/64 grid
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12        # dense, tensor cores
 PEAK_HBM_BYTES = 3.35e12
+# The dense front's grades (B1, B4): tensor-core passes of the product
+GRADES = ("bf16x3", "bf16x2", "f32")
+PASSES = {"bf16x3": 3, "bf16x2": 2, "f32": 0}
+# A grade against the f32 plain chain: FM audio, of max|audio| after the
+# warm-up, the carries scaled alike (bf16x3 as the f32 kernel, JAX's
+# on-TPU gate measured 4.2e-5; bf16x2 quantizes the signal to bf16, whose
+# noise the discriminator turns into audio: 2e-2, JAX's own gate for the
+# grade, tests/test_kernels.py test_fast_precision_grade); B4 against the
+# fold path, of max|y| (bf16x3 as tests/test_torch_pfb_banks.py holds
+# JAX's kernel route)
+FM_GRADE_TOL = {"bf16x3": 1e-4, "bf16x2": 2e-2, "f32": 1e-4}
+B4_FOLD_TOL = {"bf16x3": 3e-4, "bf16x2": 1e-2, "f32": 2e-5}
 COUNTERS = {"fm_chain": fm_chain, "pfb_fm_chain": pfb_fm_chain,
             "am_chain": am_chain, "pfb_am_chain": pfb_am_chain,
             "channelize": channelize_kernel, "qpsk256": qpsk256_kernel,
@@ -152,9 +173,9 @@ COUNTERS = {"fm_chain": fm_chain, "pfb_fm_chain": pfb_fm_chain,
 # 'auto' sends to B4 (the K of examples/wideband_duplex.py)
 TMX_K, TMX_Q, TMX_SNR_DB = 32, 8, 25.0
 TMX_FRAMES = N // TMX_K      # symbols per channel per 2^20-sample block
-# B4 vs plain: float32 sums of T = 256 products in other orders; vs the
-# fold path: another factorisation of the same float32 sums
-B4_REL_TOL, B4_FOLD_REL_TOL = 1e-5, 2e-5
+# B4 vs its plain version at the same grade: float32 sums of T = 256
+# products (exact at the bf16 grades) in other orders
+B4_REL_TOL = 1e-5
 # At 25 dB the critical cascade's own inter-symbol interference (noiseless
 # worst decision margin ~0.03 of 1) lets the noise flip a few of the 8.4M
 # symbols, through any implementation: the noisy link is held to the fold
@@ -167,6 +188,7 @@ Q256_N, Q256_SIGMA = 1 << 19, 0.05     # benchmarks/run_all.py's qpsk256 size
 # <= ~12 here, a few ulps of it): an exact tie
 Q256_TIE = 1e-5
 DENSE_LIBRARY = "F.conv1d of the tap bank (front only), TF32 off"
+TF32_LIBRARY = "F.conv1d of the tap bank (front only), TF32 on"
 PFB_LIBRARY = ("grouped F.conv1d fold + torch.matmul DFT bank "
                "(front only), TF32 off")
 
@@ -191,16 +213,16 @@ def lowpass(num_taps, cutoff_frac):
     return tuple((h / h.sum()).astype(np.float32).tolist())
 
 
-def flagship(impl):
+def flagship(impl, **kw):
     return FmChannelizer(
         sample_rate=FS, tuning_frequency=TUNING,
         channel_frequencies=tuple(TUNING - 480_000.0 + 60_000.0 * i
                                   for i in range(16)),
         frequency_deviation=75_000.0, decimation=4,
-        low_pass_taps=lowpass(64, 0.03), impl=impl, device="cuda")
+        low_pass_taps=lowpass(64, 0.03), impl=impl, device="cuda", **kw)
 
 
-def fm_wideband(impl, decimation=GRID):
+def fm_wideband(impl, decimation=GRID, **kw):
     """benchmarks/run_all.py bench_fm_wideband: 64 channels -(Fs/64)*i,
     512-tap prototype with cutoff 0.4/64, D=64 (critical) or 8."""
     return FmChannelizer(
@@ -208,7 +230,33 @@ def fm_wideband(impl, decimation=GRID):
         channel_frequencies=tuple(-(FS / GRID) * i for i in range(GRID)),
         frequency_deviation=75_000.0, decimation=decimation,
         low_pass_taps=lowpass(8 * GRID, 0.4 / GRID), impl=impl,
-        device="cuda")
+        device="cuda", **kw)
+
+
+class PlainAtGrade:
+    """A dense FM model's stream through the plain chain with the front at
+    the model's grade (fm_chain_reference(precision=...)), stepped as the
+    model steps: the kernel's plain version on a stream."""
+
+    def __init__(self, model):
+        self.model = model
+        self.impl = f"plain at {model.precision}"
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def step(self, state, rf):
+        m = self.model
+        n0, tail, cf, cz = state
+        fs, t = int(round(m.sample_rate)), m.num_taps
+        buf = ComplexArray(torch.cat([tail.re, rf.re]),
+                           torch.cat([tail.im, rf.im]))
+        rot0 = torch.remainder(n0 + (fs - (t - 1) % fs), fs).to(torch.int32)
+        audio, cf, cz = fm_chain_reference(
+            buf, m.tap_bank, m.lo_table, rot0, m.decimation, m.gain,
+            m.deemph, cf, cz, precision=m.precision)
+        n0 = torch.remainder(n0 + rf.shape[-1] % fs, fs).to(torch.int32)
+        return (n0, buf[..., buf.shape[-1] - (t - 1):], cf, cz), audio
 
 
 def am_wideband(impl):
@@ -339,9 +387,17 @@ def rel_err(got, want, skip=0):
     return float((got - want).abs().max() / want.abs().max())
 
 
-def bound(flops, nbytes):
-    """(bound ms, what bounds it) on the H100's FP32 FMA and HBM peaks."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops, nbytes, tensor=None):
+    """(bound ms, what bounds it) on the H100's peaks: the least time over
+    the algorithms for the work, `flops` FP32 operations outside the
+    tensor cores or, at a bf16 grade, `tensor` = (tensor-core FLOP at the
+    dense bf16 peak, FP32 FLOP beside them), against `nbytes` of HBM
+    traffic."""
+    t_ops = flops / PEAK_FP32_FLOPS
+    if tensor is not None:
+        t_ops = min(t_ops, tensor[0] / PEAK_BF16_FLOPS
+                    + tensor[1] / PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -370,10 +426,12 @@ def buffer(model, rf):
                         torch.cat([tail.im, rf.im]))
 
 
-def compare_fm(kern, others, signal, steps=2):
+def compare_fm(kern, others, signal, steps=2, tol=AUDIO_REL_TOL):
     """Stream `steps` blocks through kern and each model of others; every
-    other must agree with kern within AUDIO_REL_TOL after the warm-up and
-    CARRY_ATOL on the carries. Returns the worst max-abs and rel error."""
+    other must agree with kern within tol of max|audio| after the warm-up
+    and CARRY_ATOL, scaled by tol / AUDIO_REL_TOL, on the carries. Returns
+    the worst max-abs and rel error."""
+    carry_atol = CARRY_ATOL * tol / AUDIO_REL_TOL
     models = [kern] + others
     states = [m.init() for m in models]
     max_abs = worst = 0.0
@@ -393,7 +451,7 @@ def compare_fm(kern, others, signal, steps=2):
             err = rel_err(yk, yo, skip)
             max_abs = max(max_abs, float((yk - yo)[:, skip:].abs().max()))
             worst = max(worst, err)
-            check(err <= AUDIO_REL_TOL,
+            check(err <= tol,
                   f"{kern.impl} vs {models[j].impl} step {i}: audio rel err "
                   f"{err:.3g}")
             sk, so = states[0], states[j]
@@ -401,7 +459,7 @@ def compare_fm(kern, others, signal, steps=2):
                                (sk[2].im, so[2].im, "disc_carry.im"),
                                (sk[3], so[3], "deemph_zi")):
                 d = float((a - b).abs().max())
-                check(d <= CARRY_ATOL, f"{kern.impl} vs {models[j].impl} "
+                check(d <= carry_atol, f"{kern.impl} vs {models[j].impl} "
                       f"step {i}: {what} differs by {d:.3g}")
             check(int(sk[0]) == int(so[0]), "n0 differs")
     return max_abs, worst
@@ -483,15 +541,15 @@ def time_step(model, rf):
     return time_calls(one_step)
 
 
-def time_kernel(kernel, plain, library, args, plain_reps=4):
-    """(kernel ms, kernel device us by name, plain ms, library ms); the
-    kernel's counter is restored, timing launches are no main-path
-    launches."""
+def time_kernel(kernel, plain, library, args, plain_reps=4, **kw):
+    """(kernel ms, kernel device us by name, plain ms, library ms) of
+    kernel(*args, **kw) and plain(*args, **kw); the kernel's counter is
+    restored, timing launches are no main-path launches."""
     before = kernel.launches
-    k_ms = cuda_ms(lambda: kernel(*args), reps=20)
-    k_dev = device_us(lambda: kernel(*args), reps=10)
+    k_ms = cuda_ms(lambda: kernel(*args, **kw), reps=20)
+    k_dev = device_us(lambda: kernel(*args, **kw), reps=10)
     kernel.launches = before
-    p_ms = cuda_ms(lambda: plain(*args), reps=plain_reps, bursts=3)
+    p_ms = cuda_ms(lambda: plain(*args, **kw), reps=plain_reps, bursts=3)
     lib_ms = cuda_ms(library, reps=20)
     return k_ms, k_dev, p_ms, lib_ms
 
@@ -520,16 +578,21 @@ def table_bytes(model):
     return 4.0 * model.tap_bank.numel()
 
 
-def fm_bound(model, nb):
-    """(FLOPs, bytes) of one FM chain call over an nb-sample buffer: the
-    cheapest front plus the back end's 16 operations per output and
-    channel (rotor and discriminator products, de-emphasis; the sincos and
-    atan2 left out), and the buffer, tables and carries in, the audio and
-    carries out."""
+def fm_bound(model, nb, grade="f32"):
+    """(FLOPs, bytes, tensor) of one FM chain call over an nb-sample
+    buffer: the cheapest FP32 front plus the back end's 16 operations per
+    output and channel (rotor and discriminator products, de-emphasis; the
+    sincos and atan2 left out), and the buffer, tables and carries in, the
+    audio and carries out. At a bf16 grade the dense product on the tensor
+    cores is another algorithm for the front: its passes x 8*C*T per
+    output, the back end beside it (``tensor``)."""
     c, t, d = model.num_channels, model.num_taps, model.decimation
     m = (nb - t) // d + 1
     io = 4 * (2 * nb + 4 * c + 3 + 3 * c + c * m + 3 * c)
-    return (front_flops(model) + 16.0 * c) * m, io + table_bytes(model)
+    tensor = ((PASSES[grade] * 8.0 * c * t * m, 16.0 * c * m)
+              if PASSES[grade] else None)
+    return ((front_flops(model) + 16.0 * c) * m, io + table_bytes(model),
+            tensor)
 
 
 def am_bound(model, nb):
@@ -552,85 +615,130 @@ def pfb_front_library(model, buf):
     return run
 
 
-def dense_front_library(model, buf):
-    """The library yardstick of the dense front alone: F.conv1d of the
-    complex tap bank, TF32 off."""
+def conv_library(buf, bank, decimation, tf32=False):
+    """The library yardstick of a dense front alone: F.conv1d of the
+    complex tap bank, TF32 off (the f32 yardstick) or on (the nearest
+    library grade to the bf16 ones)."""
     lhs = torch.stack([buf.re, buf.im])[None]
 
     def run():
         with full_f32():
-            F.conv1d(lhs, model.tap_bank, stride=model.decimation)
+            torch.backends.cudnn.allow_tf32 = tf32
+            F.conv1d(lhs, bank, stride=decimation)
     return run
 
 
-def kernel_entry(name, source, replaces, launches, max_abs, timing, bnd):
+def dense_front_library(model, buf):
+    return conv_library(buf, model.tap_bank, model.decimation)
+
+
+def kernel_entry(name, source, replaces, launches, max_abs, timing, bnd,
+                 grade="f32", main_path=True, **extra):
+    """One entry of the kernels line; ``main_path`` false marks a grade
+    that no main path launches (its launches are 0)."""
     k_ms, _, p_ms, lib_ms = timing
-    return {"name": name, "route": "cuda", "source": source,
+    return {"name": name, "grade": grade, "main_path": main_path,
+            "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+            **extra}
 
 
 def flagship_phase():
-    """Phase 3: B1 at the flagship; returns its kernels-line entry."""
-    kern, plain = flagship("cuda"), flagship("torch")
-    max_abs, worst_rel = compare_fm(kern, [plain], fm_signal)
-    print(f"fm_chain vs plain: audio max-abs {max_abs:.3g}, "
-          f"rel {worst_rel:.3g} (tol {AUDIO_REL_TOL}), carries atol "
-          f"{CARRY_ATOL}")
+    """Phase 3: B1 at the flagship at each grade; returns its kernels-line
+    entries, one per grade."""
+    plain = flagship("torch")
+    blocks = [fm_signal(plain, i * N, N, seed=11) for i in range(STEPS)]
+    entries = []
+    for grade in GRADES:
+        kern = flagship("cuda", precision=grade)
+        max_abs, rel_plain = compare_fm(kern, [PlainAtGrade(kern)], fm_signal)
+        _, rel_f32 = compare_fm(kern, [plain], fm_signal,
+                                tol=FM_GRADE_TOL[grade])
+        print(f"fm_chain at {grade} vs its plain version: audio max-abs "
+              f"{max_abs:.3g}, rel {rel_plain:.3g} (tol {AUDIO_REL_TOL}); vs "
+              f"the f32 plain chain: rel {rel_f32:.3g} (tol "
+              f"{FM_GRADE_TOL[grade]}), carries atol {CARRY_ATOL} scaled "
+              f"alike")
 
-    model = flagship("auto")
-    check(model.front == "toeplitz", "flagship must take the dense front")
-    blocks = [fm_signal(model, i * N, N, seed=11) for i in range(STEPS)]
-    outs, got = main_path(model, blocks, {"fm_chain": STEPS})
-    check_tones(outs[-1], model.audio_rate, lambda k: 700.0 + 370.0 * k,
-                "flagship")
-    _, whole = model.step(model.init(), blocks[0])
-    st, h1 = model.step(model.init(), blocks[0][..., :N // 2])
-    _, h2 = model.step(st, blocks[0][..., N // 2:])
-    # The halves reach the same global samples through another reduced
-    # stream index, so the float32 digit-table LO phase rounds differently
-    # (bounded at ~6e-5 cycles, utils/phase.py); held to the JAX package's
-    # block-invariance tolerance, rtol = atol = 1e-4 (tests/test_pipelines.py).
-    halves = torch.cat([h1, h2], dim=-1)
-    inv = float(((halves - whole).abs() - 1e-4 * whole.abs()).max())
-    check(inv <= 1e-4, f"block invariance excess {inv:.3g}")
-    print(f"main path: {STEPS} steps of {N} samples, fm_chain launches "
-          f"{got['fm_chain']}, block invariance max-abs "
-          f"{float((halves - whole).abs().max()):.3g}")
+        # the user's path: the default grade is bf16x3, as the JAX model's
+        model = (flagship("auto") if grade == "bf16x3"
+                 else flagship("auto", precision=grade))
+        check(model.front == "toeplitz" and model.precision == grade,
+              f"flagship at {grade}: dense front, grade {model.precision}")
+        outs, got = main_path(model, blocks, {"fm_chain": STEPS})
+        check_tones(outs[-1], model.audio_rate, lambda k: 700.0 + 370.0 * k,
+                    f"flagship at {grade}")
+        if grade == "bf16x3":
+            _, whole = model.step(model.init(), blocks[0])
+            st, h1 = model.step(model.init(), blocks[0][..., :N // 2])
+            _, h2 = model.step(st, blocks[0][..., N // 2:])
+            # The halves reach the same global samples through another
+            # reduced stream index, so the float32 digit-table LO phase
+            # rounds differently (bounded at ~6e-5 cycles, utils/phase.py);
+            # held to the JAX package's block-invariance tolerance, rtol =
+            # atol = 1e-4 (tests/test_pipelines.py).
+            halves = torch.cat([h1, h2], dim=-1)
+            inv = float(((halves - whole).abs() - 1e-4 * whole.abs()).max())
+            check(inv <= 1e-4, f"block invariance excess {inv:.3g}")
+            print(f"block invariance at {grade}: max-abs "
+                  f"{float((halves - whole).abs().max()):.3g}")
+        print(f"main path: flagship at {grade}, {STEPS} steps of {N} "
+              f"samples, fm_chain launches {got['fm_chain']}, tones "
+              f"recovered")
 
-    step_ms, step_dev, idle = time_step(model, blocks[0])
-    buf = buffer(model, blocks[0])
-    n0, _, cf, cz = model.init()
-    args = (buf, model.tap_bank, model.lo_table, n0, model.decimation,
-            model.gain, model.deemph, cf, cz)
-    timing = time_kernel(fm_chain, fm_chain_reference,
-                         dense_front_library(model, buf), args)
-    flops, nbytes = fm_bound(model, buf.re.shape[-1])
-    bnd = bound(flops, nbytes)
-    print(json.dumps({"device_us_per_step": step_dev,
-                      "device_us_per_fm_chain_call": timing[1],
-        "library": DENSE_LIBRARY,
-                      "device_idle_share": idle}))
-    print(json.dumps({
-        "metric": "fm_channelizer_16ch_64tap_dec4_input_msps",
-        "value": N / (step_ms * 1e-3) / 1e6, "unit": "Msamples/s",
-        "step_ms": step_ms, "kernel_ms": timing[0], "plain_ms": timing[2],
-        "library_ms": timing[3], "kernel_device_ms":
-            sum(timing[1].values()) / 1e3, "bound_us": bnd[0] * 1e3,
-        "bound_by": bnd[1], "gflop_per_step": flops / 1e9,
-        "mbytes_per_step": nbytes / 1e6,
-        "launches_per_step": got["fm_chain"] / STEPS, "card": CARD}))
-    return kernel_entry(
-        "fm_chain", "gsdr_tpu_torch/kernels/csrc/fm_chain.cu",
-        "gsdr_tpu/kernels/fm_chain_pallas.py:888", got["fm_chain"], max_abs,
-        timing, bnd)
+        step_ms, step_dev, idle = time_step(model, blocks[0])
+        buf = buffer(model, blocks[0])
+        n0, _, cf, cz = model.init()
+        args = (buf, model.tap_bank, model.lo_table, n0, model.decimation,
+                model.gain, model.deemph, cf, cz)
+        timing = time_kernel(fm_chain, fm_chain_reference,
+                             dense_front_library(model, buf), args,
+                             precision=grade)
+        tf32_ms = (cuda_ms(conv_library(buf, model.tap_bank, model.decimation,
+                                        tf32=True), reps=20)
+                   if PASSES[grade] else None)
+        # where B1's time goes: its dense front alone at this grade, run by
+        # B4 on the flagship's bank (the same device function, the planar
+        # y stored in place of the back end)
+        before = channelize_kernel.launches
+        front_us = device_us(lambda: channelize_kernel(
+            buf, model.tap_bank, model.decimation, precision=grade), reps=10)
+        channelize_kernel.launches = before
+        flops, nbytes, tensor = fm_bound(model, buf.re.shape[-1], grade)
+        bnd = bound(flops, nbytes, tensor)
+        line = {
+            "phase": f"flagship_{grade}", "grade": grade,
+            "msps": N / (step_ms * 1e-3) / 1e6, "step_ms": step_ms,
+            "device_us_per_step": step_dev, "device_idle_share": idle,
+            "kernel_ms": timing[0], "kernel_device_us": timing[1],
+            "kernel_device_ms": sum(timing[1].values()) / 1e3,
+            "front_alone_device_us": front_us,
+            "plain_ms": timing[2], "library_ms": timing[3],
+            "library": DENSE_LIBRARY, "library_tf32_ms": tf32_ms,
+            "library_tf32": TF32_LIBRARY, "bound_us": bnd[0] * 1e3,
+            "bound_by": bnd[1], "fp32_gflop_per_step": flops / 1e9,
+            "tensor_gflop_per_step": tensor[0] / 1e9 if tensor else 0.0,
+            "mbytes_per_step": nbytes / 1e6, "vs_plain_rel": rel_plain,
+            "vs_f32_rel": rel_f32,
+            "launches_per_step": got["fm_chain"] / STEPS, "card": CARD}
+        if grade == "bf16x3":
+            line.update({"metric": "fm_channelizer_16ch_64tap_dec4_input_msps",
+                         "value": line["msps"], "unit": "Msamples/s"})
+        print(json.dumps(line))
+        entries.append(kernel_entry(
+            "fm_chain", "gsdr_tpu_torch/kernels/csrc/fm_chain.cu",
+            "gsdr_tpu/kernels/fm_chain_pallas.py:888", got["fm_chain"],
+            max_abs, timing, bnd, grade=grade, library_tf32_ms=tf32_ms))
+    return entries
 
 
 def fm_wideband_phase():
     """Phase 4: B2 at FM wideband critical; returns its entry."""
+    # B1 as B2's A/B partner at the f32 grade, both fronts exact
     kern, plain, dense = (fm_wideband("pfb"), fm_wideband("pfb_torch"),
-                          fm_wideband("cuda"))
+                          fm_wideband("cuda", precision="f32"))
     check(kern.front == "pfb" and kern.pfb_grid[0] == GRID, "B2 grid")
     max_abs, rel_plain = compare_fm(kern, [plain], wideband_fm_signal)
     _, rel_dense = compare_fm(kern, [dense], wideband_fm_signal)
@@ -664,14 +772,17 @@ def fm_wideband_phase():
     d_args = (buf, dense.tap_bank, dense.lo_table, n0, dense.decimation,
               dense.gain, dense.deemph, cf, cz)
     before = fm_chain.launches
-    dense_ms = cuda_ms(lambda: fm_chain(*d_args), reps=10)
+    dense_ms = {g: cuda_ms(lambda: fm_chain(*d_args, precision=g), reps=10)
+                for g in GRADES}
     fm_chain.launches = before
     print(json.dumps({
         "metric": "fm_wideband_64ch_crit_input_msps", "unit": "Msamples/s",
         "value": steps["auto"]["msps"], "step_auto_pfb": steps["auto"],
         "step_cuda_dense": steps["cuda"], "pfb_kernel_ms": timing[0],
-        "pfb_kernel_device_us": timing[1], "dense_kernel_ms": dense_ms,
-        "dense_bound": bound(*fm_bound(dense, buf.re.shape[-1])),
+        "pfb_kernel_device_us": timing[1],
+        "dense_kernel_ms_by_grade": dense_ms,
+        "dense_bound_by_grade": {
+            g: bound(*fm_bound(dense, buf.re.shape[-1], g)) for g in GRADES},
         "plain_ms": timing[2], "library_ms": timing[3],
         "library": PFB_LIBRARY,
         "bound_ms": bnd[0], "bound_by": bnd[1], "card": CARD}))
@@ -685,7 +796,7 @@ def fm_d8_phase():
     """Phase 5: B2 at the D=8 variant (P=8) against plain and B1, and the
     two kernels' times there."""
     kern, plain, dense = (fm_wideband("pfb", 8), fm_wideband("pfb_torch", 8),
-                          fm_wideband("cuda", 8))
+                          fm_wideband("cuda", 8, precision="f32"))
     check(kern.pfb_grid[0] == GRID and fm_wideband("auto", 8).front == "pfb",
           "D=8: grid and 'auto' route")
     max_abs, rel_plain = compare_fm(kern, [plain], wideband_fm_signal)
@@ -697,7 +808,8 @@ def fm_d8_phase():
     before = counts()
     pfb_ms = cuda_ms(lambda: pfb_fm_chain(buf, kern.poly_taps, kern.dft_bank,
                                           kern.num_taps, *back), reps=10)
-    dense_ms = cuda_ms(lambda: fm_chain(buf, dense.tap_bank, *back), reps=4)
+    dense_ms = cuda_ms(lambda: fm_chain(buf, dense.tap_bank, *back,
+                                        precision="f32"), reps=4)
     for name, k in COUNTERS.items():
         k.launches = before[name]
     print(json.dumps({
@@ -784,45 +896,57 @@ def planar_err(got, want):
     return err, scale
 
 
-def b4_bound(k, t, n, c, m):
-    """(FLOPs, bytes) of one channelizer call on an n-sample buffer: the
-    cheapest known algorithm for channels on the Fs/K grid at D = K, the
-    4*T fold plus a K-point FFT (~5*K*log2 K) per frame; the buffer and
-    the bank read, the (C, M) planes written."""
+def b4_bound(k, t, n, c, m, grade="f32"):
+    """(FLOPs, bytes, tensor) of one channelizer call on an n-sample
+    buffer: the cheapest known algorithm for channels on the Fs/K grid at
+    D = K, the 4*T fold plus a K-point FFT (~5*K*log2 K) per frame; at a
+    bf16 grade also the dense product on the tensor cores, its passes x
+    8*C*T per frame; the buffer and the bank read, the (C, M) planes
+    written."""
     flops = (4.0 * t + 5.0 * k * math.log2(k)) * m
-    return flops, 4.0 * (2 * n + 2 * c * 2 * t + 2 * c * m)
+    tensor = (PASSES[grade] * 8.0 * c * t * m, 0.0) if PASSES[grade] else None
+    return flops, 4.0 * (2 * n + 2 * c * 2 * t + 2 * c * m), tensor
 
 
-def b4_timing(what, buf, taps, k):
-    """Time B4, its plain version, its library twin (F.conv1d of the bank)
+def b4_timing(what, buf, taps, k, grade):
+    """Time B4 at a grade, its plain version at that grade, its library
+    twin (F.conv1d of the bank, TF32 off; at a bf16 grade also TF32 on)
     and the fold path on one buffer; returns (timing, bound, line)."""
     bank = _analysis_tables(_taps_key(taps), k, buf.device)[0]
-    lhs = torch.stack([buf.re, buf.im])[None]
-
-    def conv():
-        with full_f32():
-            F.conv1d(lhs, bank, stride=k)
-
-    timing = time_kernel(channelize_kernel, channelize_reference, conv,
-                         (buf, bank, k))
+    timing = time_kernel(channelize_kernel, channelize_reference,
+                         conv_library(buf, bank, k), (buf, bank, k),
+                         precision=grade)
+    tf32_ms = (cuda_ms(conv_library(buf, bank, k, tf32=True), reps=20)
+               if PASSES[grade] else None)
     fold_ms = cuda_ms(lambda: pfb_channelize(buf, taps, k, impl="torch"),
                       reps=10)
     n, t = buf.re.shape[-1], bank.shape[-1]
     m = (n - t) // k + 1
-    bnd = bound(*b4_bound(k, t, n, k, m))
-    line = {"phase": what, "K": k, "T": t, "N": n, "M": m,
+    bnd = bound(*b4_bound(k, t, n, k, m, grade))
+    line = {"phase": what, "grade": grade, "K": k, "T": t, "N": n, "M": m,
             "kernel_ms": timing[0], "kernel_device_us": timing[1],
             "plain_ms": timing[2], "library_ms": timing[3],
             "library": "F.conv1d of the (2K, 2, T) bank, TF32 off",
-            "fold_path_ms": fold_ms,
+            "library_tf32_ms": tf32_ms, "fold_path_ms": fold_ms,
             "fold_path": "grouped F.conv1d fold + torch.matmul DFT, TF32 off",
             "bound_ms": bnd[0], "bound_by": bnd[1],
-            "dense_gflop": 8.0 * k * t * m / 1e9, "card": CARD}
-    return timing, bnd, line
+            "dense_gflop": 8.0 * k * t * m / 1e9,
+            "tensor_gflop": PASSES[grade] * 8.0 * k * t * m / 1e9,
+            "card": CARD}
+    return timing, bnd, line, tf32_ms
+
+
+def stitch(outs, q):
+    """Per-block (K, M) outputs joined along time, the first Q-1 frames
+    (the zero history's) dropped, as pfb_channelize_block's stream."""
+    return ComplexArray(torch.cat([o.re for o in outs], -1)[..., q - 1:],
+                        torch.cat([o.im for o in outs], -1)[..., q - 1:])
 
 
 def transmux_phase():
-    """Phase 7: the channelized QPSK link through B4; returns its entry."""
+    """Phase 7: the channelized QPSK link through B4 at bf16x3, the route's
+    grade, then B4 at each grade on the same blocks; returns its entries,
+    one per grade."""
     k, q = TMX_K, TMX_Q
     taps = lowpass64(q * k, 0.5 / k)
     gen = torch.Generator(device="cuda")
@@ -856,11 +980,6 @@ def transmux_phase():
         bufs.append(ComplexArray(torch.cat([prev.re, rf.re]),
                                  torch.cat([prev.im, rf.im])))
         prev = rf[..., N - hist:]
-    plain = [channelize_reference(buf, bank, k) for buf in bufs]
-    y_plain = ComplexArray(torch.cat([p.re for p in plain], -1)[..., q - 1:],
-                           torch.cat([p.im for p in plain], -1)[..., q - 1:])
-    err, scale = planar_err(y, y_plain)
-    err_fold, _ = planar_err(y, y_fold)
     z, ref = equalize(y, tx, q)
     z_fold, _ = equalize(y_fold, tx, q)
     edge = torch.minimum(z_fold.real.abs(), z_fold.imag.abs())
@@ -884,31 +1003,56 @@ def transmux_phase():
           f"{ser.max():.3g}, EVM mean {evm.mean():.4f} max {evm.max():.4f}; "
           f"noiseless: SER 0, EVM max {evm0.max():.4f}, worst decision "
           f"margin {margin0:.4f}")
-    check(err <= B4_REL_TOL * scale,
-          f"B4 vs plain: max-abs {err:.3g}, max|y| {scale:.3g}")
-    check(err_fold <= B4_FOLD_REL_TOL * scale,
-          f"B4 vs fold path: max-abs {err_fold:.3g}, max|y| {scale:.3g}")
-    print(f"channelize (K={k}, T={q * k}, D={k}) vs plain: max-abs {err:.3g} "
-          f"(tol {B4_REL_TOL} x max|y| = {B4_REL_TOL * scale:.3g}); vs fold "
-          f"path {err_fold:.3g} (tol {B4_FOLD_REL_TOL} x max|y|)")
 
-    timing, bnd, line = b4_timing("transmux_b4", bufs[0], taps, k)
+    # B4 at each grade on the main path's buffers: the route's own launches
+    # at bf16x3; no main path runs the others, so their calls of the wrapper
+    # here are not counted and their entries say launches 0, main_path false
     tail = blocks[0][..., N - hist:]
     step_ms, step_dev, idle = time_calls(
         lambda: pfb_channelize_block(blocks[1], taps, k, tail=tail,
                                      impl="auto"))
-    line.update({"metric": "transmux_32ch_receive_input_msps",
-                 "value": N / (step_ms * 1e-3) / 1e6, "unit": "Msamples/s",
-                 "step_ms": step_ms, "device_us_per_step": step_dev,
-                 "device_idle_share": idle, "ser_max": float(ser.max()),
-                 "symbol_errors": int(round(ser.sum() * n_sym / k)),
-                 "fold_path_symbol_errors": err_fold_sym,
-                 "evm_max": float(evm.max()),
-                 "noiseless_evm_max": float(evm0.max()),
-                 "noiseless_worst_margin": margin0, "max_abs_err": err})
-    print(json.dumps(line))
+    per_grade = {}
+    for grade in GRADES:
+        if grade == "bf16x3":
+            y_g, launches = y, got["channelize"]
+        else:
+            before = channelize_kernel.launches
+            y_g = stitch([channelize_kernel(b, bank, k, precision=grade)
+                          for b in bufs], q)
+            channelize_kernel.launches, launches = before, 0
+        y_plain = stitch([channelize_reference(b, bank, k, grade)
+                          for b in bufs], q)
+        err, scale = planar_err(y_g, y_plain)
+        err_fold, _ = planar_err(y_g, y_fold)
+        check(err <= B4_REL_TOL * scale,
+              f"B4 at {grade} vs plain: max-abs {err:.3g}, max|y| {scale:.3g}")
+        check(err_fold <= B4_FOLD_TOL[grade] * scale,
+              f"B4 at {grade} vs fold path: max-abs {err_fold:.3g}, max|y| "
+              f"{scale:.3g}")
+        print(f"channelize at {grade} (K={k}, T={q * k}, D={k}) vs its plain "
+              f"version: max-abs {err:.3g} (tol {B4_REL_TOL} x max|y| = "
+              f"{B4_REL_TOL * scale:.3g}); vs fold path {err_fold:.3g} (tol "
+              f"{B4_FOLD_TOL[grade]} x max|y|); launches {launches}")
+        timing, bnd, line, tf32_ms = b4_timing(f"transmux_b4_{grade}",
+                                               bufs[0], taps, k, grade)
+        line.update({"max_abs_err": err, "vs_fold_path": err_fold,
+                     "launches": launches})
+        if grade == "bf16x3":
+            line.update({
+                "metric": "transmux_32ch_receive_input_msps",
+                "value": N / (step_ms * 1e-3) / 1e6, "unit": "Msamples/s",
+                "step_ms": step_ms, "device_us_per_step": step_dev,
+                "device_idle_share": idle, "ser_max": float(ser.max()),
+                "symbol_errors": int(round(ser.sum() * n_sym / k)),
+                "fold_path_symbol_errors": err_fold_sym,
+                "evm_max": float(evm.max()),
+                "noiseless_evm_max": float(evm0.max()),
+                "noiseless_worst_margin": margin0})
+        print(json.dumps(line))
+        per_grade[grade] = (launches, err, timing, bnd, tf32_ms)
 
     # benchmarks/run_all.py bench_pfb: K=16, 128 taps, 2^20 samples, one shot
+    # through 'auto' (bf16x3), then each grade
     k16 = 16
     taps16 = lowpass64(8 * k16, 0.4 / k16)
     x = ComplexArray(torch.randn(N, generator=gen, device="cuda"),
@@ -917,15 +1061,24 @@ def transmux_phase():
     got16, _ = counted("pfb_channelize(impl='auto') at K=16",
                        lambda: pfb_channelize(x, taps16, k16),
                        {"channelize": 1})
-    err16, scale16 = planar_err(got16, channelize_reference(x, bank16, k16))
+    err16, scale16 = planar_err(
+        got16, channelize_reference(x, bank16, k16, "bf16x3"))
     check(err16 <= B4_REL_TOL * scale16, f"B4 at K=16 vs plain: {err16:.3g}")
-    _, _, line16 = b4_timing("bench_pfb_b4", x, taps16, k16)
-    line16["max_abs_err"] = err16
-    print(json.dumps(line16))
-    return kernel_entry(
-        "channelize", "gsdr_tpu_torch/kernels/csrc/channelize.cu",
-        "gsdr_tpu/kernels/channelize_pallas.py:57", got["channelize"],
-        max(err, err16), timing, bnd)
+    for grade in GRADES:
+        _, _, line16, _ = b4_timing(f"bench_pfb_b4_{grade}", x, taps16, k16,
+                                    grade)
+        if grade == "bf16x3":
+            line16["max_abs_err"] = err16
+        print(json.dumps(line16))
+    entries = []
+    for grade, (launches, err, timing, bnd, tf32_ms) in per_grade.items():
+        entries.append(kernel_entry(
+            "channelize", "gsdr_tpu_torch/kernels/csrc/channelize.cu",
+            "gsdr_tpu/kernels/channelize_pallas.py:57", launches,
+            max(err, err16) if grade == "bf16x3" else err, timing, bnd,
+            grade=grade, library_tf32_ms=tf32_ms,
+            main_path=grade == "bf16x3"))
+    return entries
 
 
 def nearest64(x, table):
@@ -1253,7 +1406,7 @@ def iir_entry(launches, max_abs, lines):
     worst max-abs error against the plain scan, times at bench_iir's
     biquad."""
     line = lines["biquad"]
-    return {"name": "iir", "route": "cuda",
+    return {"name": "iir", "grade": "f32", "main_path": True, "route": "cuda",
             "source": "gsdr_tpu_torch/kernels/csrc/iir.cu",
             "replaces": "gsdr_tpu/kernels/iir_pallas.py:154",
             "launches": launches, "max_abs_err": max_abs,
@@ -1290,10 +1443,10 @@ def main():
         print(f"ptxas {src}:\n{rep.strip()}", file=sys.stderr)
 
     # 3-8) the receivers, the channelized link and the QPSK256 receiver
-    kernels = [flagship_phase(), fm_wideband_phase()]
+    kernels = flagship_phase() + [fm_wideband_phase()]
     fm_d8_phase()
     kernels += am_phase()
-    kernels += [transmux_phase(), qpsk256_phase()]
+    kernels += transmux_phase() + [qpsk256_phase()]
 
     # 9-10) the IIR kernel alone and the streaming FM receiver
     n_alone, err_alone, lines = iir_standalone_phase()

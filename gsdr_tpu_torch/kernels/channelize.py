@@ -7,9 +7,12 @@ Counterpart of ``gsdr_tpu/kernels/channelize_pallas.py``
 (C, M), M = (N - T)//D + 1. ``channelize_kernel`` launches
 ``csrc/channelize.cu`` for CUDA tensors, raising where a block of the
 kernel does not fit the card's shared memory, and takes the plain version,
-``channelize_reference`` (the strided ``F.conv1d`` in full float32), only
-for tensors on the CPU. The TPU kernel's default bf16x3 grade has no
-counterpart: the kernel runs float32 FMAs.
+``channelize_reference``, only for tensors on the CPU. Both take the
+TPU kernel's grades (``precision``): 'bf16x3', the kernel's default as it
+is ``mix_fir_decimate_bank_pallas``'s, and 'bf16x2' run on the tensor
+cores, 'f32' on the FP32 FMAs; the plain version emulates the grade
+(``chain.graded_bank_front``: strided ``F.conv1d`` passes in full
+float32) and defaults to 'f32' (``chain.ChainKernel`` says why).
 """
 
 import ctypes
@@ -22,15 +25,18 @@ from gsdr_tpu_torch.kernels.chain import (
     ChainKernel,
     check_operands,
     cuda_error,
+    dense_mma_tables,
     front_supported,
+    grade_code,
+    graded_bank_front,
     load_chain_library,
 )
-from gsdr_tpu_torch.ops.channelize import mix_fir_decimate_bank
 
 
-def channelize_reference(x, tap_bank, decimation):
-    """The plain version: ``mix_fir_decimate_bank(impl='torch')``."""
-    return mix_fir_decimate_bank(x, tap_bank, decimation, impl="torch")
+def channelize_reference(x, tap_bank, decimation, precision="f32"):
+    """The plain version at a grade; at 'f32' it is
+    ``mix_fir_decimate_bank(impl='torch')``."""
+    return graded_bank_front(x, tap_bank, decimation, precision)
 
 
 @functools.lru_cache(maxsize=None)
@@ -38,13 +44,14 @@ def _library():
     """The built channelize library, its launch signature declared."""
     lib = load_chain_library("channelize")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.channelize_launch.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.channelize_launch.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.channelize_launch.restype = i
     return lib
 
 
-def _launch(x, tap_bank, decimation):
+def _launch(x, tap_bank, decimation, precision="bf16x3"):
     dev = x.re.device
+    grade = grade_code("channelize", precision)
     if x.re.ndim != 1:
         raise ValueError(f"channelize: the kernel takes a 1-D x, got shape "
                          f"{tuple(x.re.shape)}")
@@ -58,18 +65,21 @@ def _launch(x, tap_bank, decimation):
     d = int(decimation)
     if d < 1 or n < t:
         raise ValueError(f"channelize: N={n} < T={t} or D={d} < 1")
-    if not front_supported("channelize", dev, t, d):
-        raise ValueError(f"channelize: a block for T={t}, D={d} does not fit "
-                         f"the card's shared memory")
-    m = (n - t) // d + 1
     c = c2 // 2
+    if not front_supported("channelize", dev, t, d, precision=precision,
+                           num_channels=c):
+        raise ValueError(f"channelize: a block for C={c}, T={t}, D={d} at "
+                         f"precision={precision!r} does not fit the card's "
+                         f"shared memory")
+    m = (n - t) // d + 1
     y_re = torch.empty((c, m), dtype=torch.float32, device=dev)
     y_im = torch.empty((c, m), dtype=torch.float32, device=dev)
+    btab = dense_mma_tables(tap_bank).data_ptr() if grade else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _library().channelize_launch(
-            x.re.data_ptr(), x.im.data_ptr(), tap_bank.data_ptr(),
-            y_re.data_ptr(), y_im.data_ptr(), n, c, t, d, m, stream)
+            x.re.data_ptr(), x.im.data_ptr(), tap_bank.data_ptr(), btab,
+            y_re.data_ptr(), y_im.data_ptr(), n, c, t, d, m, grade, stream)
     cuda_error("channelize", "channelize kernel launch", err)
     return ComplexArray(y_re, y_im)
 

@@ -79,10 +79,13 @@ extern "C" const char* am_chain_error_string(int err) {
 }
 
 // *fits = 1 when a block of the front (pfb = 0: dense, T and D; pfb = 1:
-// PFB, K, Q and D) fits the current device's shared memory. Returns 0 or
-// the CUDA error.
-extern "C" int am_chain_fits(int pfb, int T, int K, int Q, int D, int* fits) {
-  if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1)))
+// PFB, K, Q and D) fits the current device's shared memory, for any
+// channel count C. The AM chain has the f32 grade only: any other grade is
+// an invalid value. Returns 0 or the CUDA error.
+extern "C" int am_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
+                             int D, int* fits) {
+  (void)C;
+  if (grade != gsdr::kGradeF32 || T < 1 || D < 1 || (pfb && (K < 1 || Q < 1)))
     return (int)cudaErrorInvalidValue;
   return pfb ? (int)gsdr::block_fits((const void*)am_chain_tile<true>,
                                      gsdr::pfb_smem_bytes(K, Q, D), fits)

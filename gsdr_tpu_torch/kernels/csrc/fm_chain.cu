@@ -1,9 +1,11 @@
-// Fused C-channel FM receive chain for Hopper (sm_90a), float32 grade.
+// Fused C-channel FM receive chain for Hopper (sm_90a), at three grades of
+// its dense front: f32 (FP32 FMA), bf16x3 and bf16x2 (tensor cores).
 //
 // Replaces gsdr_tpu/kernels/fm_chain_pallas.py::_fm_chain_kernel with both
 // of its fronts (fronts.cuh): fm_chain_launch runs the dense (toeplitz)
-// front, pfb_fm_chain_launch the uniform-grid PFB front
-// (_pfb_fold_dot). Per decimated output j and channel c it computes
+// front at the grade asked for, pfb_fm_chain_launch the uniform-grid PFB
+// front (_pfb_fold_dot) in f32 whatever the grade. Per decimated output j
+// and channel c it computes
 //   y[c,j]  = sum_t x[j*D + t] * g_c[t]               front
 //   f[c,j]  = y[c,j] * e^{i 2 pi frac(f_c (n0 + j D) / Fs)}   LO rotor
 //   d[c,j]  = gain * atan2(f[c,j] * conj(f[c,j-1]))   discriminator
@@ -11,21 +13,29 @@
 // with f[c,-1] and z[c,-1] carried in from the previous block and the
 // carries exported at j = M-1.
 //
-// What bounds it on the card: as written, non-tensor FP32 FMA. The dense
-// front issues C*T*8/D FP32 operations per input sample (2048 at the
-// flagship 16 channels, 64 taps, D=4: 2.15 GFLOP per 2^20-sample step,
-// against about 25 MB of HBM traffic). The PFB front issues (4T + 8CK)/D
-// (544 at 64 channels on the Fs/64 grid, 512 taps, D=64: 0.57 GFLOP per
-// step, 94% of it the dense DFT-bank product); a K-point FFT would do
-// that product's work in about 5*K*log2(K) operations instead of 8*C*K, and
-// the function then needs fewer operations than its ~13 MB of HBM traffic
+// What bounds it on the card, by grade. The f32 dense front issues
+// C*T*8/D FP32 operations per input sample (2048 at the flagship 16
+// channels, 64 taps, D=4: 2.15 GFLOP per 2^20-sample step, 32 us at the
+// 67-TFLOP/s FP32 peak, against about 25 MB of HBM traffic, 7.5 us). At
+// bf16x3 the same product is 3 tensor-core passes, 6.4 GFLOP at 989
+// TFLOP/s, 6.5 us (bf16x2: 2 passes, 4.3 us): the function is then bound by
+// its bytes, and the back end (sincos, atan2 and the de-emphasis scan, ~16
+// FP32 operations per output and channel besides) and the two launches
+// after the tile are what remain. The PFB front issues (4T + 8CK)/D (544
+// at 64 channels on the Fs/64 grid, 512 taps, D=64: 0.57 GFLOP per step,
+// 94% of it the dense DFT-bank product); a K-point FFT would do that
+// product's work in about 5*K*log2(K) operations instead of 8*C*K, and the
+// function then needs fewer operations than its ~13 MB of HBM traffic
 // takes time, so its bound is memory.
 //
 // What the design does about that:
-//  - one thread per decimated output accumulates all CG=16 channels in
-//    registers, so every input sample (dense) or fold value (PFB) is reused
-//    for 16 channels, with the taps or the bank read as shared-memory
-//    broadcasts (fronts.cuh);
+//  - one thread per decimated output holds all CG=16 channels in
+//    registers for the back end. The f32 front reuses every input sample
+//    (dense) or fold value (PFB) for 16 channels, with the taps or the bank
+//    read as shared-memory broadcasts; the bf16 grades run the front as
+//    one GEMM per block on mma.sync (fronts.cuh, toeplitz_front_mma) and
+//    hand each thread its 16 channels through a shared tile, so the
+//    fragments are dead before the back end starts;
 //  - the rotor uses the exact digit-table phase with the same float32
 //    operation order as the plain chain, then one sincosf per output;
 //  - the discriminator takes f[j-1] from the neighbouring lane by shuffle
@@ -35,7 +45,7 @@
 //  - the de-emphasis is linear, so blocks scan their tile from z = 0
 //    (launch 1), a small scan over tiles finds every tile's true start
 //    state (launch 2), and a last pass adds a^(j-j0) * z_start (launch 3).
-// Moving the contractions onto the tensor cores is the next step.
+//    One pass with a decoupled look-back would save launches 2 and 3.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,13 +75,15 @@ __device__ __forceinline__ float ipow(float a, int k) {
 
 // Launch 1: front, rotor, discriminator and the zero-state de-emphasis of
 // one tile of kOut outputs for kCG channels. kPfb selects the front: the
-// dense one reads bank (2C, 2, T); the PFB one reads hp (Q, K) and the
-// planes-major bank (2C, 2K).
-template <bool kPfb>
+// dense one at kGrade reads bank (2C, 2, T) in f32, or btab (fronts.cuh,
+// toeplitz_front_mma) at bf16x3 and bf16x2; the PFB one reads hp (Q, K)
+// and the planes-major bank (2C, 2K).
+template <bool kPfb, int kGrade>
 __global__ void __launch_bounds__(kTile) fm_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ bank, const float* __restrict__ hp,
-    int C, int T, int K, int Q, int D, int M, int ntiles,
+    const uint2* __restrict__ btab, int C, int T, int K, int Q, int D, int M,
+    int ntiles,
     const float* __restrict__ table, const int* __restrict__ n0_rot,
     const float* __restrict__ coef, float gain,
     const float* __restrict__ cf_re_in, const float* __restrict__ cf_im_in,
@@ -104,9 +116,13 @@ __global__ void __launch_bounds__(kTile) fm_chain_tile(
   if constexpr (kPfb) {
     gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D, c0, g0,
                     acc_re, acc_im);
-  } else {
+  } else if constexpr (kGrade == gsdr::kGradeF32) {
     gsdr::toeplitz_front(smem, buf_re, buf_im, nb, bank, C, T, D, c0, g0,
                          acc_re, acc_im);
+  } else {
+    gsdr::toeplitz_front_mma<kGrade, kCG / 4>(
+        reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, btab, C,
+        T, D, blockIdx.y, g0, acc_re, acc_im);
   }
 
   // ---- 2) LO rotor from the digit table ---------------------------------
@@ -296,26 +312,26 @@ __global__ void fm_chain_inject(float* __restrict__ audio,
 }
 
 // The three launches of one chain call; returns 0 or the first CUDA error.
-template <bool kPfb>
+template <bool kPfb, int kGrade>
 int run_chain(const void* buf_re, const void* buf_im, const void* bank,
-              const void* hp, const void* table, const void* n0_rot,
-              const void* coef, const void* cf_re_in, const void* cf_im_in,
-              const void* cz_in, void* audio, void* cf_re_out,
-              void* cf_im_out, void* cz_out, void* zend, void* zstart, int nb,
-              int C, int T, int K, int Q, int D, int M, int ntiles,
-              float gain, size_t smem, void* stream) {
+              const void* hp, const void* btab, const void* table,
+              const void* n0_rot, const void* coef, const void* cf_re_in,
+              const void* cf_im_in, const void* cz_in, void* audio,
+              void* cf_re_out, void* cf_im_out, void* cz_out, void* zend,
+              void* zstart, int nb, int C, int T, int K, int Q, int D, int M,
+              int ntiles, float gain, size_t smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaFuncSetAttribute(
-      fm_chain_tile<kPfb>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fm_chain_tile<kPfb, kGrade>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(ntiles, (C + kCG - 1) / kCG);
-  fm_chain_tile<kPfb><<<grid, kTile, smem, st>>>(
+  fm_chain_tile<kPfb, kGrade><<<grid, kTile, smem, st>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank,
-      (const float*)hp, C, T, K, Q, D, M, ntiles, (const float*)table,
-      (const int*)n0_rot, (const float*)coef, gain, (const float*)cf_re_in,
-      (const float*)cf_im_in, (float*)audio, (float*)cf_re_out,
-      (float*)cf_im_out, (float*)zend);
+      (const float*)hp, (const uint2*)btab, C, T, K, Q, D, M, ntiles,
+      (const float*)table, (const int*)n0_rot, (const float*)coef, gain,
+      (const float*)cf_re_in, (const float*)cf_im_in, (float*)audio,
+      (float*)cf_re_out, (float*)cf_im_out, (float*)zend);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   fm_chain_tile_scan<<<C, kScan, 0, st>>>(
       (const float*)zend, (const float*)cz_in, (const float*)coef, M, ntiles,
@@ -331,40 +347,82 @@ int run_chain(const void* buf_re, const void* buf_im, const void* bank,
 
 extern "C" int fm_chain_tile_outputs() { return kOut; }
 
-// *fits = 1 when a block of the front (pfb = 0: dense, T and D; pfb = 1:
-// PFB, K, Q and D) fits the current device's shared memory. Returns 0 or
-// the CUDA error.
-extern "C" int fm_chain_fits(int pfb, int T, int K, int Q, int D, int* fits) {
+namespace {
+
+// The dense tile kernel of a grade and its dynamic shared memory, or
+// nullptr for a grade the library lacks.
+const void* dense_tile(int grade, int T, int D, size_t* smem) {
+  switch (grade) {
+    case gsdr::kGradeF32:
+      *smem = gsdr::toeplitz_smem_bytes(T, D);
+      return (const void*)fm_chain_tile<false, gsdr::kGradeF32>;
+    case gsdr::kGradeBf16x2:
+      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, T, D);
+      return (const void*)fm_chain_tile<false, gsdr::kGradeBf16x2>;
+    case gsdr::kGradeBf16x3:
+      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, T, D);
+      return (const void*)fm_chain_tile<false, gsdr::kGradeBf16x3>;
+  }
+  return nullptr;
+}
+
+}  // namespace
+
+// *fits = 1 when a block of the front (pfb = 0: dense at `grade`, 0 for
+// f32, 2 for bf16x2, 3 for bf16x3, with T and D; pfb = 1: PFB, f32 at any
+// grade, with K, Q and D) fits the current device's shared memory, for
+// any channel count C (grid.y covers the channels). Returns 0 or the CUDA
+// error; an unknown grade is an invalid value.
+extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
+                             int D, int* fits) {
+  (void)C;
   if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1)))
     return (int)cudaErrorInvalidValue;
-  return pfb ? (int)gsdr::block_fits((const void*)fm_chain_tile<true>,
-                                     gsdr::pfb_smem_bytes(K, Q, D), fits)
-             : (int)gsdr::block_fits((const void*)fm_chain_tile<false>,
-                                     gsdr::toeplitz_smem_bytes(T, D), fits);
+  if (pfb)
+    return (int)gsdr::block_fits((const void*)fm_chain_tile<true, 0>,
+                                 gsdr::pfb_smem_bytes(K, Q, D), fits);
+  size_t smem = 0;
+  const void* kernel = dense_tile(grade, T, D, &smem);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)gsdr::block_fits(kernel, smem, fits);
 }
 
 extern "C" const char* fm_chain_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Dense front. Shapes: buf planes (nb,), bank (2C, 2, T), table (C, 4),
-// n0_rot (1,) int32, coef (3,) = (b0, cc, a), carries (C,), audio (C, M),
+// Dense front at `grade` (as fm_chain_fits). Shapes: buf planes (nb,),
+// bank (2C, 2, T) read at f32, btab dense_mma_tables' (2, ceil(T/8),
+// ceil(C/4), 16, 2) int32 read at bf16x3 and bf16x2, table (C, 4), n0_rot
+// (1,) int32, coef (3,) = (b0, cc, a), carries (C,), audio (C, M),
 // zend/zstart (C, ntiles) scratch.
 extern "C" int fm_chain_launch(
     const void* buf_re, const void* buf_im, const void* bank,
-    const void* table, const void* n0_rot, const void* coef,
-    const void* cf_re_in, const void* cf_im_in, const void* cz_in,
-    void* audio, void* cf_re_out, void* cf_im_out, void* cz_out, void* zend,
-    void* zstart, int nb, int C, int T, int D, int M, int ntiles, float gain,
-    void* stream) {
+    const void* btab, const void* table, const void* n0_rot,
+    const void* coef, const void* cf_re_in, const void* cf_im_in,
+    const void* cz_in, void* audio, void* cf_re_out, void* cf_im_out,
+    void* cz_out, void* zend, void* zstart, int nb, int C, int T, int D,
+    int M, int ntiles, int grade, float gain, void* stream) {
   if (C < 1 || T < 1 || D < 1 || M < 1 || M != (nb - T) / D + 1 ||
       ntiles != (M + kOut - 1) / kOut)
     return (int)cudaErrorInvalidValue;
-  return run_chain<false>(buf_re, buf_im, bank, nullptr, table, n0_rot, coef,
-                          cf_re_in, cf_im_in, cz_in, audio, cf_re_out,
-                          cf_im_out, cz_out, zend, zstart, nb, C, T, 0, 0, D,
-                          M, ntiles, gain, gsdr::toeplitz_smem_bytes(T, D),
-                          stream);
+  size_t smem = 0;
+  if (dense_tile(grade, T, D, &smem) == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define GSDR_DENSE_CHAIN(G)                                                  \
+  run_chain<false, G>(buf_re, buf_im, bank, nullptr, btab, table, n0_rot,    \
+                      coef, cf_re_in, cf_im_in, cz_in, audio, cf_re_out,     \
+                      cf_im_out, cz_out, zend, zstart, nb, C, T, 0, 0, D, M, \
+                      ntiles, gain, smem, stream)
+  switch (grade) {
+    case gsdr::kGradeBf16x2:
+      return GSDR_DENSE_CHAIN(gsdr::kGradeBf16x2);
+    case gsdr::kGradeBf16x3:
+      return GSDR_DENSE_CHAIN(gsdr::kGradeBf16x3);
+    default:
+      return GSDR_DENSE_CHAIN(gsdr::kGradeF32);
+  }
+#undef GSDR_DENSE_CHAIN
 }
 
 // PFB front: channels on the Fs/K grid, D | K. hp (Q, K) polyphase taps,
@@ -381,9 +439,9 @@ extern "C" int pfb_fm_chain_launch(
       Q * K < T || M < 1 || M != (nb - T) / D + 1 ||
       ntiles != (M + kOut - 1) / kOut)
     return (int)cudaErrorInvalidValue;
-  return run_chain<true>(buf_re, buf_im, bank, hp, table, n0_rot, coef,
-                         cf_re_in, cf_im_in, cz_in, audio, cf_re_out,
-                         cf_im_out, cz_out, zend, zstart, nb, C, T, K, Q, D,
-                         M, ntiles, gain, gsdr::pfb_smem_bytes(K, Q, D),
-                         stream);
+  return run_chain<true, 0>(buf_re, buf_im, bank, hp, nullptr, table, n0_rot,
+                            coef, cf_re_in, cf_im_in, cz_in, audio,
+                            cf_re_out, cf_im_out, cz_out, zend, zstart, nb, C,
+                            T, K, Q, D, M, ntiles, gain,
+                            gsdr::pfb_smem_bytes(K, Q, D), stream);
 }

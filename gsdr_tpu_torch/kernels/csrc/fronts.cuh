@@ -21,27 +21,81 @@
 //    directly, and each thread's fold feeds only its own output, so the
 //    fold never leaves registers.
 //
-// Both fronts stage the block's input window in shared memory in
+//  - toeplitz_front_mma<kGrade, kNT>: the dense front on the tensor cores,
+//    at the JAX package's bf16x3 (kGrade 3) or bf16x2 (kGrade 2) grade
+//    (fm_chain_pallas.py, _window_dot's grade arm). See below.
+//
+// All fronts stage the block's input window in shared memory in
 // polyphase order, xp[p][k] = x[g0 + k*D + p], so neighbouring threads
 // (neighbouring outputs, D samples apart) read neighbouring words. The
 // PFB front stages kPhaseChunk phases at a time, which bounds its shared
 // memory for any D; its tap and bank tables are read as broadcasts.
+//
+// What bounds the dense front on the card, by grade: in f32, the FP32
+// FMAs, 8*C*T FLOP per output at 67 TFLOP/s; in bf16x3 and bf16x2, 3 or 2
+// tensor-core passes of the same 8*C*T at 989 TFLOP/s, 15-22x less time,
+// so the grade is bound by the bytes of the function (the window read
+// once, the outputs written once) unless the block's own staging and
+// shared-memory traffic hold it. What toeplitz_front_mma does about it:
+// the product is one real GEMM per block, rows the block's 256 outputs,
+// K = 2T (tap, plane) and N = 2 * channels, on mma.sync m16n8k16 bf16
+// with f32 accumulators. A comes from registers: each 32-bit A register
+// is the (re, im) bf16 pair of one sample, read with one shared load from
+// the polyphase window, so a Toeplitz operand whose rows overlap needs no
+// dense copy. The window is split while it is staged, hi = bf16(x),
+// lo = bf16(x - hi), as JAX's (w - wh.astype(f32)).astype(bf16). B, the
+// complex tap bank split into bf16 hi and lo on the host
+// (kernels/chain.py, dense_mma_tables), holds only the bank's even
+// columns, (gr, -gi): an odd column (gi, gr) is its even neighbour with
+// the halves swapped and one sign flipped, formed in registers, so B's
+// shared copy is half of the GEMM's B. bf16x3 runs Ah*Bh + Ah*Bl + Al*Bh,
+// bf16x2 Ah*Bh + Ah*Bl; every product of two bf16 values is exact in f32,
+// so the grade equals JAX's up to summation order.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace gsdr {
 
 constexpr int kTile = 256;        // threads per block, one output each
 constexpr int kCG = 16;           // channels per block (grid.y covers C)
 constexpr int kPhaseChunk = 16;   // PFB front: input phases staged at once
+// Grades of the dense front: the number of tensor-core passes; 0 is the
+// FP32-FMA front, toeplitz_front.
+constexpr int kGradeF32 = 0;
+constexpr int kGradeBf16x2 = 2;
+constexpr int kGradeBf16x3 = 3;
 
 // Dynamic shared memory of each front, in bytes.
 __host__ __device__ inline size_t toeplitz_smem_bytes(int T, int D) {
   const size_t kr = kTile + (T - 1) / D;
   return sizeof(float) * ((size_t)T * kCG * 2 + 2 * (size_t)D * kr);
+}
+
+// Words per phase of the tensor-core front's window: the Kr = kTile +
+// (Tp - 1)/D words a phase needs, padded to 8 mod 32, so that the four
+// taps of an A register group (four phases for D >= 4) fall on four
+// different 8-bank groups.
+__host__ __device__ inline int mma_phase_stride(int Tp, int D) {
+  const int kr = kTile + (Tp - 1) / D;
+  return kr + ((8 - kr % 32) + 32) % 32;
+}
+
+// toeplitz_front_mma's dynamic shared memory: B's hi and lo parts, the
+// tap offsets, then the window (hi, and lo at bf16x3), whose space the
+// kTile x (8*kNT + 1) output tile reuses after the product.
+__host__ __device__ inline size_t mma_smem_bytes(int grade, int nt, int T,
+                                                 int D) {
+  const size_t kb = (T + 7) / 8, tp = 8 * kb;
+  const size_t b = 2 * kb * nt * 16 * sizeof(uint2);
+  const size_t win = (grade == kGradeBf16x3 ? 2 : 1) * (size_t)D *
+                     mma_phase_stride((int)tp, D) * sizeof(uint32_t);
+  const size_t out = (size_t)kTile * (8 * nt + 1) * sizeof(float);
+  return b + tp * sizeof(int) + (win > out ? win : out);
 }
 
 __host__ __device__ inline size_t pfb_smem_bytes(int K, int Q, int D) {
@@ -115,6 +169,150 @@ __device__ __forceinline__ void toeplitz_front(
       p = 0;
       ++q;
     }
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d += a * b on the tensor cores: one m16n8k16 bf16 product, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Tensor-core dense front, grade kGrade (kGradeBf16x3 or kGradeBf16x2),
+// for the 4*kNT channels of channel group `group`: the same contract as
+// toeplitz_front, y[c, j] of the block's kTile outputs, window of output
+// row r starting at g0 + r*D, into acc_re / acc_im[4*kNT].
+//
+// btab: dense_mma_tables' int32 (2, KB, NT, 16, 2) B operand, KB =
+// ceil(T/8) blocks of 8 taps, NT = ceil(C/4) tiles of 4 channels; entry
+// [part][kb][nt][4*cl + q][i] is the bf16 (gr, -gi) pair of channel
+// 4*nt + cl at tap 8*kb + q + 4*i, plane 0 in the low half, part 0 hi and
+// 1 lo, zero past T and C. One m16n8k16 B fragment of an n-tile (8 GEMM
+// columns, 4 channels) for lane (gid, tig) is entry 4*(gid/2) + tig, the
+// odd gid taking the odd column.
+//
+// Shared memory: B for the group [2][KB][kNT][16] uint2, the offsets of
+// the taps in the window, off[t] = (t % D)*Ks + t/D, then the window
+// [parts][D][Ks] of (re, im) bf16 pairs, word (t % D)*Ks + r + t/D for
+// output row r and tap t. Eight warps each take 32 rows (two m-tiles)
+// against all kNT n-tiles.
+template <int kGrade, int kNT>
+__device__ __forceinline__ void toeplitz_front_mma(
+    unsigned char* smem, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb,
+    const uint2* __restrict__ btab, int C, int T, int D, int group, long g0,
+    float (&acc_re)[4 * kNT], float (&acc_im)[4 * kNT]) {
+  static_assert(kGrade == kGradeBf16x3 || kGrade == kGradeBf16x2,
+                "tensor-core grades are bf16x3 and bf16x2");
+  constexpr int kOS = 8 * kNT + 1;   // output tile row stride, in floats
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int KB = (T + 7) / 8, Tp = 8 * KB, NT = (C + 3) / 4;
+  const int Ks = mma_phase_stride(Tp, D);
+  uint2* bs = reinterpret_cast<uint2*>(smem);
+  int* off = reinterpret_cast<int*>(bs + 2 * KB * kNT * 16);
+  uint32_t* win = reinterpret_cast<uint32_t*>(off + Tp);
+  float* out = reinterpret_cast<float*>(win);
+
+  const int nbs = KB * kNT * 16;   // uint2 per part in shared memory
+  for (int i = tid; i < 2 * nbs; i += kTile) {
+    const int part = i / nbs, kb = (i % nbs) / (kNT * 16);
+    const int nt = (i / 16) % kNT, e = i % 16;
+    const int ntg = group * kNT + nt;
+    bs[i] = ntg < NT ? btab[((long)(part * KB + kb) * NT + ntg) * 16 + e]
+                     : make_uint2(0u, 0u);
+  }
+  for (int t = tid; t < Tp; t += kTile) off[t] = (t % D) * Ks + t / D;
+  const int Kr = kTile + (Tp - 1) / D;
+  for (int l = tid; l < D * Kr; l += kTile) {
+    const long g = g0 + l;
+    const bool in = g >= 0 && g < nb;
+    const float xr = in ? buf_re[g] : 0.f, xi = in ? buf_im[g] : 0.f;
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(xr, xi);
+    const int s = (l % D) * Ks + l / D;
+    win[s] = bf16x2_bits(hi);
+    if constexpr (kGrade == kGradeBf16x3) {
+      win[D * Ks + s] = bf16x2_bits(__floats2bfloat162_rn(
+          xr - __low2float(hi), xi - __high2float(hi)));
+    }
+  }
+  __syncthreads();
+
+  const int gid = lane >> 2, tig = lane & 3;
+  // an odd GEMM column (gi, gr) from its even neighbour (gr, -gi)
+  const uint32_t sel = (gid & 1) ? 0x1032u : 0x3210u;
+  const uint32_t flip = (gid & 1) ? 0x8000u : 0u;
+  const uint2* bl = bs + 4 * (gid >> 1) + tig;
+  const int r0 = warp * 32 + gid;
+  float d[2][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[mt][nt][i] = 0.f;
+
+  for (int kb = 0; kb < KB; ++kb) {
+    const int o0 = off[8 * kb + tig], o1 = off[8 * kb + tig + 4];
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int r = r0 + 16 * mt;
+      ah[mt][0] = win[o0 + r];
+      ah[mt][1] = win[o0 + r + 8];
+      ah[mt][2] = win[o1 + r];
+      ah[mt][3] = win[o1 + r + 8];
+      if constexpr (kGrade == kGradeBf16x3) {
+        const uint32_t* wl = win + D * Ks;
+        al[mt][0] = wl[o0 + r];
+        al[mt][1] = wl[o0 + r + 8];
+        al[mt][2] = wl[o1 + r];
+        al[mt][3] = wl[o1 + r + 8];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const uint2 h = bl[(kb * kNT + nt) * 16];
+      const uint2 l = bl[((KB + kb) * kNT + nt) * 16];
+      const uint32_t h0 = __byte_perm(h.x, 0u, sel) ^ flip;
+      const uint32_t h1 = __byte_perm(h.y, 0u, sel) ^ flip;
+      const uint32_t l0 = __byte_perm(l.x, 0u, sel) ^ flip;
+      const uint32_t l1 = __byte_perm(l.y, 0u, sel) ^ flip;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_bf16(d[mt][nt], ah[mt], h0, h1);
+        mma_bf16(d[mt][nt], ah[mt], l0, l1);
+        if constexpr (kGrade == kGradeBf16x3)
+          mma_bf16(d[mt][nt], al[mt], h0, h1);
+      }
+    }
+  }
+  __syncthreads();   // every warp is done with the window: the tile reuses it
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = r0 + 16 * mt;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int col = 8 * nt + 2 * tig;
+      out[r * kOS + col] = d[mt][nt][0];
+      out[r * kOS + col + 1] = d[mt][nt][1];
+      out[(r + 8) * kOS + col] = d[mt][nt][2];
+      out[(r + 8) * kOS + col + 1] = d[mt][nt][3];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 4 * kNT; ++c) {
+    acc_re[c] = out[tid * kOS + 2 * c];
+    acc_im[c] = out[tid * kOS + 2 * c + 1];
   }
 }
 

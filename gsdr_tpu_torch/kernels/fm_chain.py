@@ -14,7 +14,12 @@ between them at any block.
 
 ``fm_chain`` and ``pfb_fm_chain`` launch ``csrc/fm_chain.cu`` for CUDA
 tensors and take their plain versions, ``fm_chain_reference`` and
-``pfb_fm_chain_reference``, only for tensors on the CPU.
+``pfb_fm_chain_reference``, only for tensors on the CPU. The dense front
+runs at a grade (``precision``, the JAX package's): 'bf16x3', the
+kernel's default as it is ``fm_chain_pallas``'s, and 'bf16x2' on the
+tensor cores, 'f32' on the FP32 FMAs; the plain version emulates the grade
+(``chain.graded_bank_front``) and defaults to 'f32' (``chain.ChainKernel``
+says why). The PFB front runs in float32.
 """
 
 import ctypes
@@ -28,10 +33,13 @@ from gsdr_tpu_torch.kernels.chain import (
     check_operands,
     check_pfb_tables,
     cuda_error,
+    dense_mma_tables,
     front_supported,
+    grade_code,
+    graded_bank_front,
     load_chain_library,
 )
-from gsdr_tpu_torch.ops.channelize import mix_fir_decimate_bank, rotate_bank
+from gsdr_tpu_torch.ops.channelize import rotate_bank
 from gsdr_tpu_torch.ops.iir import iir_block
 from gsdr_tpu_torch.ops.pfb import uniform_bank_front
 from gsdr_tpu_torch.ops.quad_demod import quad_fm_demod
@@ -62,8 +70,9 @@ def _fm_back_end(y, lo_table, n0_rot, decimation, gain, deemph, carry_f,
 
 
 def fm_chain_reference(buf, tap_bank, lo_table, n0_rot, decimation, gain,
-                       deemph, carry_f, carry_z):
-    """The unfused chain with the dense front, op by op, in full float32.
+                       deemph, carry_f, carry_z, precision="f32"):
+    """The unfused chain with the dense front, op by op, in full float32,
+    the front at the grade ``precision`` (``graded_bank_front``).
 
     Args:
       buf: planar (Nb,) RF including the (T-1)-sample history.
@@ -75,8 +84,9 @@ def fm_chain_reference(buf, tap_bank, lo_table, n0_rot, decimation, gain,
         z[j] = cc*d[j] + a*z[j-1], out[j] = b0*d[j] + z[j-1].
       carry_f: planar (C, 1) previous rotated sample.
       carry_z: (C, 1) de-emphasis state.
+      precision: 'f32', 'bf16x3' or 'bf16x2'.
     """
-    y = mix_fir_decimate_bank(buf, tap_bank, decimation)
+    y = graded_bank_front(buf, tap_bank, decimation, precision)
     return _fm_back_end(y, lo_table, n0_rot, decimation, gain, deemph,
                         carry_f, carry_z)
 
@@ -107,7 +117,7 @@ def _library():
     """The built fm_chain library, its launch signatures declared."""
     lib = load_chain_library("fm_chain")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fm_chain_launch.argtypes = [p] * 15 + [i] * 6 + [ctypes.c_float, p]
+    lib.fm_chain_launch.argtypes = [p] * 16 + [i] * 7 + [ctypes.c_float, p]
     lib.fm_chain_launch.restype = i
     lib.pfb_fm_chain_launch.argtypes = [p] * 16 + [i] * 8 + [ctypes.c_float, p]
     lib.pfb_fm_chain_launch.restype = i
@@ -120,7 +130,8 @@ def _launch(fn, front_args, buf, lo_table, n0_rot, c, t, d, gain, deemph,
             carry_f, carry_z):
     """Check the back end's operands, allocate the outputs and scratch, and
     launch ``fn`` of the fm_chain library. ``front_args`` are the pointers
-    and the ints that come between the buffer planes and the table."""
+    that come between the buffer planes and the table, the ints between C
+    and D, and those between ntiles and the gain."""
     dev = buf.re.device
     nb = buf.re.shape[-1]
     check_operands(fn, {
@@ -141,7 +152,7 @@ def _launch(fn, front_args, buf, lo_table, n0_rot, c, t, d, gain, deemph,
     f_im = torch.empty((c, 1), dtype=torch.float32, device=dev)
     z_out = torch.empty((c, 1), dtype=torch.float32, device=dev)
     scratch = torch.empty((2, c, ntiles), dtype=torch.float32, device=dev)
-    ptrs, ints = front_args
+    ptrs, ints, tail_ints = front_args
     n0 = n0_rot.reshape(1).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -151,24 +162,28 @@ def _launch(fn, front_args, buf, lo_table, n0_rot, c, t, d, gain, deemph,
             carry_f.re.data_ptr(), carry_f.im.data_ptr(), carry_z.data_ptr(),
             audio.data_ptr(), f_re.data_ptr(), f_im.data_ptr(),
             z_out.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            nb, c, *ints, d, m, ntiles, float(gain), stream)
+            nb, c, *ints, d, m, ntiles, *tail_ints, float(gain), stream)
     cuda_error("fm_chain", f"{fn} kernel launch", err)
     return audio, ComplexArray(f_re, f_im), z_out
 
 
 def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation, gain, deemph,
-                  carry_f, carry_z):
+                  carry_f, carry_z, precision="bf16x3"):
     dev = buf.re.device
+    grade = grade_code("fm_chain", precision)
     c2, two, t = tap_bank.shape
     if two != 2 or c2 % 2:
         raise ValueError(f"fm_chain: tap_bank shape {tuple(tap_bank.shape)}")
     check_operands("fm_chain", {"tap_bank": (tap_bank, (c2, 2, t))}, dev)
-    if not front_supported("fm_chain", dev, t, decimation):
-        raise ValueError(f"fm_chain: a block for T={t}, D={decimation} does "
-                         f"not fit the card's shared memory")
-    return _launch("fm_chain", ((tap_bank.data_ptr(),), (t,)), buf, lo_table,
-                   n0_rot, c2 // 2, t, int(decimation), gain, deemph,
-                   carry_f, carry_z)
+    if not front_supported("fm_chain", dev, t, decimation,
+                           precision=precision):
+        raise ValueError(f"fm_chain: a block for T={t}, D={decimation} at "
+                         f"precision={precision!r} does not fit the card's "
+                         f"shared memory")
+    btab = dense_mma_tables(tap_bank).data_ptr() if grade else None
+    return _launch("fm_chain", ((tap_bank.data_ptr(), btab), (t,), (grade,)),
+                   buf, lo_table, n0_rot, c2 // 2, t, int(decimation), gain,
+                   deemph, carry_f, carry_z)
 
 
 def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
@@ -182,7 +197,7 @@ def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
     t = int(num_taps)
     return _launch(
         "pfb_fm_chain",
-        ((poly_taps.data_ptr(), dft_bank.data_ptr()), (t, k, q)), buf,
+        ((poly_taps.data_ptr(), dft_bank.data_ptr()), (t, k, q), ()), buf,
         lo_table, n0_rot, c, t, int(decimation), gain, deemph, carry_f,
         carry_z)
 

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from gsdr_tpu_torch.carray import ComplexArray
-from gsdr_tpu_torch.kernels.chain import select_front
+from gsdr_tpu_torch.kernels.chain import GRADES, select_front
 from gsdr_tpu_torch.kernels.fm_chain import (
     fm_chain,
     fm_chain_reference,
@@ -67,23 +67,24 @@ class FmChannelizer(nn.Module):
     Fs/K grid with D | K): the kernel on the card, the plain PFB chain on
     the CPU; 'pfb_torch' forces the plain PFB chain. Every impl keeps the
     same state, so a stream may change impl at any block.
-    ``precision``: 'f32' (FP32 FMA). ``device`` defaults to 'cuda' and
-    raises where CUDA is missing.
+    ``precision``: the dense kernel's grade, as the JAX model's: 'bf16x3'
+    (the default; taps and window split into bf16 high and low parts,
+    three tensor-core passes), 'bf16x2' (the window's high part only, two
+    passes) or 'f32' (FP32 FMA). The PFB kernel runs float32 at any
+    grade, and the plain chains run float32, as the JAX model's XLA path
+    does. ``device`` defaults to 'cuda' and raises where CUDA is missing.
     """
 
     def __init__(self, sample_rate, tuning_frequency, channel_frequencies,
                  frequency_deviation, decimation, low_pass_taps,
-                 deemphasis_tau=75e-6, impl="auto", precision="f32",
+                 deemphasis_tau=75e-6, impl="auto", precision="bf16x3",
                  device="cuda"):
         super().__init__()
         if impl not in _IMPLS:
             raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
-        if precision in ("bf16x3", "bf16x2"):
-            raise NotImplementedError(
-                f"precision={precision!r}: only the 'f32' grade is ported "
-                "(tensor-core grades are on the ROADMAP)")
-        if precision != "f32":
-            raise ValueError(f"unknown precision {precision!r}")
+        if precision not in GRADES:
+            raise ValueError(f"precision must be one of {tuple(GRADES)}, "
+                             f"got {precision!r}")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -116,7 +117,7 @@ class FmChannelizer(nn.Module):
             [b0, b0 - a1 * b0, -a1], dtype=torch.float32, device=device))
         self.pfb_grid = select_front(
             "FmChannelizer", "fm_chain", impl, shifts, self.sample_rate,
-            self.decimation, self.num_taps, device)
+            self.decimation, self.num_taps, device, precision)
         self.front = "toeplitz" if self.pfb_grid is None else "pfb"
         if self.pfb_grid is not None:
             k, bins = self.pfb_grid
@@ -176,8 +177,12 @@ class FmChannelizer(nn.Module):
             audio, new_carry, new_zi = chain(
                 buf, self.poly_taps, self.dft_bank, t, *back)
         else:
-            chain = fm_chain_reference if self.impl == "torch" else fm_chain
-            audio, new_carry, new_zi = chain(buf, self.tap_bank, *back)
+            # the plain chain runs float32 at any grade, as JAX's XLA path
+            kernel = self.impl != "torch" and buf.re.is_cuda
+            chain = fm_chain if kernel else fm_chain_reference
+            audio, new_carry, new_zi = chain(
+                buf, self.tap_bank, *back,
+                precision=self.precision if kernel else "f32")
         new_tail = buf[..., buf.shape[-1] - (t - 1):]
         n0_new = torch.remainder(n0 + n % fs, fs).to(torch.int32)
         return (n0_new, new_tail, new_carry, new_zi), audio

@@ -137,7 +137,10 @@ def test_mix_fir_decimate_bank_impls_match_jax(impl):
 def test_mix_fir_decimate_bank_cuda_needs_the_card():
     """impl='cuda' runs kernel B4 and raises for a tensor on the CPU: it
     never falls back to the conv."""
-    from gsdr_tpu_torch.kernels.channelize import channelize_kernel
+    from gsdr_tpu_torch.kernels.channelize import (
+        channelize_kernel,
+        channelize_reference,
+    )
 
     bank = tch.make_complex_tap_bank(_taps(16), SHIFTS[:2], FS)
     _, tx = _both(*_planar(256, 7))
@@ -146,8 +149,12 @@ def test_mix_fir_decimate_bank_cuda_needs_the_card():
         tch.mix_fir_decimate_bank(tx, bank, 4, impl="cuda")
     with pytest.raises(ValueError, match="impl must be"):
         tch.mix_fir_decimate_bank(tx, bank, 4, impl="pallas")
-    # the wrapper itself takes its plain version for CPU tensors, uncounted
+    # the wrapper itself takes its plain version for CPU tensors, uncounted,
+    # at the plain version's default grade f32 or the one asked for
     y = channelize_kernel(tx, torch.from_numpy(bank), 4)
     want = tch.mix_fir_decimate_bank(tx, bank, 4, impl="torch")
+    torch.testing.assert_close(y.re, want.re, rtol=0, atol=0)
+    y = channelize_kernel(tx, torch.from_numpy(bank), 4, precision="bf16x3")
+    want = channelize_reference(tx, torch.from_numpy(bank), 4, "bf16x3")
     torch.testing.assert_close(y.re, want.re, rtol=0, atol=0)
     assert channelize_kernel.launches == before

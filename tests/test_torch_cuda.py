@@ -16,10 +16,14 @@ from gsdr_tpu_torch.kernels.channelize import (
     channelize_kernel,
     channelize_reference,
 )
-from gsdr_tpu_torch.kernels.fm_chain import fm_chain, pfb_fm_chain
+from gsdr_tpu_torch.kernels.fm_chain import (
+    fm_chain,
+    fm_chain_reference,
+    pfb_fm_chain,
+)
 from gsdr_tpu_torch.kernels.qpsk256 import qpsk256_kernel, qpsk256_reference
 from gsdr_tpu_torch.ops.channelize import make_complex_tap_bank
-from gsdr_tpu_torch.ops.pfb import pfb_channelize
+from gsdr_tpu_torch.ops.pfb import _analysis_tables, _taps_key, pfb_channelize
 from gsdr_tpu_torch.ops.qpsk256 import (
     CIRCULAR,
     RECTANGULAR,
@@ -32,7 +36,7 @@ FS = 1_000_000.0
 SKIP = 256  # zero-primed warm-up outputs
 
 
-def _model(impl, num_channels, num_taps, decimation):
+def _model(impl, num_channels, num_taps, decimation, **kw):
     k = np.arange(num_taps) - (num_taps - 1) / 2.0
     h = np.sinc(2 * 0.03 * k) * np.hamming(num_taps)
     return FmChannelizer(
@@ -40,7 +44,7 @@ def _model(impl, num_channels, num_taps, decimation):
         channel_frequencies=tuple(-480_000.0 + 60_000.0 * i
                                   for i in range(num_channels)),
         frequency_deviation=75_000.0, decimation=decimation,
-        low_pass_taps=tuple(h / h.sum()), impl=impl, device="cuda")
+        low_pass_taps=tuple(h / h.sum()), impl=impl, device="cuda", **kw)
 
 
 def _fm_signal(freqs, n, seed):
@@ -169,7 +173,7 @@ def test_pfb_fm_kernel_matches_plain_and_dense_on_card(card, k, d, t, c):
     plain = _grid_model(FmChannelizer, "pfb_torch", k, d, t, c, **kw)
     dense_fits = front_supported("fm_chain", "cuda", t, d)
     dense = _grid_model(FmChannelizer, "cuda" if dense_fits else "torch",
-                        k, d, t, c, **kw)
+                        k, d, t, c, precision="f32", **kw)
     n = d * 3 * 1_000
     re, im = _grid_fm_signal(kern.channel_frequencies, 3 * n, seed=6)
     sk, sp, sd = kern.init(), plain.init(), dense.init()
@@ -300,8 +304,8 @@ def test_channelize_kernel_matches_plain_on_card(card, c, t, d):
     x = _planar_cuda(n, seed=c)
     bank = _bank(c, t)
     before = channelize_kernel.launches
-    y = channelize_kernel(x, bank, d)
-    want = channelize_reference(x, bank, d)
+    y = channelize_kernel(x, bank, d)   # the default grade, bf16x3
+    want = channelize_reference(x, bank, d, "bf16x3")
     torch.cuda.synchronize()
     assert channelize_kernel.launches == before + 1
     m = (n - t) // d + 1
@@ -331,9 +335,12 @@ def test_channelize_refuses_a_block_too_large_on_card(card):
 
 @pytest.mark.cuda
 def test_pfb_channelize_auto_routes_to_kernel_on_card(card):
-    """'auto' launches B4 once for a 1-D signal at K=32 and agrees with the
-    fold path within 2e-5 of max|y|; at K=64, or for a batch, it takes
-    the fold path."""
+    """'auto' launches B4 once for a 1-D signal at K=32, at bf16x3 as the
+    JAX package's kernel route: within 2e-5 of max|y| of the kernel's
+    plain version at that grade on the route's bank, and within 3e-4 of
+    the fold path (the grade, as tests/test_torch_pfb_banks.py holds JAX's
+    kernel route); the f32 grade on the same bank within 2e-5 of the fold
+    path. At K=64, or for a batch, it takes the fold path."""
     k = 32
     n = np.arange(8 * k) - (8 * k - 1) / 2.0
     taps = np.sinc(2 * (0.5 / k) * n) * np.hamming(8 * k)
@@ -342,12 +349,186 @@ def test_pfb_channelize_auto_routes_to_kernel_on_card(card):
     y = pfb_channelize(x, taps, k)
     assert channelize_kernel.launches == before + 1
     fold = pfb_channelize(x, taps, k, impl="torch")
+    bank = _analysis_tables(_taps_key(taps), k, x.device)[0]
+    graded = channelize_reference(x, bank, k, "bf16x3")
+    y32 = channelize_kernel(x, bank, k, precision="f32")
     scale = float(fold.re.abs().max())
-    assert float((y.re - fold.re).abs().max()) <= 2e-5 * scale
-    assert float((y.im - fold.im).abs().max()) <= 2e-5 * scale
+    for a, b, tol in ((y.re, graded.re, 2e-5), (y.im, graded.im, 2e-5),
+                      (y.re, fold.re, 3e-4), (y.im, fold.im, 3e-4),
+                      (y32.re, fold.re, 2e-5), (y32.im, fold.im, 2e-5)):
+        assert float((a - b).abs().max()) <= tol * scale
+    before = channelize_kernel.launches
     pfb_channelize(x, np.ones(4 * 64) / 256, 64)
     pfb_channelize(TCA(x.re.reshape(2, -1), x.im.reshape(2, -1)), taps, k)
-    assert channelize_kernel.launches == before + 1
+    assert channelize_kernel.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The dense front's grades: B1 and B4 at bf16x3 and bf16x2 on the tensor
+# cores, f32 on the FP32 FMAs
+# ---------------------------------------------------------------------------
+
+GRADES = ("bf16x3", "bf16x2", "f32")
+# the grade against the f32 plain chain: FM audio (of max|audio|, after the
+# warm-up; bf16x3 as the f32 kernel, bf16x2 at JAX's own gate for the
+# grade, tests/test_kernels.py test_fast_precision_grade) and B4 (of
+# max|y|)
+FM_GRADE_GAP = {"bf16x3": 1e-4, "bf16x2": 2e-2, "f32": 1e-4}
+B4_GRADE_GAP = {"bf16x3": 3e-5, "bf16x2": 1e-2, "f32": 1e-5}
+
+
+def _graded_plain_steps(model, blocks, precision):
+    """The model's stream through the plain chain at the kernel's grade
+    (fm_chain_reference with the front emulating the grade)."""
+    n0, tail, cf, cz = model.init()
+    fs, t = int(round(model.sample_rate)), model.num_taps
+    outs = []
+    for rf in blocks:
+        buf = TCA(torch.cat([tail.re, rf.re]), torch.cat([tail.im, rf.im]))
+        rot0 = torch.remainder(n0 + (fs - (t - 1) % fs), fs).to(torch.int32)
+        audio, cf, cz = fm_chain_reference(
+            buf, model.tap_bank, model.lo_table, rot0, model.decimation,
+            model.gain, model.deemph, cf, cz, precision=precision)
+        outs.append(audio)
+        tail = buf[..., buf.shape[-1] - (t - 1):]
+        n0 = torch.remainder(n0 + rf.shape[-1] % fs, fs).to(torch.int32)
+    return outs, (cf, cz)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", GRADES)
+@pytest.mark.parametrize("c,t,d", [(16, 64, 4), (5, 61, 4), (20, 33, 3)])
+def test_fm_kernel_grades_match_plain_on_card(card, c, t, d, grade):
+    """B1 at each grade, two streamed blocks through FmChannelizer(impl=
+    'cuda', precision=grade): within 1e-4 of max|audio| of the plain chain
+    at that grade after the warm-up, carries within 1e-4; and within the
+    grade's gap of the f32 plain chain (FM_GRADE_GAP)."""
+    kern = _model("cuda", c, t, d, precision=grade)
+    plain = _model("torch", c, t, d)
+    n = 3 * 21_000
+    re, im = _fm_signal(kern.channel_frequencies, 2 * n, seed=6)
+    blocks = [TCA(re[i * n:(i + 1) * n], im[i * n:(i + 1) * n])
+              for i in range(2)]
+    sk, sp = kern.init(), plain.init()
+    before = fm_chain.launches
+    graded, (gcf, gcz) = _graded_plain_steps(kern, blocks, grade)
+    for i, rf in enumerate(blocks):
+        sk, yk = kern.step(sk, rf)
+        sp, yp = plain.step(sp, rf)
+        skip = SKIP if i == 0 else 0
+        for want, tol in ((graded[i], 1e-4), (yp, FM_GRADE_GAP[grade])):
+            err = (yk - want)[:, skip:].abs().max() / want[:, skip:].abs().max()
+            assert float(err) <= tol
+    assert fm_chain.launches == before + 2
+    for a, b in ((sk[2].re, gcf.re), (sk[2].im, gcf.im), (sk[3], gcz)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", GRADES)
+@pytest.mark.parametrize("c,t,d", CHANNELIZE_GEOMETRIES + [(20, 33, 3)])
+def test_channelize_kernel_grades_match_plain_on_card(card, c, t, d, grade):
+    """B4 at each grade against its plain version at that grade (within
+    1e-5 of max|y|) and against the f32 plain version (B4_GRADE_GAP)."""
+    n = t + d * (5 * 256 + 37)
+    x = _planar_cuda(n, seed=c + 1)
+    bank = _bank(c, t)
+    y = channelize_kernel(x, bank, d, precision=grade)
+    want = channelize_reference(x, bank, d, grade)
+    exact = channelize_reference(x, bank, d)
+    torch.cuda.synchronize()
+    scale = float(torch.maximum(exact.re.abs().max(), exact.im.abs().max()))
+    for ref, tol in ((want, 1e-5), (exact, B4_GRADE_GAP[grade])):
+        for a, b in ((y.re, ref.re), (y.im, ref.im)):
+            assert float((a - b).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_grades_fit_and_refuse_on_card(card):
+    """Each library answers for each grade of its dense front: the
+    flagship, the transmux and the FM wideband shapes fit at every grade,
+    T=1021 at D=128 fits at none (FmChannelizer and the wrappers raise
+    before any launch); a grade a library lacks raises."""
+    for grade in GRADES:
+        for lib, t, d in (("fm_chain", 64, 4), ("fm_chain", 512, 64),
+                          ("channelize", 256, 32), ("channelize", 128, 16)):
+            assert front_supported(lib, "cuda", t, d, precision=grade)
+        for lib in ("fm_chain", "channelize"):
+            assert not front_supported(lib, "cuda", 1021, 128,
+                                       precision=grade)
+        with pytest.raises(ValueError, match="shared memory"):
+            _model("cuda", 4, 1021, 128, precision=grade)
+        x = _planar_cuda(1021 + 128 * 300, seed=2)
+        before = channelize_kernel.launches
+        with pytest.raises(ValueError, match="shared memory"):
+            channelize_kernel(x, _bank(4, 1021), 128, precision=grade)
+        assert channelize_kernel.launches == before
+    with pytest.raises(RuntimeError, match="am_chain_fits"):
+        front_supported("am_chain", "cuda", 32, 4, precision="bf16x3")
+    x = _planar_cuda(4096, seed=5)
+    with pytest.raises(ValueError, match="precision must be"):
+        channelize_kernel(x, _bank(4, 32), 4, precision="tf32")
+    model = _model("cuda", 2, 8, 4)
+    n0, _, cf, cz = model.init()
+    buf = TCA(torch.zeros(1031, device="cuda"), torch.zeros(1031, device="cuda"))
+    before = fm_chain.launches
+    with pytest.raises(ValueError, match="precision must be"):
+        fm_chain(buf, model.tap_bank, model.lo_table, n0, 4, model.gain,
+                 model.deemph, cf, cz, precision="bf16")
+    assert fm_chain.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
+def test_channelize_block_follows_channels_on_card(card, grade):
+    """At the bf16 grades B4 takes 16 channels per block up to C=16 and 32
+    above, and its fits check answers for the block of the call: T=1024 at
+    D=1 fits the 16-channel block only. C=16 launches and matches its plain
+    version within 4e-5 of max|y|: float32 sums of 3*T products in other
+    orders, whose error grows with T (1e-5 holds to T=256, and 1024 taps
+    read 1.06e-5 at bf16x3 on the H100); C=17 is refused before any
+    launch, and so is a check that names no C (any C)."""
+    t, d = 1024, 1
+    assert front_supported("channelize", "cuda", t, d, precision=grade,
+                           num_channels=16)
+    for c in (17, None):
+        assert not front_supported("channelize", "cuda", t, d,
+                                   precision=grade, num_channels=c)
+    x = _planar_cuda(t + d * (2 * 256 + 37), seed=8)
+    bank = _bank(16, t)
+    y = channelize_kernel(x, bank, d, precision=grade)
+    want = channelize_reference(x, bank, d, grade)
+    scale = float(torch.maximum(want.re.abs().max(), want.im.abs().max()))
+    for a, b in ((y.re, want.re), (y.im, want.im)):
+        assert float((a - b).abs().max()) <= 4e-5 * scale
+    before = channelize_kernel.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        channelize_kernel(x, _bank(17, t), d, precision=grade)
+    assert channelize_kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", GRADES)
+def test_model_grade_routes_to_kernel_on_card(card, grade):
+    """FmChannelizer(precision=grade) on the card: 'auto' takes the dense
+    front at the flagship shape and launches B1 at that grade, one launch
+    per step; the default grade is bf16x3."""
+    assert _model("auto", 16, 64, 4).precision == "bf16x3"
+    m = FmChannelizer(
+        sample_rate=FS, tuning_frequency=0.0,
+        channel_frequencies=tuple(-480_000.0 + 60_000.0 * i for i in range(16)),
+        frequency_deviation=75_000.0, decimation=4,
+        low_pass_taps=tuple(np.hamming(64) / np.hamming(64).sum()),
+        precision=grade, device="cuda")
+    assert m.front == "toeplitz" and m.precision == grade
+    re, im = _fm_signal(m.channel_frequencies, 8192, seed=1)
+    before = fm_chain.launches
+    st = m.init()
+    for i in range(2):
+        st, y = m.step(st, TCA(re[i * 4096:(i + 1) * 4096],
+                               im[i * 4096:(i + 1) * 4096]))
+        assert bool(torch.isfinite(y).all())
+    assert fm_chain.launches == before + 2
 
 
 @pytest.mark.cuda

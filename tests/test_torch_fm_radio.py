@@ -203,10 +203,16 @@ def test_fm_chain_wrapper_takes_plain_version_on_cpu():
     n0, _, cf, cz = tm.init()
     args = (buf, tm.tap_bank, tm.lo_table, n0, 4, tm.gain, tm.deemph, cf, cz)
     before = fm_chain.launches
-    got, want = fm_chain(*args), fm_chain_reference(*args)
+    # the plain version at its own default grade, f32, or at the grade
+    # asked for
+    for kw, want in (({}, fm_chain_reference(*args, precision="f32")),
+                     ({"precision": "bf16x3"},
+                      fm_chain_reference(*args, precision="bf16x3"))):
+        got = fm_chain(*args, **kw)
+        for g, w in zip((got[0], got[1].re, got[2]),
+                        (want[0], want[1].re, want[2])):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert fm_chain.launches == before  # no kernel launched for CPU tensors
-    for g, w in zip((got[0], got[1].re, got[2]), (want[0], want[1].re, want[2])):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 # -- wideband uniform grid: the PFB front ------------------------------------

@@ -63,9 +63,13 @@ def test_impl_checks():
         assert FmChannelizer(**CFG, impl=impl, device="cpu").front == "pfb"
     with pytest.raises(ValueError, match="impl must be"):
         FmChannelizer(**CFG, impl="pfb_pallas", device="cpu")
-    for grade in ("bf16x3", "bf16x2"):
-        with pytest.raises(NotImplementedError, match="f32"):
-            FmChannelizer(**CFG, precision=grade, device="cpu")
+    # the JAX package's grades construct, bf16x3 by default as in JAX
+    assert FmChannelizer(**CFG, device="cpu").precision == "bf16x3"
+    for grade in ("bf16x3", "bf16x2", "f32"):
+        assert FmChannelizer(**CFG, precision=grade,
+                             device="cpu").precision == grade
+    with pytest.raises(ValueError, match="precision must be"):
+        FmChannelizer(**CFG, precision="bf16", device="cpu")
     with pytest.raises(ValueError):
         FmChannelizer(**CFG, impl="xla", device="cpu")
 
