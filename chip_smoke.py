@@ -17,16 +17,21 @@ full width, 2^20 planar complex samples per step:
      host's: it swings with the process's history and does not rank the
      grades, tools/probe_grades.py steps);
   4. FM wideband critical (64 channels on the Fs/64 grid, 512 taps, D=64;
-     benchmarks/run_all.py bench_fm_wideband): B2 (PFB front) against its
-     plain version and against B1 over two steps, 8 steps through
-     impl='auto' counted (it must take B2) with all 64 tones recovered,
-     then timing of B2 and of the step through B2 and through B1;
-  5. FM wideband D=8 (P=8 phases): B2 against its plain version and B1;
+     benchmarks/run_all.py bench_fm_wideband): B2 (PFB front) at each
+     grade against its plain version at that grade and against the f32
+     plain chain over two steps (f32 also against B1), 8 steps through
+     impl='auto' counted (it must take B2 at bf16x3, the default) with all
+     64 tones recovered, then timing of B2 at each grade on the main
+     path's buffers (bf16x2 and f32 through uncounted wrapper calls), and
+     of the step through B2 and through B1;
+  5. FM wideband D=8 (P=8 phases): B2 at each grade against its plain
+     version and the f32 chain, and timed; B1 at f32;
   6. AM wideband critical (run_all.py bench_am_wideband) and the 8-channel
-     AM receiver of __graft_entry__.py (am_d): B3 on both fronts against
-     the plain versions and each other, 8 steps of each through
-     impl='auto' counted (PFB front on the grid, dense off it), tones
-     checked, then timing;
+     AM receiver of __graft_entry__.py (am_d): B3-PFB and B3-dense at
+     each grade against their plain versions at that grade and the f32
+     plain chain, the two fronts against each other at f32, 8 steps of
+     each through impl='auto' at bf16x3 counted (PFB front on the grid,
+     dense off it), tones checked, then timing per grade;
   7. the channelized QPSK link (examples/qpsk_transmux.py at K=32, Q=8):
      32 x 32768 symbols per block through pfb_synthesize_block, AWGN at
      25 dB, then 8 blocks of 2^20 samples through
@@ -57,8 +62,8 @@ full width, 2^20 planar complex samples per step:
      after Chain.init (40 B5 launches and nothing else), against the same
      chain with plain IIR stages, the tone checked, step time and idle
      share;
- 11. prints one JSON `kernels` line (B1 and B4 once per grade, B2,
-     B3-dense, B3-PFB, B6, B5) and, last, {"ok": true, "device": {...}}.
+ 11. prints one JSON `kernels` line (B1, B2, B3-PFB, B3-dense and B4 once
+     per grade, B6, B5) and, last, {"ok": true, "device": {...}}.
 
 Timing: CUDA events around bursts of back-to-back calls (median of
 bursts) and device time per kernel from torch.profiler. Launches made to
@@ -165,6 +170,9 @@ PASSES = {"bf16x3": 3, "bf16x2": 2, "f32": 0}
 # JAX's kernel route)
 FM_GRADE_TOL = {"bf16x3": 1e-4, "bf16x2": 2e-2, "f32": 1e-4}
 B4_FOLD_TOL = {"bf16x3": 3e-4, "bf16x2": 1e-2, "f32": 2e-5}
+# B3 at a grade against the f32 plain chain, envelopes absolute: bf16x3 at
+# JAX's test_pfb_front_matches_xla gate, bf16x2 at its grade's 2e-2
+AM_GRADE_TOL = {"bf16x3": 2e-3, "bf16x2": 2e-2, "f32": ENV_ATOL}
 COUNTERS = {"fm_chain": fm_chain, "pfb_fm_chain": pfb_fm_chain,
             "am_chain": am_chain, "pfb_am_chain": pfb_am_chain,
             "channelize": channelize_kernel, "qpsk256": qpsk256_kernel,
@@ -191,6 +199,8 @@ DENSE_LIBRARY = "F.conv1d of the tap bank (front only), TF32 off"
 TF32_LIBRARY = "F.conv1d of the tap bank (front only), TF32 on"
 PFB_LIBRARY = ("grouped F.conv1d fold + torch.matmul DFT bank "
                "(front only), TF32 off")
+PFB_TF32_LIBRARY = ("grouped F.conv1d fold + torch.matmul DFT bank "
+                    "(front only), TF32 on")
 
 
 def check(cond, what):
@@ -234,9 +244,10 @@ def fm_wideband(impl, decimation=GRID, **kw):
 
 
 class PlainAtGrade:
-    """A dense FM model's stream through the plain chain with the front at
-    the model's grade (fm_chain_reference(precision=...)), stepped as the
-    model steps: the kernel's plain version on a stream."""
+    """A model's stream through the plain chain with its front at the
+    model's grade (fm_chain_reference, pfb_fm_chain_reference,
+    am_chain_reference or pfb_am_chain_reference with precision=...),
+    stepped as the model steps: the kernel's plain version on a stream."""
 
     def __init__(self, model):
         self.model = model
@@ -247,36 +258,44 @@ class PlainAtGrade:
 
     def step(self, state, rf):
         m = self.model
-        n0, tail, cf, cz = state
+        n0, tail, *carries = state
         fs, t = int(round(m.sample_rate)), m.num_taps
         buf = ComplexArray(torch.cat([tail.re, rf.re]),
                            torch.cat([tail.im, rf.im]))
         rot0 = torch.remainder(n0 + (fs - (t - 1) % fs), fs).to(torch.int32)
-        audio, cf, cz = fm_chain_reference(
-            buf, m.tap_bank, m.lo_table, rot0, m.decimation, m.gain,
-            m.deemph, cf, cz, precision=m.precision)
+        pfb = m.front == "pfb"
+        front = (m.poly_taps, m.dft_bank, t) if pfb else (m.tap_bank,)
+        if isinstance(m, FmChannelizer):
+            ref = pfb_fm_chain_reference if pfb else fm_chain_reference
+            audio, *carries = ref(buf, *front, m.lo_table, rot0, m.decimation,
+                                  m.gain, m.deemph, *carries,
+                                  precision=m.precision)
+        else:
+            ref = pfb_am_chain_reference if pfb else am_chain_reference
+            audio = ref(buf, *front, m.lo_table, rot0, m.decimation,
+                        precision=m.precision)
         n0 = torch.remainder(n0 + rf.shape[-1] % fs, fs).to(torch.int32)
-        return (n0, buf[..., buf.shape[-1] - (t - 1):], cf, cz), audio
+        return (n0, buf[..., buf.shape[-1] - (t - 1):], *carries), audio
 
 
-def am_wideband(impl):
+def am_wideband(impl, **kw):
     """benchmarks/run_all.py bench_am_wideband: the same grid and filter,
     D=64."""
     return AmReceiver(
         sample_rate=FS, tuning_frequency=0.0,
         channel_frequencies=tuple(-(FS / GRID) * i for i in range(GRID)),
         decimation=GRID, low_pass_taps=lowpass(8 * GRID, 0.4 / GRID),
-        impl=impl, device="cuda")
+        impl=impl, device="cuda", **kw)
 
 
-def am_d(impl):
+def am_d(impl, **kw):
     """The 8-channel AM receiver of __graft_entry__.py (am_d)."""
     return AmReceiver(
         sample_rate=FS, tuning_frequency=TUNING,
         channel_frequencies=tuple(TUNING - 200_000.0 + 50_000.0 * i
                                   for i in range(8)),
         decimation=4, low_pass_taps=lowpass(32, 0.04), impl=impl,
-        device="cuda")
+        device="cuda", **kw)
 
 
 def _time_axis(start, n):
@@ -465,9 +484,9 @@ def compare_fm(kern, others, signal, steps=2, tol=AUDIO_REL_TOL):
     return max_abs, worst
 
 
-def compare_am(models, signal, steps=2):
+def compare_am(models, signal, steps=2, tol=ENV_ATOL):
     """Stream `steps` blocks through every model; all envelopes within
-    ENV_ATOL of the first's. Returns the worst max-abs error."""
+    tol (absolute) of the first's. Returns the worst max-abs error."""
     states = [m.init() for m in models]
     worst = 0.0
     for i in range(steps):
@@ -480,7 +499,7 @@ def compare_am(models, signal, steps=2):
         for j in range(1, len(models)):
             d = float((outs[0] - outs[j]).abs().max())
             worst = max(worst, d)
-            check(d <= ENV_ATOL, f"AM {models[0].impl} vs {models[j].impl} "
+            check(d <= tol, f"AM {models[0].impl} vs {models[j].impl} "
                   f"step {i}: envelope differs by {d:.3g}")
     return worst
 
@@ -578,38 +597,58 @@ def table_bytes(model):
     return 4.0 * model.tap_bank.numel()
 
 
+def tensor_ops(model, m, grade):
+    """(tensor-core FLOP, FP32 FLOP beside them, back end excluded) of the
+    model's front at a bf16 grade over m outputs, or None at f32: the
+    dense front's passes x 8*C*T per output; the PFB front's passes x
+    8*C*K of the DFT-bank product plus its 4*T fold on the FP32 units."""
+    if not PASSES[grade]:
+        return None
+    c, t = model.num_channels, model.num_taps
+    if model.front == "pfb":
+        return PASSES[grade] * 8.0 * c * model.pfb_grid[0] * m, 4.0 * t * m
+    return PASSES[grade] * 8.0 * c * t * m, 0.0
+
+
 def fm_bound(model, nb, grade="f32"):
     """(FLOPs, bytes, tensor) of one FM chain call over an nb-sample
     buffer: the cheapest FP32 front plus the back end's 16 operations per
     output and channel (rotor and discriminator products, de-emphasis; the
     sincos and atan2 left out), and the buffer, tables and carries in, the
-    audio and carries out. At a bf16 grade the dense product on the tensor
-    cores is another algorithm for the front: its passes x 8*C*T per
-    output, the back end beside it (``tensor``)."""
+    audio and carries out. At a bf16 grade the front's product on the
+    tensor cores is another algorithm (``tensor_ops``), the back end
+    beside it (``tensor``)."""
     c, t, d = model.num_channels, model.num_taps, model.decimation
     m = (nb - t) // d + 1
     io = 4 * (2 * nb + 4 * c + 3 + 3 * c + c * m + 3 * c)
-    tensor = ((PASSES[grade] * 8.0 * c * t * m, 16.0 * c * m)
-              if PASSES[grade] else None)
+    tensor = tensor_ops(model, m, grade)
+    if tensor is not None:
+        tensor = (tensor[0], tensor[1] + 16.0 * c * m)
     return ((front_flops(model) + 16.0 * c) * m, io + table_bytes(model),
             tensor)
 
 
-def am_bound(model, nb):
+def am_bound(model, nb, grade="f32"):
     """As fm_bound for the AM chain: the cheapest front plus ~8 operations
     of envelope per output and channel; the buffer and tables in, the
     audio out."""
     c, t, d = model.num_channels, model.num_taps, model.decimation
     m = (nb - t) // d + 1
+    tensor = tensor_ops(model, m, grade)
+    if tensor is not None:
+        tensor = (tensor[0], tensor[1] + 8.0 * c * m)
     return ((front_flops(model) + 8.0 * c) * m,
-            4.0 * (2 * nb + c * m) + table_bytes(model))
+            4.0 * (2 * nb + c * m) + table_bytes(model), tensor)
 
 
-def pfb_front_library(model, buf):
+def pfb_front_library(model, buf, tf32=False):
     """The library yardstick of the PFB front alone: a grouped F.conv1d
-    fold per phase and one torch.matmul with the DFT bank, TF32 off."""
+    fold per phase and one torch.matmul with the DFT bank, TF32 off (the
+    f32 yardstick) or on (the nearest library grade to the bf16 ones)."""
     def run():
         with full_f32():
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
             uniform_bank_front(buf, model.poly_taps, model.dft_bank,
                                model.num_taps, model.decimation)
     return run
@@ -628,8 +667,8 @@ def conv_library(buf, bank, decimation, tf32=False):
     return run
 
 
-def dense_front_library(model, buf):
-    return conv_library(buf, model.tap_bank, model.decimation)
+def dense_front_library(model, buf, tf32=False):
+    return conv_library(buf, model.tap_bank, model.decimation, tf32)
 
 
 def kernel_entry(name, source, replaces, launches, max_abs, timing, bnd,
@@ -734,35 +773,52 @@ def flagship_phase():
     return entries
 
 
-def fm_wideband_phase():
-    """Phase 4: B2 at FM wideband critical; returns its entry."""
-    # B1 as B2's A/B partner at the f32 grade, both fronts exact
-    kern, plain, dense = (fm_wideband("pfb"), fm_wideband("pfb_torch"),
-                          fm_wideband("cuda", precision="f32"))
-    check(kern.front == "pfb" and kern.pfb_grid[0] == GRID, "B2 grid")
-    max_abs, rel_plain = compare_fm(kern, [plain], wideband_fm_signal)
-    _, rel_dense = compare_fm(kern, [dense], wideband_fm_signal)
-    print(f"pfb_fm_chain (K=64, D=64) vs plain: max-abs {max_abs:.3g}, rel "
-          f"{rel_plain:.3g}; vs dense fm_chain: rel {rel_dense:.3g} "
-          f"(tol {AUDIO_REL_TOL}), carries atol {CARRY_ATOL}")
+def pfb_fm_grades(decimation):
+    """B2 at each grade at the wideband grid with D = decimation: against
+    its plain version at the grade and the f32 plain chain over two steps
+    (and at f32 against B1); returns ({grade: (max-abs, rel plain, rel
+    f32)}, the dense f32 model)."""
+    plain = fm_wideband("pfb_torch", decimation)
+    dense = fm_wideband("cuda", decimation, precision="f32")
+    out = {}
+    for grade in GRADES:
+        kern = fm_wideband("pfb", decimation, precision=grade)
+        check(kern.front == "pfb" and kern.pfb_grid[0] == GRID, "B2 grid")
+        max_abs, rel_plain = compare_fm(kern, [PlainAtGrade(kern)],
+                                        wideband_fm_signal)
+        _, rel_f32 = compare_fm(kern, [plain], wideband_fm_signal,
+                                tol=FM_GRADE_TOL[grade])
+        if grade == "f32":
+            _, rel_dense = compare_fm(kern, [dense], wideband_fm_signal)
+            print(f"pfb_fm_chain (K=64, D={decimation}) at f32 vs dense "
+                  f"fm_chain: rel {rel_dense:.3g} (tol {AUDIO_REL_TOL})")
+        print(f"pfb_fm_chain (K=64, D={decimation}) at {grade} vs its plain "
+              f"version: max-abs {max_abs:.3g}, rel {rel_plain:.3g} (tol "
+              f"{AUDIO_REL_TOL}); vs the f32 plain chain: rel {rel_f32:.3g} "
+              f"(tol {FM_GRADE_TOL[grade]}), carries scaled alike")
+        out[grade] = (max_abs, rel_plain, rel_f32)
+    return out, dense
 
+
+def fm_wideband_phase():
+    """Phase 4: B2 at FM wideband critical at each grade; returns its
+    entries, one per grade (bf16x3 the main path's)."""
+    errs, dense = pfb_fm_grades(GRID)
     model = fm_wideband("auto")
-    check(model.front == "pfb", "'auto' must take the PFB front here")
+    check(model.front == "pfb" and model.precision == "bf16x3",
+          "'auto' must take the PFB front at bf16x3 here")
     blocks = [wideband_fm_signal(model, i * N, N, seed=11)
               for i in range(STEPS)]
     outs, got = main_path(model, blocks, {"pfb_fm_chain": STEPS})
     check_tones(outs[-1], model.audio_rate, grid_tone, "FM wideband")
-    print(f"main path: FM wideband critical, {STEPS} steps, launches {got}, "
-          f"all {GRID} tones recovered")
+    print(f"main path: FM wideband critical at bf16x3, {STEPS} steps, "
+          f"launches {got}, all {GRID} tones recovered")
 
     buf = buffer(model, blocks[0])
     n0, _, cf, cz = model.init()
     args = (buf, model.poly_taps, model.dft_bank, model.num_taps,
             model.lo_table, n0, model.decimation, model.gain, model.deemph,
             cf, cz)
-    timing = time_kernel(pfb_fm_chain, pfb_fm_chain_reference,
-                         pfb_front_library(model, buf), args)
-    bnd = bound(*fm_bound(model, buf.re.shape[-1]))
     steps = {}
     for impl, m in (("auto", model), ("cuda", dense)):
         step_ms, step_dev, idle = time_step(m, blocks[0])
@@ -775,84 +831,122 @@ def fm_wideband_phase():
     dense_ms = {g: cuda_ms(lambda: fm_chain(*d_args, precision=g), reps=10)
                 for g in GRADES}
     fm_chain.launches = before
+    tf32_ms = cuda_ms(pfb_front_library(model, buf, tf32=True), reps=20)
+    entries, by_grade = [], {}
+    for grade in GRADES:
+        timing = time_kernel(pfb_fm_chain, pfb_fm_chain_reference,
+                             pfb_front_library(model, buf), args,
+                             precision=grade)
+        flops, nbytes, tensor = fm_bound(model, buf.re.shape[-1], grade)
+        bnd = bound(flops, nbytes, tensor)
+        by_grade[grade] = {
+            "kernel_ms": timing[0], "kernel_device_us": timing[1],
+            "kernel_device_ms": sum(timing[1].values()) / 1e3,
+            "plain_ms": timing[2], "bound_us": bnd[0] * 1e3,
+            "bound_by": bnd[1],
+            "tensor_gflop": tensor[0] / 1e9 if tensor else 0.0,
+            "vs_plain_rel": errs[grade][1], "vs_f32_rel": errs[grade][2]}
+        main = grade == "bf16x3"
+        entries.append(kernel_entry(
+            "pfb_fm_chain", "gsdr_tpu_torch/kernels/csrc/fm_chain.cu",
+            "gsdr_tpu/kernels/fm_chain_pallas.py:414",
+            got["pfb_fm_chain"] if main else 0, errs[grade][0], timing, bnd,
+            grade=grade, main_path=main, library_tf32_ms=tf32_ms))
     print(json.dumps({
         "metric": "fm_wideband_64ch_crit_input_msps", "unit": "Msamples/s",
-        "value": steps["auto"]["msps"], "step_auto_pfb": steps["auto"],
-        "step_cuda_dense": steps["cuda"], "pfb_kernel_ms": timing[0],
-        "pfb_kernel_device_us": timing[1],
+        "value": steps["auto"]["msps"], "step_auto_pfb_bf16x3": steps["auto"],
+        "step_cuda_dense_f32": steps["cuda"], "pfb_by_grade": by_grade,
         "dense_kernel_ms_by_grade": dense_ms,
         "dense_bound_by_grade": {
             g: bound(*fm_bound(dense, buf.re.shape[-1], g)) for g in GRADES},
-        "plain_ms": timing[2], "library_ms": timing[3],
-        "library": PFB_LIBRARY,
-        "bound_ms": bnd[0], "bound_by": bnd[1], "card": CARD}))
-    return kernel_entry(
-        "pfb_fm_chain", "gsdr_tpu_torch/kernels/csrc/fm_chain.cu",
-        "gsdr_tpu/kernels/fm_chain_pallas.py:414", got["pfb_fm_chain"],
-        max_abs, timing, bnd)
+        "library_ms": entries[0]["library_ms"], "library": PFB_LIBRARY,
+        "library_tf32_ms": tf32_ms, "library_tf32": PFB_TF32_LIBRARY,
+        "card": CARD}))
+    return entries
 
 
 def fm_d8_phase():
-    """Phase 5: B2 at the D=8 variant (P=8) against plain and B1, and the
-    two kernels' times there."""
-    kern, plain, dense = (fm_wideband("pfb", 8), fm_wideband("pfb_torch", 8),
-                          fm_wideband("cuda", 8, precision="f32"))
-    check(kern.pfb_grid[0] == GRID and fm_wideband("auto", 8).front == "pfb",
-          "D=8: grid and 'auto' route")
-    max_abs, rel_plain = compare_fm(kern, [plain], wideband_fm_signal)
-    _, rel_dense = compare_fm(kern, [dense], wideband_fm_signal)
+    """Phase 5: B2 at each grade at the D=8 variant (P=8) against its plain
+    version, the f32 plain chain and (f32) B1, and the kernels' times
+    there."""
+    errs, dense = pfb_fm_grades(8)
+    check(fm_wideband("auto", 8).front == "pfb", "D=8: 'auto' route")
+    kern = fm_wideband("pfb", 8)
     rf = wideband_fm_signal(kern, 0, N)
     buf = buffer(kern, rf)
     n0, _, cf, cz = kern.init()
     back = (kern.lo_table, n0, 8, kern.gain, kern.deemph, cf, cz)
     before = counts()
-    pfb_ms = cuda_ms(lambda: pfb_fm_chain(buf, kern.poly_taps, kern.dft_bank,
-                                          kern.num_taps, *back), reps=10)
+    by_grade = {}
+    for grade in GRADES:
+        call = lambda: pfb_fm_chain(buf, kern.poly_taps, kern.dft_bank,
+                                    kern.num_taps, *back, precision=grade)
+        dev = device_us(call, reps=10)
+        by_grade[grade] = {
+            "kernel_ms": cuda_ms(call, reps=10), "kernel_device_us": dev,
+            "kernel_device_ms": sum(dev.values()) / 1e3,
+            "bound": bound(*fm_bound(kern, buf.re.shape[-1], grade)),
+            "max_abs": errs[grade][0], "vs_plain_rel": errs[grade][1],
+            "vs_f32_rel": errs[grade][2]}
     dense_ms = cuda_ms(lambda: fm_chain(buf, dense.tap_bank, *back,
                                         precision="f32"), reps=4)
     for name, k in COUNTERS.items():
         k.launches = before[name]
     print(json.dumps({
-        "phase": "fm_wideband_64ch_d8", "pfb_vs_plain_rel": rel_plain,
-        "pfb_vs_dense_rel": rel_dense, "pfb_max_abs": max_abs,
-        "pfb_kernel_ms": pfb_ms,
-        "pfb_bound": bound(*fm_bound(kern, buf.re.shape[-1])),
-        "dense_kernel_ms": dense_ms,
-        "dense_bound": bound(*fm_bound(dense, buf.re.shape[-1])),
+        "phase": "fm_wideband_64ch_d8", "pfb_by_grade": by_grade,
+        "dense_f32_kernel_ms": dense_ms,
+        "dense_f32_bound": bound(*fm_bound(dense, buf.re.shape[-1])),
         "card": CARD}))
 
 
+def am_grades(make, what):
+    """B3 on one front at each grade (make(impl, precision=...)) against its
+    plain version at the grade and the f32 plain chain; returns {grade:
+    (max-abs vs plain, max-abs vs f32)}."""
+    plain = make("pfb_torch" if what == "pfb" else "torch")
+    out = {}
+    for grade in GRADES:
+        kern = make("pfb" if what == "pfb" else "cuda", precision=grade)
+        err = compare_am([kern, PlainAtGrade(kern)], am_signal)
+        gap = compare_am([kern, plain], am_signal, tol=AM_GRADE_TOL[grade])
+        print(f"AM {what} at {grade}: vs its plain version {err:.3g} (tol "
+              f"{ENV_ATOL}), vs the f32 plain chain {gap:.3g} (tol "
+              f"{AM_GRADE_TOL[grade]}, absolute)")
+        out[grade] = (err, gap)
+    return out
+
+
 def am_phase():
-    """Phase 6: B3 on both fronts; returns the two entries."""
-    pfb, pfb_plain, dense, dense_plain = (
-        am_wideband("pfb"), am_wideband("pfb_torch"), am_wideband("cuda"),
-        am_wideband("torch"))
-    err_pfb = compare_am([pfb, pfb_plain], am_signal)
-    err_dense = compare_am([dense, dense_plain], am_signal)
+    """Phase 6: B3 on both fronts at each grade; returns their entries,
+    one per front and grade (bf16x3 the main paths')."""
+    err_pfb = am_grades(am_wideband, "pfb")
+    err_am_d = am_grades(am_d, "dense")
+    pfb, dense = (am_wideband("pfb", precision="f32"),
+                  am_wideband("cuda", precision="f32"))
+    err_dense = compare_am([dense, am_wideband("torch")], am_signal)
     err_fronts = compare_am([pfb, dense], am_signal)
-    err_am_d = compare_am([am_d("cuda"), am_d("torch")], am_signal)
-    print(f"AM wideband: pfb_am_chain vs plain {err_pfb:.3g}, am_chain vs "
-          f"plain {err_dense:.3g}, fronts {err_fronts:.3g}; am_d shape "
-          f"am_chain vs plain {err_am_d:.3g} (tol {ENV_ATOL} absolute)")
+    print(f"AM wideband at f32: am_chain vs plain {err_dense:.3g}, fronts "
+          f"{err_fronts:.3g} (tol {ENV_ATOL} absolute)")
     # the dense front on the wideband grid, the A/B partner of B3-PFB
     buf = buffer(dense, am_signal(dense, 0, N))
     args = (buf, dense.tap_bank, dense.lo_table, dense.init()[0], GRID)
     before = am_chain.launches
-    dense_ms = cuda_ms(lambda: am_chain(*args), reps=10)
-    dense_dev = device_us(lambda: am_chain(*args), reps=5)
+    dense_ms = cuda_ms(lambda: am_chain(*args, precision="f32"), reps=10)
+    dense_dev = device_us(lambda: am_chain(*args, precision="f32"), reps=5)
     am_chain.launches = before
     print(json.dumps({
-        "phase": "am_wideband_dense", "kernel_ms": dense_ms,
+        "phase": "am_wideband_dense_f32", "kernel_ms": dense_ms,
         "kernel_device_us": dense_dev,
         "bound": bound(*am_bound(dense, buf.re.shape[-1])),
         "card": CARD}))
 
     entries = []
-    for model, kernel, plain, library, what, name, max_abs in (
+    for model, kernel, plain, library, what, name, errs in (
             (am_wideband("auto"), pfb_am_chain, pfb_am_chain_reference,
              pfb_front_library, PFB_LIBRARY, "pfb_am_chain", err_pfb),
             (am_d("auto"), am_chain, am_chain_reference,
              dense_front_library, DENSE_LIBRARY, "am_chain", err_am_d)):
+        check(model.precision == "bf16x3", f"AM {name}: default grade")
         blocks = [am_signal(model, i * N, N, seed=11) for i in range(STEPS)]
         outs, got = main_path(model, blocks, {name: STEPS})
         env = outs[-1]
@@ -862,8 +956,8 @@ def am_phase():
         # carriers beat with the channel's at 50 kHz in the envelope
         check_tones(env, model.audio_rate, grid_tone, f"AM {name}",
                     hi_hz=5_000.0)
-        print(f"main path: AM {name}, {STEPS} steps, launches {got}, "
-              f"tones recovered")
+        print(f"main path: AM {name} at bf16x3, {STEPS} steps, launches "
+              f"{got}, tones recovered")
         buf = buffer(model, blocks[0])
         n0 = model.init()[0]
         if model.front == "pfb":
@@ -871,20 +965,31 @@ def am_phase():
                     model.lo_table, n0, model.decimation)
         else:
             args = (buf, model.tap_bank, model.lo_table, n0, model.decimation)
-        timing = time_kernel(kernel, plain, library(model, buf), args)
         step_ms, step_dev, idle = time_step(model, blocks[0])
-        bnd = bound(*am_bound(model, buf.re.shape[-1]))
+        tf32_ms = cuda_ms(library(model, buf, tf32=True), reps=20)
+        by_grade = {}
+        for grade in GRADES:
+            timing = time_kernel(kernel, plain, library(model, buf), args,
+                                 precision=grade)
+            flops, nbytes, tensor = am_bound(model, buf.re.shape[-1], grade)
+            bnd = bound(flops, nbytes, tensor)
+            by_grade[grade] = {
+                "kernel_ms": timing[0], "kernel_device_us": timing[1],
+                "plain_ms": timing[2], "library_ms": timing[3],
+                "bound_us": bnd[0] * 1e3, "bound_by": bnd[1],
+                "vs_plain_max_abs": errs[grade][0],
+                "vs_f32_max_abs": errs[grade][1]}
+            main = grade == "bf16x3"
+            entries.append(kernel_entry(
+                name, "gsdr_tpu_torch/kernels/csrc/am_chain.cu",
+                "gsdr_tpu/kernels/fm_chain_pallas.py:551",
+                got[name] if main else 0, errs[grade][0], timing, bnd,
+                grade=grade, main_path=main, library_tf32_ms=tf32_ms))
         print(json.dumps({
             "phase": f"am_{name}", "step_ms": step_ms,
             "msps": N / (step_ms * 1e-3) / 1e6, "device_idle_share": idle,
-            "device_us_per_step": step_dev, "kernel_ms": timing[0],
-            "kernel_device_us": timing[1], "plain_ms": timing[2],
-            "library_ms": timing[3], "library": what, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "card": CARD}))
-        entries.append(kernel_entry(
-            name, "gsdr_tpu_torch/kernels/csrc/am_chain.cu",
-            "gsdr_tpu/kernels/fm_chain_pallas.py:551", got[name], max_abs,
-            timing, bnd))
+            "device_us_per_step": step_dev, "by_grade": by_grade,
+            "library": what, "library_tf32_ms": tf32_ms, "card": CARD}))
     return entries
 
 
@@ -1443,7 +1548,7 @@ def main():
         print(f"ptxas {src}:\n{rep.strip()}", file=sys.stderr)
 
     # 3-8) the receivers, the channelized link and the QPSK256 receiver
-    kernels = flagship_phase() + [fm_wideband_phase()]
+    kernels = flagship_phase() + fm_wideband_phase()
     fm_d8_phase()
     kernels += am_phase()
     kernels += transmux_phase() + [qpsk256_phase()]

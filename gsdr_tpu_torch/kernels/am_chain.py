@@ -11,7 +11,10 @@ caller's raw RF tail.
 The plain versions run the rotor, op for op as the JAX chain; the kernel
 leaves it out, because a unit phasor does not change the magnitude.
 ``am_chain`` and ``pfb_am_chain`` launch ``csrc/am_chain.cu`` for CUDA
-tensors and take the plain versions only for tensors on the CPU.
+tensors and take the plain versions only for tensors on the CPU. Both
+fronts run at a grade (``precision``), as in ``fm_chain``: 'bf16x3' (the
+kernels' default, as ``am_chain_pallas``'s), 'bf16x2', 'f32'; the plain
+versions emulate it and default to 'f32'.
 """
 
 import ctypes
@@ -24,17 +27,23 @@ from gsdr_tpu_torch.kernels.chain import (
     check_operands,
     check_pfb_tables,
     cuda_error,
+    dense_mma_tables,
     front_supported,
+    grade_code,
+    graded_bank_front,
+    graded_uniform_front,
     load_chain_library,
+    pfb_mma_tables,
 )
-from gsdr_tpu_torch.ops.channelize import mix_fir_decimate_bank, rotate_bank
-from gsdr_tpu_torch.ops.pfb import uniform_bank_front
+from gsdr_tpu_torch.ops.channelize import rotate_bank
 from gsdr_tpu_torch.ops.quad_demod import quad_am_demod
 
 
-def am_chain_reference(buf, tap_bank, lo_table, n0_rot, decimation):
-    """The unfused chain with the dense front: mix_fir_decimate_bank,
-    rotate_bank, quad_am_demod, in full float32.
+def am_chain_reference(buf, tap_bank, lo_table, n0_rot, decimation,
+                       precision="f32"):
+    """The unfused chain with the dense front at the grade ``precision``
+    (``graded_bank_front``; at 'f32' mix_fir_decimate_bank in full
+    float32), then rotate_bank, quad_am_demod.
 
     Args:
       buf: planar (Nb,) RF including the (T-1)-sample history.
@@ -42,16 +51,19 @@ def am_chain_reference(buf, tap_bank, lo_table, n0_rot, decimation):
       lo_table: (C, 4) float32 digit-fraction table (phase_digit_table).
       n0_rot: int32 scalar tensor, global raw-sample index of window 0 mod Fs.
       decimation: D.
+      precision: 'f32', 'bf16x3' or 'bf16x2'.
     """
-    y = mix_fir_decimate_bank(buf, tap_bank, decimation)
+    y = graded_bank_front(buf, tap_bank, decimation, precision)
     return quad_am_demod(rotate_bank(y, lo_table, n0_rot, decimation))
 
 
 def pfb_am_chain_reference(buf, poly_taps, dft_bank, num_taps, lo_table,
-                           n0_rot, decimation):
-    """The unfused chain with the PFB front (mix_fir_decimate_bank_uniform
-    on its (Q, K) and (2C, 2K) tables), then rotate_bank, quad_am_demod."""
-    y = uniform_bank_front(buf, poly_taps, dft_bank, num_taps, decimation)
+                           n0_rot, decimation, precision="f32"):
+    """The unfused chain with the PFB front at the grade ``precision``
+    (``graded_uniform_front`` on its (Q, K) and (2C, 2K) tables), then
+    rotate_bank, quad_am_demod."""
+    y = graded_uniform_front(buf, poly_taps, dft_bank, num_taps, decimation,
+                             precision)
     return quad_am_demod(rotate_bank(y, lo_table, n0_rot, decimation))
 
 
@@ -60,16 +72,16 @@ def _library():
     """The built am_chain library, its launch signatures declared."""
     lib = load_chain_library("am_chain")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.am_chain_launch.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.am_chain_launch.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.am_chain_launch.restype = i
-    lib.pfb_am_chain_launch.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.pfb_am_chain_launch.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.pfb_am_chain_launch.restype = i
     return lib
 
 
-def _launch(fn, ptrs, ints, buf, c, t, d):
-    """Check the buffer, allocate the audio and launch ``fn``; ``ptrs`` and
-    ``ints`` are the front's tables and sizes."""
+def _launch(fn, ptrs, ints, buf, c, t, d, grade):
+    """Check the buffer, allocate the audio and launch ``fn`` at ``grade``;
+    ``ptrs`` and ``ints`` are the front's tables and sizes."""
     dev = buf.re.device
     nb = buf.re.shape[-1]
     check_operands(fn, {"buf.re": (buf.re, (nb,)),
@@ -83,37 +95,45 @@ def _launch(fn, ptrs, ints, buf, c, t, d):
     with torch.cuda.device(dev):
         err = getattr(lib, fn + "_launch")(
             buf.re.data_ptr(), buf.im.data_ptr(), *ptrs, audio.data_ptr(),
-            nb, c, *ints, d, m, stream)
+            nb, c, *ints, d, m, grade, stream)
     cuda_error("am_chain", f"{fn} kernel launch", err)
     return audio
 
 
-def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation):
+def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation,
+                  precision="bf16x3"):
     """The dense-front kernel, on the plain version's arguments; the kernel
     reads no rotor table."""
     dev = buf.re.device
+    grade = grade_code("am_chain", precision)
     c2, two, t = tap_bank.shape
     if two != 2 or c2 % 2:
         raise ValueError(f"am_chain: tap_bank shape {tuple(tap_bank.shape)}")
     check_operands("am_chain", {"tap_bank": (tap_bank, (c2, 2, t))}, dev)
-    if not front_supported("am_chain", dev, t, decimation):
-        raise ValueError(f"am_chain: a block for T={t}, D={decimation} does "
-                         f"not fit the card's shared memory")
-    return _launch("am_chain", (tap_bank.data_ptr(),), (t,), buf, c2 // 2, t,
-                   int(decimation))
+    if not front_supported("am_chain", dev, t, decimation,
+                           precision=precision):
+        raise ValueError(f"am_chain: a block for T={t}, D={decimation} at "
+                         f"precision={precision!r} does not fit the card's "
+                         f"shared memory")
+    btab = dense_mma_tables(tap_bank).data_ptr() if grade else None
+    return _launch("am_chain", (tap_bank.data_ptr(), btab), (t,), buf,
+                   c2 // 2, t, int(decimation), grade)
 
 
 def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
-                decimation):
+                decimation, precision="bf16x3"):
     dev = buf.re.device
+    grade = grade_code("pfb_am_chain", precision)
     c, k, q = check_pfb_tables("pfb_am_chain", "am_chain", poly_taps,
-                               dft_bank, num_taps, decimation)
+                               dft_bank, num_taps, decimation, precision)
     check_operands("pfb_am_chain", {
         "poly_taps": (poly_taps, (q, k)),
         "dft_bank": (dft_bank, (2 * c, 2 * k))}, dev)
     t = int(num_taps)
-    return _launch("pfb_am_chain", (poly_taps.data_ptr(), dft_bank.data_ptr()),
-                   (t, k, q), buf, c, t, int(decimation))
+    btab = pfb_mma_tables(dft_bank).data_ptr() if grade else None
+    return _launch("pfb_am_chain",
+                   (poly_taps.data_ptr(), dft_bank.data_ptr(), btab),
+                   (t, k, q), buf, c, t, int(decimation), grade)
 
 
 am_chain = ChainKernel("am_chain", am_chain_reference, _launch_dense)

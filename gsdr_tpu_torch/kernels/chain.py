@@ -9,12 +9,13 @@
     card's shared memory. The libraries that launch a front answer it
     themselves (``<library>_fits`` in ``csrc/``), from the same geometry
     they launch with, so no copy of the geometry lives here;
-  - the grades of the dense front (``GRADES``): 'f32' on the FP32 FMAs,
+  - the grades of both fronts (``GRADES``): 'f32' on the FP32 FMAs,
     'bf16x3' and 'bf16x2' on the tensor cores, as the JAX package's
-    kernels define them; the bf16 split of the taps and the window
-    (``split_bf16``), the tensor-core front's tap table
-    (``dense_mma_tables``) and the plain version of the front at each
-    grade (``graded_bank_front``);
+    kernels define them; the bf16 split of the taps, the window and the
+    fold (``split_bf16``), the tensor-core fronts' B tables
+    (``dense_mma_tables``, ``pfb_mma_tables``) and the plain versions of
+    the fronts at each grade (``graded_bank_front``,
+    ``graded_uniform_front``);
   - ``select_front``, the receivers' choice between the dense and the PFB
     front, made once at construction.
 """
@@ -28,10 +29,15 @@ from torch.utils.weak import WeakIdKeyDictionary
 from gsdr_tpu_torch.carray import ComplexArray
 from gsdr_tpu_torch.kernels._build import load_library
 from gsdr_tpu_torch.ops.channelize import mix_fir_decimate_bank
-from gsdr_tpu_torch.ops.pfb import pfb_preferred, uniform_grid
+from gsdr_tpu_torch.ops.pfb import (
+    pfb_preferred,
+    uniform_bank_front,
+    uniform_grid,
+)
+from gsdr_tpu_torch.utils.precision import full_f32
 
-# The dense front's grades and their codes in the C interface: the number
-# of tensor-core passes, 0 for the FP32-FMA front.
+# The fronts' grades and their codes in the C interface: the number of
+# tensor-core passes, 0 for the FP32-FMA fronts.
 GRADES = {"f32": 0, "bf16x2": 2, "bf16x3": 3}
 
 
@@ -39,11 +45,12 @@ class ChainKernel:
     """Wrapper of one kernel entry point. ``launch(buf, *args, **kw)`` runs
     the kernel; ``plain(buf, *args, **kw)`` is its plain version, taken
     when the input ``buf`` (planar, or a real tensor) lies on the CPU.
-    Each takes the defaults of its own signature: the dense wrappers
-    (``fm_chain``, ``channelize_kernel``) launch at 'bf16x3', the JAX
-    kernels' default grade, and their plain versions run 'f32', as the
-    models do on the CPU (the JAX package's XLA path); a caller who wants
-    the same grade on both passes ``precision``. ``launches`` counts kernel
+    Each takes the defaults of its own signature: the graded wrappers
+    (``fm_chain``, ``pfb_fm_chain``, ``am_chain``, ``pfb_am_chain``,
+    ``channelize_kernel``) launch at 'bf16x3', the JAX kernels' default
+    grade, and their plain versions run 'f32', as the models do on the CPU
+    (the JAX package's XLA path); a caller who wants the same grade on
+    both passes ``precision``. ``launches`` counts kernel
     launches and nothing else."""
 
     def __init__(self, name, plain, launch):
@@ -64,7 +71,7 @@ class ChainKernel:
 
 
 def grade_code(fn, precision):
-    """The C interface's code of a dense-front grade; raise for another."""
+    """The C interface's code of a grade; raise for another."""
     if precision not in GRADES:
         raise ValueError(f"{fn}: precision must be one of {tuple(GRADES)}, "
                          f"got {precision!r}")
@@ -105,7 +112,88 @@ def graded_bank_front(x, tap_bank, decimation, precision="f32"):
     return y
 
 
+def graded_uniform_front(x, poly_taps, dft_bank, num_taps, decimation,
+                         precision="f32"):
+    """The plain version of the PFB front at a grade: planar (N,) x through
+    the (Q, K) polyphase taps and the planes-major (2C, 2K) DFT bank to the
+    un-rotated planar (C, M), M = (N - T)//D + 1.
+
+    'f32' is ``uniform_bank_front``. At 'bf16x3' and 'bf16x2' the fold
+    A[j, v] = sum_u hp[u, v] x[jD + v + uK] is made in float32 as the
+    kernel makes it, x*hp[0] first, then + x*hp[u] for ascending u, each
+    product and sum rounded on its own (samples past N read as zeros);
+    A and the bank are split (``split_bf16``) and the passes Gh*Ah + Gl*Ah
+    (+ Gh*Al at bf16x3) summed in full float32 in that order, as the JAX
+    package's ``_nt_grade_dot``. Every product of two bf16 values is exact
+    in float32, so this equals the grade up to summation order."""
+    grade_code("graded_uniform_front", precision)
+    if precision == "f32":
+        return uniform_bank_front(x, poly_taps, dft_bank, num_taps,
+                                  decimation)
+    q, k = poly_taps.shape
+    d = int(decimation)
+    if k % d != 0:
+        raise ValueError(f"uniform PFB needs D | K (D={d}, K={k})")
+    n = x.shape[-1]
+    m = (n - int(num_taps)) // d + 1
+    if m <= 0:
+        raise ValueError(f"need at least {num_taps} samples, got {n}")
+    span = (m - 1) * d + q * k
+    idx = (torch.arange(m, device=poly_taps.device)[:, None] * d
+           + torch.arange(k, device=poly_taps.device)[None, :])
+
+    def fold(plane):
+        xp = torch.nn.functional.pad(plane, (0, max(0, span - n)))
+        a = xp[idx] * poly_taps[0]
+        for u in range(1, q):
+            a = a + xp[idx + u * k] * poly_taps[u]
+        return a                                             # (M, K)
+
+    fold_all = torch.cat([fold(x.re), fold(x.im)], dim=1)   # (M, 2K)
+    ah, al = (p.float() for p in split_bf16(fold_all))
+    gh, gl = (p.float() for p in split_bf16(dft_bank))
+    passes = [(gh, ah), (gl, ah)]
+    if precision == "bf16x3":
+        passes.append((gh, al))
+    y = None
+    with full_f32():
+        for g, a in passes:
+            p = torch.matmul(g, a.t())                       # (2C, M)
+            y = p if y is None else y + p
+    c = dft_bank.shape[0] // 2
+    return ComplexArray(y[:c], y[c:])
+
+
+def _mma_words(w):
+    """The tensor-core B operand of a complex bank given as w (C, L, 2), the
+    even GEMM column (plane 0, plane 1) of channel c at row l: int32
+    (2, ceil(L/8), ceil(C/4), 16, 2), part 0 the bf16 high and part 1 the
+    low parts; entry [part][kb][nt][4*cl + q][i] holds row 8*kb + q + 4*i
+    of channel 4*nt + cl, plane 0 in the low 16 bits; zero past L and C."""
+    c, el, _ = w.shape
+    kb, nt = -(-el // 8), -(-c // 4)
+    padded = torch.zeros((4 * nt, 8 * kb, 2), dtype=torch.float32,
+                         device=w.device)
+    padded[:c, :el] = w
+    parts = []
+    for part in split_bf16(padded):
+        words = part.contiguous().view(torch.int32).reshape(nt, 4, kb, 2, 4)
+        parts.append(words.permute(2, 0, 1, 4, 3).reshape(kb, nt, 16, 2))
+    return torch.stack(parts).contiguous()
+
+
 _MMA_TABLES = WeakIdKeyDictionary()
+
+
+def _cached_table(bank, build):
+    """build(bank), kept while the tensor lives and rebuilt after it is
+    written in place."""
+    hit = _MMA_TABLES.get(bank)
+    if hit is not None and hit[0] == bank._version:
+        return hit[1]
+    table = build(bank)
+    _MMA_TABLES[bank] = (bank._version, table)
+    return table
 
 
 def dense_mma_tables(tap_bank):
@@ -120,21 +208,35 @@ def dense_mma_tables(tap_bank):
     Built once per bank tensor and kept while the tensor lives (a model's
     buffer, ``pfb_channelize``'s cached bank); rebuilt after the tensor is
     written in place. Callers must not write to it."""
-    hit = _MMA_TABLES.get(tap_bank)
-    if hit is not None and hit[0] == tap_bank._version:
-        return hit[1]
-    c2, _, t = tap_bank.shape
-    kb, nt = -(-t // 8), -(-c2 // 8)
-    w = torch.zeros((4 * nt, 8 * kb, 2), dtype=torch.float32,
-                    device=tap_bank.device)
-    w[:c2 // 2, :t] = tap_bank[0::2].transpose(1, 2)
-    parts = []
-    for part in split_bf16(w):
-        words = part.contiguous().view(torch.int32).reshape(nt, 4, kb, 2, 4)
-        parts.append(words.permute(2, 0, 1, 4, 3).reshape(kb, nt, 16, 2))
-    table = torch.stack(parts).contiguous()
-    _MMA_TABLES[tap_bank] = (tap_bank._version, table)
-    return table
+    return _cached_table(
+        tap_bank, lambda b: _mma_words(b[0::2].transpose(1, 2)))
+
+
+def pfb_mma_tables(dft_bank):
+    """The tensor-core PFB front's B operand for a planes-major (2C, 2K)
+    DFT bank (``ops.pfb._dft_bank_stacked``), on its device: the layout of
+    ``dense_mma_tables`` over lanes v in place of taps, int32
+    (2, ceil(K/8), ceil(C/4), 16, 2); entry [part][kb][nt][4*cl + q][i] is
+    the bf16 pair (G[c, v], G[c, K+v]) of channel c = 4*nt + cl at lane
+    v = 8*kb + q + 4*i, the split of the JAX package's ``_split_g``. The
+    bank's im rows are not stored: row C+c must be row c with its halves
+    swapped and the new first half negated, (G[c, K+v], G[c, v]) =
+    (-wi, wr) -> (wi, wr), which every DFT bank satisfies and the kernel
+    forms in registers; a bank without that structure raises. Cached per
+    tensor as ``dense_mma_tables``."""
+    def build(bank):
+        c2, k2 = bank.shape
+        c, k = c2 // 2, k2 // 2
+        re, im = bank[:c], bank[c:]
+        if c2 % 2 or k2 % 2 or not (
+                torch.equal(im[:, :k], -re[:, k:])
+                and torch.equal(im[:, k:], re[:, :k])):
+            raise ValueError(
+                "pfb_mma_tables: dft_bank must be a planes-major (2C, 2K) "
+                "DFT bank whose row C+c is (-G[c, K:], G[c, :K])")
+        return _mma_words(torch.stack([re[:, :k], re[:, k:]], dim=-1))
+
+    return _cached_table(dft_bank, build)
 
 
 def check_operands(fn, operands, dev):
@@ -189,12 +291,12 @@ def _block_fits(library, device_index, pfb, grade, channels, num_taps, k, q,
 
 def front_supported(library, device, num_taps, decimation, k=None,
                     precision="f32", num_channels=None):
-    """True when ``library``'s kernel can run this front on ``device``: the
-    dense front (``k`` None) at the grade ``precision``, or the PFB front
-    on the Fs/k grid (f32 at any grade). The PFB front needs D | k. On the
-    card a block of the kernel must also fit the shared memory, its static
-    size plus the dynamic size of this geometry and grade against the
-    device's opt-in limit; the plain chains on the CPU take any geometry.
+    """True when ``library``'s kernel can run this front on ``device`` at
+    the grade ``precision``: the dense front (``k`` None) or the PFB front
+    on the Fs/k grid, which needs D | k. On the card a block of the kernel
+    must also fit the shared memory, its static size plus the dynamic size
+    of this geometry and grade against the device's opt-in limit; the
+    plain chains on the CPU take any geometry.
     ``num_channels`` is the bank's C, on which the channelizer's block
     depends at the bf16 grades (None: any C, the widest block). A library
     without the grade raises."""
@@ -215,9 +317,10 @@ def front_supported(library, device, num_taps, decimation, k=None,
                        int(num_channels or 0), t, k or 0, q, d)
 
 
-def check_pfb_tables(fn, library, poly_taps, dft_bank, num_taps, decimation):
+def check_pfb_tables(fn, library, poly_taps, dft_bank, num_taps, decimation,
+                     precision):
     """(C, K, Q) of PFB-front tables on the card, or raise on a geometry
-    the kernel does not take."""
+    the kernel does not take at the grade ``precision``."""
     q, k = poly_taps.shape
     c2, k2 = dft_bank.shape
     d = int(decimation)
@@ -227,10 +330,11 @@ def check_pfb_tables(fn, library, poly_taps, dft_bank, num_taps, decimation):
             f"{fn}: poly_taps {tuple(poly_taps.shape)}, dft_bank "
             f"{tuple(dft_bank.shape)}, T={num_taps}, D={d}: need "
             f"(ceil(T/K), K) and (2C, 2K) with D | K")
-    if not front_supported(library, poly_taps.device, num_taps, d, k):
+    if not front_supported(library, poly_taps.device, num_taps, d, k,
+                           precision):
         raise ValueError(
-            f"{fn}: a block for K={k}, D={d}, Q={q} does not fit the "
-            f"card's shared memory")
+            f"{fn}: a block for K={k}, D={d}, Q={q} at precision="
+            f"{precision!r} does not fit the card's shared memory")
     return c2 // 2, k, q
 
 
@@ -242,12 +346,12 @@ def select_front(model, library, impl, shifts, sample_rate, decimation,
 
     'pfb' and 'pfb_torch' need every shift on an Fs/K grid with D | K
     (raise otherwise), and 'pfb' on the card needs the PFB kernel to take
-    the grid. 'auto' on the card takes the PFB front where ``pfb_preferred``
-    returns a grid and the kernel takes it, and keeps the dense front
-    otherwise; 'auto' on the CPU runs the dense plain chain, as the JAX
-    models do off the TPU. A dense kernel on the card must take the
-    geometry at the model's grade ``precision`` too. The choice is made
-    once, here, before any launch.
+    the grid at the model's grade ``precision``. 'auto' on the card takes
+    the PFB front where ``pfb_preferred`` returns a grid and the kernel
+    takes it at the grade, and keeps the dense front otherwise; 'auto' on
+    the CPU runs the dense plain chain, as the JAX models do off the TPU.
+    A dense kernel on the card must take the geometry at the grade too.
+    The choice is made once, here, before any launch.
     """
     d, t = int(decimation), int(num_taps)
     on_card = device.type == "cuda"
@@ -258,15 +362,16 @@ def select_front(model, library, impl, shifts, sample_rate, decimation,
                 f"{model}: impl={impl!r} needs every channel shift on an "
                 f"Fs/K grid with D | K (Fs={sample_rate}, D={d})")
         if impl == "pfb" and not front_supported(library, device, t, d,
-                                                 grid[0]):
+                                                 grid[0], precision):
             raise ValueError(
                 f"{model}: the PFB kernel does not take K={grid[0]}, D={d}, "
-                f"T={t}; use impl='pfb_torch' or the dense front")
+                f"T={t} at precision={precision!r}; use impl='pfb_torch' or "
+                f"the dense front")
         return grid
     if impl == "auto" and on_card:
         grid = pfb_preferred(shifts, sample_rate, d, t)
         if grid is not None and front_supported(library, device, t, d,
-                                                grid[0]):
+                                                grid[0], precision):
             return grid
     if impl in ("auto", "cuda") and not front_supported(
             library, device, t, d, precision=precision):

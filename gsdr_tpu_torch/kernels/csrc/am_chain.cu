@@ -1,20 +1,27 @@
-// Fused C-channel AM envelope chain for Hopper (sm_90a), float32 grade.
+// Fused C-channel AM envelope chain for Hopper (sm_90a), at three grades of
+// either front: f32 (FP32 FMA), bf16x3 and bf16x2 (tensor cores).
 //
 // Replaces gsdr_tpu/kernels/fm_chain_pallas.py::_am_chain_kernel with both
 // of its fronts (fronts.cuh): am_chain_launch runs the dense (toeplitz)
-// front, pfb_am_chain_launch the uniform-grid PFB front. Per decimated
-// output j and channel c it computes
+// front (_window_dot with its grade arm), pfb_am_chain_launch the
+// uniform-grid PFB front (_pfb_fold_dot with _nt_grade_dot), each at the
+// grade asked for. Per decimated output j and channel c it computes
 //   y[c,j]   = sum_t x[j*D + t] * g_c[t]                front
 //   out[c,j] = 2 * clip(|y[c,j]|, 0, 1) - 1              envelope
 // The LO rotor of the plain chain is a unit phasor and the envelope reads
 // only the magnitude, so the kernel leaves the rotor out, as the TPU kernel
 // does. Outputs are independent: no carries, one launch per call.
 //
-// What bounds it on the card: the front's FP32 FMA, exactly as in the FM
-// chain (fm_chain.cu); the envelope adds a few operations per output.
-// What the design does about that: the fronts of fronts.cuh, one thread
-// per output and 16 channels per block in registers; the envelope is
-// applied in registers and written once, coalesced along j.
+// What bounds it on the card: at f32 the front's FP32 FMAs, exactly as in
+// the FM chain (fm_chain.cu); at bf16x3 and bf16x2 the front's product
+// runs on the tensor cores at 15-22x the FP32 rate, and the function's
+// bytes (the window read once, the envelopes written once) bound it. The
+// envelope adds a few operations per output. What the design does about
+// that: the fronts of fronts.cuh; the f32 fronts and the dense
+// tensor-core front hold 16 channels per block, one thread per output; the
+// tensor-core PFB front 32, handed through its shared tile to two threads
+// per output, 16 channels each; the envelope is applied in registers and
+// written once, coalesced along j.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -26,50 +33,135 @@ namespace {
 using gsdr::kCG;
 using gsdr::kTile;
 
-template <bool kPfb>
-__global__ void __launch_bounds__(kTile) am_chain_tile(
+__device__ __forceinline__ float envelope(float re, float im) {
+  const float mag = sqrtf(re * re + im * im);
+  return 2.f * fminf(fmaxf(mag, 0.f), 1.f) - 1.f;
+}
+
+// btab: dense_mma_tables (dense front) or pfb_mma_tables (PFB front), read
+// at bf16x3 and bf16x2.
+template <bool kPfb, int kGrade>
+__global__ void __launch_bounds__(gsdr::block_threads<kPfb, kGrade>())
+am_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ bank, const float* __restrict__ hp,
-    int C, int T, int K, int Q, int D, int M, float* __restrict__ audio) {
+    const uint2* __restrict__ btab, int C, int T, int K, int Q, int D, int M,
+    float* __restrict__ audio) {
+  constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int j0 = blockIdx.x * kTile;
-  const int c0 = blockIdx.y * kCG;
-  const int j = j0 + threadIdx.x;
+  const int c0 = blockIdx.y * kCh;
   const long g0 = (long)j0 * D;
-  float acc_re[kCG], acc_im[kCG];
-  if constexpr (kPfb) {
-    gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D, c0, g0,
-                    acc_re, acc_im);
-  } else {
-    gsdr::toeplitz_front(smem, buf_re, buf_im, nb, bank, C, T, D, c0, g0,
-                         acc_re, acc_im);
-  }
-  if (j >= M) return;
+  if constexpr (kPfb && kGrade != gsdr::kGradeF32) {
+    // two threads per output row, each with one group of kCG channels
+    constexpr int kOS = 8 * gsdr::kPfbNT + 1;
+    const float* out = gsdr::pfb_front_mma<kGrade, gsdr::kPfbNT>(
+        reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, hp,
+        reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y, g0);
+    const int row = threadIdx.x % kTile, cl0 = threadIdx.x / kTile * kCG;
+    const int j = j0 + row;
+    if (j >= M) return;
 #pragma unroll
-  for (int c = 0; c < kCG; ++c) {
-    if (c0 + c < C) {
-      const float mag =
-          sqrtf(acc_re[c] * acc_re[c] + acc_im[c] * acc_im[c]);
-      audio[(long)(c0 + c) * M + j] =
-          2.f * fminf(fmaxf(mag, 0.f), 1.f) - 1.f;
+    for (int c = cl0; c < cl0 + kCG; ++c) {
+      if (c0 + c < C)
+        audio[(long)(c0 + c) * M + j] =
+            envelope(out[row * kOS + 2 * c], out[row * kOS + 2 * c + 1]);
+    }
+  } else {
+    const int j = j0 + threadIdx.x;
+    float acc_re[kCG], acc_im[kCG];
+    if constexpr (kPfb) {
+      gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D, c0, g0,
+                      acc_re, acc_im);
+    } else if constexpr (kGrade == gsdr::kGradeF32) {
+      gsdr::toeplitz_front(smem, buf_re, buf_im, nb, bank, C, T, D, c0, g0,
+                           acc_re, acc_im);
+    } else {
+      gsdr::toeplitz_front_mma<kGrade, kCG / 4>(
+          reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, btab,
+          C, T, D, blockIdx.y, g0, acc_re, acc_im);
+    }
+    if (j >= M) return;
+#pragma unroll
+    for (int c = 0; c < kCG; ++c) {
+      if (c0 + c < C)
+        audio[(long)(c0 + c) * M + j] = envelope(acc_re[c], acc_im[c]);
     }
   }
 }
 
-template <bool kPfb>
+// The tile kernel of a front (pfb) and grade with its dynamic shared memory
+// for (T, D) or (K, Q, D), or nullptr for a grade the library lacks.
+const void* tile_kernel(bool pfb, int grade, int T, int K, int Q, int D,
+                        size_t* smem) {
+  if (pfb) {
+    switch (grade) {
+      case gsdr::kGradeF32:
+        *smem = gsdr::pfb_smem_bytes(K, Q, D);
+        return (const void*)am_chain_tile<true, gsdr::kGradeF32>;
+      case gsdr::kGradeBf16x2:
+        *smem = gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
+        return (const void*)am_chain_tile<true, gsdr::kGradeBf16x2>;
+      case gsdr::kGradeBf16x3:
+        *smem = gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
+        return (const void*)am_chain_tile<true, gsdr::kGradeBf16x3>;
+    }
+    return nullptr;
+  }
+  switch (grade) {
+    case gsdr::kGradeF32:
+      *smem = gsdr::toeplitz_smem_bytes(T, D);
+      return (const void*)am_chain_tile<false, gsdr::kGradeF32>;
+    case gsdr::kGradeBf16x2:
+      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, T, D);
+      return (const void*)am_chain_tile<false, gsdr::kGradeBf16x2>;
+    case gsdr::kGradeBf16x3:
+      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, T, D);
+      return (const void*)am_chain_tile<false, gsdr::kGradeBf16x3>;
+  }
+  return nullptr;
+}
+
+template <bool kPfb, int kGrade>
 int run_am(const void* buf_re, const void* buf_im, const void* bank,
-           const void* hp, void* audio, int nb, int C, int T, int K, int Q,
-           int D, int M, size_t smem, void* stream) {
+           const void* hp, const void* btab, void* audio, int nb, int C,
+           int T, int K, int Q, int D, int M, size_t smem, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      am_chain_tile<kPfb>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      am_chain_tile<kPfb, kGrade>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((M + kTile - 1) / kTile, (C + kCG - 1) / kCG);
-  am_chain_tile<kPfb><<<grid, kTile, smem, (cudaStream_t)stream>>>(
+  constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
+  dim3 grid((M + kTile - 1) / kTile, (C + kCh - 1) / kCh);
+  am_chain_tile<kPfb, kGrade><<<grid, gsdr::block_threads<kPfb, kGrade>(),
+                                smem, (cudaStream_t)stream>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank,
-      (const float*)hp, C, T, K, Q, D, M, (float*)audio);
+      (const float*)hp, (const uint2*)btab, C, T, K, Q, D, M, (float*)audio);
   return (int)cudaGetLastError();
+}
+
+// One call of the front (pfb) at `grade`, its geometry checked by the
+// caller.
+template <bool kPfb>
+int run_graded(int grade, const void* buf_re, const void* buf_im,
+               const void* bank, const void* hp, const void* btab,
+               void* audio, int nb, int C, int T, int K, int Q, int D, int M,
+               void* stream) {
+  size_t smem = 0;
+  if (tile_kernel(kPfb, grade, T, K, Q, D, &smem) == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define GSDR_AM(G)                                                          \
+  run_am<kPfb, G>(buf_re, buf_im, bank, hp, btab, audio, nb, C, T, K, Q, D, \
+                  M, smem, stream)
+  switch (grade) {
+    case gsdr::kGradeBf16x2:
+      return GSDR_AM(gsdr::kGradeBf16x2);
+    case gsdr::kGradeBf16x3:
+      return GSDR_AM(gsdr::kGradeBf16x3);
+    default:
+      return GSDR_AM(gsdr::kGradeF32);
+  }
+#undef GSDR_AM
 }
 
 }  // namespace
@@ -79,40 +171,46 @@ extern "C" const char* am_chain_error_string(int err) {
 }
 
 // *fits = 1 when a block of the front (pfb = 0: dense, T and D; pfb = 1:
-// PFB, K, Q and D) fits the current device's shared memory, for any
-// channel count C. The AM chain has the f32 grade only: any other grade is
-// an invalid value. Returns 0 or the CUDA error.
+// PFB, K, Q and D) at `grade` (0 f32, 2 bf16x2, 3 bf16x3) fits the current
+// device's shared memory, for any channel count C. An unknown grade is an
+// invalid value. Returns 0 or the CUDA error.
 extern "C" int am_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
                              int D, int* fits) {
   (void)C;
-  if (grade != gsdr::kGradeF32 || T < 1 || D < 1 || (pfb && (K < 1 || Q < 1)))
+  if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1 || K % D != 0)))
     return (int)cudaErrorInvalidValue;
-  return pfb ? (int)gsdr::block_fits((const void*)am_chain_tile<true>,
-                                     gsdr::pfb_smem_bytes(K, Q, D), fits)
-             : (int)gsdr::block_fits((const void*)am_chain_tile<false>,
-                                     gsdr::toeplitz_smem_bytes(T, D), fits);
+  size_t smem = 0;
+  const void* kernel = tile_kernel(pfb != 0, grade, T, K, Q, D, &smem);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)gsdr::block_fits(kernel, smem, fits);
 }
 
-// Dense front. Shapes: buf planes (nb,), bank (2C, 2, T), audio (C, M) with
-// M = (nb - T)/D + 1. Returns 0 or the CUDA error code.
+// Dense front at `grade`. Shapes: buf planes (nb,), bank (2C, 2, T) read
+// at f32, btab dense_mma_tables' (2, ceil(T/8), ceil(C/4), 16, 2) int32
+// read at bf16x3 and bf16x2, audio (C, M) with M = (nb - T)/D + 1.
+// Returns 0 or the CUDA error code.
 extern "C" int am_chain_launch(const void* buf_re, const void* buf_im,
-                               const void* bank, void* audio, int nb, int C,
-                               int T, int D, int M, void* stream) {
+                               const void* bank, const void* btab,
+                               void* audio, int nb, int C, int T, int D,
+                               int M, int grade, void* stream) {
   if (C < 1 || T < 1 || D < 1 || M < 1 || M != (nb - T) / D + 1)
     return (int)cudaErrorInvalidValue;
-  return run_am<false>(buf_re, buf_im, bank, nullptr, audio, nb, C, T, 0, 0,
-                       D, M, gsdr::toeplitz_smem_bytes(T, D), stream);
+  return run_graded<false>(grade, buf_re, buf_im, bank, nullptr, btab, audio,
+                           nb, C, T, 0, 0, D, M, stream);
 }
 
-// PFB front: channels on the Fs/K grid, D | K. hp (Q, K) polyphase taps,
-// bank planes-major (2C, 2K), T the prototype's tap count (Q*K >= T).
+// PFB front at `grade`: channels on the Fs/K grid, D | K. hp (Q, K)
+// polyphase taps, bank planes-major (2C, 2K) read at f32, btab
+// pfb_mma_tables' (2, ceil(K/8), ceil(C/4), 16, 2) int32 read at bf16x3
+// and bf16x2, T the prototype's tap count (Q*K >= T).
 extern "C" int pfb_am_chain_launch(const void* buf_re, const void* buf_im,
                                    const void* hp, const void* bank,
-                                   void* audio, int nb, int C, int T, int K,
-                                   int Q, int D, int M, void* stream) {
+                                   const void* btab, void* audio, int nb,
+                                   int C, int T, int K, int Q, int D, int M,
+                                   int grade, void* stream) {
   if (C < 1 || T < 1 || D < 1 || K < 1 || K % D != 0 || Q < 1 ||
       Q * K < T || M < 1 || M != (nb - T) / D + 1)
     return (int)cudaErrorInvalidValue;
-  return run_am<true>(buf_re, buf_im, bank, hp, audio, nb, C, T, K, Q, D, M,
-                      gsdr::pfb_smem_bytes(K, Q, D), stream);
+  return run_graded<true>(grade, buf_re, buf_im, bank, hp, btab, audio, nb,
+                          C, T, K, Q, D, M, stream);
 }

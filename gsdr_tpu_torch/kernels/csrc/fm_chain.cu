@@ -1,11 +1,11 @@
 // Fused C-channel FM receive chain for Hopper (sm_90a), at three grades of
-// its dense front: f32 (FP32 FMA), bf16x3 and bf16x2 (tensor cores).
+// either front: f32 (FP32 FMA), bf16x3 and bf16x2 (tensor cores).
 //
 // Replaces gsdr_tpu/kernels/fm_chain_pallas.py::_fm_chain_kernel with both
 // of its fronts (fronts.cuh): fm_chain_launch runs the dense (toeplitz)
-// front at the grade asked for, pfb_fm_chain_launch the uniform-grid PFB
-// front (_pfb_fold_dot) in f32 whatever the grade. Per decimated output j
-// and channel c it computes
+// front, pfb_fm_chain_launch the uniform-grid PFB front (_pfb_fold_dot
+// with its grade arm _nt_grade_dot), each at the grade asked for. Per
+// decimated output j and channel c it computes
 //   y[c,j]  = sum_t x[j*D + t] * g_c[t]               front
 //   f[c,j]  = y[c,j] * e^{i 2 pi frac(f_c (n0 + j D) / Fs)}   LO rotor
 //   d[c,j]  = gain * atan2(f[c,j] * conj(f[c,j-1]))   discriminator
@@ -23,25 +23,28 @@
 // FP32 operations per output and channel besides) and the two launches
 // after the tile are what remain. The PFB front issues (4T + 8CK)/D (544
 // at 64 channels on the Fs/64 grid, 512 taps, D=64: 0.57 GFLOP per step,
-// 94% of it the dense DFT-bank product); a K-point FFT would do that
-// product's work in about 5*K*log2(K) operations instead of 8*C*K, and the
-// function then needs fewer operations than its ~13 MB of HBM traffic
-// takes time, so its bound is memory.
+// 94% of it the dense DFT-bank product); at bf16x3 that product is 3
+// tensor-core passes, 1.6 GFLOP, ~1.6 us, and the ~13 MB of HBM traffic
+// (3.8 us) bound the function at every grade.
 //
 // What the design does about that:
-//  - one thread per decimated output holds all CG=16 channels in
-//    registers for the back end. The f32 front reuses every input sample
-//    (dense) or fold value (PFB) for 16 channels, with the taps or the bank
-//    read as shared-memory broadcasts; the bf16 grades run the front as
-//    one GEMM per block on mma.sync (fronts.cuh, toeplitz_front_mma) and
-//    hand each thread its 16 channels through a shared tile, so the
-//    fragments are dead before the back end starts;
+//  - one thread per decimated output holds 16 channels in registers for
+//    the back end. The f32 fronts reuse every input sample (dense) or fold
+//    value (PFB) for 16 channels, with the taps or the bank read as
+//    shared-memory broadcasts; the bf16 grades run the front as one GEMM
+//    per block on mma.sync (fronts.cuh, toeplitz_front_mma over 16
+//    channels, pfb_front_mma over 32, so that the fold is made once for
+//    32 channels) and hand the outputs to the threads through a shared
+//    tile, so the fragments are dead before the back end starts; with 32
+//    channels per block the back end walks its two groups of 16 over that
+//    tile;
 //  - the rotor uses the exact digit-table phase with the same float32
 //    operation order as the plain chain, then one sincosf per output;
 //  - the discriminator takes f[j-1] from the neighbouring lane by shuffle
 //    (shared memory at warp edges); thread 0 of every block recomputes the
 //    previous block's last output (one extra window, or one extra fold and
-//    bank row with the PFB front), so blocks need no ordering;
+//    bank row with the PFB front: row 0 of the block's GEMM), so blocks
+//    need no ordering;
 //  - the de-emphasis is linear, so blocks scan their tile from z = 0
 //    (launch 1), a small scan over tiles finds every tile's true start
 //    state (launch 2), and a last pass adds a^(j-j0) * z_start (launch 3).
@@ -74,12 +77,15 @@ __device__ __forceinline__ float ipow(float a, int k) {
 }
 
 // Launch 1: front, rotor, discriminator and the zero-state de-emphasis of
-// one tile of kOut outputs for kCG channels. kPfb selects the front: the
-// dense one at kGrade reads bank (2C, 2, T) in f32, or btab (fronts.cuh,
-// toeplitz_front_mma) at bf16x3 and bf16x2; the PFB one reads hp (Q, K)
-// and the planes-major bank (2C, 2K).
+// one tile of kOut outputs for kCh channels; with the tensor-core PFB
+// front, two threads per output, one for each group of kCG channels. kPfb selects the front: the
+// dense one reads bank (2C, 2, T) at f32, or btab (dense_mma_tables) at
+// bf16x3 and bf16x2; the PFB one reads hp (Q, K) and the planes-major
+// bank (2C, 2K) at f32, or hp and btab (pfb_mma_tables) at the bf16
+// grades.
 template <bool kPfb, int kGrade>
-__global__ void __launch_bounds__(kTile) fm_chain_tile(
+__global__ void __launch_bounds__(gsdr::block_threads<kPfb, kGrade>())
+fm_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ bank, const float* __restrict__ hp,
     const uint2* __restrict__ btab, int C, int T, int K, int Q, int D, int M,
@@ -89,53 +95,79 @@ __global__ void __launch_bounds__(kTile) fm_chain_tile(
     const float* __restrict__ cf_re_in, const float* __restrict__ cf_im_in,
     float* __restrict__ audio, float* __restrict__ cf_re_out,
     float* __restrict__ cf_im_out, float* __restrict__ zend) {
+  constexpr bool kPfbMma = kPfb && kGrade != gsdr::kGradeF32;
+  constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
+  constexpr int kThreads = gsdr::block_threads<kPfb, kGrade>();
+  constexpr int kPar = kThreads / kTile;           // groups side by side
+  constexpr int kOS = 8 * gsdr::kPfbNT + 1;   // pfb_front_mma's tile stride
+  static_assert(kCh == kPar * kCG, "one group of kCG channels a thread");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  __shared__ float tab[kCG * 4];
-  __shared__ float y_edge[kWarps][kCG][2];
-  __shared__ float z_edge[kWarps][kCG];
-  __shared__ float z_last[kWarps][kCG];
+  __shared__ float tab[kCh * 4];
+  __shared__ float y_edge[kPar][kWarps][kCG][2];
+  __shared__ float z_edge[kPar][kWarps][kCG];
+  __shared__ float z_last[kPar][kWarps][kCG];
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int row = tid % kTile;                     // output row of the tile
+  const int grp = tid / kTile;                     // channel group
+  const int lane = row & 31;
+  const int warp = row >> 5;
   const int tile = blockIdx.x;
-  const int c0 = blockIdx.y * kCG;
   const int j0 = tile * kOut;
-  const int j = j0 - 1 + tid;                      // this thread's output
+  const int j = j0 - 1 + row;                      // this thread's output
 
   // read after the front's __syncthreads
-  for (int idx = tid; idx < kCG * 4; idx += kTile) {
-    const int cg = c0 + idx / 4;
+  for (int idx = tid; idx < kCh * 4; idx += kThreads) {
+    const int cg = blockIdx.y * kCh + idx / 4;
     tab[idx] = cg < C ? table[cg * 4 + idx % 4] : 0.f;
   }
 
   // ---- 1) front ------------------------------------------------------------
   float acc_re[kCG], acc_im[kCG];
+  const float* out = nullptr;
   const long g0 = (long)(j0 - 1) * D;
-  if constexpr (kPfb) {
-    gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D, c0, g0,
-                    acc_re, acc_im);
+  if constexpr (kPfbMma) {
+    out = gsdr::pfb_front_mma<kGrade, gsdr::kPfbNT>(
+        reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, hp,
+        reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y, g0);
+  } else if constexpr (kPfb) {
+    gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D,
+                    blockIdx.y * kCG, g0, acc_re, acc_im);
   } else if constexpr (kGrade == gsdr::kGradeF32) {
-    gsdr::toeplitz_front(smem, buf_re, buf_im, nb, bank, C, T, D, c0, g0,
-                         acc_re, acc_im);
+    gsdr::toeplitz_front(smem, buf_re, buf_im, nb, bank, C, T, D,
+                         blockIdx.y * kCG, g0, acc_re, acc_im);
   } else {
     gsdr::toeplitz_front_mma<kGrade, kCG / 4>(
         reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, btab, C,
         T, D, blockIdx.y, g0, acc_re, acc_im);
   }
 
-  // ---- 2) LO rotor from the digit table ---------------------------------
+  // the back end, for this thread's group of kCG channels
+  const int c0 = blockIdx.y * kCh + grp * kCG;
+  const float* gtab = tab + grp * kCG * 4;
+  if constexpr (kPfbMma) {
+#pragma unroll
+    for (int c = 0; c < kCG; ++c) {
+      acc_re[c] = out[row * kOS + 2 * (grp * kCG + c)];
+      acc_im[c] = out[row * kOS + 2 * (grp * kCG + c) + 1];
+    }
+  }
   const int idx = n0_rot[0] + j * D;
   float fdig[4];
 #pragma unroll
   for (int d = 0; d < 4; ++d) fdig[d] = (float)((idx >> (8 * d)) & 255);
+  const float b0 = coef[0], cc = coef[1], a = coef[2];
+  const bool real = row > 0 && j < M;   // an output this block writes
+  const int n_real = min(kOut, M - j0);   // outputs of this tile
+
+  // ---- 2) LO rotor from the digit table ------------------------------------
 #pragma unroll
   for (int c = 0; c < kCG; ++c) {
     float acc = 0.f;
 #pragma unroll
     for (int d = 0; d < 4; ++d)
-      acc = __fadd_rn(acc, __fmul_rn(fdig[d], tab[c * 4 + d]));
+      acc = __fadd_rn(acc, __fmul_rn(fdig[d], gtab[c * 4 + d]));
     const float frac = __fsub_rn(acc, floorf(acc));
     float s, co;
     sincosf(__fmul_rn(kTwoPi, frac), &s, &co);
@@ -164,20 +196,19 @@ __global__ void __launch_bounds__(kTile) fm_chain_tile(
   if (lane == 31) {
 #pragma unroll
     for (int c = 0; c < kCG; ++c) {
-      y_edge[warp][c][0] = acc_re[c];
-      y_edge[warp][c][1] = acc_im[c];
+      y_edge[grp][warp][c][0] = acc_re[c];
+      y_edge[grp][warp][c][1] = acc_im[c];
     }
   }
   __syncthreads();
-  const bool real = tid > 0 && j < M;   // an output this block writes
   float dsc[kCG];
 #pragma unroll
   for (int c = 0; c < kCG; ++c) {
     float pr = __shfl_up_sync(kFull, acc_re[c], 1);
     float pi = __shfl_up_sync(kFull, acc_im[c], 1);
     if (lane == 0 && warp > 0) {
-      pr = y_edge[warp - 1][c][0];
-      pi = y_edge[warp - 1][c][1];
+      pr = y_edge[grp][warp - 1][c][0];
+      pi = y_edge[grp][warp - 1][c][1];
     }
     const float fr = acc_re[c], fi = acc_im[c];
     const float m_re = fr * pr + fi * pi;
@@ -189,7 +220,6 @@ __global__ void __launch_bounds__(kTile) fm_chain_tile(
   }
 
   // ---- 4) de-emphasis from z = 0 at the tile start -------------------------
-  const float b0 = coef[0], cc = coef[1], a = coef[2];
   float z[kCG];
 #pragma unroll
   for (int c = 0; c < kCG; ++c) z[c] = cc * dsc[c];
@@ -204,7 +234,7 @@ __global__ void __launch_bounds__(kTile) fm_chain_tile(
   }
   if (lane == 31) {
 #pragma unroll
-    for (int c = 0; c < kCG; ++c) z_edge[warp][c] = z[c];
+    for (int c = 0; c < kCG; ++c) z_edge[grp][warp][c] = z[c];
   }
   __syncthreads();
   const float a32 = as;            // a^32
@@ -212,22 +242,22 @@ __global__ void __launch_bounds__(kTile) fm_chain_tile(
 #pragma unroll
   for (int c = 0; c < kCG; ++c) {
     float sprev = 0.f;             // state at the end of the previous warp
-    for (int w = 0; w < warp; ++w) sprev = fmaf(a32, sprev, z_edge[w][c]);
+    for (int w = 0; w < warp; ++w)
+      sprev = fmaf(a32, sprev, z_edge[grp][w][c]);
     z[c] = fmaf(a_lane, sprev, z[c]);
   }
   if (lane == 31) {
 #pragma unroll
-    for (int c = 0; c < kCG; ++c) z_last[warp][c] = z[c];
+    for (int c = 0; c < kCG; ++c) z_last[grp][warp][c] = z[c];
   }
   __syncthreads();
-  const int n_real = min(kOut, M - j0);   // outputs of this tile
 #pragma unroll
   for (int c = 0; c < kCG; ++c) {
     float zp = __shfl_up_sync(kFull, z[c], 1);
-    if (lane == 0 && warp > 0) zp = z_last[warp - 1][c];
+    if (lane == 0 && warp > 0) zp = z_last[grp][warp - 1][c];
     if (c0 + c < C) {
       if (real) audio[(long)(c0 + c) * M + j] = fmaf(b0, dsc[c], zp);
-      if (tid == n_real) zend[(long)(c0 + c) * ntiles + tile] = z[c];
+      if (row == n_real) zend[(long)(c0 + c) * ntiles + tile] = z[c];
     }
   }
 }
@@ -325,8 +355,10 @@ int run_chain(const void* buf_re, const void* buf_im, const void* bank,
       fm_chain_tile<kPfb, kGrade>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(ntiles, (C + kCG - 1) / kCG);
-  fm_chain_tile<kPfb, kGrade><<<grid, kTile, smem, st>>>(
+  constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
+  dim3 grid(ntiles, (C + kCh - 1) / kCh);
+  fm_chain_tile<kPfb, kGrade>
+      <<<grid, gsdr::block_threads<kPfb, kGrade>(), smem, st>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank,
       (const float*)hp, (const uint2*)btab, C, T, K, Q, D, M, ntiles,
       (const float*)table, (const int*)n0_rot, (const float*)coef, gain,
@@ -349,9 +381,24 @@ extern "C" int fm_chain_tile_outputs() { return kOut; }
 
 namespace {
 
-// The dense tile kernel of a grade and its dynamic shared memory, or
-// nullptr for a grade the library lacks.
-const void* dense_tile(int grade, int T, int D, size_t* smem) {
+// The tile kernel of a front (pfb) and grade with its dynamic shared memory
+// for (T, D) or (K, Q, D), or nullptr for a grade the library lacks.
+const void* tile_kernel(bool pfb, int grade, int T, int K, int Q, int D,
+                        size_t* smem) {
+  if (pfb) {
+    switch (grade) {
+      case gsdr::kGradeF32:
+        *smem = gsdr::pfb_smem_bytes(K, Q, D);
+        return (const void*)fm_chain_tile<true, gsdr::kGradeF32>;
+      case gsdr::kGradeBf16x2:
+        *smem = gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
+        return (const void*)fm_chain_tile<true, gsdr::kGradeBf16x2>;
+      case gsdr::kGradeBf16x3:
+        *smem = gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
+        return (const void*)fm_chain_tile<true, gsdr::kGradeBf16x3>;
+    }
+    return nullptr;
+  }
   switch (grade) {
     case gsdr::kGradeF32:
       *smem = gsdr::toeplitz_smem_bytes(T, D);
@@ -368,21 +415,18 @@ const void* dense_tile(int grade, int T, int D, size_t* smem) {
 
 }  // namespace
 
-// *fits = 1 when a block of the front (pfb = 0: dense at `grade`, 0 for
-// f32, 2 for bf16x2, 3 for bf16x3, with T and D; pfb = 1: PFB, f32 at any
-// grade, with K, Q and D) fits the current device's shared memory, for
-// any channel count C (grid.y covers the channels). Returns 0 or the CUDA
-// error; an unknown grade is an invalid value.
+// *fits = 1 when a block of the front (pfb = 0: dense, with T and D;
+// pfb = 1: PFB, with K, Q and D) at `grade` (0 f32, 2 bf16x2, 3 bf16x3)
+// fits the current device's shared memory, for any channel count C
+// (grid.y covers the channels). Returns 0 or the CUDA error; an unknown
+// grade is an invalid value.
 extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
                              int D, int* fits) {
   (void)C;
-  if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1)))
+  if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1 || K % D != 0)))
     return (int)cudaErrorInvalidValue;
-  if (pfb)
-    return (int)gsdr::block_fits((const void*)fm_chain_tile<true, 0>,
-                                 gsdr::pfb_smem_bytes(K, Q, D), fits);
   size_t smem = 0;
-  const void* kernel = dense_tile(grade, T, D, &smem);
+  const void* kernel = tile_kernel(pfb != 0, grade, T, K, Q, D, &smem);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   return (int)gsdr::block_fits(kernel, smem, fits);
 }
@@ -407,7 +451,7 @@ extern "C" int fm_chain_launch(
       ntiles != (M + kOut - 1) / kOut)
     return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  if (dense_tile(grade, T, D, &smem) == nullptr)
+  if (tile_kernel(false, grade, T, 0, 0, D, &smem) == nullptr)
     return (int)cudaErrorInvalidValue;
 #define GSDR_DENSE_CHAIN(G)                                                  \
   run_chain<false, G>(buf_re, buf_im, bank, nullptr, btab, table, n0_rot,    \
@@ -425,23 +469,37 @@ extern "C" int fm_chain_launch(
 #undef GSDR_DENSE_CHAIN
 }
 
-// PFB front: channels on the Fs/K grid, D | K. hp (Q, K) polyphase taps,
-// bank planes-major (2C, 2K); T is the prototype's tap count (Q*K >= T),
-// which sets M. Other shapes as fm_chain_launch.
+// PFB front at `grade`: channels on the Fs/K grid, D | K. hp (Q, K)
+// polyphase taps; bank planes-major (2C, 2K), read at f32; btab
+// pfb_mma_tables' (2, ceil(K/8), ceil(C/4), 16, 2) int32, read at bf16x3
+// and bf16x2. T is the prototype's tap count (Q*K >= T), which sets M.
+// Other shapes as fm_chain_launch.
 extern "C" int pfb_fm_chain_launch(
     const void* buf_re, const void* buf_im, const void* hp, const void* bank,
-    const void* table, const void* n0_rot, const void* coef,
-    const void* cf_re_in, const void* cf_im_in, const void* cz_in,
-    void* audio, void* cf_re_out, void* cf_im_out, void* cz_out, void* zend,
-    void* zstart, int nb, int C, int T, int K, int Q, int D, int M,
-    int ntiles, float gain, void* stream) {
+    const void* btab, const void* table, const void* n0_rot,
+    const void* coef, const void* cf_re_in, const void* cf_im_in,
+    const void* cz_in, void* audio, void* cf_re_out, void* cf_im_out,
+    void* cz_out, void* zend, void* zstart, int nb, int C, int T, int K,
+    int Q, int D, int M, int ntiles, int grade, float gain, void* stream) {
   if (C < 1 || T < 1 || D < 1 || K < 1 || K % D != 0 || Q < 1 ||
       Q * K < T || M < 1 || M != (nb - T) / D + 1 ||
       ntiles != (M + kOut - 1) / kOut)
     return (int)cudaErrorInvalidValue;
-  return run_chain<true, 0>(buf_re, buf_im, bank, hp, nullptr, table, n0_rot,
-                            coef, cf_re_in, cf_im_in, cz_in, audio,
-                            cf_re_out, cf_im_out, cz_out, zend, zstart, nb, C,
-                            T, K, Q, D, M, ntiles, gain,
-                            gsdr::pfb_smem_bytes(K, Q, D), stream);
+  size_t smem = 0;
+  if (tile_kernel(true, grade, T, K, Q, D, &smem) == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define GSDR_PFB_CHAIN(G)                                                    \
+  run_chain<true, G>(buf_re, buf_im, bank, hp, btab, table, n0_rot, coef,    \
+                     cf_re_in, cf_im_in, cz_in, audio, cf_re_out, cf_im_out, \
+                     cz_out, zend, zstart, nb, C, T, K, Q, D, M, ntiles, gain, \
+                     smem, stream)
+  switch (grade) {
+    case gsdr::kGradeBf16x2:
+      return GSDR_PFB_CHAIN(gsdr::kGradeBf16x2);
+    case gsdr::kGradeBf16x3:
+      return GSDR_PFB_CHAIN(gsdr::kGradeBf16x3);
+    default:
+      return GSDR_PFB_CHAIN(gsdr::kGradeF32);
+  }
+#undef GSDR_PFB_CHAIN
 }

@@ -25,11 +25,17 @@
 //    at the JAX package's bf16x3 (kGrade 3) or bf16x2 (kGrade 2) grade
 //    (fm_chain_pallas.py, _window_dot's grade arm). See below.
 //
-// All fronts stage the block's input window in shared memory in
-// polyphase order, xp[p][k] = x[g0 + k*D + p], so neighbouring threads
-// (neighbouring outputs, D samples apart) read neighbouring words. The
-// PFB front stages kPhaseChunk phases at a time, which bounds its shared
-// memory for any D; its tap and bank tables are read as broadcasts.
+//  - pfb_front_mma<kGrade, kNT>: the PFB front on the tensor cores at
+//    bf16x3 or bf16x2 (fm_chain_pallas.py, _pfb_fold_dot with its grade
+//    arm _nt_grade_dot). See below.
+//
+// The f32 fronts and toeplitz_front_mma stage the block's input window in
+// shared memory in polyphase order, xp[p][k] = x[g0 + k*D + p], so
+// neighbouring threads (neighbouring outputs, D samples apart) read
+// neighbouring words. The PFB fronts stage kPhaseChunk phases at a time,
+// which bounds their shared memory for any D; pfb_front_mma keeps each
+// chunk frame-major, so that it stages with 16-byte copies. Tap and bank
+// tables are read as broadcasts.
 //
 // What bounds the dense front on the card, by grade: in f32, the FP32
 // FMAs, 8*C*T FLOP per output at 67 TFLOP/s; in bf16x3 and bf16x2, 3 or 2
@@ -64,6 +70,8 @@ namespace gsdr {
 constexpr int kTile = 256;        // threads per block, one output each
 constexpr int kCG = 16;           // channels per block (grid.y covers C)
 constexpr int kPhaseChunk = 16;   // PFB front: input phases staged at once
+constexpr int kPfbNT = 8;         // pfb_front_mma: n-tiles, 32 channels
+constexpr int kPfbThreads = 512;  // pfb_front_mma: 16 warps of 16 rows
 // Grades of the dense front: the number of tensor-core passes; 0 is the
 // FP32-FMA front, toeplitz_front.
 constexpr int kGradeF32 = 0;
@@ -102,6 +110,64 @@ __host__ __device__ inline size_t pfb_smem_bytes(int K, int Q, int D) {
   const size_t dc = D < kPhaseChunk ? D : kPhaseChunk;
   const size_t kr = kTile + ((size_t)Q * K - 1) / D;
   return sizeof(float) * ((size_t)K * kCG * 4 + (size_t)Q * K + 2 * dc * kr);
+}
+
+// The tensor-core PFB front's geometry for (K, Q, D), D | K. Lanes run in
+// phase-major order kappa = p*P + s (lane v = p + s*D, P = K/D), so that
+// the lanes of nch chunks of Dc phases each read only their own phases of
+// the window; each chunk's Dc*P lanes are padded to KB0 blocks of 8 (the
+// last chunk's to its own count), KBg blocks in all. A chunk's window is
+// two planes of Kr frames, frame k holding samples g0 + k*D + p0 + pl of
+// its phases pl in Ls = 4 mod 8 words (4 samples of a plane are one
+// 16-byte copy, and the 8 frames x 4 phases an A fragment reads fall on
+// 32 different banks); nbuf window buffers, two when there is a next
+// chunk to stage.
+struct PfbMmaGeom {
+  int P, Dc, nch, KB0, KBg, Kr, Ls, nbuf;
+};
+
+__host__ __device__ inline PfbMmaGeom pfb_mma_geom(int K, int Q, int D) {
+  PfbMmaGeom g;
+  g.P = K / D;
+  g.Dc = D < kPhaseChunk ? D : kPhaseChunk;
+  g.nch = (D + g.Dc - 1) / g.Dc;
+  g.KB0 = (g.Dc * g.P + 7) / 8;
+  g.KBg = (g.nch - 1) * g.KB0 + ((D - (g.nch - 1) * g.Dc) * g.P + 7) / 8;
+  g.Kr = kTile + Q * g.P - 1;
+  g.Ls = (g.Dc + 3) / 4 * 4;
+  if (g.Ls % 8 == 0) g.Ls += 4;
+  g.nbuf = g.nch > 1 ? 2 : 1;
+  return g;
+}
+
+// pfb_front_mma's dynamic shared memory: B's hi and lo parts in lane
+// order, the taps (Q, K) padded to 16 bytes, then the window buffers,
+// whose space the kTile x (8*kNT + 1) output tile reuses after the product.
+__host__ __device__ inline size_t pfb_mma_taps_bytes(int K, int Q) {
+  return ((size_t)Q * K * sizeof(float) + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t pfb_mma_smem_bytes(int nt, int K, int Q,
+                                                     int D) {
+  const PfbMmaGeom g = pfb_mma_geom(K, Q, D);
+  const size_t b = 2 * (size_t)g.KBg * nt * 16 * sizeof(uint2);
+  const size_t win = (size_t)g.nbuf * 2 * g.Kr * g.Ls * sizeof(float);
+  const size_t out = (size_t)kTile * (8 * nt + 1) * sizeof(float);
+  return b + pfb_mma_taps_bytes(K, Q) + (win > out ? win : out);
+}
+
+// Channels and threads per block of a tile kernel: the tensor-core PFB
+// front covers 32 channels with one fold, and its block has two threads
+// per output row, so that its back end takes the two groups of kCG
+// channels side by side; the other fronts kCG channels, one thread a row.
+template <bool kPfb, int kGrade>
+__host__ __device__ constexpr int block_channels() {
+  return kPfb && kGrade != kGradeF32 ? 4 * kPfbNT : kCG;
+}
+
+template <bool kPfb, int kGrade>
+__host__ __device__ constexpr int block_threads() {
+  return kPfb && kGrade != kGradeF32 ? kPfbThreads : kTile;
 }
 
 // Sets *fits to 1 when a block of `kernel` with `dynamic` bytes of dynamic
@@ -380,6 +446,266 @@ __device__ __forceinline__ void pfb_front(
       }
     }
   }
+}
+
+// One 4-byte asynchronous copy from global to shared memory, zero-filled
+// when `valid` is false (src-size 0: nothing is read from src).
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One 16-byte asynchronous copy from global to shared memory; both
+// addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Starts the copies of phases p0..p0+np-1 of the block's window into the
+// planes xr and xi = xr + Kr*Ls: xr[k*Ls + pl] = x_re[g0 + k*D + p0 + pl]
+// for k < Kr, samples outside [0, nb) as zeros. Where every frame's run
+// of samples starts 16-byte aligned (vec), four samples of a plane are
+// one 16-byte copy (the four 4-byte ones at the buffer's ends); else one
+// 4-byte copy a sample. Neighbouring threads copy neighbouring samples.
+__device__ __forceinline__ void pfb_stage_phases(
+    float* xr, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, long g0, int D, int p0, int np,
+    int Kr, int Ls, bool vec) {
+  float* xi = xr + Kr * Ls;
+  const int w = vec ? 4 : 1;            // samples a copy
+  const int nw = np / w;                 // copies a frame and plane
+  // item l = k*nw + q, stepped by kPfbThreads without a division
+  const int dk = kPfbThreads / nw, dq = kPfbThreads % nw;
+  for (int q = threadIdx.x % nw, k = threadIdx.x / nw; k < Kr;) {
+    const int pl = q * w;
+    const long g = g0 + (long)k * D + p0 + pl;
+    float* dr = xr + k * Ls + pl;
+    float* di = xi + k * Ls + pl;
+    if (vec && g >= 0 && g + 4 <= nb) {
+      cp_async_16(dr, buf_re + g);
+      cp_async_16(di, buf_im + g);
+    } else {
+      for (int i = 0; i < w; ++i) {
+        const bool in = g + i >= 0 && g + i < nb;
+        cp_async_f32(dr + i, buf_re + (in ? g + i : 0), in);
+        cp_async_f32(di + i, buf_im + (in ? g + i : 0), in);
+      }
+    }
+    q += dq;
+    k += dk;
+    if (q >= nw) {
+      q -= nw;
+      ++k;
+    }
+  }
+}
+
+// Tensor-core PFB front, grade kGrade (kGradeBf16x3 or kGradeBf16x2), for
+// the 4*kNT channels of channel group `group`: output row r of the block
+// (window start g0 + r*D, kTile rows) gets
+//   y[c, r] = sum_v G[c, v] A_re[r, v] + G[c, K+v] A_im[r, v]   (re)
+//           + the same with rows C+c of G                       (im)
+// over the fold A[r, v] = sum_u hp[u, v] * x[g0 + r*D + v + u*K],
+// computed in float32 as the plain version computes it (graded_uniform_
+// front): hp[0]*x first, then + hp[u]*x for ascending u, each product and
+// sum rounded on its own (__fmul_rn, __fadd_rn), so that both split the
+// same value. The split is JAX's, hi = bf16(A), lo = bf16(A - hi); the
+// product is one real GEMM per block, rows the kTile outputs, K = 2K
+// (lane, plane), N = 8*kNT columns (re, im of each channel), on mma.sync
+// m16n8k16 bf16 with f32 sums: bf16x3 = Ah*Bh + Ah*Bl + Al*Bh, bf16x2 the
+// first two (_nt_grade_dot). Each thread folds the (re, im) pair of the
+// two lanes and two rows of its A fragment straight into registers: the
+// fold never leaves them, and each fold value is made once per block.
+//
+// btab: pfb_mma_tables' int32 (2, ceil(K/8), ceil(C/4), 16, 2), the
+// dense_mma_tables layout over lanes v in place of taps: the bf16 pair
+// (G[c, v], G[c, K+v]) of the bank's re rows; the im rows are the same
+// values with the halves swapped and one sign flipped, formed in
+// registers as in toeplitz_front_mma. The block gathers the table into
+// shared memory in its own lane order, chunk by chunk (pfb_mma_geom).
+//
+// The window is staged Dc phases at a time with cp.async (16-byte copies
+// where aligned), the next chunk in flight while the current one is folded
+// and multiplied. The block has
+// kPfbThreads threads: sixteen warps each take 16 rows (one m-tile)
+// against all kNT n-tiles, and each thread folds its four values per
+// plane with the Q taps unrolled, so that the loads of several taps are
+// in flight at once (the sums stay in ascending u). Returns the kTile x
+// (8*kNT + 1) output tile in shared memory: row r, column 2c (re) and
+// 2c + 1 (im) of channel c of the group; it stays valid until the
+// caller's next write to dynamic shared memory.
+template <int kGrade, int kNT>
+__device__ __forceinline__ const float* pfb_front_mma(
+    unsigned char* smem, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, const float* __restrict__ hp,
+    const uint32_t* __restrict__ btab, int C, int K, int Q, int D, int group,
+    long g0) {
+  static_assert(kGrade == kGradeBf16x3 || kGrade == kGradeBf16x2,
+                "tensor-core grades are bf16x3 and bf16x2");
+  static_assert(kPfbThreads == 2 * kTile, "16 warps of 16 rows");
+  constexpr int kOS = 8 * kNT + 1;   // output tile row stride, in floats
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const PfbMmaGeom geo = pfb_mma_geom(K, Q, D);
+  const int P = geo.P, NT = (C + 3) / 4, KBt = (K + 7) / 8;
+  uint2* bs = reinterpret_cast<uint2*>(smem);
+  const size_t b_bytes = 2 * (size_t)geo.KBg * kNT * 16 * sizeof(uint2);
+  float* hps = reinterpret_cast<float*>(smem + b_bytes);
+  float* win = reinterpret_cast<float*>(smem + b_bytes +
+                                        pfb_mma_taps_bytes(K, Q));
+  float* out = win;
+  const int Ls = geo.Ls, wsize = 2 * geo.Kr * Ls;   // floats per buffer
+  // 16-byte copies where every frame's run of samples is 16-byte aligned
+  const bool vec = geo.Dc % 4 == 0 && D % 4 == 0 && g0 % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(buf_re) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(buf_im) % 16 == 0;
+
+  pfb_stage_phases(win, buf_re, buf_im, nb, g0, D, 0, geo.Dc, geo.Kr, Ls,
+                   vec);
+  cp_async_commit();
+
+  // B in the block's lane order: word iw of entry [part][kbg][nt][e] is the
+  // pair of lane kappa = 8*kbl + (e & 3) + 4*iw of chunk kbg / KB0. A warp
+  // takes one (part, kbg) at a time, a thread one word of its kNT entries.
+  uint32_t* bw = reinterpret_cast<uint32_t*>(bs);
+  for (int pk = warp; pk < 2 * geo.KBg; pk += kPfbThreads / 32) {
+    const int part = pk / geo.KBg, kbg = pk - part * geo.KBg;
+    const int ch = kbg / geo.KB0, kbl = kbg - ch * geo.KB0;
+    const int p0 = ch * geo.Dc, np = min(geo.Dc, D - p0);
+    const int e = lane >> 1, kap = 8 * kbl + (e & 3) + 4 * (lane & 1);
+    const bool ok = kap < np * P;
+    const int v = ok ? p0 + kap / P + (kap % P) * D : 0, vq = v & 7;
+    const uint32_t* src = btab + ((long)part * KBt + (v >> 3)) * NT * 32 +
+                          (4 * (e >> 2) + (vq & 3)) * 2 + (vq >> 2);
+    uint32_t* dst = bw + (long)pk * kNT * 32 + lane;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int ntg = group * kNT + nt;
+      dst[nt * 32] = ok && ntg < NT ? src[(long)ntg * 32] : 0u;
+    }
+  }
+  for (int i = tid; i < Q * K; i += kPfbThreads) hps[i] = hp[i];
+
+  const int gid = lane >> 2, tig = lane & 3;
+  // an odd GEMM column (wi, wr) from its even neighbour (wr, -wi)
+  const uint32_t sel = (gid & 1) ? 0x1032u : 0x3210u;
+  const uint32_t flip = (gid & 1) ? 0x8000u : 0u;
+  const uint2* bl = bs + 4 * (gid >> 1) + tig;
+  const int r0 = warp * 16 + gid;
+  float d[kNT][4];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[nt][i] = 0.f;
+
+  for (int ch = 0; ch < geo.nch; ++ch) {
+    const int p0 = ch * geo.Dc, np = min(geo.Dc, D - p0);
+    if (ch + 1 < geo.nch) {
+      const int p1 = p0 + geo.Dc;
+      pfb_stage_phases(win + ((ch + 1) & 1) * wsize, buf_re, buf_im, nb, g0,
+                       D, p1, min(geo.Dc, D - p1), geo.Kr, Ls, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // chunk ch (and, the first time, B and the taps)
+    const float* xr = win + (ch & 1) * wsize + r0 * Ls;
+    const float* xi = xr + geo.Kr * Ls;
+    const int lanes = np * P, kbc = (lanes + 7) / 8;
+    for (int kbl = 0; kbl < kbc; ++kbl) {
+      // the fold of lanes kappa = 8*kbl + tig (h = 0) and + 4 (h = 1) at
+      // rows r0 and r0 + 8 (rr); a lane past the chunk's folds to zero
+      int off[2];
+      const float* tp[2];
+      bool ok[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kap = 8 * kbl + tig + 4 * h;
+        const int pl = kap / P, s = kap % P;
+        ok[h] = kap < lanes;
+        off[h] = ok[h] ? s * Ls + pl : 0;
+        tp[h] = hps + (ok[h] ? p0 + pl + s * D : 0);
+      }
+      float fr[2][2], fi[2][2];
+      const int us = P * Ls;   // one fold tap further: P frames
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float h0 = ok[h] ? tp[h][0] : 0.f;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int o = off[h] + 8 * rr * Ls;
+          fr[h][rr] = __fmul_rn(xr[o], h0);
+          fi[h][rr] = __fmul_rn(xi[o], h0);
+        }
+      }
+#pragma unroll 4
+      for (int u = 1; u < Q; ++u) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float hu = ok[h] ? tp[h][u * K] : 0.f;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int o = off[h] + 8 * rr * Ls + u * us;
+            fr[h][rr] = __fadd_rn(fr[h][rr], __fmul_rn(xr[o], hu));
+            fi[h][rr] = __fadd_rn(fi[h][rr], __fmul_rn(xi[o], hu));
+          }
+        }
+      }
+      // A fragment: register q holds lane h = q / 2 at row r0 + 8*(q % 2)
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float ar = fr[q >> 1][q & 1], ai = fi[q >> 1][q & 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(ar, ai);
+        ah[q] = bf16x2_bits(hi);
+        if constexpr (kGrade == kGradeBf16x3) {
+          al[q] = bf16x2_bits(__floats2bfloat162_rn(
+              __fsub_rn(ar, __low2float(hi)), __fsub_rn(ai, __high2float(hi))));
+        }
+      }
+      const int kbg = ch * geo.KB0 + kbl;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const uint2 h = bl[(kbg * kNT + nt) * 16];
+        const uint2 l = bl[((geo.KBg + kbg) * kNT + nt) * 16];
+        const uint32_t h0 = __byte_perm(h.x, 0u, sel) ^ flip;
+        const uint32_t h1 = __byte_perm(h.y, 0u, sel) ^ flip;
+        const uint32_t l0 = __byte_perm(l.x, 0u, sel) ^ flip;
+        const uint32_t l1 = __byte_perm(l.y, 0u, sel) ^ flip;
+        mma_bf16(d[nt], ah, h0, h1);
+        mma_bf16(d[nt], ah, l0, l1);
+        if constexpr (kGrade == kGradeBf16x3) mma_bf16(d[nt], al, h0, h1);
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer
+  }
+
+  // the fragments to the output tile, in the window's space
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int col = 8 * nt + 2 * tig;
+    out[r0 * kOS + col] = d[nt][0];
+    out[r0 * kOS + col + 1] = d[nt][1];
+    out[(r0 + 8) * kOS + col] = d[nt][2];
+    out[(r0 + 8) * kOS + col + 1] = d[nt][3];
+  }
+  __syncthreads();
+  return out;
 }
 
 }  // namespace gsdr

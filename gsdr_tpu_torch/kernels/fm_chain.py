@@ -15,11 +15,12 @@ between them at any block.
 ``fm_chain`` and ``pfb_fm_chain`` launch ``csrc/fm_chain.cu`` for CUDA
 tensors and take their plain versions, ``fm_chain_reference`` and
 ``pfb_fm_chain_reference``, only for tensors on the CPU. The dense front
-runs at a grade (``precision``, the JAX package's): 'bf16x3', the
-kernel's default as it is ``fm_chain_pallas``'s, and 'bf16x2' on the
-tensor cores, 'f32' on the FP32 FMAs; the plain version emulates the grade
-(``chain.graded_bank_front``) and defaults to 'f32' (``chain.ChainKernel``
-says why). The PFB front runs in float32.
+Either front runs at a grade (``precision``, the JAX package's): 'bf16x3',
+the kernels' default as it is ``fm_chain_pallas``'s and
+``pfb_fm_chain_pallas``'s, and 'bf16x2' on the tensor cores, 'f32' on the
+FP32 FMAs; the plain versions emulate the grade
+(``chain.graded_bank_front``, ``chain.graded_uniform_front``) and default
+to 'f32' (``chain.ChainKernel`` says why).
 """
 
 import ctypes
@@ -37,11 +38,12 @@ from gsdr_tpu_torch.kernels.chain import (
     front_supported,
     grade_code,
     graded_bank_front,
+    graded_uniform_front,
     load_chain_library,
+    pfb_mma_tables,
 )
 from gsdr_tpu_torch.ops.channelize import rotate_bank
 from gsdr_tpu_torch.ops.iir import iir_block
-from gsdr_tpu_torch.ops.pfb import uniform_bank_front
 from gsdr_tpu_torch.ops.quad_demod import quad_fm_demod
 
 _DEEMPH_BLOCK_LEN = 256
@@ -93,17 +95,19 @@ def fm_chain_reference(buf, tap_bank, lo_table, n0_rot, decimation, gain,
 
 def pfb_fm_chain_reference(buf, poly_taps, dft_bank, num_taps, lo_table,
                            n0_rot, decimation, gain, deemph, carry_f,
-                           carry_z):
-    """The unfused chain with the PFB front: mix_fir_decimate_bank_uniform
-    (on its tables), then the rotor, discriminator and de-emphasis exactly
-    as ``fm_chain_reference``.
+                           carry_z, precision="f32"):
+    """The unfused chain with the PFB front at the grade ``precision``
+    (``graded_uniform_front``; at 'f32' mix_fir_decimate_bank_uniform on
+    its tables), then the rotor, discriminator and de-emphasis exactly as
+    ``fm_chain_reference``.
 
     ``poly_taps`` is the (Q, K) table of ``ops.pfb._poly_taps``,
     ``dft_bank`` the (2C, 2K) table of ``ops.pfb._dft_bank_stacked``,
     ``num_taps`` the prototype's T (M = (Nb - T)//D + 1). Other arguments
     as fm_chain_reference.
     """
-    y = uniform_bank_front(buf, poly_taps, dft_bank, num_taps, decimation)
+    y = graded_uniform_front(buf, poly_taps, dft_bank, num_taps, decimation,
+                             precision)
     return _fm_back_end(y, lo_table, n0_rot, decimation, gain, deemph,
                         carry_f, carry_z)
 
@@ -119,7 +123,7 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fm_chain_launch.argtypes = [p] * 16 + [i] * 7 + [ctypes.c_float, p]
     lib.fm_chain_launch.restype = i
-    lib.pfb_fm_chain_launch.argtypes = [p] * 16 + [i] * 8 + [ctypes.c_float, p]
+    lib.pfb_fm_chain_launch.argtypes = [p] * 17 + [i] * 9 + [ctypes.c_float, p]
     lib.pfb_fm_chain_launch.restype = i
     lib.fm_chain_tile_outputs.argtypes = []
     lib.fm_chain_tile_outputs.restype = i
@@ -187,19 +191,22 @@ def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation, gain, deemph,
 
 
 def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
-                decimation, gain, deemph, carry_f, carry_z):
+                decimation, gain, deemph, carry_f, carry_z,
+                precision="bf16x3"):
     dev = buf.re.device
+    grade = grade_code("pfb_fm_chain", precision)
     c, k, q = check_pfb_tables("pfb_fm_chain", "fm_chain", poly_taps,
-                               dft_bank, num_taps, decimation)
+                               dft_bank, num_taps, decimation, precision)
     check_operands("pfb_fm_chain", {
         "poly_taps": (poly_taps, (q, k)),
         "dft_bank": (dft_bank, (2 * c, 2 * k))}, dev)
     t = int(num_taps)
+    btab = pfb_mma_tables(dft_bank).data_ptr() if grade else None
     return _launch(
         "pfb_fm_chain",
-        ((poly_taps.data_ptr(), dft_bank.data_ptr()), (t, k, q), ()), buf,
-        lo_table, n0_rot, c, t, int(decimation), gain, deemph, carry_f,
-        carry_z)
+        ((poly_taps.data_ptr(), dft_bank.data_ptr(), btab), (t, k, q),
+         (grade,)), buf, lo_table, n0_rot, c, t, int(decimation), gain,
+        deemph, carry_f, carry_z)
 
 
 fm_chain = ChainKernel("fm_chain", fm_chain_reference, _launch_dense)

@@ -18,7 +18,7 @@ from gsdr_tpu_torch.kernels.am_chain import (
     pfb_am_chain,
     pfb_am_chain_reference,
 )
-from gsdr_tpu_torch.kernels.chain import select_front
+from gsdr_tpu_torch.kernels.chain import GRADES, select_front
 from gsdr_tpu_torch.ops.channelize import make_complex_tap_bank
 from gsdr_tpu_torch.ops.pfb import _dft_bank_stacked, _poly_taps
 from gsdr_tpu_torch.utils.phase import phase_digit_table
@@ -37,22 +37,22 @@ class AmReceiver(nn.Module):
     PFB front where ``pfb_preferred`` holds and the kernel takes the grid,
     else dense; the plain dense chain on the CPU), 'torch' (plain dense),
     'cuda' (dense kernel), 'pfb' (PFB kernel on the card, plain PFB chain
-    on the CPU), 'pfb_torch' (plain PFB chain). ``precision``: 'f32'.
-    ``device`` defaults to 'cuda' and raises where CUDA is missing.
+    on the CPU), 'pfb_torch' (plain PFB chain). ``precision``: the
+    kernels' grade, as the JAX model's and FmChannelizer's: 'bf16x3' (the
+    default), 'bf16x2' or 'f32', for either front; the plain chains run
+    float32, as the JAX model's XLA path does. ``device`` defaults to
+    'cuda' and raises where CUDA is missing.
     """
 
     def __init__(self, sample_rate, tuning_frequency, channel_frequencies,
-                 decimation, low_pass_taps, impl="auto", precision="f32",
+                 decimation, low_pass_taps, impl="auto", precision="bf16x3",
                  device="cuda"):
         super().__init__()
         if impl not in _IMPLS:
             raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
-        if precision in ("bf16x3", "bf16x2"):
-            raise NotImplementedError(
-                f"precision={precision!r}: only the 'f32' grade is ported "
-                "(tensor-core grades are on the ROADMAP)")
-        if precision != "f32":
-            raise ValueError(f"unknown precision {precision!r}")
+        if precision not in GRADES:
+            raise ValueError(f"precision must be one of {tuple(GRADES)}, "
+                             f"got {precision!r}")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -78,7 +78,7 @@ class AmReceiver(nn.Module):
             phase_digit_table(shifts, self.sample_rate), device=device))
         self.pfb_grid = select_front(
             "AmReceiver", "am_chain", impl, shifts, self.sample_rate,
-            self.decimation, self.num_taps, device)
+            self.decimation, self.num_taps, device, precision)
         self.front = "toeplitz" if self.pfb_grid is None else "pfb"
         if self.pfb_grid is not None:
             k, bins = self.pfb_grid
@@ -123,13 +123,16 @@ class AmReceiver(nn.Module):
                            torch.cat([rf_tail.im, rf.im], dim=-1))
         rot0 = torch.remainder(n0 + (fs - (t - 1) % fs), fs).to(torch.int32)
         back = (self.lo_table, rot0, self.decimation)
+        # the plain chains run float32 at any grade, as JAX's XLA path
+        plain = self.impl in ("torch", "pfb_torch") or not buf.re.is_cuda
+        precision = "f32" if plain else self.precision
         if self.front == "pfb":
-            chain = (pfb_am_chain_reference if self.impl == "pfb_torch"
-                     else pfb_am_chain)
-            audio = chain(buf, self.poly_taps, self.dft_bank, t, *back)
+            chain = pfb_am_chain_reference if plain else pfb_am_chain
+            audio = chain(buf, self.poly_taps, self.dft_bank, t, *back,
+                          precision=precision)
         else:
-            chain = am_chain_reference if self.impl == "torch" else am_chain
-            audio = chain(buf, self.tap_bank, *back)
+            chain = am_chain_reference if plain else am_chain
+            audio = chain(buf, self.tap_bank, *back, precision=precision)
         new_tail = buf[..., buf.shape[-1] - (t - 1):]
         n0_new = torch.remainder(n0 + n % fs, fs).to(torch.int32)
         return (n0_new, new_tail), audio

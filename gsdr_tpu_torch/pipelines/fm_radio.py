@@ -67,12 +67,12 @@ class FmChannelizer(nn.Module):
     Fs/K grid with D | K): the kernel on the card, the plain PFB chain on
     the CPU; 'pfb_torch' forces the plain PFB chain. Every impl keeps the
     same state, so a stream may change impl at any block.
-    ``precision``: the dense kernel's grade, as the JAX model's: 'bf16x3'
-    (the default; taps and window split into bf16 high and low parts,
-    three tensor-core passes), 'bf16x2' (the window's high part only, two
-    passes) or 'f32' (FP32 FMA). The PFB kernel runs float32 at any
-    grade, and the plain chains run float32, as the JAX model's XLA path
-    does. ``device`` defaults to 'cuda' and raises where CUDA is missing.
+    ``precision``: the kernels' grade, as the JAX model's: 'bf16x3' (the
+    default; the bank and the window, or with the PFB front the fold,
+    split into bf16 high and low parts, three tensor-core passes),
+    'bf16x2' (the signal's high part only, two passes) or 'f32' (FP32
+    FMA). The plain chains run float32, as the JAX model's XLA path does.
+    ``device`` defaults to 'cuda' and raises where CUDA is missing.
     """
 
     def __init__(self, sample_rate, tuning_frequency, channel_frequencies,
@@ -171,18 +171,18 @@ class FmChannelizer(nn.Module):
         rot0 = torch.remainder(n0 + (fs - (t - 1) % fs), fs).to(torch.int32)
         back = (self.lo_table, rot0, self.decimation, self.gain, self.deemph,
                 disc_carry, deemph_zi)
+        # the plain chains run float32 at any grade, as JAX's XLA path
+        plain = self.impl in ("torch", "pfb_torch") or not buf.re.is_cuda
+        precision = "f32" if plain else self.precision
         if self.front == "pfb":
-            chain = (pfb_fm_chain_reference if self.impl == "pfb_torch"
-                     else pfb_fm_chain)
+            chain = pfb_fm_chain_reference if plain else pfb_fm_chain
             audio, new_carry, new_zi = chain(
-                buf, self.poly_taps, self.dft_bank, t, *back)
+                buf, self.poly_taps, self.dft_bank, t, *back,
+                precision=precision)
         else:
-            # the plain chain runs float32 at any grade, as JAX's XLA path
-            kernel = self.impl != "torch" and buf.re.is_cuda
-            chain = fm_chain if kernel else fm_chain_reference
-            audio, new_carry, new_zi = chain(
-                buf, self.tap_bank, *back,
-                precision=self.precision if kernel else "f32")
+            chain = fm_chain_reference if plain else fm_chain
+            audio, new_carry, new_zi = chain(buf, self.tap_bank, *back,
+                                             precision=precision)
         new_tail = buf[..., buf.shape[-1] - (t - 1):]
         n0_new = torch.remainder(n0 + n % fs, fs).to(torch.int32)
         return (n0_new, new_tail, new_carry, new_zi), audio

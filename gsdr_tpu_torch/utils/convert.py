@@ -15,7 +15,6 @@ import numpy as np
 import torch
 
 from gsdr_tpu_torch.carray import ComplexArray
-from gsdr_tpu_torch.kernels.chain import GRADES as FM_GRADES
 from gsdr_tpu_torch.pipelines.am_radio import AmReceiver
 from gsdr_tpu_torch.pipelines.fm_radio import FmChannelizer
 from gsdr_tpu_torch.pipelines.qpsk_modem import Qpsk256Modem, QpskModem
@@ -32,35 +31,29 @@ _IMPL_MAP = {"auto": "auto", "xla": "torch", "pallas": "cuda",
              "pfb": "pfb", "pfb_pallas": "pfb"}
 
 
-def _port_fields(fields, grades):
-    """The JAX model's fields with impl and precision mapped to the port's.
-
-    impl maps 'xla' -> 'torch', 'pallas' -> 'cuda', and both 'pfb' and
-    'pfb_pallas' -> 'pfb' (the PFB kernel on the card, the plain PFB chain
-    on the CPU). A grade in ``grades``, the port model's own, carries over
-    as it is. A model without the JAX default 'bf16x3' (AmReceiver, 'f32'
-    only) takes 'f32' for it, and raises for 'bf16x2'.
-    """
+def _port_fields(fields):
+    """The JAX model's fields with impl mapped to the port's: 'xla' ->
+    'torch', 'pallas' -> 'cuda', and both 'pfb' and 'pfb_pallas' -> 'pfb'
+    (the PFB kernel on the card, the plain PFB chain on the CPU). The
+    grade (``precision``) carries over as it is."""
     fields = dict(fields)
     impl = fields.pop("impl", "auto")
     if impl not in _IMPL_MAP:
         raise NotImplementedError(
             f"impl={impl!r} has no counterpart in the port yet")
-    precision = fields.pop("precision", "f32")
-    if precision == "bf16x3" and precision not in grades:
-        precision = "f32"
-    return dict(fields, impl=_IMPL_MAP[impl], precision=precision)
+    return dict(fields, impl=_IMPL_MAP[impl])
 
 
 def fm_channelizer_from_fields(fields, device="cuda"):
     """The port's FmChannelizer from the fields of a JAX FmChannelizer; its
     grade carries over."""
-    return FmChannelizer(**_port_fields(fields, FM_GRADES), device=device)
+    return FmChannelizer(**_port_fields(fields), device=device)
 
 
 def am_receiver_from_fields(fields, device="cuda"):
-    """The port's AmReceiver from the fields of a JAX AmReceiver."""
-    return AmReceiver(**_port_fields(fields, ("f32",)), device=device)
+    """The port's AmReceiver from the fields of a JAX AmReceiver; its grade
+    carries over."""
+    return AmReceiver(**_port_fields(fields), device=device)
 
 
 def qpsk_modem_from_fields(fields, device="cuda"):

@@ -207,8 +207,12 @@ def test_am_checks(monkeypatch):
     with pytest.raises(ValueError, match="Fs/K grid"):
         TAm(**dict(fields, channel_frequencies=(12_345.678,)), impl="pfb",
             device="cpu")
-    with pytest.raises(NotImplementedError, match="f32"):
-        TAm(**fields, precision="bf16x3", device="cpu")
+    # JAX's default grade is the port's default, and every grade is taken
+    assert TAm(**fields, device="cpu").precision == "bf16x3"
+    for grade in ("bf16x3", "bf16x2", "f32"):
+        assert TAm(**fields, precision=grade, device="cpu").precision == grade
+    with pytest.raises(ValueError, match="precision must be"):
+        TAm(**fields, precision="bf16", device="cpu")
     with pytest.raises(ValueError, match="impl must be"):
         TAm(**fields, impl="xla", device="cpu")
     model = TAm(**fields, device="cpu")

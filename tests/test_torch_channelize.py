@@ -99,12 +99,33 @@ def test_rotate_bank_matches_jax(n0):
 
 
 def test_channelize_matches_jax():
+    """channelize = the bank (within 1e-5 of max|y|, as
+    test_mix_fir_decimate_bank_matches_jax) rotated by the digit-table
+    phase, held as test_rotate_bank_matches_jax holds the rotor: the phase
+    fractions of the outputs agree modulo 1 within PHASE_BOUND cycles, and
+    each sample within 1e-5*max|y| + 2*pi*PHASE_BOUND*|y| + TRIG_ATOL."""
     taps = _taps(64)
-    jx, tx = _both(*_planar(4096, 3))
+    re, im = _planar(4096, 3)
+    jx, tx = _both(re, im)
     want = jch.channelize(jx, taps, SHIFTS, FS, 4, first_sample_index=77)
     got = tch.channelize(tx, taps, SHIFTS, FS, 4, first_sample_index=77)
-    assert _rel(got.re.numpy(), np.asarray(want.re)) < 2e-5
-    assert _rel(got.im.numpy(), np.asarray(want.im)) < 2e-5
+    m = (4096 - 64) // 4 + 1
+    assert tuple(got.shape) == want.shape == (len(SHIFTS), m)
+    table = j_table(SHIFTS, FS)
+    idx = (77 + 4 * np.arange(m)).astype(np.int32)[None, :]
+    f_want = np.asarray(jphase.phase_fraction_from_table(
+        jnp.asarray(idx), jnp.asarray(table)[:, None, :]))
+    f_got = tphase.phase_fraction_from_table(
+        torch.from_numpy(idx), torch.from_numpy(table)[:, None, :]).numpy()
+    df = np.abs(f_got - f_want)
+    assert np.max(np.minimum(df, 1.0 - df)) <= PHASE_BOUND
+    # |y| of the un-rotated bank output, which the rotor does not change
+    y = tch.mix_fir_decimate_bank(tx, torch.from_numpy(
+        tch.make_complex_tap_bank(taps, SHIFTS, FS)), 4)
+    mag = np.hypot(y.re.numpy(), y.im.numpy())
+    bound = 1e-5 * mag.max() + 2 * np.pi * PHASE_BOUND * mag + TRIG_ATOL
+    assert np.all(np.abs(got.re.numpy() - np.asarray(want.re)) <= bound)
+    assert np.all(np.abs(got.im.numpy() - np.asarray(want.im)) <= bound)
 
 
 def test_quad_demods_match_jax():

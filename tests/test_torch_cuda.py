@@ -10,7 +10,12 @@ import pytest
 import torch
 
 from gsdr_tpu_torch.carray import ComplexArray as TCA
-from gsdr_tpu_torch.kernels.am_chain import am_chain, pfb_am_chain
+from gsdr_tpu_torch.kernels.am_chain import (
+    am_chain,
+    am_chain_reference,
+    pfb_am_chain,
+    pfb_am_chain_reference,
+)
 from gsdr_tpu_torch.kernels.chain import front_supported
 from gsdr_tpu_torch.kernels.channelize import (
     channelize_kernel,
@@ -20,6 +25,7 @@ from gsdr_tpu_torch.kernels.fm_chain import (
     fm_chain,
     fm_chain_reference,
     pfb_fm_chain,
+    pfb_fm_chain_reference,
 )
 from gsdr_tpu_torch.kernels.qpsk256 import qpsk256_kernel, qpsk256_reference
 from gsdr_tpu_torch.ops.channelize import make_complex_tap_bank
@@ -169,7 +175,7 @@ def test_pfb_fm_kernel_matches_plain_and_dense_on_card(card, k, d, t, c):
     # the library's own check, static shared memory included
     assert front_supported("fm_chain", "cuda", t, d, k)
     kw = dict(frequency_deviation=75_000.0)
-    kern = _grid_model(FmChannelizer, "pfb", k, d, t, c, **kw)
+    kern = _grid_model(FmChannelizer, "pfb", k, d, t, c, precision="f32", **kw)
     plain = _grid_model(FmChannelizer, "pfb_torch", k, d, t, c, **kw)
     dense_fits = front_supported("fm_chain", "cuda", t, d)
     dense = _grid_model(FmChannelizer, "cuda" if dense_fits else "torch",
@@ -204,26 +210,36 @@ def test_pfb_fm_kernel_matches_plain_and_dense_on_card(card, k, d, t, c):
 
 @pytest.mark.cuda
 def test_auto_routes_wideband_to_pfb_kernel_on_card(card):
+    """'auto' at the default grade, bf16x3, takes B2 and B3-PFB on the
+    wideband Fs/64 grid: one launch per step, nothing else."""
     model = _grid_model(FmChannelizer, "auto", 64, 64, 512, 64,
                         frequency_deviation=75_000.0)
-    assert model.front == "pfb"
+    assert model.front == "pfb" and model.precision == "bf16x3"
     before = (fm_chain.launches, pfb_fm_chain.launches)
     re, im = _grid_fm_signal(model.channel_frequencies, 64 * 512, seed=2)
     model.step(model.init(), TCA(re, im))
     assert (fm_chain.launches, pfb_fm_chain.launches) == \
+        (before[0], before[1] + 1)
+    am = _grid_model(AmReceiver, "auto", 64, 64, 512, 64)
+    assert am.front == "pfb" and am.precision == "bf16x3"
+    before = (am_chain.launches, pfb_am_chain.launches)
+    _, y = am.step(am.init(), TCA(re, im))
+    assert bool(torch.isfinite(y).all())
+    assert (am_chain.launches, pfb_am_chain.launches) == \
         (before[0], before[1] + 1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,d,t,c", PFB_GEOMETRIES)
 def test_am_kernels_match_plain_on_card(card, k, d, t, c):
-    """B3 on both fronts against the plain chains and each other, over two
-    streamed blocks: envelopes within 1e-5."""
+    """B3 on both fronts at f32 against the plain chains and each other,
+    over two streamed blocks: envelopes within 1e-5."""
     dense_fits = front_supported("am_chain", "cuda", t, d)
-    models = {impl: _grid_model(AmReceiver, impl, k, d, t, c)
+    models = {impl: _grid_model(AmReceiver, impl, k, d, t, c,
+                                precision="f32")
               for impl in ("pfb", "pfb_torch", "torch")}
     models["cuda"] = _grid_model(AmReceiver, "cuda" if dense_fits else "torch",
-                                 k, d, t, c)
+                                 k, d, t, c, precision="f32")
     n = d * 3 * 1_000
     re, im = _am_signal(models["pfb"].channel_frequencies, 2 * n, seed=8)
     states = {impl: m.init() for impl, m in models.items()}
@@ -254,15 +270,16 @@ def test_shared_memory_check_on_card(card):
 
 @pytest.mark.cuda
 def test_am_dense_kernel_at_am_d_shape_on_card(card):
-    """B3-dense at the 8-channel, T=32, D=4 shape, off any preferred grid,
-    where 'auto' takes the dense front."""
+    """B3-dense at f32 at the 8-channel, T=32, D=4 shape, off any
+    preferred grid, where 'auto' takes the dense front."""
     n_ = np.arange(32) - 15.5
     h = np.sinc(2 * 0.04 * n_) * np.hamming(32)
     kw = dict(sample_rate=FS, tuning_frequency=100_000_000.0,
               channel_frequencies=tuple(100_000_000.0 - 200_000.0 + 50_000.0 * i
                                         for i in range(8)),
               decimation=4, low_pass_taps=tuple(h / h.sum()), device="cuda")
-    auto, plain = AmReceiver(impl="auto", **kw), AmReceiver(impl="torch", **kw)
+    auto = AmReceiver(impl="auto", precision="f32", **kw)
+    plain = AmReceiver(impl="torch", **kw)
     assert auto.front == "toeplitz"
     re, im = _am_signal([f - 100_000_000.0 for f in kw["channel_frequencies"]],
                         40_000, seed=1)
@@ -446,9 +463,9 @@ def test_channelize_kernel_grades_match_plain_on_card(card, c, t, d, grade):
 @pytest.mark.cuda
 def test_grades_fit_and_refuse_on_card(card):
     """Each library answers for each grade of its dense front: the
-    flagship, the transmux and the FM wideband shapes fit at every grade,
-    T=1021 at D=128 fits at none (FmChannelizer and the wrappers raise
-    before any launch); a grade a library lacks raises."""
+    flagship, the transmux, the FM wideband and the am_d shapes fit at
+    every grade, T=1021 at D=128 fits at none (FmChannelizer and the
+    wrappers raise before any launch); an unknown grade raises."""
     for grade in GRADES:
         for lib, t, d in (("fm_chain", 64, 4), ("fm_chain", 512, 64),
                           ("channelize", 256, 32), ("channelize", 128, 16)):
@@ -463,8 +480,12 @@ def test_grades_fit_and_refuse_on_card(card):
         with pytest.raises(ValueError, match="shared memory"):
             channelize_kernel(x, _bank(4, 1021), 128, precision=grade)
         assert channelize_kernel.launches == before
-    with pytest.raises(RuntimeError, match="am_chain_fits"):
-        front_supported("am_chain", "cuda", 32, 4, precision="bf16x3")
+    for grade in GRADES:
+        assert front_supported("am_chain", "cuda", 32, 4, precision=grade)
+        assert not front_supported("am_chain", "cuda", 1021, 128,
+                                   precision=grade)
+    with pytest.raises(ValueError, match="precision must be"):
+        front_supported("am_chain", "cuda", 32, 4, precision="fp8")
     x = _planar_cuda(4096, seed=5)
     with pytest.raises(ValueError, match="precision must be"):
         channelize_kernel(x, _bank(4, 32), 4, precision="tf32")
@@ -476,6 +497,151 @@ def test_grades_fit_and_refuse_on_card(card):
         fm_chain(buf, model.tap_bank, model.lo_table, n0, 4, model.gain,
                  model.deemph, cf, cz, precision="bf16")
     assert fm_chain.launches == before
+
+
+# (K, D, T, C) for the tensor-core PFB front: critical (P = 1, four phase
+# chunks); P = 8 with Q*K > T and C = 40 (two 32-channel blocks, the second
+# ragged); K not a multiple of 8; D = 20 > 16 (two chunks, the second of 4
+# phases, 20 lanes); D = 1. Every first block reads samples before 0 and every last
+# tile samples past the buffer; M = 3000 per step fills no whole tile.
+PFB_GRADE_GEOMETRIES = [(64, 64, 512, 64), (64, 8, 500, 40),
+                        (20, 4, 157, 13), (100, 20, 190, 5), (8, 1, 61, 8)]
+# the grade against the f32 plain chain, AM envelopes (absolute): bf16x3
+# at JAX's test_pfb_front_matches_xla gate, bf16x2 at its grade's 2e-2
+AM_GRADE_GAP = {"bf16x3": 2e-3, "bf16x2": 2e-2}
+
+
+def _graded_pfb_plain_steps(model, blocks, precision):
+    """A PFB FM model's stream through pfb_fm_chain_reference at a grade."""
+    n0, tail, cf, cz = model.init()
+    fs, t = int(round(model.sample_rate)), model.num_taps
+    outs = []
+    for rf in blocks:
+        buf = TCA(torch.cat([tail.re, rf.re]), torch.cat([tail.im, rf.im]))
+        rot0 = torch.remainder(n0 + (fs - (t - 1) % fs), fs).to(torch.int32)
+        audio, cf, cz = pfb_fm_chain_reference(
+            buf, model.poly_taps, model.dft_bank, t, model.lo_table, rot0,
+            model.decimation, model.gain, model.deemph, cf, cz,
+            precision=precision)
+        outs.append(audio)
+        tail = buf[..., buf.shape[-1] - (t - 1):]
+        n0 = torch.remainder(n0 + rf.shape[-1] % fs, fs).to(torch.int32)
+    return outs, (cf, cz)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
+@pytest.mark.parametrize("k,d,t,c", PFB_GRADE_GEOMETRIES)
+def test_pfb_fm_kernel_grades_match_plain_on_card(card, k, d, t, c, grade):
+    """B2 on the tensor cores, two streamed blocks through FmChannelizer(
+    impl='pfb', precision=grade): within 1e-4 of max|audio| of the plain
+    PFB chain at that grade after the warm-up, carries within 1e-4; and
+    within the grade's gap of the f32 plain chain (FM_GRADE_GAP)."""
+    kw = dict(frequency_deviation=75_000.0)
+    kern = _grid_model(FmChannelizer, "pfb", k, d, t, c, precision=grade,
+                       **kw)
+    plain = _grid_model(FmChannelizer, "pfb_torch", k, d, t, c, **kw)
+    n = d * 3 * 1_000
+    re, im = _grid_fm_signal(kern.channel_frequencies, 2 * n, seed=6)
+    blocks = [TCA(re[i * n:(i + 1) * n], im[i * n:(i + 1) * n])
+              for i in range(2)]
+    a = abs(float(kern.deemph[2]))
+    skip = int(np.ceil(np.log(1e-6) / np.log(max(a, 1e-3)))) + t // d + 8
+    graded, (gcf, gcz) = _graded_pfb_plain_steps(kern, blocks, grade)
+    sk, sp = kern.init(), plain.init()
+    before = pfb_fm_chain.launches
+    for i, rf in enumerate(blocks):
+        sk, yk = kern.step(sk, rf)
+        sp, yp = plain.step(sp, rf)
+        s0 = skip if i == 0 else 0
+        for want, tol in ((graded[i], 1e-4), (yp, FM_GRADE_GAP[grade])):
+            err = (yk - want)[:, s0:].abs().max() / want[:, s0:].abs().max()
+            assert float(err) <= tol
+    assert pfb_fm_chain.launches == before + 2
+    for x, y in ((sk[2].re, gcf.re), (sk[2].im, gcf.im), (sk[3], gcz)):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
+@pytest.mark.parametrize("k,d,t,c", PFB_GRADE_GEOMETRIES)
+def test_am_kernel_grades_match_plain_on_card(card, k, d, t, c, grade):
+    """B3 on both fronts at a tensor-core grade, two streamed blocks: each
+    within 1e-5 of its plain version at that grade, and within the grade's
+    gap of the f32 plain chain (AM_GRADE_GAP); the dense front where its
+    block fits at the grade."""
+    kern = {"pfb": _grid_model(AmReceiver, "pfb", k, d, t, c,
+                               precision=grade)}
+    if front_supported("am_chain", "cuda", t, d, precision=grade):
+        kern["cuda"] = _grid_model(AmReceiver, "cuda", k, d, t, c,
+                                   precision=grade)
+    plain = _grid_model(AmReceiver, "torch", k, d, t, c)
+    n = d * 3 * 1_000
+    re, im = _am_signal(plain.channel_frequencies, 2 * n, seed=8)
+    before = (am_chain.launches, pfb_am_chain.launches)
+    for impl, m in kern.items():
+        sk, sp = m.init(), plain.init()
+        for i in range(2):
+            rf = TCA(re[i * n:(i + 1) * n], im[i * n:(i + 1) * n])
+            n0, tail = sk
+            buf = TCA(torch.cat([tail.re, rf.re]), torch.cat([tail.im, rf.im]))
+            fs = int(FS)
+            rot0 = torch.remainder(n0 + (fs - (t - 1) % fs), fs).to(
+                torch.int32)
+            if impl == "pfb":
+                want = pfb_am_chain_reference(
+                    buf, m.poly_taps, m.dft_bank, t, m.lo_table, rot0, d,
+                    precision=grade)
+            else:
+                want = am_chain_reference(buf, m.tap_bank, m.lo_table, rot0,
+                                          d, precision=grade)
+            sk, yk = m.step(sk, rf)
+            sp, yp = plain.step(sp, rf)
+            torch.testing.assert_close(yk, want, rtol=0, atol=1e-5)
+            assert float((yk - yp).abs().max()) <= AM_GRADE_GAP[grade]
+    assert (am_chain.launches, pfb_am_chain.launches) == \
+        (before[0] + 2 * ("cuda" in kern), before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_pfb_grades_fit_and_refuse_on_card(card):
+    """Both libraries answer for the PFB front at each grade: the wideband
+    critical shape fits at every grade; K=640, D=64, T=1280 fits at f32
+    (a 204-KB block) and at neither bf16 grade (its lane-ordered B table
+    alone takes 160 KB): the models raise at construction, the wrappers
+    on the ctypes path before any launch."""
+    for lib in ("fm_chain", "am_chain"):
+        for grade in GRADES:
+            assert front_supported(lib, "cuda", 512, 64, 64, grade)
+        assert front_supported(lib, "cuda", 1280, 64, 640, "f32")
+        for grade in ("bf16x3", "bf16x2"):
+            assert not front_supported(lib, "cuda", 1280, 64, 640, grade)
+    kw = dict(frequency_deviation=75_000.0)
+    for grade in ("bf16x3", "bf16x2"):
+        with pytest.raises(ValueError, match="PFB kernel does not take"):
+            _grid_model(FmChannelizer, "pfb", 640, 64, 1280, 8,
+                        precision=grade, **kw)
+        with pytest.raises(ValueError, match="PFB kernel does not take"):
+            _grid_model(AmReceiver, "pfb", 640, 64, 1280, 8, precision=grade)
+    m = _grid_model(FmChannelizer, "pfb", 640, 64, 1280, 8, precision="f32",
+                    **kw)
+    am = _grid_model(AmReceiver, "pfb", 640, 64, 1280, 8, precision="f32")
+    n0, _, cf, cz = m.init()
+    nb = 1280 - 1 + 64 * 300
+    buf = TCA(torch.zeros(nb, device="cuda"), torch.zeros(nb, device="cuda"))
+    before = (pfb_fm_chain.launches, pfb_am_chain.launches)
+    for grade in ("bf16x3", "bf16x2"):
+        with pytest.raises(ValueError, match="shared memory"):
+            pfb_fm_chain(buf, m.poly_taps, m.dft_bank, 1280, m.lo_table, n0,
+                         64, m.gain, m.deemph, cf, cz, precision=grade)
+        with pytest.raises(ValueError, match="shared memory"):
+            pfb_am_chain(buf, am.poly_taps, am.dft_bank, 1280, am.lo_table,
+                         n0, 64, precision=grade)
+    assert (pfb_fm_chain.launches, pfb_am_chain.launches) == before
+    # the f32 grade of the same tables launches
+    pfb_am_chain(buf, am.poly_taps, am.dft_bank, 1280, am.lo_table, n0, 64,
+                 precision="f32")
+    assert pfb_am_chain.launches == before[1] + 1
 
 
 @pytest.mark.cuda

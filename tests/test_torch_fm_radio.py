@@ -30,6 +30,39 @@ from gsdr_tpu_torch.utils.convert import (
 FS = 1_000_000.0
 BLOCK = 4096
 SKIP = 256  # zero-primed warm-up outputs
+# The float32 digit-table phase is exact to PHASE_BOUND cycles, because a
+# compiler may contract its acc + digit*frac into an FMA, depending on the
+# host (tests/test_torch_channelize.py). The JAX fused kernels rotate by a
+# base phasor from that table, evaluated by XLA at the step's first output,
+# times exact host-built increments; the plain chain evaluates the table at
+# every output. Within a step the base cancels in the discriminator's
+# f[j]*conj(f[j-1]); at the step boundary the two steps' bases may each be
+# off by PHASE_BOUND, which moves one discriminator output by up to
+# gain*2*pi*2*PHASE_BOUND, and the de-emphasis passes that on as its
+# impulse response h (h[0] = b0, h[n] = cc*a^(n-1)): at most 8.1e-5 here.
+# Where 2e-4 of a test's max|audio| can lie below that (the PFB test's
+# narrow channels, max|audio| ~0.03), its second step is held to the gate
+# plus that term; the dense test's (max|audio| ~2.7) stays under its gate.
+PHASE_BOUND = 6e-5
+
+
+def _boundary_allowance(model, m):
+    """Per output of a step after the first: the most the digit-table
+    phase of the step boundary can move the audio (see PHASE_BOUND)."""
+    b0, cc, a = (abs(float(v)) for v in model.deemph)
+    h = np.concatenate([[b0], cc * a ** np.arange(m - 1)])
+    return model.gain * 2 * np.pi * 2 * PHASE_BOUND * h
+
+
+def _audio_within(yt, yj, model, step, tol=2e-4):
+    """Audio parity: after the zero-primed first step's warm-up within tol
+    of max|audio|; on the next step within tol of max|audio| plus the
+    boundary's digit-table allowance."""
+    if step == 0:
+        return _rel(yt[:, SKIP:], yj[:, SKIP:]) < tol
+    bound = (tol * np.max(np.abs(yj))
+             + _boundary_allowance(model, yj.shape[-1])[None, :])
+    return bool(np.all(np.abs(yt - yj) <= bound))
 
 
 def _lowpass(num_taps, cutoff_frac):
@@ -321,8 +354,7 @@ def test_pfb_fm_chain_reference_matches_jax_fused_interpret():
             tbuf, tm.poly_taps, tm.dft_bank, t, tm.lo_table, trot0, d,
             tm.gain, tm.deemph, tcf, tcz)
         assert tuple(yt.shape) == yj.shape == (6, n // d)
-        skip = SKIP if step == 0 else 0
-        assert _rel(yt.numpy()[:, skip:], np.asarray(yj)[:, skip:]) < 2e-4
+        assert _audio_within(yt.numpy(), np.asarray(yj), tm, step)
         np.testing.assert_allclose(cft.re.numpy(), np.asarray(cfj.re), atol=2e-4)
         np.testing.assert_allclose(cft.im.numpy(), np.asarray(cfj.im), atol=2e-4)
         np.testing.assert_allclose(czt.numpy(), np.asarray(czj), atol=2e-4)

@@ -310,17 +310,13 @@ def test_models_run_plain_f32_on_cpu_at_any_grade():
 @pytest.mark.parametrize("grade", ["bf16x3", "bf16x2", "f32"])
 def test_convert_carries_the_fm_grade(grade):
     """A JAX FmChannelizer's grade carries across as it is (bf16x2 used to
-    raise); AmReceiver, f32 only, keeps its mapping: bf16x3 -> f32,
-    bf16x2 raises."""
+    raise), and so does a JAX AmReceiver's (bf16x3 used to become f32 and
+    bf16x2 to raise)."""
     tm = fm_channelizer_from_fields(dataclasses.asdict(_fm_model(grade)),
                                     device="cpu")
     assert tm.precision == grade
     am = JAm(sample_rate=FS, tuning_frequency=100_000_000.0,
              channel_frequencies=(100_000_000.0,), decimation=4,
              low_pass_taps=_lowpass(32, 0.04), precision=grade)
-    if grade == "bf16x2":
-        with pytest.raises(NotImplementedError):
-            am_receiver_from_fields(dataclasses.asdict(am), device="cpu")
-    else:
-        assert am_receiver_from_fields(dataclasses.asdict(am),
-                                       device="cpu").precision == "f32"
+    assert am_receiver_from_fields(dataclasses.asdict(am),
+                                   device="cpu").precision == grade
