@@ -45,14 +45,18 @@ full width, 2^20 planar complex samples per step:
      bench_pfb's shape;
   8. the table-exact QPSK256 receiver, Qpsk256Modem(CIRCULAR,
      exact_tables=True), 8 blocks of 2^19 noisy symbols (sigma 0.05)
-     through rx counted (it must take B6), decisions against the plain
-     version and a float64 nearest neighbour on the host, the ideal
-     loopback of all 256 symbols for both geometries, then B6 timing;
+     through rx counted (it must take B6, which writes the uint8
+     decisions itself), decisions against the plain version and a float64
+     nearest neighbour on the host, the samples outside the candidate
+     grid's box counted, the ideal loopback of all 256 symbols for both
+     geometries, then B6 timing (grid launches per call by the profiler);
   9. iir_standalone: IirStream at bench_iir's size, 8 blocks of 2^20
      samples, for bench_iir's biquad, hw_parity.py's order 4, an order-8
      filter of four complex pole pairs and the biquad on a planar signal,
      counted (each block one B5 launch); y and the final state against
-     the plain blocked scan and scipy's float64 lfilter; B5 timing; then a
+     the plain blocked scan and scipy's float64 lfilter; B5 timing (grid
+     launches per call by the profiler), also at stream_fm's 2^18-sample
+     block for its de-emphasis and one of its SOS sections; then a
      double-pole biquad, which 'auto' must send to the plain scan (no
      launch) and impl='cuda' must refuse;
  10. stream_fm: a single-station FM receiver as a streaming Chain (mixer,
@@ -116,6 +120,7 @@ from gsdr_tpu_torch.kernels.qpsk256 import (
     qpsk256_kernel,
     qpsk256_reference,
     score_table,
+    table_grid,
 )
 from gsdr_tpu_torch.ops.iir import iir_block
 from gsdr_tpu_torch.ops.pfb import (
@@ -378,9 +383,12 @@ def cuda_ms(fn, reps, bursts=5, warmup=3):
 
 
 def device_us(fn, reps, tries=3):
-    """Device time per call of fn() by kernel name (torch.profiler). A
-    trace that records no device activity is taken again, up to ``tries``
-    times; an empty result means not measured."""
+    """Device time per call of fn() by kernel name (torch.profiler): the
+    mean over the kernel's records, times its launches per call (its
+    records over reps, rounded), so a record the trace drops (in this
+    process a trace can come back one record short) does not lower the
+    time. A trace that records no device activity is taken again, up to
+    ``tries`` times; an empty result means not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -395,10 +403,30 @@ def device_us(fn, reps, tries=3):
         for e in prof.key_averages():
             if (str(e.device_type).endswith("CUDA")
                     and e.self_device_time_total > 0):
-                out[e.key[:60]] = e.self_device_time_total / reps
+                out[e.key[:60]] = (e.self_device_time_total / e.count
+                                   * max(1, round(e.count / reps)))
         if out:
             break
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def grid_launches(fn, reps=20):
+    """(device kernels per call of fn() as torch.profiler counts them,
+    rounded; the records it counted over ``reps`` calls), (None, 0) when
+    the trace holds none; launch counters are restored."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = counts()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for name, k in COUNTERS.items():
+        k.launches = before[name]
+    n = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+    return (round(n / reps) if n else None), f"{n} in {reps} calls"
 
 
 def rel_err(got, want, skip=0):
@@ -1227,11 +1255,13 @@ def qpsk256_phase():
     outs, got = counted("Qpsk256Modem(CIRCULAR, exact_tables=True).rx",
                         lambda: [modem.rx(x) for x in rx_in],
                         {"qpsk256": STEPS})
-    ties_plain = ties_ref = 0
+    grid, blob = table_grid(modem.table)
+    ties_plain = ties_ref = outside = 0
     max_abs = tie_gap = 0.0
     for x, out in zip(rx_in, outs):
         check(out.dtype == torch.uint8 and tuple(out.shape) == (Q256_N,),
               f"decisions {out.dtype} {tuple(out.shape)}")
+        outside += int((grid.cells(x.re, x.im) < 0).sum())
         k_idx = out.long().cpu().numpy()
         p_idx = qpsk256_reference(x, modem.table).long().cpu().numpy()
         nn, best, pts = nearest64(x, modem.table)
@@ -1255,8 +1285,8 @@ def qpsk256_phase():
           f"blocks of {Q256_N} symbols at sigma {Q256_SIGMA}, launches {got}; "
           f"decisions differing from the plain version {ties_plain}, from the "
           f"float64 nearest neighbour {ties_ref}, all ties within {Q256_TIE} "
-          f"(largest {tie_gap:.3g}); "
-          f"symbol error rate {ser:.4g}")
+          f"(largest {tie_gap:.3g}); outside the candidate grid's box "
+          f"{outside} of {STEPS * Q256_N}; symbol error rate {ser:.4g}")
     for ctype in (RECTANGULAR, CIRCULAR):
         m = Qpsk256Modem(ctype, 1.0, exact_tables=True, device="cuda")
         s = torch.arange(256, device="cuda", dtype=torch.int32)
@@ -1271,22 +1301,43 @@ def qpsk256_phase():
         with full_f32():
             torch.argmin(c2 - 2 * (xf @ ct), -1)
 
-    timing = time_kernel(qpsk256_kernel, qpsk256_reference, library,
-                         (x0, modem.table))
-    # 4 FLOP per (sample, point) score: two FMAs; compare and select left out
-    bnd = bound(4.0 * 256 * Q256_N, 4.0 * (2 * Q256_N + Q256_N + 4 * 256))
+    def plain_u8(x, table, out_dtype):
+        return qpsk256_reference(x, table).to(out_dtype)
+
+    timing = time_kernel(qpsk256_kernel, plain_u8, library, (x0, modem.table),
+                         out_dtype=torch.uint8)
+    launches = grid_launches(lambda: qpsk256_kernel(x0, modem.table,
+                                                    out_dtype=torch.uint8))
+    check(launches[0] == 1, f"B6: {launches[1]} device kernels, want one "
+          "a call")
+    # the least over the known algorithms: the candidate search scores what
+    # this block's samples need (4 FLOP a score: its cell's list in the
+    # box, all 256 points outside it) and is bound by its bytes, x read
+    # (8 B a sample), the table and the grid read once, uint8 out (1 B);
+    # the exhaustive search, 4 FLOP for each of 256 points, beside it
+    cells = grid.cells(x0.re, x0.im)
+    lens = torch.as_tensor(np.diff(grid.offsets), device="cuda")
+    scores = float(torch.where(cells >= 0, lens[cells.clamp(min=0)],
+                               256).sum())
+    nbytes = 9.0 * Q256_N + 8 * 256 + blob.numel()
+    bnd = bound(4.0 * scores, nbytes)
+    exhaustive = bound(4.0 * 256 * Q256_N, 12.0 * Q256_N + 8 * 256)
     step_ms, step_dev, idle = time_calls(lambda: modem.rx(x0))
     print(json.dumps({
         "metric": "qpsk256_exact_rx_msym_per_s",
         "value": Q256_N / (step_ms * 1e-3) / 1e6, "unit": "Msym/s",
         "step_ms": step_ms, "device_us_per_step": step_dev,
         "device_idle_share": idle, "kernel_ms": timing[0],
-        "kernel_device_us": timing[1], "plain_ms": timing[2],
-        "library_ms": timing[3],
+        "kernel_device_us": timing[1], "grid_launches_per_call": launches[0],
+        "profiler_kernel_records": launches[1],
+        "plain_ms": timing[2], "library_ms": timing[3],
         "library": "torch.argmin(c2 - 2 * (x @ ct), -1), TF32 off",
-        "bound_ms": bnd[0], "bound_by": bnd[1], "ties_vs_plain": ties_plain,
-        "ties_vs_float64": ties_ref, "largest_tie_gap": tie_gap,
-        "card": CARD}))
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "exhaustive_bound_ms": exhaustive[0],
+        "exhaustive_bound_by": exhaustive[1], "grid": grid.g,
+        "scores_per_sample": scores / Q256_N, "outside_box": outside,
+        "ties_vs_plain": ties_plain, "ties_vs_float64": ties_ref,
+        "largest_tie_gap": tie_gap, "card": CARD}))
     return kernel_entry(
         "qpsk256", "gsdr_tpu_torch/kernels/csrc/qpsk256.cu",
         "gsdr_tpu/kernels/qpsk256_pallas.py:46", got["qpsk256"], max_abs,
@@ -1340,13 +1391,14 @@ def iir_bound(rows, n, filt):
     return flops, 4.0 * (2 * rows * n + filt.table.numel())
 
 
-def scipy_stream(b, a, blocks):
+def scipy_stream(b, a, blocks, zi=None):
     """scipy.signal.lfilter in float64 on the host over the blocks, the
-    state carried: the concatenated output and the final TDF-II state."""
+    state carried from zi (default zero): the concatenated output and the
+    final TDF-II state."""
     import scipy.signal as ss
 
     x = torch.cat(blocks).double().cpu().numpy()
-    zi = np.zeros(len(b) - 1)
+    zi = np.zeros(len(b) - 1) if zi is None else zi.double().cpu().numpy()
     y, zf = ss.lfilter(np.float64(np.float32(b)), np.float64(np.float32(a)),
                        x, zi=zi)
     return y, zf
@@ -1407,6 +1459,9 @@ def iir_standalone_phase():
         before = iir_kernel.launches
         k_ms = cuda_ms(lambda: iir_kernel(*args), reps=50)
         k_dev = device_us(lambda: iir_kernel(*args), reps=20)
+        per_call = grid_launches(lambda: iir_kernel(*args))
+        check(per_call[0] == 1, f"B5 {name}: {per_call[1]} device kernels, "
+              "want one a call")
         iir_kernel.launches = before
         p_ms = cuda_ms(lambda: plain.step(st, blocks[0]), reps=2, bursts=3)
         bnd = bound(*iir_bound(rows, N, filt))
@@ -1415,10 +1470,52 @@ def iir_standalone_phase():
             "order": len(b) - 1, "poles": len(filt.diag.poles),
             "launches": got["iir"], "max_abs_err": max_abs,
             "vs_plain_rel": err, "vs_float64_rel": ref_err,
-            "kernel_ms": k_ms, "kernel_device_us": k_dev, "plain_ms": p_ms,
+            "kernel_ms": k_ms, "kernel_device_us": k_dev,
+            "grid_launches_per_call": per_call[0],
+            "profiler_kernel_records": per_call[1], "plain_ms": p_ms,
             "library_ms": None, "library": IIR_LIBRARY, "bound_ms": bnd[0],
             "bound_by": bnd[1], "card": CARD}
         print(json.dumps(lines[name]))
+
+    # stream_fm's IIR blocks: 2^18 samples, where most of B5's main-path
+    # launches run; one call each from a nonzero state (uncounted)
+    (b_de, a_de), sos = stream_fm_iir()
+    for name, b, a in (("deemph", b_de, a_de),
+                       ("sos0", tuple(sos[0, :3].tolist()),
+                        tuple(sos[0, 3:].tolist()))):
+        x = torch.randn(N // 4, generator=gen, device="cuda")
+        zi = torch.randn(len(b) - 1, generator=gen, device="cuda")
+        filt = iir_filter(b, a, x.device)
+        before = iir_kernel.launches
+        y, zf = iir_kernel(x, filt, zi)
+        yp, zp = iir_block(b, a, x, zi=zi, impl="torch")
+        y64, z64 = scipy_stream(b, a, [x], zi)
+        scale = float(yp.abs().max())
+        err = max(float((y - yp).abs().max()),
+                  float((zf - zp).abs().max())) / scale
+        ref_err = max(float(np.abs(y.double().cpu().numpy() - y64).max()),
+                      float(np.abs(zf.double().cpu().numpy() - z64).max())
+                      ) / scale
+        check(err <= IIR_REL_TOL, f"B5 {name} vs plain: rel {err:.3g}")
+        check(ref_err <= IIR_REL_TOL, f"B5 {name} vs float64: rel "
+              f"{ref_err:.3g}")
+        k_ms = cuda_ms(lambda: iir_kernel(x, filt, zi), reps=50)
+        k_dev = device_us(lambda: iir_kernel(x, filt, zi), reps=20)
+        per_call = grid_launches(lambda: iir_kernel(x, filt, zi))
+        check(per_call[0] == 1, f"B5 {name}: {per_call[1]} device kernels, "
+              "want one a call")
+        iir_kernel.launches = before
+        p_ms = cuda_ms(lambda: iir_block(b, a, x, zi=zi, impl="torch"),
+                       reps=2, bursts=3)
+        bnd = bound(*iir_bound(1, N // 4, filt))
+        print(json.dumps({
+            "phase": f"iir_stream_fm_{name}", "rows": 1, "n": N // 4,
+            "order": len(b) - 1, "poles": len(filt.diag.poles),
+            "vs_plain_rel": err, "vs_float64_rel": ref_err,
+            "kernel_ms": k_ms, "kernel_device_us": k_dev,
+            "grid_launches_per_call": per_call[0],
+            "profiler_kernel_records": per_call[1], "plain_ms": p_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "card": CARD}))
 
     # the double real pole: 'auto' takes the plain scan, 'cuda' raises
     x = torch.randn(N, generator=gen, device="cuda")
@@ -1441,17 +1538,24 @@ def iir_standalone_phase():
     return launches, worst, lines
 
 
+def stream_fm_iir():
+    """stream_fm's IIR stages at its 250-kHz audio rate: the 75-us
+    de-emphasis (b, a) and the order-8 Butterworth audio low-pass at 15 kHz
+    as second-order sections."""
+    import scipy.signal as ss
+
+    rate = FS / 4
+    return (fm_deemphasis_coeffs(75e-6, rate),
+            ss.butter(8, 15e3, fs=rate, output="sos"))
+
+
 def stream_fm_chain(iir_impl):
     """The single-station FM receiver as a streaming Chain: shift the
     station at +100 kHz to DC, the flagship's 64-tap low-pass with D=4,
-    the discriminator at 75 kHz deviation, the 75-us de-emphasis and an
-    order-8 Butterworth audio low-pass at 15 kHz as 4 biquads, both IIR
+    the discriminator at 75 kHz deviation, and stream_fm_iir's two IIR
     stages with impl=iir_impl."""
-    import scipy.signal as ss
-
     audio_rate = FS / 4
-    b, a = fm_deemphasis_coeffs(75e-6, audio_rate)
-    sos = ss.butter(8, 15e3, fs=audio_rate, output="sos")
+    (b, a), sos = stream_fm_iir()
     return Chain((
         MixerStream(freq_shift_hz=-100_000.0, sample_rate=FS),
         FirStream(taps=lowpass(64, 0.03), decimation=4),

@@ -1,5 +1,5 @@
 // Exact IIR filter of order 1-8 with distinct poles for Hopper (sm_90a),
-// float32: the pole-diagonalized scan.
+// float32: the pole-diagonalized scan, one launch, one read of the signal.
 //
 // Replaces gsdr_tpu/kernels/iir_pallas.py::_iir_kernel (entry iir_pallas).
 // With the transposed-DF-II state matrix M = Q diag(p) Q^-1, each pole
@@ -10,59 +10,94 @@
 //   zf     = sum_k wgt_k Re(Qcol_k s_k[N-1])
 // (w = Q^-1 c, q = Q[0, :]). The host (kernels/iir.py) diagonalizes in
 // float64 and hands over one float32 table ("coef", layout below) with
-// every constant and the powers p^(kSpan*j), j = 0..kThreads, also formed
-// in float64: no power of a pole is built by repeated float32 products
-// except inside the tile-start scan of launch 2, where each start state
-// multiplies at most log2(1024) products of p^kTile.
+// every constant and the powers p^(kSpan j) and p^(kTile e), also
+// formed in float64.
 //
-// One launch of iir_launch filters R rows (grid.y), so a planar signal is
-// one call of two rows. Three grid launches, each a tile of kTile = kSpan *
-// kThreads samples per block, kSpan consecutive samples per thread:
-//  1. iir_tile_reduce: the zero-state state at the end of every tile, per
-//     pole: each thread runs the recurrence over its kSpan samples, the
-//     block sums the thread results weighted by p^(kSpan*(threads after it)).
-//  2. iir_tile_scan: per row, one block scans the tile end states from s0
-//     = Q^-1 zi with the multiplier p^kTile (affine-pair scan, warp
-//     shuffles, 1024 tiles per chunk) and writes every tile's start state.
-//  3. iir_tile_apply: every tile reruns its zero-state thread scans, finds
-//     each thread's start state from the tile's with a weighted prefix scan
-//     over the threads (multipliers p^(kSpan*d) from the table), replays its
-//     samples from there writing y, and the thread holding sample N-1
-//     writes zf from the state after it. Samples past N read as 0 and are
-//     not written, so any N >= 1 works.
+// One launch of iir_launch filters R rows, so a planar signal is one call
+// of two rows. It is a single-pass chained scan with a decoupled look-back
+// (Merrill and Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", NVIDIA 2016). A block of kThreads compute threads (and, at
+// one or two poles, a look-back warp, see Block) takes a tile of kTile
+// samples, kSpan consecutive samples per compute thread:
+//  1. its tile is the next ticket of an atomic counter over (row, tile),
+//     so every tile it waits for belongs to a block already running;
+//  2. the compute warps load their samples into registers, once, and form
+//     per pole the zero-state state at every thread's end (a weighted warp
+//     scan with the multipliers p^(kSpan d)) and at the tile's end, the
+//     aggregate, which they publish at once;
+//  3. the look-back warp, from the ticket on (at three or four poles,
+//     compute warp 0 once the aggregate is out), polls kWindow
+//     predecessors at a time, kLook a lane, and sums their published
+//     states weighted by p^(kTile e) (table powers) up to the nearest one
+//     whose inclusive state (its end state from the true start) is out,
+//     the row's start s0 = Q^-1 zi standing for tile -1; a window with
+//     none multiplies the rest by p^(kTile kWindow) and goes one window
+//     further back. It reads no further back than the host's horizon,
+//     where every pole's p^(kTile e) has fallen under 2^-48: for the
+//     filters of the main paths (|p| <= 0.95, p^kTile < 1e-22) that is the
+//     one tile before, so no tile waits for another's look-back;
+//  4. at one or two poles the compute warps form each sample's output
+//     from a zero tile start while the look-back warp waits, and once it
+//     has the start state S add its share, Re(q p^t S) at the tile's
+//     sample t (linearity); at three or four they replay their spans from
+//     S. Each writes y, the thread holding sample N-1 writes zf from the
+//     state after it, and thread 0 publishes the tile's inclusive state.
+//     Samples past N read as 0 and are not written, so any N >= 1 works.
+// Every published float carries the call's epoch (a counter the host
+// passes in), so the scratch needs no reset between calls, and a reader
+// needs no fence (see put_slot).
 //
 // What bounds it on the card: bytes. One float32 read and one write per
 // sample (8 B) against ~10 FLOP per pole pair per sample for the state
 // update, ~4 for the output and 2 for b0*x: 58 FLOP per sample at order 8
 // is 0.9 us per 2^20 samples at the FP32 peak, under the 2.5 us of HBM
-// traffic. What the design does about that: the signal is read twice
-// (launches 1 and 3, 12 B per sample, the second read often from L2) and
-// written once; launch 2 touches only the per-tile states. A single pass
-// with a decoupled look-back would read it once; that is later work.
+// traffic. What the design does about that: x is read once and y written
+// once, in 16-byte accesses; the recurrence runs twice per sample from
+// registers; between tiles only 2 x 2P stamped words per tile cross the
+// L2, with no fence on either side; the look-back waits on the L2 while
+// the compute warps work, and it stops at its horizon, so tiles do not
+// wait in a chain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kSpan = 16;                  // consecutive samples per thread
-constexpr int kThreads = 256;              // threads of a tile block
+// One geometry serves both main-path sizes: 256 tiles at stream_fm's 2^18
+// samples (two per SM of an H100), 1024 at bench_iir's 2^20 (all resident
+// at once at one or two poles). Tiles of 2048 and 4096 samples measured
+// slower at both sizes (tools/probe_grades.py b5b6).
+constexpr int kSpan = 8;                   // consecutive samples per thread
+constexpr int kThreads = 128;              // threads of a tile block
 constexpr int kTile = kSpan * kThreads;    // samples per tile
-constexpr int kWarps = kThreads / 32;
-constexpr int kScan = 1024;                // tiles per chunk of launch 2
+constexpr int kWarps = kThreads / 32;      // compute warps
+
+// At one or two pole representatives a block adds a look-back warp to its
+// compute warps (160 threads, <= 56 registers: 1024 tiles resident at
+// once); at three or four the extra warp would cost a wave at 2^20 (72
+// registers x 160 threads), so compute warp 0 looks back there.
+template <int P>
+struct Block {
+  static constexpr bool kLookWarp = P <= 2;
+  static constexpr int kSize = kThreads + (kLookWarp ? 32 : 0);
+};
+constexpr int kLook = 2;                   // predecessors per lane
+constexpr int kWindow = 32 * kLook;        // predecessors per look-back step
 constexpr int kMaxPairs = 4;
 constexpr int kMaxOrder = 8;
 constexpr int kMaxRows = 8;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr long kMaxSpins = 1L << 25;       // look-back polls before a trap
 
 // coef layout, float32, complex values as (re, im) at even offsets:
 //   kB0            b0
 //   kPole + 2k     p_k
 //   kW + 2k        w_k
 //   kQ + 2k        wgt_k * q_k
-//   kQcol + 2(kMaxOrder k + i)   wgt_k * Q[i, k]      (i < order)
-//   kQinv + 2(kMaxOrder k + j)   Q^-1[k, j]           (j < order)
-//   kPow + 2(kPowLen k + j)      p_k^(kSpan j)        (j = 0..kThreads)
+//   kQcol + 2(kMaxOrder k + i)    wgt_k * Q[i, k]      (i < order)
+//   kQinv + 2(kMaxOrder k + j)    Q^-1[k, j]           (j < order)
+//   kPow + 2(kPowLen k + j)       p_k^(kSpan j)        (j = 0..kThreads)
+//   kLookPow + 2(kLookLen k + e)  p_k^(kTile e)        (e = 0..kWindow)
 // Mirrored by kernels/iir.py::coef_table.
 constexpr int kB0 = 0;
 constexpr int kPole = 2;
@@ -72,13 +107,27 @@ constexpr int kQcol = kQ + 2 * kMaxPairs;
 constexpr int kQinv = kQcol + 2 * kMaxPairs * kMaxOrder;
 constexpr int kPow = kQinv + 2 * kMaxPairs * kMaxOrder;
 constexpr int kPowLen = kThreads + 1;
-constexpr int kCoefLen = kPow + 2 * kMaxPairs * kPowLen;
+constexpr int kLookPow = kPow + 2 * kMaxPairs * kPowLen;
+constexpr int kLookLen = kWindow + 1;
+constexpr int kCoefLen = kLookPow + 2 * kMaxPairs * kLookLen;
+
+// scratch layout: the ticket counter (uint64) in a 64-byte header, then
+// per slot (row * ntiles + tile) the aggregate, then per slot the
+// inclusive state, each kSlotWords words (see put_slot).
+constexpr long kHeader = 64;
+constexpr int kSlotWords = 2 * kMaxPairs;
 
 struct Rows {
   const float* x[kMaxRows];
   float* y[kMaxRows];
   const float* zi[kMaxRows];   // null: zero initial state
   float* zf[kMaxRows];
+};
+
+struct Scratch {
+  unsigned long long* ticket;
+  unsigned long long* agg;     // kSlotWords per slot
+  unsigned long long* incl;    // kSlotWords per slot
 };
 
 __device__ __forceinline__ float2 ld2(const float* __restrict__ coef,
@@ -113,6 +162,58 @@ __device__ __forceinline__ float2 shfl_xor2(float2 v, int d) {
                      __shfl_xor_sync(kFull, v.y, d));
 }
 
+// Publication. Each float of a published state travels in its own 64-bit
+// word beside the call's epoch, (float bits) << 32 | epoch, stored and
+// loaded as single-copy-atomic relaxed accesses at GPU scope (strong, so
+// never served from a stale L1 line or kept in a register). A reader
+// takes a state only when every word of it carries the current epoch, so
+// it can never see a flag before its value, nor mix two calls: no fence
+// and no release/acquire pair is needed, and publishing costs one store
+// per float. A word of an earlier call reads as not ready.
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// P complex values to a slot, each float stamped with the epoch
+template <int P>
+__device__ __forceinline__ void put_slot(unsigned long long* dst,
+                                         const float2 (&v)[P],
+                                         unsigned epoch) {
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    st_relaxed(dst + 2 * k,
+               (unsigned long long)__float_as_uint(v[k].x) << 32 | epoch);
+    st_relaxed(dst + 2 * k + 1,
+               (unsigned long long)__float_as_uint(v[k].y) << 32 | epoch);
+  }
+}
+
+// A slot's P complex values; true when every word is of this epoch
+template <int P>
+__device__ __forceinline__ bool get_slot(const unsigned long long* src,
+                                         unsigned epoch, float2 (&v)[P]) {
+  bool ok = true;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const unsigned long long re = ld_relaxed(src + 2 * k),
+                             im = ld_relaxed(src + 2 * k + 1);
+    ok &= (unsigned)re == epoch && (unsigned)im == epoch;
+    v[k] = make_float2(__uint_as_float((unsigned)(re >> 32)),
+                       __uint_as_float((unsigned)(im >> 32)));
+  }
+  return ok;
+}
+
 // The kSpan samples of one thread from base, 0 past n.
 __device__ __forceinline__ void load_span(const float* __restrict__ x,
                                           long base, long n,
@@ -133,130 +234,190 @@ __device__ __forceinline__ void load_span(const float* __restrict__ x,
   }
 }
 
-// Launch 1: tile_end[r, tile, k] = zero-state s_k after the tile.
+// Warp 0 of a tile: the exclusive prefix (the state at the tile's start)
+// from the look-back, per pole, in every lane. Predecessor e (tile - 1 -
+// e) is carried to this tile's start by p^(kTile e); one at e >= horizon
+// would enter through p^(kTile horizon) <= 2^-48 (the host's bound, far
+// under float32's 2^-24) and is left out, so the look-back also ends at
+// e = horizon - 1 on an aggregate.
 template <int P>
-__global__ void __launch_bounds__(kThreads) iir_tile_reduce(
-    Rows rows, const float* __restrict__ coef, long n, int ntiles,
-    float2* __restrict__ tile_end) {
-  __shared__ float2 part[P][kWarps];
-  const int tile = blockIdx.x, r = blockIdx.y, tid = threadIdx.x,
-            lane = tid & 31, warp = tid >> 5;
-  float xv[kSpan];
-  load_span(rows.x[r], (long)tile * kTile + (long)tid * kSpan, n, xv);
+__device__ __forceinline__ void look_back(
+    const Scratch& sc, const float* __restrict__ coef, const float* zi,
+    int order, long slot0, long tile, long horizon, unsigned epoch,
+    float2 (&excl)[P]) {
+  const int lane = threadIdx.x & 31;
+  float2 mult[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) {
-    const float2 p = ld2(coef, kPole + 2 * k), w = ld2(coef, kW + 2 * k);
-    float2 u = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int j = 0; j < kSpan; ++j) u = step(p, u, w, xv[j]);
-    // carried through the spans of the threads after this one
-    u = cmul(ld2(coef, kPow + 2 * (kPowLen * k + kThreads - 1 - tid)), u);
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      const float2 o = shfl_xor2(u, d);
-      u.x += o.x;
-      u.y += o.y;
-    }
-    if (lane == 0) part[k][warp] = u;
+    excl[k] = make_float2(0.f, 0.f);
+    mult[k] = make_float2(1.f, 0.f);
   }
-  __syncthreads();
-  if (tid < P) {
-    float2 sum = part[tid][0];
+  for (long look = tile;; look -= kWindow) {
+    // lane's predecessors: look - 1 - e, e = lane * kLook + q
+    float2 val[kLook][P];
+    bool term[kLook];
+    bool pending;
+    long spins = 0;
+    do {
+      pending = false;
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) {
-      sum.x += part[tid][w].x;
-      sum.y += part[tid][w].y;
-    }
-    tile_end[((long)r * ntiles + tile) * P + tid] = sum;
-  }
-}
-
-// Launch 2, one block per row: tile_start[r, i, k] from s0 = Q^-1 zi and
-// the recurrence S[i+1] = p^kTile S[i] + tile_end[i].
-template <int P>
-__global__ void __launch_bounds__(kScan) iir_tile_scan(
-    Rows rows, const float* __restrict__ coef, int order, int ntiles,
-    const float2* __restrict__ tile_end, float2* __restrict__ tile_start) {
-  __shared__ float2 w_a[kScan / 32], w_u[kScan / 32];
-  __shared__ float2 chunk_end;
-  const int r = blockIdx.x, tid = threadIdx.x, lane = tid & 31,
-            warp = tid >> 5;
-  const float* zi = rows.zi[r];
-  const float2* te = tile_end + (long)r * ntiles * P;
-  float2* ts = tile_start + (long)r * ntiles * P;
-  for (int k = 0; k < P; ++k) {
-    float2 carry = make_float2(0.f, 0.f);
-    if (zi != nullptr) {
-      for (int j = 0; j < order; ++j) {
-        const float2 qi = ld2(coef, kQinv + 2 * (kMaxOrder * k + j));
-        const float z = __ldg(zi + j);
-        carry.x = fmaf(qi.x, z, carry.x);
-        carry.y = fmaf(qi.y, z, carry.y);
-      }
-    }
-    const float2 pt = ld2(coef, kPow + 2 * (kPowLen * k + kThreads));
-    if (tid == 0) ts[k] = carry;
-    for (int base = 0; base < ntiles; base += kScan) {
-      const int i = base + tid;
-      float2 A = make_float2(1.f, 0.f), u = make_float2(0.f, 0.f);
-      if (i < ntiles) {
-        A = pt;
-        u = te[(long)i * P + k];
-      }
-      // inclusive scan of the affine maps s -> A s + u, earliest first
-      for (int s = 1; s < 32; s <<= 1) {
-        const float2 ap = shfl_up2(A, s), up = shfl_up2(u, s);
-        if (lane >= s) {
-          u = cfma(A, up, u);
-          A = cmul(A, ap);
-        }
-      }
-      if (lane == 31) {
-        w_a[warp] = A;
-        w_u[warp] = u;
-      }
-      __syncthreads();
-      if (warp == 0) {
-        float2 wa = w_a[lane], wu = w_u[lane];
-        for (int s = 1; s < 32; s <<= 1) {
-          const float2 ap = shfl_up2(wa, s), up = shfl_up2(wu, s);
-          if (lane >= s) {
-            wu = cfma(wa, up, wu);
-            wa = cmul(wa, ap);
+      for (int q = 0; q < kLook; ++q) {
+        const int e = lane * kLook + q;
+        const long idx = look - 1 - e;
+        term[q] = true;
+#pragma unroll
+        for (int k = 0; k < P; ++k) val[q][k] = make_float2(0.f, 0.f);
+        if (idx < -1 || tile - 1 - idx >= horizon) continue;   // left out
+        if (idx == -1) {
+          // the row's start, s0 = Q^-1 zi
+#pragma unroll
+          for (int k = 0; k < P; ++k) {
+            float2 s0 = make_float2(0.f, 0.f);
+            if (zi != nullptr) {
+              for (int j = 0; j < order; ++j) {
+                const float2 qi = ld2(coef, kQinv + 2 * (kMaxOrder * k + j));
+                const float z = __ldg(zi + j);
+                s0.x = fmaf(qi.x, z, s0.x);
+                s0.y = fmaf(qi.y, z, s0.y);
+              }
+            }
+            val[q][k] = s0;
           }
+          continue;
         }
-        __syncwarp();
-        w_a[lane] = wa;
-        w_u[lane] = wu;
+        float2 inc[P], agg[P];
+        const bool has_inc = get_slot<P>(sc.incl + kSlotWords * (slot0 + idx),
+                                         epoch, inc);
+        const bool has_agg = get_slot<P>(sc.agg + kSlotWords * (slot0 + idx),
+                                         epoch, agg);
+#pragma unroll
+        for (int k = 0; k < P; ++k) val[q][k] = has_inc ? inc[k] : agg[k];
+        term[q] = has_inc || tile - 1 - idx == horizon - 1;
+        pending |= !has_inc && !has_agg;
       }
-      __syncthreads();
-      if (warp > 0) {
-        u = cfma(A, w_u[warp - 1], u);
-        A = cmul(A, w_a[warp - 1]);
+      if (!__any_sync(kFull, pending)) break;
+      // every awaited tile belongs to a running block that publishes its
+      // aggregate without waiting: a state missing for ~1 s is a fault (a
+      // scratch shared by two streams, a wrong ticket base), not a wait
+      if (++spins > kMaxSpins) __trap();
+      __nanosleep(20);
+    } while (true);
+    int first = kWindow;   // e of the nearest terminal predecessor
+#pragma unroll
+    for (int q = kLook - 1; q >= 0; --q)
+      if (term[q]) first = lane * kLook + q;
+    first = __reduce_min_sync(kFull, first);
+
+    float2 sum[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) sum[k] = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < kLook; ++q) {
+      const int e = lane * kLook + q;
+      if (e > first) continue;
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        sum[k] = cfma(ld2(coef, kLookPow + 2 * (kLookLen * k + e)),
+                      val[q][k], sum[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        const float2 o = shfl_xor2(sum[k], d);
+        sum[k].x += o.x;
+        sum[k].y += o.y;
       }
-      const float2 e = cfma(A, carry, u);   // the state after tile i
-      if (i + 1 < ntiles) ts[(long)(i + 1) * P + k] = e;
-      if (tid == kScan - 1) chunk_end = e;
-      __syncthreads();
-      carry = chunk_end;
-      __syncthreads();
+      excl[k] = cfma(mult[k], sum[k], excl[k]);
+    }
+    if (first < kWindow) return;
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      mult[k] = cmul(mult[k],
+                     ld2(coef, kLookPow + 2 * (kLookLen * k + kWindow)));
+  }
+}
+
+// Each compute thread's outputs over its span, added to yv, and its state
+// after sample jl in s_last: from the tile start state start[k] (or, with
+// kZeroStart, a zero start), the warp's zero-start prefix wexc and the
+// thread's weighted warp scan v.
+template <int P, bool kZeroStart>
+__device__ __forceinline__ void replay(
+    const float* __restrict__ coef, const float2 (&v)[P],
+    const float2 (&wexc)[P][kWarps], const float2 (&start)[P],
+    const float (&xv)[kSpan], int jl, float (&yv)[kSpan],
+    float2 (&s_last)[P]) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const float2 p = ld2(coef, kPole + 2 * k), w = ld2(coef, kW + 2 * k),
+                 qw = ld2(coef, kQ + 2 * k);
+    const int pw = kPow + 2 * kPowLen * k;
+    const float2 wp = wexc[k][warp];
+    // the state after this thread's span, from a zero tile start, and the
+    // one before it
+    const float2 incl = cfma(ld2(coef, pw + 2 * (lane + 1)), wp, v[k]);
+    float2 s = shfl_up2(incl, 1);
+    if (lane == 0) s = wp;
+    if (!kZeroStart) s = cfma(ld2(coef, pw + 2 * tid), start[k], s);
+    s_last[k] = s;
+#pragma unroll
+    for (int j = 0; j < kSpan; ++j) {
+      yv[j] = fmaf(qw.x, s.x, fmaf(-qw.y, s.y, yv[j]));
+      s = step(p, s, w, xv[j]);
+      if (j == jl) s_last[k] = s;
     }
   }
 }
 
-// Launch 3: y of every sample from the true start states; zf at N-1.
+__device__ __forceinline__ void compute_sync() {
+  // the compute warps alone (barrier 1); the look-back warp is not held
+  asm volatile("bar.sync 1, %0;" :: "n"(kThreads) : "memory");
+}
+
 template <int P>
-__global__ void __launch_bounds__(kThreads) iir_tile_apply(
-    Rows rows, const float* __restrict__ coef, int order, long n,
-    int ntiles, const float2* __restrict__ tile_start) {
-  __shared__ float2 wtot[P][kWarps];
-  const int tile = blockIdx.x, r = blockIdx.y, tid = threadIdx.x,
-            lane = tid & 31, warp = tid >> 5;
-  const long base = (long)tile * kTile + (long)tid * kSpan;
+__device__ __forceinline__ void start_sync() {
+  // the whole block (barrier 2): the start state is in start_s
+  asm volatile("bar.sync 2, %0;" :: "n"(Block<P>::kSize) : "memory");
+}
+
+template <int P>
+__global__ void __launch_bounds__(Block<P>::kSize) iir_chained(
+    Rows rows, const float* __restrict__ coef, int order, long n, long ntiles,
+    long horizon, Scratch sc, unsigned epoch,
+    unsigned long long ticket_base) {
+  __shared__ float2 wtot[P][kWarps];   // zero-state state after each warp
+  __shared__ float2 wexc[P][kWarps];   // ... and before it
+  __shared__ float2 agg_s[P], start_s[P];
+  __shared__ long slot_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == (Block<P>::kLookWarp ? kThreads : 0))
+    slot_s = (long)(atomicAdd(sc.ticket, 1ull) - ticket_base);
+  __syncthreads();
+  const long slot = slot_s;
+  // a ticket past the grid: the host's ticket count is not this scratch's
+  if (slot < 0 || slot >= (long)gridDim.x) __trap();
+  const int r = (int)(slot / ntiles);
+  const long tile = slot - (long)r * ntiles;
+
+  if (Block<P>::kLookWarp && warp == kWarps) {
+    // the look-back warp: polls the predecessors from the start, while
+    // the compute warps load, scan and form their zero-state outputs
+    float2 excl[P];
+    look_back<P>(sc, coef, rows.zi[r], order, (long)r * ntiles, tile,
+                 horizon, epoch, excl);
+    if (lane < P) start_s[lane] = excl[lane];
+    start_sync<P>();
+    return;
+  }
+
+  const long base = tile * (long)kTile + (long)tid * kSpan;
   float xv[kSpan];
   load_span(rows.x[r], base, n, xv);
-  // per pole, the weighted inclusive prefix over the threads of the warp,
-  // v_t = sum_{t' <= t in the warp} p^(kSpan (t - t')) u_t'
+
+  // 1) per pole, the zero-state state after this thread's span, scanned
+  // over the warp: v = sum_{t' <= t in the warp} p^(kSpan (t - t')) u_t'
   float2 v[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) {
@@ -273,39 +434,75 @@ __global__ void __launch_bounds__(kThreads) iir_tile_apply(
     v[k] = u;
     if (lane == 31) wtot[k][warp] = u;
   }
-  __syncthreads();
+  compute_sync();
 
-  const float b0 = __ldg(coef + kB0);
-  float yv[kSpan];
+  // 2) the aggregate, published at once; each warp's zero-state prefix
+  if (tid < P) {
+    const float2 p32 = ld2(coef, kPow + 2 * (kPowLen * tid + 32));
+    float2 acc = make_float2(0.f, 0.f);
+    for (int q = 0; q < kWarps; ++q) {
+      wexc[tid][q] = acc;
+      acc = cfma(p32, acc, wtot[tid][q]);
+    }
+    agg_s[tid] = acc;
+  }
+  compute_sync();
+  if (tid == 0) {
+    float2 agg[P];
 #pragma unroll
-  for (int j = 0; j < kSpan; ++j) yv[j] = b0 * xv[j];
+    for (int k = 0; k < P; ++k) agg[k] = agg_s[k];
+    put_slot<P>(sc.agg + kSlotWords * slot, agg, epoch);
+  }
+
+  float yv[kSpan];   // b0 x, then the pole terms
   const long last = n - 1;
   const bool owns_last = last >= base && last < base + kSpan;
   const int jl = (int)(last - base);
   float2 s_last[P];
+  if constexpr (Block<P>::kLookWarp) {
+    // 3) y from a zero tile start while the look-back warp waits
 #pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const float2 p = ld2(coef, kPole + 2 * k), w = ld2(coef, kW + 2 * k),
-                 qw = ld2(coef, kQ + 2 * k);
-    const int pw = kPow + 2 * kPowLen * k;
-    // the prefix of the earlier warps, at the end of warp - 1
-    const float2 p32 = ld2(coef, pw + 2 * 32);
-    float2 wp = make_float2(0.f, 0.f);
-    for (int q = 0; q < warp; ++q) wp = cfma(p32, wp, wtot[k][q]);
-    // the state after this thread's span, from a zero tile start, and the
-    // one before it
-    const float2 incl = cfma(ld2(coef, pw + 2 * (lane + 1)), wp, v[k]);
-    float2 before = shfl_up2(incl, 1);
-    if (lane == 0) before = wp;
-    float2 s = cfma(ld2(coef, pw + 2 * tid),
-                    tile_start[((long)r * ntiles + tile) * P + k], before);
-    s_last[k] = s;
+    for (int j = 0; j < kSpan; ++j) yv[j] = __ldg(coef + kB0) * xv[j];
+    replay<P, true>(coef, v, wexc, start_s, xv, jl, yv, s_last);
+  } else if (warp == 0) {
+    // 3) compute warp 0 looks back
+    float2 excl[P];
+    look_back<P>(sc, coef, rows.zi[r], order, (long)r * ntiles, tile,
+                 horizon, epoch, excl);
+    if (lane < P) start_s[lane] = excl[lane];
+  }
+
+  // 4) the tile's start state S: thread 0 publishes the inclusive state;
+  // at one or two poles S adds Re(q p^t S) at the tile's sample t
+  // (linearity), at three or four the spans replay from S
+  start_sync<P>();
+  if (tid == 0) {
+    float2 incl[P];
 #pragma unroll
-    for (int j = 0; j < kSpan; ++j) {
-      yv[j] = fmaf(qw.x, s.x, fmaf(-qw.y, s.y, yv[j]));
-      s = step(p, s, w, xv[j]);
-      if (j == jl) s_last[k] = s;
+    for (int k = 0; k < P; ++k)
+      incl[k] = cfma(ld2(coef, kLookPow + 2 * (kLookLen * k + 1)),
+                     start_s[k], agg_s[k]);
+    put_slot<P>(sc.incl + kSlotWords * slot, incl, epoch);
+  }
+  if constexpr (Block<P>::kLookWarp) {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float2 p = ld2(coef, kPole + 2 * k), qw = ld2(coef, kQ + 2 * k);
+      float2 c = cmul(ld2(coef, kPow + 2 * (kPowLen * k + tid)), start_s[k]);
+#pragma unroll
+      for (int j = 0; j < kSpan; ++j) {
+        yv[j] = fmaf(qw.x, c.x, fmaf(-qw.y, c.y, yv[j]));
+        c = cmul(p, c);
+        if (j == jl) {
+          s_last[k].x += c.x;
+          s_last[k].y += c.y;
+        }
+      }
     }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSpan; ++j) yv[j] = __ldg(coef + kB0) * xv[j];
+    replay<P, false>(coef, v, wexc, start_s, xv, jl, yv, s_last);
   }
 
   float* y = rows.y[r];
@@ -334,18 +531,11 @@ __global__ void __launch_bounds__(kThreads) iir_tile_apply(
 }
 
 template <int P>
-int run(const Rows& rows, const float* coef, int order, long n, int ntiles,
-        int nrows, float2* tile_end, float2* tile_start, cudaStream_t st) {
-  const dim3 grid((unsigned)ntiles, (unsigned)nrows);
-  iir_tile_reduce<P><<<grid, kThreads, 0, st>>>(rows, coef, n, ntiles,
-                                                 tile_end);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  iir_tile_scan<P><<<nrows, kScan, 0, st>>>(rows, coef, order, ntiles,
-                                             tile_end, tile_start);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  iir_tile_apply<P><<<grid, kThreads, 0, st>>>(rows, coef, order, n, ntiles,
-                                                tile_start);
+int run(const Rows& rows, const float* coef, int order, long n, long ntiles,
+        long horizon, int nrows, const Scratch& sc, unsigned epoch,
+        unsigned long long ticket_base, cudaStream_t st) {
+  iir_chained<P><<<(unsigned)(ntiles * nrows), Block<P>::kSize, 0, st>>>(
+      rows, coef, order, n, ntiles, horizon, sc, epoch, ticket_base);
   return (int)cudaGetLastError();
 }
 
@@ -355,27 +545,43 @@ extern "C" const char* iir_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// The geometry the host builds the power table for: samples per thread,
-// threads per tile block, and the float count of coef.
-extern "C" void iir_geometry(int* span, int* threads, int* coef_len) {
+// The geometry the host builds the table for: samples per thread,
+// threads per tile block, tiles of one look-back step, and the float count
+// of coef.
+extern "C" void iir_geometry(int* span, int* threads, int* window,
+                             int* coef_len) {
   *span = kSpan;
   *threads = kThreads;
+  *window = kWindow;
   *coef_len = kCoefLen;
+}
+
+// Bytes of scratch for `slots` tiles (rows times tiles of a call).
+extern "C" long iir_scratch_bytes(long slots) {
+  return kHeader + slots * 2 * kSlotWords * 8;
 }
 
 // Filters `rows` float32 rows of n samples each: x[r] (n,) -> y[r] (n,),
 // from zi[r] (order,) (null: zero state) to zf[r] (order,). coef: the
-// table above, on the device. scratch: 4 * rows * ceil(n / kTile) * poles
-// floats. Returns 0 or the CUDA error code.
+// table above, on the device. horizon: the predecessor tiles a look-back
+// reads at most (>= 1), the host's bound where every pole's p^(kTile
+// horizon) <= 2^-48. scratch: iir_scratch_bytes(slots) bytes, zeroed
+// once when allocated and then kept by the caller for this stream;
+// `epoch` (nonzero) must differ from the epoch of every earlier call on it
+// since it was zeroed, and `ticket_base` is the count of tickets those
+// calls took (their rows times tiles). Returns 0 or the CUDA error code.
 extern "C" int iir_launch(int nrows, const void* const* x, void* const* y,
                           const void* const* zi, void* const* zf,
                           const void* coef, int poles, int order, long n,
-                          void* scratch, void* stream) {
+                          long horizon, void* scratch,
+                          long slots, unsigned epoch,
+                          unsigned long long ticket_base, void* stream) {
   if (nrows < 1 || nrows > kMaxRows || poles < 1 || poles > kMaxPairs ||
-      order < 1 || order > kMaxOrder || n < 1)
+      order < 1 || order > kMaxOrder || n < 1 || epoch == 0 || horizon < 1)
     return (int)cudaErrorInvalidValue;
   const long ntiles = (n + kTile - 1) / kTile;
-  if (ntiles > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  if (ntiles * nrows > 0x7fffffffL || ntiles * nrows > slots)
+    return (int)cudaErrorInvalidValue;
   Rows rows;
   for (int r = 0; r < kMaxRows; ++r) {
     const bool used = r < nrows;
@@ -384,18 +590,21 @@ extern "C" int iir_launch(int nrows, const void* const* x, void* const* y,
     rows.zi[r] = used ? (const float*)zi[r] : nullptr;
     rows.zf[r] = used ? (float*)zf[r] : nullptr;
   }
-  float2* tile_end = (float2*)scratch;
-  float2* tile_start = tile_end + (long)nrows * ntiles * poles;
+  char* s = (char*)scratch;
+  Scratch sc;
+  sc.ticket = (unsigned long long*)s;
+  sc.agg = (unsigned long long*)(s + kHeader);
+  sc.incl = sc.agg + kSlotWords * slots;
   const float* c = (const float*)coef;
   cudaStream_t st = (cudaStream_t)stream;
   switch (poles) {
-    case 1: return run<1>(rows, c, order, n, (int)ntiles, nrows, tile_end,
-                          tile_start, st);
-    case 2: return run<2>(rows, c, order, n, (int)ntiles, nrows, tile_end,
-                          tile_start, st);
-    case 3: return run<3>(rows, c, order, n, (int)ntiles, nrows, tile_end,
-                          tile_start, st);
-    default: return run<4>(rows, c, order, n, (int)ntiles, nrows, tile_end,
-                           tile_start, st);
+    case 1: return run<1>(rows, c, order, n, ntiles, horizon,
+                                  nrows, sc, epoch, ticket_base, st);
+    case 2: return run<2>(rows, c, order, n, ntiles, horizon,
+                                  nrows, sc, epoch, ticket_base, st);
+    case 3: return run<3>(rows, c, order, n, ntiles, horizon,
+                                  nrows, sc, epoch, ticket_base, st);
+    default: return run<4>(rows, c, order, n, ntiles,
+                                   horizon, nrows, sc, epoch, ticket_base, st);
   }
 }

@@ -13,16 +13,21 @@ conjugate pair collapses to one scan of weight 2):
   - ``diagonalize`` (float64 numpy, the same pairing and separation limit
     as the JAX function) and ``iir_kernel_supported``;
   - ``coef_table``: the float32 table the kernel reads, constants and the
-    float64 powers p^(span*j) (the layout of ``csrc/iir.cu``);
+    float64 powers p^(span*j) and p^(tile*e) of the look-back (the layout
+    of ``csrc/iir.cu``);
   - ``iir_filter``: the diagonalization and, on the card, the table, built
     once per (normalized b, a, device) and kept on the device;
   - ``iir_kernel``: the wrapper, counted under ``iir``; it launches
-    ``csrc/iir.cu`` for CUDA tensors and takes the plain version,
-    ``iir_diag_reference``, only for tensors on the CPU.
+    ``csrc/iir.cu`` for CUDA tensors (one grid launch a call: a chained
+    scan with a decoupled look-back that reads back no further than
+    ``look_back_horizon``, its published states stamped with a per-stream
+    call counter so its scratch is never reset) and takes the plain
+    version, ``iir_diag_reference``, only for tensors on the CPU.
 """
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,6 +53,11 @@ _Q = _W + 2 * MAX_PAIRS
 _QCOL = _Q + 2 * MAX_PAIRS
 _QINV = _QCOL + 2 * MAX_PAIRS * MAX_ORDER
 _POW = _QINV + 2 * MAX_PAIRS * MAX_ORDER
+
+
+def _look_pow(threads):
+    """Offset of the look-back powers, after the thread powers."""
+    return _POW + 2 * MAX_PAIRS * (threads + 1)
 
 
 class Diag:
@@ -135,12 +145,14 @@ def iir_kernel_supported(b, a):
     return diagonalize(b, a) is not None
 
 
-def coef_table(diag, span, threads):
+def coef_table(diag, span, threads, window):
     """The float32 table of ``csrc/iir.cu``: b0, and per pole p, w, wgt*q,
-    the wgt-weighted Q column, the Q^-1 row and p^(span*j) for
-    j = 0..threads, every value formed in float64 and rounded once."""
+    the wgt-weighted Q column, the Q^-1 row, p^(span*j) for j = 0..threads
+    and the look-back multipliers p^(span*threads*e) for e = 0..window,
+    every value formed in float64 and rounded once."""
     plen = threads + 1
-    t = np.zeros(_POW + 2 * MAX_PAIRS * plen)
+    look = _look_pow(threads)
+    t = np.zeros(look + 2 * MAX_PAIRS * (window + 1))
     t[_B0] = diag.b0
 
     def put(off, z):
@@ -156,6 +168,8 @@ def coef_table(diag, span, threads):
         put(_QINV + 2 * MAX_ORDER * k, diag.qinv_rows[k])
         put(_POW + 2 * plen * k,
             np.power(np.complex128(p), span * np.arange(plen)))
+        put(look + 2 * (window + 1) * k,
+            np.power(np.complex128(p), span * threads * np.arange(window + 1)))
     return t.astype(np.float32)
 
 
@@ -189,11 +203,11 @@ def _filter(b_key, a_key, device):
     diag = _diag(b_key, a_key)
     table = None
     if device.type == "cuda":
-        span, threads, length = _geometry()
-        host = coef_table(diag, span, threads)
-        if host.size != length:
+        g = _geometry()
+        host = coef_table(diag, g.span, g.threads, g.window)
+        if host.size != g.coef_len:
             raise RuntimeError(f"iir coef table of {host.size} floats, the "
-                               f"kernel reads {length}")
+                               f"kernel reads {g.coef_len}")
         table = torch.tensor(host, device=device)
     return IirFilter(diag, table)
 
@@ -288,21 +302,92 @@ def _library():
     """The built iir library, its signatures declared."""
     lib = load_chain_library("iir")
     p, pp, i = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
-    lib.iir_launch.argtypes = [i, pp, pp, pp, pp, p, i, i, ctypes.c_long, p,
-                               p]
+    u64, lng = ctypes.c_ulonglong, ctypes.c_long
+    lib.iir_launch.argtypes = [i, pp, pp, pp, pp, p, i, i, lng, lng, p,
+                               lng, ctypes.c_uint, u64, p]
     lib.iir_launch.restype = i
-    lib.iir_geometry.argtypes = [ctypes.POINTER(i)] * 3
+    lib.iir_geometry.argtypes = [ctypes.POINTER(i)] * 4
     lib.iir_geometry.restype = None
+    lib.iir_scratch_bytes.argtypes = [lng]
+    lib.iir_scratch_bytes.restype = lng
     return lib
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """What ``csrc/iir.cu`` reports of itself (``iir_geometry``): samples
+    per thread, threads per tile block, the tiles of one look-back step and
+    the table's float count."""
+
+    span: int
+    threads: int
+    window: int
+    coef_len: int
+
+    @property
+    def tile(self):
+        return self.span * self.threads
 
 
 @functools.lru_cache(maxsize=None)
 def _geometry():
-    """(samples per thread, threads per tile block, coef length) of the
-    built kernel."""
-    vals = [ctypes.c_int(0) for _ in range(3)]
+    """The built kernel's Geometry."""
+    vals = [ctypes.c_int(0) for _ in range(4)]
     _library().iir_geometry(*(ctypes.byref(v) for v in vals))
-    return tuple(v.value for v in vals)
+    return Geometry(*(v.value for v in vals))
+
+
+HORIZON_BOUND = 2.0 ** -48    # what a state beyond the look-back weighs
+MAX_HORIZON = 1 << 62
+
+
+@functools.lru_cache(maxsize=256)
+def look_back_horizon(radii, tile):
+    """The predecessor tiles the look-back reads at most: the least h with
+    |p|^(tile h) <= HORIZON_BOUND for every pole radius |p| in ``radii``
+    (at least 1; MAX_HORIZON for a pole on or outside the unit circle).
+    A tile further back would enter the start state through p^(tile h),
+    far under float32's rounding of it (2^-24)."""
+    h = 1
+    for r in radii:
+        if r >= 1.0:
+            return MAX_HORIZON
+        if r > 0.0:
+            h = max(h, math.ceil(math.log(HORIZON_BOUND)
+                                 / (tile * math.log(r))))
+    return min(h, MAX_HORIZON)
+
+
+class _Scratch:
+    """The look-back's scratch of one (device, stream): zeroed when
+    allocated, then reused by every call on that stream without a reset,
+    since each call stamps its states with a new 32-bit ``epoch`` and takes
+    its tiles' tickets after ``tickets``; zeroed again (one fill launch)
+    only when the epoch wraps, once in 2^32 - 1 calls."""
+
+    __slots__ = ("buf", "slots", "epoch", "tickets")
+
+    def __init__(self, slots, dev):
+        self.slots = slots
+        self.buf = torch.zeros(_library().iir_scratch_bytes(slots),
+                               dtype=torch.uint8, device=dev)
+        self.epoch = 0
+        self.tickets = 0
+
+
+MIN_SLOTS = 8192        # tiles the first scratch of a stream holds
+EPOCH_MAX = (1 << 32) - 1
+_scratch = {}
+
+
+def _scratch_for(dev, stream, slots):
+    """The scratch of (dev, stream) with room for ``slots`` tiles; a
+    larger one replaces it when a call needs more."""
+    key = (dev.index, stream)
+    s = _scratch.get(key)
+    if s is None or s.slots < slots:
+        s = _scratch[key] = _Scratch(max(slots, MIN_SLOTS), dev)
+    return s
 
 
 def _pointers(ts):
@@ -311,6 +396,7 @@ def _pointers(ts):
 
 
 def _launch(x, filt, zi):
+    """One grid launch over the rows of x (2 for a planar signal)."""
     planar = isinstance(x, ComplexArray)
     rows = [x.re, x.im] if planar else [x]
     zrows = [None] * len(rows) if zi is None else \
@@ -333,17 +419,30 @@ def _launch(x, filt, zi):
         zfs = [torch.zeros(m, dtype=torch.float32, device=dev)
                if z is None else z.clone() for z in zrows]
     else:
-        span, threads, _ = _geometry()
-        ntiles = -(-n // (span * threads))
-        scratch = torch.empty(4 * len(rows) * ntiles * poles,
-                              dtype=torch.float32, device=dev)
+        tile = _geometry().tile
+        slots = len(rows) * -(-n // tile)
+        horizon = look_back_horizon(
+            tuple(abs(p) for p in filt.diag.poles), tile)
+        if torch.cuda.is_current_stream_capturing():
+            # a graph would replay this call's epoch and ticket base, and
+            # its look-back would take the last replay's states as this one's
+            raise RuntimeError("iir: the IIR kernel cannot be captured in a "
+                               "CUDA graph (its look-back counts calls on the "
+                               "host); run it outside the capture")
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scr = _scratch_for(dev, stream, slots)
+        if scr.epoch == EPOCH_MAX:
+            scr.buf.zero_()
+            scr.epoch = scr.tickets = 0
         with torch.cuda.device(dev):
             err = _library().iir_launch(
                 len(rows), _pointers(rows), _pointers(ys), _pointers(zrows),
-                _pointers(zfs), filt.table.data_ptr(), poles, m, n,
-                scratch.data_ptr(), stream)
+                _pointers(zfs), filt.table.data_ptr(), poles, m, n, horizon,
+                scr.buf.data_ptr(), scr.slots, scr.epoch + 1, scr.tickets,
+                stream)
         cuda_error("iir", "iir kernel launch", err)
+        scr.epoch += 1
+        scr.tickets += slots
     if planar:
         return ComplexArray(*ys), ComplexArray(*zfs)
     return ys[0], zfs[0]

@@ -222,8 +222,11 @@ def qpsk256_demodulate(x, constellation, out_dtype=torch.uint8, impl="auto"):
         raise ValueError("impl='cuda' runs the QPSK256 kernel: it needs a "
                          f"CUDA tensor, got one on {xp.device}")
     if impl == "torch" or not on_card:
-        best = qpsk256_reference(xp, cp)
-    else:
-        best = qpsk256_kernel(ComplexArray(xp.re.contiguous(),
-                                           xp.im.contiguous()), cp)
-    return best.to(out_dtype)
+        return qpsk256_reference(xp, cp).to(out_dtype)
+    if out_dtype in (torch.uint8, torch.int32):
+        # the kernel writes the decisions in that type itself
+        return qpsk256_kernel(ComplexArray(xp.re.contiguous(),
+                                           xp.im.contiguous()), cp,
+                              out_dtype=out_dtype)
+    return qpsk256_kernel(ComplexArray(xp.re.contiguous(),
+                                       xp.im.contiguous()), cp).to(out_dtype)

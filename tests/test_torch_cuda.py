@@ -728,6 +728,50 @@ def test_qpsk256_kernel_matches_plain_on_card(card, ctype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ctype", [RECTANGULAR, CIRCULAR, "random"])
+def test_qpsk256_kernel_dtypes_and_outside_box_on_card(card, ctype):
+    """B6 writes uint8 or int32 itself, each equal to the plain version on
+    noisy input and on samples outside the candidate grid's box (the
+    exhaustive route), for the modem tables and a random one; exact
+    midpoints pick an equally near point."""
+    from gsdr_tpu_torch.kernels.qpsk256 import table_grid
+
+    if ctype == "random":
+        r = np.random.default_rng(3)
+        z = torch.from_numpy((r.standard_normal(256)
+                              + 1j * r.standard_normal(256)).astype(np.complex64))
+        table = TCA(z.real.contiguous().cuda(), z.imag.contiguous().cuda())
+    else:
+        table = qpsk256_constellation(ctype, 1.0, planar=True, device="cuda")
+    grid, _ = table_grid(table)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    s = torch.randint(0, 256, (100_003,), generator=g, device="cuda")
+    noise = 0.05 * torch.randn((2, 100_003), generator=g, device="cuda")
+    far = 3.0 * torch.randn((2, 4099), generator=g, device="cuda")
+    x = TCA(torch.cat([table.re[s] + noise[0], far[0]]),
+            torch.cat([table.im[s] + noise[1], far[1]]))
+    outside = grid.cells(x.re, x.im) < 0
+    assert int(outside.sum()) > 1000 and bool(outside[:100_003].float().mean() < 0.01)
+    want = qpsk256_reference(x, table)
+    before = qpsk256_kernel.launches
+    for dt in (torch.uint8, torch.int32):
+        got = qpsk256_kernel(x, table, out_dtype=dt)
+        torch.cuda.synchronize()
+        assert got.dtype == dt and torch.equal(got.long(), want.long())
+        assert torch.equal(qpsk256_demodulate(x, table, dt).long(), want.long())
+    assert qpsk256_kernel.launches == before + 4
+    cn = torch.complex(table.re, table.im)
+    i = torch.randint(0, 256, (8192,), generator=g, device="cuda")
+    j = torch.randint(0, 256, (8192,), generator=g, device="cuda")
+    mids = (cn[i] + cn[j]) / 2
+    xm = TCA(mids.real.contiguous(), mids.imag.contiguous())
+    dk = (mids - cn[qpsk256_kernel(xm, table, out_dtype=torch.uint8).long()]).abs()
+    dp = (mids - cn[qpsk256_reference(xm, table).long()]).abs()
+    torch.testing.assert_close(dk, dp, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ctype", [RECTANGULAR, CIRCULAR])
 def test_qpsk256_modem_exact_tables_on_card(card, ctype):
     """All 256 symbols loop back exact through the table-exact modem, whose
@@ -798,7 +842,16 @@ IIR_FILTERS = {
     "third_order": (np.convolve((0.025955, 0.025955), _butter2(0.15)[0]),
                     np.convolve((1.0, -0.94809), _butter2(0.15)[1])),
 }
-IIR_TILE = 4096   # samples of one tile of csrc/iir.cu (kSpan * kThreads)
+# filters whose state outlives many tiles, so the look-back's multipliers
+# weigh in the output (tests/test_torch_iir.py's LONG_MEMORY)
+LONG_MEMORY = {
+    "slow_real": ((5e-5, 0.0), (1.0, -0.99995)),
+    "slow_resonator": ((1e-3, 0.0, 0.0),
+                       (1.0, -2 * 0.9995 * np.cos(1.0), 0.9995 ** 2)),
+}
+# row lengths: edges of the least tile, stream_fm's 2^18-sample blocks and
+# bench_iir's 2^20
+IIR_SIZES = ["1", "7", "tile-1", "tile", "tile+1", "2^18", "2^20"]
 
 
 def _iir_plain(b, a, x, zi):
@@ -807,18 +860,41 @@ def _iir_plain(b, a, x, zi):
     return iir_block(b, a, x, zi=zi, impl="torch")
 
 
+def _iir_n(label):
+    """A row length by label, the tile as csrc/iir.cu reports it."""
+    from gsdr_tpu_torch.kernels.iir import _geometry
+
+    tile = _geometry().tile
+    return {"1": 1, "7": 7, "tile-1": tile - 1, "tile": tile,
+            "tile+1": tile + 1, "2^18": 1 << 18, "2^20": 1 << 20}[label]
+
+
+def _iir_check(b, a, x, zi, y, zf):
+    """y and zf against the plain scan and scipy's float64 lfilter, within
+    1e-5 of max|y| (float32 scans in other orders)."""
+    import scipy.signal as ss
+
+    yp, zp = _iir_plain(b, a, x, zi)
+    y64, z64 = ss.lfilter(np.float64(b), np.float64(a), x.double().cpu().numpy(),
+                          zi=zi.double().cpu().numpy())
+    scale = float(yp.abs().max())
+    assert float((y - yp).abs().max()) <= 1e-5 * scale
+    assert float((zf - zp).abs().max()) <= 1e-5 * scale
+    assert np.abs(y.double().cpu().numpy() - y64).max() <= 1e-5 * scale
+    assert np.abs(zf.double().cpu().numpy() - z64).max() <= 1e-5 * scale
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 7, IIR_TILE - 1, IIR_TILE, IIR_TILE + 1,
-                               1 << 20])
+@pytest.mark.parametrize("n", IIR_SIZES)
 @pytest.mark.parametrize("name", sorted(IIR_FILTERS))
 def test_iir_kernel_matches_plain_and_float64_on_card(card, name, n):
     """B5 from a nonzero state against the plain blocked scan and scipy's
     float64 lfilter: y and zf within 1e-5 of max|y| (float32 scans in
     other orders); one launch per call."""
-    import scipy.signal as ss
     from gsdr_tpu_torch.ops.iir import iir_block
     from gsdr_tpu_torch.kernels.iir import iir_kernel
 
+    n = _iir_n(n)
     b, a = (np.float32(v) for v in IIR_FILTERS[name])
     g = torch.Generator(device="cuda")
     g.manual_seed(n)
@@ -828,14 +904,110 @@ def test_iir_kernel_matches_plain_and_float64_on_card(card, name, n):
     y, zf = iir_block(b, a, x, zi=zi, impl="cuda")
     torch.cuda.synchronize()
     assert iir_kernel.launches == before + 1
-    yp, zp = _iir_plain(b, a, x, zi)
-    y64, z64 = ss.lfilter(np.float64(b), np.float64(a), x.double().cpu().numpy(),
-                          zi=zi.double().cpu().numpy())
-    scale = float(yp.abs().max())
-    assert float((y - yp).abs().max()) <= 1e-5 * scale
-    assert float((zf - zp).abs().max()) <= 1e-5 * scale
-    assert np.abs(y.double().cpu().numpy() - y64).max() <= 1e-5 * scale
-    assert np.abs(zf.double().cpu().numpy() - z64).max() <= 1e-5 * scale
+    _iir_check(b, a, x, zi, y, zf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_sm", [4, 8, 16])
+@pytest.mark.parametrize("name", ["order8", "slow_real", "slow_resonator"])
+def test_iir_look_back_crosses_windows_on_card(card, name, per_sm):
+    """4, 8 and 16 tiles per SM plus one sample, so look-backs run past
+    their first window (the filters whose state outlives many tiles; the
+    resonator's end at their horizon of 65 tiles, order 8's at 1): y and
+    zf as the plain scan and float64 lfilter."""
+    from gsdr_tpu_torch.kernels.iir import _geometry, iir_filter, iir_kernel
+
+    b, a = (np.float32(v) for v in {**IIR_FILTERS, **LONG_MEMORY}[name])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = per_sm * sms * _geometry().tile + 1
+    assert -(-n // _geometry().tile) > 4 * _geometry().window
+    g = torch.Generator(device="cuda")
+    g.manual_seed(per_sm)
+    x = torch.randn(n, generator=g, device="cuda")
+    zi = torch.randn(len(b) - 1, generator=g, device="cuda")
+    y, zf = iir_kernel(x, iir_filter(b, a, x.device), zi)
+    _iir_check(b, a, x, zi, y, zf)
+
+
+@pytest.mark.cuda
+def test_iir_scratch_reused_without_reset_on_card(card):
+    """Calls of every size and both row counts on one stream reuse one
+    scratch, no reset between them (the flags carry the call's epoch):
+    each call still matches the plain scan, and the scratch and its
+    ticket count follow the calls."""
+    from gsdr_tpu_torch.kernels import iir as tk
+
+    b, a = (np.float32(v) for v in LONG_MEMORY["slow_real"])
+    filt = tk.iir_filter(b, a, "cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    stream = torch.cuda.current_stream().cuda_stream
+    tk.iir_kernel(torch.randn(1 << 20, device="cuda"), filt, None)
+    scr = tk._scratch[(0, stream)]
+    buf, epoch, tickets = scr.buf, scr.epoch, scr.tickets
+    expect = tickets
+    for i, n in enumerate([1 << 18, 5000, 1 << 20, 1, (1 << 18) + 3] * 3):
+        x = torch.randn(n, generator=g, device="cuda")
+        zi = torch.randn(1, generator=g, device="cuda")
+        if i % 2:
+            xp = TCA(x, torch.flip(x, [0]).contiguous())
+            y, zf = tk.iir_kernel(xp, filt, TCA(zi, -zi))
+            _iir_check(b, a, x, zi, y.re, zf.re)
+            _iir_check(b, a, xp.im, -zi, y.im, zf.im)
+            rows = 2
+        else:
+            y, zf = tk.iir_kernel(x, filt, zi)
+            _iir_check(b, a, x, zi, y, zf)
+            rows = 1
+        expect += rows * -(-n // tk._geometry().tile)
+    assert tk._scratch[(0, stream)] is scr and scr.buf is buf
+    assert scr.epoch == epoch + 15 and scr.tickets == expect
+
+
+@pytest.mark.cuda
+def test_iir_kernel_refuses_graph_capture_on_card(card):
+    """B5's look-back counts calls on the host, so a captured call would
+    replay a stale epoch: the wrapper raises inside a capture, and the
+    stream's scratch goes on serving calls outside it."""
+    from gsdr_tpu_torch.kernels.iir import iir_filter, iir_kernel
+
+    b, a = IIR_FILTERS["bench_biquad"]
+    filt = iir_filter(b, a, "cuda")
+    x = torch.randn(1 << 18, device="cuda")
+    iir_kernel(x, filt, None)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            iir_kernel(x, filt, None)
+    zi = torch.randn(2, device="cuda")
+    y, zf = iir_kernel(x, filt, zi)
+    _iir_check(np.float32(b), np.float32(a), x, zi, y, zf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar", [False, True])
+def test_iir_kernel_is_one_grid_launch_on_card(card, planar):
+    """torch.profiler counts one device kernel per B5 call, at stream_fm's
+    2^18 and bench_iir's 2^20, one row and two: no reset launch."""
+    from torch.profiler import ProfilerActivity, profile
+    from gsdr_tpu_torch.kernels.iir import iir_filter, iir_kernel
+
+    b, a = IIR_FILTERS["order8"]
+    filt = iir_filter(b, a, "cuda")
+    for n in (1 << 18, 1 << 20):
+        x = torch.randn(n, device="cuda")
+        x = TCA(x, x.flip(0).contiguous()) if planar else x
+        iir_kernel(x, filt, None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                iir_kernel(x, filt, None)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")]
+        assert len(kernels) == 5, [e.name for e in kernels]
+        assert all("iir_chained" in e.name for e in kernels)
 
 
 @pytest.mark.cuda

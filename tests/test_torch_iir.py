@@ -207,36 +207,219 @@ def test_diag_reference_matches_exact_scan(name, n):
 
 
 def _cu_constants():
-    """The constexpr ints of csrc/iir.cu, evaluated in order."""
+    """The namespace-level constexpr ints of csrc/iir.cu, evaluated in
+    order (C's integer division)."""
     src = (Path(tk.__file__).parent / "csrc" / "iir.cu").read_text()
     env = {}
-    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
-        env[name] = eval(expr, {}, dict(env))
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src,
+                                 re.M):
+        env[name] = eval(expr.replace("/", "//"), {}, dict(env))
     return env
+
+
+def _geometry_from_source():
+    k = _cu_constants()
+    return tk.Geometry(k["kSpan"], k["kThreads"], k["kWindow"], k["kCoefLen"])
+
+
+def _table(d, g):
+    return tk.coef_table(d, g.span, g.threads, g.window)
 
 
 def test_coef_table_layout_matches_kernel_source():
     """kernels/iir.py writes the table at the offsets csrc/iir.cu reads,
-    with every constant and power formed in float64 and rounded once."""
+    with every constant, thread power p^(kSpan j) and look-back multiplier
+    p^(kTile e) formed in float64 and rounded once."""
     k = _cu_constants()
+    g = _geometry_from_source()
     assert (k["kB0"], k["kPole"], k["kW"], k["kQ"], k["kQcol"], k["kQinv"],
-            k["kPow"]) == (tk._B0, tk._POLE, tk._W, tk._Q, tk._QCOL,
-                           tk._QINV, tk._POW)
+            k["kPow"], k["kLookPow"]) == (
+        tk._B0, tk._POLE, tk._W, tk._Q, tk._QCOL, tk._QINV, tk._POW,
+        tk._look_pow(g.threads))
     assert (k["kMaxPairs"], k["kMaxOrder"]) == (tk.MAX_PAIRS, tk.MAX_ORDER)
+    assert (g.tile, g.window + 1, g.threads + 1) == (
+        k["kTile"], k["kLookLen"], k["kPowLen"])
     d = tk.diagonalize(*DIAG_FILTERS["eighth_order"])
-    t = tk.coef_table(d, k["kSpan"], k["kThreads"])
+    t = _table(d, g)
     assert t.dtype == np.float32 and t.size == k["kCoefLen"]
-    plen = k["kPowLen"]
+    plen, llen = k["kPowLen"], k["kLookLen"]
     for i, p in enumerate(d.poles):
         assert t[tk._POLE + 2 * i] == np.float32(p.real)
         assert t[tk._Q + 2 * i + 1] == np.float32(d.wgt[i] * d.q[i].imag)
         assert t[tk._QINV + 2 * (8 * i + 7) + 1] == \
             np.float32(d.qinv_rows[i][7].imag)
-        for j in (0, 1, 32, k["kThreads"]):
-            want = np.complex128(p) ** (k["kSpan"] * j)
-            off = tk._POW + 2 * (plen * i + j)
-            assert t[off] == np.float32(want.real)
-            assert t[off + 1] == np.float32(want.imag)
+        for off, unit, count in ((tk._POW + 2 * plen * i, g.span, plen),
+                                 (k["kLookPow"] + 2 * llen * i, g.tile,
+                                  llen)):
+            want = np.power(np.complex128(p), unit * np.arange(count))
+            np.testing.assert_array_equal(t[off:off + 2 * count:2],
+                                          want.real.astype(np.float32))
+            np.testing.assert_array_equal(t[off + 1:off + 2 * count:2],
+                                          want.imag.astype(np.float32))
+
+
+def _cx(t, off):
+    return np.complex64(complex(t[off], t[off + 1]))
+
+
+def _chained_scan(diag, t, g, x, zi, window, seed):
+    """A numpy transliteration of csrc/iir.cu's one launch, in complex64:
+    tiles of span * threads samples taken in ticket order; per tile the
+    threads' zero-state spans, the weighted warp scans (multipliers
+    p^(span d) from the table), the warp prefixes and the aggregate; the
+    look-back over ``window`` predecessors a step, each seen as published
+    inclusive or as aggregate only at random (the row start s0 = Q^-1 zi
+    is always inclusive), up to the horizon of ``look_back_horizon``,
+    combined with the table's p^(tile e) and the window carry
+    p^(tile window); at one or two poles the outputs from a zero tile
+    start, then the start state's share added, at more a replay from the
+    tile's start.
+    Returns (y, zf) in float32."""
+    rng = np.random.default_rng(seed)
+    span, threads, n = g.span, g.threads, x.shape[0]
+    tile = g.tile
+    horizon = tk.look_back_horizon(tuple(abs(p) for p in diag.poles), tile)
+    ntiles = -(-n // tile)
+    plen, llen = threads + 1, g.window + 1
+    look_off = tk._look_pow(threads)
+    xs = np.zeros(ntiles * tile, np.float32)
+    xs[:n] = x
+    xs = xs.reshape(ntiles, threads // 32, 32, span)
+    z = np.zeros(diag.m, np.float32) if zi is None else zi
+    b0 = np.float32(t[tk._B0])
+    y = b0 * xs
+    s_end = []
+    for k in range(len(diag.poles)):
+        pw = [_cx(t, tk._POW + 2 * (plen * k + j)) for j in range(plen)]
+        lp = [_cx(t, look_off + 2 * (llen * k + j)) for j in range(llen)]
+        p, w = _cx(t, tk._POLE + 2 * k), _cx(t, tk._W + 2 * k)
+        qw = _cx(t, tk._Q + 2 * k)
+        u = np.zeros(xs.shape[:3], np.complex64)
+        for j in range(span):
+            u = p * u + w * xs[..., j]
+        d = 1
+        while d < 32:
+            o = u.copy()
+            o[..., d:] = pw[d] * u[..., :-d] + u[..., d:]
+            u, d = o, 2 * d
+        wexc = np.zeros(u.shape[:2], np.complex64)
+        acc = np.zeros(ntiles, np.complex64)
+        for q in range(u.shape[1]):
+            wexc[:, q] = acc
+            acc = pw[32] * acc + u[:, q, 31]
+        agg = acc
+        s0 = np.complex64(sum(np.complex64(_cx(
+            t, tk._QINV + 2 * (tk.MAX_ORDER * k + j))) * np.float32(z[j])
+            for j in range(diag.m)))
+        incl = np.zeros(ntiles, np.complex64)
+        start = np.zeros(ntiles, np.complex64)
+        for i in range(ntiles):          # ticket order
+            excl, mult, look = np.complex64(0), np.complex64(1), i
+            while True:
+                total, found = np.complex64(0), False
+                for e in range(window):
+                    idx = look - 1 - e
+                    if idx < -1 or i - 1 - idx >= horizon:
+                        val, found = 0, True         # left out
+                    elif idx == -1:
+                        val, found = s0, True
+                    elif rng.random() < 0.3:
+                        val, found = incl[idx], True
+                    else:
+                        val, found = agg[idx], i - 1 - idx == horizon - 1
+                    total = lp[e] * val + total
+                    if found:
+                        break
+                excl = mult * total + excl
+                if found:
+                    break
+                mult = mult * lp[window]
+                look -= window
+            start[i] = excl
+            incl[i] = lp[1] * excl + agg[i]
+        # each thread's zero-start state: the warp's prefix and its lanes;
+        # at one or two poles y from a zero tile start, then the start
+        # state's share Re(q p^t start); at more, a replay from the start
+        lane = np.arange(32)
+        before_end = np.asarray(pw)[lane + 1][None, None, :] * wexc[..., None] + u
+        s = np.concatenate([wexc[..., None], before_end[..., :-1]], -1)
+        tid = np.arange(threads).reshape(threads // 32, 32)
+        c = np.asarray(pw)[tid][None] * start[:, None, None]
+        split = len(diag.poles) <= 2
+        if not split:
+            s = c + s
+        ys = []
+        for j in range(span):
+            y[..., j] = (y[..., j] + (qw * s).real).astype(np.float32)
+            s = p * s + w * xs[..., j]
+            ys.append(s)
+        for j in range(span if split else 0):
+            y[..., j] = (y[..., j] + (qw * c).real).astype(np.float32)
+            c = p * c
+            ys[j] = ys[j] + c
+        s_end.append(np.stack(ys, -1).reshape(-1)[n - 1])
+    zf = np.zeros(diag.m, np.float32)
+    for i in range(diag.m):
+        for k in range(len(diag.poles)):
+            zf[i] += (_cx(t, tk._QCOL + 2 * (tk.MAX_ORDER * k + i))
+                      * s_end[k]).real
+    return y.reshape(-1)[:n], zf
+
+
+# filters whose state outlives many tiles (|p|^1024 of 0.95 and 0.60), so
+# the look-back's multipliers p^(tile e) and its window carry weigh in the
+# output; the other filters forget a tile within float32's precision. (A
+# narrower resonator, r = 0.9999 at 0.01 rad, leaves the exact blocked
+# scan itself 0.18 of max|y| from scipy's float64 lfilter, where the
+# diagonal form stays within 3e-7.)
+_R = 0.9995
+LONG_MEMORY = {
+    "slow_real": ((5e-5, 0.0), (1.0, -0.99995)),
+    "slow_resonator": ((1e-3, 0.0, 0.0), (1.0, -2 * _R * np.cos(1.0), _R * _R)),
+}
+
+
+def _check_chained(name, n, window):
+    g = _geometry_from_source()
+    b, a = (np.float32(v) for v in {**DIAG_FILTERS, **LONG_MEMORY}[name])
+    d = tk.diagonalize(b, a)
+    x = _x((n,), n + window)
+    zi = _x((d.m,), n + 3)
+    y, zf = _chained_scan(d, _table(d, g), g, x, zi, window, seed=n)
+    want, zw = tiir.iir_block(b, a, torch.from_numpy(x),
+                              zi=torch.from_numpy(zi), impl="torch")
+    yr, zr = tk.iir_diag_reference(d, torch.from_numpy(x),
+                                   torch.from_numpy(zi))
+    scale = float(want.abs().max()) + 1e-6
+    for ref_y, ref_z in ((want, zw), (yr, zr)):
+        assert np.max(np.abs(y - ref_y.numpy())) <= 1e-5 * scale
+        assert np.max(np.abs(zf - ref_z.numpy())) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("tiles", ["1", "tile-1", "tile", "tile+1", "40"])
+@pytest.mark.parametrize("name", sorted(DIAG_FILTERS) + sorted(LONG_MEMORY))
+def test_chained_scan_transliteration_matches_plain(name, tiles):
+    """The one-launch chained scan, transliterated, at the least tile
+    (csrc/iir.cu's geometry, look-back window as the kernel's) against the
+    exact scan and iir_diag_reference from a nonzero state: y and zf within
+    1e-5 of max|y|, at n = 1, a tile - 1, a tile, a tile + 1 and 40
+    tiles."""
+    g = _geometry_from_source()
+    n = {"1": 1, "tile-1": g.tile - 1, "tile": g.tile, "tile+1": g.tile + 1,
+         "40": 40 * g.tile}[tiles]
+    _check_chained(name, n, g.window)
+
+
+@pytest.mark.parametrize("tiles", [9, 23, 70])
+@pytest.mark.parametrize("name", ["eighth_order", "slow_real",
+                                  "slow_resonator"])
+def test_chained_scan_crosses_look_back_windows(name, tiles):
+    """The transliteration with a look-back step of 4 tiles: most
+    look-backs cross several windows, each carried by the table's
+    p^(tile window); at 70 tiles the resonator's end at their horizon of
+    65 tiles, the order-8 filter's always at 1."""
+    g = _geometry_from_source()
+    _check_chained(name, tiles * g.tile - 5, 4)
 
 
 def test_routing_on_cpu():

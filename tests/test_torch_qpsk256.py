@@ -230,3 +230,184 @@ def test_atan2_poly_matches_jax(order):
     want = np.asarray(jk.atan2_poly(jnp.asarray(y), jnp.asarray(x), order))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=POLY_ATOL)
     assert float(got[0]) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# Kernel B6's candidate grid (gsdr_tpu_torch.kernels.qpsk256.candidate_grid)
+# ---------------------------------------------------------------------------
+
+import re as _re
+from pathlib import Path
+
+from gsdr_tpu_torch.kernels import qpsk256 as tkq
+
+
+def _random_table(seed=12):
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal(256) + 1j * rng.standard_normal(256)
+    return z.astype(np.complex64)
+
+
+GRID_TABLES = {
+    "circular_1": lambda: jq.qpsk256_constellation(jq.CIRCULAR, 1.0),
+    "circular_2": lambda: jq.qpsk256_constellation(jq.CIRCULAR, 2.0),
+    "rectangular_1": lambda: jq.qpsk256_constellation(jq.RECTANGULAR, 1.0),
+    "rectangular_2": lambda: jq.qpsk256_constellation(jq.RECTANGULAR, 2.0),
+    "random": _random_table,
+}
+
+
+def _planar(z):
+    z = np.asarray(z, np.complex64)
+    return TCA(torch.from_numpy(np.ascontiguousarray(z.real)),
+               torch.from_numpy(np.ascontiguousarray(z.imag)))
+
+
+def _grid_search(x, table, grid):
+    """The candidate search in plain torch, as csrc/qpsk256.cu runs it: a
+    sample in the box takes the lowest score over its cell's list (the
+    first minimum in ascending index), one outside it the lowest over all
+    256 points; scores as qpsk256_reference forms them."""
+    ct, c2 = tkq.score_table(table)
+    xf = torch.stack([x.re.reshape(-1), x.im.reshape(-1)], dim=-1)
+    with tkq.full_f32():
+        scores = c2[None, :] - 2.0 * torch.matmul(xf, ct)
+    cells = grid.cells(x.re.reshape(-1), x.im.reshape(-1))
+    out = torch.argmin(scores, dim=-1)
+    inside = cells >= 0
+    if grid.g and bool(inside.any()):
+        counts = np.diff(grid.offsets)
+        lists = np.full((grid.g * grid.g, int(counts.max())), -1, np.int64)
+        for cell, (a, b) in enumerate(zip(grid.offsets[:-1], grid.offsets[1:])):
+            lists[cell, :b - a] = grid.cand[a:b]
+        cand = torch.from_numpy(lists)[cells[inside]]
+        s = torch.gather(scores[inside], 1, cand.clamp(min=0))
+        s = torch.where(cand >= 0, s, torch.full_like(s, float("inf")))
+        out[inside] = torch.gather(cand, 1, torch.argmin(s, 1, keepdim=True))[:, 0]
+    return out.to(torch.int32).reshape(x.re.shape)
+
+
+def _grid_inputs(kind, z, grid):
+    """Samples of one kind for a table z and its grid (complex64)."""
+    rng = np.random.default_rng(7)
+    scale = float(np.max(np.abs(z)))
+    if kind == "noisy":
+        s = z[rng.integers(0, 256, 20000)]
+        return s + 0.05 * scale * (rng.standard_normal(20000)
+                                   + 1j * rng.standard_normal(20000))
+    if kind == "midpoints":
+        i, j = np.triu_indices(256, 1)
+        return (z[i].astype(np.complex128) + z[j]) / 2
+    cell = 1.0 / np.float64(grid.inv_cell)
+    lines_x = np.float64(grid.x0) + cell * np.arange(grid.g + 1)
+    lines_y = np.float64(grid.y0) + cell * np.arange(grid.g + 1)
+    if kind == "cell_edges":
+        # corners, edge midpoints and their float32 neighbours
+        mid_x, mid_y = lines_x[:-1] + cell / 2, lines_y[:-1] + cell / 2
+        pts = [lines_x[:, None] + 1j * lines_y[None, :],
+               mid_x[:, None] + 1j * lines_y[None, :],
+               lines_x[:, None] + 1j * mid_y[None, :]]
+        base = np.concatenate([p.reshape(-1) for p in pts]).astype(np.complex64)
+        re, im = base.real, base.imag
+        out = [base]
+        for d in (-np.inf, np.inf):
+            out.append(np.nextafter(re, np.float32(d)) + 1j * im)
+            out.append(re + 1j * np.nextafter(im, np.float32(d)))
+        return np.concatenate(out)
+    # outside: beyond each side of the box and far away
+    span = lines_x[-1] - lines_x[0]
+    t = rng.uniform(0, 1, 2000)
+    return np.concatenate([
+        lines_x[0] - 0.05 * span + 1j * (lines_y[0] + t * span),
+        lines_x[-1] + 1e-3 * span + 1j * (lines_y[0] + t * span),
+        lines_x[0] + t * span + 1j * (lines_y[-1] + 0.1 * span),
+        (lines_x[0] + t * span) + 1j * (lines_y[0] - 1e-3 * span),
+        1e3 * scale * np.exp(2j * np.pi * t)])
+
+
+@pytest.mark.parametrize("kind", ["noisy", "midpoints", "cell_edges",
+                                  "outside"])
+@pytest.mark.parametrize("table", sorted(GRID_TABLES))
+def test_candidate_search_equals_exhaustive(table, kind):
+    """The candidate search (host grid, per-sample search of its cell's
+    list) equals qpsk256_reference, the exhaustive float32 search, bit for
+    bit: on noisy symbols, every pair's midpoint (exact ties), points on
+    and one ulp off the cells' edges and corners, and samples outside the
+    box."""
+    z = GRID_TABLES[table]()
+    grid = tkq.candidate_grid(z.real, z.imag)
+    assert grid.g == tkq.GRID
+    x = _planar(_grid_inputs(kind, z, grid))
+    cells = grid.cells(x.re, x.im)
+    if kind == "outside":
+        assert bool((cells < 0).all())
+    else:   # the box's far edges and their neighbours lie outside
+        assert float((cells >= 0).float().mean()) > 0.95
+    table_t = _planar(z)
+    want = tkq.qpsk256_reference(x, table_t)
+    got = _grid_search(x, table_t, grid)
+    assert torch.equal(got, want)
+
+
+def _qpsk256_cu_constants():
+    src = (Path(tkq.__file__).parent / "csrc" / "qpsk256.cu").read_text()
+    return {name: int(v) for name, v in _re.findall(
+        r"^constexpr int (\w+) = (\d+);", src, _re.M)}
+
+
+@pytest.mark.parametrize("table", sorted(GRID_TABLES))
+def test_candidate_grid_layout_matches_kernel_source(table):
+    """The grid's constants are csrc/qpsk256.cu's; its blob is the offsets
+    as uint16 then the uint8 lists, padded, within the kernel's shared
+    memory; every list is non-empty and ascending."""
+    k = _qpsk256_cu_constants()
+    assert (k["kPoints"], k["kMaxGrid"], k["kMaxCandidates"],
+            k["kBlobAlign"]) == (tkq.NUM_POINTS, tkq.MAX_GRID,
+                                 tkq.MAX_CANDIDATES, tkq.BLOB_ALIGN)
+    assert tkq.GRID <= k["kMaxGrid"]
+    z = GRID_TABLES[table]()
+    grid = tkq.candidate_grid(z.real, z.imag)
+    cells = grid.g * grid.g
+    blob = grid.blob
+    assert blob.dtype == np.uint8 and blob.size % k["kBlobAlign"] == 0
+    offsets = np.frombuffer(blob[:2 * (cells + 1)].tobytes(), "<u2")
+    np.testing.assert_array_equal(offsets, grid.offsets)
+    total = int(offsets[-1])
+    assert total <= k["kMaxCandidates"]
+    np.testing.assert_array_equal(blob[2 * (cells + 1):2 * (cells + 1) + total],
+                                  grid.cand)
+    # shared memory: the float4 table and the blob, under 48 KB
+    assert 16 * k["kPoints"] + blob.size <= 48 * 1024
+    for a, b in zip(offsets[:-1], offsets[1:]):
+        lst = grid.cand[a:b]
+        assert b > a and np.all(np.diff(lst.astype(int)) > 0)
+
+
+def test_candidate_grid_degenerate_tables():
+    """A table that defeats the grid: all points in one place halves G
+    until the lists fit (and the search stays exhaustive-equal); a table
+    that is not finite gets no grid, every sample searching all points."""
+    z = np.full(256, 0.3 + 0.1j, np.complex64)
+    z[17] = 0.3 + 0.1000001j
+    grid = tkq.candidate_grid(z.real, z.imag)
+    assert 0 < grid.g < tkq.GRID and grid.offsets[-1] <= tkq.MAX_CANDIDATES
+    x = _planar(_grid_inputs("noisy", z, grid))
+    assert torch.equal(_grid_search(x, _planar(z), grid),
+                       tkq.qpsk256_reference(x, _planar(z)))
+    z[3] = np.nan
+    none = tkq.candidate_grid(z.real, z.imag)
+    assert none.g == 0 and bool((none.cells(x.re, x.im) < 0).all())
+
+
+def test_kernel_wrapper_out_dtype_on_cpu():
+    """On CPU tensors the wrapper takes its plain version in the requested
+    dtype, uncounted; the op passes uint8 through."""
+    table = tq.qpsk256_constellation(jq.CIRCULAR, 1.0, planar=True)
+    re, im = _noisy(jq.CIRCULAR, 1.0, 500, 0.03, 8)
+    x = TCA(torch.from_numpy(re), torch.from_numpy(im))
+    before = qpsk256_kernel.launches
+    want = tkq.qpsk256_reference(x, table)
+    for dt in (torch.uint8, torch.int32):
+        got = qpsk256_kernel(x, table, out_dtype=dt)
+        assert got.dtype == dt and torch.equal(got.long(), want.long())
+    assert qpsk256_kernel.launches == before

@@ -15,13 +15,24 @@
          bank, the transmux's K=32): device time per call by
          torch.profiler, call time by CUDA events, and the error against
          the plain version at the grade, of max|y|.
+  b5b6:  the IIR kernel (B5) at bench_iir's 2^20 samples (biquad, order 8,
+         planar biquad) and at stream_fm's 2^18 (its de-emphasis and one
+         of its SOS sections), and the QPSK256 kernel (B6) at 2^19 noisy
+         CIRCULAR symbols: device time per call and device kernels per
+         call by torch.profiler, call time by CUDA events, the error
+         against the plain version; where the tree's B6 writes uint8, both
+         output types. It uses only what every tree of the port since B5
+         has, so it times an older tree too: copy this file into that
+         tree's tools/ and run it there.
 
 Prints one JSON line per reading. Usage, from the repository root (the
 kernels are built from this checkout):
     python3 tools/probe_grades.py steps
     python3 tools/probe_grades.py b4
+    python3 tools/probe_grades.py b5b6
 """
 
+import inspect
 import json
 import statistics
 import subprocess
@@ -129,9 +140,96 @@ def b4():
                 "rel_err_vs_plain": err / scale}), flush=True)
 
 
+def profile_call(fn, reps=20):
+    """(device us per call, device kernels per call, kernel names) of fn()
+    by torch.profiler, after one call outside the trace; the time is the
+    mean over the records times the kernels per call (rounded), so a
+    record the trace drops does not lower it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    if not ev:
+        return None, 0, []
+    per_call = max(1, round(len(ev) / reps))
+    return (sum(e.device_time_total for e in ev) / len(ev) * per_call,
+            len(ev) / reps, sorted({e.name[:40] for e in ev}))
+
+
+def b5b6():
+    import scipy.signal as ss
+    from gsdr_tpu_torch.kernels import iir as tk
+    from gsdr_tpu_torch.kernels import qpsk256 as tq
+    from gsdr_tpu_torch.ops.iir import iir_block
+    from gsdr_tpu_torch.ops.qpsk256 import CIRCULAR
+    from gsdr_tpu_torch.pipelines import Qpsk256Modem, fm_deemphasis_coeffs
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    rate = cs.FS / 4
+    sos = ss.butter(8, 15e3, fs=rate, output="sos")
+    cases = [(name, b, a, planar, cs.N)
+             for name, b, a, planar in cs.IIR_FILTERS
+             if name in ("biquad", "order8", "biquad_planar")]
+    cases += [("stream_fm_deemph", *fm_deemphasis_coeffs(75e-6, rate), False,
+               cs.N // 4),
+              ("stream_fm_sos0", tuple(sos[0, :3]), tuple(sos[0, 3:]), False,
+               cs.N // 4)]
+    for name, b, a, planar, n in cases:
+        rows = [torch.randn(n, generator=gen, device="cuda")
+                for _ in range(2 if planar else 1)]
+        x = ComplexArray(*rows) if planar else rows[0]
+        filt = tk.iir_filter(b, a, "cuda")
+        yp, _ = iir_block(b, a, x, impl="torch")
+        scale = float((yp.re if planar else yp).abs().max())
+
+        def call(x=x, filt=filt):
+            return tk.iir_kernel(x, filt, None)
+
+        y, _ = call()
+        err = (float((y.re - yp.re).abs().max()) if planar
+               else float((y - yp).abs().max())) / scale
+        dev, per_call, names = profile_call(call)
+        print(json.dumps({
+            "probe": "b5", "case": name, "n": n, "rows": len(rows),
+            "poles": len(filt.diag.poles), "device_us": dev,
+            "grid_launches_per_call": per_call, "kernels": names,
+            "call_ms": cs.cuda_ms(call, reps=REPS), "rel_err_vs_plain": err,
+            "card": cs.CARD}), flush=True)
+
+    modem = Qpsk256Modem(CIRCULAR, 1.0, exact_tables=True, device="cuda")
+    s = torch.randint(0, 256, (cs.Q256_N,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    tx = modem.tx(s)
+    noise = cs.Q256_SIGMA * torch.randn((2, cs.Q256_N), generator=gen,
+                                        device="cuda")
+    x = ComplexArray(tx.re + noise[0], tx.im + noise[1])
+    want = tq.qpsk256_reference(x, modem.table)
+    typed = "out_dtype" in inspect.signature(tq._launch).parameters
+    variants = [("int32", lambda: tq.qpsk256_kernel(x, modem.table))]
+    if typed:
+        variants.append(("uint8", lambda: tq.qpsk256_kernel(
+            x, modem.table, out_dtype=torch.uint8)))
+    variants.append(("modem.rx (uint8)", lambda: modem.rx(x)))
+    for label, call in variants:
+        diff = int((call().long() != want.long()).sum())
+        dev, per_call, names = profile_call(call)
+        print(json.dumps({
+            "probe": "b6", "n": cs.Q256_N, "out": label, "device_us": dev,
+            "grid_launches_per_call": per_call, "kernels": names,
+            "call_ms": cs.cuda_ms(call, reps=REPS),
+            "decisions_differing_from_plain": diff, "card": cs.CARD}),
+            flush=True)
+
+
 def main():
     if not torch.cuda.is_available() or len(sys.argv) != 2 \
-            or sys.argv[1] not in ("steps", "b4"):
+            or sys.argv[1] not in ("steps", "b4", "b5b6"):
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
@@ -141,8 +239,12 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(cs.CARD)
-    _build.build_all(["channelize", "fm_chain"])
-    steps() if sys.argv[1] == "steps" else b4()
+    if sys.argv[1] == "b5b6":
+        _build.build_all(["iir", "qpsk256"])
+        b5b6()
+    else:
+        _build.build_all(["channelize", "fm_chain"])
+        steps() if sys.argv[1] == "steps" else b4()
     return 0
 
 
