@@ -66,7 +66,27 @@ full width, 2^20 planar complex samples per step:
      after Chain.init (40 B5 launches and nothing else), against the same
      chain with plain IIR stages, the tone checked, step time and idle
      share;
- 11. prints one JSON `kernels` line (B1, B2, B3-PFB, B3-dense and B4 once
+ 11. the single-channel ops on the verify recipe's signal (one FM
+     carrier at +100 kHz, a 1-kHz tone at 5-kHz deviation, 65 taps, D=4,
+     2^20 samples): fm_demod(impl='auto') counted (one B1 launch at C=1
+     with the identity de-emphasis) at each grade against the kernel's
+     plain version, the f32 plain chain and the composed chain (within the
+     digit-table phase bound), the tone and its level; am_demod counted
+     (one B3-dense launch at C=1) against its plain version at each grade;
+     ResampleStream in four uneven blocks against one-shot resample; each
+     kernel timed against its bound;
+ 12. the fm_rx command line in this process, at its defaults (129 taps,
+     D=8, bf16x3), over an int8 capture of 2^24 samples at 2.048 MHz with
+     five FM stations (75-kHz deviation), blocks of 2^20: counted (16 B1
+     launches and nothing else), audio against FmChannelizer
+     impl='torch' on the same staged blocks, the five tones, the halves
+     through --save-state/--load-state bit-equal to the whole run, the
+     tones of --audio-rate 48000, the native host library in use, the step
+     time and the device's idle share, B1 at this shape timed;
+ 13. the four ported examples' main() on the card, counted (B1 for
+     fm_broadcast_rx, B2 at K=32 for wideband_rx and wideband_duplex, no
+     kernel for qpsk_link), B2 at K=32 timed;
+ 14. prints one JSON `kernels` line (B1, B2, B3-PFB, B3-dense and B4 once
      per grade, B6, B5) and, last, {"ok": true, "device": {...}}.
 
 Timing: CUDA events around bursts of back-to-back calls (median of
@@ -82,7 +102,9 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -122,6 +144,8 @@ from gsdr_tpu_torch.kernels.qpsk256 import (
     score_table,
     table_grid,
 )
+from gsdr_tpu_torch.ops.am import am_chain_args, am_demod
+from gsdr_tpu_torch.ops.fm import fm_chain_args, fm_demod, fm_demod_gain
 from gsdr_tpu_torch.ops.iir import iir_block
 from gsdr_tpu_torch.ops.pfb import (
     _analysis_tables,
@@ -133,11 +157,17 @@ from gsdr_tpu_torch.ops.pfb import (
 )
 from gsdr_tpu_torch.ops.qpsk import qpsk_modulate_symbols
 from gsdr_tpu_torch.ops.qpsk256 import CIRCULAR, RECTANGULAR
+from gsdr_tpu_torch.ops.resample import ResampleStream, resample
 from gsdr_tpu_torch.pipelines import (
     AmReceiver,
     FmChannelizer,
     Qpsk256Modem,
     fm_deemphasis_coeffs,
+)
+from gsdr_tpu_torch.runtime import (
+    RingBuffer,
+    int8_iq_to_planar,
+    native_available,
 )
 from gsdr_tpu_torch.stream import (
     Chain,
@@ -148,6 +178,7 @@ from gsdr_tpu_torch.stream import (
     SosStream,
     run_stream,
 )
+from gsdr_tpu_torch.tools import fm_rx
 from gsdr_tpu_torch.utils.precision import full_f32
 
 N = 1 << 20            # complex input samples per step
@@ -303,9 +334,9 @@ def am_d(impl, **kw):
         device="cuda", **kw)
 
 
-def _time_axis(start, n):
+def _time_axis(start, n, fs=FS):
     return torch.arange(start, start + n, dtype=torch.float64,
-                        device="cuda") / FS
+                        device="cuda") / fs
 
 
 def fm_signal(model, start, n, seed=7):
@@ -329,19 +360,20 @@ def grid_tone(k):
     return 200.0 + 40.0 * k
 
 
-def wideband_fm_signal(model, start, n, seed=7):
-    """An FM carrier at 1 kHz deviation on every channel of the grid, tone
-    200 + 40*k Hz (examples/wideband_rx.py's construction, narrowed so each
-    carrier stays inside its 15.6-kHz channel)."""
+def wideband_fm_signal(model, start, n, seed=7, deviation=1_000.0):
+    """An FM carrier on every channel of the model, at the model's rate,
+    tone 200 + 40*k Hz (examples/wideband_rx.py's construction; at the
+    default 1-kHz deviation each carrier stays inside a 15.6-kHz channel)."""
     phases = np.random.default_rng(seed).uniform(0, 6, model.num_channels)
-    t = _time_axis(start, n)
+    t = _time_axis(start, n, model.sample_rate)
     re = torch.zeros(n, dtype=torch.float64, device="cuda")
     im = torch.zeros_like(re)
     amp = 1.0 / model.num_channels
     for k, f in enumerate(model.channel_frequencies):
         tone = grid_tone(k)
         ph = (2 * np.pi * (f - model.tuning_frequency) * t
-              + (1_000.0 / tone) * torch.sin(2 * np.pi * tone * t + phases[k]))
+              + (deviation / tone) * torch.sin(2 * np.pi * tone * t
+                                               + phases[k]))
         re += amp * torch.cos(ph)
         im += amp * torch.sin(ph)
     return ComplexArray(re.float(), im.float())
@@ -410,22 +442,29 @@ def device_us(fn, reps, tries=3):
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def grid_launches(fn, reps=20):
+def grid_launches(fn, reps=20, tries=3):
     """(device kernels per call of fn() as torch.profiler counts them,
     rounded; the records it counted over ``reps`` calls), (None, 0) when
-    the trace holds none; launch counters are restored."""
+    the trace holds none; launch counters are restored. A trace that
+    records no device activity is taken again, up to ``tries`` times, as
+    in device_us."""
     from torch.profiler import ProfilerActivity, profile
 
     before = counts()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    n = 0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if str(e.device_type).endswith("CUDA"))
+        if n:
+            break
     for name, k in COUNTERS.items():
         k.launches = before[name]
-    n = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
     return (round(n / reps) if n else None), f"{n} in {reps} calls"
 
 
@@ -1624,6 +1663,411 @@ def iir_entry(launches, max_abs, lines):
             "library_ms": None}
 
 
+# ---------------------------------------------------------------------------
+# 12-14) the single-channel ops, the fm_rx command line and the examples
+# ---------------------------------------------------------------------------
+
+# The verify recipe's FM signal: one carrier at +100 kHz, a 1-kHz tone at
+# 5-kHz deviation, a 65-tap low-pass, D = 4, 2^20 samples at 1 MHz.
+OPS_FC, OPS_TONE, OPS_DEV, OPS_D = 100_000.0, 1_000.0, 5_000.0, 4
+OPS_TAPS = lowpass(65, 0.02)
+# B1 routes each output through the float32 digit-table phase, exact to
+# PHASE_BOUND cycles (utils/phase.py); the composed chain mixes by its own
+# float32 phase, so a discriminator output of the two routes may differ by
+# gain*2*pi*2*PHASE_BOUND, 0.024 at this gain of 31.8: the kernel is held
+# to its plain version (the same phase) at AUDIO_REL_TOL and to the
+# composed chain at that bound.
+PHASE_BOUND = 6e-5
+RESAMPLE_REL_TOL = 1e-6
+# fm_rx on an RTL-SDR capture: 2^24 int8 samples at 2.048 MHz, five FM
+# stations at 75-kHz deviation
+RX_FS, RX_N, RX_BLOCK = 2_048_000.0, 1 << 24, 1 << 20
+RX_STATIONS = (-800e3, -400e3, 0.0, 400e3, 800e3)
+RX_TONES = (500.0, 1100.0, 1700.0, 2300.0, 2900.0)
+
+
+def single_channel_model(cls, taps, decimation, **kw):
+    """A one-channel receiver on the single-channel op's bank (its
+    tap_bank is the op's): the stand-in whose shapes fm_bound and am_bound
+    read."""
+    return cls(sample_rate=FS, tuning_frequency=0.0,
+               channel_frequencies=(OPS_FC,), decimation=decimation,
+               low_pass_taps=taps, device="cuda", **kw)
+
+
+def ops_timing(kernel, plain, args, model, nb, bound_fn, grade):
+    """Kernel ms, device us, plain ms and library ms (F.conv1d of the bank,
+    the front alone) of one call at ``args``, and its bound."""
+    timing = time_kernel(kernel, plain,
+                         conv_library(args[0], args[1], args[4]), args,
+                         precision=grade)
+    flops, nbytes, tensor = bound_fn(model, nb, grade)
+    return timing, bound(flops, nbytes, tensor), nbytes
+
+
+def ops_phase():
+    """Phase 12: fm_demod and am_demod through 'auto' (one B1 and one
+    B3-dense launch at C = 1, counted), each grade against the kernel's
+    plain version, the f32 plain chain and the composed chain, the tone;
+    ResampleStream over four uneven blocks against one-shot resample."""
+    t = _time_axis(0, N)
+    ph = (2 * np.pi * OPS_FC * t
+          + (OPS_DEV / OPS_TONE) * torch.sin(2 * np.pi * OPS_TONE * t))
+    x = ComplexArray(torch.cos(ph).float(), torch.sin(ph).float())
+    gain = fm_demod_gain(FS, OPS_DEV)
+    demod = (x, OPS_TAPS, FS, 0.0, OPS_FC, OPS_DEV, OPS_D)
+    audio, got = counted("fm_demod(impl='auto')",
+                         lambda: fm_demod(*demod), {"fm_chain": 1})
+    m = (N - len(OPS_TAPS)) // OPS_D
+    check(tuple(audio.shape) == (m,), f"fm_demod audio {tuple(audio.shape)}")
+    check(bool(torch.isfinite(audio).all()), "fm_demod: non-finite audio")
+    args = fm_chain_args(x, OPS_TAPS, FS, -OPS_FC, gain, OPS_D)
+    f32 = fm_chain_reference(*args, precision="f32")[0][0, 1:]
+    chain = fm_demod(*demod, impl="torch")
+    scale = float(f32[SKIP:].abs().max())
+    errs = {}
+    for grade in GRADES:
+        y = audio if grade == "bf16x3" else fm_demod(*demod, precision=grade)
+        plain = fm_chain_reference(*args, precision=grade)[0][0, 1:]
+        e_plain = float((y - plain)[SKIP:].abs().max()) / scale
+        e_f32 = float((y - f32)[SKIP:].abs().max()) / scale
+        e_chain = float((y - chain)[SKIP:].abs().max())
+        chain_tol = (FM_GRADE_TOL[grade] * scale
+                     + gain * 2 * np.pi * 2 * PHASE_BOUND)
+        check(e_plain <= AUDIO_REL_TOL, f"fm_demod at {grade} vs its plain "
+              f"version: {e_plain:.3g} of max|audio|")
+        check(e_f32 <= FM_GRADE_TOL[grade], f"fm_demod at {grade} vs the "
+              f"f32 plain chain: {e_f32:.3g}")
+        check(e_chain <= chain_tol, f"fm_demod at {grade} vs impl='torch': "
+              f"max-abs {e_chain:.3g} > {chain_tol:.3g}")
+        errs[grade] = {"vs_plain_rel": e_plain, "vs_f32_rel": e_f32,
+                       "vs_torch_abs": e_chain, "vs_torch_tol": chain_tol}
+    check_tones(audio[None, SKIP:], FS / OPS_D, lambda k: OPS_TONE,
+                "fm_demod", hi_hz=5_000.0)
+    std = float(audio[SKIP:].double().std())
+    check(abs(std - OPS_D / math.sqrt(2)) < 0.1, f"fm_demod std {std:.4f}")
+
+    fm_model = single_channel_model(FmChannelizer, OPS_TAPS, OPS_D,
+                                    frequency_deviation=OPS_DEV)
+    fm_t, fm_b, fm_bytes = ops_timing(fm_chain, fm_chain_reference, args,
+                                      fm_model, N, fm_bound, "bf16x3")
+    print(f"main path: fm_demod(impl='auto'), {N} samples, launches "
+          f"{got['fm_chain']} (B1 at C=1, T={len(OPS_TAPS)}, D={OPS_D}); "
+          f"1-kHz tone, std {std:.4f} (want {OPS_D / math.sqrt(2):.4f})")
+    print(json.dumps({
+        "phase": "ops_fm_demod", "launches": got, "errors": errs,
+        "kernel_ms": fm_t[0], "kernel_device_us": fm_t[1],
+        "plain_ms": fm_t[2], "library_ms": fm_t[3],
+        "bound_us": fm_b[0] * 1e3, "bound_by": fm_b[1],
+        "mbytes": fm_bytes / 1e6, "card": CARD}))
+
+    # AM: a 1-kHz tone, 60% modulated, on the same carrier
+    env = 0.5 * (1.0 + 0.6 * torch.cos(2 * np.pi * OPS_TONE * t))
+    ph = 2 * np.pi * OPS_FC * t
+    xa = ComplexArray((env * torch.cos(ph)).float(),
+                      (env * torch.sin(ph)).float())
+    am_taps = lowpass(33, 0.05)
+    am = (xa, am_taps, FS, 0.0, OPS_FC, OPS_D)
+    env_out, got_am = counted("am_demod(impl='auto')",
+                              lambda: am_demod(*am), {"am_chain": 1})
+    am_args = am_chain_args(xa, am_taps, FS, -OPS_FC, OPS_D)
+    am_err = {}
+    for grade in GRADES:
+        y = env_out if grade == "bf16x3" else am_demod(*am, precision=grade)
+        d = float((y - am_chain_reference(*am_args, precision=grade)[0])
+                  .abs().max())
+        check(d <= ENV_ATOL, f"am_demod at {grade} vs its plain version: {d:.3g}")
+        am_err[grade] = d
+    check_tones(env_out[None, SKIP:], FS / OPS_D, lambda k: OPS_TONE,
+                "am_demod", hi_hz=5_000.0)
+    am_model = single_channel_model(AmReceiver, am_taps, OPS_D)
+    am_t, am_b, am_bytes = ops_timing(am_chain, am_chain_reference, am_args,
+                                      am_model, N, am_bound, "bf16x3")
+    print(f"main path: am_demod(impl='auto'), {N} samples, launches "
+          f"{got_am['am_chain']} (B3-dense at C=1), envelopes within "
+          f"{max(am_err.values()):.3g} of the plain version (tol {ENV_ATOL})")
+    print(json.dumps({
+        "phase": "ops_am_demod", "launches": got_am, "max_abs_err": am_err,
+        "kernel_ms": am_t[0], "kernel_device_us": am_t[1],
+        "plain_ms": am_t[2], "library_ms": am_t[3],
+        "bound_us": am_b[0] * 1e3, "bound_by": am_b[1],
+        "mbytes": am_bytes / 1e6, "card": CARD}))
+
+    # ResampleStream: the FM audio at 250 kHz to 48 kHz (L/M = 24/125)
+    once = resample(audio, 24, 125)
+    rs = ResampleStream(24, 125)
+    st, outs = rs.init(audio), []
+    for a, b in zip((0, 1, 777, 100_000), (1, 777, 100_000, m)):
+        st, y = rs.step(st, audio[a:b])
+        outs.append(y)
+    joined = torch.cat(outs)[:once.shape[-1]]
+    rerr = float((joined - once).abs().max() / once.abs().max())
+    check(joined.shape == once.shape and rerr <= RESAMPLE_REL_TOL,
+          f"ResampleStream vs resample: {rerr:.3g}")
+    print(f"ResampleStream in 4 uneven blocks vs one-shot resample (24/125, "
+          f"{once.shape[-1]} outputs): rel {rerr:.3g} (tol "
+          f"{RESAMPLE_REL_TOL})")
+
+
+def rx_capture(path):
+    """The fm_rx phase's int8 capture, made on the card in float64 chunks
+    and scaled to fit int8."""
+    amp = 0.99 / len(RX_STATIONS)
+    chunk = 1 << 22
+    with open(path, "wb") as f:
+        for start in range(0, RX_N, chunk):
+            t = torch.arange(start, start + chunk, dtype=torch.float64,
+                             device="cuda") / RX_FS
+            re = torch.zeros(chunk, dtype=torch.float64, device="cuda")
+            im = torch.zeros_like(re)
+            for fc, tone in zip(RX_STATIONS, RX_TONES):
+                ph = (2 * np.pi * fc * t + (75_000.0 / tone)
+                      * torch.sin(2 * np.pi * tone * t))
+                re += amp * torch.cos(ph)
+                im += amp * torch.sin(ph)
+            iq = torch.stack([re, im], dim=-1).reshape(-1) * 127.0
+            f.write(torch.clamp(torch.round(iq), -127, 127).to(torch.int8)
+                    .cpu().numpy().tobytes())
+
+
+def rx_args(src, out, *extra):
+    # --channels=...: a list that starts with '-' is no option
+    return [str(src), "-o", str(out), "--fs", str(RX_FS),
+            "--channels=" + ",".join(str(f) for f in RX_STATIONS),
+            "--block", str(RX_BLOCK), *extra]
+
+
+def read_audio(path, channels):
+    return torch.from_numpy(np.fromfile(path, np.float32)
+                            .reshape(-1, channels).T.copy())
+
+
+def fm_rx_phase(tmp):
+    """Phase 13: the fm_rx command line at its defaults (129 taps, D = 8,
+    bf16x3) over a 2^24-sample capture in blocks of 2^20, in this process:
+    16 B1 launches and nothing else, audio against FmChannelizer
+    impl='torch' over the same staged blocks, the tones, the resume from a
+    checkpoint bit-equal, the 48-kHz resampler's tones, the native host
+    library, and the step time and idle share of one profiled run."""
+    cap = tmp / "capture.iq"
+    rx_capture(cap)
+    c = len(RX_STATIONS)
+    t0 = time.perf_counter()
+    _, got = counted("fm_rx", lambda: fm_rx.main(rx_args(cap, tmp / "a.f32")),
+                     {"fm_chain": RX_N // RX_BLOCK})
+    wall = time.perf_counter() - t0
+    check(native_available() and RingBuffer(16).native,
+          "fm_rx: the native host library is not in use")
+    audio = read_audio(tmp / "a.f32", c)
+    rate = RX_FS / 8
+    check(tuple(audio.shape) == (c, RX_N // 8), f"fm_rx audio {audio.shape}")
+    check(bool(torch.isfinite(audio).all()), "fm_rx: non-finite audio")
+    check_tones(audio[:, SKIP:].cuda(), rate, lambda k: RX_TONES[k], "fm_rx",
+                hi_hz=5_000.0)
+
+    # the plain chain on the same staged blocks
+    plain = FmChannelizer(
+        sample_rate=RX_FS, tuning_frequency=0.0,
+        channel_frequencies=RX_STATIONS, frequency_deviation=75_000.0,
+        decimation=8, low_pass_taps=fm_rx.design_lowpass(129, 0.05),
+        impl="torch", device="cuda")
+    raw = np.fromfile(cap, np.int8)
+    st, outs = plain.init(), []
+    for b in range(RX_N // RX_BLOCK):
+        re, im = int8_iq_to_planar(raw[2 * b * RX_BLOCK:
+                                       2 * (b + 1) * RX_BLOCK])
+        st, y = plain.step(st, ComplexArray(torch.from_numpy(re).cuda(),
+                                            torch.from_numpy(im).cuda()))
+        outs.append(y.cpu())
+    want = torch.cat(outs, dim=-1)
+    err = rel_err(audio, want, SKIP)
+    check(err <= AUDIO_REL_TOL, f"fm_rx vs impl='torch': {err:.3g}")
+
+    # resume: the halves, the state saved and loaded, bit-equal
+    half = raw.size // 2
+    raw[:half].tofile(tmp / "h1.iq")
+    raw[half:].tofile(tmp / "h2.iq")
+    state = str(tmp / "state.npz")
+    fm_rx.main(rx_args(tmp / "h1.iq", tmp / "b1.f32", "--save-state", state))
+    fm_rx.main(rx_args(tmp / "h2.iq", tmp / "b2.f32", "--load-state", state))
+    joined = np.concatenate([np.fromfile(tmp / "b1.f32", np.float32),
+                             np.fromfile(tmp / "b2.f32", np.float32)])
+    whole = np.fromfile(tmp / "a.f32", np.float32)
+    check(joined.shape == whole.shape and np.array_equal(joined, whole),
+          "fm_rx resume is not bit-equal to the whole run "
+          f"({int(np.sum(joined != whole))} samples differ)")
+
+    # 48-kHz audio through the resampler (L/M = 3/16)
+    fm_rx.main(rx_args(cap, tmp / "r.f32", "--audio-rate", "48000"))
+    a48 = read_audio(tmp / "r.f32", c)[:, SKIP:].double()
+    spec = torch.fft.rfft((a48 - a48.mean(-1, keepdim=True))
+                          * torch.hann_window(a48.shape[-1],
+                                              dtype=torch.float64)).abs()
+    bin_hz = 48_000.0 / a48.shape[-1]
+    peaks = [float((spec[k, 5:].argmax() + 5) * bin_hz) for k in range(c)]
+    for k, tone in enumerate(RX_TONES):
+        check(abs(peaks[k] - tone) < 40.0,
+              f"fm_rx 48 kHz: station {k} tone at {peaks[k]:.1f} Hz")
+
+    # the step time and the device's idle share, from one run under
+    # torch.profiler (tools/probe_grades.py fm_rx times a warm run without
+    # it and breaks its host time down by function)
+    from torch.profiler import ProfilerActivity, profile
+
+    before = counts()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fm_rx.main(rx_args(cap, tmp / "p.f32"))
+        torch.cuda.synchronize()
+    prof_wall = time.perf_counter() - t0
+    for name, k in COUNTERS.items():
+        k.launches = before[name]
+    dev_s = sum(e.self_device_time_total for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")) * 1e-6
+
+    # B1 at fm_rx's shape: C = 5, T = 129, D = 8
+    model = FmChannelizer(
+        sample_rate=RX_FS, tuning_frequency=0.0,
+        channel_frequencies=RX_STATIONS, frequency_deviation=75_000.0,
+        decimation=8, low_pass_taps=fm_rx.design_lowpass(129, 0.05),
+        device="cuda")
+    re, im = int8_iq_to_planar(raw[:2 * RX_BLOCK])
+    buf = buffer(model, ComplexArray(torch.from_numpy(re).cuda(),
+                                     torch.from_numpy(im).cuda()))
+    n0, _, cf, cz = model.init()
+    margs = (buf, model.tap_bank, model.lo_table, n0, model.decimation,
+             model.gain, model.deemph, cf, cz)
+    timing = time_kernel(fm_chain, fm_chain_reference,
+                         dense_front_library(model, buf), margs,
+                         precision="bf16x3")
+    flops, nbytes, tensor = fm_bound(model, buf.re.shape[-1], "bf16x3")
+    bnd = bound(flops, nbytes, tensor)
+    step_ms = prof_wall / (RX_N // RX_BLOCK) * 1e3
+    idle = None if dev_s <= 0 else 1.0 - dev_s / prof_wall
+    print(f"main path: fm_rx at its defaults (C={c}, T=129, D=8, bf16x3), "
+          f"{RX_N} samples in blocks of {RX_BLOCK}, launches {got}; audio vs "
+          f"impl='torch' {err:.3g} of max|audio| (tol {AUDIO_REL_TOL}); "
+          f"five tones; resume bit-equal; 48-kHz tones {peaks}; native host "
+          f"library")
+    verdict = ("idle share not measured" if idle is None else
+               "host-bound (file read, int8 staging, ring, audio fetch and "
+               "file write)" if idle > 0.5 else "device-bound")
+    print(f"fm_rx step {step_ms:.3f} ms a block of {RX_BLOCK} samples "
+          f"(wall clock, file to file, profiler on), device idle share "
+          f"{idle}: {verdict}")
+    print(json.dumps({
+        "phase": "fm_rx", "launches": got, "first_run_wall_s": wall,
+        "profiled_wall_s": prof_wall, "step_ms": step_ms,
+        "input_msps": RX_N / prof_wall / 1e6, "device_s": dev_s,
+        "device_idle_share": idle, "vs_torch_rel": err,
+        "audio_48k_peaks_hz": peaks, "kernel_ms": timing[0],
+        "kernel_device_us": timing[1], "plain_ms": timing[2],
+        "library_ms": timing[3], "bound_us": bnd[0] * 1e3,
+        "bound_by": bnd[1], "mbytes": nbytes / 1e6, "card": CARD}))
+
+
+EXAMPLE_LAUNCHES = {
+    "fm_broadcast_rx": {"fm_chain": 4},
+    "wideband_rx": {"pfb_fm_chain": 1},
+    "wideband_duplex": {"pfb_fm_chain": 1},
+    "qpsk_link": {},
+}
+
+
+def example_shapes():
+    """The kernel shapes of the examples' main paths, as models at bf16x3
+    with the examples' own arguments: fm_broadcast_rx's B1 (C = 3,
+    T = 128, D = 8 at 2 MHz, 75-kHz deviation) and wideband_rx's B2
+    (K = 32, Q = 8, D = 32, C = 32 at 2.048 MHz, 12-kHz deviation); each
+    with the f32 plain impl it is held against."""
+    from gsdr_tpu_torch.examples import fm_broadcast_rx, wideband_rx
+
+    bcast = FmChannelizer(
+        sample_rate=2_000_000.0, tuning_frequency=0.0,
+        channel_frequencies=(-400_000.0, 0.0, 500_000.0),
+        frequency_deviation=75_000.0, decimation=8,
+        low_pass_taps=fm_broadcast_rx.lowpass(128, 0.05), device="cuda")
+    check(bcast.front == "toeplitz", f"fm_broadcast_rx: front {bcast.front}")
+    fs, k = 2_048_000.0, 32
+    wide = FmChannelizer(
+        sample_rate=fs, tuning_frequency=0.0,
+        channel_frequencies=tuple(-fs / 2 + (fs / k) * c for c in range(k)),
+        frequency_deviation=12_000.0, decimation=k,
+        low_pass_taps=wideband_rx.lowpass(8 * k, 0.4 / k), device="cuda")
+    check(wide.front == "pfb" and wide.pfb_grid[0] == k,
+          f"wideband_rx: front {wide.front}")
+    return (("fm_broadcast_rx_b1", bcast, "torch"),
+            ("wideband_rx_b2_k32", wide, "pfb_torch"))
+
+
+def examples_phase():
+    """Phase 14: the four ported examples' main() on the card, counted
+    (B1 for fm_broadcast_rx, B2 at K = 32 for the wideband pair; the QPSK
+    links take no kernel); then each kernel at its example's shape held,
+    over two 2^20-sample steps of FM carriers at the example's deviation,
+    against its plain version at bf16x3 (AUDIO_REL_TOL after the warm-up,
+    CARRY_ATOL) and the f32 plain chain (FM_GRADE_TOL), and timed."""
+    import functools
+    import importlib
+
+    for name, want in EXAMPLE_LAUNCHES.items():
+        mod = importlib.import_module(f"gsdr_tpu_torch.examples.{name}")
+        rc, got = counted(name, lambda: mod.main([]), want)
+        check(rc == 0, f"example {name} returned {rc}")
+        print(f"example {name}: main() returned 0 on the card, launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+
+    for what, model, plain_impl in example_shapes():
+        pfb = model.front == "pfb"
+        signal = functools.partial(wideband_fm_signal,
+                                   deviation=model.frequency_deviation)
+        plain = FmChannelizer(
+            sample_rate=model.sample_rate, tuning_frequency=0.0,
+            channel_frequencies=model.channel_frequencies,
+            frequency_deviation=model.frequency_deviation,
+            decimation=model.decimation,
+            low_pass_taps=tuple(float(v) for v in model.low_pass_taps),
+            impl=plain_impl, device="cuda")
+        before = counts()
+        max_abs, rel_plain = compare_fm(model, [PlainAtGrade(model)], signal)
+        _, rel_f32 = compare_fm(model, [plain], signal,
+                                tol=FM_GRADE_TOL["bf16x3"])
+        for name, k in COUNTERS.items():
+            k.launches = before[name]
+        rf = signal(model, 0, N)
+        buf = buffer(model, rf)
+        n0, _, cf, cz = model.init()
+        back = (model.lo_table, n0, model.decimation, model.gain,
+                model.deemph, cf, cz)
+        if pfb:
+            args = (buf, model.poly_taps, model.dft_bank, model.num_taps,
+                    *back)
+            timing = time_kernel(pfb_fm_chain, pfb_fm_chain_reference,
+                                 pfb_front_library(model, buf), args,
+                                 precision="bf16x3")
+        else:
+            args = (buf, model.tap_bank, *back)
+            timing = time_kernel(fm_chain, fm_chain_reference,
+                                 dense_front_library(model, buf), args,
+                                 precision="bf16x3")
+        flops, nbytes, tensor = fm_bound(model, buf.re.shape[-1], "bf16x3")
+        bnd = bound(flops, nbytes, tensor)
+        print(f"{'pfb_fm_chain' if pfb else 'fm_chain'} at {what}'s shape "
+              f"(C={model.num_channels}, T={model.num_taps}, "
+              f"D={model.decimation}) at bf16x3 vs its plain version: "
+              f"max-abs {max_abs:.3g}, rel {rel_plain:.3g} (tol "
+              f"{AUDIO_REL_TOL}); vs the f32 plain chain: rel {rel_f32:.3g} "
+              f"(tol {FM_GRADE_TOL['bf16x3']})")
+        print(json.dumps({
+            "phase": what, "grade": "bf16x3", "max_abs": max_abs,
+            "vs_plain_rel": rel_plain, "vs_f32_rel": rel_f32,
+            "kernel_ms": timing[0], "kernel_device_us": timing[1],
+            "plain_ms": timing[2], "library_ms": timing[3],
+            "bound_us": bnd[0] * 1e3, "bound_by": bnd[1],
+            "mbytes": nbytes / 1e6, "card": CARD}))
+
+
 CARD = None
 
 
@@ -1661,6 +2105,12 @@ def main():
     n_alone, err_alone, lines = iir_standalone_phase()
     n_fm, err_fm = stream_fm_phase()
     kernels.append(iir_entry(n_alone + n_fm, max(err_alone, err_fm), lines))
+
+    # 12-14) the single-channel ops, the fm_rx command line, the examples
+    ops_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        fm_rx_phase(Path(tmp))
+    examples_phase()
     print(json.dumps({"kernels": kernels}))
 
     # 11) the result

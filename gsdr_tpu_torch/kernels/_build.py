@@ -1,10 +1,15 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's native code and load it with ctypes.
 
-Each ``csrc/<name>.cu`` compiles on first use into its own shared library
-with a plain C interface, under ``build/gsdr_tpu_torch/`` at the repository
-root. The file name carries a hash of the sources, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is. ``build_all`` starts one
-nvcc for every source at once. A failed build raises with nvcc's stderr.
+Each ``csrc/<name>.cu`` compiles with nvcc on first use into its own
+shared library with a plain C interface, under ``build/gsdr_tpu_torch/`` at
+the repository root. The file name carries a hash of the sources, so an
+edited kernel is rebuilt and an unchanged one is loaded as it is.
+``build_all`` starts one nvcc for every source at once. The host runtime's
+C++ (``native/src/gsdr_host.cc``, the one copy the JAX package builds too)
+compiles with g++ into the same directory (``build_host_library``). Every
+build writes a temporary file and renames it into place, so processes that
+build at once never load a half-written library. A failed build raises
+with the compiler's stderr.
 """
 
 import ctypes
@@ -15,7 +20,10 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gsdr_tpu_torch"
+ROOT = Path(__file__).resolve().parents[2]
+BUILD_DIR = ROOT / "build" / "gsdr_tpu_torch"
+HOST_SRC = ROOT / "native" / "src"
+HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _loaded = {}
@@ -86,3 +94,37 @@ def load_library(name):
         build_all([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def host_library_path():
+    """Where the host runtime's library is built: its name carries a hash
+    of ``native/src`` and the flags."""
+    h = hashlib.sha256()
+    for p in sorted(HOST_SRC.glob("gsdr_host.*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"libgsdr_host-{h.hexdigest()[:16]}.so"
+
+
+def build_host_library():
+    """Compile ``native/src/gsdr_host.cc`` with g++ unless built; returns
+    the library's path, or raises with g++'s stderr."""
+    out = host_library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cxx = shutil.which("g++") or "g++"
+    try:
+        proc = subprocess.run(
+            [cxx, *HOST_FLAGS, "-o", str(tmp), str(HOST_SRC / "gsdr_host.cc")],
+            capture_output=True, text=True, timeout=300)
+    except OSError as e:
+        raise RuntimeError(f"cannot run {cxx} to build the host runtime: "
+                           f"{e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed to build gsdr_host.cc (exit "
+                           f"{proc.returncode}):\n{proc.stderr}{proc.stdout}")
+    os.replace(tmp, out)
+    return out

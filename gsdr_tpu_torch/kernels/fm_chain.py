@@ -49,6 +49,19 @@ from gsdr_tpu_torch.ops.quad_demod import quad_fm_demod
 _DEEMPH_BLOCK_LEN = 256
 
 
+def deemphasis_triple(b, a):
+    """The chain's de-emphasis operand (b0, cc, a') of a first-order IIR
+    (b0, b1), (a0, a1): the TDF-II recursion z[j] = cc*d[j] + a'*z[j-1],
+    out[j] = b0*d[j] + z[j-1] with cc = b1 - a1*b0 and a' = -a1, after
+    normalizing by a0. The identity filter b = (1, 0), a = (1, 0) gives
+    (1, 0, 0); the bilinear de-emphasis, whose b1 equals b0, gives
+    (b0, b0 - a1*b0, -a1)."""
+    a0 = float(a[0])
+    b0, b1 = float(b[0]) / a0, float(b[1]) / a0
+    a1 = float(a[1]) / a0
+    return (b0, b1 - a1 * b0, -a1)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------

@@ -1,12 +1,22 @@
 """Ops of the port (counterparts of gsdr_tpu.ops)."""
 
+from gsdr_tpu_torch.ops.am import am_demod
+from gsdr_tpu_torch.ops.arithmetic import (
+    absolute,
+    add_const,
+    add_to_magnitude,
+    magnitude,
+    multiply,
+)
 from gsdr_tpu_torch.ops.channelize import (
     channelize,
     make_complex_tap_bank,
     mix_fir_decimate_bank,
     rotate_bank,
 )
+from gsdr_tpu_torch.ops.conversion import int8_to_norm_float
 from gsdr_tpu_torch.ops.fir import fir, fir_output_length
+from gsdr_tpu_torch.ops.fm import fm_demod, fm_demod_gain
 from gsdr_tpu_torch.ops.iir import (
     iir,
     iir_block,
@@ -44,3 +54,9 @@ from gsdr_tpu_torch.ops.qpsk256 import (
     qpsk256_modulate_rect,
 )
 from gsdr_tpu_torch.ops.quad_demod import quad_am_demod, quad_fm_demod
+from gsdr_tpu_torch.ops.resample import (
+    ResampleStream,
+    design_resampler_taps,
+    resample,
+)
+from gsdr_tpu_torch.ops.trig import cosine_c, cosine_f

@@ -22,6 +22,8 @@ def quad_fm_demod(x, gain):
 
 
 def quad_am_demod(x):
-    """AM envelope detector: out[i] = 2 * clamp(|x[i]|, 0, 1) - 1."""
-    mag = torch.hypot(x.re, x.im)
+    """AM envelope detector on a planar ComplexArray or a complex tensor:
+    out[i] = 2 * clamp(|x[i]|, 0, 1) - 1."""
+    mag = torch.abs(x) if isinstance(x, torch.Tensor) \
+        else torch.hypot(x.re, x.im)
     return 2.0 * torch.clamp(mag, 0.0, 1.0) - 1.0

@@ -17,6 +17,7 @@ from torch import nn
 from gsdr_tpu_torch.carray import ComplexArray
 from gsdr_tpu_torch.kernels.chain import GRADES, select_front
 from gsdr_tpu_torch.kernels.fm_chain import (
+    deemphasis_triple,
     fm_chain,
     fm_chain_reference,
     pfb_fm_chain,
@@ -110,11 +111,9 @@ class FmChannelizer(nn.Module):
             device=device))
         self.register_buffer("lo_table", torch.as_tensor(
             phase_digit_table(shifts, self.sample_rate), device=device))
-        (b0, _), (_, a1) = fm_deemphasis_coeffs(self.deemphasis_tau,
-                                                self.audio_rate)
-        # TDF-II form: z[j] = cc*d[j] + a*z[j-1], out[j] = b0*d[j] + z[j-1]
+        b, a = fm_deemphasis_coeffs(self.deemphasis_tau, self.audio_rate)
         self.register_buffer("deemph", torch.tensor(
-            [b0, b0 - a1 * b0, -a1], dtype=torch.float32, device=device))
+            deemphasis_triple(b, a), dtype=torch.float32, device=device))
         self.pfb_grid = select_front(
             "FmChannelizer", "fm_chain", impl, shifts, self.sample_rate,
             self.decimation, self.num_taps, device, precision)

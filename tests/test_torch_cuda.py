@@ -502,10 +502,12 @@ def test_grades_fit_and_refuse_on_card(card):
 # (K, D, T, C) for the tensor-core PFB front: critical (P = 1, four phase
 # chunks); P = 8 with Q*K > T and C = 40 (two 32-channel blocks, the second
 # ragged); K not a multiple of 8; D = 20 > 16 (two chunks, the second of 4
-# phases, 20 lanes); D = 1. Every first block reads samples before 0 and every last
+# phases, 20 lanes); D = 1; the wideband examples' K = 32 critical shape
+# (Q = 8). Every first block reads samples before 0 and every last
 # tile samples past the buffer; M = 3000 per step fills no whole tile.
 PFB_GRADE_GEOMETRIES = [(64, 64, 512, 64), (64, 8, 500, 40),
-                        (20, 4, 157, 13), (100, 20, 190, 5), (8, 1, 61, 8)]
+                        (20, 4, 157, 13), (100, 20, 190, 5), (8, 1, 61, 8),
+                        (32, 32, 256, 32)]
 # the grade against the f32 plain chain, AM envelopes (absolute): bf16x3
 # at JAX's test_pfb_front_matches_xla gate, bf16x2 at its grade's 2e-2
 AM_GRADE_GAP = {"bf16x3": 2e-3, "bf16x2": 2e-2}
@@ -1132,3 +1134,158 @@ def test_stream_fm_chain_launches_b5_on_card(card):
     yk, yp = torch.cat(outs_k)[SKIP:], torch.cat(outs_p)[SKIP:]
     assert float((yk - yp).abs().max()) <= 1e-4 * float(yp.abs().max())
     assert float((sk[4] - sp[4]).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The single-channel ops, the host runtime and fm_rx on the card
+# ---------------------------------------------------------------------------
+
+def _lowpass_np(num_taps, cutoff):
+    n = np.arange(num_taps) - (num_taps - 1) / 2.0
+    h = np.sinc(2 * cutoff * n) * np.hamming(num_taps)
+    return (h / h.sum()).astype(np.float32)
+
+
+def _tone_signal(n, fc, dev=5_000.0, tone=1_000.0, am=False):
+    t = torch.arange(n, dtype=torch.float64, device="cuda") / FS
+    if am:
+        env = 0.5 * (1.0 + 0.6 * torch.cos(2 * np.pi * tone * t))
+        ph = 2 * np.pi * fc * t
+    else:
+        env = torch.ones_like(t)
+        ph = 2 * np.pi * fc * t + (dev / tone) * torch.sin(2 * np.pi * tone * t)
+    return TCA((env * torch.cos(ph)).float(), (env * torch.sin(ph)).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2", "f32"])
+def test_fm_demod_runs_b1_at_one_channel(card, grade):
+    """fm_demod on the card is one B1 launch at C = 1 with the identity
+    de-emphasis: within 1e-4 of max|audio| of the kernel's plain version at
+    the grade, and of the composed chain within the digit-table phase bound
+    (2e-2 of max|audio| at bf16x2), which a de-emphasis triple of
+    (1, 1, 0) in place of (1, 0, 0) would break."""
+    from gsdr_tpu_torch.kernels.fm_chain import deemphasis_triple
+    from gsdr_tpu_torch.ops.fm import fm_chain_args, fm_demod, fm_demod_gain
+
+    assert deemphasis_triple((1.0, 0.0), (1.0, 0.0)) == (1.0, 0.0, 0.0)
+    taps, n0 = _lowpass_np(65, 0.02), 123_456_789
+    x = _tone_signal(1 << 16, 100_000.0)
+    before = fm_chain.launches
+    y = fm_demod(x, taps, FS, 0.0, 100_000.0, 5_000.0, 4,
+                 first_sample_index=n0, precision=grade)
+    torch.cuda.synchronize()
+    assert fm_chain.launches == before + 1
+    gain = fm_demod_gain(FS, 5_000.0)
+    args = fm_chain_args(x, taps, FS, -100_000.0, gain, 4, n0)
+    plain = fm_chain_reference(*args, precision=grade)[0][0, 1:]
+    assert tuple(y.shape) == tuple(plain.shape) == (((1 << 16) - 65) // 4,)
+    scale = float(plain.abs().max())
+    assert float((y - plain).abs().max()) <= 1e-4 * scale
+    chain = fm_demod(x, taps, FS, 0.0, 100_000.0, 5_000.0, 4,
+                     first_sample_index=n0, impl="torch")
+    bound = (2e-2 * scale if grade == "bf16x2"
+             else 1e-4 * scale + gain * 2 * np.pi * 2 * 6e-5)
+    assert float((y - chain).abs().max()) <= bound
+    a = y[256:].double().cpu().numpy()
+    assert abs(a.std() - 4 / np.sqrt(2)) < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2", "f32"])
+def test_am_demod_runs_b3_dense_at_one_channel(card, grade):
+    """am_demod on the card is one B3-dense launch at C = 1, within 1e-5 of
+    its plain version at the grade."""
+    from gsdr_tpu_torch.ops.am import am_chain_args, am_demod
+
+    taps = _lowpass_np(33, 0.05)
+    x = _tone_signal(1 << 16, 100_000.0, am=True)
+    before = am_chain.launches
+    y = am_demod(x, taps, FS, 0.0, 100_000.0, 4, precision=grade)
+    torch.cuda.synchronize()
+    assert am_chain.launches == before + 1
+    plain = am_chain_reference(*am_chain_args(x, taps, FS, -100_000.0, 4),
+                               precision=grade)[0]
+    assert tuple(y.shape) == tuple(plain.shape)
+    assert float((y - plain).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_single_channel_ops_raise_where_the_block_does_not_fit(card):
+    """fm_demod and am_demod under 'auto' on the card raise where the
+    kernel's block does not fit (T=1021 at D=128, as
+    test_grades_fit_and_refuse_on_card), before any launch, in place of
+    running the composed chain."""
+    from gsdr_tpu_torch.ops.am import am_demod
+    from gsdr_tpu_torch.ops.fm import fm_demod
+
+    taps = _lowpass_np(1021, 0.002)
+    x = _tone_signal(1021 + 128 * 300, 100_000.0)
+    before = (fm_chain.launches, am_chain.launches)
+    for grade in GRADES:
+        with pytest.raises(ValueError, match="shared memory"):
+            fm_demod(x, taps, FS, 0.0, 100_000.0, 5_000.0, 128,
+                     precision=grade)
+        with pytest.raises(ValueError, match="shared memory"):
+            am_demod(x, taps, FS, 0.0, 100_000.0, 128, precision=grade)
+    assert (fm_chain.launches, am_chain.launches) == before
+
+
+@pytest.mark.cuda
+def test_native_host_library_on_card_machine(card, monkeypatch, tmp_path):
+    """The host runtime's C++ builds there; a build that fails raises in
+    place of a numpy fallback."""
+    from gsdr_tpu_torch.kernels import _build
+    from gsdr_tpu_torch.runtime import RingBuffer, host, native_available
+
+    assert native_available() and RingBuffer(16).native
+    (tmp_path / "gsdr_host.cc").write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "HOST_SRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    host._library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="failed to build"):
+            RingBuffer(16)
+    finally:
+        monkeypatch.undo()
+        host._library.cache_clear()
+    assert native_available()
+
+
+@pytest.mark.cuda
+def test_fm_rx_on_card_resumes_bit_equal(card, tmp_path):
+    """fm_rx on the card over a small int8 capture (2 stations, blocks of
+    2^16): the halves run with --save-state and --load-state give the
+    whole run's audio bit for bit, and each station's tone comes out."""
+    from gsdr_tpu_torch.tools import fm_rx
+
+    fs, n = 1_024_000.0, 1 << 19
+    t = np.arange(n) / fs
+    rf = (np.exp(1j * (2 * np.pi * 200e3 * t
+                       + 15.0 * np.sin(2 * np.pi * 1000.0 * t)))
+          + np.exp(1j * (-2 * np.pi * 300e3 * t
+                         + 15.0 * np.sin(2 * np.pi * 1500.0 * t)))) * 0.4
+    inter = np.empty(2 * n, np.float32)
+    inter[0::2], inter[1::2] = rf.real, rf.imag
+    raw = np.clip(np.round(inter * 127), -127, 127).astype(np.int8).tobytes()
+
+    def run(data, name, *extra):
+        (tmp_path / "in.iq").write_bytes(data)
+        fm_rx.main([str(tmp_path / "in.iq"), "-o", str(tmp_path / name),
+                    "--fs", str(fs), "--channels", "200e3,-300e3",
+                    "--deviation", "15e3", "--block", "65536", *extra])
+        return np.frombuffer((tmp_path / name).read_bytes(), np.float32)
+
+    state = str(tmp_path / "st.npz")
+    before = fm_chain.launches
+    whole = run(raw, "w.f32")
+    assert fm_chain.launches == before + 8
+    first = run(raw[:len(raw) // 2], "a.f32", "--save-state", state)
+    second = run(raw[len(raw) // 2:], "b.f32", "--load-state", state)
+    np.testing.assert_array_equal(np.concatenate([first, second]), whole)
+    audio = whole.reshape(-1, 2).T[:, 512:]
+    rate = fs / 8
+    for c, tone in enumerate((1000.0, 1500.0)):
+        a = audio[c] - audio[c].mean()
+        peak = np.argmax(np.abs(np.fft.rfft(a * np.hanning(len(a))))[5:]) + 5
+        assert abs(peak * rate / len(a) - tone) < 10.0

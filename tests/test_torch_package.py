@@ -85,3 +85,58 @@ def test_nvcc_command_targets_sm_90a():
                                 "qpsk256"]
     # every source's digest covers the shared fronts
     assert (_build.CSRC / "fronts.cuh").exists()
+
+
+def test_public_names_cover_the_jax_package():
+    """Every name of gsdr_tpu.__all__ and gsdr_tpu.runtime.__all__ is in the
+    port's counterpart. A subprocess reads the JAX names from the source
+    text and imports only the port, so no JAX is imported here or there."""
+    code = r"""
+import ast, sys
+from pathlib import Path
+
+def names(path):
+    tree = ast.parse(Path(path).read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return [ast.literal_eval(e) for e in node.value.elts]
+    raise SystemExit(f"no __all__ in {path}")
+
+import gsdr_tpu_torch, gsdr_tpu_torch.runtime
+missing = []
+for src, mod in (("gsdr_tpu/__init__.py", gsdr_tpu_torch),
+                 ("gsdr_tpu/runtime/__init__.py", gsdr_tpu_torch.runtime)):
+    want = names(src)
+    assert len(want) > 8, want
+    missing += [n for n in want
+                if n not in mod.__all__ or not hasattr(mod, n)]
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "gsdr_tpu")]
+print(missing, bad)
+sys.exit(1 if missing or bad else 0)
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_deployment_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """cosine_c, StreamRunner and fm_rx run on the card unless asked for
+    the CPU: without CUDA their default device raises."""
+    from gsdr_tpu_torch.ops.trig import cosine_c, cosine_f
+    from gsdr_tpu_torch.runtime import StreamRunner
+    from gsdr_tpu_torch.tools import fm_rx
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cosine_c(0.0, 1.0, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cosine_f(0.0, 1.0, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamRunner(lambda s, x: (s, x), None, 64)
+    iq = tmp_path / "x.iq"
+    iq.write_bytes(bytes(64))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fm_rx.main([str(iq), "-o", str(tmp_path / "a.f32"), "--fs", "1e6",
+                    "--channels", "1e5"])
+    assert not (tmp_path / "a.f32").exists()

@@ -24,12 +24,18 @@
          output types. It uses only what every tree of the port since B5
          has, so it times an older tree too: copy this file into that
          tree's tools/ and run it there.
+  fm_rx: the fm_rx command line at chip_smoke.py's five-station capture
+         (2^24 int8 samples at 2.048 MHz, blocks of 2^20, the CLI's
+         defaults): the wall clock of a warm run file to file without the
+         profiler, and where a warm run's host time goes (cProfile: seconds
+         of own time by function, the top eight).
 
 Prints one JSON line per reading. Usage, from the repository root (the
 kernels are built from this checkout):
     python3 tools/probe_grades.py steps
     python3 tools/probe_grades.py b4
     python3 tools/probe_grades.py b5b6
+    python3 tools/probe_grades.py fm_rx
 """
 
 import inspect
@@ -227,9 +233,42 @@ def b5b6():
             flush=True)
 
 
+def fm_rx():
+    import cProfile
+    import pstats
+    import tempfile
+
+    from gsdr_tpu_torch.tools import fm_rx as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cap = tmp / "capture.iq"
+        cs.rx_capture(cap)
+        t0 = time.perf_counter()
+        cli.main(cs.rx_args(cap, tmp / "a.f32"))
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli.main(cs.rx_args(cap, tmp / "w.f32"))
+        warm = time.perf_counter() - t0
+        prof = cProfile.Profile()
+        prof.enable()
+        cli.main(cs.rx_args(cap, tmp / "c.f32"))
+        torch.cuda.synchronize()
+        prof.disable()
+    own = sorted(pstats.Stats(prof).stats.items(),
+                 key=lambda kv: -kv[1][2])[:8]
+    blocks = cs.RX_N // cs.RX_BLOCK
+    print(json.dumps({
+        "probe": "fm_rx", "first_run_wall_s": first, "wall_s": warm,
+        "step_ms": warm / blocks * 1e3, "input_msps": cs.RX_N / warm / 1e6,
+        "host_s_own_top": {f"{fn[2]} ({Path(fn[0]).name}:{fn[1]})": v[2]
+                           for fn, v in own},
+        "card": cs.CARD}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available() or len(sys.argv) != 2 \
-            or sys.argv[1] not in ("steps", "b4", "b5b6"):
+            or sys.argv[1] not in ("steps", "b4", "b5b6", "fm_rx"):
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
@@ -242,6 +281,9 @@ def main():
     if sys.argv[1] == "b5b6":
         _build.build_all(["iir", "qpsk256"])
         b5b6()
+    elif sys.argv[1] == "fm_rx":
+        _build.build_all(["fm_chain"])
+        fm_rx()
     else:
         _build.build_all(["channelize", "fm_chain"])
         steps() if sys.argv[1] == "steps" else b4()
