@@ -66,7 +66,7 @@ full width, 2^20 planar complex samples per step:
      after Chain.init (40 B5 launches and nothing else), against the same
      chain with plain IIR stages, the tone checked, step time and idle
      share;
- 11. the single-channel ops on the verify recipe's signal (one FM
+ 12. the single-channel ops on the verify recipe's signal (one FM
      carrier at +100 kHz, a 1-kHz tone at 5-kHz deviation, 65 taps, D=4,
      2^20 samples): fm_demod(impl='auto') counted (one B1 launch at C=1
      with the identity de-emphasis) at each grade against the kernel's
@@ -75,7 +75,7 @@ full width, 2^20 planar complex samples per step:
      (one B3-dense launch at C=1) against its plain version at each grade;
      ResampleStream in four uneven blocks against one-shot resample; each
      kernel timed against its bound;
- 12. the fm_rx command line in this process, at its defaults (129 taps,
+ 13. the fm_rx command line in this process, at its defaults (129 taps,
      D=8, bf16x3), over an int8 capture of 2^24 samples at 2.048 MHz with
      five FM stations (75-kHz deviation), blocks of 2^20: counted (16 B1
      launches and nothing else), audio against FmChannelizer
@@ -83,11 +83,30 @@ full width, 2^20 planar complex samples per step:
      through --save-state/--load-state bit-equal to the whole run, the
      tones of --audio-rate 48000, the native host library in use, the step
      time and the device's idle share, B1 at this shape timed;
- 13. the four ported examples' main() on the card, counted (B1 for
+ 14. the four ported examples' main() on the card, counted (B1 for
      fm_broadcast_rx, B2 at K=32 for wideband_rx and wideband_duplex, no
      kernel for qpsk_link), B2 at K=32 timed;
- 14. prints one JSON `kernels` line (B1, B2, B3-PFB, B3-dense and B4 once
-     per grade, B6, B5) and, last, {"ok": true, "device": {...}}.
+ 15. the sharded receivers (gsdr_tpu_torch.parallel), each rank a
+     process of its own that re-runs this script (--shard-rank): (a) the
+     flagship through make_sharded_fm_step on a 1x1 mesh over NCCL (a
+     world of one), 8 steps counted (8 B1 launches, no collective), equal
+     to FmChannelizer.step, then both step times in turns; (b) four
+     processes sharing the card over gloo, each counting its own
+     launches: the flagship on (2, 2) and (1, 4) (B1), FM wideband
+     critical (B2), AM wideband critical (B3-PFB) and am_d (B3-dense) on
+     (2, 2), 8 steps of 2^20 global samples each, the gathered tiles and
+     states held to the single-card step at bf16x3 (FM within
+     AUDIO_REL_TOL of max|audio| plus the digit-table phase's allowance
+     at each shard boundary, carries within CARRY_ATOL; AM within
+     ENV_ATOL); bench_iir's biquad through sharded_iir on (1, 4), 2^20
+     samples a rank (one B5 launch each), against iir_block and scipy's
+     float64 lfilter; 256 CIRCULAR QPSK256 streams x 4096 symbols on
+     (2, 2) and (1, 4) (B6), the loopback exact and noisy decisions equal
+     to the single-card B6's; each kernel's device time on one shard's
+     block beside its bound there, and every rank's step time;
+ 16. prints one JSON `kernels` line (B1, B2, B3-PFB, B3-dense and B4 once
+     per grade, B6, B5; each with its phase-15 `sharded_launches`) and,
+     last, {"ok": true, "device": {...}}.
 
 Timing: CUDA events around bursts of back-to-back calls (median of
 bursts) and device time per kernel from torch.profiler. Launches made to
@@ -156,8 +175,21 @@ from gsdr_tpu_torch.ops.pfb import (
     uniform_grid,
 )
 from gsdr_tpu_torch.ops.qpsk import qpsk_modulate_symbols
-from gsdr_tpu_torch.ops.qpsk256 import CIRCULAR, RECTANGULAR
+from gsdr_tpu_torch.ops.qpsk256 import (
+    CIRCULAR,
+    RECTANGULAR,
+    qpsk256_demodulate,
+    qpsk256_modulate,
+)
 from gsdr_tpu_torch.ops.resample import ResampleStream, resample
+from gsdr_tpu_torch.parallel import (
+    initialize,
+    make_mesh,
+    make_sharded_am_step,
+    make_sharded_fm_step,
+    make_sharded_qpsk256_modem,
+    sharded_iir,
+)
 from gsdr_tpu_torch.pipelines import (
     AmReceiver,
     FmChannelizer,
@@ -2068,6 +2100,483 @@ def examples_phase():
             "mbytes": nbytes / 1e6, "card": CARD}))
 
 
+
+# ---------------------------------------------------------------------------
+# 15) the sharded receivers (gsdr_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+SHARD_TIMEOUT_S = 420      # a rank group's limit, start-up included
+SHARD_GRADE = "bf16x3"     # the grade every sharded case runs
+Q256_STREAMS, Q256_SYMS = 256, 4096    # BASELINE config 5's streams
+SHARD_IIR_ZI = (0.3, -0.2)
+# (case, model, mesh): B1 at C_l = 8 and 16, B2, B3-PFB and B3-dense
+SHARD_STREAMS = (("flagship", (2, 2)), ("flagship", (1, 4)),
+                 ("fm_wideband", (2, 2)), ("am_wideband", (2, 2)),
+                 ("am_d", (2, 2)))
+SHARD_KERNEL = {"flagship": "fm_chain", "fm_wideband": "pfb_fm_chain",
+                "am_wideband": "pfb_am_chain", "am_d": "am_chain"}
+
+
+def shard_model(name, channels=None):
+    """A phase-15 receiver at 'auto' and bf16x3, on its first ``channels``
+    channels (a channel shard's own model: its tables are the rows of the
+    whole model's), with its test signal."""
+    make = {"flagship": flagship, "fm_wideband": fm_wideband,
+            "am_wideband": am_wideband, "am_d": am_d}[name]
+    model = make("auto")
+    if channels is not None:
+        model = type(model)(**{**shard_fields(model), "channel_frequencies":
+                               model.channel_frequencies[:channels]})
+    signal = {"flagship": lambda m, a, n: fm_signal(m, a, n, seed=11),
+              "fm_wideband": wideband_fm_signal,
+              "am_wideband": am_signal, "am_d": am_signal}[name]
+    return model, signal
+
+
+def shard_fields(model):
+    """The constructor arguments of a receiver."""
+    kw = dict(sample_rate=model.sample_rate,
+              tuning_frequency=model.tuning_frequency,
+              channel_frequencies=model.channel_frequencies,
+              decimation=model.decimation,
+              low_pass_taps=model.low_pass_taps, impl=model.impl,
+              precision=model.precision, device="cuda")
+    if isinstance(model, FmChannelizer):
+        kw.update(frequency_deviation=model.frequency_deviation,
+                  deemphasis_tau=model.deemphasis_tau)
+    return kw
+
+
+def shard_iir_input():
+    """The sharded biquad's stream: N samples a rank of four, seeded."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    return torch.randn(4 * N, generator=gen, device="cuda")
+
+
+def shard_q256_input(modem):
+    """256 CIRCULAR streams of 4096 symbols, their samples and the noisy
+    samples (sigma 0.05), seeded."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(47)
+    syms = torch.randint(0, 256, (Q256_STREAMS, Q256_SYMS), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    noise = Q256_SIGMA * torch.randn((2, Q256_STREAMS, Q256_SYMS),
+                                     generator=gen, device="cuda")
+    return syms, noise
+
+
+def rank_stream(step, model, signal, mesh):
+    """8 steps of a sharded receiver on this rank's blocks, counted (every
+    counter set to 0 just before), then 8 more timed on the host's clock
+    (uncounted): (audio tiles, final state, launches, step ms)."""
+    t, s = mesh.shape["time"], mesh.coords["time"]
+    n_l = N // t
+    blocks = [signal(model, i * N + s * n_l, n_l) for i in range(STEPS)]
+    state, outs = step.init(), []
+    torch.cuda.synchronize()
+    reset_counts()
+    for rf in blocks:
+        state, audio = step(state, rf)
+        outs.append(audio)
+    torch.cuda.synchronize()
+    got = counts()
+    st = state
+    t0 = time.perf_counter()
+    for rf in blocks:
+        st, _ = step(st, rf)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / STEPS * 1e3
+    reset_counts()
+    return ([a.cpu() for a in outs], to_cpu(state), got, ms)
+
+
+def to_cpu(state):
+    return tuple(ComplexArray(v.re.cpu(), v.im.cpu())
+                 if isinstance(v, ComplexArray) else v.cpu() for v in state)
+
+
+def nccl_rank():
+    """Phase 15 (a), in its own process: the flagship through
+    make_sharded_fm_step on a 1x1 mesh over NCCL (a world of one), 8
+    counted steps; then the step time of FmChannelizer.step and of the
+    sharded step in turns, and of the NCCL all_gather and all_reduce of a
+    halo-sized tensor that an axis of one shard does not call."""
+    import torch.distributed as dist
+
+    mesh = make_mesh(1, 1, device="cuda")
+    model, signal = shard_model("flagship")
+    step = make_sharded_fm_step(model, mesh)
+    outs, state, got, ms = rank_stream(step, model, signal, mesh)
+    rf = signal(model, 0, N)
+    single_ms, sharded_ms = [], []
+    for which in ("single", "sharded", "sharded", "single"):
+        fn = model.step if which == "single" else step
+        st = model.init()
+
+        def one_step():
+            nonlocal st
+            st, _ = fn(st, rf)
+
+        (single_ms if which == "single" else sharded_ms).append(
+            cuda_ms(one_step, reps=20))
+    reset_counts()
+    edge = torch.zeros((2, model.num_taps - 1 + model.decimation),
+                       device="cuda")
+    parts = [torch.empty_like(edge)]
+    gather_ms = cuda_ms(lambda: dist.all_gather(parts, edge), reps=20)
+    reduce_ms = cuda_ms(lambda: dist.all_reduce(edge), reps=20)
+    return {"flagship": (outs, state, got, ms), "single_ms": single_ms,
+            "sharded_ms": sharded_ms, "sent": dict(mesh.sent),
+            "nccl_all_gather_ms": gather_ms, "nccl_all_reduce_ms": reduce_ms}
+
+
+def gloo_rank():
+    """Phase 15 (b), one of four processes sharing the card over gloo:
+    every stream case of SHARD_STREAMS on its mesh, the bench_iir biquad
+    through sharded_iir on (1, 4), and the 256-stream QPSK256 modem on
+    (2, 2) and (1, 4), each counted on its own."""
+    meshes = {shape: make_mesh(*shape, device="cuda")
+              for shape in ((2, 2), (1, 4))}
+    res = {}
+    for name, shape in SHARD_STREAMS:
+        model, signal = shard_model(name)
+        make = (make_sharded_fm_step if isinstance(model, FmChannelizer)
+                else make_sharded_am_step)
+        res[(name, shape)] = rank_stream(make(model, meshes[shape]), model,
+                                         signal, meshes[shape])
+    mesh = meshes[(1, 4)]
+    _, b, a, _ = IIR_FILTERS[0]
+    s = mesh.coords["time"]
+    x = shard_iir_input()[s * N:(s + 1) * N].contiguous()
+    zi = torch.tensor(SHARD_IIR_ZI, device="cuda")
+    torch.cuda.synchronize()
+    (y, zf), got = counted("sharded_iir", lambda: sharded_iir(
+        b, a, x, zi, mesh), {"iir": 1})
+    res["iir"] = (y.cpu(), zf.cpu(), got)
+    modem = Qpsk256Modem(CIRCULAR, 1.0, device="cuda")
+    syms, noise = shard_q256_input(modem)
+    for shape, mesh in meshes.items():
+        tx, rx = make_sharded_qpsk256_modem(modem, mesh)
+        c, t = mesh.shape["channel"], mesh.shape["time"]
+        ci, s = mesh.coords["channel"], mesh.coords["time"]
+        rows = slice(ci * Q256_STREAMS // c, (ci + 1) * Q256_STREAMS // c)
+        cols = slice(s * Q256_SYMS // t, (s + 1) * Q256_SYMS // t)
+        sym_l = syms[rows, cols].contiguous()
+        nz = noise[:, rows, cols]
+
+        def run():
+            x = tx(sym_l)
+            noisy = ComplexArray(x.re + nz[0], x.im + nz[1])
+            return rx(x), rx(noisy)
+
+        torch.cuda.synchronize()
+        (back, dec), got = counted(f"sharded QPSK256 {shape}", run,
+                                   {"qpsk256": 2})
+        res[("qpsk256", shape)] = (back.cpu(), dec.cpu(), got)
+    return res
+
+
+def shard_rank(argv):
+    """A rank of phase 15, started by phase 15 itself:
+    chip_smoke.py --shard-rank GROUP RANK WORLD PORT OUTDIR."""
+    import torch.distributed as dist
+
+    group, rank, world, port, out = argv
+    rank, world = int(rank), int(world)
+    initialize(f"127.0.0.1:{port}", world, rank,
+               backend="nccl" if group == "nccl" else "gloo")
+    try:
+        res = nccl_rank() if group == "nccl" else gloo_rank()
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, Path(out) / f"rank{rank}.pt")
+    return 0
+
+
+def spawn_ranks(group, world, tmp):
+    """Start ``world`` ranks of phase 15's ``group`` at once, wait for all
+    with SHARD_TIMEOUT_S, stop every one that is left; fail unless each
+    exits 0. Returns their results in rank order."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--shard-rank", group, str(r), str(world),
+         str(port), str(tmp)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        for p in procs:
+            left = max(1.0, deadline - time.monotonic())
+            logs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        check(False, f"phase 15 {group}: a rank outlived {SHARD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"phase 15 {group} rank {r} exited "
+              f"{p.returncode}:\n{log[-4000:]}")
+    return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def shard_allowance(model, m, t):
+    """Per output of a step: the digit-table phase's bound at the shard
+    boundaries (PHASE_BOUND, through the de-emphasis's impulse response),
+    summed over them; zero for AM."""
+    allow = torch.zeros(m, dtype=torch.float64)
+    if not isinstance(model, FmChannelizer) or t == 1:
+        return allow
+    b0, cc, a = (abs(float(v)) for v in model.deemph.cpu())
+    m_l = m // t
+    h = torch.tensor([b0] + [cc * a ** k for k in range(m - 1)],
+                     dtype=torch.float64)
+    for s in range(1, t):
+        allow[s * m_l:] += h[:m - s * m_l]
+    return model.gain * 2 * math.pi * 2 * PHASE_BOUND * allow
+
+
+def gather_tiles(tiles, shape):
+    """(C, M) from the ranks' (C/c, M/t) tiles, rank r at divmod(r, t)."""
+    c, t = shape
+    return torch.cat([torch.cat([tiles[ci * t + s] for s in range(t)], -1)
+                      for ci in range(c)])
+
+
+def check_stream(what, model, signal, shape, results):
+    """The gathered sharded stream against the single-card step at the
+    same grade on the same blocks: FM audio within AUDIO_REL_TOL of
+    max|audio| plus the shard boundaries' phase allowance after the
+    warm-up, carries within CARRY_ATOL; AM envelopes within ENV_ATOL; the
+    RF tail equal, n0 equal. Returns (max-abs audio error, its relative
+    size, max carry error)."""
+    c, t = shape
+    fm = isinstance(model, FmChannelizer)
+    state, max_abs, rel, carry_err = model.init(), 0.0, 0.0, 0.0
+    allow = None
+    for i in range(STEPS):
+        state, want = model.step(state, signal(model, i * N, N))
+        want = want.cpu().double()
+        got = gather_tiles([r[0][i] for r in results], shape).double()
+        check(got.shape == want.shape, f"{what}: audio {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite audio")
+        skip = SKIP if i == 0 else 0
+        err = (got - want)[:, skip:].abs()
+        if allow is None:
+            allow = shard_allowance(model, want.shape[-1], t)
+        if fm:
+            scale = float(want[:, skip:].abs().max())
+            bound = AUDIO_REL_TOL * scale + allow[skip:]
+            check(bool((err <= bound).all()), f"{what} step {i}: audio off "
+                  f"by {float(err.max()):.3g} (tol {AUDIO_REL_TOL} of "
+                  f"{scale:.3g} + the shard boundaries' allowance)")
+            rel = max(rel, float(err.max()) / scale)
+        else:
+            check(float(err.max()) <= ENV_ATOL, f"{what} step {i}: envelope "
+                  f"off by {float(err.max()):.3g}")
+        max_abs = max(max_abs, float(err.max()))
+    want_state = to_cpu(state)
+    for r in results:
+        got_state = r[1]
+        check(int(got_state[0]) == int(want_state[0]), f"{what}: n0")
+        check(torch.equal(got_state[1].re, want_state[1].re)
+              and torch.equal(got_state[1].im, want_state[1].im),
+              f"{what}: the RF tail")
+    if fm:
+        rows = [results[ci * t][1] for ci in range(c)]
+        for leaf, want_leaf in ((lambda v: v[2].re, want_state[2].re),
+                                (lambda v: v[2].im, want_state[2].im),
+                                (lambda v: v[3], want_state[3])):
+            got_leaf = torch.cat([leaf(v) for v in rows])
+            d = float((got_leaf - want_leaf).abs().max())
+            carry_err = max(carry_err, d)
+            check(d <= CARRY_ATOL, f"{what}: a carry off by {d:.3g}")
+    return max_abs, rel, carry_err
+
+
+def shard_kernel_timing(name, shape):
+    """Device us of the case's kernel on one shard's block, alone on the
+    card (uncounted), and its bound at that shape."""
+    c, t = shape
+    full, signal = shard_model(name)
+    model, _ = shard_model(name, full.num_channels // c)
+    rf = signal(model, 0, N // t)
+    buf = buffer(model, rf)
+    n0, *carries = model.init()
+    rot0 = torch.remainder(n0 + (int(FS) - (model.num_taps - 1)), int(FS)) \
+        .to(torch.int32)
+    front = ((model.poly_taps, model.dft_bank, model.num_taps)
+             if model.front == "pfb" else (model.tap_bank,))
+    if isinstance(model, FmChannelizer):
+        kernel = pfb_fm_chain if model.front == "pfb" else fm_chain
+        args = (buf, *front, model.lo_table, rot0, model.decimation,
+                model.gain, model.deemph, *carries[1:])
+        bnd = bound(*fm_bound(model, buf.re.shape[-1], SHARD_GRADE))
+    else:
+        kernel = pfb_am_chain if model.front == "pfb" else am_chain
+        args = (buf, *front, model.lo_table, rot0, model.decimation)
+        bnd = bound(*am_bound(model, buf.re.shape[-1], SHARD_GRADE))
+    before = kernel.launches
+    dev = device_us(lambda: kernel(*args, precision=SHARD_GRADE), reps=10)
+    kernel.launches = before
+    shard = {"C": model.num_channels, "n": N // t, "front": model.front,
+             "T": model.num_taps, "D": model.decimation}
+    return dev, bnd, shard
+
+
+def sharded_phase(tmp):
+    """Phase 15: (a) a world of one over NCCL, (b) four ranks sharing the
+    card over gloo; returns every kernel's launches over both, summed over
+    the ranks."""
+    totals = {name: 0 for name in COUNTERS}
+
+    # (a) the 1x1 mesh over NCCL, in a child process
+    (r,) = spawn_ranks("nccl", 1, tmp)
+    outs, state, got, _ = r["flagship"]
+    check(got == {**{k: 0 for k in COUNTERS}, "fm_chain": STEPS},
+          f"1x1 NCCL flagship launches {got}")
+    check(r["sent"] == {"all_gather": 0, "all_reduce": 0},
+          f"the 1x1 mesh called collectives: {r['sent']}")
+    model, signal = shard_model("flagship")
+    max_abs, rel, carry = check_stream("flagship 1x1", model, signal, (1, 1),
+                                       [r["flagship"]])
+    for k, v in got.items():
+        totals[k] += v
+    single = statistics.mean(r["single_ms"])
+    sharded = statistics.mean(r["sharded_ms"])
+    print(f"phase 15 (a): the flagship through make_sharded_fm_step on a "
+          f"1x1 mesh over NCCL, {STEPS} steps, launches {got}; audio vs "
+          f"FmChannelizer.step max-abs {max_abs:.3g} ({rel:.3g} of max), "
+          f"carries {carry:.3g}; step {single:.4f} ms single-card, "
+          f"{sharded:.4f} ms sharded ({sharded / single - 1:+.1%})")
+    print(json.dumps({
+        "phase": "sharded_flagship_1x1_nccl", "grade": SHARD_GRADE,
+        "launches": got, "audio_max_abs": max_abs, "audio_rel": rel,
+        "carry_max_abs": carry, "single_step_ms": r["single_ms"],
+        "sharded_step_ms": r["sharded_ms"],
+        "overhead": sharded / single - 1,
+        "nccl_all_gather_ms": r["nccl_all_gather_ms"],
+        "nccl_all_reduce_ms": r["nccl_all_reduce_ms"], "card": CARD}))
+
+    # (b) four ranks sharing the card over gloo
+    ranks = spawn_ranks("gloo", 4, tmp)
+    for name, shape in SHARD_STREAMS:
+        res = [r[(name, shape)] for r in ranks]
+        kname = SHARD_KERNEL[name]
+        for i, (_, _, got, _) in enumerate(res):
+            want = {**{k: 0 for k in COUNTERS}, kname: STEPS}
+            check(got == want, f"{name} {shape} rank {i} launches {got}")
+            for k, v in got.items():
+                totals[k] += v
+        model, signal = shard_model(name)
+        what = f"{name} {shape[0]}x{shape[1]}"
+        max_abs, rel, carry = check_stream(what, model, signal, shape, res)
+        dev, bnd, shard = shard_kernel_timing(name, shape)
+        line = {"phase": f"sharded_{name}_{shape[0]}x{shape[1]}",
+                "mesh": list(shape), "backend": "gloo", "ranks": 4,
+                "kernel": kname, "grade": SHARD_GRADE,
+                "launches_per_rank": [g[2][kname] for g in res],
+                "audio_max_abs": max_abs, "audio_rel": rel,
+                "carry_max_abs": carry,
+                "rank_step_ms": [g[3] for g in res], "shard": shard,
+                "kernel_device_us": dev, "bound_us": bnd[0] * 1e3,
+                "bound_by": bnd[1], "card": CARD}
+        print(json.dumps(line))
+
+    # the biquad through sharded_iir on (1, 4)
+    _, b, a, _ = IIR_FILTERS[0]
+    for i, r in enumerate(ranks):
+        got = r["iir"][2]
+        check(got["iir"] == 1 and sum(got.values()) == 1,
+              f"sharded_iir rank {i} launches {got}")
+        totals["iir"] += 1
+    x = shard_iir_input()
+    zi = torch.tensor(SHARD_IIR_ZI, device="cuda")
+    y = torch.cat([r["iir"][0] for r in ranks]).double()
+    zf = ranks[0]["iir"][1].double()
+    check(all(torch.equal(r["iir"][1], ranks[0]["iir"][1]) for r in ranks),
+          "sharded_iir: zf differs between ranks")
+    before = iir_kernel.launches
+    y1, zf1 = iir_block(b, a, x, zi=zi)
+    iir_kernel.launches = before
+    y64, zf64 = scipy_stream(b, a, [x], zi=zi)
+    scale = float(y1.abs().max())
+    iir_err = max(float((y - y1.cpu().double()).abs().max()),
+                  float((zf - zf1.cpu().double()).abs().max())) / scale
+    iir_ref = max(float(np.abs(y.numpy() - y64).max()),
+                  float(np.abs(zf.numpy() - zf64).max())) / scale
+    check(iir_err <= IIR_REL_TOL, f"sharded_iir vs iir_block: {iir_err:.3g}")
+    check(iir_ref <= IIR_REL_TOL, f"sharded_iir vs float64: {iir_ref:.3g}")
+    filt = iir_filter(b, a, x.device)
+    xs = x[:N].contiguous()
+    before = iir_kernel.launches
+    dev = device_us(lambda: iir_kernel(xs, filt, None), reps=20)
+    iir_kernel.launches = before
+    bnd = bound(*iir_bound(1, N, filt))
+    print(json.dumps({
+        "phase": "sharded_iir_biquad_1x4", "mesh": [1, 4], "backend": "gloo",
+        "kernel": "iir", "launches_per_rank": [1] * 4, "n_per_rank": N,
+        "vs_iir_block_rel": iir_err, "vs_float64_rel": iir_ref,
+        "kernel_device_us": dev, "bound_us": bnd[0] * 1e3,
+        "bound_by": bnd[1], "card": CARD}))
+
+    # the 256-stream QPSK256 modem on (2, 2) and (1, 4)
+    modem = Qpsk256Modem(CIRCULAR, 1.0, device="cuda")
+    syms, noise = shard_q256_input(modem)
+    x = qpsk256_modulate(syms, modem.table)    # the sharded tx's table
+    before = qpsk256_kernel.launches
+    want = qpsk256_demodulate(ComplexArray(x.re + noise[0], x.im + noise[1]),
+                              modem.table, out_dtype=torch.int32).cpu()
+    qpsk256_kernel.launches = before
+    for shape in ((2, 2), (1, 4)):
+        res = [r[("qpsk256", shape)] for r in ranks]
+        for i, (_, _, got) in enumerate(res):
+            check(got["qpsk256"] == 2 and sum(got.values()) == 2,
+                  f"sharded QPSK256 {shape} rank {i} launches {got}")
+            totals["qpsk256"] += 2
+        back = gather_tiles([g[0] for g in res], shape)
+        dec = gather_tiles([g[1] for g in res], shape)
+        check(back.dtype == torch.int32 and torch.equal(back, syms.cpu()),
+              f"sharded QPSK256 {shape}: the loopback is not exact")
+        check(torch.equal(dec, want), f"sharded QPSK256 {shape}: noisy "
+              "decisions differ from the single-card B6's")
+    c, t = 2, 2
+    xs = ComplexArray(x.re[:Q256_STREAMS // c, :Q256_SYMS // t].contiguous(),
+                      x.im[:Q256_STREAMS // c, :Q256_SYMS // t].contiguous())
+    before = qpsk256_kernel.launches
+    dev = device_us(lambda: qpsk256_kernel(xs, modem.table,
+                                           out_dtype=torch.int32), reps=20)
+    qpsk256_kernel.launches = before
+    # the bound at the shard: the candidate search's scores for these
+    # samples (4 FLOP each), x read (8 B a sample), int32 out (4 B), the
+    # table and the grid read once (as phase 8's)
+    grid, blob = table_grid(modem.table)
+    cells = grid.cells(xs.re, xs.im)
+    lens = torch.as_tensor(np.diff(grid.offsets), device="cuda")
+    scores = float(torch.where(cells >= 0, lens[cells.clamp(min=0)],
+                               256).sum())
+    bnd = bound(4.0 * scores, 12.0 * xs.re.numel() + 8 * 256 + blob.numel())
+    print(json.dumps({
+        "phase": "sharded_qpsk256_circular", "meshes": [[2, 2], [1, 4]],
+        "backend": "gloo", "kernel": "qpsk256", "streams": Q256_STREAMS,
+        "symbols": Q256_SYMS, "launches_per_rank": 2,
+        "loopback_exact": True, "noisy_equal_single_card": True,
+        "shard": [Q256_STREAMS // c, Q256_SYMS // t],
+        "kernel_device_us_2x2": dev, "bound_us": bnd[0] * 1e3,
+        "bound_by": bnd[1], "card": CARD}))
+    print(f"phase 15 (b): four ranks over gloo on the one card: "
+          f"{len(SHARD_STREAMS)} receiver cases, sharded_iir and two "
+          f"QPSK256 meshes held to the single-card step; sharded launches "
+          f"{ {k: v for k, v in totals.items() if v} }")
+    return totals
+
 CARD = None
 
 
@@ -2111,9 +2620,18 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         fm_rx_phase(Path(tmp))
     examples_phase()
+
+    # 15) the sharded receivers; their launches join the kernels line
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded = sharded_phase(Path(tmp))
+    for entry in kernels:
+        graded = entry["name"] not in ("iir", "qpsk256")
+        entry["sharded_launches"] = (
+            sharded[entry["name"]]
+            if not graded or entry["grade"] == SHARD_GRADE else 0)
     print(json.dumps({"kernels": kernels}))
 
-    # 11) the result
+    # 16) the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
@@ -2121,4 +2639,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank(sys.argv[2:]))
     sys.exit(main())

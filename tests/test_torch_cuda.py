@@ -1289,3 +1289,124 @@ def test_fm_rx_on_card_resumes_bit_equal(card, tmp_path):
         a = audio[c] - audio[c].mean()
         peak = np.argmax(np.abs(np.fft.rfft(a * np.hanning(len(a))))[5:]) + 5
         assert abs(peak * rate / len(a) - tone) < 10.0
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer on the card (ranks of tests/torch_shard_ranks.py)
+# ---------------------------------------------------------------------------
+
+SHARD_BLOCK = 1 << 16
+SHARD_FIELDS = dict(
+    sample_rate=FS, tuning_frequency=0.0,
+    channel_frequencies=[-480_000.0 + 60_000.0 * i for i in range(16)],
+    frequency_deviation=75_000.0, decimation=4, deemphasis_tau=75e-6,
+    impl="auto", precision="bf16x3")
+
+
+def _shard_inputs():
+    k = np.arange(64) - 31.5
+    h = np.sinc(2 * 0.03 * k) * np.hamming(64)
+    fields = dict(SHARD_FIELDS, low_pass_taps=(h / h.sum()).tolist())
+    r = np.random.default_rng(5)
+    t = np.arange(2 * SHARD_BLOCK) / FS
+    sig = np.zeros(t.size, np.complex128)
+    for i, f in enumerate(fields["channel_frequencies"]):
+        msg = np.sin(2 * np.pi * (700.0 + 370.0 * i) * t + r.uniform(0, 6))
+        sig += (0.5 / 16) * np.exp(1j * (2 * np.pi * f * t + 0.35 * msg))
+    inputs = {"rf.re": sig.real.astype(np.float32),
+              "rf.im": sig.imag.astype(np.float32),
+              "sym": r.integers(0, 256, (256, 4096)).astype(np.int32)}
+    return fields, inputs
+
+
+def _single_card_audio(fields, inputs):
+    model = FmChannelizer(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in fields.items()}, device="cuda")
+    state, outs = model.init(), []
+    before = fm_chain.launches
+    for b in range(2):
+        blk = slice(b * SHARD_BLOCK, (b + 1) * SHARD_BLOCK)
+        state, y = model.step(state, TCA(
+            torch.from_numpy(inputs["rf.re"][blk]).cuda(),
+            torch.from_numpy(inputs["rf.im"][blk]).cuda()))
+        outs.append(y.cpu().numpy())
+    fm_chain.launches = before
+    return model, outs, state
+
+
+def _tiles(ranks, mesh, key):
+    by = {tuple(int(v) for v in r[f"coords:{mesh}"]): r[key] for r in ranks}
+    c = 1 + max(ci for ci, _ in by)
+    t = 1 + max(s for _, s in by)
+    return np.concatenate([np.concatenate([by[(ci, s)] for s in range(t)], -1)
+                           for ci in range(c)])
+
+
+@pytest.mark.cuda
+def test_sharded_fm_over_nccl_world_of_one_on_card(card, tmp_path):
+    """A 1x1 mesh over NCCL (a child process, a world of one): the sharded
+    fused step runs B1 once a step, counted, and equals
+    FmChannelizer.step at bf16x3 within 1e-4 of max|audio| and its
+    carries within 1e-4."""
+    import torch_shard_ranks
+    from gsdr_tpu_torch.kernels import _build
+
+    _build.build_all()      # here, not in every rank
+    fields, inputs = _shard_inputs()
+    cases = [dict(key="fm", kind="fm", mesh=[1, 1], rf="rf",
+                  block=SHARD_BLOCK, segments=[[fields, 2]])]
+    (rank,) = torch_shard_ranks.spawn(tmp_path, cases, inputs, world=1,
+                                      backend="nccl", device="cuda")
+    launches = dict(zip(torch_shard_ranks.KERNELS, rank["fm:launches"]))
+    assert launches == {"fm_chain": 2, "pfb_fm_chain": 0, "am_chain": 0,
+                        "pfb_am_chain": 0, "qpsk256": 0, "iir": 0}
+    _, outs, state = _single_card_audio(fields, inputs)
+    for b in range(2):
+        got, want = rank[f"fm:audio{b}"], outs[b]
+        skip = SKIP if b == 0 else 0
+        err = np.abs(got - want)[:, skip:].max() / np.abs(want).max()
+        assert err <= 1e-4
+    np.testing.assert_allclose(rank["fm:state3"], state[3].cpu().numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(rank["fm:state2.re"],
+                               state[2].re.cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_share_the_card(card, tmp_path):
+    """Two ranks on the one card over gloo, mesh (1, 2): each runs B1 once
+    a step and B6 once, counted; the gathered audio equals the single-card
+    step within 1e-4 of max|audio| plus the digit-table phase's allowance
+    at the shard boundary, and 256 CIRCULAR streams loop back exactly."""
+    import torch_shard_ranks
+    from gsdr_tpu_torch.kernels import _build
+
+    _build.build_all()      # here, not in every rank
+    fields, inputs = _shard_inputs()
+    cases = [dict(key="fm", kind="fm", mesh=[1, 2], rf="rf",
+                  block=SHARD_BLOCK, segments=[[fields, 2]]),
+             dict(key="q256", kind="qpsk256", mesh=[1, 2], symbols="sym",
+                  fields=dict(constellation_type=CIRCULAR, amplitude=1.0,
+                              exact_tables=False))]
+    ranks = torch_shard_ranks.spawn(tmp_path, cases, inputs, world=2,
+                                    device="cuda")
+    for r in ranks:
+        fm = dict(zip(torch_shard_ranks.KERNELS, r["fm:launches"]))
+        q = dict(zip(torch_shard_ranks.KERNELS, r["q256:launches"]))
+        assert fm["fm_chain"] == 2 and sum(fm.values()) == 2
+        assert q["qpsk256"] == 1 and sum(q.values()) == 1
+    model, outs, _ = _single_card_audio(fields, inputs)
+    b0, cc, a = (abs(float(v)) for v in model.deemph.cpu())
+    m = outs[0].shape[-1]
+    h = np.concatenate([[b0], cc * a ** np.arange(m // 2 - 1)])
+    allow = np.zeros(m)
+    allow[m // 2:] = model.gain * 2 * np.pi * 2 * 6e-5 * h
+    for b in range(2):
+        got = _tiles(ranks, "[1, 2]", f"fm:audio{b}")
+        want = outs[b]
+        skip = SKIP if b == 0 else 0
+        bound = 1e-4 * np.abs(want[:, skip:]).max() + allow[skip:]
+        assert np.all(np.abs(got - want)[:, skip:] <= bound)
+    rx = _tiles(ranks, "[1, 2]", "q256:rx")
+    assert rx.dtype == np.int32
+    np.testing.assert_array_equal(rx, inputs["sym"])

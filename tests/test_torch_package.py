@@ -31,7 +31,7 @@ def _imported_roots(path):
 
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, gsdr_tpu_torch, gsdr_tpu_torch.utils.convert, "
-            "gsdr_tpu_torch.kernels._build; "
+            "gsdr_tpu_torch.kernels._build, gsdr_tpu_torch.parallel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gsdr_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -120,10 +120,41 @@ sys.exit(1 if missing or bad else 0)
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_parallel_names_cover_the_jax_package():
+    """gsdr_tpu_torch.parallel.__all__ holds every name of
+    gsdr_tpu.parallel.__all__ (built there by one assignment and two
+    additions), each module of gsdr_tpu/parallel has its counterpart, and
+    importing the port's layer imports no JAX."""
+    code = r"""
+import ast, sys
+from pathlib import Path
+
+want = []
+for node in ast.parse(Path("gsdr_tpu/parallel/__init__.py").read_text()).body:
+    if isinstance(node, (ast.Assign, ast.AugAssign)):
+        targets = node.targets if isinstance(node, ast.Assign) \
+            else [node.target]
+        if any(getattr(t, "id", None) == "__all__" for t in targets):
+            want += [ast.literal_eval(e) for e in node.value.elts]
+assert len(want) == 11, want
+import gsdr_tpu_torch.parallel as par
+missing = [n for n in want if n not in par.__all__ or not hasattr(par, n)]
+modules = sorted(p.name for p in Path("gsdr_tpu/parallel").glob("*.py"))
+ported = sorted(p.name for p in Path("gsdr_tpu_torch/parallel").glob("*.py"))
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "gsdr_tpu")]
+print(missing, modules, ported, bad)
+sys.exit(1 if missing or bad or modules != ported else 0)
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_deployment_entry_points_default_to_the_card(monkeypatch, tmp_path):
-    """cosine_c, StreamRunner and fm_rx run on the card unless asked for
-    the CPU: without CUDA their default device raises."""
+    """cosine_c, StreamRunner, fm_rx and the mesh run on the card unless
+    asked for the CPU: without CUDA their default device raises."""
     from gsdr_tpu_torch.ops.trig import cosine_c, cosine_f
+    from gsdr_tpu_torch.parallel import make_mesh
     from gsdr_tpu_torch.runtime import StreamRunner
     from gsdr_tpu_torch.tools import fm_rx
 
@@ -134,6 +165,8 @@ def test_deployment_entry_points_default_to_the_card(monkeypatch, tmp_path):
         cosine_f(0.0, 1.0, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamRunner(lambda s, x: (s, x), None, 64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
     iq = tmp_path / "x.iq"
     iq.write_bytes(bytes(64))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
