@@ -17,9 +17,13 @@
     the fronts at each grade (``graded_bank_front``,
     ``graded_uniform_front``);
   - ``select_front``, the receivers' choice between the dense and the PFB
-    front, made once at construction.
+    front, made once at construction;
+  - ``hold_for_graph``: what a launch captured in a CUDA graph needs kept
+    alive beyond the tensors the capture allocates (B5's scratch).
 """
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 
@@ -68,6 +72,34 @@ class ChainKernel:
         out = self.launch(buf, *args, **kwargs)
         self.launches += 1
         return out
+
+
+_graph_refs = contextvars.ContextVar("graph_refs", default=None)
+_unowned_refs = {}
+
+
+@contextlib.contextmanager
+def graph_refs(refs):
+    """Inside the block, ``hold_for_graph`` appends to the list ``refs``:
+    the capture of one CUDA graph, whose owner keeps ``refs``."""
+    token = _graph_refs.set(refs)
+    try:
+        yield refs
+    finally:
+        _graph_refs.reset(token)
+
+
+def hold_for_graph(obj):
+    """Keep ``obj`` alive as long as the CUDA graph being captured: a
+    wrapper calls it for device memory that it keeps itself and that a
+    captured launch reads or writes. Outside ``graph_refs`` (a capture
+    that ``utils.compile.compile_step`` did not start) ``obj`` is kept for
+    the life of the process."""
+    refs = _graph_refs.get()
+    if refs is None:
+        _unowned_refs[id(obj)] = obj
+    else:
+        refs.append(obj)
 
 
 def grade_code(fn, precision):

@@ -43,9 +43,13 @@
 //     S. Each writes y, the thread holding sample N-1 writes zf from the
 //     state after it, and thread 0 publishes the tile's inclusive state.
 //     Samples past N read as 0 and are not written, so any N >= 1 works.
-// Every published float carries the call's epoch (a counter the host
-// passes in), so the scratch needs no reset between calls, and a reader
-// needs no fence (see put_slot).
+// Every published float carries the call's epoch, so the scratch needs no
+// reset between calls, and a reader needs no fence (see put_slot). The
+// epoch and the ticket count live in the scratch's header, on the device
+// (see the header below): the call that takes a grid's last ticket
+// advances them for the next call, so the host passes no per-call counter
+// and a launch captured in a CUDA graph is a new call at every replay;
+// eager calls and replays may interleave on one stream.
 //
 // What bounds it on the card: bytes. One float32 read and one write per
 // sample (8 B) against ~10 FLOP per pole pair per sample for the state
@@ -76,10 +80,14 @@ constexpr int kWarps = kThreads / 32;      // compute warps
 // compute warps (160 threads, <= 56 registers: 1024 tiles resident at
 // once); at three or four the extra warp would cost a wave at 2^20 (72
 // registers x 160 threads), so compute warp 0 looks back there.
+// kMinBlocks holds a block's registers to what keeps that many blocks on
+// an SM (48, 56, 72 and 96 at one to four poles): eight 160-thread blocks
+// an SM at one pole put all of bench_iir's 1024 tiles on the card at once.
 template <int P>
 struct Block {
   static constexpr bool kLookWarp = P <= 2;
   static constexpr int kSize = kThreads + (kLookWarp ? 32 : 0);
+  static constexpr int kMinBlocks = P == 1 ? 8 : P == 4 ? 5 : 7;
 };
 constexpr int kLook = 2;                   // predecessors per lane
 constexpr int kWindow = 32 * kLook;        // predecessors per look-back step
@@ -111,11 +119,27 @@ constexpr int kLookPow = kPow + 2 * kMaxPairs * kPowLen;
 constexpr int kLookLen = kWindow + 1;
 constexpr int kCoefLen = kLookPow + 2 * kMaxPairs * kLookLen;
 
-// scratch layout: the ticket counter (uint64) in a 64-byte header, then
-// per slot (row * ntiles + tile) the aggregate, then per slot the
-// inclusive state, each kSlotWords words (see put_slot).
+// scratch layout: a 64-byte header, then per slot (row * ntiles + tile)
+// the aggregate, then per slot the inclusive state, each kSlotWords words
+// (see put_slot). The header's first word is the call's head: the index
+// h of its epoch in the high 32 bits (epoch = h + 1, so the zeroed
+// scratch's words, of epoch 0, never read as published) and the tickets
+// taken in the low 32. Each block takes its ticket by one atomic add on
+// the head, which also hands it the epoch. The block that takes the
+// grid's last ticket is the last of the call to touch the head: it sets
+// the next call's head (index h + 1 mod kStampPeriod, no ticket). The
+// block of the first ticket, whose work ends first, refreshes slot h mod
+// slots: every word of it that this call neither reads nor writes (all
+// of it outside the grid; the words past its P poles inside). So every
+// word of every slot is written at least once
+// in any 2 * slots calls (twice the slots around the index's wrap),
+// fewer than the kStampPeriod calls after which an epoch comes back: no
+// word can carry the epoch of a call that did not write it, and the
+// epoch's wrap needs no reset.
 constexpr long kHeader = 64;
 constexpr int kSlotWords = 2 * kMaxPairs;
+constexpr unsigned long long kStampPeriod = 0xffffffffull;   // epochs 1..2^32-1
+constexpr unsigned long long kTicketMask = 0xffffffffull;
 
 struct Rows {
   const float* x[kMaxRows];
@@ -125,7 +149,8 @@ struct Rows {
 };
 
 struct Scratch {
-  unsigned long long* ticket;
+  unsigned long long* head;    // epoch index << 32 | tickets taken
+  long slots;                  // slots of the scratch
   unsigned long long* agg;     // kSlotWords per slot
   unsigned long long* incl;    // kSlotWords per slot
 };
@@ -198,6 +223,43 @@ __device__ __forceinline__ void put_slot(unsigned long long* dst,
   }
 }
 
+// The ticket of a block (see the header). The block that takes the
+// call's last one sets the next call's head; the block of the first one,
+// whose work ends first, refreshes slot h mod slots. Returns the head as
+// the block's atomic add found it.
+template <int P>
+__device__ __forceinline__ unsigned long long take_ticket(const Scratch& sc) {
+  const unsigned long long head = atomicAdd(sc.head, 1ull);
+  const unsigned long long h = head >> 32, taken = head & kTicketMask;
+  if (taken + 1 == gridDim.x) {
+    // every other block of the call has taken its ticket: nothing of this
+    // call reads or adds to the head after this exchange
+    atomicExch(sc.head, (h + 1 == kStampPeriod ? 0ull : h + 1) << 32);
+  }
+  if (taken == 0) {
+    // a slot outside the grid is read by no block of this call; inside,
+    // its words past the P poles are read and written by none
+    const long c = (long)((unsigned)h % (unsigned)sc.slots);
+    const int first = c >= (long)gridDim.x ? 0 : 2 * P;
+    const unsigned long long zero = h + 1;   // 0.f stamped with the epoch
+#pragma unroll
+    for (int w = 0; w < kSlotWords; ++w) {
+      if (w < first) continue;
+      st_relaxed(sc.agg + kSlotWords * c + w, zero);
+      st_relaxed(sc.incl + kSlotWords * c + w, zero);
+    }
+  }
+  return head;
+}
+
+// The epoch of the call from the head a block's ticket returned, read
+// from shared memory where it is used, so that no register holds it
+// across the block's work (a kernel parameter took none)
+__device__ __forceinline__ unsigned epoch_of(
+    const volatile unsigned long long& head) {
+  return (unsigned)(head >> 32) + 1;
+}
+
 // A slot's P complex values; true when every word is of this epoch
 template <int P>
 __device__ __forceinline__ bool get_slot(const unsigned long long* src,
@@ -243,7 +305,8 @@ __device__ __forceinline__ void load_span(const float* __restrict__ x,
 template <int P>
 __device__ __forceinline__ void look_back(
     const Scratch& sc, const float* __restrict__ coef, const float* zi,
-    int order, long slot0, long tile, long horizon, unsigned epoch,
+    int order, long slot0, long tile, long horizon,
+    const volatile unsigned long long& head,
     float2 (&excl)[P]) {
   const int lane = threadIdx.x & 31;
   float2 mult[P];
@@ -287,9 +350,9 @@ __device__ __forceinline__ void look_back(
         }
         float2 inc[P], agg[P];
         const bool has_inc = get_slot<P>(sc.incl + kSlotWords * (slot0 + idx),
-                                         epoch, inc);
+                                         epoch_of(head), inc);
         const bool has_agg = get_slot<P>(sc.agg + kSlotWords * (slot0 + idx),
-                                         epoch, agg);
+                                         epoch_of(head), agg);
 #pragma unroll
         for (int k = 0; k < P; ++k) val[q][k] = has_inc ? inc[k] : agg[k];
         term[q] = has_inc || tile - 1 - idx == horizon - 1;
@@ -298,7 +361,7 @@ __device__ __forceinline__ void look_back(
       if (!__any_sync(kFull, pending)) break;
       // every awaited tile belongs to a running block that publishes its
       // aggregate without waiting: a state missing for ~1 s is a fault (a
-      // scratch shared by two streams, a wrong ticket base), not a wait
+      // scratch used by two streams at once), not a wait
       if (++spins > kMaxSpins) __trap();
       __nanosleep(20);
     } while (true);
@@ -383,21 +446,21 @@ __device__ __forceinline__ void start_sync() {
 }
 
 template <int P>
-__global__ void __launch_bounds__(Block<P>::kSize) iir_chained(
+__global__ void __launch_bounds__(Block<P>::kSize, Block<P>::kMinBlocks)
+iir_chained(
     Rows rows, const float* __restrict__ coef, int order, long n, long ntiles,
-    long horizon, Scratch sc, unsigned epoch,
-    unsigned long long ticket_base) {
+    long horizon, Scratch sc) {
   __shared__ float2 wtot[P][kWarps];   // zero-state state after each warp
   __shared__ float2 wexc[P][kWarps];   // ... and before it
   __shared__ float2 agg_s[P], start_s[P];
-  __shared__ long slot_s;
+  __shared__ unsigned long long head_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid == (Block<P>::kLookWarp ? kThreads : 0))
-    slot_s = (long)(atomicAdd(sc.ticket, 1ull) - ticket_base);
+    head_s = take_ticket<P>(sc);
   __syncthreads();
-  const long slot = slot_s;
-  // a ticket past the grid: the host's ticket count is not this scratch's
-  if (slot < 0 || slot >= (long)gridDim.x) __trap();
+  const long slot = (long)(head_s & kTicketMask);
+  // a ticket past the grid: a call on this scratch from another stream
+  if (slot >= (long)gridDim.x) __trap();
   const int r = (int)(slot / ntiles);
   const long tile = slot - (long)r * ntiles;
 
@@ -406,7 +469,7 @@ __global__ void __launch_bounds__(Block<P>::kSize) iir_chained(
     // the compute warps load, scan and form their zero-state outputs
     float2 excl[P];
     look_back<P>(sc, coef, rows.zi[r], order, (long)r * ntiles, tile,
-                 horizon, epoch, excl);
+                 horizon, head_s, excl);
     if (lane < P) start_s[lane] = excl[lane];
     start_sync<P>();
     return;
@@ -451,7 +514,7 @@ __global__ void __launch_bounds__(Block<P>::kSize) iir_chained(
     float2 agg[P];
 #pragma unroll
     for (int k = 0; k < P; ++k) agg[k] = agg_s[k];
-    put_slot<P>(sc.agg + kSlotWords * slot, agg, epoch);
+    put_slot<P>(sc.agg + kSlotWords * slot, agg, epoch_of(head_s));
   }
 
   float yv[kSpan];   // b0 x, then the pole terms
@@ -468,7 +531,7 @@ __global__ void __launch_bounds__(Block<P>::kSize) iir_chained(
     // 3) compute warp 0 looks back
     float2 excl[P];
     look_back<P>(sc, coef, rows.zi[r], order, (long)r * ntiles, tile,
-                 horizon, epoch, excl);
+                 horizon, head_s, excl);
     if (lane < P) start_s[lane] = excl[lane];
   }
 
@@ -482,7 +545,7 @@ __global__ void __launch_bounds__(Block<P>::kSize) iir_chained(
     for (int k = 0; k < P; ++k)
       incl[k] = cfma(ld2(coef, kLookPow + 2 * (kLookLen * k + 1)),
                      start_s[k], agg_s[k]);
-    put_slot<P>(sc.incl + kSlotWords * slot, incl, epoch);
+    put_slot<P>(sc.incl + kSlotWords * slot, incl, epoch_of(head_s));
   }
   if constexpr (Block<P>::kLookWarp) {
 #pragma unroll
@@ -532,10 +595,9 @@ __global__ void __launch_bounds__(Block<P>::kSize) iir_chained(
 
 template <int P>
 int run(const Rows& rows, const float* coef, int order, long n, long ntiles,
-        long horizon, int nrows, const Scratch& sc, unsigned epoch,
-        unsigned long long ticket_base, cudaStream_t st) {
+        long horizon, int nrows, const Scratch& sc, cudaStream_t st) {
   iir_chained<P><<<(unsigned)(ntiles * nrows), Block<P>::kSize, 0, st>>>(
-      rows, coef, order, n, ntiles, horizon, sc, epoch, ticket_base);
+      rows, coef, order, n, ntiles, horizon, sc);
   return (int)cudaGetLastError();
 }
 
@@ -566,21 +628,20 @@ extern "C" long iir_scratch_bytes(long slots) {
 // table above, on the device. horizon: the predecessor tiles a look-back
 // reads at most (>= 1), the host's bound where every pole's p^(kTile
 // horizon) <= 2^-48. scratch: iir_scratch_bytes(slots) bytes, zeroed
-// once when allocated and then kept by the caller for this stream;
-// `epoch` (nonzero) must differ from the epoch of every earlier call on it
-// since it was zeroed, and `ticket_base` is the count of tickets those
-// calls took (their rows times tiles). Returns 0 or the CUDA error code.
+// once when allocated and then kept by the caller for the calls of one
+// stream (eager or replayed from a CUDA graph, in any order; the header
+// counts them). Returns 0 or the CUDA error code.
 extern "C" int iir_launch(int nrows, const void* const* x, void* const* y,
                           const void* const* zi, void* const* zf,
                           const void* coef, int poles, int order, long n,
-                          long horizon, void* scratch,
-                          long slots, unsigned epoch,
-                          unsigned long long ticket_base, void* stream) {
+                          long horizon, void* scratch, long slots,
+                          void* stream) {
   if (nrows < 1 || nrows > kMaxRows || poles < 1 || poles > kMaxPairs ||
-      order < 1 || order > kMaxOrder || n < 1 || epoch == 0 || horizon < 1)
+      order < 1 || order > kMaxOrder || n < 1 || horizon < 1)
     return (int)cudaErrorInvalidValue;
   const long ntiles = (n + kTile - 1) / kTile;
-  if (ntiles * nrows > 0x7fffffffL || ntiles * nrows > slots)
+  // slots under kStampPeriod: the header's refresh argument
+  if (slots > 0x7fffffffL || ntiles * nrows > slots)
     return (int)cudaErrorInvalidValue;
   Rows rows;
   for (int r = 0; r < kMaxRows; ++r) {
@@ -592,19 +653,20 @@ extern "C" int iir_launch(int nrows, const void* const* x, void* const* y,
   }
   char* s = (char*)scratch;
   Scratch sc;
-  sc.ticket = (unsigned long long*)s;
+  sc.head = (unsigned long long*)s;
+  sc.slots = slots;
   sc.agg = (unsigned long long*)(s + kHeader);
   sc.incl = sc.agg + kSlotWords * slots;
   const float* c = (const float*)coef;
   cudaStream_t st = (cudaStream_t)stream;
   switch (poles) {
     case 1: return run<1>(rows, c, order, n, ntiles, horizon,
-                                  nrows, sc, epoch, ticket_base, st);
+                                  nrows, sc, st);
     case 2: return run<2>(rows, c, order, n, ntiles, horizon,
-                                  nrows, sc, epoch, ticket_base, st);
+                                  nrows, sc, st);
     case 3: return run<3>(rows, c, order, n, ntiles, horizon,
-                                  nrows, sc, epoch, ticket_base, st);
+                                  nrows, sc, st);
     default: return run<4>(rows, c, order, n, ntiles,
-                                   horizon, nrows, sc, epoch, ticket_base, st);
+                                   horizon, nrows, sc, st);
   }
 }

@@ -20,9 +20,11 @@ conjugate pair collapses to one scan of weight 2):
   - ``iir_kernel``: the wrapper, counted under ``iir``; it launches
     ``csrc/iir.cu`` for CUDA tensors (one grid launch a call: a chained
     scan with a decoupled look-back that reads back no further than
-    ``look_back_horizon``, its published states stamped with a per-stream
-    call counter so its scratch is never reset) and takes the plain
-    version, ``iir_diag_reference``, only for tensors on the CPU.
+    ``look_back_horizon``, its published states stamped with a call
+    counter that the kernel keeps in its per-stream scratch, so the
+    scratch is never reset and a call captured in a CUDA graph is a new
+    call at every replay) and takes the plain version,
+    ``iir_diag_reference``, only for tensors on the CPU.
 """
 
 import ctypes
@@ -38,6 +40,7 @@ from gsdr_tpu_torch.kernels.chain import (
     ChainKernel,
     check_operands,
     cuda_error,
+    hold_for_graph,
     load_chain_library,
 )
 
@@ -302,9 +305,9 @@ def _library():
     """The built iir library, its signatures declared."""
     lib = load_chain_library("iir")
     p, pp, i = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
-    u64, lng = ctypes.c_ulonglong, ctypes.c_long
+    lng = ctypes.c_long
     lib.iir_launch.argtypes = [i, pp, pp, pp, pp, p, i, i, lng, lng, p,
-                               lng, ctypes.c_uint, u64, p]
+                               lng, p]
     lib.iir_launch.restype = i
     lib.iir_geometry.argtypes = [ctypes.POINTER(i)] * 4
     lib.iir_geometry.restype = None
@@ -360,33 +363,41 @@ def look_back_horizon(radii, tile):
 
 class _Scratch:
     """The look-back's scratch of one (device, stream): zeroed when
-    allocated, then reused by every call on that stream without a reset,
-    since each call stamps its states with a new 32-bit ``epoch`` and takes
-    its tiles' tickets after ``tickets``; zeroed again (one fill launch)
-    only when the epoch wraps, once in 2^32 - 1 calls."""
+    allocated, then reused by every call on that stream without a reset.
+    Its header, on the device, counts the calls (each stamps its states
+    with a new epoch) and their tickets; ``csrc/iir.cu`` advances it, so
+    eager calls and replays of a CUDA graph share a scratch in any
+    order."""
 
-    __slots__ = ("buf", "slots", "epoch", "tickets")
+    __slots__ = ("buf", "slots")
 
     def __init__(self, slots, dev):
         self.slots = slots
         self.buf = torch.zeros(_library().iir_scratch_bytes(slots),
                                dtype=torch.uint8, device=dev)
-        self.epoch = 0
-        self.tickets = 0
 
 
 MIN_SLOTS = 8192        # tiles the first scratch of a stream holds
-EPOCH_MAX = (1 << 32) - 1
 _scratch = {}
 
 
 def _scratch_for(dev, stream, slots):
     """The scratch of (dev, stream) with room for ``slots`` tiles; a
-    larger one replaces it when a call needs more."""
+    larger one replaces it when a call needs more. Inside a CUDA-graph
+    capture the scratch must exist already (a warm-up call outside the
+    capture makes it), and the graph keeps it alive: its launch holds the
+    pointer, even after an eager call has replaced it here."""
     key = (dev.index, stream)
     s = _scratch.get(key)
+    capturing = torch.cuda.is_current_stream_capturing()
     if s is None or s.slots < slots:
+        if capturing:
+            raise RuntimeError(
+                f"iir: no scratch of {slots} tiles on the capturing stream; "
+                "run the step once on that stream before the capture")
         s = _scratch[key] = _Scratch(max(slots, MIN_SLOTS), dev)
+    if capturing:
+        hold_for_graph(s)
     return s
 
 
@@ -423,26 +434,14 @@ def _launch(x, filt, zi):
         slots = len(rows) * -(-n // tile)
         horizon = look_back_horizon(
             tuple(abs(p) for p in filt.diag.poles), tile)
-        if torch.cuda.is_current_stream_capturing():
-            # a graph would replay this call's epoch and ticket base, and
-            # its look-back would take the last replay's states as this one's
-            raise RuntimeError("iir: the IIR kernel cannot be captured in a "
-                               "CUDA graph (its look-back counts calls on the "
-                               "host); run it outside the capture")
         stream = torch.cuda.current_stream(dev).cuda_stream
         scr = _scratch_for(dev, stream, slots)
-        if scr.epoch == EPOCH_MAX:
-            scr.buf.zero_()
-            scr.epoch = scr.tickets = 0
         with torch.cuda.device(dev):
             err = _library().iir_launch(
                 len(rows), _pointers(rows), _pointers(ys), _pointers(zrows),
                 _pointers(zfs), filt.table.data_ptr(), poles, m, n, horizon,
-                scr.buf.data_ptr(), scr.slots, scr.epoch + 1, scr.tickets,
-                stream)
+                scr.buf.data_ptr(), scr.slots, stream)
         cuda_error("iir", "iir kernel launch", err)
-        scr.epoch += 1
-        scr.tickets += slots
     if planar:
         return ComplexArray(*ys), ComplexArray(*zfs)
     return ys[0], zfs[0]

@@ -4,10 +4,12 @@ Counterpart of ``gsdr_tpu/runtime/stream_runner.py``. A sample source
 (an IQ file, a socket, an SDR driver) feeds the native ring buffer; the
 runner takes fixed blocks from it (the overlap is the model's carried
 state, not the framer's) and calls ``step(state, block)`` with the state
-threaded through. There is no jit: ``step`` runs as it is. On the card
-each block goes to the device through a pinned host buffer, by a copy
-that does not block the host; the next block waits for that copy before
-it reuses the buffer.
+threaded through. On the card the step is compiled, as the JAX package
+jits it (``utils/compile.py``: one CUDA graph, captured at the first
+block), and each block goes from one pinned host buffer straight into the
+graph's static block, by a copy that does not block the host; the next
+block waits for that copy before it reuses the buffer. On the CPU the
+step runs as it is.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from gsdr_tpu_torch.runtime.host import (
     int8_iq_to_planar,
     int16_iq_to_planar,
 )
+from gsdr_tpu_torch.utils.compile import compile_step
 
 
 class IqFileSource:
@@ -56,9 +59,11 @@ class StreamRunner:
     source, the state carried in ``self.state``.
 
     ``device`` (default 'cuda', which raises where CUDA is missing) is
-    where the blocks are staged. ``stats`` counts the samples fed, the
-    blocks processed and the ring's high watermark; feeding more than the
-    ring holds raises.
+    where the blocks are staged; on the card the step is compiled, and
+    ``state`` is then the graph's buffers, valid until the next block (a
+    checkpoint, ``utils/checkpoint.py``, copies them). ``stats`` counts
+    the samples fed, the blocks processed and the ring's high watermark;
+    feeding more than the ring holds raises.
     """
 
     def __init__(self, step, init_state, block_len, ring_capacity=None,
@@ -70,7 +75,7 @@ class StreamRunner:
                 "available; pass device='cpu'")
         self.block_len = int(block_len)
         self.device = device
-        self._step = step
+        self._step = compile_step(step) if device.type == "cuda" else step
         self.state = init_state
         self.ring = RingBuffer(ring_capacity or 4 * self.block_len)
         self.stats = {
@@ -78,7 +83,7 @@ class StreamRunner:
             "blocks_processed": 0,
             "ring_high_watermark": 0,
         }
-        self._pinned = self._copied = None
+        self._pinned = self._copied = self._static = None
         if device.type == "cuda":
             self._pinned = torch.empty((2, self.block_len),
                                        dtype=torch.float32, pin_memory=True)
@@ -104,10 +109,18 @@ class StreamRunner:
             self._copied.synchronize()  # the last copy has left the buffer
         planes = self._pinned.numpy()
         self.ring.read_planar(self.block_len, (planes[0], planes[1]))
-        dev = self._pinned.to(self.device, non_blocking=True)
+        if self._static is None:
+            # the first block: the graph is captured on it, and its
+            # static block takes every later one
+            dev = self._pinned.to(self.device, non_blocking=True)
+            self._static = self._step.block_buffer(
+                self.state, ComplexArray(dev[0], dev[1]))
+        else:
+            self._static.re.copy_(self._pinned[0], non_blocking=True)
+            self._static.im.copy_(self._pinned[1], non_blocking=True)
         self._copied = torch.cuda.Event()
         self._copied.record()
-        return ComplexArray(dev[0], dev[1])
+        return self._static
 
     def pump(self):
         """Process every full block buffered; returns the step outputs,

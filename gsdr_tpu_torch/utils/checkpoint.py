@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gsdr_tpu_torch.carray import ComplexArray
+from gsdr_tpu_torch.utils.tree import tree_flatten, tree_unflatten
 
 
 def _children(node):
@@ -41,23 +42,6 @@ def flatten_with_keys(state, prefix=""):
     for key, child in kids:
         out.extend(flatten_with_keys(child, prefix + key))
     return out
-
-
-def _rebuild(like, leaves):
-    """``like`` with its leaves replaced, in order, from the iterator."""
-    if like is None:
-        return None
-    if isinstance(like, ComplexArray):
-        return ComplexArray(next(leaves), next(leaves))
-    if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_rebuild(getattr(like, f), leaves)
-                            for f in like._fields))
-    if isinstance(like, (tuple, list)):
-        return type(like)(_rebuild(c, leaves) for c in like)
-    if isinstance(like, dict):
-        rebuilt = {k: _rebuild(like[k], leaves) for k in sorted(like)}
-        return {k: rebuilt[k] for k in like}
-    return next(leaves)
 
 
 def _to_numpy(leaf):
@@ -99,4 +83,4 @@ def load_state(path, like):
             if key not in data:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             leaves.append(_like_leaf(key, data[key], tmpl))
-    return _rebuild(like, iter(leaves))
+    return tree_unflatten(tree_flatten(like)[1], leaves)

@@ -1,11 +1,13 @@
 """Timing of streaming steps (counterpart of ``gsdr_tpu/utils/timing.py``).
 
-A burst of ``iters`` chained steps, the state threaded from one to the
-next, is timed between two CUDA events (on the CPU, the host clock); the
-result is the median over ``reps`` bursts, per step. Torch runs eagerly,
-so nothing is compiled away and no overhead is subtracted: the time
-includes the host's work of issuing each step, which is what a streaming
-caller pays.
+On the card, as the JAX package times one jitted program of K chained
+steps, ``time_step`` captures ``iters`` chained steps as one CUDA graph
+(``utils/compile.py``) and times replays of it between two CUDA events;
+the result is the median over ``reps`` replays, per step. ``eager=True``
+times a burst of ``iters`` eager steps instead, what a caller without
+capture pays, the host's work of issuing each step included; on the CPU
+the steps always run eagerly, timed by the host clock. No overhead is
+subtracted.
 """
 
 import statistics
@@ -13,36 +15,55 @@ import time
 
 import torch
 
+from gsdr_tpu_torch.utils.compile import compile_step, device_of
 
-def device_of(block):
-    """The device of a block (a tensor or ComplexArray); the CPU for
-    anything without one."""
-    dev = getattr(block, "device", None)
-    return torch.device(dev) if dev is not None else torch.device("cpu")
+__all__ = ["device_of", "time_step"]
 
 
-def time_step(step, state, block, iters=20, reps=3):
-    """Median seconds per ``step(state, block)`` over ``reps`` bursts of
-    ``iters`` chained steps, after one warm-up step."""
+def _events(run):
+    """Milliseconds of run() between two CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def time_step(step, state, block, iters=20, reps=3, eager=False):
+    """Median seconds per ``step(state, block)``, the state threaded from
+    step to step: over ``reps`` replays of one CUDA graph of ``iters``
+    chained steps on the card, or over ``reps`` bursts of ``iters`` eager
+    steps (``eager=True``, or a block on the CPU), after one warm-up."""
     if iters < 1 or reps < 1:
         raise ValueError("iters and reps must be >= 1")
     cuda = device_of(block).type == "cuda"
+    if cuda and not eager:
+        run = compile_step(step, steps=iters)
+        block = run.block_buffer(state, block)   # no copy at each replay
+        state, _ = run(state, block)
+        per_step = []
+        for _ in range(reps):
+            def replay():
+                nonlocal state
+                state, _ = run(state, block)
+
+            per_step.append(_events(replay) * 1e-3 / iters)
+        return statistics.median(per_step)
     state, _ = step(state, block)
     per_step = []
     for _ in range(reps):
-        if cuda:
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        def burst():
+            nonlocal state
             for _ in range(iters):
                 state, _ = step(state, block)
-            end.record()
-            end.synchronize()
-            per_step.append(start.elapsed_time(end) * 1e-3 / iters)
+
+        if cuda:
+            per_step.append(_events(burst) * 1e-3 / iters)
         else:
             t0 = time.perf_counter()
-            for _ in range(iters):
-                state, _ = step(state, block)
+            burst()
             per_step.append((time.perf_counter() - t0) / iters)
     return statistics.median(per_step)

@@ -935,8 +935,9 @@ def test_iir_look_back_crosses_windows_on_card(card, name, per_sm):
 def test_iir_scratch_reused_without_reset_on_card(card):
     """Calls of every size and both row counts on one stream reuse one
     scratch, no reset between them (the flags carry the call's epoch):
-    each call still matches the plain scan, and the scratch and its
-    ticket count follow the calls."""
+    each call still matches the plain scan, and the scratch's header, on
+    the device, follows the calls: its epoch index advanced once a call,
+    no ticket left taken."""
     from gsdr_tpu_torch.kernels import iir as tk
 
     b, a = (np.float32(v) for v in LONG_MEMORY["slow_real"])
@@ -946,9 +947,16 @@ def test_iir_scratch_reused_without_reset_on_card(card):
     stream = torch.cuda.current_stream().cuda_stream
     tk.iir_kernel(torch.randn(1 << 20, device="cuda"), filt, None)
     scr = tk._scratch[(0, stream)]
-    buf, epoch, tickets = scr.buf, scr.epoch, scr.tickets
-    expect = tickets
-    for i, n in enumerate([1 << 18, 5000, 1 << 20, 1, (1 << 18) + 3] * 3):
+    buf = scr.buf
+
+    def header():
+        head = buf[:8].view(torch.int64).item()
+        return head >> 32, head & 0xffffffff
+
+    index, tickets = header()
+    assert tickets == 0
+    sizes = [1 << 18, 5000, 1 << 20, 1, (1 << 18) + 3] * 3
+    for i, n in enumerate(sizes):
         x = torch.randn(n, generator=g, device="cuda")
         zi = torch.randn(1, generator=g, device="cuda")
         if i % 2:
@@ -956,35 +964,11 @@ def test_iir_scratch_reused_without_reset_on_card(card):
             y, zf = tk.iir_kernel(xp, filt, TCA(zi, -zi))
             _iir_check(b, a, x, zi, y.re, zf.re)
             _iir_check(b, a, xp.im, -zi, y.im, zf.im)
-            rows = 2
         else:
             y, zf = tk.iir_kernel(x, filt, zi)
             _iir_check(b, a, x, zi, y, zf)
-            rows = 1
-        expect += rows * -(-n // tk._geometry().tile)
     assert tk._scratch[(0, stream)] is scr and scr.buf is buf
-    assert scr.epoch == epoch + 15 and scr.tickets == expect
-
-
-@pytest.mark.cuda
-def test_iir_kernel_refuses_graph_capture_on_card(card):
-    """B5's look-back counts calls on the host, so a captured call would
-    replay a stale epoch: the wrapper raises inside a capture, and the
-    stream's scratch goes on serving calls outside it."""
-    from gsdr_tpu_torch.kernels.iir import iir_filter, iir_kernel
-
-    b, a = IIR_FILTERS["bench_biquad"]
-    filt = iir_filter(b, a, "cuda")
-    x = torch.randn(1 << 18, device="cuda")
-    iir_kernel(x, filt, None)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with pytest.raises(RuntimeError, match="CUDA graph"):
-        with torch.cuda.graph(graph):
-            iir_kernel(x, filt, None)
-    zi = torch.randn(2, device="cuda")
-    y, zf = iir_kernel(x, filt, zi)
-    _iir_check(np.float32(b), np.float32(a), x, zi, y, zf)
+    assert header() == (index + len(sizes), 0)
 
 
 @pytest.mark.cuda
@@ -1279,7 +1263,10 @@ def test_fm_rx_on_card_resumes_bit_equal(card, tmp_path):
     state = str(tmp_path / "st.npz")
     before = fm_chain.launches
     whole = run(raw, "w.f32")
-    assert fm_chain.launches == before + 8
+    # the runner compiles the step: one eager warm-up launch and the
+    # capture's; the 8 blocks replay the graph (counted by the profiler in
+    # test_stream_runner_replays_its_graph_on_card)
+    assert fm_chain.launches == before + 2
     first = run(raw[:len(raw) // 2], "a.f32", "--save-state", state)
     second = run(raw[len(raw) // 2:], "b.f32", "--load-state", state)
     np.testing.assert_array_equal(np.concatenate([first, second]), whole)
@@ -1410,3 +1397,368 @@ def test_two_gloo_ranks_share_the_card(card, tmp_path):
     rx = _tiles(ranks, "[1, 2]", "q256:rx")
     assert rx.dtype == np.int32
     np.testing.assert_array_equal(rx, inputs["sym"])
+
+
+# ---------------------------------------------------------------------------
+# The compiled step (utils/compile.py) on the card
+# ---------------------------------------------------------------------------
+
+CBLOCK = 1 << 18      # samples a block of the compiled paths here
+CSTEPS = 8            # chained blocks
+# tile kernels of each wrapper, as torch.profiler names them
+FAMILIES = {"fm_chain": "fm_chain_tile<false", "pfb_fm_chain":
+            "fm_chain_tile<true", "am_chain": "am_chain_tile<false",
+            "pfb_am_chain": "am_chain_tile<true", "channelize":
+            "channelize_tile<", "iir": "iir_chained<", "qpsk256":
+            "qpsk256_demod<"}
+
+
+def _stream_fm_chain(impl="auto"):
+    import math
+
+    import scipy.signal as ss
+    from gsdr_tpu_torch.pipelines import fm_deemphasis_coeffs
+    from gsdr_tpu_torch.stream import (Chain, FirStream, IirStream,
+                                       MixerStream, QuadFmStream, SosStream)
+
+    rate = FS / 4
+    b, a = fm_deemphasis_coeffs(75e-6, rate)
+    sos = tuple(tuple(r) for r in
+                ss.butter(8, 15e3, fs=rate, output="sos").tolist())
+    h = np.sinc(2 * 0.03 * (np.arange(64) - 31.5)) * np.hamming(64)
+    return Chain((MixerStream(-100_000.0, FS),
+                  FirStream(tuple((h / h.sum()).tolist()), 4),
+                  QuadFmStream(rate / (2 * math.pi * 75_000.0)),
+                  IirStream(b, a, impl=impl), SosStream(sos, impl=impl)))
+
+
+def _carrier_blocks(n, steps):
+    t = torch.arange(n * steps, dtype=torch.float64, device="cuda") / FS
+    ph = 2 * np.pi * 100_000.0 * t + 10.0 * torch.sin(2 * np.pi * 1000.0 * t)
+    rf = TCA(torch.cos(ph).float().contiguous(),
+             torch.sin(ph).float().contiguous())
+    return [TCA(rf.re[i * n:(i + 1) * n].clone(),
+                rf.im[i * n:(i + 1) * n].clone()) for i in range(steps)]
+
+
+def _planar_blocks(re, im, n, steps):
+    return [TCA(re[i * n:(i + 1) * n].contiguous(),
+                im[i * n:(i + 1) * n].contiguous()) for i in range(steps)]
+
+
+def _compiled_path(name):
+    """(step, initial state, blocks, the wrapper it launches and its
+    launches a step, exact): the main paths of chip_smoke.py at a block
+    of CBLOCK samples."""
+    from gsdr_tpu_torch.ops.pfb import pfb_channelize_block
+
+    n = CBLOCK
+    if name == "flagship":
+        m = _model("auto", 16, 64, 4)
+        freqs = tuple(-480_000.0 + 60_000.0 * i for i in range(16))
+        blocks = _planar_blocks(*_fm_signal(freqs, n * CSTEPS, 1), n, CSTEPS)
+        return m.step, m.init(), blocks, ("fm_chain", 1), True
+    if name in ("fm_wideband", "am_wideband"):
+        cls = FmChannelizer if name == "fm_wideband" else AmReceiver
+        kw = {"frequency_deviation": 1_000.0} if name == "fm_wideband" \
+            else {}
+        m = _grid_model(cls, "auto", 64, 64, 512, 64, **kw)
+        assert m.front == "pfb"
+        sig = _grid_fm_signal if name == "fm_wideband" else _am_signal
+        freqs = [-(FS / 64) * i for i in range(64)]
+        blocks = _planar_blocks(*sig(freqs, n * CSTEPS, 2), n, CSTEPS)
+        kern = "pfb_fm_chain" if name == "fm_wideband" else "pfb_am_chain"
+        return m.step, m.init(), blocks, (kern, 1), True
+    if name == "am_d":
+        h = np.sinc(2 * 0.04 * (np.arange(32) - 15.5)) * np.hamming(32)
+        freqs = tuple(-200_000.0 + 50_000.0 * i for i in range(8))
+        m = AmReceiver(sample_rate=FS, tuning_frequency=0.0,
+                       channel_frequencies=freqs, decimation=4,
+                       low_pass_taps=tuple(h / h.sum()), device="cuda")
+        assert m.front == "toeplitz"
+        blocks = _planar_blocks(*_am_signal(freqs, n * CSTEPS, 3), n, CSTEPS)
+        return m.step, m.init(), blocks, ("am_chain", 1), True
+    if name == "transmux":
+        k = 32
+        h = np.sinc(2 * (0.5 / k) * (np.arange(8 * k) - (8 * k - 1) / 2))
+        taps = tuple((h * np.hamming(8 * k) / (h * np.hamming(8 * k)).sum())
+                     .tolist())
+
+        def step(tail, rf):
+            y, tail = pfb_channelize_block(rf, taps, k, tail=tail)
+            return tail, y
+
+        g = torch.Generator(device="cuda")
+        g.manual_seed(4)
+        blocks = [TCA(torch.randn(n, generator=g, device="cuda"),
+                      torch.randn(n, generator=g, device="cuda"))
+                  for _ in range(CSTEPS)]
+        return step, TCA(torch.zeros(7 * k, device="cuda"),
+                         torch.zeros(7 * k, device="cuda")), blocks, \
+            ("channelize", 1), True
+    if name == "qpsk256":
+        modem = Qpsk256Modem(CIRCULAR, 1.0, exact_tables=True,
+                             device="cuda")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(5)
+        blocks = []
+        for _ in range(CSTEPS):
+            x = qpsk256_constellation(CIRCULAR, 1.0, planar=True,
+                                      device="cuda")
+            idx = torch.randint(0, 256, (n // 2,), generator=g,
+                                device="cuda")
+            blocks.append(TCA(
+                x.re[idx] + 0.05 * torch.randn(n // 2, generator=g,
+                                               device="cuda"),
+                x.im[idx] + 0.05 * torch.randn(n // 2, generator=g,
+                                               device="cuda")))
+        return (lambda s, b: (s, modem.rx(b))), (), blocks, \
+            ("qpsk256", 1), True
+    if name == "iir_standalone":
+        from gsdr_tpu_torch.stream import IirStream
+
+        b, a = IIR_FILTERS["bench_biquad"]
+        op = IirStream(b, a)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(6)
+        blocks = [torch.randn(n, generator=g, device="cuda")
+                  for _ in range(CSTEPS)]
+        return op.step, op.init(blocks[0]), blocks, ("iir", 1), False
+    chain = _stream_fm_chain()
+    blocks = _carrier_blocks(n, CSTEPS)
+    return chain.step, chain.init(blocks[0]), blocks, ("iir", 5), False
+
+
+COMPILED_PATHS = ["flagship", "fm_wideband", "am_wideband", "am_d",
+                  "transmux", "qpsk256", "iir_standalone", "stream_fm"]
+
+
+def _chained(step, state, blocks):
+    outs = []
+    for blk in blocks:
+        state, y = step(state, blk)
+        outs.append(y)
+    return state, outs
+
+
+def _leaves(tree):
+    from gsdr_tpu_torch.utils.tree import tree_flatten
+
+    return tree_flatten(tree)[0]
+
+
+def _family_records(fn, reps=20):
+    """Device records per call of fn() by wrapper (FAMILIES), from
+    torch.profiler, rounded, and the total of device records per call. A
+    trace can lose a record, or hold one an earlier trace lost: an empty
+    trace first takes those, and the counts over 20 calls are rounded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if str(e.device_type).endswith("CUDA")]
+    per = {k: round(sum(fam in nm for nm in names) / reps)
+           for k, fam in FAMILIES.items()}
+    return per, len(names) / reps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", COMPILED_PATHS)
+def test_compiled_main_path_equals_eager_on_card(card, name):
+    """Each main path compiled over 8 chained blocks against its eager
+    step: bit for bit for B1-B4 and B6 (outputs and every state leaf), at
+    B5's gate for the B5 paths (1e-5 of max|y| for the biquad; stream_fm's
+    audio within 1e-4 of max|audio| after the warm-up and its states within
+    1e-4, as its kernel-against-plain gate); one graph; an eager call after
+    the capture still equals the eager step; and a replay launches the
+    path's kernel as often as the eager step (torch.profiler)."""
+    from gsdr_tpu_torch.utils.compile import compile_step
+
+    step, state0, blocks, (kern, per_step), exact = _compiled_path(name)
+    se, ye = _chained(step, state0, blocks)
+    compiled = compile_step(step)
+    sc, yc = _chained(compiled, state0, blocks)
+    torch.cuda.synchronize()
+    assert compiled.graphs == 1
+    pairs = list(zip(_leaves(yc), _leaves(ye))) + \
+        list(zip(_leaves(sc), _leaves(se)))
+    if exact:
+        for got, want in pairs:
+            assert got.dtype == want.dtype and torch.equal(got, want)
+    elif name == "iir_standalone":
+        scale = float(torch.cat(ye).abs().max())
+        for got, want in pairs:
+            assert float((got - want).abs().max()) <= 1e-5 * scale
+    else:
+        y_c, y_e = torch.cat(yc)[SKIP:], torch.cat(ye)[SKIP:]
+        assert float((y_c - y_e).abs().max()) <= 1e-4 * float(
+            y_e.abs().max())
+        for got, want in list(zip(_leaves(sc), _leaves(se)))[1:]:
+            assert float((got - want).abs().max()) <= 1e-4
+    # an eager step after the capture: the tables built in the warm-up
+    s1, y1 = step(state0, blocks[0])
+    s2, y2 = compiled(state0, blocks[0])
+    if exact:
+        for got, want in zip(_leaves((s2, y2)), _leaves((s1, y1))):
+            assert torch.equal(got, want)
+    per, _ = _family_records(lambda: compiled(sc, blocks[1]))
+    want = {k: (per_step if k == kern else 0) for k in FAMILIES}
+    assert per == want
+
+
+@pytest.mark.cuda
+def test_compiled_out_is_the_callers_and_new_length_captures_on_card(card):
+    """The flagship compiled: ``out`` is unchanged by the next replay, the
+    state returned is the graph's buffers and passed back is not copied
+    (the next replay still equals the eager chain), a new block length
+    captures a second graph and both stay right."""
+    from gsdr_tpu_torch.utils.compile import compile_step
+
+    step, state0, blocks, _, _ = _compiled_path("flagship")
+    compiled = compile_step(step)
+    s1, y1 = compiled(state0, blocks[0])
+    keep = y1.clone()
+    s2, y2 = compiled(s1, blocks[1])
+    assert torch.equal(y1, keep)
+    assert all(a is b for a, b in zip(_leaves(s1), _leaves(s2)))
+    e1, f1 = step(state0, blocks[0])
+    e2, f2 = step(e1, blocks[1])
+    assert torch.equal(y2, f2)
+    half = TCA(blocks[2].re[:CBLOCK // 2].contiguous(),
+               blocks[2].im[:CBLOCK // 2].contiguous())
+    s3, y3 = compiled(s2, half)
+    assert compiled.graphs == 2
+    e3, f3 = step(e2, half)
+    assert torch.equal(y3, f3)
+    s4, y4 = compiled(s3, blocks[3])
+    assert compiled.graphs == 2
+    assert torch.equal(y4, step(e3, blocks[3])[1])
+
+
+@pytest.mark.cuda
+def test_b5_eager_calls_interleave_with_replays_on_card(card):
+    """B5 captured in a graph and called eagerly, alternately, on the
+    capture's stream (one scratch, its device header counting both) and
+    on the default stream: every result within B5's gate of the plain
+    scan."""
+    from gsdr_tpu_torch.kernels.iir import iir_filter, iir_kernel
+    from gsdr_tpu_torch.utils.compile import compile_step
+
+    b, a = (np.float32(v) for v in IIR_FILTERS["order8"])
+    filt = iir_filter(b, a, "cuda")
+    compiled = compile_step(lambda zi, x: iir_kernel(x, filt, zi)[::-1])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    zi = torch.randn(len(b) - 1, generator=g, device="cuda")
+    for i in range(6):
+        x = torch.randn(1 << 18, generator=g, device="cuda")
+        zf, y = compiled(zi, x)
+        _iir_check(b, a, x, zi, y, zf)
+        stream = compiled._streams[x.device]
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream if i % 2 else
+                               torch.cuda.current_stream()):
+            x2 = torch.randn(1 << 18 if i % 3 else 5000, generator=g,
+                             device="cuda")
+            y2, zf2 = iir_kernel(x2, filt, zi)
+        torch.cuda.current_stream().wait_stream(stream)
+        _iir_check(b, a, x2, zi, y2, zf2)
+        zi = zf.clone()
+
+
+@pytest.mark.cuda
+def test_b5_scratch_growth_keeps_the_graph_on_card(card):
+    """An eager call on the capture's stream that needs more tiles than
+    its scratch holds replaces that scratch; the graph captured before
+    holds the old one and its replays stay right."""
+    from gsdr_tpu_torch.kernels import iir as tk
+    from gsdr_tpu_torch.utils.compile import compile_step
+
+    b, a = (np.float32(v) for v in IIR_FILTERS["bench_biquad"])
+    filt = tk.iir_filter(b, a, "cuda")
+    compiled = compile_step(lambda zi, x: tk.iir_kernel(x, filt, zi)[::-1])
+    zi = torch.zeros(2, device="cuda")
+    x = torch.randn(1 << 18, device="cuda")
+    zf, y = compiled(zi, x)
+    stream = compiled._streams[x.device]
+    key = (x.device.index, stream.cuda_stream)
+    old = tk._scratch[key]
+    graph = next(iter(compiled._graphs.values()))
+    assert any(r is old for r in graph.refs)
+    big = (old.slots + 1) * tk._geometry().tile
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        xb = torch.randn(big, device="cuda")
+        yb, zb = tk.iir_kernel(xb, filt, zi)
+    torch.cuda.current_stream().wait_stream(stream)
+    assert tk._scratch[key] is not old
+    _iir_check(b, a, xb, zi, yb, zb)
+    for _ in range(3):
+        x = torch.randn(1 << 18, device="cuda")
+        zf0 = zf.clone()
+        zf, y = compiled(zf0, x)
+        _iir_check(b, a, x, zf0, y, zf)
+
+
+@pytest.mark.cuda
+def test_compiled_step_with_a_host_sync_raises_on_card(card):
+    """A step that reads a value back to the host cannot be captured: the
+    compiled step raises with the capture's error, and runs nothing in its
+    place; the card goes on serving other steps."""
+    from gsdr_tpu_torch.utils.compile import compile_step
+
+    def step(state, x):
+        return state + float(x.sum().item()), x * 2.0
+
+    compiled = compile_step(step)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        compiled(torch.zeros((), device="cuda"), torch.ones(8, device="cuda"))
+    assert compiled.graphs == 0
+    ok = compile_step(lambda s, x: (s + x.sum(), x * 2.0))
+    s, y = ok(torch.zeros((), device="cuda"), torch.ones(8, device="cuda"))
+    assert float(s) == 8.0 and torch.equal(y, torch.full((8,), 2.0,
+                                                         device="cuda"))
+
+
+@pytest.mark.cuda
+def test_stream_runner_replays_its_graph_on_card(card):
+    """StreamRunner on the card compiles its step and stages each block
+    straight into the graph's static block: 8 blocks of the flagship give
+    the eager step's audio bit for bit, one graph, the runner's block the
+    graph's; a replay launches B1 once (torch.profiler)."""
+    from gsdr_tpu_torch.runtime import StreamRunner
+
+    step, state0, blocks, _, _ = _compiled_path("flagship")
+    runner = StreamRunner(step, state0, block_len=CBLOCK, device="cuda")
+    outs = []
+    for blk in blocks:
+        runner.feed_planar(blk.re.cpu().numpy(), blk.im.cpu().numpy())
+        outs.extend(runner.pump())
+    _, want = _chained(step, state0, blocks)
+    assert all(torch.equal(o, w) for o, w in zip(outs, want))
+    assert runner._step.graphs == 1
+    static = runner._step.block_buffer(runner.state, blocks[0])
+    assert static.re is runner._static.re
+    per, _ = _family_records(lambda: runner._step(runner.state, static))
+    assert per["fm_chain"] == 1
+
+
+@pytest.mark.cuda
+def test_time_step_times_a_graph_and_an_eager_burst_on_card(card):
+    """time_step on the card: a k-step graph by default and the eager
+    burst on request, both positive, the graph's no slower than the
+    burst by more than the out clone's share."""
+    from gsdr_tpu_torch.utils.timing import time_step
+
+    step, state0, blocks, _, _ = _compiled_path("flagship")
+    graph = time_step(step, state0, blocks[0], iters=8, reps=3)
+    eager = time_step(step, state0, blocks[0], iters=8, reps=3, eager=True)
+    assert 0 < graph and 0 < eager
+    assert graph <= 1.5 * eager

@@ -422,6 +422,64 @@ def test_chained_scan_crosses_look_back_windows(name, tiles):
     _check_chained(name, tiles * g.tile - 5, 4)
 
 
+def _header_calls(period, slots, grids, refresh="all"):
+    """csrc/iir.cu's scratch header over calls of ``grids`` (each a call's
+    (tiles, poles)), transliterated at an epoch period of ``period``: each
+    call's epoch is its head's index h + 1; its blocks write both states
+    of every slot they own, as far as their poles; the block of the last
+    ticket sets the next index and refreshes slot h mod ``slots``: every
+    word outside the grid, the words past the poles inside it
+    (``refresh`` 'all'), outside the grid only ('outside'), or none.
+    Returns the first call (index, its epoch) that could read a word of
+    its own epoch that it has not written, or None."""
+    words = 2 * tk.MAX_PAIRS
+    stamp = np.zeros((2, slots, words), np.int64)    # agg, incl; 0: zeroed
+    index = 0
+    for c, (grid, poles) in enumerate(grids):
+        epoch = index + 1
+        assert 1 <= epoch <= period
+        if np.any(stamp[:, :grid, :2 * poles] == epoch):
+            return c, epoch
+        stamp[:, :grid, :2 * poles] = epoch
+        cur = index % slots
+        if refresh != "none" and cur >= grid:
+            stamp[:, cur, :] = epoch
+        elif refresh == "all":
+            stamp[:, cur, 2 * poles:] = epoch
+        index = (index + 1) % period
+    return None
+
+
+def test_scratch_header_never_serves_a_stale_epoch():
+    """The device-side call counter of B5 (csrc/iir.cu's header): with
+    2 * slots - 1 under the epoch period (the launch refuses more than
+    0x7fffffff slots, the period is 2^32 - 1), no call can take a word
+    stamped with its epoch by an earlier call, for random calls, across
+    the index's wrap, and for the worst patterns (a call over every slot
+    at four poles, then calls of one tile, or of one pole, until its
+    epoch comes round, then a call over every slot at four poles again).
+    Without the refresh, or with slots refreshed only outside the grid,
+    those patterns do serve one: the check has teeth."""
+    src = (Path(tk.__file__).parent / "csrc" / "iir.cu").read_text()
+    period = int(re.search(r"kStampPeriod = (0x[0-9a-f]+)ull", src).group(1),
+                 16)
+    assert period == (1 << 32) - 1
+    assert "slots > 0x7fffffffL" in src and 2 * 0x7fffffff - 1 < period
+    period, slots = 13, 6
+    rng = np.random.default_rng(0)
+    grids = [(int(rng.integers(1, slots + 1)), int(rng.integers(1, 5)))
+             for _ in range(5000)]
+    assert _header_calls(period, slots, grids) is None
+    # the epoch of call 0 comes back at call `period`
+    worst = [(slots, 4)] + [(1, 1)] * (period - 1) + [(slots, 4)]
+    assert _header_calls(period, slots, worst) is None
+    assert _header_calls(period, slots, worst, refresh="none") == (period, 1)
+    wide = [(slots, 4)] + [(slots, 1)] * (period - 1) + [(slots, 4)]
+    assert _header_calls(period, slots, wide) is None
+    assert _header_calls(period, slots, wide, refresh="outside") == \
+        (period, 1)
+
+
 def test_routing_on_cpu():
     """'auto' on the CPU is the plain scan, bit for bit; 'cuda' raises off
     the card; the wrapper takes its plain version for CPU tensors and

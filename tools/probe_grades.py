@@ -24,6 +24,13 @@
          output types. It uses only what every tree of the port since B5
          has, so it times an older tree too: copy this file into that
          tree's tools/ and run it there.
+  compiled: where a compiled step's call spends its host time, for the
+         flagship (bf16x3), the table-exact QPSK256 rx and stream_fm at
+         chip_smoke.py's shapes: the host's enqueue time of one call of
+         the eager step, of the compiled step (utils/compile.py) with the
+         block copied in, and of its parts (the signature, the block's
+         copy, the graph's replay, the clone of out), beside the call's
+         time by CUDA events and a 20-step graph's time per step.
   fm_rx: the fm_rx command line at chip_smoke.py's five-station capture
          (2^24 int8 samples at 2.048 MHz, blocks of 2^20, the CLI's
          defaults): the wall clock of a warm run file to file without the
@@ -36,6 +43,7 @@ kernels are built from this checkout):
     python3 tools/probe_grades.py b4
     python3 tools/probe_grades.py b5b6
     python3 tools/probe_grades.py fm_rx
+    python3 tools/probe_grades.py compiled
 """
 
 import inspect
@@ -233,6 +241,49 @@ def b5b6():
             flush=True)
 
 
+def compiled():
+    from gsdr_tpu_torch.utils.compile import compile_step, signature
+    from gsdr_tpu_torch.utils.timing import time_step
+    from gsdr_tpu_torch.utils.tree import tree_flatten
+
+    paths = {p[0]: p for p in cs.compiled_paths(None)
+             if p[0] in ("flagship_bf16x3", "qpsk256_rx", "stream_fm")}
+    for name, step, state0, blocks, _, _, _ in paths.values():
+        block = blocks[0]
+        run = compile_step(step)
+        state, out = run(state0, block)
+        graph = run._graph(state, block)[0]
+        s_leaves, b_leaves = tree_flatten(state)[0], tree_flatten(block)[0]
+        st_e, st_c = state0, state
+
+        def eager():
+            nonlocal st_e
+            st_e, _ = step(st_e, block)
+
+        def call():
+            nonlocal st_c
+            st_c, _ = run(st_c, block)
+
+        def copy_block():
+            for buf, leaf in zip(graph.block_in, b_leaves):
+                buf.copy_(leaf)
+
+        outs = tree_flatten(out)[0]
+        print(json.dumps({
+            "probe": "compiled_call", "path": name,
+            "eager_host_us": host_us(eager), "eager_ms": cs.cuda_ms(
+                eager, reps=REPS),
+            "compiled_host_us": host_us(call),
+            "compiled_ms": cs.cuda_ms(call, reps=REPS),
+            "signature_host_us": host_us(lambda: signature(st_c, block)),
+            "block_copy_host_us": host_us(copy_block),
+            "replay_host_us": host_us(graph.graph.replay),
+            "out_clone_host_us": host_us(lambda: [x.clone() for x in outs]),
+            "graph_20_step_ms": time_step(step, state0, block, iters=20,
+                                          reps=5) * 1e3,
+            "state_leaves": len(s_leaves), "card": cs.CARD}), flush=True)
+
+
 def fm_rx():
     import cProfile
     import pstats
@@ -268,7 +319,8 @@ def fm_rx():
 
 def main():
     if not torch.cuda.is_available() or len(sys.argv) != 2 \
-            or sys.argv[1] not in ("steps", "b4", "b5b6", "fm_rx"):
+            or sys.argv[1] not in ("steps", "b4", "b5b6", "fm_rx",
+                                   "compiled"):
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
@@ -284,6 +336,9 @@ def main():
     elif sys.argv[1] == "fm_rx":
         _build.build_all(["fm_chain"])
         fm_rx()
+    elif sys.argv[1] == "compiled":
+        _build.build_all(["fm_chain", "iir", "qpsk256"])
+        compiled()
     else:
         _build.build_all(["channelize", "fm_chain"])
         steps() if sys.argv[1] == "steps" else b4()
