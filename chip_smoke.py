@@ -66,6 +66,19 @@ full width, 2^20 planar complex samples per step:
      after Chain.init (40 B5 launches and nothing else), against the same
      chain with plain IIR stages, the tone checked, step time and idle
      share;
+ 11. the dense front beyond one block, each path through its kernel in
+     chunks of taps (the planner's, checked below T): a narrowband FM
+     scanner (Fs 2.4 MHz, 16 channels 25 kHz apart, T=257, D=128) and the
+     flagship's channels through a 2049-tap filter at bf16x3 and f32
+     (B1), am_d's channels at T=1021, D=128 (B3-dense), the transmux's
+     K=32 at Q=127 (B4, pfb_channelize_block(impl='auto')), each 8 steps
+     counted, held to its plain version at the grade and to the f32
+     plain chain (the fold path for B4), tones checked, compiled
+     bit-equal to the eager steps, timed; fm_demod and am_demod at T=65,
+     D=256 (one launch each, one chunk of 72 of 256 phases); then
+     launches forced to stage 8, 24 or 64 taps at a time held bit-equal
+     to the one-chunk launch: B1 at the flagship at each grade, B3-dense
+     at am_d, B4 at the transmux's K=32, Q=8;
  12. the single-channel ops on the verify recipe's signal (one FM
      carrier at +100 kHz, a 1-kHz tone at 5-kHz deviation, 65 taps, D=4,
      2^20 samples): fm_demod(impl='auto') counted (one B1 launch at C=1
@@ -118,8 +131,9 @@ full width, 2^20 planar complex samples per step:
      time, idle share, a 20-step graph's time per step and the time of
      the clone of `out`;
  17. prints one JSON `kernels` line (B1, B2, B3-PFB, B3-dense and B4 once
-     per grade, B6, B5; each with its phase-15 `sharded_launches`) and,
-     last, {"ok": true, "device": {...}}.
+     per grade, B6, B5, and phase 11's seven paths with their `path` and
+     `chunk`; each with its phase-15 `sharded_launches`) and, last,
+     {"ok": true, "device": {...}}.
 
 Timing: CUDA events around bursts of back-to-back calls (median of
 bursts) and device time per kernel from torch.profiler. Launches made to
@@ -159,6 +173,7 @@ from gsdr_tpu_torch.kernels.am_chain import (
     pfb_am_chain,
     pfb_am_chain_reference,
 )
+from gsdr_tpu_torch.kernels.chain import dense_chunk
 from gsdr_tpu_torch.kernels.channelize import (
     channelize_kernel,
     channelize_reference,
@@ -307,13 +322,14 @@ def lowpass(num_taps, cutoff_frac):
     return tuple((h / h.sum()).astype(np.float32).tolist())
 
 
-def flagship(impl, **kw):
+def flagship(impl, num_taps=64, **kw):
     return FmChannelizer(
         sample_rate=FS, tuning_frequency=TUNING,
         channel_frequencies=tuple(TUNING - 480_000.0 + 60_000.0 * i
                                   for i in range(16)),
         frequency_deviation=75_000.0, decimation=4,
-        low_pass_taps=lowpass(64, 0.03), impl=impl, device="cuda", **kw)
+        low_pass_taps=lowpass(num_taps, 0.03), impl=impl, device="cuda",
+        **kw)
 
 
 def fm_wideband(impl, decimation=GRID, **kw):
@@ -546,8 +562,10 @@ def buffer(model, rf):
 def compare_fm(kern, others, signal, steps=2, tol=AUDIO_REL_TOL):
     """Stream `steps` blocks through kern and each model of others; every
     other must agree with kern within tol of max|audio| after the warm-up
-    and CARRY_ATOL, scaled by tol / AUDIO_REL_TOL, on the carries. Returns
-    the worst max-abs and rel error."""
+    and CARRY_ATOL, scaled by tol / AUDIO_REL_TOL, on the carries; the
+    de-emphasis state, which is audio, also by max|audio| where that
+    exceeds 1 (a narrowband receiver's audio reaches ~D: the scanner's
+    ~100). Returns the worst max-abs and rel error."""
     carry_atol = CARRY_ATOL * tol / AUDIO_REL_TOL
     models = [kern] + others
     states = [m.init() for m in models]
@@ -572,11 +590,13 @@ def compare_fm(kern, others, signal, steps=2, tol=AUDIO_REL_TOL):
                   f"{kern.impl} vs {models[j].impl} step {i}: audio rel err "
                   f"{err:.3g}")
             sk, so = states[0], states[j]
-            for a, b, what in ((sk[2].re, so[2].re, "disc_carry.re"),
-                               (sk[2].im, so[2].im, "disc_carry.im"),
-                               (sk[3], so[3], "deemph_zi")):
+            zi_scale = max(1.0, float(yo.abs().max()))
+            for a, b, what, atol in (
+                    (sk[2].re, so[2].re, "disc_carry.re", carry_atol),
+                    (sk[2].im, so[2].im, "disc_carry.im", carry_atol),
+                    (sk[3], so[3], "deemph_zi", carry_atol * zi_scale)):
                 d = float((a - b).abs().max())
-                check(d <= carry_atol, f"{kern.impl} vs {models[j].impl} "
+                check(d <= atol, f"{kern.impl} vs {models[j].impl} "
                       f"step {i}: {what} differs by {d:.3g}")
             check(int(sk[0]) == int(so[0]), "n0 differs")
     return max_abs, worst
@@ -1692,6 +1712,398 @@ def iir_entry(launches, max_abs, lines):
             "ms": line["kernel_ms"], "plain_ms": line["plain_ms"],
             "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
             "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# 11) the dense front beyond one block (the taps staged in chunks)
+# ---------------------------------------------------------------------------
+
+# A narrowband FM scanner on an RTL-SDR's 2.4 MHz (the FRS/GMRS band): 16
+# channels 25 kHz apart, a 257-tap low-pass at half the spacing, D = 128
+# (18.75-kHz audio), 5-kHz deviation
+SCAN_FS, SCAN_TUNING = 2_400_000.0, 462_000_000.0
+SCAN_TONE = 300.0                 # channel k carries SCAN_TONE + 150*k Hz
+LONG_TAPS = 2049                  # the flagship's channels, a sharp filter
+AM_D128_TAPS = 1021
+TMX_LONG_Q = 127                  # the transmux's K = 32 with T = 4064
+OPS_WIDE_D, OPS_WIDE_DEV, OPS_WIDE_TONE = 256, 500.0, 200.0
+# B4 against its plain version at T = 4064, of max|y|: float32 sums of 3*T
+# products in other orders, whose error grows with T (B4_REL_TOL holds to
+# T = 256, tests/test_torch_cuda.py holds T = 1024 to 4e-5; the H100 read
+# 3.15e-5 here, where the sums' worst case is 3*T*2^-24 = 7.3e-4 of the
+# sum of |terms|)
+B4_LONG_REL_TOL = 1e-4
+# B3 against its plain version at T = 1021: the envelope of float32 sums
+# of 3*T products in other orders (ENV_ATOL holds to T = 512; the H100 read
+# 1.54e-5 at T = 1021, tests/test_torch_cuda.py)
+AM_LONG_ATOL = 4e-5
+# forced chunks: 8 taps (one tensor-core block), and 24, whose last chunk
+# is shorter than the others at 64 and 256 taps
+FORCED_CHUNKS = (8, 24, 64)
+
+
+def nfm_scanner(impl, **kw):
+    return FmChannelizer(
+        sample_rate=SCAN_FS, tuning_frequency=SCAN_TUNING,
+        channel_frequencies=tuple(SCAN_TUNING - 200_000.0 + 25_000.0 * i
+                                  for i in range(16)),
+        frequency_deviation=5_000.0, decimation=128,
+        low_pass_taps=lowpass(257, 12_500.0 / SCAN_FS), impl=impl,
+        device="cuda", **kw)
+
+
+def scanner_tone(k):
+    return SCAN_TONE + 150.0 * k
+
+
+def flagship_tone(k):
+    """fm_signal's tone on channel k."""
+    return 700.0 + 370.0 * k
+
+
+def nfm_signal(model, start, n, seed=7):
+    """An FM carrier on every channel of the model at its deviation, tone
+    scanner_tone(k), made on the card in float64."""
+    phases = np.random.default_rng(seed).uniform(0, 6, model.num_channels)
+    t = _time_axis(start, n, model.sample_rate)
+    re = torch.zeros(n, dtype=torch.float64, device="cuda")
+    im = torch.zeros_like(re)
+    amp = 1.0 / model.num_channels
+    for k, f in enumerate(model.channel_frequencies):
+        tone = scanner_tone(k)
+        ph = (2 * np.pi * (f - model.tuning_frequency) * t
+              + (model.frequency_deviation / tone)
+              * torch.sin(2 * np.pi * tone * t + phases[k]))
+        re += amp * torch.cos(ph)
+        im += amp * torch.sin(ph)
+    return ComplexArray(re.float(), im.float())
+
+
+def long_filter(impl, **kw):
+    """The flagship's channels, Fs and D = 4 through a 2049-tap low-pass."""
+    return flagship(impl, num_taps=LONG_TAPS, **kw)
+
+
+def am_d128(impl, **kw):
+    """am_d's 8 channels, off any preferred grid, 1021 taps, D = 128."""
+    return AmReceiver(
+        sample_rate=FS, tuning_frequency=TUNING,
+        channel_frequencies=tuple(TUNING - 200_000.0 + 50_000.0 * i
+                                  for i in range(8)),
+        decimation=128, low_pass_taps=lowpass(AM_D128_TAPS, 0.005),
+        impl=impl, device="cuda", **kw)
+
+
+def grid_carriers(k, start, n, seed=7):
+    """An FM carrier (1-kHz deviation, tone grid_tone(c)) at the centre of
+    every channel c of the Fs/K grid that pfb_channelize analyses: c*Fs/K,
+    channels above K/2 at negative frequencies."""
+    phases = np.random.default_rng(seed).uniform(0, 6, k)
+    t = _time_axis(start, n)
+    re = torch.zeros(n, dtype=torch.float64, device="cuda")
+    im = torch.zeros_like(re)
+    for c in range(k):
+        f = (c if c <= k // 2 else c - k) * FS / k
+        ph = (2 * np.pi * f * t + (1_000.0 / grid_tone(c))
+              * torch.sin(2 * np.pi * grid_tone(c) * t + phases[c]))
+        re += torch.cos(ph) / k
+        im += torch.sin(ph) / k
+    return ComplexArray(re.float(), im.float())
+
+
+def chunked(library, t, d, grade, c=None):
+    """The taps a block stages at once for this geometry (dense_chunk)."""
+    return dense_chunk(library, "cuda", t, d, grade, num_channels=c)
+
+
+def forced_chunks_equal(what, kernel, args, **kw):
+    """kernel(*args, chunk=tc) for each forced chunk against the planner's
+    launch, bit for bit (every output leaf); counters restored."""
+    before = kernel.launches
+    want = tree_leaves(kernel(*args, **kw))
+    for tc in FORCED_CHUNKS:
+        got = tree_leaves(kernel(*args, chunk=tc, **kw))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{what}: a launch in chunks of {tc} taps differs from the "
+              f"planner's launch")
+    torch.cuda.synchronize()
+    kernel.launches = before
+
+
+def compiled_times(what, step, state0, blocks, want_counts):
+    """The step compiled (compile_step) over the blocks, bit-equal to its
+    eager steps; (eager ms, compiled ms, compiled device us, idle)."""
+    before = counts()
+    eager = run_chained(step, state0, blocks)
+    for nm, k in COUNTERS.items():
+        k.launches = before[nm]
+    compiled = compile_step(step)
+    got, _ = counted(f"compiled {what}",
+                     lambda: run_chained(compiled, state0, blocks),
+                     {name: 2 * n for name, n in want_counts.items()})
+    held_to_eager(what, "exact", got, eager)
+    st_e = st_c = state0
+
+    def eager_step():
+        nonlocal st_e
+        st_e, _ = step(st_e, blocks[0])
+
+    def compiled_step():
+        nonlocal st_c
+        st_c, _ = compiled(st_c, blocks[0])
+
+    eager_ms, _, _ = time_calls(eager_step)
+    comp_ms, comp_dev, comp_idle = time_calls(compiled_step)
+    return eager_ms, comp_ms, sum(comp_dev.values()), comp_idle
+
+
+def dense_model_path(name, make, signal, kernel, plain_ref, bound_fn,
+                     tones, tone_hz):
+    """One receiver of phase 11, make('auto'), in chunks: held to its plain
+    version at the grade and to the f32 plain chain, make('torch'), over
+    two steps, 8 blocks through main_path counted, its tones, compiled
+    equal to eager, and timed. Returns the kernels-line entry."""
+    model, plain = make("auto"), make("torch")
+    grade, lib = model.precision, kernel.name
+    t, d = model.num_taps, model.decimation
+    tc = chunked(lib, t, d, grade)
+    check(model.front == "toeplitz" and tc < t,
+          f"{name}: dense front in chunks (chunk {tc} of {t} taps)")
+    fm = isinstance(model, FmChannelizer)
+    tol_f32 = (FM_GRADE_TOL if fm else AM_GRADE_TOL)[grade]
+    if fm:
+        max_abs, rel_plain = compare_fm(model, [PlainAtGrade(model)], signal)
+        _, rel_f32 = compare_fm(model, [plain], signal, tol=tol_f32)
+    else:
+        max_abs = compare_am([model, PlainAtGrade(model)], signal,
+                             tol=AM_LONG_ATOL)
+        rel_f32 = compare_am([model, plain], signal, tol=tol_f32)
+        rel_plain = max_abs
+    blocks = [signal(model, i * N, N, seed=11) for i in range(STEPS)]
+    outs, got = main_path(model, blocks, {lib: STEPS})
+    check_tones(outs[-1], model.audio_rate, tones, name, hi_hz=tone_hz)
+    eager_ms, comp_ms, comp_us, comp_idle = compiled_times(
+        name, model.step, model.init(), blocks, {lib: 1})
+    buf = buffer(model, blocks[0])
+    n0, _, *carries = model.init()
+    args = (buf, model.tap_bank, model.lo_table, n0, d) + (
+        (model.gain, model.deemph, *carries) if fm else ())
+    timing = time_kernel(kernel, plain_ref, dense_front_library(model, buf),
+                         args, precision=grade)
+    bnd = bound(*bound_fn(model, buf.re.shape[-1], grade))
+    line = {"phase": f"dense_{name}", "grade": grade,
+            "C": model.num_channels, "T": t, "D": d, "chunk": tc,
+            "launches": got[lib],
+            "vs_plain": rel_plain, "vs_f32": rel_f32,
+            "eager_ms": eager_ms, "compiled_ms": comp_ms,
+            "compiled_device_us": comp_us, "compiled_idle_share": comp_idle,
+            "kernel_ms": timing[0], "kernel_device_us": timing[1],
+            "plain_ms": timing[2], "library_ms": timing[3],
+            "library": DENSE_LIBRARY, "bound_us": bnd[0] * 1e3,
+            "bound_by": bnd[1], "card": CARD}
+    print(json.dumps(line))
+    print(f"main path: {name} ({lib} at {grade}, T={t}, D={d}, chunks of "
+          f"{tc} taps), {STEPS} steps, launches {got[lib]}, tones "
+          f"recovered; vs plain {rel_plain:.3g}, vs f32 {rel_f32:.3g}; eager "
+          f"{eager_ms:.4f} / compiled {comp_ms:.4f} ms a step")
+    replaces = ("gsdr_tpu/kernels/fm_chain_pallas.py:888" if fm
+                else "gsdr_tpu/kernels/fm_chain_pallas.py:551")
+    return kernel_entry(lib, f"gsdr_tpu_torch/kernels/csrc/{lib}.cu",
+                        replaces, got[lib], max_abs, timing, bnd,
+                        grade=grade, path=name, chunk=tc)
+
+
+def dense_transmux_path():
+    """pfb_channelize_block(impl='auto') at K = 32, Q = 127 through B4 in
+    chunks: held to its plain version at bf16x3 and to the fold path over
+    two blocks, 8 blocks counted, compiled equal to eager, timed."""
+    k, q = TMX_K, TMX_LONG_Q
+    taps = lowpass64(q * k, 0.5 / k)
+    hist = (q - 1) * k
+    bank = _analysis_tables(_taps_key(taps), k, "cuda")[0]
+    tc = chunked("channelize", q * k, k, "bf16x3", k)
+    check(tc < q * k, f"transmux K={k}, Q={q}: one chunk of {tc} taps")
+    blocks = [grid_carriers(k, i * N, N) for i in range(STEPS)]
+    bufs, prev = [], ComplexArray.zeros((hist,), device="cuda")
+    for rf in blocks:
+        bufs.append(ComplexArray(torch.cat([prev.re, rf.re]),
+                                 torch.cat([prev.im, rf.im])))
+        prev = rf[..., N - hist:]
+    y_auto, got = counted(
+        f"pfb_channelize_block(impl='auto') at K={k}, Q={q}",
+        lambda: receive(blocks, taps, k, impl="auto"), {"channelize": STEPS})
+    y_fold = receive(blocks[:2], taps, k, impl="torch")
+    y_plain = stitch([channelize_reference(b, bank, k, "bf16x3")
+                      for b in bufs[:2]], q)
+    y2 = y_auto[..., :y_fold.shape[-1]]
+    err, scale = planar_err(y2, y_plain)
+    err_fold, _ = planar_err(y2, y_fold)
+    check(err <= B4_LONG_REL_TOL * scale,
+          f"B4 at K={k}, Q={q} vs plain: {err:.3g} of max|y| {scale:.3g}")
+    check(err_fold <= B4_FOLD_TOL["bf16x3"] * scale,
+          f"B4 at K={k}, Q={q} vs fold path: {err_fold:.3g}")
+    check(bool(torch.isfinite(y_auto.re).all()
+               and torch.isfinite(y_auto.im).all()), "non-finite B4 output")
+
+    def receive_step(tail, rf):
+        y, tail = pfb_channelize_block(rf, taps, k, tail=tail, impl="auto")
+        return tail, y
+
+    eager_ms, comp_ms, comp_us, comp_idle = compiled_times(
+        "transmux_q127", receive_step,
+        ComplexArray.zeros((hist,), device="cuda"), blocks, {"channelize": 1})
+    timing, bnd, line, _ = b4_timing("dense_transmux_q127", bufs[0], taps, k,
+                                     "bf16x3")
+    line.update({"chunk": tc, "launches": got["channelize"],
+                 "max_abs_err": err, "vs_fold_path": err_fold,
+                 "eager_ms": eager_ms, "compiled_ms": comp_ms,
+                 "compiled_device_us": comp_us,
+                 "compiled_idle_share": comp_idle})
+    print(json.dumps(line))
+    print(f"main path: transmux K={k}, Q={q} (T={q * k}, chunks of {tc} "
+          f"taps), {STEPS} blocks, launches {got}; vs plain {err / scale:.3g}"
+          f", vs fold path {err_fold / scale:.3g} of max|y|")
+    return kernel_entry(
+        "channelize", "gsdr_tpu_torch/kernels/csrc/channelize.cu",
+        "gsdr_tpu/kernels/channelize_pallas.py:57", got["channelize"], err,
+        timing, bnd, grade="bf16x3", path="transmux_q127", chunk=tc)
+
+
+def dense_ops_path():
+    """fm_demod and am_demod at one channel, T = 65, D = 256, through
+    'auto' (one B1 and one B3-dense launch, counted) on 2^20 samples: held
+    to the kernel's plain version at bf16x3 and the f32 plain chain,
+    their tones, compiled equal to eager, timed."""
+    d, taps = OPS_WIDE_D, OPS_TAPS
+    t = _time_axis(0, N)
+    ph = (2 * np.pi * OPS_FC * t + (OPS_WIDE_DEV / OPS_WIDE_TONE)
+          * torch.sin(2 * np.pi * OPS_WIDE_TONE * t))
+    x = ComplexArray(torch.cos(ph).float(), torch.sin(ph).float())
+    env = 0.5 * (1.0 + 0.6 * torch.cos(2 * np.pi * OPS_WIDE_TONE * t))
+    xa = ComplexArray((env * torch.cos(2 * np.pi * OPS_FC * t)).float(),
+                      (env * torch.sin(2 * np.pi * OPS_FC * t)).float())
+    gain = fm_demod_gain(FS, OPS_WIDE_DEV)
+    entries = []
+    for op, kernel, ref, sig, call, args, bound_fn, model in (
+            ("fm_demod", fm_chain, fm_chain_reference, x,
+             lambda s: fm_demod(s, taps, FS, 0.0, OPS_FC, OPS_WIDE_DEV, d),
+             fm_chain_args(x, taps, FS, -OPS_FC, gain, d), fm_bound,
+             single_channel_model(FmChannelizer, taps, d,
+                                  frequency_deviation=OPS_WIDE_DEV,
+                                  deemphasis_tau=1e-3)),
+            ("am_demod", am_chain, am_chain_reference, xa,
+             lambda s: am_demod(s, taps, FS, 0.0, OPS_FC, d),
+             am_chain_args(xa, taps, FS, -OPS_FC, d), am_bound,
+             single_channel_model(AmReceiver, taps, d))):
+        lib = kernel.name
+        tc = chunked(lib, len(taps), d, "bf16x3")
+        y, got = counted(f"{op}(impl='auto') at D={d}", lambda: call(sig),
+                         {lib: 1})
+        if lib == "fm_chain":
+            want = ref(*args, precision="bf16x3")[0][0, 1:]
+            f32 = ref(*args, precision="f32")[0][0, 1:]
+            scale = float(f32[SKIP:].abs().max())
+            e_plain = float((y - want)[SKIP:].abs().max())
+            e_f32 = float((y - f32)[SKIP:].abs().max()) / scale
+            check(e_plain <= AUDIO_REL_TOL * scale,
+                  f"{op} at D={d} vs plain: {e_plain / scale:.3g} of "
+                  f"max|audio|")
+            check(e_f32 <= FM_GRADE_TOL["bf16x3"],
+                  f"{op} at D={d} vs f32: {e_f32:.3g}")
+        else:
+            want = ref(*args, precision="bf16x3")[0]
+            e_plain = float((y - want).abs().max())
+            e_f32 = float((y - ref(*args, precision="f32")[0]).abs().max())
+            check(e_plain <= ENV_ATOL,
+                  f"{op} at D={d} vs plain: {e_plain:.3g}")
+            check(e_f32 <= AM_GRADE_TOL["bf16x3"],
+                  f"{op} at D={d} vs f32: {e_f32:.3g}")
+        check(bool(torch.isfinite(y).all()), f"{op}: non-finite output")
+        check_tones(y[None, SKIP:], FS / d, lambda k: OPS_WIDE_TONE,
+                    f"{op} at D={d}")
+        # compiled: the op's kernel route on its tables, built once (the op
+        # builds its bank on the host at each call, which no graph takes)
+        eager_ms, comp_ms, comp_us, comp_idle = compiled_times(
+            f"{op}_d{d}", lambda st, s, a=args[1:], k=kernel: (
+                st, k(s, *a, precision="bf16x3")), (), [args[0]], {lib: 1})
+        timing, bnd, nbytes = ops_timing(kernel, ref, args, model, N,
+                                         bound_fn, "bf16x3")
+        print(json.dumps({
+            "phase": f"dense_{op}_d{d}", "grade": "bf16x3", "T": len(taps),
+            "D": d, "chunk": tc, "launches": got[lib], "vs_plain": e_plain,
+            "vs_f32": e_f32, "eager_ms": eager_ms, "compiled_ms": comp_ms,
+            "compiled_device_us": comp_us, "compiled_idle_share": comp_idle,
+            "kernel_ms": timing[0], "kernel_device_us": timing[1],
+            "plain_ms": timing[2], "library_ms": timing[3],
+            "library": DENSE_LIBRARY, "bound_us": bnd[0] * 1e3,
+            "bound_by": bnd[1], "mbytes": nbytes / 1e6, "card": CARD}))
+        print(f"main path: {op}(impl='auto') at T={len(taps)}, D={d} "
+              f"(chunk {tc}), launches {got[lib]}; vs plain {e_plain:.3g}, "
+              f"vs f32 {e_f32:.3g}")
+        entries.append(kernel_entry(
+            lib, f"gsdr_tpu_torch/kernels/csrc/{lib}.cu",
+            "gsdr_tpu/kernels/fm_chain_pallas.py:"
+            + ("888" if lib == "fm_chain" else "551"), got[lib], e_plain,
+            timing, bnd, grade="bf16x3", path=f"ops_d{d}", chunk=tc))
+    return entries
+
+
+def forced_chunk_checks():
+    """The planner's one-chunk launch against launches forced to stage
+    FORCED_CHUNKS taps at a time, bit for bit: B1 at the flagship at each
+    grade, B3-dense at am_d and B4 at the transmux's K = 32, Q = 8."""
+    for grade in GRADES:
+        model = flagship("cuda", precision=grade)
+        check(chunked("fm_chain", 64, 4, grade) == 64,
+              f"flagship at {grade}: one chunk")
+        buf = buffer(model, fm_signal(model, 0, N, seed=11))
+        n0, _, cf, cz = model.init()
+        forced_chunks_equal(
+            f"B1 flagship at {grade}", fm_chain,
+            (buf, model.tap_bank, model.lo_table, n0, model.decimation,
+             model.gain, model.deemph, cf, cz), precision=grade)
+    model = am_d("cuda")
+    buf = buffer(model, am_signal(model, 0, N, seed=11))
+    forced_chunks_equal("B3-dense am_d", am_chain,
+                        (buf, model.tap_bank, model.lo_table,
+                         model.init()[0], model.decimation),
+                        precision="bf16x3")
+    k, q = TMX_K, TMX_Q
+    taps = lowpass64(q * k, 0.5 / k)
+    bank = _analysis_tables(_taps_key(taps), k, "cuda")[0]
+    x = grid_carriers(k, 0, N + (q - 1) * k)
+    check(chunked("channelize", q * k, k, "bf16x3", k) == q * k,
+          "transmux K=32, Q=8: one chunk")
+    forced_chunks_equal("B4 transmux K=32", channelize_kernel, (x, bank, k),
+                        precision="bf16x3")
+    print(f"forced chunks {FORCED_CHUNKS}: B1 at the flagship at each "
+          f"grade, B3-dense at am_d and B4 at the transmux bit-equal to the "
+          f"one-chunk launch")
+
+
+def dense_phase():
+    """Phase 11: the dense front at geometries whose bank and window do not
+    fit one block (nfm_scanner, long_filter at bf16x3 and f32, am_d128,
+    transmux_q127) or whose D exceeds its taps (ops_d256), each counted
+    through its main path and held to its plain version at the grade and
+    the f32 plain chain; the forced-chunk checks. Returns the kernels-line
+    entries, one a path (two for the ops)."""
+    entries = [dense_model_path(name, make, signal, kernel, ref, bnd,
+                                tones, hi)
+               for name, make, signal, kernel, ref, bnd, tones, hi in (
+        ("nfm_scanner", nfm_scanner, nfm_signal, fm_chain,
+         fm_chain_reference, fm_bound, scanner_tone, 5_000.0),
+        ("long_filter_bf16x3", long_filter, fm_signal, fm_chain,
+         fm_chain_reference, fm_bound, flagship_tone, None),
+        ("long_filter_f32",
+         lambda impl: long_filter(impl, precision="f32"), fm_signal,
+         fm_chain, fm_chain_reference, fm_bound, flagship_tone, None),
+        ("am_d128", am_d128, am_signal, am_chain, am_chain_reference,
+         am_bound, grid_tone, 1_000.0))]
+    entries.append(dense_transmux_path())
+    entries += dense_ops_path()
+    forced_chunk_checks()
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -2889,6 +3301,9 @@ def main():
     n_fm, err_fm = stream_fm_phase()
     kernels.append(iir_entry(n_alone + n_fm, max(err_alone, err_fm), lines))
 
+    # 11) the dense front beyond one block
+    dense = dense_phase()
+
     # 12-14) the single-channel ops, the fm_rx command line, the examples
     ops_phase()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2903,6 +3318,7 @@ def main():
         entry["sharded_launches"] = (
             sharded[entry["name"]]
             if not graded or entry["grade"] == SHARD_GRADE else 0)
+    kernels += [{**entry, "sharded_launches": 0} for entry in dense]
     # 16) every main path compiled
     compiled_phase(rx_raw, rx_step_ms)
     print(json.dumps({"kernels": kernels}))

@@ -46,9 +46,11 @@ class ComplexArray:
                    x.imag.to(torch.float32).contiguous())
 
     @classmethod
-    def zeros(cls, shape, device=None):
-        return cls(torch.zeros(shape, dtype=torch.float32, device=device),
-                   torch.zeros(shape, dtype=torch.float32, device=device))
+    def zeros(cls, shape, dtype=torch.float32, device=None):
+        """Zero planes of ``shape`` and ``dtype``, JAX's ``zeros(shape,
+        dtype=jnp.float32)`` with the port's ``device`` after it."""
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
 
     # -- conversion --------------------------------------------------------
     def to_complex(self):

@@ -11,8 +11,10 @@ caller's raw RF tail.
 The plain versions run the rotor, op for op as the JAX chain; the kernel
 leaves it out, because a unit phasor does not change the magnitude.
 ``am_chain`` and ``pfb_am_chain`` launch ``csrc/am_chain.cu`` for CUDA
-tensors and take the plain versions only for tensors on the CPU. Both
-fronts run at a grade (``precision``), as in ``fm_chain``: 'bf16x3' (the
+tensors and take the plain versions only for tensors on the CPU; the
+dense front takes any T and D, its taps staged in chunks where the whole
+bank does not fit a block (``chain.dense_chunk``). Both fronts run at a
+grade (``precision``), as in ``fm_chain``: 'bf16x3' (the
 kernels' default, as ``am_chain_pallas``'s), 'bf16x2', 'f32'; the plain
 versions emulate it and default to 'f32'.
 """
@@ -28,7 +30,7 @@ from gsdr_tpu_torch.kernels.chain import (
     check_pfb_tables,
     cuda_error,
     dense_mma_tables,
-    front_supported,
+    dense_chunk,
     grade_code,
     graded_bank_front,
     graded_uniform_front,
@@ -72,7 +74,7 @@ def _library():
     """The built am_chain library, its launch signatures declared."""
     lib = load_chain_library("am_chain")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.am_chain_launch.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.am_chain_launch.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.am_chain_launch.restype = i
     lib.pfb_am_chain_launch.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.pfb_am_chain_launch.restype = i
@@ -101,22 +103,19 @@ def _launch(fn, ptrs, ints, buf, c, t, d, grade):
 
 
 def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation,
-                  precision="bf16x3"):
+                  precision="bf16x3", chunk=None):
     """The dense-front kernel, on the plain version's arguments; the kernel
-    reads no rotor table."""
+    reads no rotor table. ``chunk`` as ``chain.ChainKernel`` says."""
     dev = buf.re.device
     grade = grade_code("am_chain", precision)
     c2, two, t = tap_bank.shape
     if two != 2 or c2 % 2:
         raise ValueError(f"am_chain: tap_bank shape {tuple(tap_bank.shape)}")
     check_operands("am_chain", {"tap_bank": (tap_bank, (c2, 2, t))}, dev)
-    if not front_supported("am_chain", dev, t, decimation,
-                           precision=precision):
-        raise ValueError(f"am_chain: a block for T={t}, D={decimation} at "
-                         f"precision={precision!r} does not fit the card's "
-                         f"shared memory")
+    tc = dense_chunk("am_chain", dev, t, decimation, precision) \
+        if chunk is None else int(chunk)
     btab = dense_mma_tables(tap_bank).data_ptr() if grade else None
-    return _launch("am_chain", (tap_bank.data_ptr(), btab), (t,), buf,
+    return _launch("am_chain", (tap_bank.data_ptr(), btab), (t, tc), buf,
                    c2 // 2, t, int(decimation), grade)
 
 

@@ -5,10 +5,13 @@
     kernel for CUDA tensors, counts the launches, and takes the plain
     version only for tensors on the CPU;
   - the operand checks made before a launch;
-  - the check, also made before a launch, that a block of a front fits the
-    card's shared memory. The libraries that launch a front answer it
-    themselves (``<library>_fits`` in ``csrc/``), from the same geometry
-    they launch with, so no copy of the geometry lives here;
+  - the block plan, asked before a launch: the taps a block of the dense
+    front stages at once (``dense_chunk``: the whole bank where it fits,
+    else chunks, so the dense front takes any geometry), and whether a
+    block of the PFB front fits the card's shared memory. The libraries
+    that launch a front answer it themselves (``<library>_fits`` in
+    ``csrc/``), from the same geometry they launch with, so no copy of the
+    geometry lives here;
   - the grades of both fronts (``GRADES``): 'f32' on the FP32 FMAs,
     'bf16x3' and 'bf16x2' on the tensor cores, as the JAX package's
     kernels define them; the bf16 split of the taps, the window and the
@@ -54,8 +57,11 @@ class ChainKernel:
     ``channelize_kernel``) launch at 'bf16x3', the JAX kernels' default
     grade, and their plain versions run 'f32', as the models do on the CPU
     (the JAX package's XLA path); a caller who wants the same grade on
-    both passes ``precision``. ``launches`` counts kernel
-    launches and nothing else."""
+    both passes ``precision``. The dense-front launches also take
+    ``chunk``, the taps a block stages at once (default: the library's
+    plan, ``dense_chunk``), which the card tests force smaller to run the
+    chunked path at small banks; the plain versions have no such
+    argument. ``launches`` counts kernel launches and nothing else."""
 
     def __init__(self, name, plain, launch):
         self.name = name
@@ -288,7 +294,7 @@ def check_operands(fn, operands, dev):
 def load_chain_library(library):
     """The built library ``csrc/<library>.cu``, with the C signatures the
     libraries share declared: ``<library>_error_string`` and, in those that
-    launch a front, ``<library>_fits(pfb, grade, C, T, K, Q, D, *fits)``."""
+    launch a front, ``<library>_fits(pfb, grade, C, T, K, Q, D, *plan)``."""
     lib = load_library(library)
     if hasattr(lib, library + "_fits"):
         fits = getattr(lib, library + "_fits")
@@ -309,26 +315,51 @@ def cuda_error(library, what, err):
 
 
 @functools.lru_cache(maxsize=None)
-def _block_fits(library, device_index, pfb, grade, channels, num_taps, k, q,
+def _block_plan(library, device_index, pfb, grade, channels, num_taps, k, q,
                 decimation):
+    """``<library>_fits``' answer on the card ``device_index``: for the
+    dense front the taps a block stages at once, for the PFB front 1 where
+    its block fits; 0 where no block fits."""
     lib = load_chain_library(library)
-    fits = ctypes.c_int(0)
+    plan = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = getattr(lib, library + "_fits")(
             int(pfb), grade, channels, num_taps, k, q, decimation,
-            ctypes.byref(fits))
+            ctypes.byref(plan))
     cuda_error(library, f"{library}_fits", err)
-    return bool(fits.value)
+    return plan.value
+
+
+def _card_index(device):
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def dense_chunk(library, device, num_taps, decimation, precision="f32",
+                num_channels=None):
+    """The taps a block of ``library``'s dense front stages at once on the
+    card ``device`` at the grade ``precision``: T where the whole bank and
+    its window fit the block's shared memory (one pass, as at the flagship,
+    am_d and the transmux's K=32, Q=8), else the largest multiple of 8
+    below T whose block fits; the block then walks the bank in ascending
+    chunks, with the same sums in the same order. The library plans it
+    from the geometry it launches with (``csrc/fronts.cuh``,
+    ``dense_chunk``). ``num_channels`` as ``front_supported``."""
+    grade = grade_code(library, precision)
+    return _block_plan(library, _card_index(torch.device(device)), False,
+                       grade, int(num_channels or 0), int(num_taps), 0, 0,
+                       int(decimation))
 
 
 def front_supported(library, device, num_taps, decimation, k=None,
                     precision="f32", num_channels=None):
     """True when ``library``'s kernel can run this front on ``device`` at
-    the grade ``precision``: the dense front (``k`` None) or the PFB front
-    on the Fs/k grid, which needs D | k. On the card a block of the kernel
-    must also fit the shared memory, its static size plus the dynamic size
-    of this geometry and grade against the device's opt-in limit; the
-    plain chains on the CPU take any geometry.
+    the grade ``precision``: the dense front (``k`` None), which stages its
+    taps in chunks (``dense_chunk``) and so takes any T and D, or the PFB
+    front on the Fs/k grid, which needs D | k and, on the card, a block
+    that fits the shared memory, its static size plus the dynamic size of
+    this geometry and grade against the device's opt-in limit; the plain
+    chains on the CPU take any geometry.
     ``num_channels`` is the bank's C, on which the channelizer's block
     depends at the bf16 grades (None: any C, the widest block). A library
     without the grade raises."""
@@ -343,10 +374,8 @@ def front_supported(library, device, num_taps, decimation, k=None,
     device = torch.device(device)
     if device.type != "cuda":
         return True
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    return _block_fits(library, index, k is not None, grade,
-                       int(num_channels or 0), t, k or 0, q, d)
+    return _block_plan(library, _card_index(device), k is not None, grade,
+                       int(num_channels or 0), t, k or 0, q, d) > 0
 
 
 def check_pfb_tables(fn, library, poly_taps, dft_bank, num_taps, decimation,
@@ -382,8 +411,9 @@ def select_front(model, library, impl, shifts, sample_rate, decimation,
     the PFB front where ``pfb_preferred`` returns a grid and the kernel
     takes it at the grade, and keeps the dense front otherwise; 'auto' on
     the CPU runs the dense plain chain, as the JAX models do off the TPU.
-    A dense kernel on the card must take the geometry at the grade too.
-    The choice is made once, here, before any launch.
+    The dense kernel takes any T and D (``dense_chunk``), so 'auto' and
+    'cuda' never refuse a dense front. The choice is made once, here,
+    before any launch.
     """
     d, t = int(decimation), int(num_taps)
     on_card = device.type == "cuda"
@@ -405,10 +435,4 @@ def select_front(model, library, impl, shifts, sample_rate, decimation,
         if grid is not None and front_supported(library, device, t, d,
                                                 grid[0], precision):
             return grid
-    if impl in ("auto", "cuda") and not front_supported(
-            library, device, t, d, precision=precision):
-        raise ValueError(
-            f"{model}: a block of the dense kernel for T={t}, D={d} at "
-            f"precision={precision!r} does not fit the card's shared memory; "
-            f"use impl='pfb' on a uniform grid or impl='torch'")
     return None

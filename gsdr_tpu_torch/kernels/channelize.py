@@ -5,9 +5,10 @@ Counterpart of ``gsdr_tpu/kernels/channelize_pallas.py``
 (``mix_fir_decimate_bank_pallas``): a planar 1-D x (N,) through a
 (2C, 2, T) complex tap bank, decimated by D, to the un-rotated planar
 (C, M), M = (N - T)//D + 1. ``channelize_kernel`` launches
-``csrc/channelize.cu`` for CUDA tensors, raising where a block of the
-kernel does not fit the card's shared memory, and takes the plain version,
-``channelize_reference``, only for tensors on the CPU. Both take the
+``csrc/channelize.cu`` for CUDA tensors at any T and D, its taps staged in
+chunks where the whole bank does not fit a block (``chain.dense_chunk``),
+and takes the plain version, ``channelize_reference``, only for tensors
+on the CPU. Both take the
 TPU kernel's grades (``precision``): 'bf16x3', the kernel's default as it
 is ``mix_fir_decimate_bank_pallas``'s, and 'bf16x2' run on the tensor
 cores, 'f32' on the FP32 FMAs; the plain version emulates the grade
@@ -26,7 +27,7 @@ from gsdr_tpu_torch.kernels.chain import (
     check_operands,
     cuda_error,
     dense_mma_tables,
-    front_supported,
+    dense_chunk,
     grade_code,
     graded_bank_front,
     load_chain_library,
@@ -44,12 +45,12 @@ def _library():
     """The built channelize library, its launch signature declared."""
     lib = load_chain_library("channelize")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.channelize_launch.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.channelize_launch.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.channelize_launch.restype = i
     return lib
 
 
-def _launch(x, tap_bank, decimation, precision="bf16x3"):
+def _launch(x, tap_bank, decimation, precision="bf16x3", chunk=None):
     dev = x.re.device
     grade = grade_code("channelize", precision)
     if x.re.ndim != 1:
@@ -66,11 +67,8 @@ def _launch(x, tap_bank, decimation, precision="bf16x3"):
     if d < 1 or n < t:
         raise ValueError(f"channelize: N={n} < T={t} or D={d} < 1")
     c = c2 // 2
-    if not front_supported("channelize", dev, t, d, precision=precision,
-                           num_channels=c):
-        raise ValueError(f"channelize: a block for C={c}, T={t}, D={d} at "
-                         f"precision={precision!r} does not fit the card's "
-                         f"shared memory")
+    tc = dense_chunk("channelize", dev, t, d, precision, num_channels=c) \
+        if chunk is None else int(chunk)
     m = (n - t) // d + 1
     y_re = torch.empty((c, m), dtype=torch.float32, device=dev)
     y_im = torch.empty((c, m), dtype=torch.float32, device=dev)
@@ -79,7 +77,8 @@ def _launch(x, tap_bank, decimation, precision="bf16x3"):
     with torch.cuda.device(dev):
         err = _library().channelize_launch(
             x.re.data_ptr(), x.im.data_ptr(), tap_bank.data_ptr(), btab,
-            y_re.data_ptr(), y_im.data_ptr(), n, c, t, d, m, grade, stream)
+            y_re.data_ptr(), y_im.data_ptr(), n, c, t, tc, d, m, grade,
+            stream)
     cuda_error("channelize", "channelize kernel launch", err)
     return ComplexArray(y_re, y_im)
 

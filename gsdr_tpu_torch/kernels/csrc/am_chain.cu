@@ -39,14 +39,15 @@ __device__ __forceinline__ float envelope(float re, float im) {
 }
 
 // btab: dense_mma_tables (dense front) or pfb_mma_tables (PFB front), read
-// at bf16x3 and bf16x2.
-template <bool kPfb, int kGrade>
+// at bf16x3 and bf16x2; the dense front stages Tc taps at a time where
+// kChunked (use_chunked_kernel), else all T at once.
+template <bool kPfb, int kGrade, bool kChunked = false>
 __global__ void __launch_bounds__(gsdr::block_threads<kPfb, kGrade>())
 am_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ bank, const float* __restrict__ hp,
-    const uint2* __restrict__ btab, int C, int T, int K, int Q, int D, int M,
-    float* __restrict__ audio) {
+    const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
+    int M, float* __restrict__ audio) {
   constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -75,8 +76,12 @@ am_chain_tile(
       gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D, c0, g0,
                       acc_re, acc_im);
     } else if constexpr (kGrade == gsdr::kGradeF32) {
-      gsdr::toeplitz_front(smem, buf_re, buf_im, nb, bank, C, T, D, c0, g0,
-                           acc_re, acc_im);
+      gsdr::toeplitz_front<kChunked>(smem, buf_re, buf_im, nb, bank, C, T,
+                                     Tc, D, c0, g0, acc_re, acc_im);
+    } else if constexpr (kChunked) {
+      gsdr::toeplitz_front_mma_chunked<kGrade, kCG / 4>(
+          reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, btab,
+          C, T, Tc, D, blockIdx.y, g0, acc_re, acc_im);
     } else {
       gsdr::toeplitz_front_mma<kGrade, kCG / 4>(
           reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, btab,
@@ -91,10 +96,19 @@ am_chain_tile(
   }
 }
 
+// The dense tile kernel of a grade, one chunk or chunked.
+template <int kGrade>
+const void* dense_tile(bool chunked) {
+  return chunked ? (const void*)am_chain_tile<false, kGrade, true>
+                 : (const void*)am_chain_tile<false, kGrade, false>;
+}
+
 // The tile kernel of a front (pfb) and grade with its dynamic shared memory
-// for (T, D) or (K, Q, D), or nullptr for a grade the library lacks.
-const void* tile_kernel(bool pfb, int grade, int T, int K, int Q, int D,
-                        size_t* smem) {
+// for a chunk of Tc taps and D (dense; `chunked` picks the kernel that
+// walks chunks) or for (K, Q, D) (PFB), or nullptr for a grade the library
+// lacks.
+const void* tile_kernel(bool pfb, int grade, int Tc, int K, int Q, int D,
+                        size_t* smem, bool chunked = false) {
   if (pfb) {
     switch (grade) {
       case gsdr::kGradeF32:
@@ -111,48 +125,61 @@ const void* tile_kernel(bool pfb, int grade, int T, int K, int Q, int D,
   }
   switch (grade) {
     case gsdr::kGradeF32:
-      *smem = gsdr::toeplitz_smem_bytes(T, D);
-      return (const void*)am_chain_tile<false, gsdr::kGradeF32>;
+      *smem = gsdr::toeplitz_smem_bytes(Tc, D);
+      return dense_tile<gsdr::kGradeF32>(chunked);
     case gsdr::kGradeBf16x2:
-      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, T, D);
-      return (const void*)am_chain_tile<false, gsdr::kGradeBf16x2>;
+      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
+      return dense_tile<gsdr::kGradeBf16x2>(chunked);
     case gsdr::kGradeBf16x3:
-      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, T, D);
-      return (const void*)am_chain_tile<false, gsdr::kGradeBf16x3>;
+      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
+      return dense_tile<gsdr::kGradeBf16x3>(chunked);
   }
   return nullptr;
 }
 
-template <bool kPfb, int kGrade>
+template <bool kPfb, int kGrade, bool kChunked>
 int run_am(const void* buf_re, const void* buf_im, const void* bank,
            const void* hp, const void* btab, void* audio, int nb, int C,
-           int T, int K, int Q, int D, int M, size_t smem, void* stream) {
+           int T, int Tc, int K, int Q, int D, int M, size_t smem,
+           void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      am_chain_tile<kPfb, kGrade>,
+      am_chain_tile<kPfb, kGrade, kChunked>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
   dim3 grid((M + kTile - 1) / kTile, (C + kCh - 1) / kCh);
-  am_chain_tile<kPfb, kGrade><<<grid, gsdr::block_threads<kPfb, kGrade>(),
-                                smem, (cudaStream_t)stream>>>(
+  am_chain_tile<kPfb, kGrade, kChunked>
+      <<<grid, gsdr::block_threads<kPfb, kGrade>(), smem,
+         (cudaStream_t)stream>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank,
-      (const float*)hp, (const uint2*)btab, C, T, K, Q, D, M, (float*)audio);
+      (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M,
+      (float*)audio);
   return (int)cudaGetLastError();
 }
 
+// run_am of the front's kernel: the chunked dense one where `chunked`.
+template <bool kPfb, int kGrade, class... Args>
+int run_front(bool chunked, Args... args) {
+  if constexpr (!kPfb) {
+    if (chunked) return run_am<false, kGrade, true>(args...);
+  }
+  return run_am<kPfb, kGrade, false>(args...);
+}
+
 // One call of the front (pfb) at `grade`, its geometry checked by the
-// caller.
+// caller; the dense front stages Tc <= T taps at a time.
 template <bool kPfb>
 int run_graded(int grade, const void* buf_re, const void* buf_im,
                const void* bank, const void* hp, const void* btab,
-               void* audio, int nb, int C, int T, int K, int Q, int D, int M,
-               void* stream) {
+               void* audio, int nb, int C, int T, int Tc, int K, int Q, int D,
+               int M, void* stream) {
   size_t smem = 0;
-  if (tile_kernel(kPfb, grade, T, K, Q, D, &smem) == nullptr)
+  if (tile_kernel(kPfb, grade, Tc, K, Q, D, &smem) == nullptr)
     return (int)cudaErrorInvalidValue;
-#define GSDR_AM(G)                                                          \
-  run_am<kPfb, G>(buf_re, buf_im, bank, hp, btab, audio, nb, C, T, K, Q, D, \
-                  M, smem, stream)
+#define GSDR_AM(G)                                                        \
+  run_front<kPfb, G>(gsdr::use_chunked_kernel(Tc, T, D), buf_re, buf_im,   \
+                     bank, hp, btab, audio, nb, C, T, Tc, K, Q, D, M, smem, \
+                     stream)
   switch (grade) {
     case gsdr::kGradeBf16x2:
       return GSDR_AM(gsdr::kGradeBf16x2);
@@ -170,10 +197,11 @@ extern "C" const char* am_chain_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// *fits = 1 when a block of the front (pfb = 0: dense, T and D; pfb = 1:
-// PFB, K, Q and D) at `grade` (0 f32, 2 bf16x2, 3 bf16x3) fits the current
-// device's shared memory, for any channel count C. An unknown grade is an
-// invalid value. Returns 0 or the CUDA error.
+// The block plan of the front at `grade` (0 f32, 2 bf16x2, 3 bf16x3) on
+// the current device, for any channel count C, as fm_chain_fits: the
+// dense front's chunk of taps (pfb = 0, T and D; 0 only where not even 8
+// taps fit), or 1 / 0 for the PFB front's block (pfb = 1, K, Q and D). An
+// unknown grade is an invalid value. Returns 0 or the CUDA error.
 extern "C" int am_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
                              int D, int* fits) {
   (void)C;
@@ -182,21 +210,31 @@ extern "C" int am_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
   size_t smem = 0;
   const void* kernel = tile_kernel(pfb != 0, grade, T, K, Q, D, &smem);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)gsdr::block_fits(kernel, smem, fits);
+  if (pfb) return (int)gsdr::block_fits(kernel, smem, fits);
+  return (int)gsdr::dense_chunk(
+      kernel, tile_kernel(false, grade, T, 0, 0, D, &smem, true), T,
+      [=](int tc) {
+        size_t b = 0;
+        tile_kernel(false, grade, tc, 0, 0, D, &b);
+        return b;
+      },
+      fits);
 }
 
-// Dense front at `grade`. Shapes: buf planes (nb,), bank (2C, 2, T) read
-// at f32, btab dense_mma_tables' (2, ceil(T/8), ceil(C/4), 16, 2) int32
-// read at bf16x3 and bf16x2, audio (C, M) with M = (nb - T)/D + 1.
-// Returns 0 or the CUDA error code.
+// Dense front at `grade`, Tc taps a block stages at once (am_chain_fits'
+// plan, or any chunk gsdr::valid_chunk takes whose block fits). Shapes:
+// buf planes (nb,), bank (2C, 2, T) read at f32, btab dense_mma_tables'
+// (2, ceil(T/8), ceil(C/4), 16, 2) int32 read at bf16x3 and bf16x2, audio
+// (C, M) with M = (nb - T)/D + 1. Returns 0 or the CUDA error code.
 extern "C" int am_chain_launch(const void* buf_re, const void* buf_im,
                                const void* bank, const void* btab,
-                               void* audio, int nb, int C, int T, int D,
-                               int M, int grade, void* stream) {
-  if (C < 1 || T < 1 || D < 1 || M < 1 || M != (nb - T) / D + 1)
+                               void* audio, int nb, int C, int T, int Tc,
+                               int D, int M, int grade, void* stream) {
+  if (C < 1 || T < 1 || D < 1 || M < 1 || M != (nb - T) / D + 1 ||
+      !gsdr::valid_chunk(Tc, T))
     return (int)cudaErrorInvalidValue;
   return run_graded<false>(grade, buf_re, buf_im, bank, nullptr, btab, audio,
-                           nb, C, T, 0, 0, D, M, stream);
+                           nb, C, T, Tc < T ? Tc : T, 0, 0, D, M, stream);
 }
 
 // PFB front at `grade`: channels on the Fs/K grid, D | K. hp (Q, K)
@@ -212,5 +250,5 @@ extern "C" int pfb_am_chain_launch(const void* buf_re, const void* buf_im,
       Q * K < T || M < 1 || M != (nb - T) / D + 1)
     return (int)cudaErrorInvalidValue;
   return run_graded<true>(grade, buf_re, buf_im, bank, hp, btab, audio, nb,
-                          C, T, K, Q, D, M, stream);
+                          C, T, 0, K, Q, D, M, stream);
 }

@@ -49,13 +49,15 @@ using gsdr::kTile;
 // which needs more shared memory.
 inline int mma_block_channels(int C) { return C >= 1 && C <= 16 ? 16 : 32; }
 
-// kCh channels per block: kCG at f32, 16 or 32 at the bf16 grades.
-template <bool kPfb, int kGrade, int kCh>
+// kCh channels per block: kCG at f32, 16 or 32 at the bf16 grades; the
+// dense front in chunks of Tc taps where kChunked (use_chunked_kernel),
+// else all T at once.
+template <bool kPfb, int kGrade, int kCh, bool kChunked = false>
 __global__ void __launch_bounds__(kTile) channelize_tile(
     const float* __restrict__ x_re, const float* __restrict__ x_im, int nb,
     const float* __restrict__ bank, const float* __restrict__ hp,
-    const uint2* __restrict__ btab, int C, int T, int K, int Q, int D, int M,
-    float* __restrict__ y_re, float* __restrict__ y_im) {
+    const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
+    int M, float* __restrict__ y_re, float* __restrict__ y_im) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int j0 = blockIdx.x * kTile;
@@ -67,8 +69,12 @@ __global__ void __launch_bounds__(kTile) channelize_tile(
     gsdr::pfb_front(smem, x_re, x_im, nb, hp, bank, C, K, Q, D, c0, g0,
                     acc_re, acc_im);
   } else if constexpr (kGrade == gsdr::kGradeF32) {
-    gsdr::toeplitz_front(smem, x_re, x_im, nb, bank, C, T, D, c0, g0, acc_re,
-                         acc_im);
+    gsdr::toeplitz_front<kChunked>(smem, x_re, x_im, nb, bank, C, T, Tc, D,
+                                   c0, g0, acc_re, acc_im);
+  } else if constexpr (kChunked) {
+    gsdr::toeplitz_front_mma_chunked<kGrade, kCh / 4>(
+        reinterpret_cast<unsigned char*>(smem4), x_re, x_im, nb, btab, C, T,
+        Tc, D, blockIdx.y, g0, acc_re, acc_im);
   } else {
     gsdr::toeplitz_front_mma<kGrade, kCh / 4>(
         reinterpret_cast<unsigned char*>(smem4), x_re, x_im, nb, btab, C, T,
@@ -84,29 +90,46 @@ __global__ void __launch_bounds__(kTile) channelize_tile(
   }
 }
 
-// The dense tile kernel of a grade for kCh channels per block and its
-// dynamic shared memory.
+// The dense tile kernel of a grade for kCh channels per block, one chunk
+// or chunked, and its dynamic shared memory for a chunk of Tc taps.
 template <int kGrade, int kCh>
-const void* dense_tile(int T, int D, size_t* smem) {
+const void* dense_tile(int Tc, int D, size_t* smem, bool chunked = false) {
   *smem = kGrade == gsdr::kGradeF32
-              ? gsdr::toeplitz_smem_bytes(T, D)
-              : gsdr::mma_smem_bytes(kGrade, kCh / 4, T, D);
-  return (const void*)channelize_tile<false, kGrade, kCh>;
+              ? gsdr::toeplitz_smem_bytes(Tc, D)
+              : gsdr::mma_smem_bytes(kGrade, kCh / 4, Tc, D);
+  return chunked ? (const void*)channelize_tile<false, kGrade, kCh, true>
+                 : (const void*)channelize_tile<false, kGrade, kCh, false>;
 }
 
+// dense_tile's chunk plan for a bank of T taps (gsdr::dense_chunk).
 template <int kGrade, int kCh>
+cudaError_t plan_tile(int T, int D, int* chunk) {
+  size_t smem = 0;
+  return gsdr::dense_chunk(
+      dense_tile<kGrade, kCh>(T, D, &smem),
+      dense_tile<kGrade, kCh>(T, D, &smem, true), T,
+      [=](int tc) {
+        size_t b = 0;
+        dense_tile<kGrade, kCh>(tc, D, &b);
+        return b;
+      },
+      chunk);
+}
+
+template <int kGrade, int kCh, bool kChunked>
 cudaError_t run_tile(const void* x_re, const void* x_im, const void* bank,
                      const void* btab, void* y_re, void* y_im, int nb, int C,
-                     int T, int D, int M, cudaStream_t stream) {
+                     int T, int Tc, int D, int M, cudaStream_t stream) {
   size_t smem = 0;
-  const void* kernel = dense_tile<kGrade, kCh>(T, D, &smem);
+  const void* kernel = dense_tile<kGrade, kCh>(Tc, D, &smem, kChunked);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((M + kTile - 1) / kTile, (C + kCh - 1) / kCh);
-  channelize_tile<false, kGrade, kCh><<<grid, kTile, smem, stream>>>(
+  channelize_tile<false, kGrade, kCh, kChunked>
+      <<<grid, kTile, smem, stream>>>(
       (const float*)x_re, (const float*)x_im, nb, (const float*)bank, nullptr,
-      (const uint2*)btab, C, T, 0, 0, D, M, (float*)y_re, (float*)y_im);
+      (const uint2*)btab, C, T, Tc, 0, 0, D, M, (float*)y_re, (float*)y_im);
   return cudaGetLastError();
 }
 
@@ -116,9 +139,10 @@ extern "C" const char* channelize_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// *fits = 1 when the block channelize_launch launches for C channels (C < 1:
-// any C) and (T, D) at `grade` (0 f32, 2 bf16x2, 3 bf16x3) fits the
-// current device's shared memory, static plus dynamic. Only the dense
+// *fits = the taps the block channelize_launch launches for C channels (C <
+// 1: any C) and (T, D) at `grade` (0 f32, 2 bf16x2, 3 bf16x3) stages at
+// once on the current device (gsdr::dense_chunk: T in one chunk where the
+// whole bank fits; 0 only where not even 8 taps fit). Only the dense
 // front is built: pfb != 0 is refused, as is an unknown grade. Returns 0
 // or the CUDA error.
 extern "C" int channelize_fits(int pfb, int grade, int C, int T, int K, int Q,
@@ -127,40 +151,42 @@ extern "C" int channelize_fits(int pfb, int grade, int C, int T, int K, int Q,
   (void)Q;
   if (pfb || T < 1 || D < 1) return (int)cudaErrorInvalidValue;
   const bool wide = mma_block_channels(C) == 32;
-  size_t smem = 0;
-  const void* kernel = nullptr;
   switch (grade) {
     case gsdr::kGradeF32:
-      kernel = dense_tile<gsdr::kGradeF32, kCG>(T, D, &smem);
-      break;
+      return (int)plan_tile<gsdr::kGradeF32, kCG>(T, D, fits);
     case gsdr::kGradeBf16x2:
-      kernel = wide ? dense_tile<gsdr::kGradeBf16x2, 32>(T, D, &smem)
-                    : dense_tile<gsdr::kGradeBf16x2, 16>(T, D, &smem);
-      break;
+      return (int)(wide ? plan_tile<gsdr::kGradeBf16x2, 32>(T, D, fits)
+                        : plan_tile<gsdr::kGradeBf16x2, 16>(T, D, fits));
     case gsdr::kGradeBf16x3:
-      kernel = wide ? dense_tile<gsdr::kGradeBf16x3, 32>(T, D, &smem)
-                    : dense_tile<gsdr::kGradeBf16x3, 16>(T, D, &smem);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+      return (int)(wide ? plan_tile<gsdr::kGradeBf16x3, 32>(T, D, fits)
+                        : plan_tile<gsdr::kGradeBf16x3, 16>(T, D, fits));
   }
-  return (int)gsdr::block_fits(kernel, smem, fits);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Shapes: x planes (nb,), bank (2C, 2, T) read at f32, btab
 // dense_mma_tables' (2, ceil(T/8), ceil(C/4), 16, 2) int32 read at bf16x3
 // and bf16x2, y planes (C, M) with M = (nb - T)/D + 1; grade as
-// channelize_fits. Returns 0 or the CUDA error code.
+// channelize_fits, Tc taps a block stages at once (channelize_fits' plan,
+// or any chunk gsdr::valid_chunk takes whose block fits). Returns 0 or the
+// CUDA error code.
 extern "C" int channelize_launch(const void* x_re, const void* x_im,
                                  const void* bank, const void* btab,
                                  void* y_re, void* y_im, int nb, int C, int T,
-                                 int D, int M, int grade, void* stream) {
-  if (C < 1 || T < 1 || D < 1 || M < 1 || M != (nb - T) / D + 1)
+                                 int Tc, int D, int M, int grade,
+                                 void* stream) {
+  if (C < 1 || T < 1 || D < 1 || M < 1 || M != (nb - T) / D + 1 ||
+      !gsdr::valid_chunk(Tc, T))
     return (int)cudaErrorInvalidValue;
+  Tc = Tc < T ? Tc : T;
   cudaStream_t st = (cudaStream_t)stream;
   const bool wide = mma_block_channels(C) == 32;
-#define GSDR_TILE(G, CH) \
-  run_tile<G, CH>(x_re, x_im, bank, btab, y_re, y_im, nb, C, T, D, M, st)
+#define GSDR_TILE_AT(G, CH, CHUNKED)                                   \
+  run_tile<G, CH, CHUNKED>(x_re, x_im, bank, btab, y_re, y_im, nb, C, T, \
+                           Tc, D, M, st)
+#define GSDR_TILE(G, CH)                                          \
+  (gsdr::use_chunked_kernel(Tc, T, D) ? GSDR_TILE_AT(G, CH, true) \
+                                      : GSDR_TILE_AT(G, CH, false))
   switch (grade) {
     case gsdr::kGradeF32:
       return (int)GSDR_TILE(gsdr::kGradeF32, kCG);
@@ -172,5 +198,6 @@ extern "C" int channelize_launch(const void* x_re, const void* x_im,
                         : GSDR_TILE(gsdr::kGradeBf16x3, 16));
   }
 #undef GSDR_TILE
+#undef GSDR_TILE_AT
   return (int)cudaErrorInvalidValue;
 }

@@ -78,19 +78,20 @@ __device__ __forceinline__ float ipow(float a, int k) {
 
 // Launch 1: front, rotor, discriminator and the zero-state de-emphasis of
 // one tile of kOut outputs for kCh channels; with the tensor-core PFB
-// front, two threads per output, one for each group of kCG channels. kPfb selects the front: the
-// dense one reads bank (2C, 2, T) at f32, or btab (dense_mma_tables) at
-// bf16x3 and bf16x2; the PFB one reads hp (Q, K) and the planes-major
-// bank (2C, 2K) at f32, or hp and btab (pfb_mma_tables) at the bf16
-// grades.
-template <bool kPfb, int kGrade>
+// front, two threads per output, one for each group of kCG channels. kPfb
+// selects the front: the dense one reads bank (2C, 2, T) at f32, or btab
+// (dense_mma_tables) at bf16x3 and bf16x2, in chunks of Tc taps where
+// kChunked (fronts.cuh, dense_chunk, use_chunked_kernel), else all T at
+// once; the PFB one reads hp (Q, K) and the planes-major bank (2C, 2K) at
+// f32, or hp and btab (pfb_mma_tables) at the bf16 grades.
+template <bool kPfb, int kGrade, bool kChunked = false>
 __global__ void __launch_bounds__(gsdr::block_threads<kPfb, kGrade>())
 fm_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ bank, const float* __restrict__ hp,
-    const uint2* __restrict__ btab, int C, int T, int K, int Q, int D, int M,
-    int ntiles,
-    const float* __restrict__ table, const int* __restrict__ n0_rot,
+    const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
+    int M, int ntiles, const float* __restrict__ table,
+    const int* __restrict__ n0_rot,
     const float* __restrict__ coef, float gain,
     const float* __restrict__ cf_re_in, const float* __restrict__ cf_im_in,
     float* __restrict__ audio, float* __restrict__ cf_re_out,
@@ -135,8 +136,12 @@ fm_chain_tile(
     gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D,
                     blockIdx.y * kCG, g0, acc_re, acc_im);
   } else if constexpr (kGrade == gsdr::kGradeF32) {
-    gsdr::toeplitz_front(smem, buf_re, buf_im, nb, bank, C, T, D,
-                         blockIdx.y * kCG, g0, acc_re, acc_im);
+    gsdr::toeplitz_front<kChunked>(smem, buf_re, buf_im, nb, bank, C, T, Tc,
+                                   D, blockIdx.y * kCG, g0, acc_re, acc_im);
+  } else if constexpr (kChunked) {
+    gsdr::toeplitz_front_mma_chunked<kGrade, kCG / 4>(
+        reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, btab, C,
+        T, Tc, D, blockIdx.y, g0, acc_re, acc_im);
   } else {
     gsdr::toeplitz_front_mma<kGrade, kCG / 4>(
         reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, btab, C,
@@ -342,25 +347,25 @@ __global__ void fm_chain_inject(float* __restrict__ audio,
 }
 
 // The three launches of one chain call; returns 0 or the first CUDA error.
-template <bool kPfb, int kGrade>
+template <bool kPfb, int kGrade, bool kChunked>
 int run_chain(const void* buf_re, const void* buf_im, const void* bank,
               const void* hp, const void* btab, const void* table,
               const void* n0_rot, const void* coef, const void* cf_re_in,
               const void* cf_im_in, const void* cz_in, void* audio,
               void* cf_re_out, void* cf_im_out, void* cz_out, void* zend,
-              void* zstart, int nb, int C, int T, int K, int Q, int D, int M,
-              int ntiles, float gain, size_t smem, void* stream) {
+              void* zstart, int nb, int C, int T, int Tc, int K, int Q, int D,
+              int M, int ntiles, float gain, size_t smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaFuncSetAttribute(
-      fm_chain_tile<kPfb, kGrade>,
+      fm_chain_tile<kPfb, kGrade, kChunked>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
   dim3 grid(ntiles, (C + kCh - 1) / kCh);
-  fm_chain_tile<kPfb, kGrade>
+  fm_chain_tile<kPfb, kGrade, kChunked>
       <<<grid, gsdr::block_threads<kPfb, kGrade>(), smem, st>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank,
-      (const float*)hp, (const uint2*)btab, C, T, K, Q, D, M, ntiles,
+      (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M, ntiles,
       (const float*)table, (const int*)n0_rot, (const float*)coef, gain,
       (const float*)cf_re_in, (const float*)cf_im_in, (float*)audio,
       (float*)cf_re_out, (float*)cf_im_out, (float*)zend);
@@ -381,10 +386,19 @@ extern "C" int fm_chain_tile_outputs() { return kOut; }
 
 namespace {
 
+// The dense tile kernel of a grade, one chunk or chunked.
+template <int kGrade>
+const void* dense_tile(bool chunked) {
+  return chunked ? (const void*)fm_chain_tile<false, kGrade, true>
+                 : (const void*)fm_chain_tile<false, kGrade, false>;
+}
+
 // The tile kernel of a front (pfb) and grade with its dynamic shared memory
-// for (T, D) or (K, Q, D), or nullptr for a grade the library lacks.
-const void* tile_kernel(bool pfb, int grade, int T, int K, int Q, int D,
-                        size_t* smem) {
+// for a chunk of Tc taps and D (dense; `chunked` picks the kernel that
+// walks chunks) or for (K, Q, D) (PFB), or nullptr for a grade the library
+// lacks.
+const void* tile_kernel(bool pfb, int grade, int Tc, int K, int Q, int D,
+                        size_t* smem, bool chunked = false) {
   if (pfb) {
     switch (grade) {
       case gsdr::kGradeF32:
@@ -401,25 +415,27 @@ const void* tile_kernel(bool pfb, int grade, int T, int K, int Q, int D,
   }
   switch (grade) {
     case gsdr::kGradeF32:
-      *smem = gsdr::toeplitz_smem_bytes(T, D);
-      return (const void*)fm_chain_tile<false, gsdr::kGradeF32>;
+      *smem = gsdr::toeplitz_smem_bytes(Tc, D);
+      return dense_tile<gsdr::kGradeF32>(chunked);
     case gsdr::kGradeBf16x2:
-      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, T, D);
-      return (const void*)fm_chain_tile<false, gsdr::kGradeBf16x2>;
+      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
+      return dense_tile<gsdr::kGradeBf16x2>(chunked);
     case gsdr::kGradeBf16x3:
-      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, T, D);
-      return (const void*)fm_chain_tile<false, gsdr::kGradeBf16x3>;
+      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
+      return dense_tile<gsdr::kGradeBf16x3>(chunked);
   }
   return nullptr;
 }
 
 }  // namespace
 
-// *fits = 1 when a block of the front (pfb = 0: dense, with T and D;
-// pfb = 1: PFB, with K, Q and D) at `grade` (0 f32, 2 bf16x2, 3 bf16x3)
-// fits the current device's shared memory, for any channel count C
-// (grid.y covers the channels). Returns 0 or the CUDA error; an unknown
-// grade is an invalid value.
+// The block plan of the front at `grade` (0 f32, 2 bf16x2, 3 bf16x3) on
+// the current device, for any channel count C (grid.y covers the
+// channels): for the dense front (pfb = 0, with T and D) *fits = the taps
+// a block stages at once (gsdr::dense_chunk: T in one chunk where the
+// whole bank fits; 0 only where not even 8 taps fit); for the PFB front
+// (pfb = 1, with K, Q and D) *fits = 1 when its block fits, else 0.
+// Returns 0 or the CUDA error; an unknown grade is an invalid value.
 extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
                              int D, int* fits) {
   (void)C;
@@ -428,36 +444,49 @@ extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
   size_t smem = 0;
   const void* kernel = tile_kernel(pfb != 0, grade, T, K, Q, D, &smem);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)gsdr::block_fits(kernel, smem, fits);
+  if (pfb) return (int)gsdr::block_fits(kernel, smem, fits);
+  return (int)gsdr::dense_chunk(
+      kernel, tile_kernel(false, grade, T, 0, 0, D, &smem, true), T,
+      [=](int tc) {
+        size_t b = 0;
+        tile_kernel(false, grade, tc, 0, 0, D, &b);
+        return b;
+      },
+      fits);
 }
 
 extern "C" const char* fm_chain_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Dense front at `grade` (as fm_chain_fits). Shapes: buf planes (nb,),
-// bank (2C, 2, T) read at f32, btab dense_mma_tables' (2, ceil(T/8),
-// ceil(C/4), 16, 2) int32 read at bf16x3 and bf16x2, table (C, 4), n0_rot
-// (1,) int32, coef (3,) = (b0, cc, a), carries (C,), audio (C, M),
-// zend/zstart (C, ntiles) scratch.
+// Dense front at `grade` (as fm_chain_fits), Tc taps a block stages at
+// once (fm_chain_fits' plan, or any chunk gsdr::valid_chunk takes whose
+// block fits). Shapes: buf planes (nb,), bank (2C, 2, T) read at f32,
+// btab dense_mma_tables' (2, ceil(T/8), ceil(C/4), 16, 2) int32 read at
+// bf16x3 and bf16x2, table (C, 4), n0_rot (1,) int32, coef (3,) = (b0,
+// cc, a), carries (C,), audio (C, M), zend/zstart (C, ntiles) scratch.
 extern "C" int fm_chain_launch(
     const void* buf_re, const void* buf_im, const void* bank,
     const void* btab, const void* table, const void* n0_rot,
     const void* coef, const void* cf_re_in, const void* cf_im_in,
     const void* cz_in, void* audio, void* cf_re_out, void* cf_im_out,
-    void* cz_out, void* zend, void* zstart, int nb, int C, int T, int D,
-    int M, int ntiles, int grade, float gain, void* stream) {
+    void* cz_out, void* zend, void* zstart, int nb, int C, int T, int Tc,
+    int D, int M, int ntiles, int grade, float gain, void* stream) {
   if (C < 1 || T < 1 || D < 1 || M < 1 || M != (nb - T) / D + 1 ||
-      ntiles != (M + kOut - 1) / kOut)
+      ntiles != (M + kOut - 1) / kOut || !gsdr::valid_chunk(Tc, T))
     return (int)cudaErrorInvalidValue;
+  Tc = Tc < T ? Tc : T;
   size_t smem = 0;
-  if (tile_kernel(false, grade, T, 0, 0, D, &smem) == nullptr)
+  if (tile_kernel(false, grade, Tc, 0, 0, D, &smem) == nullptr)
     return (int)cudaErrorInvalidValue;
-#define GSDR_DENSE_CHAIN(G)                                                  \
-  run_chain<false, G>(buf_re, buf_im, bank, nullptr, btab, table, n0_rot,    \
-                      coef, cf_re_in, cf_im_in, cz_in, audio, cf_re_out,     \
-                      cf_im_out, cz_out, zend, zstart, nb, C, T, 0, 0, D, M, \
-                      ntiles, gain, smem, stream)
+#define GSDR_DENSE_CHAIN_AT(G, CHUNKED)                                      \
+  run_chain<false, G, CHUNKED>(                                             \
+      buf_re, buf_im, bank, nullptr, btab, table, n0_rot, coef, cf_re_in,   \
+      cf_im_in, cz_in, audio, cf_re_out, cf_im_out, cz_out, zend, zstart,   \
+      nb, C, T, Tc, 0, 0, D, M, ntiles, gain, smem, stream)
+#define GSDR_DENSE_CHAIN(G)                                      \
+  (gsdr::use_chunked_kernel(Tc, T, D) ? GSDR_DENSE_CHAIN_AT(G, true) \
+                                      : GSDR_DENSE_CHAIN_AT(G, false))
   switch (grade) {
     case gsdr::kGradeBf16x2:
       return GSDR_DENSE_CHAIN(gsdr::kGradeBf16x2);
@@ -467,6 +496,7 @@ extern "C" int fm_chain_launch(
       return GSDR_DENSE_CHAIN(gsdr::kGradeF32);
   }
 #undef GSDR_DENSE_CHAIN
+#undef GSDR_DENSE_CHAIN_AT
 }
 
 // PFB front at `grade`: channels on the Fs/K grid, D | K. hp (Q, K)
@@ -489,10 +519,10 @@ extern "C" int pfb_fm_chain_launch(
   if (tile_kernel(true, grade, T, K, Q, D, &smem) == nullptr)
     return (int)cudaErrorInvalidValue;
 #define GSDR_PFB_CHAIN(G)                                                    \
-  run_chain<true, G>(buf_re, buf_im, bank, hp, btab, table, n0_rot, coef,    \
-                     cf_re_in, cf_im_in, cz_in, audio, cf_re_out, cf_im_out, \
-                     cz_out, zend, zstart, nb, C, T, K, Q, D, M, ntiles, gain, \
-                     smem, stream)
+  run_chain<true, G, false>(buf_re, buf_im, bank, hp, btab, table, n0_rot,  \
+                            coef, cf_re_in, cf_im_in, cz_in, audio,         \
+                            cf_re_out, cf_im_out, cz_out, zend, zstart, nb, \
+                            C, T, 0, K, Q, D, M, ntiles, gain, smem, stream)
   switch (grade) {
     case gsdr::kGradeBf16x2:
       return GSDR_PFB_CHAIN(gsdr::kGradeBf16x2);

@@ -23,7 +23,8 @@
 //
 //  - toeplitz_front_mma<kGrade, kNT>: the dense front on the tensor cores,
 //    at the JAX package's bf16x3 (kGrade 3) or bf16x2 (kGrade 2) grade
-//    (fm_chain_pallas.py, _window_dot's grade arm). See below.
+//    (fm_chain_pallas.py, _window_dot's grade arm), and
+//    toeplitz_front_mma_chunked, the same over chunks of taps. See below.
 //
 //  - pfb_front_mma<kGrade, kNT>: the PFB front on the tensor cores at
 //    bf16x3 or bf16x2 (fm_chain_pallas.py, _pfb_fold_dot with its grade
@@ -32,10 +33,23 @@
 // The f32 fronts and toeplitz_front_mma stage the block's input window in
 // shared memory in polyphase order, xp[p][k] = x[g0 + k*D + p], so
 // neighbouring threads (neighbouring outputs, D samples apart) read
-// neighbouring words. The PFB fronts stage kPhaseChunk phases at a time,
-// which bounds their shared memory for any D; pfb_front_mma keeps each
-// chunk frame-major, so that it stages with 16-byte copies. Tap and bank
-// tables are read as broadcasts.
+// neighbouring words. The dense fronts walk the taps in ascending chunks
+// of Tc (dense_chunk): a chunk stages its own taps and its own window,
+// the min(Tc, D) phases of samples g0 + t0 + [0, (kTile-1)*D + Tc) it
+// touches, and the sums carry across chunks in registers (or mma.sync
+// accumulators) in the order of one pass over all T taps, so a chunked
+// launch equals a one-chunk launch bit for bit. Tc = T, one chunk, where
+// the whole bank and window fit the block; else the largest multiple of 8
+// that does, which bounds their shared memory for any T and D. Each dense
+// front is two kernels (use_chunked_kernel): a one-chunk kernel for
+// Tc = T >= D, which stages every phase before its sums start, and a
+// chunked kernel for Tc < T or T < D, which stages only the phases a chunk
+// touches; its accumulators stay live through each chunk's staging, which
+// takes more registers (B1 at bf16x3 108 against 72 on the H100), and so
+// fewer blocks a SM than the one-chunk kernel needs. The PFB
+// fronts stage kPhaseChunk phases at a time, which bounds their shared
+// memory for any D; pfb_front_mma keeps each chunk frame-major, so that it
+// stages with 16-byte copies. Tap and bank tables are read as broadcasts.
 //
 // What bounds the dense front on the card, by grade: in f32, the FP32
 // FMAs, 8*C*T FLOP per output at 67 TFLOP/s; in bf16x3 and bf16x2, 3 or 2
@@ -78,10 +92,17 @@ constexpr int kGradeF32 = 0;
 constexpr int kGradeBf16x2 = 2;
 constexpr int kGradeBf16x3 = 3;
 
-// Dynamic shared memory of each front, in bytes.
-__host__ __device__ inline size_t toeplitz_smem_bytes(int T, int D) {
-  const size_t kr = kTile + (T - 1) / D;
-  return sizeof(float) * ((size_t)T * kCG * 2 + 2 * (size_t)D * kr);
+// Phases of the window that a chunk of Tc taps touches.
+__host__ __device__ inline int chunk_phases(int Tc, int D) {
+  return Tc < D ? Tc : D;
+}
+
+// Dynamic shared memory of each front, in bytes; the dense fronts' for a
+// chunk of Tc taps.
+__host__ __device__ inline size_t toeplitz_smem_bytes(int Tc, int D) {
+  const size_t kr = kTile + (Tc - 1) / D;
+  return sizeof(float) * ((size_t)Tc * kCG * 2 +
+                          2 * (size_t)chunk_phases(Tc, D) * kr);
 }
 
 // Words per phase of the tensor-core front's window: the Kr = kTile +
@@ -93,14 +114,16 @@ __host__ __device__ inline int mma_phase_stride(int Tp, int D) {
   return kr + ((8 - kr % 32) + 32) % 32;
 }
 
-// toeplitz_front_mma's dynamic shared memory: B's hi and lo parts, the
-// tap offsets, then the window (hi, and lo at bf16x3), whose space the
+// toeplitz_front_mma's dynamic shared memory for a chunk of Tc taps
+// (padded to whole blocks of 8): the chunk's B, hi and lo parts, the tap
+// offsets, then the chunk's window (hi, and lo at bf16x3), whose space the
 // kTile x (8*kNT + 1) output tile reuses after the product.
-__host__ __device__ inline size_t mma_smem_bytes(int grade, int nt, int T,
+__host__ __device__ inline size_t mma_smem_bytes(int grade, int nt, int Tc,
                                                  int D) {
-  const size_t kb = (T + 7) / 8, tp = 8 * kb;
+  const size_t kb = (Tc + 7) / 8, tp = 8 * kb;
   const size_t b = 2 * kb * nt * 16 * sizeof(uint2);
-  const size_t win = (grade == kGradeBf16x3 ? 2 : 1) * (size_t)D *
+  const size_t win = (grade == kGradeBf16x3 ? 2 : 1) *
+                     (size_t)chunk_phases((int)tp, D) *
                      mma_phase_stride((int)tp, D) * sizeof(uint32_t);
   const size_t out = (size_t)kTile * (8 * nt + 1) * sizeof(float);
   return b + tp * sizeof(int) + (win > out ? win : out);
@@ -170,12 +193,11 @@ __host__ __device__ constexpr int block_threads() {
   return kPfb && kGrade != kGradeF32 ? kPfbThreads : kTile;
 }
 
-// Sets *fits to 1 when a block of `kernel` with `dynamic` bytes of dynamic
-// shared memory fits the current device: the kernel's static shared memory
-// plus the dynamic size against the per-block opt-in limit. Returns 0 or
-// the CUDA error. The libraries export it as <library>_fits, the check the
-// Python side makes before a launch.
-inline cudaError_t block_fits(const void* kernel, size_t dynamic, int* fits) {
+// Sets *room to the dynamic shared memory a block of `kernel` may take on
+// the current device: the per-block opt-in limit less the kernel's static
+// shared memory (0 when that alone exceeds it). Returns 0 or the CUDA
+// error.
+inline cudaError_t block_room(const void* kernel, size_t* room) {
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&dev);
@@ -184,43 +206,99 @@ inline cudaError_t block_fits(const void* kernel, size_t dynamic, int* fits) {
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess)
-    *fits = attr.sharedSizeBytes + dynamic <= (size_t)optin ? 1 : 0;
+    *room = attr.sharedSizeBytes < (size_t)optin
+                ? (size_t)optin - attr.sharedSizeBytes
+                : 0;
   return err;
 }
 
-// Dense front. bank: (2C, 2, T) from make_complex_tap_bank; row 4c holds
-// gr_c (applied to x_re), row 4c+2 holds gi_c. Shared memory: taps
-// [T][kCG][2] as (re, im) pairs read as float4 broadcasts, then the
-// window [D][Kr] for each plane.
-__device__ __forceinline__ void toeplitz_front(
-    float* smem, const float* __restrict__ buf_re,
-    const float* __restrict__ buf_im, int nb, const float* __restrict__ bank,
-    int C, int T, int D, int c0, long g0, float (&acc_re)[kCG],
-    float (&acc_im)[kCG]) {
-  const int tid = threadIdx.x;
-  float* taps = smem;
-  const int Kr = kTile + (T - 1) / D;
-  float* xp_re = taps + T * kCG * 2;
-  float* xp_im = xp_re + D * Kr;
-  for (int idx = tid; idx < T * kCG; idx += kTile) {
-    const int t = idx / kCG, c = idx % kCG, cg = c0 + c;
-    taps[2 * idx] = cg < C ? bank[(4 * cg) * T + t] : 0.f;           // gr
-    taps[2 * idx + 1] = cg < C ? bank[(4 * cg + 2) * T + t] : 0.f;   // gi
-  }
-  for (int l = tid; l < D * Kr; l += kTile) {
-    const long g = g0 + l;
-    const bool in = g >= 0 && g < nb;
-    const int s = (l % D) * Kr + l / D;
-    xp_re[s] = in ? buf_re[g] : 0.f;
-    xp_im[s] = in ? buf_im[g] : 0.f;
-  }
-  __syncthreads();
+// Sets *fits to 1 when a block of `kernel` with `dynamic` bytes of dynamic
+// shared memory fits the current device (block_room), else 0. Returns 0 or
+// the CUDA error. The libraries answer <library>_fits with it for the PFB
+// front, the check the Python side makes before a launch.
+inline cudaError_t block_fits(const void* kernel, size_t dynamic, int* fits) {
+  size_t room = 0;
+  const cudaError_t err = block_room(kernel, &room);
+  if (err == cudaSuccess) *fits = dynamic <= room ? 1 : 0;
+  return err;
+}
 
-#pragma unroll
-  for (int c = 0; c < kCG; ++c) acc_re[c] = acc_im[c] = 0.f;
+// The dense fronts' chunk plan: sets *chunk to the taps a block stages at
+// once on the current device, T where the whole bank and window fit a
+// block, else the largest multiple of 8 below T that fits, or 0 where not
+// even 8 taps do; a block of either kernel of the front, `one` (one
+// chunk) and `chunked`, whose static shared memory may differ. bytes(Tc)
+// is the block's dynamic shared memory for a chunk of Tc taps,
+// non-decreasing in Tc. Returns 0 or the CUDA error. The libraries answer
+// <library>_fits with it for the dense front.
+template <class Bytes>
+cudaError_t dense_chunk(const void* one, const void* chunked, int T,
+                        Bytes bytes, int* chunk) {
+  size_t room = 0, room_chunked = 0;
+  cudaError_t err = block_room(one, &room);
+  if (err == cudaSuccess) err = block_room(chunked, &room_chunked);
+  if (err != cudaSuccess) return err;
+  if (room_chunked < room) room = room_chunked;
+  if (bytes(T) <= room) {
+    *chunk = T;
+    return cudaSuccess;
+  }
+  int lo = 0, hi = (T - 1) / 8;   // chunks of 8*m taps, 1 <= m <= hi
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (bytes(8 * mid) <= room) lo = mid;
+    else hi = mid - 1;
+  }
+  *chunk = 8 * lo;
+  return cudaSuccess;
+}
+
+// A chunk of Tc taps a launch may take for a bank of T taps: T or more (one
+// chunk), or a positive multiple of 8 (one tensor-core block of taps).
+__host__ __device__ inline bool valid_chunk(int Tc, int T) {
+  return Tc >= T || (Tc >= 8 && Tc % 8 == 0);
+}
+
+// Whether a launch of Tc <= T taps at D runs the dense front's chunked
+// kernel: for chunks, and for a bank shorter than D, whose window the
+// one-chunk kernel would stage at all D phases.
+__host__ __device__ inline bool use_chunked_kernel(int Tc, int T, int D) {
+  return Tc < T || T < D;
+}
+
+// Stages taps t0..t0+nt-1 of the dense front's f32 bank for channels
+// c0..c0+kCG-1 as (re, im) pairs, taps[(t - t0)*kCG + c], and the window
+// of samples g0 + t0 + k*D + p, p < Dc, k < Kr, in polyphase order
+// xp[p*Kr + k] for each plane; samples outside [0, nb) as zeros.
+__device__ __forceinline__ void toeplitz_stage(
+    float* taps, float* xp_re, float* xp_im,
+    const float* __restrict__ buf_re, const float* __restrict__ buf_im,
+    int nb, const float* __restrict__ bank, int C, int T, int D, int c0,
+    long g0, int t0, int nt, int Dc, int Kr) {
+  const int tid = threadIdx.x;
+  for (int idx = tid; idx < nt * kCG; idx += kTile) {
+    const int t = t0 + idx / kCG, cg = c0 + idx % kCG;
+    taps[2 * idx] = cg < C ? bank[(4L * cg) * T + t] : 0.f;           // gr
+    taps[2 * idx + 1] = cg < C ? bank[(4L * cg + 2) * T + t] : 0.f;   // gi
+  }
+  for (int l = tid; l < Dc * Kr; l += kTile) {
+    const int p = l % Dc, k = l / Dc;
+    const long g = g0 + t0 + (long)k * D + p;
+    const bool in = g >= 0 && g < nb;
+    xp_re[p * Kr + k] = in ? buf_re[g] : 0.f;
+    xp_im[p * Kr + k] = in ? buf_im[g] : 0.f;
+  }
+}
+
+// acc += the products of one staged chunk of nt taps (toeplitz_stage), in
+// ascending t, with fmaf.
+__device__ __forceinline__ void toeplitz_product(
+    const float* taps, const float* xp_re, const float* xp_im, int nt,
+    int D, int Kr, float (&acc_re)[kCG], float (&acc_im)[kCG]) {
+  const int tid = threadIdx.x;
   const float4* taps4 = reinterpret_cast<const float4*>(taps);
   int p = 0, q = 0;
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < nt; ++t) {
     const float xr = xp_re[p * Kr + tid + q];
     const float xi = xp_im[p * Kr + tid + q];
 #pragma unroll
@@ -238,6 +316,46 @@ __device__ __forceinline__ void toeplitz_front(
   }
 }
 
+// Dense front. bank: (2C, 2, T) from make_complex_tap_bank; row 4c holds
+// gr_c (applied to x_re), row 4c+2 holds gi_c. Shared memory: a chunk's
+// taps [Tc][kCG][2] as (re, im) pairs read as float4 broadcasts, then its
+// window [Dc][Kr] for each plane, Dc = chunk_phases(Tc, D), Kr = kTile +
+// (Tc - 1)/D: xp[p][k] = x[g0 + t0 + k*D + p]. Each output sums its taps
+// in ascending t with fmaf. kChunked = false: one chunk, Tc = T, staged
+// before the sums start, so that no accumulator is live while it stages;
+// kChunked: chunks of Tc taps, the sums carried across them in registers.
+template <bool kChunked>
+__device__ __forceinline__ void toeplitz_front(
+    float* smem, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, const float* __restrict__ bank,
+    int C, int T, int Tc, int D, int c0, long g0, float (&acc_re)[kCG],
+    float (&acc_im)[kCG]) {
+  if constexpr (!kChunked) Tc = T;
+  const int Dc = chunk_phases(Tc, D), Kr = kTile + (Tc - 1) / D;
+  float* taps = smem;
+  float* xp_re = taps + Tc * kCG * 2;
+  float* xp_im = xp_re + Dc * Kr;
+  if constexpr (!kChunked) {
+    toeplitz_stage(taps, xp_re, xp_im, buf_re, buf_im, nb, bank, C, T, D, c0,
+                   g0, 0, T, Dc, Kr);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int c = 0; c < kCG; ++c) acc_re[c] = acc_im[c] = 0.f;
+  if constexpr (!kChunked) {
+    toeplitz_product(taps, xp_re, xp_im, T, D, Kr, acc_re, acc_im);
+  } else {
+    for (int t0 = 0; t0 < T; t0 += Tc) {
+      const int nt = T - t0 < Tc ? T - t0 : Tc;
+      if (t0 > 0) __syncthreads();   // the previous chunk's readers are done
+      toeplitz_stage(taps, xp_re, xp_im, buf_re, buf_im, nb, bank, C, T, D,
+                     c0, g0, t0, nt, Dc, Kr);
+      __syncthreads();
+      toeplitz_product(taps, xp_re, xp_im, nt, D, Kr, acc_re, acc_im);
+    }
+  }
+}
+
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -250,6 +368,109 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Splits one window sample (xr, xi) into bf16 hi at word s (and lo at
+// bf16x3, lo_at words on).
+template <int kGrade>
+__device__ __forceinline__ void mma_put(uint32_t* win, int s, int lo_at,
+                                        float xr, float xi) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(xr, xi);
+  win[s] = bf16x2_bits(hi);
+  if constexpr (kGrade == kGradeBf16x3) {
+    win[lo_at + s] = bf16x2_bits(__floats2bfloat162_rn(
+        xr - __low2float(hi), xi - __high2float(hi)));
+  }
+}
+
+// Stages one chunk of toeplitz_front_mma: B's blocks kb0..kb0+nkb-1 of
+// 8 taps for the group's n-tiles into bs [2][KBc][kNT][16] (zeros past
+// nkb and NT), and the window of samples g0 + 8*kb0 + k*D + p, p < Dc,
+// k < Kr, split into bf16 hi (and lo at bf16x3, Dc*Ks words on) at word
+// p*Ks + k; samples outside [0, nb) as zeros. Where the chunk touches
+// all D phases, sample l of the window is simply g0 + 8*kb0 + l, read in
+// one contiguous sweep.
+template <int kGrade, int kNT>
+__device__ __forceinline__ void mma_stage(
+    uint2* bs, uint32_t* win, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb,
+    const uint2* __restrict__ btab, int KB, int NT, int D, int group,
+    long g0, int kb0, int nkb, int KBc, int Dc, int Ks, int Kr) {
+  const int tid = threadIdx.x;
+  const int nbs = KBc * kNT * 16;   // uint2 per part in shared memory
+  for (int i = tid; i < 2 * nbs; i += kTile) {
+    const int part = i / nbs, kb = (i % nbs) / (kNT * 16);
+    const int nt = (i / 16) % kNT, e = i % 16;
+    const int ntg = group * kNT + nt;
+    bs[i] = ntg < NT && kb < nkb
+                ? btab[((long)(part * KB + kb0 + kb) * NT + ntg) * 16 + e]
+                : make_uint2(0u, 0u);
+  }
+  const long gc = g0 + 8L * kb0;
+  if (Dc == D) {
+    for (int l = tid; l < D * Kr; l += kTile) {
+      const long g = gc + l;
+      const bool in = g >= 0 && g < nb;
+      mma_put<kGrade>(win, (l % D) * Ks + l / D, D * Ks,
+                      in ? buf_re[g] : 0.f, in ? buf_im[g] : 0.f);
+    }
+    return;
+  }
+  for (int l = tid; l < Dc * Kr; l += kTile) {
+    const int p = l % Dc, k = l / Dc;
+    const long g = gc + (long)k * D + p;
+    const bool in = g >= 0 && g < nb;
+    mma_put<kGrade>(win, p * Ks + k, Dc * Ks, in ? buf_re[g] : 0.f,
+                    in ? buf_im[g] : 0.f);
+  }
+}
+
+// d += the products of one staged chunk of nkb blocks of 8 taps
+// (mma_stage), in ascending kb: warp rows r0 and r0 + 16, lane (gid, tig).
+template <int kGrade, int kNT>
+__device__ __forceinline__ void mma_product(
+    float (&d)[2][kNT][4], const uint2* bs, const uint32_t* win,
+    const int* off, int nkb, int KBc, int Dc, int Ks, int r0, int gid,
+    int tig) {
+  // an odd GEMM column (gi, gr) from its even neighbour (gr, -gi)
+  const uint32_t sel = (gid & 1) ? 0x1032u : 0x3210u;
+  const uint32_t flip = (gid & 1) ? 0x8000u : 0u;
+  const uint2* bl = bs + 4 * (gid >> 1) + tig;
+  const uint32_t* wl = win + Dc * Ks;   // the lo part at bf16x3
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int o0 = off[8 * kb + tig], o1 = off[8 * kb + tig + 4];
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int r = r0 + 16 * mt;
+      ah[mt][0] = win[o0 + r];
+      ah[mt][1] = win[o0 + r + 8];
+      ah[mt][2] = win[o1 + r];
+      ah[mt][3] = win[o1 + r + 8];
+      if constexpr (kGrade == kGradeBf16x3) {
+        al[mt][0] = wl[o0 + r];
+        al[mt][1] = wl[o0 + r + 8];
+        al[mt][2] = wl[o1 + r];
+        al[mt][3] = wl[o1 + r + 8];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const uint2 h = bl[(kb * kNT + nt) * 16];
+      const uint2 l = bl[((KBc + kb) * kNT + nt) * 16];
+      const uint32_t h0 = __byte_perm(h.x, 0u, sel) ^ flip;
+      const uint32_t h1 = __byte_perm(h.y, 0u, sel) ^ flip;
+      const uint32_t l0 = __byte_perm(l.x, 0u, sel) ^ flip;
+      const uint32_t l1 = __byte_perm(l.y, 0u, sel) ^ flip;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_bf16(d[mt][nt], ah[mt], h0, h1);
+        mma_bf16(d[mt][nt], ah[mt], l0, l1);
+        if constexpr (kGrade == kGradeBf16x3)
+          mma_bf16(d[mt][nt], al[mt], h0, h1);
+      }
+    }
+  }
 }
 
 // Tensor-core dense front, grade kGrade (kGradeBf16x3 or kGradeBf16x2),
@@ -359,6 +580,77 @@ __device__ __forceinline__ void toeplitz_front_mma(
           mma_bf16(d[mt][nt], al[mt], h0, h1);
       }
     }
+  }
+  __syncthreads();   // every warp is done with the window: the tile reuses it
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = r0 + 16 * mt;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int col = 8 * nt + 2 * tig;
+      out[r * kOS + col] = d[mt][nt][0];
+      out[r * kOS + col + 1] = d[mt][nt][1];
+      out[(r + 8) * kOS + col] = d[mt][nt][2];
+      out[(r + 8) * kOS + col + 1] = d[mt][nt][3];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 4 * kNT; ++c) {
+    acc_re[c] = out[tid * kOS + 2 * c];
+    acc_im[c] = out[tid * kOS + 2 * c + 1];
+  }
+}
+
+// toeplitz_front_mma over the taps in chunks of KBc = Tc/8 blocks of 8
+// (Tc < T, or T < D: every chunk stages only the min(Tc, D) phases it
+// touches), t0 = 8*kb0; the same contract, sums and order. Shared memory:
+// the chunk's B [2][KBc][kNT][16] uint2, the offsets of its taps in its
+// window, off[tl] = (tl % D)*Ks + tl/D for tl < Tcp = 8*KBc, then the
+// window [parts][Dc][Ks] of (re, im) bf16 pairs, Dc = chunk_phases(Tcp,
+// D), word (tl % D)*Ks + r + tl/D for output row r and tap t0 + tl, i.e.
+// sample g0 + t0 + r*D + tl (mma_stage). The accumulators take the blocks
+// of 8 taps in ascending kb across chunks, so a chunked launch equals a
+// one-chunk launch bit for bit.
+template <int kGrade, int kNT>
+__device__ __forceinline__ void toeplitz_front_mma_chunked(
+    unsigned char* smem, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb,
+    const uint2* __restrict__ btab, int C, int T, int Tc, int D, int group,
+    long g0, float (&acc_re)[4 * kNT], float (&acc_im)[4 * kNT]) {
+  static_assert(kGrade == kGradeBf16x3 || kGrade == kGradeBf16x2,
+                "tensor-core grades are bf16x3 and bf16x2");
+  constexpr int kOS = 8 * kNT + 1;   // output tile row stride, in floats
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int KB = (T + 7) / 8, NT = (C + 3) / 4;
+  const int KBc = Tc >= T ? KB : Tc / 8, Tcp = 8 * KBc;
+  const int Dc = chunk_phases(Tcp, D), Ks = mma_phase_stride(Tcp, D);
+  const int Kr = kTile + (Tcp - 1) / D;
+  uint2* bs = reinterpret_cast<uint2*>(smem);
+  int* off = reinterpret_cast<int*>(bs + 2 * KBc * kNT * 16);
+  uint32_t* win = reinterpret_cast<uint32_t*>(off + Tcp);
+  float* out = reinterpret_cast<float*>(win);
+  for (int t = tid; t < Tcp; t += kTile) off[t] = (t % D) * Ks + t / D;
+
+  const int gid = lane >> 2, tig = lane & 3;
+  const int r0 = warp * 32 + gid;
+  float d[2][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[mt][nt][i] = 0.f;
+
+  for (int kb0 = 0; kb0 < KB; kb0 += KBc) {
+    const int nkb = KB - kb0 < KBc ? KB - kb0 : KBc;
+    if (kb0 > 0) __syncthreads();   // the previous chunk's readers are done
+    mma_stage<kGrade, kNT>(bs, win, buf_re, buf_im, nb, btab, KB, NT, D,
+                           group, g0, kb0, nkb, KBc, Dc, Ks, Kr);
+    __syncthreads();
+    mma_product<kGrade, kNT>(d, bs, win, off, nkb, KBc, Dc, Ks, r0, gid,
+                             tig);
   }
   __syncthreads();   // every warp is done with the window: the tile reuses it
 

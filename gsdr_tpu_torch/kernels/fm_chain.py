@@ -15,8 +15,10 @@ between them at any block.
 ``fm_chain`` and ``pfb_fm_chain`` launch ``csrc/fm_chain.cu`` for CUDA
 tensors and take their plain versions, ``fm_chain_reference`` and
 ``pfb_fm_chain_reference``, only for tensors on the CPU. The dense front
-Either front runs at a grade (``precision``, the JAX package's): 'bf16x3',
-the kernels' default as it is ``fm_chain_pallas``'s and
+takes any T and D: its block stages the taps in chunks where the whole
+bank does not fit (``chain.dense_chunk``). Either front runs at a grade
+(``precision``, the JAX package's): 'bf16x3', the kernels' default as it
+is ``fm_chain_pallas``'s and
 ``pfb_fm_chain_pallas``'s, and 'bf16x2' on the tensor cores, 'f32' on the
 FP32 FMAs; the plain versions emulate the grade
 (``chain.graded_bank_front``, ``chain.graded_uniform_front``) and default
@@ -35,7 +37,7 @@ from gsdr_tpu_torch.kernels.chain import (
     check_pfb_tables,
     cuda_error,
     dense_mma_tables,
-    front_supported,
+    dense_chunk,
     grade_code,
     graded_bank_front,
     graded_uniform_front,
@@ -134,7 +136,7 @@ def _library():
     """The built fm_chain library, its launch signatures declared."""
     lib = load_chain_library("fm_chain")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fm_chain_launch.argtypes = [p] * 16 + [i] * 7 + [ctypes.c_float, p]
+    lib.fm_chain_launch.argtypes = [p] * 16 + [i] * 8 + [ctypes.c_float, p]
     lib.fm_chain_launch.restype = i
     lib.pfb_fm_chain_launch.argtypes = [p] * 17 + [i] * 9 + [ctypes.c_float, p]
     lib.pfb_fm_chain_launch.restype = i
@@ -185,20 +187,18 @@ def _launch(fn, front_args, buf, lo_table, n0_rot, c, t, d, gain, deemph,
 
 
 def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation, gain, deemph,
-                  carry_f, carry_z, precision="bf16x3"):
+                  carry_f, carry_z, precision="bf16x3", chunk=None):
     dev = buf.re.device
     grade = grade_code("fm_chain", precision)
     c2, two, t = tap_bank.shape
     if two != 2 or c2 % 2:
         raise ValueError(f"fm_chain: tap_bank shape {tuple(tap_bank.shape)}")
     check_operands("fm_chain", {"tap_bank": (tap_bank, (c2, 2, t))}, dev)
-    if not front_supported("fm_chain", dev, t, decimation,
-                           precision=precision):
-        raise ValueError(f"fm_chain: a block for T={t}, D={decimation} at "
-                         f"precision={precision!r} does not fit the card's "
-                         f"shared memory")
+    tc = dense_chunk("fm_chain", dev, t, decimation, precision) \
+        if chunk is None else int(chunk)
     btab = dense_mma_tables(tap_bank).data_ptr() if grade else None
-    return _launch("fm_chain", ((tap_bank.data_ptr(), btab), (t,), (grade,)),
+    return _launch("fm_chain", ((tap_bank.data_ptr(), btab), (t, tc),
+                                (grade,)),
                    buf, lo_table, n0_rot, c2 // 2, t, int(decimation), gain,
                    deemph, carry_f, carry_z)
 

@@ -5,7 +5,7 @@ Counterpart of ``gsdr_tpu/ops/am.py``. ``impl='auto'`` on a CUDA tensor
 runs the chain as one call of the fused AM-chain kernel with its dense
 front (B3-dense, ``kernels/am_chain.py``) and one channel, where the JAX
 package runs its Pallas kernel on a TPU: for a 1-D signal with at least
-one filtered sample and a front that fits the card. The LO cancels under
+one filtered sample, at any T and D. The LO cancels under
 the magnitude, so ``first_sample_index`` does not reach the kernel. Every
 other case runs the composed chain; ``impl='cuda'`` forces the kernel and
 raises where it cannot run.
@@ -61,7 +61,7 @@ def am_demod(x, low_pass_taps, rf_sample_rate, tuning_frequency,
     x = as_signal(x)
     shift_hz = float(tuning_frequency) - float(channel_frequency)
     t, d = len(low_pass_taps), int(decimation)
-    if route_to_kernel("am_demod", "am_chain", impl, x, t, d, 1, precision):
+    if route_to_kernel("am_demod", impl, x, t, d, 1):
         return am_demod_fused(x, low_pass_taps, rf_sample_rate, shift_hz, d,
                               first_sample_index, precision)
     mixed = freq_shift(x, shift_hz, rf_sample_rate, int(first_sample_index))

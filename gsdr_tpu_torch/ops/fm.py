@@ -5,21 +5,19 @@ Counterpart of ``gsdr_tpu/ops/fm.py``. ``impl='auto'`` on a CUDA tensor
 runs the whole chain as one call of the fused FM-chain kernel (B1,
 ``kernels/fm_chain.py``) with one channel and the identity de-emphasis,
 where the JAX package runs its Pallas kernel on a TPU: for a 1-D signal,
-at least two filtered samples and an integral sample rate. There a block
-that does not fit the card raises, as ``FmChannelizer`` does: the op on
-the card takes the kernel or raises. The cases the JAX package also
-leaves to its composed chain ('torch', a tensor on the CPU, a batched
-signal, fewer than two filtered samples, a non-integral sample rate) run
-the composed chain. ``impl='cuda'`` forces the kernel and raises where
-it cannot run. JAX's 'xla' is the port's 'torch', its 'pallas' the
-port's 'cuda'.
+at least two filtered samples and an integral sample rate, at any T and
+D (the kernel stages a long bank in chunks). The cases the JAX package
+also leaves to its composed chain ('torch', a tensor on the CPU, a
+batched signal, fewer than two filtered samples, a non-integral sample
+rate) run the composed chain, and no other case does. ``impl='cuda'``
+forces the kernel and raises where it cannot run. JAX's 'xla' is the
+port's 'torch', its 'pallas' the port's 'cuda'.
 """
 
 import numpy as np
 import torch
 
 from gsdr_tpu_torch.carray import ComplexArray, as_planar
-from gsdr_tpu_torch.kernels.chain import front_supported
 from gsdr_tpu_torch.kernels.fm_chain import deemphasis_triple, fm_chain
 from gsdr_tpu_torch.ops.channelize import make_complex_tap_bank
 from gsdr_tpu_torch.ops.fir import fir
@@ -43,15 +41,14 @@ def as_signal(x):
         else torch.as_tensor(x)
 
 
-def route_to_kernel(fn, library, impl, x, num_taps, decimation,
-                    min_outputs, precision, rate_integral=True):
-    """True when the single-channel op ``fn`` runs the fused kernel of
-    ``library``: for 'cuda', and for 'auto' on a CUDA tensor of one
-    dimension with at least ``min_outputs`` filtered samples and
-    ``rate_integral`` (the FM kernel's rotor needs an integral sample
-    rate). Raises where the kernel is chosen and cannot run: a tensor off
-    the card, a shape it does not take, or a block that does not fit the
-    card's shared memory at ``precision``."""
+def route_to_kernel(fn, impl, x, num_taps, decimation, min_outputs,
+                    rate_integral=True):
+    """True when the single-channel op ``fn`` runs its fused kernel: for
+    'cuda', and for 'auto' on a CUDA tensor of one dimension with at least
+    ``min_outputs`` filtered samples and ``rate_integral`` (the FM
+    kernel's rotor needs an integral sample rate), at any T, D and grade.
+    Raises where 'cuda' asks for the kernel and it cannot run: a tensor
+    off the card or a shape it does not take."""
     if impl not in _IMPLS:
         raise ValueError(f"{fn}: impl must be one of {_IMPLS}, got {impl!r}")
     if impl == "torch":
@@ -69,12 +66,6 @@ def route_to_kernel(fn, library, impl, x, num_taps, decimation,
             f"{fn}: impl='cuda' needs a 1-D signal of at least "
             f"{min_outputs} filtered samples and, for FM, an integral "
             f"sample rate; got shape {tuple(x.shape)}")
-    if not front_supported(library, dev, num_taps, decimation,
-                           precision=precision):
-        raise ValueError(
-            f"{fn}: a block of the {library} kernel for T={num_taps}, "
-            f"D={decimation} at precision={precision!r} does not fit the "
-            f"card's shared memory; use impl='torch'")
     return True
 
 
@@ -150,7 +141,7 @@ def fm_demod(x, low_pass_taps, rf_sample_rate, tuning_frequency,
     shift_hz = float(tuning_frequency) - float(channel_frequency)
     gain = fm_demod_gain(rf_sample_rate, frequency_deviation)
     t, d = len(low_pass_taps), int(decimation)
-    if route_to_kernel("fm_demod", "fm_chain", impl, x, t, d, 2, precision,
+    if route_to_kernel("fm_demod", impl, x, t, d, 2,
                        float(rf_sample_rate).is_integer()):
         return fm_demod_fused(x, low_pass_taps, rf_sample_rate, shift_hz,
                               gain, d, first_sample_index, precision)

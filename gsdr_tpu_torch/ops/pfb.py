@@ -236,11 +236,10 @@ def pfb_channelize(x, taps, num_channels, impl="auto"):
     K-point DFT as ``torch.matmul``, in full float32. 'cuda' runs the
     uniform grid as a complex tap bank, g_c[t] = h[t] e^{-2i pi ct/K}
     (the rotor is 1 at critical decimation), through the channelizer
-    kernel; it takes 1-D signals on the card and raises otherwise, also
-    when a block of the kernel does not fit the card's shared memory.
-    'auto' (the default) takes the kernel for a 1-D signal on the card
-    with K <= 32, else the fold path, as the JAX package's 'auto' does on
-    a TPU.
+    kernel, at any Q (a long prototype's taps are staged in chunks); it
+    takes 1-D signals on the card and raises otherwise. 'auto' (the
+    default) takes the kernel for a 1-D signal on the card with K <= 32,
+    else the fold path, as the JAX package's 'auto' does on a TPU.
     """
     k = int(num_channels)
     if impl not in ("auto", "torch", "cuda"):

@@ -36,8 +36,9 @@ class AmReceiver(nn.Module):
     ``impl`` as FmChannelizer's: 'auto' (a fused CUDA kernel on the card,
     PFB front where ``pfb_preferred`` holds and the kernel takes the grid,
     else dense; the plain dense chain on the CPU), 'torch' (plain dense),
-    'cuda' (dense kernel), 'pfb' (PFB kernel on the card, plain PFB chain
-    on the CPU), 'pfb_torch' (plain PFB chain). ``precision``: the
+    'cuda' (dense kernel, at any T and D: no dense geometry raises),
+    'pfb' (PFB kernel on the card, plain PFB chain on the CPU),
+    'pfb_torch' (plain PFB chain). ``precision``: the
     kernels' grade, as the JAX model's and FmChannelizer's: 'bf16x3' (the
     default), 'bf16x2' or 'f32', for either front; the plain chains run
     float32, as the JAX model's XLA path does. ``device`` defaults to

@@ -64,10 +64,13 @@ class FmChannelizer(nn.Module):
     the plain dense chain for a model on the CPU; on the card it takes the
     PFB front where ``pfb_preferred`` holds and the kernel takes the grid,
     else the dense front. 'torch' forces the plain dense chain; 'cuda'
-    forces the dense kernel. 'pfb' runs the PFB front (every shift on an
-    Fs/K grid with D | K): the kernel on the card, the plain PFB chain on
-    the CPU; 'pfb_torch' forces the plain PFB chain. Every impl keeps the
-    same state, so a stream may change impl at any block.
+    forces the dense kernel, which takes any T and D at every grade (its
+    block stages a long bank in chunks), so neither 'auto' nor 'cuda'
+    raises at construction for the dense front. 'pfb' runs the PFB front
+    (every shift on an Fs/K grid with D | K): the kernel on the card, the
+    plain PFB chain on the CPU; 'pfb_torch' forces the plain PFB chain.
+    Every impl keeps the same state, so a stream may change impl at any
+    block.
     ``precision``: the kernels' grade, as the JAX model's: 'bf16x3' (the
     default; the bank and the window, or with the PFB front the fold,
     split into bf16 high and low parts, three tensor-core passes),

@@ -103,3 +103,18 @@ def test_pytree_methods_match_jax():
     assert isinstance(back, TCA) and back.re is t.re and back.im is t.im
     for got, want in zip((tre, tim), jax.tree_util.tree_leaves(j)):
         _equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_zeros_takes_dtype_by_position_as_jax(dtype):
+    """``zeros(shape, dtype)``: the dtype by position, as JAX's
+    ``zeros(shape, dtype=jnp.float32)``, float64 planes as JAX's under x64
+    (float32 by default); ``device`` by keyword after it."""
+    with jax.enable_x64(True):
+        j = JCA.zeros((2, 3), getattr(jnp, dtype))
+        _equal(TCA.zeros((2, 3), getattr(torch, dtype)), j)
+    _equal(TCA.zeros((2, 3)), JCA.zeros((2, 3)))
+    t = TCA.zeros((4,), getattr(torch, dtype), device="cpu")
+    assert t.re.dtype == t.im.dtype == getattr(torch, dtype)
+    assert t.device == torch.device("cpu") and t.shape == (4,)
+    assert TCA.zeros((1,), device="cpu").re.dtype == torch.float32

@@ -16,7 +16,7 @@ from gsdr_tpu_torch.kernels.am_chain import (
     pfb_am_chain,
     pfb_am_chain_reference,
 )
-from gsdr_tpu_torch.kernels.chain import front_supported
+from gsdr_tpu_torch.kernels.chain import dense_chunk, front_supported
 from gsdr_tpu_torch.kernels.channelize import (
     channelize_kernel,
     channelize_reference,
@@ -170,16 +170,15 @@ def test_pfb_fm_kernel_matches_plain_and_dense_on_card(card, k, d, t, c):
     """B2 against the plain PFB chain and against the dense kernel B1 over
     two streamed blocks: audio within 1e-4 of max|audio| after the
     warm-up, carries within 1e-4; a plain-chain state continues through
-    the kernel. Where B1's taps and window exceed a block's shared memory
-    (K=128, T=1021: 400 KB), B2 is held against the dense plain chain."""
+    the kernel. Where B1's whole bank and window exceed a block's shared
+    memory (K=128, T=1021: 400 KB), B1 stages its taps in chunks."""
     # the library's own check, static shared memory included
     assert front_supported("fm_chain", "cuda", t, d, k)
     kw = dict(frequency_deviation=75_000.0)
     kern = _grid_model(FmChannelizer, "pfb", k, d, t, c, precision="f32", **kw)
     plain = _grid_model(FmChannelizer, "pfb_torch", k, d, t, c, **kw)
-    dense_fits = front_supported("fm_chain", "cuda", t, d)
-    dense = _grid_model(FmChannelizer, "cuda" if dense_fits else "torch",
-                        k, d, t, c, precision="f32", **kw)
+    dense = _grid_model(FmChannelizer, "cuda", k, d, t, c, precision="f32",
+                        **kw)
     n = d * 3 * 1_000
     re, im = _grid_fm_signal(kern.channel_frequencies, 3 * n, seed=6)
     sk, sp, sd = kern.init(), plain.init(), dense.init()
@@ -233,13 +232,11 @@ def test_auto_routes_wideband_to_pfb_kernel_on_card(card):
 @pytest.mark.parametrize("k,d,t,c", PFB_GEOMETRIES)
 def test_am_kernels_match_plain_on_card(card, k, d, t, c):
     """B3 on both fronts at f32 against the plain chains and each other,
-    over two streamed blocks: envelopes within 1e-5."""
-    dense_fits = front_supported("am_chain", "cuda", t, d)
+    over two streamed blocks: envelopes within 1e-5; the dense front at
+    K=128, T=1021 in chunks."""
     models = {impl: _grid_model(AmReceiver, impl, k, d, t, c,
                                 precision="f32")
-              for impl in ("pfb", "pfb_torch", "torch")}
-    models["cuda"] = _grid_model(AmReceiver, "cuda" if dense_fits else "torch",
-                                 k, d, t, c, precision="f32")
+              for impl in ("pfb", "pfb_torch", "torch", "cuda")}
     n = d * 3 * 1_000
     re, im = _am_signal(models["pfb"].channel_frequencies, 2 * n, seed=8)
     states = {impl: m.init() for impl, m in models.items()}
@@ -252,20 +249,39 @@ def test_am_kernels_match_plain_on_card(card, k, d, t, c):
         for a, b in (("pfb", "pfb_torch"), ("cuda", "torch"), ("pfb", "cuda")):
             torch.testing.assert_close(out[a], out[b], rtol=0, atol=1e-5)
     assert (am_chain.launches, pfb_am_chain.launches) == \
-        (before[0] + 2 * dense_fits, before[1] + 2)
+        (before[0] + 2, before[1] + 2)
 
 
 @pytest.mark.cuda
 def test_shared_memory_check_on_card(card):
     """The libraries count the tile kernels' static shared memory: a grid
     whose dynamic size alone fits but whose total does not (K=712, D=89,
-    Q=4: 230,400 + 2,304 B for the FM kernel) is refused before launch,
-    and a dense front too long for a block makes the model raise at
-    construction."""
+    Q=4: 230,400 + 2,304 B for the FM kernel) is refused before launch.
+    A dense front too long for one block no longer makes the model raise:
+    AmReceiver at K=128, T=1021, D=128 (70 channels) takes the dense
+    kernel in chunks of fewer than T taps, one launch a step, its
+    envelopes within 4e-5 of its plain version at the grade: float32 sums
+    of 3*T products in other orders, whose error grows with T (1e-5 holds
+    to T=512; the H100 read 1.54e-5 here)."""
     assert not front_supported("fm_chain", "cuda", 4 * 712, 89, 712)
     assert front_supported("fm_chain", "cuda", 512, 64, 64)
-    with pytest.raises(ValueError, match="shared memory"):
-        _grid_model(AmReceiver, "cuda", 128, 128, 1021, 70)
+    m = _grid_model(AmReceiver, "cuda", 128, 128, 1021, 70)
+    assert m.front == "toeplitz"
+    assert 8 <= dense_chunk("am_chain", "cuda", 1021, 128, m.precision) < 1021
+    n = 128 * 600
+    re, im = _am_signal(m.channel_frequencies, n, seed=4)
+    rf = TCA(re, im)
+    before = am_chain.launches
+    _, y = m.step(m.init(), rf)
+    assert am_chain.launches == before + 1
+    buf = TCA(torch.cat([torch.zeros(1020, device="cuda"), re]),
+              torch.cat([torch.zeros(1020, device="cuda"), im]))
+    fs = int(FS)
+    rot0 = torch.tensor((fs - 1020 % fs) % fs, dtype=torch.int32,
+                        device="cuda")
+    want = am_chain_reference(buf, m.tap_bank, m.lo_table, rot0, 128,
+                              precision=m.precision)
+    torch.testing.assert_close(y, want, rtol=0, atol=4e-5)
 
 
 @pytest.mark.cuda
@@ -333,21 +349,34 @@ def test_channelize_kernel_matches_plain_on_card(card, c, t, d):
 
 
 @pytest.mark.cuda
-def test_channelize_refuses_a_block_too_large_on_card(card):
-    """K=32 with Q=127 (T=4064): the taps alone need 520 KB of a block's
-    shared memory. The library's check refuses it, and 'auto' and 'cuda'
-    raise before any launch instead of taking the fold path."""
+def test_channelize_takes_k32_q127_through_b4_on_card(card):
+    """K=32 with Q=127 (T=4064), whose taps alone would need 520 KB of a
+    block's shared memory: B4 stages them in chunks, and 'auto' and 'cuda'
+    each launch it once, at bf16x3, within 4e-5 of max|y| of its plain
+    version at that grade on the route's bank (float32 sums of 3*T
+    products in other orders, whose error grows with T, as
+    test_channelize_block_follows_channels_on_card holds T=1024) and within
+    3e-4 of the fold path (as test_pfb_channelize_auto_routes_to_kernel_
+    on_card holds K=32, Q=8); T=256 still runs in one chunk."""
     k, q = 32, 127
-    assert not front_supported("channelize", "cuda", k * q, k)
-    assert front_supported("channelize", "cuda", k * 8, k)
+    assert dense_chunk("channelize", "cuda", k * 8, k, "bf16x3", k) == k * 8
+    assert 8 <= dense_chunk("channelize", "cuda", k * q, k, "bf16x3",
+                            k) < k * q
     taps = np.hamming(k * q) / np.hamming(k * q).sum()
     x = _planar_cuda(k * (q + 64), seed=3)
-    before = channelize_kernel.launches
+    fold = pfb_channelize(x, taps, k, impl="torch")
+    bank = _analysis_tables(_taps_key(taps), k, x.device)[0]
+    plain = channelize_reference(x, bank, k, "bf16x3")
+    scale = float(torch.maximum(fold.re.abs().max(), fold.im.abs().max()))
     for impl in ("auto", "cuda"):
-        with pytest.raises(ValueError, match="shared memory"):
-            pfb_channelize(x, taps, k, impl=impl)
-    assert channelize_kernel.launches == before
-    assert pfb_channelize(x, taps, k, impl="torch").shape == (k, 65)
+        before = channelize_kernel.launches
+        y = pfb_channelize(x, taps, k, impl=impl)
+        torch.cuda.synchronize()
+        assert channelize_kernel.launches == before + 1
+        assert tuple(y.shape) == tuple(fold.shape) == (k, 65)
+        for ref, tol in ((plain, 4e-5), (fold, 3e-4)):
+            for a, b in ((y.re, ref.re), (y.im, ref.im)):
+                assert float((a - b).abs().max()) <= tol * scale
 
 
 @pytest.mark.cuda
@@ -463,27 +492,31 @@ def test_channelize_kernel_grades_match_plain_on_card(card, c, t, d, grade):
 @pytest.mark.cuda
 def test_grades_fit_and_refuse_on_card(card):
     """Each library answers for each grade of its dense front: the
-    flagship, the transmux, the FM wideband and the am_d shapes fit at
-    every grade, T=1021 at D=128 fits at none (FmChannelizer and the
-    wrappers raise before any launch); an unknown grade raises."""
+    flagship, the transmux, the FM wideband and the am_d shapes fit one
+    block at every grade (one chunk of all T taps); T=1021 at D=128, which
+    does not, fits in chunks: FmChannelizer takes it, and B4 launches it
+    within 4e-5 of max|y| of its plain version at the grade (T=1021's
+    longer sums, as test_channelize_block_follows_channels_on_card); an
+    unknown grade raises."""
     for grade in GRADES:
         for lib, t, d in (("fm_chain", 64, 4), ("fm_chain", 512, 64),
-                          ("channelize", 256, 32), ("channelize", 128, 16)):
-            assert front_supported(lib, "cuda", t, d, precision=grade)
-        for lib in ("fm_chain", "channelize"):
-            assert not front_supported(lib, "cuda", 1021, 128,
-                                       precision=grade)
-        with pytest.raises(ValueError, match="shared memory"):
-            _model("cuda", 4, 1021, 128, precision=grade)
+                          ("channelize", 256, 32), ("channelize", 128, 16),
+                          ("am_chain", 32, 4)):
+            assert dense_chunk(lib, "cuda", t, d, grade) == t
+        for lib in ("fm_chain", "channelize", "am_chain"):
+            assert front_supported(lib, "cuda", 1021, 128, precision=grade)
+            assert 8 <= dense_chunk(lib, "cuda", 1021, 128, grade) < 1021
+        assert _model("cuda", 4, 1021, 128, precision=grade).front == \
+            "toeplitz"
         x = _planar_cuda(1021 + 128 * 300, seed=2)
+        bank = _bank(4, 1021)
         before = channelize_kernel.launches
-        with pytest.raises(ValueError, match="shared memory"):
-            channelize_kernel(x, _bank(4, 1021), 128, precision=grade)
-        assert channelize_kernel.launches == before
-    for grade in GRADES:
-        assert front_supported("am_chain", "cuda", 32, 4, precision=grade)
-        assert not front_supported("am_chain", "cuda", 1021, 128,
-                                   precision=grade)
+        y = channelize_kernel(x, bank, 128, precision=grade)
+        assert channelize_kernel.launches == before + 1
+        want = channelize_reference(x, bank, 128, grade)
+        scale = float(torch.maximum(want.re.abs().max(), want.im.abs().max()))
+        for a, b in ((y.re, want.re), (y.im, want.im)):
+            assert float((a - b).abs().max()) <= 4e-5 * scale
     with pytest.raises(ValueError, match="precision must be"):
         front_supported("am_chain", "cuda", 32, 4, precision="fp8")
     x = _planar_cuda(4096, seed=5)
@@ -497,6 +530,99 @@ def test_grades_fit_and_refuse_on_card(card):
         fm_chain(buf, model.tap_bank, model.lo_table, n0, 4, model.gain,
                  model.deemph, cf, cz, precision="bf16")
     assert fm_chain.launches == before
+
+
+# The (D, T) grid over which the dense fronts take every point at every
+# grade: the JAX package's fused_chain_supported takes all of it at 16
+# channels but T = 8193 at D <= 16.
+SWEEP_D = (1, 2, 4, 8, 16, 32, 50, 64, 100, 128, 192, 256, 512)
+SWEEP_T = (33, 65, 129, 257, 513, 1025, 2049, 4097, 8193)
+
+
+@pytest.mark.cuda
+def test_dense_fronts_take_every_geometry_on_card(card):
+    """front_supported holds for the dense front of fm_chain, am_chain and
+    channelize at every grade over the D x T grid (channelize for any C,
+    its widest block), each plan a chunk of T taps or a multiple of 8
+    below T; FmChannelizer and AmReceiver under 'auto' and 'cuda' take
+    every point, off any grid, with the dense front."""
+    chans = tuple(100_000.0 + 37_000.0 * i for i in range(2))
+    for grade in GRADES:
+        for lib in ("fm_chain", "am_chain", "channelize"):
+            for d in SWEEP_D:
+                for t in SWEEP_T:
+                    assert front_supported(lib, "cuda", t, d,
+                                           precision=grade), (lib, grade, d, t)
+                    tc = dense_chunk(lib, "cuda", t, d, grade)
+                    assert tc == t or (8 <= tc < t and tc % 8 == 0)
+        for d in SWEEP_D:
+            for t in SWEEP_T:
+                taps = tuple(np.full(t, 1.0 / t))
+                for impl in ("auto", "cuda"):
+                    # tau above 1/(pi * audio rate) down to D = 512
+                    fm = FmChannelizer(FS, 0.0, chans, 75_000.0, d, taps,
+                                       deemphasis_tau=1e-3, impl=impl,
+                                       precision=grade, device="cuda")
+                    am = AmReceiver(FS, 0.0, chans, d, taps, impl=impl,
+                                    precision=grade, device="cuda")
+                    assert fm.front == am.front == "toeplitz"
+
+
+def _forced_chunks(run, chunks):
+    """run(chunk) for the planner's chunk (None) and each forced one, every
+    output bit-equal to the planner's; the launch counter restored."""
+    outs = [run(None)] + [run(tc) for tc in chunks]
+    torch.cuda.synchronize()
+    first = [t for t in _flat(outs[0])]
+    for tc, out in zip(chunks, outs[1:]):
+        for a, b in zip(first, _flat(out)):
+            assert torch.equal(a, b), f"chunk {tc} differs from one chunk"
+
+
+def _flat(out):
+    if isinstance(out, TCA):
+        return [out.re, out.im]
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in _flat(o)]
+    return [out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", GRADES)
+def test_forced_chunks_equal_one_chunk_on_card(card, grade):
+    """A launch forced to stage 8 or 16 taps at a time (the ``chunk``
+    argument, a test's knob: the models and ops take the library's plan)
+    equals the one-chunk launch bit for bit, the same sums in the same
+    order: B1 at the flagship (16 channels, 64 taps, D=4, audio and
+    carries), B3-dense at am_d (8 channels, 32 taps, D=4) and B4 at the
+    transmux's K=32, Q=8, and a chunk of 24 taps whose last chunk is
+    shorter than the rest (64 = 24 + 24 + 16)."""
+    m = _model("cuda", 16, 64, 4, precision=grade)
+    assert dense_chunk("fm_chain", "cuda", 64, 4, grade) == 64
+    re, im = _fm_signal(m.channel_frequencies, 4096 + 63, seed=12)
+    buf = TCA(re, im)
+    n0, _, cf, cz = m.init()
+    args = (buf, m.tap_bank, m.lo_table, n0, 4, m.gain, m.deemph, cf, cz)
+    _forced_chunks(lambda tc: fm_chain(*args, precision=grade, chunk=tc),
+                   (8, 16, 24))
+    n_ = np.arange(32) - 15.5
+    h = np.sinc(2 * 0.04 * n_) * np.hamming(32)
+    am = AmReceiver(FS, 100e6, tuple(100e6 - 200e3 + 50e3 * i
+                                     for i in range(8)), 4,
+                    tuple(h / h.sum()), precision=grade, device="cuda")
+    ra, ia = _am_signal([-200e3 + 50e3 * i for i in range(8)], 4096 + 31,
+                        seed=13)
+    n0, _ = am.init()
+    _forced_chunks(lambda tc: am_chain(TCA(ra, ia), am.tap_bank, am.lo_table,
+                                       n0, 4, precision=grade, chunk=tc),
+                   (8, 16, 24))
+    k = 32
+    taps = np.hamming(8 * k) / np.hamming(8 * k).sum()
+    bank = _analysis_tables(_taps_key(taps), k, "cuda")[0]
+    x = _planar_cuda(k * 300, seed=14)
+    assert dense_chunk("channelize", "cuda", 8 * k, k, grade, k) == 8 * k
+    _forced_chunks(lambda tc: channelize_kernel(x, bank, k, precision=grade,
+                                                chunk=tc), (8, 64, 24))
 
 
 # (K, D, T, C) for the tensor-core PFB front: critical (P = 1, four phase
@@ -570,13 +696,10 @@ def test_pfb_fm_kernel_grades_match_plain_on_card(card, k, d, t, c, grade):
 def test_am_kernel_grades_match_plain_on_card(card, k, d, t, c, grade):
     """B3 on both fronts at a tensor-core grade, two streamed blocks: each
     within 1e-5 of its plain version at that grade, and within the grade's
-    gap of the f32 plain chain (AM_GRADE_GAP); the dense front where its
-    block fits at the grade."""
-    kern = {"pfb": _grid_model(AmReceiver, "pfb", k, d, t, c,
-                               precision=grade)}
-    if front_supported("am_chain", "cuda", t, d, precision=grade):
-        kern["cuda"] = _grid_model(AmReceiver, "cuda", k, d, t, c,
-                                   precision=grade)
+    gap of the f32 plain chain (AM_GRADE_GAP); the dense front in chunks
+    where its whole bank does not fit a block."""
+    kern = {impl: _grid_model(AmReceiver, impl, k, d, t, c, precision=grade)
+            for impl in ("pfb", "cuda")}
     plain = _grid_model(AmReceiver, "torch", k, d, t, c)
     n = d * 3 * 1_000
     re, im = _am_signal(plain.channel_frequencies, 2 * n, seed=8)
@@ -650,29 +773,27 @@ def test_pfb_grades_fit_and_refuse_on_card(card):
 @pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
 def test_channelize_block_follows_channels_on_card(card, grade):
     """At the bf16 grades B4 takes 16 channels per block up to C=16 and 32
-    above, and its fits check answers for the block of the call: T=1024 at
-    D=1 fits the 16-channel block only. C=16 launches and matches its plain
-    version within 4e-5 of max|y|: float32 sums of 3*T products in other
-    orders, whose error grows with T (1e-5 holds to T=256, and 1024 taps
-    read 1.06e-5 at bf16x3 on the H100); C=17 is refused before any
-    launch, and so is a check that names no C (any C)."""
+    above, and its plan answers for the block of the call: T=1024 at D=1
+    fits the 16-channel block in one chunk, the 32-channel block (C=17, or
+    a plan that names no C) only in chunks. Both launch and match their
+    plain version within 4e-5 of max|y|: float32 sums of 3*T products in
+    other orders, whose error grows with T (1e-5 holds to T=256, and 1024
+    taps read 1.06e-5 at bf16x3 on the H100)."""
     t, d = 1024, 1
-    assert front_supported("channelize", "cuda", t, d, precision=grade,
-                           num_channels=16)
+    assert dense_chunk("channelize", "cuda", t, d, grade, 16) == t
     for c in (17, None):
-        assert not front_supported("channelize", "cuda", t, d,
-                                   precision=grade, num_channels=c)
+        assert 8 <= dense_chunk("channelize", "cuda", t, d, grade, c) < t
     x = _planar_cuda(t + d * (2 * 256 + 37), seed=8)
-    bank = _bank(16, t)
-    y = channelize_kernel(x, bank, d, precision=grade)
-    want = channelize_reference(x, bank, d, grade)
-    scale = float(torch.maximum(want.re.abs().max(), want.im.abs().max()))
-    for a, b in ((y.re, want.re), (y.im, want.im)):
-        assert float((a - b).abs().max()) <= 4e-5 * scale
-    before = channelize_kernel.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        channelize_kernel(x, _bank(17, t), d, precision=grade)
-    assert channelize_kernel.launches == before
+    for c in (16, 17):
+        bank = _bank(c, t)
+        before = channelize_kernel.launches
+        y = channelize_kernel(x, bank, d, precision=grade)
+        assert channelize_kernel.launches == before + 1
+        want = channelize_reference(x, bank, d, grade)
+        scale = float(torch.maximum(want.re.abs().max(),
+                                    want.im.abs().max()))
+        for a, b in ((y.re, want.re), (y.im, want.im)):
+            assert float((a - b).abs().max()) <= 4e-5 * scale
 
 
 @pytest.mark.cuda
@@ -1195,24 +1316,35 @@ def test_am_demod_runs_b3_dense_at_one_channel(card, grade):
 
 
 @pytest.mark.cuda
-def test_single_channel_ops_raise_where_the_block_does_not_fit(card):
-    """fm_demod and am_demod under 'auto' on the card raise where the
-    kernel's block does not fit (T=1021 at D=128, as
-    test_grades_fit_and_refuse_on_card), before any launch, in place of
-    running the composed chain."""
-    from gsdr_tpu_torch.ops.am import am_demod
-    from gsdr_tpu_torch.ops.fm import fm_demod
+def test_single_channel_ops_take_the_kernel_where_the_bank_chunks(card):
+    """fm_demod and am_demod under 'auto' on the card at T=1021, D=128,
+    whose bank does not fit one block (test_grades_fit_and_refuse_on_card):
+    one B1 and one B3-dense launch at each grade, in chunks, never the
+    composed chain; FM within 1e-4 of max|audio| of the kernel's plain
+    version at the grade, AM within 4e-5 (T=1021's longer sums, as
+    test_shared_memory_check_on_card; the H100 read 1.18e-5)."""
+    from gsdr_tpu_torch.ops.am import am_chain_args, am_demod
+    from gsdr_tpu_torch.ops.fm import fm_chain_args, fm_demod, fm_demod_gain
 
     taps = _lowpass_np(1021, 0.002)
-    x = _tone_signal(1021 + 128 * 300, 100_000.0)
-    before = (fm_chain.launches, am_chain.launches)
+    x = _tone_signal(1021 + 128 * 300, 100_000.0, dev=500.0, tone=50.0)
+    xa = _tone_signal(1021 + 128 * 300, 100_000.0, tone=50.0, am=True)
+    gain = fm_demod_gain(FS, 500.0)
+    fargs = fm_chain_args(x, taps, FS, -100_000.0, gain, 128)
+    aargs = am_chain_args(xa, taps, FS, -100_000.0, 128)
     for grade in GRADES:
-        with pytest.raises(ValueError, match="shared memory"):
-            fm_demod(x, taps, FS, 0.0, 100_000.0, 5_000.0, 128,
+        before = (fm_chain.launches, am_chain.launches)
+        y = fm_demod(x, taps, FS, 0.0, 100_000.0, 500.0, 128,
                      precision=grade)
-        with pytest.raises(ValueError, match="shared memory"):
-            am_demod(x, taps, FS, 0.0, 100_000.0, 128, precision=grade)
-    assert (fm_chain.launches, am_chain.launches) == before
+        e = am_demod(xa, taps, FS, 0.0, 100_000.0, 128, precision=grade)
+        torch.cuda.synchronize()
+        assert (fm_chain.launches, am_chain.launches) == \
+            (before[0] + 1, before[1] + 1)
+        plain = fm_chain_reference(*fargs, precision=grade)[0][0, 1:]
+        assert float((y - plain).abs().max()) <= 1e-4 * float(
+            plain.abs().max())
+        want = am_chain_reference(*aargs, precision=grade)[0]
+        assert float((e - want).abs().max()) <= 4e-5
 
 
 @pytest.mark.cuda

@@ -189,43 +189,40 @@ def test_cuda_impl_needs_a_cuda_tensor():
 
 @pytest.mark.parametrize("fits", [True, False])
 def test_auto_route_on_card_takes_the_kernel_or_raises(monkeypatch, fits):
-    """'auto' on a 1-D CUDA signal takes the kernel where its block fits
-    and raises where it does not, never the composed chain; a batched
-    signal, too few outputs or a non-integral rate keep the composed chain
-    there, as in the JAX package. The signal stands in for a CUDA tensor
-    and the shared-memory answer is patched."""
+    """'auto' on a 1-D CUDA signal takes the kernel, never the composed
+    chain, whether the whole bank fits one block (``fits``: T=65, D=4) or
+    the kernel stages it in chunks (T=1021, D=128), and asks the card
+    nothing to decide it; so does 'cuda'. A batched signal, too few
+    outputs or a non-integral rate keep the composed chain under 'auto',
+    as in the JAX package, and raise under 'cuda'. The signal stands in
+    for a CUDA tensor."""
     import types
 
+    from gsdr_tpu_torch.kernels import chain
     from gsdr_tpu_torch.ops import fm as fm_mod
 
-    asked = []
+    def no_card(*args):
+        raise AssertionError(f"the route asked the card {args}")
 
-    def fake_fits(library, device, t, d, precision="f32"):
-        asked.append((library, device.type, t, d, precision))
-        return fits
-
-    monkeypatch.setattr(fm_mod, "front_supported", fake_fits)
+    monkeypatch.setattr(chain, "_block_plan", no_card)
+    t, d = (65, 4) if fits else (1021, 128)
     cuda = torch.device("cuda")
-    x1 = types.SimpleNamespace(device=cuda, shape=(4096,), ndim=1)
-    for fn, lib, lo in (("fm_demod", "fm_chain", 2), ("am_demod", "am_chain", 1)):
-        if fits:
-            assert fm_mod.route_to_kernel(fn, lib, "auto", x1, 1021, 128, lo,
-                                          "bf16x2")
-        else:
-            with pytest.raises(ValueError, match="shared memory"):
-                fm_mod.route_to_kernel(fn, lib, "auto", x1, 1021, 128, lo,
-                                       "bf16x2")
-    assert asked == [("fm_chain", "cuda", 1021, 128, "bf16x2"),
-                     ("am_chain", "cuda", 1021, 128, "bf16x2")]
-    xb = types.SimpleNamespace(device=cuda, shape=(2, 4096), ndim=2)
-    assert not fm_mod.route_to_kernel("fm_demod", "fm_chain", "auto", xb, 65,
-                                      4, 2, "bf16x3")
-    xs = types.SimpleNamespace(device=cuda, shape=(68,), ndim=1)
-    assert not fm_mod.route_to_kernel("fm_demod", "fm_chain", "auto", xs, 65,
-                                      4, 2, "bf16x3")
-    assert not fm_mod.route_to_kernel("fm_demod", "fm_chain", "auto", x1, 65,
-                                      4, 2, "bf16x3", rate_integral=False)
-    assert len(asked) == 2
+
+    def signal(n, ndim=1):
+        return types.SimpleNamespace(device=cuda, shape=(2,) * (ndim - 1)
+                                     + (n,), ndim=ndim)
+
+    x1 = signal(t + 40 * d)
+    for fn, lo in (("fm_demod", 2), ("am_demod", 1)):
+        for impl in ("auto", "cuda"):
+            assert fm_mod.route_to_kernel(fn, impl, x1, t, d, lo)
+    for x, kw in ((signal(t + 40 * d, ndim=2), {}),    # batched
+                  (signal(t + d - 1), {}),             # one filtered sample
+                  (x1, {"rate_integral": False})):
+        assert not fm_mod.route_to_kernel("fm_demod", "auto", x, t, d, 2,
+                                          **kw)
+        with pytest.raises(ValueError, match="impl='cuda' needs"):
+            fm_mod.route_to_kernel("fm_demod", "cuda", x, t, d, 2, **kw)
 
 
 @pytest.mark.parametrize("n", [1, 33, 1025])

@@ -31,6 +31,14 @@
          block copied in, and of its parts (the signature, the block's
          copy, the graph's replay, the clone of out), beside the call's
          time by CUDA events and a 20-step graph's time per step.
+  dense: the dense front's kernels at the main paths' one-chunk shapes,
+         each grade: B1 at the flagship, B3-dense at am_d, B4 at the
+         transmux's K=32, Q=8: device time per call by torch.profiler
+         (rounds of the three, interleaved), and a digest of each output.
+         It uses only what every tree of the port with the compiled step
+         (utils/compile.py) has, so it times an older tree too (copy this
+         file into that tree's tools/);
+         equal digests across trees say the outputs are bit-equal.
   fm_rx: the fm_rx command line at chip_smoke.py's five-station capture
          (2^24 int8 samples at 2.048 MHz, blocks of 2^20, the CLI's
          defaults): the wall clock of a warm run file to file without the
@@ -44,6 +52,7 @@ kernels are built from this checkout):
     python3 tools/probe_grades.py b5b6
     python3 tools/probe_grades.py fm_rx
     python3 tools/probe_grades.py compiled
+    python3 tools/probe_grades.py dense
 """
 
 import inspect
@@ -152,6 +161,49 @@ def b4():
                 "device_us": sum(dev.values()),
                 "call_ms": cs.cuda_ms(call, reps=REPS),
                 "rel_err_vs_plain": err / scale}), flush=True)
+
+
+def digest(out):
+    """A float64 checksum of every element of a kernel's outputs, weighted
+    by position, so that two bit-equal outputs give equal digests."""
+    leaves = cs.tree_leaves(out)
+    return [float((x.double().flatten() * torch.arange(
+        1, x.numel() + 1, device=x.device, dtype=torch.float64)).sum())
+            for x in leaves]
+
+
+def dense(rounds=3):
+    calls = []
+    for g in cs.GRADES:
+        m = cs.flagship("cuda", precision=g)
+        buf = cs.buffer(m, cs.fm_signal(m, 0, cs.N, seed=11))
+        n0, _, cf, cz = m.init()
+        args = (buf, m.tap_bank, m.lo_table, n0, m.decimation, m.gain,
+                m.deemph, cf, cz)
+        calls.append(("B1 flagship", g, lambda a=args, g=g:
+                      cs.fm_chain(*a, precision=g)))
+        m = cs.am_d("cuda", precision=g)
+        buf = cs.buffer(m, cs.am_signal(m, 0, cs.N, seed=11))
+        args = (buf, m.tap_bank, m.lo_table, m.init()[0], m.decimation)
+        calls.append(("B3-dense am_d", g, lambda a=args, g=g:
+                      cs.am_chain(*a, precision=g)))
+        taps = cs.lowpass64(cs.TMX_Q * cs.TMX_K, 0.5 / cs.TMX_K)
+        bank = _analysis_tables(_taps_key(taps), cs.TMX_K, "cuda")[0]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        x = ComplexArray(torch.randn(cs.N, generator=gen, device="cuda"),
+                         torch.randn(cs.N, generator=gen, device="cuda"))
+        calls.append(("B4 transmux K=32", g, lambda x=x, b=bank, g=g:
+                      channelize_kernel(x, b, cs.TMX_K, precision=g)))
+    for what, g, fn in calls:
+        print(json.dumps({"probe": "dense_digest", "kernel": what,
+                          "grade": g, "digest": digest(fn())}), flush=True)
+    for r in range(rounds):
+        for what, g, fn in calls:
+            dev = cs.device_us(fn, reps=20)
+            print(json.dumps({"probe": "dense", "round": r, "kernel": what,
+                              "grade": g, "device_us": sum(dev.values()),
+                              "by_kernel": dev}), flush=True)
 
 
 def profile_call(fn, reps=20):
@@ -320,7 +372,7 @@ def fm_rx():
 def main():
     if not torch.cuda.is_available() or len(sys.argv) != 2 \
             or sys.argv[1] not in ("steps", "b4", "b5b6", "fm_rx",
-                                   "compiled"):
+                                   "compiled", "dense"):
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
@@ -339,6 +391,9 @@ def main():
     elif sys.argv[1] == "compiled":
         _build.build_all(["fm_chain", "iir", "qpsk256"])
         compiled()
+    elif sys.argv[1] == "dense":
+        _build.build_all(["fm_chain", "am_chain", "channelize"])
+        dense()
     else:
         _build.build_all(["channelize", "fm_chain"])
         steps() if sys.argv[1] == "steps" else b4()
