@@ -79,6 +79,22 @@ full width, 2^20 planar complex samples per step:
      launches forced to stage 8, 24 or 64 taps at a time held bit-equal
      to the one-chunk launch: B1 at the flagship at each grade, B3-dense
      at am_d, B4 at the transmux's K=32, Q=8;
+ 11b. the PFB front beyond one block, each path through its kernel in
+     chunks of lanes and fold taps (the planner's, checked to be chunked
+     at bf16x3): land-mobile NFM (pfb_nfm_lmr_320: Fs 8 MHz, 320 channels
+     on the Fs/640 grid, 2.5-kHz deviation, T=2560, D=160) through B2 and
+     VHF airband AM (pfb_airband_480: Fs 7.99992 MHz, 480 channels on the
+     Fs/960 grid, T=3840, D=240) through B3-PFB, 8 blocks of 983,040
+     samples through impl='auto' at bf16x3 counted (the PFB kernel 8
+     times, B1 and B3-dense never), tones checked; at each grade through
+     impl='pfb' held to the plain version at the grade and to the f32
+     plain chain, compiled bit-equal to the eager steps, timed; the
+     witnesses K=640, D=64, T=1280 and K=712, D=89, T=2848, B2 and B3-PFB
+     at each grade against their plain versions; front_supported over a
+     (K, D, Q) sweep in both libraries at each grade, 30 of its cases
+     launched against the plain version; then launches forced into
+     chunks held bit-equal to the one-chunk launch at FM wideband
+     critical, its D=8 variant and AM wideband critical, each grade;
  12. the single-channel ops on the verify recipe's signal (one FM
      carrier at +100 kHz, a 1-kHz tone at 5-kHz deviation, 65 taps, D=4,
      2^20 samples): fm_demod(impl='auto') counted (one B1 launch at C=1
@@ -129,11 +145,17 @@ full width, 2^20 planar complex samples per step:
      graph a path, the kernel per replay by torch.profiler as often as
      the eager step launches it; eager and compiled step times, device
      time, idle share, a 20-step graph's time per step and the time of
-     the clone of `out`;
+     the clone of `out`; then, in a child process (--shard-rank), a 1x1
+     mesh over NCCL: make_sharded_fm_step (the flagship), make_sharded_
+     am_step (AM wideband critical, a PFB shard) and make_sharded_iir_step
+     (bench_iir's biquad) compiled over 8 blocks, counted, held to their
+     eager steps with mesh.sent equal, and timed eager and compiled beside
+     FmChannelizer.step compiled;
  17. prints one JSON `kernels` line (B1, B2, B3-PFB, B3-dense and B4 once
-     per grade, B6, B5, and phase 11's seven paths with their `path` and
-     `chunk`; each with its phase-15 `sharded_launches`) and, last,
-     {"ok": true, "device": {...}}.
+     per grade, B6, B5, phase 11's seven paths and phase 11b's two paths
+     at each grade, these with their `path` and `chunk` (the taps, or the
+     PFB plan's lanes and fold taps); each with its phase-15
+     `sharded_launches`) and, last, {"ok": true, "device": {...}}.
 
 Timing: CUDA events around bursts of back-to-back calls (median of
 bursts) and device time per kernel from torch.profiler. Launches made to
@@ -173,7 +195,7 @@ from gsdr_tpu_torch.kernels.am_chain import (
     pfb_am_chain,
     pfb_am_chain_reference,
 )
-from gsdr_tpu_torch.kernels.chain import dense_chunk
+from gsdr_tpu_torch.kernels.chain import dense_chunk, front_supported, pfb_chunk
 from gsdr_tpu_torch.kernels.channelize import (
     channelize_kernel,
     channelize_reference,
@@ -215,6 +237,7 @@ from gsdr_tpu_torch.parallel import (
     make_mesh,
     make_sharded_am_step,
     make_sharded_fm_step,
+    make_sharded_iir_step,
     make_sharded_qpsk256_modem,
     sharded_iir,
 )
@@ -424,17 +447,19 @@ def grid_tone(k):
     return 200.0 + 40.0 * k
 
 
-def wideband_fm_signal(model, start, n, seed=7, deviation=1_000.0):
+def wideband_fm_signal(model, start, n, seed=7, deviation=1_000.0,
+                       tone_of=grid_tone):
     """An FM carrier on every channel of the model, at the model's rate,
-    tone 200 + 40*k Hz (examples/wideband_rx.py's construction; at the
-    default 1-kHz deviation each carrier stays inside a 15.6-kHz channel)."""
+    tone tone_of(k), 200 + 40*k Hz by default (examples/wideband_rx.py's
+    construction; at the default 1-kHz deviation each carrier stays inside
+    a 15.6-kHz channel)."""
     phases = np.random.default_rng(seed).uniform(0, 6, model.num_channels)
     t = _time_axis(start, n, model.sample_rate)
     re = torch.zeros(n, dtype=torch.float64, device="cuda")
     im = torch.zeros_like(re)
     amp = 1.0 / model.num_channels
     for k, f in enumerate(model.channel_frequencies):
-        tone = grid_tone(k)
+        tone = tone_of(k)
         ph = (2 * np.pi * (f - model.tuning_frequency) * t
               + (deviation / tone) * torch.sin(2 * np.pi * tone * t
                                                + phases[k]))
@@ -443,15 +468,15 @@ def wideband_fm_signal(model, start, n, seed=7, deviation=1_000.0):
     return ComplexArray(re.float(), im.float())
 
 
-def am_signal(model, start, n, seed=7):
-    """An AM carrier on every channel, 50% modulated by tone 200 + 40*k Hz,
-    envelope within (0, 1)."""
+def am_signal(model, start, n, seed=7, tone_of=grid_tone):
+    """An AM carrier on every channel, at the model's rate, 50% modulated
+    by tone tone_of(k) (200 + 40*k Hz by default), envelope within (0, 1)."""
     phases = np.random.default_rng(seed).uniform(0, 6, (model.num_channels, 2))
-    t = _time_axis(start, n)
+    t = _time_axis(start, n, model.sample_rate)
     re = torch.zeros(n, dtype=torch.float64, device="cuda")
     im = torch.zeros_like(re)
     for k, f in enumerate(model.channel_frequencies):
-        env = 0.6 * (1.0 + 0.5 * torch.sin(2 * np.pi * grid_tone(k) * t
+        env = 0.6 * (1.0 + 0.5 * torch.sin(2 * np.pi * tone_of(k) * t
                                            + phases[k, 0]))
         ph = 2 * np.pi * (f - model.tuning_frequency) * t + phases[k, 1]
         re += env * torch.cos(ph)
@@ -559,20 +584,20 @@ def buffer(model, rf):
                         torch.cat([tail.im, rf.im]))
 
 
-def compare_fm(kern, others, signal, steps=2, tol=AUDIO_REL_TOL):
+def compare_fm(kern, others, signal, steps=2, tol=AUDIO_REL_TOL, n=N):
     """Stream `steps` blocks through kern and each model of others; every
     other must agree with kern within tol of max|audio| after the warm-up
     and CARRY_ATOL, scaled by tol / AUDIO_REL_TOL, on the carries; the
     de-emphasis state, which is audio, also by max|audio| where that
     exceeds 1 (a narrowband receiver's audio reaches ~D: the scanner's
-    ~100). Returns the worst max-abs and rel error."""
+    ~100). Blocks of n samples. Returns the worst max-abs and rel error."""
     carry_atol = CARRY_ATOL * tol / AUDIO_REL_TOL
     models = [kern] + others
     states = [m.init() for m in models]
     max_abs = worst = 0.0
-    m_out = N // kern.decimation
+    m_out = n // kern.decimation
     for i in range(steps):
-        rf = signal(kern, i * N, N)
+        rf = signal(kern, i * n, n)
         outs = []
         for j, m in enumerate(models):
             states[j], y = m.step(states[j], rf)
@@ -602,13 +627,14 @@ def compare_fm(kern, others, signal, steps=2, tol=AUDIO_REL_TOL):
     return max_abs, worst
 
 
-def compare_am(models, signal, steps=2, tol=ENV_ATOL):
-    """Stream `steps` blocks through every model; all envelopes within
-    tol (absolute) of the first's. Returns the worst max-abs error."""
+def compare_am(models, signal, steps=2, tol=ENV_ATOL, n=N):
+    """Stream `steps` blocks of n samples through every model; all
+    envelopes within tol (absolute) of the first's. Returns the worst
+    max-abs error."""
     states = [m.init() for m in models]
     worst = 0.0
     for i in range(steps):
-        rf = signal(models[0], i * N, N)
+        rf = signal(models[0], i * n, n)
         outs = []
         for j, m in enumerate(models):
             states[j], y = m.step(states[j], rf)
@@ -649,7 +675,8 @@ def main_path(model, blocks, want_counts):
     outs, got = counted(f"{type(model).__name__}(impl={model.impl!r})", run,
                         want_counts)
     for a in outs:
-        check(tuple(a.shape) == (model.num_channels, N // model.decimation),
+        check(tuple(a.shape) == (model.num_channels,
+                                 blocks[0].shape[-1] // model.decimation),
               f"audio shape {tuple(a.shape)}")
         check(bool(torch.isfinite(a).all()), "non-finite audio")
     return outs, got
@@ -1733,9 +1760,11 @@ OPS_WIDE_D, OPS_WIDE_DEV, OPS_WIDE_TONE = 256, 500.0, 200.0
 # 3.15e-5 here, where the sums' worst case is 3*T*2^-24 = 7.3e-4 of the
 # sum of |terms|)
 B4_LONG_REL_TOL = 1e-4
-# B3 against its plain version at T = 1021: the envelope of float32 sums
-# of 3*T products in other orders (ENV_ATOL holds to T = 512; the H100 read
-# 1.54e-5 at T = 1021, tests/test_torch_cuda.py)
+# B3 against its plain version at T = 1021, and B3-PFB at K = 640 to 960
+# (phase 11b): the envelope of float32 sums of 3*T, or of 2K products and
+# Q-term folds, in other orders (ENV_ATOL holds to T = 512 and K = 64; the
+# H100 read 1.54e-5 at T = 1021, tests/test_torch_cuda.py, and 2.37e-5 at
+# the airband's K = 960)
 AM_LONG_ATOL = 4e-5
 # forced chunks: 8 taps (one tensor-core block), and 24, whose last chunk
 # is shorter than the others at 64 and 256 taps
@@ -2103,6 +2132,333 @@ def dense_phase():
     entries.append(dense_transmux_path())
     entries += dense_ops_path()
     forced_chunk_checks()
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# 11b) the PFB front beyond one block (lanes and fold taps staged in chunks)
+# ---------------------------------------------------------------------------
+
+# Land-mobile NFM on the 12.5-kHz raster of an 8-MHz capture: 320
+# contiguous channels on the Fs/640 grid, 2.5-kHz deviation, a 2560-tap
+# low-pass (Q = 4), D = 160 (P = 4, 50-kHz audio); blocks of 983,040
+# samples, a multiple of D and K
+LMR_FS, LMR_K, LMR_C, LMR_D, LMR_T = 8_000_000.0, 640, 320, 160, 2560
+# VHF airband AM on the 8.33-kHz raster: 480 channels on the Fs/960 grid,
+# a 3840-tap low-pass (Q = 4), D = 240 (P = 4). The raster is 25/3 kHz,
+# which no binary float holds, and the grid detection (ops.pfb.
+# uniform_grid, the JAX package's too) takes the shifts' exact values: the
+# capture runs at 7.99992 MHz, whose Fs/960 = 8333.25 Hz is exact
+AIR_FS, AIR_K, AIR_C, AIR_D, AIR_T = 7_999_920.0, 960, 480, 240, 3840
+PFB_N = 983_040
+# the forced plans (lanes, fold taps) of the forced-chunk checks: one
+# 8-lane block a chunk with every tap, and 16 and 24 lanes with u-ranges
+# of 3 taps and of 1
+FORCED_PLANS = ((8, None), (16, 3), (24, 1))
+
+
+def lmr_tone(k):
+    return 400.0 + 5.0 * k
+
+
+def air_tone(k):
+    return 300.0 + 5.0 * k
+
+
+def pfb_nfm_lmr(impl, **kw):
+    return FmChannelizer(
+        sample_rate=LMR_FS, tuning_frequency=0.0,
+        channel_frequencies=tuple(LMR_FS / LMR_K * (i - LMR_C // 2)
+                                  for i in range(LMR_C)),
+        frequency_deviation=2_500.0, decimation=LMR_D,
+        low_pass_taps=lowpass(LMR_T, 5_000.0 / LMR_FS), impl=impl,
+        device="cuda", **kw)
+
+
+def pfb_airband(impl, **kw):
+    return AmReceiver(
+        sample_rate=AIR_FS, tuning_frequency=0.0,
+        channel_frequencies=tuple(AIR_FS / AIR_K * (i - AIR_C // 2)
+                                  for i in range(AIR_C)),
+        decimation=AIR_D, low_pass_taps=lowpass(AIR_T, 3_000.0 / AIR_FS),
+        impl=impl, device="cuda", **kw)
+
+
+def lmr_signal(model, start, n, seed=7):
+    return wideband_fm_signal(model, start, n, seed,
+                              model.frequency_deviation, lmr_tone)
+
+
+def air_signal(model, start, n, seed=7):
+    return am_signal(model, start, n, seed, air_tone)
+
+
+def pfb_plan(model):
+    """The (lanes, fold taps) a block of the model's PFB kernel stages."""
+    lib = "fm_chain" if isinstance(model, FmChannelizer) else "am_chain"
+    k = model.pfb_grid[0]
+    return pfb_chunk(lib, "cuda", k, -(-model.num_taps // k),
+                     model.decimation, model.precision)
+
+
+def pfb_args(model, buf):
+    """The PFB kernel's arguments for a fresh stream's first buffer."""
+    n0, _, *carries = model.init()
+    head = (buf, model.poly_taps, model.dft_bank, model.num_taps,
+            model.lo_table, n0, model.decimation)
+    if isinstance(model, FmChannelizer):
+        return head + (model.gain, model.deemph, *carries)
+    return head
+
+
+def pfb_model_path(name, make, signal, tone_of):
+    """One receiver of phase 11b: make('auto') at bf16x3 takes B2 or
+    B3-PFB in chunks, 8 blocks counted (the PFB kernel 8 times, nothing
+    else), its tones; at each grade make('pfb') held to its plain version
+    at the grade and to the f32 plain chain, compiled bit-equal to its
+    eager steps, and timed. Returns the kernels-line entries, one a grade
+    (bf16x3 the main path's)."""
+    model = make("auto")
+    fm = isinstance(model, FmChannelizer)
+    lib = "pfb_fm_chain" if fm else "pfb_am_chain"
+    kernel = pfb_fm_chain if fm else pfb_am_chain
+    ref = pfb_fm_chain_reference if fm else pfb_am_chain_reference
+    check(model.front == "pfb" and model.precision == "bf16x3",
+          f"{name}: 'auto' must take the PFB front at bf16x3")
+    plan = pfb_plan(model)
+    k, q = model.pfb_grid[0], -(-model.num_taps // model.pfb_grid[0])
+    check(0 < plan[0] < k or plan[1] < q,
+          f"{name}: plan {plan} is one chunk; the path is the chunked one")
+    blocks = [signal(model, i * PFB_N, PFB_N, seed=11) for i in range(STEPS)]
+    outs, got = main_path(model, blocks, {lib: STEPS})
+    if fm:
+        check_tones(outs[-1], model.audio_rate, tone_of, name, hi_hz=5_000.0)
+    else:
+        env = outs[-1]
+        check(float(env.min()) >= -1.0 and float(env.max()) <= 1.0,
+              f"{name}: envelope outside [-1, 1]")
+        check_tones(env, model.audio_rate, tone_of, name, hi_hz=5_000.0)
+    print(f"main path: {name} ({lib} at bf16x3, K={k}, Q={q}, "
+          f"D={model.decimation}, C={model.num_channels}, plan {plan}), "
+          f"{STEPS} steps of {PFB_N}, launches {got}, tones recovered")
+    plain = make("pfb_torch")
+    buf = buffer(model, blocks[0])
+    entries, by_grade = [], {}
+    for grade in GRADES:
+        kern = make("pfb", precision=grade)
+        check(kern.front == "pfb", f"{name} at {grade}: PFB front")
+        if fm:
+            max_abs, rel_plain = compare_fm(kern, [PlainAtGrade(kern)],
+                                            signal, n=PFB_N)
+            _, rel_f32 = compare_fm(kern, [plain], signal,
+                                    tol=FM_GRADE_TOL[grade], n=PFB_N)
+        else:
+            max_abs = compare_am([kern, PlainAtGrade(kern)], signal,
+                                 tol=AM_LONG_ATOL, n=PFB_N)
+            rel_plain = max_abs
+            rel_f32 = compare_am([kern, plain], signal,
+                                 tol=AM_GRADE_TOL[grade], n=PFB_N)
+        grade_blocks = blocks if grade == "bf16x3" else [
+            signal(kern, i * PFB_N, PFB_N, seed=11) for i in range(STEPS)]
+        eager_ms, comp_ms, comp_us, comp_idle = compiled_times(
+            f"{name}_{grade}", kern.step, kern.init(), grade_blocks,
+            {lib: 1})
+        timing = time_kernel(kernel, ref,
+                             pfb_front_library(kern, buf),
+                             pfb_args(kern, buf), precision=grade)
+        bnd = bound(*(fm_bound if fm else am_bound)(kern, buf.re.shape[-1],
+                                                    grade))
+        kplan = pfb_plan(kern)
+        by_grade[grade] = {
+            "plan": kplan, "vs_plain": rel_plain, "vs_f32": rel_f32,
+            "max_abs_vs_plain": max_abs, "eager_ms": eager_ms,
+            "compiled_ms": comp_ms, "compiled_device_us": comp_us,
+            "compiled_idle_share": comp_idle, "kernel_ms": timing[0],
+            "kernel_device_us": timing[1], "plain_ms": timing[2],
+            "library_ms": timing[3], "bound_us": bnd[0] * 1e3,
+            "bound_by": bnd[1]}
+        main = grade == "bf16x3"
+        entries.append(kernel_entry(
+            lib, "gsdr_tpu_torch/kernels/csrc/"
+            + ("fm_chain.cu" if fm else "am_chain.cu"),
+            "gsdr_tpu/kernels/fm_chain_pallas.py:"
+            + ("414" if fm else "551"), got[lib] if main else 0, max_abs,
+            timing, bnd, grade=grade, main_path=main, path=name,
+            chunk=list(kplan)))
+        print(f"{name} at {grade}: plan {kplan}, vs plain {rel_plain:.3g}, "
+              f"vs f32 {rel_f32:.3g}; compiled bit-equal to eager; eager "
+              f"{eager_ms:.4f} / compiled {comp_ms:.4f} ms a step; kernel "
+              f"{sum(timing[1].values()):.1f} us against a "
+              f"{bnd[0] * 1e3:.1f}-us bound ({bnd[1]})")
+    print(json.dumps({
+        "phase": name, "K": k, "Q": q, "D": model.decimation,
+        "C": model.num_channels, "T": model.num_taps, "n": PFB_N,
+        "launches": got[lib], "by_grade": by_grade, "library": PFB_LIBRARY,
+        "card": CARD}))
+    return entries
+
+
+def witness_model(cls, k, d, t, c, grade, impl="pfb"):
+    """A receiver on the Fs/k grid at Fs = 1024*k (exact in binary), c
+    channels spread over the grid; FM at a tenth of a channel's deviation
+    and a slow tone, both inside its passband, and a 1-ms de-emphasis
+    (valid down to the sweep's 1024-Hz audio, short enough that the
+    zero-primed first output, which the plain chain reads as +-pi*gain
+    and the kernel as 0, has died out after SKIP outputs)."""
+    fs = 1024.0 * k
+    kw = {"frequency_deviation": 0.1 * fs / k, "deemphasis_tau": 1e-3} \
+        if cls is FmChannelizer else {}
+    return cls(sample_rate=fs, tuning_frequency=0.0,
+               channel_frequencies=tuple(-(fs / k) * ((7 * i) % k)
+                                         for i in range(c)),
+               decimation=d, low_pass_taps=lowpass(t, 0.4 / k), impl=impl,
+               precision=grade, device="cuda", **kw)
+
+
+def witness_signal(model, start, n, seed=7):
+    """FM or AM carriers on the witness's channels with tones of a few
+    hundredths of a channel."""
+    k = model.pfb_grid[0]
+    spacing = model.sample_rate / k
+    tone = lambda i: spacing * (0.04 + 0.0005 * i)  # noqa: E731
+    if isinstance(model, FmChannelizer):
+        return wideband_fm_signal(model, start, n, seed,
+                                  model.frequency_deviation, tone)
+    return am_signal(model, start, n, seed, tone)
+
+
+def witness_error(model, n, grade):
+    """One launch of the model's PFB kernel at the grade on a fresh stream's
+    first n samples against its plain version at the grade: FM audio of
+    max|audio| after the first SKIP outputs, AM envelopes absolute;
+    (error, gate, plan). Counters restored."""
+    fm = isinstance(model, FmChannelizer)
+    kernel = pfb_fm_chain if fm else pfb_am_chain
+    ref = pfb_fm_chain_reference if fm else pfb_am_chain_reference
+    args = pfb_args(model, buffer(model, witness_signal(model, 0, n)))
+    before = kernel.launches
+    got = tree_leaves(kernel(*args, precision=grade))
+    check(kernel.launches == before + 1, "one launch")
+    kernel.launches = before
+    want = tree_leaves(ref(*args, precision=grade))
+    if fm:
+        err = rel_err(got[0], want[0], SKIP)
+        return err, AUDIO_REL_TOL, pfb_plan(model)
+    return (float((got[0] - want[0]).abs().max()), AM_LONG_ATOL,
+            pfb_plan(model))
+
+
+def pfb_witnesses():
+    """ROADMAP C4's witnesses, K = 640, D = 64, T = 1280 and K = 712, D =
+    89, T = 2848, B2 and B3-PFB at every grade against their plain
+    versions; then front_supported over a sweep of (K, D, Q), D | K,
+    K >= 8, Q <= 127, P*K <= 12,500 (the JAX plans' VMEM budget's reach),
+    that crosses each of the three overflows (the B table or bank with K,
+    the taps with Q*K, the window with Q*P), at every grade in both
+    libraries, and one launch against the plain version on 30 of its
+    cases. Returns the sweep's counts."""
+    for k, d, t in ((640, 64, 1280), (712, 89, 2848)):
+        for grade in GRADES:
+            for cls in (FmChannelizer, AmReceiver):
+                model = witness_model(cls, k, d, t, 40, grade)
+                err, gate, plan = witness_error(model, k * 1536, grade)
+                check(err <= gate, f"witness K={k}, D={d}, T={t} "
+                      f"{cls.__name__} at {grade} (plan {plan}): {err:.3g} "
+                      f"against {gate}")
+                print(f"witness K={k}, D={d}, T={t}: {cls.__name__} at "
+                      f"{grade}, plan {plan}, vs plain {err:.3g} (gate "
+                      f"{gate})")
+    sweep, plans = [], {}
+    for k in (8, 24, 64, 96, 128, 200, 256, 512, 640, 712, 960, 1024, 2048,
+              4096, 8192):
+        for d in [x for x in range(1, k + 1) if k % x == 0]:
+            if (k // d) * k > 12_500:
+                continue
+            for q in (1, 2, 4, 16, 64, 127):
+                sweep.append((k, d, q))
+    for lib in ("fm_chain", "am_chain"):
+        for grade in GRADES:
+            for k, d, q in sweep:
+                plan = pfb_chunk(lib, "cuda", k, q, d, grade)
+                check(front_supported(lib, "cuda", q * k, d, k, grade)
+                      and plan[0] > 0,
+                      f"{lib} at {grade} refuses K={k}, D={d}, Q={q}")
+                plans[(lib, grade, k, d, q)] = plan
+    chunked = sum(1 for (lib, g, k, d, q), p in plans.items()
+                  if p[0] < k or p[1] < q)
+    # launched: every n-th case whose bank stays below 2^17 taps (the
+    # models build their dense tap bank too)
+    small = [c for c in sweep if c[0] * c[2] <= 1 << 17]
+    picks = small[::max(1, len(small) // 30)][:30]
+    worst = {}
+    for i, (k, d, q) in enumerate(picks):
+        cls = FmChannelizer if i % 2 == 0 else AmReceiver
+        grade = GRADES[i % 3]
+        c = min(8, k)
+        model = witness_model(cls, k, d, q * k, c, grade)
+        n = k * max(1, -(-(600 * d) // k))
+        err, gate, plan = witness_error(model, n, grade)
+        check(err <= gate, f"sweep K={k}, D={d}, Q={q} {cls.__name__} at "
+              f"{grade} (plan {plan}): {err:.3g} against {gate}")
+        worst[cls.__name__] = max(worst.get(cls.__name__, 0.0), err)
+    line = {"phase": "pfb_sweep", "cases": len(sweep),
+            "libraries": ["fm_chain", "am_chain"], "grades": list(GRADES),
+            "supported": len(plans), "chunked_plans": chunked,
+            "launched": len(picks), "worst_vs_plain": worst, "card": CARD}
+    print(json.dumps(line))
+    print(f"pfb sweep: {len(sweep)} (K, D, Q) x 2 libraries x 3 grades all "
+          f"planned ({chunked} in chunks); {len(picks)} launched within "
+          f"their gates")
+    return line
+
+
+def forced_plans_equal(what, kernel, args, q, **kw):
+    """kernel(*args, plan=p) for each forced plan against the planner's
+    launch, bit for bit (every output leaf); counters restored."""
+    before = kernel.launches
+    want = tree_leaves(kernel(*args, **kw))
+    for lanes, uc in FORCED_PLANS:
+        got = tree_leaves(kernel(*args, plan=(lanes, uc or q), **kw))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{what}: a launch of plan {(lanes, uc or q)} differs from "
+              f"the planner's launch")
+    torch.cuda.synchronize()
+    kernel.launches = before
+
+
+def forced_plan_checks():
+    """The planner's one-chunk launch against launches forced into chunks
+    (FORCED_PLANS), bit for bit at each grade: B2 at FM wideband critical
+    and at its D = 8 variant, B3-PFB at AM wideband critical."""
+    for grade in GRADES:
+        for make, d, kernel, signal in (
+                (fm_wideband, GRID, pfb_fm_chain, wideband_fm_signal),
+                (fm_wideband, 8, pfb_fm_chain, wideband_fm_signal),
+                (am_wideband, GRID, pfb_am_chain, am_signal)):
+            model = make("pfb", d, precision=grade) if make is fm_wideband \
+                else make("pfb", precision=grade)
+            q = -(-model.num_taps // GRID)
+            check(pfb_plan(model) == (GRID, q),
+                  f"{kernel.name} at D={d}, {grade}: one chunk")
+            buf = buffer(model, signal(model, 0, N, seed=11))
+            forced_plans_equal(f"{kernel.name} D={d} at {grade}", kernel,
+                               pfb_args(model, buf), q, precision=grade)
+    print(f"forced plans {FORCED_PLANS}: B2 at FM wideband critical and "
+          f"D=8 and B3-PFB at AM wideband critical, each grade, bit-equal "
+          f"to the one-chunk launch")
+
+
+def pfb_phase():
+    """Phase 11b: the PFB front at grids whose bank, taps or window do not
+    fit one block: pfb_nfm_lmr_320 (B2) and pfb_airband_480 (B3-PFB), the
+    witnesses and the sweep, the forced-plan checks. Returns the
+    kernels-line entries, one a path and grade."""
+    entries = pfb_model_path("pfb_nfm_lmr_320", pfb_nfm_lmr, lmr_signal,
+                             lmr_tone)
+    entries += pfb_model_path("pfb_airband_480", pfb_airband, air_signal,
+                              air_tone)
+    pfb_witnesses()
+    forced_plan_checks()
     return entries
 
 
@@ -2705,17 +3061,91 @@ def gloo_rank():
     return res
 
 
+def nccl_compiled_rank():
+    """Phase 16's sharded steps, in their own process: on a 1x1 mesh over
+    NCCL (a world of one), make_sharded_fm_step of the flagship (B1),
+    make_sharded_am_step of AM wideband critical (a PFB shard, B3-PFB) and
+    make_sharded_iir_step of bench_iir's biquad (B5) through compile_step
+    over 8 blocks, counted (2 launches: the warm-up's and the capture's),
+    held to their eager steps (bit for bit; B5 at its gate) with
+    mesh.sent the same for both; then each step's time eager and
+    compiled, and FmChannelizer.step compiled beside the FM step."""
+    mesh = make_mesh(1, 1, device="cuda")
+    fm_model, fm_sig = shard_model("flagship")
+    am_model, am_sig = shard_model("am_wideband")
+    _, b, a, _ = IIR_FILTERS[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(53)
+    cases = (
+        ("fm", make_sharded_fm_step(fm_model, mesh), "fm_chain", "exact",
+         [fm_sig(fm_model, i * N, N) for i in range(STEPS)]),
+        ("am", make_sharded_am_step(am_model, mesh), "pfb_am_chain",
+         "exact", [am_sig(am_model, i * N, N) for i in range(STEPS)]),
+        ("iir", make_sharded_iir_step(b, a, mesh), "iir", "b5",
+         [torch.randn(N, generator=gen, device="cuda")
+          for _ in range(STEPS)]))
+    res = {}
+    for name, step, kern, rule, blocks in cases:
+        state0 = step.init()
+        sent0 = dict(mesh.sent)
+        before = counts()
+        eager = run_chained(step, state0, blocks)
+        for nm, k in COUNTERS.items():
+            k.launches = before[nm]
+        sent_eager = {k: mesh.sent[k] - sent0[k] for k in sent0}
+        compiled = compile_step(step)
+        sent0 = dict(mesh.sent)
+        got_run, got = counted(f"compiled sharded {name} 1x1",
+                               lambda: run_chained(compiled, state0, blocks),
+                               {kern: 2})
+        sent_comp = {k: mesh.sent[k] - sent0[k] for k in sent0}
+        check(sent_comp == sent_eager, f"compiled sharded {name}: mesh.sent "
+              f"{sent_comp}, eager {sent_eager}")
+        check(compiled.graphs == 1, f"compiled sharded {name}: "
+              f"{compiled.graphs} graphs")
+        max_abs = held_to_eager(f"sharded {name} 1x1", rule, got_run, eager)
+        st_e = st_c = state0
+
+        def eager_step():
+            nonlocal st_e
+            st_e, _ = step(st_e, blocks[0])
+
+        def compiled_step():
+            nonlocal st_c
+            st_c, _ = compiled(st_c, blocks[0])
+
+        eager_ms, _, _ = time_calls(eager_step)
+        comp_ms, comp_dev, comp_idle = time_calls(compiled_step)
+        res[name] = {"kernel": kern, "launches_counted": got[kern],
+                     "held_to_eager": rule, "max_abs_vs_eager": max_abs,
+                     "sent_eager": sent_eager, "sent_compiled": sent_comp,
+                     "eager_ms": eager_ms, "compiled_ms": comp_ms,
+                     "compiled_device_us": sum(comp_dev.values()),
+                     "compiled_idle_share": comp_idle}
+    single = compile_step(fm_model.step)
+    st = fm_model.init()
+    blk = cases[0][4][0]
+
+    def single_step():
+        nonlocal st
+        st, _ = single(st, blk)
+
+    res["fm_single_card_compiled_ms"] = time_calls(single_step)[0]
+    return res
+
+
 def shard_rank(argv):
-    """A rank of phase 15, started by phase 15 itself:
-    chip_smoke.py --shard-rank GROUP RANK WORLD PORT OUTDIR."""
+    """A rank of phase 15 or of phase 16's sharded steps, started by the
+    phase itself: chip_smoke.py --shard-rank GROUP RANK WORLD PORT OUTDIR."""
     import torch.distributed as dist
 
     group, rank, world, port, out = argv
     rank, world = int(rank), int(world)
     initialize(f"127.0.0.1:{port}", world, rank,
-               backend="nccl" if group == "nccl" else "gloo")
+               backend="nccl" if group.startswith("nccl") else "gloo")
     try:
-        res = nccl_rank() if group == "nccl" else gloo_rank()
+        res = {"nccl": nccl_rank, "nccl_compiled": nccl_compiled_rank,
+               "gloo": gloo_rank}[group]()
     finally:
         dist.destroy_process_group()
     torch.save(res, Path(out) / f"rank{rank}.pt")
@@ -3023,7 +3453,9 @@ def family_records(fn, reps=20, tries=3):
     rounded; all device records per call) by torch.profiler; counters
     restored. A trace can lose a record or hold one that an earlier trace
     lost: an empty trace first takes those, and the counts are rounded. A
-    trace with no device record is taken again, up to ``tries`` times."""
+    trace with fewer device records than calls (every call of fn launches
+    one kernel at least; a trace has come back with 1 of 20) is taken
+    again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     before = counts()
@@ -3039,7 +3471,7 @@ def family_records(fn, reps=20, tries=3):
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if str(e.device_type).endswith("CUDA")]
-        if names:
+        if len(names) >= reps:   # every call launches a kernel at least
             break
     for name, k in COUNTERS.items():
         k.launches = before[name]
@@ -3253,6 +3685,25 @@ def compiled_phase(rx_raw, rx_step_ms):
                       in summary.items()))
 
 
+def compiled_sharded_phase(tmp):
+    """Phase 16's sharded steps: the 1x1 NCCL world of
+    nccl_compiled_rank, in a child process; prints its line. Capture of a
+    multi-rank NCCL step is not run: the machine has one card."""
+    (r,) = spawn_ranks("nccl_compiled", 1, tmp)
+    for name in ("fm", "am", "iir"):
+        check(r[name]["launches_counted"] == 2,
+              f"compiled sharded {name}: launches {r[name]}")
+    print(json.dumps({"phase": "compiled_sharded_1x1_nccl",
+                      "grade": SHARD_GRADE, **r, "card": CARD}))
+    print("phase 16 (sharded): the 1x1 NCCL sharded FM, AM (PFB shard) "
+          "and IIR steps compiled, held to their eager steps, mesh.sent "
+          "equal; ms a step eager / compiled: " + ", ".join(
+              f"{k} {r[k]['eager_ms']:.4f} / {r[k]['compiled_ms']:.4f}"
+              for k in ("fm", "am", "iir"))
+          + f"; FmChannelizer.step compiled "
+          f"{r['fm_single_card_compiled_ms']:.4f}")
+
+
 def run_chained(step, state, blocks):
     """(final state, outputs) of step over the blocks, the state carried."""
     outs = []
@@ -3301,8 +3752,9 @@ def main():
     n_fm, err_fm = stream_fm_phase()
     kernels.append(iir_entry(n_alone + n_fm, max(err_alone, err_fm), lines))
 
-    # 11) the dense front beyond one block
+    # 11) the dense front beyond one block; 11b) the PFB front beyond it
     dense = dense_phase()
+    dense += pfb_phase()
 
     # 12-14) the single-channel ops, the fm_rx command line, the examples
     ops_phase()
@@ -3319,8 +3771,10 @@ def main():
             sharded[entry["name"]]
             if not graded or entry["grade"] == SHARD_GRADE else 0)
     kernels += [{**entry, "sharded_launches": 0} for entry in dense]
-    # 16) every main path compiled
+    # 16) every main path compiled, and the 1x1 NCCL sharded steps
     compiled_phase(rx_raw, rx_step_ms)
+    with tempfile.TemporaryDirectory() as tmp:
+        compiled_sharded_phase(Path(tmp))
     print(json.dumps({"kernels": kernels}))
 
     # 17) the result

@@ -13,7 +13,10 @@ leaves it out, because a unit phasor does not change the magnitude.
 ``am_chain`` and ``pfb_am_chain`` launch ``csrc/am_chain.cu`` for CUDA
 tensors and take the plain versions only for tensors on the CPU; the
 dense front takes any T and D, its taps staged in chunks where the whole
-bank does not fit a block (``chain.dense_chunk``). Both fronts run at a
+bank does not fit a block (``chain.dense_chunk``), and the PFB front any
+grid with D | K the JAX package's plans take, its lanes and fold taps
+staged in chunks where its bank, taps or window do not fit
+(``chain.pfb_chunk``). Both fronts run at a
 grade (``precision``), as in ``fm_chain``: 'bf16x3' (the
 kernels' default, as ``am_chain_pallas``'s), 'bf16x2', 'f32'; the plain
 versions emulate it and default to 'f32'.
@@ -35,6 +38,7 @@ from gsdr_tpu_torch.kernels.chain import (
     graded_bank_front,
     graded_uniform_front,
     load_chain_library,
+    pfb_launch_plan,
     pfb_mma_tables,
 )
 from gsdr_tpu_torch.ops.channelize import rotate_bank
@@ -76,14 +80,15 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.am_chain_launch.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.am_chain_launch.restype = i
-    lib.pfb_am_chain_launch.argtypes = [p] * 6 + [i] * 8 + [p]
+    lib.pfb_am_chain_launch.argtypes = [p] * 6 + [i] * 10 + [p]
     lib.pfb_am_chain_launch.restype = i
     return lib
 
 
-def _launch(fn, ptrs, ints, buf, c, t, d, grade):
+def _launch(fn, ptrs, ints, buf, c, t, d, grade, plan=()):
     """Check the buffer, allocate the audio and launch ``fn`` at ``grade``;
-    ``ptrs`` and ``ints`` are the front's tables and sizes."""
+    ``ptrs`` and ``ints`` are the front's tables and sizes, ``plan`` the
+    PFB front's (lanes, fold taps)."""
     dev = buf.re.device
     nb = buf.re.shape[-1]
     check_operands(fn, {"buf.re": (buf.re, (nb,)),
@@ -97,7 +102,7 @@ def _launch(fn, ptrs, ints, buf, c, t, d, grade):
     with torch.cuda.device(dev):
         err = getattr(lib, fn + "_launch")(
             buf.re.data_ptr(), buf.im.data_ptr(), *ptrs, audio.data_ptr(),
-            nb, c, *ints, d, m, grade, stream)
+            nb, c, *ints, d, m, *plan, grade, stream)
     cuda_error("am_chain", f"{fn} kernel launch", err)
     return audio
 
@@ -120,19 +125,23 @@ def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation,
 
 
 def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
-                decimation, precision="bf16x3"):
+                decimation, precision="bf16x3", plan=None):
+    """The PFB-front kernel; ``plan`` as ``chain.ChainKernel`` says."""
     dev = buf.re.device
     grade = grade_code("pfb_am_chain", precision)
-    c, k, q = check_pfb_tables("pfb_am_chain", "am_chain", poly_taps,
-                               dft_bank, num_taps, decimation, precision)
+    c, k, q = check_pfb_tables("pfb_am_chain", poly_taps, dft_bank,
+                               num_taps, decimation)
     check_operands("pfb_am_chain", {
         "poly_taps": (poly_taps, (q, k)),
         "dft_bank": (dft_bank, (2 * c, 2 * k))}, dev)
     t = int(num_taps)
+    lanes, uc = pfb_launch_plan("am_chain", dev, k, q, decimation, precision,
+                                plan)
     btab = pfb_mma_tables(dft_bank).data_ptr() if grade else None
     return _launch("pfb_am_chain",
                    (poly_taps.data_ptr(), dft_bank.data_ptr(), btab),
-                   (t, k, q), buf, c, t, int(decimation), grade)
+                   (t, k, q), buf, c, t, int(decimation), grade,
+                   plan=(lanes, uc))
 
 
 am_chain = ChainKernel("am_chain", am_chain_reference, _launch_dense)

@@ -7,11 +7,12 @@
   - the operand checks made before a launch;
   - the block plan, asked before a launch: the taps a block of the dense
     front stages at once (``dense_chunk``: the whole bank where it fits,
-    else chunks, so the dense front takes any geometry), and whether a
-    block of the PFB front fits the card's shared memory. The libraries
-    that launch a front answer it themselves (``<library>_fits`` in
-    ``csrc/``), from the same geometry they launch with, so no copy of the
-    geometry lives here;
+    else chunks), and the lanes and fold taps a block of the PFB front
+    stages at once (``pfb_chunk``: everything where it fits, else chunks
+    of lanes and of fold taps), so both fronts take any geometry the JAX
+    package's plans take. The libraries that launch a front answer it
+    themselves (``<library>_fits`` in ``csrc/``), from the same geometry
+    they launch with, so no copy of the geometry lives here;
   - the grades of both fronts (``GRADES``): 'f32' on the FP32 FMAs,
     'bf16x3' and 'bf16x2' on the tensor cores, as the JAX package's
     kernels define them; the bf16 split of the taps, the window and the
@@ -59,9 +60,11 @@ class ChainKernel:
     (the JAX package's XLA path); a caller who wants the same grade on
     both passes ``precision``. The dense-front launches also take
     ``chunk``, the taps a block stages at once (default: the library's
-    plan, ``dense_chunk``), which the card tests force smaller to run the
-    chunked path at small banks; the plain versions have no such
-    argument. ``launches`` counts kernel launches and nothing else."""
+    plan, ``dense_chunk``), and the PFB-front launches ``plan``, the
+    (lanes, fold taps) a block stages at once (default ``pfb_chunk``'s),
+    which the card tests force smaller to run the chunked paths at small
+    geometries; the plain versions have no such arguments. ``launches``
+    counts kernel launches and nothing else."""
 
     def __init__(self, name, plain, launch):
         self.name = name
@@ -317,17 +320,17 @@ def cuda_error(library, what, err):
 @functools.lru_cache(maxsize=None)
 def _block_plan(library, device_index, pfb, grade, channels, num_taps, k, q,
                 decimation):
-    """``<library>_fits``' answer on the card ``device_index``: for the
-    dense front the taps a block stages at once, for the PFB front 1 where
-    its block fits; 0 where no block fits."""
+    """``<library>_fits``' plan on the card ``device_index``, two ints: for
+    the dense front the taps a block stages at once (and 0), for the PFB
+    front the (lanes, fold taps) a chunk takes; a first 0 where no block
+    fits."""
     lib = load_chain_library(library)
-    plan = ctypes.c_int(0)
+    plan = (ctypes.c_int * 2)(0, 0)
     with torch.cuda.device(device_index):
         err = getattr(lib, library + "_fits")(
-            int(pfb), grade, channels, num_taps, k, q, decimation,
-            ctypes.byref(plan))
+            int(pfb), grade, channels, num_taps, k, q, decimation, plan)
     cuda_error(library, f"{library}_fits", err)
-    return plan.value
+    return plan[0], plan[1]
 
 
 def _card_index(device):
@@ -348,7 +351,28 @@ def dense_chunk(library, device, num_taps, decimation, precision="f32",
     grade = grade_code(library, precision)
     return _block_plan(library, _card_index(torch.device(device)), False,
                        grade, int(num_channels or 0), int(num_taps), 0, 0,
-                       int(decimation))
+                       int(decimation))[0]
+
+
+def pfb_chunk(library, device, k, q, decimation, precision="f32"):
+    """(lanes, fold taps) a block of ``library``'s PFB front stages at once
+    on the card ``device`` at the grade ``precision``, for the Fs/k grid
+    with Q = q fold taps and D | k: (k, q), one chunk, where the one-chunk
+    block fits (as at FM and AM wideband critical and ``wideband_rx``);
+    else chunks of a multiple of 8 lanes of the one-chunk order and
+    u-ranges of fold taps, the plan that stages the fewest windows; the
+    block walks them with the same values in the same order, so a chunked
+    launch equals the one-chunk launch. (0, 0) where no block fits, which
+    no grid with P = k/D up to a few hundred meets (the JAX package's plans
+    take P <= ~117). The library plans it (``csrc/fronts.cuh``,
+    ``pfb_chunk``)."""
+    grade = grade_code(library, precision)
+    k, d = int(k), int(decimation)
+    if d < 1 or k % d:
+        raise ValueError(f"{library}: the PFB front needs D | K (D={d}, "
+                         f"K={k})")
+    return _block_plan(library, _card_index(torch.device(device)), True,
+                       grade, 0, k * int(q), k, int(q), d)
 
 
 def front_supported(library, device, num_taps, decimation, k=None,
@@ -356,32 +380,29 @@ def front_supported(library, device, num_taps, decimation, k=None,
     """True when ``library``'s kernel can run this front on ``device`` at
     the grade ``precision``: the dense front (``k`` None), which stages its
     taps in chunks (``dense_chunk``) and so takes any T and D, or the PFB
-    front on the Fs/k grid, which needs D | k and, on the card, a block
-    that fits the shared memory, its static size plus the dynamic size of
-    this geometry and grade against the device's opt-in limit; the plain
-    chains on the CPU take any geometry.
+    front on the Fs/k grid, which needs D | k and stages its lanes and
+    fold taps in chunks (``pfb_chunk``), and so takes every grid the JAX
+    package's PFB plans take; on the card the answer is the library's
+    plan. The plain chains on the CPU take any geometry.
     ``num_channels`` is the bank's C, on which the channelizer's block
     depends at the bf16 grades (None: any C, the widest block). A library
     without the grade raises."""
-    grade = grade_code(library, precision)
+    grade_code(library, precision)
     t, d = int(num_taps), int(decimation)
-    q = 0
-    if k is not None:
-        k = int(k)
-        if k % d != 0:
-            return False
-        q = -(-t // k)
+    if k is not None and int(k) % d != 0:
+        return False
     device = torch.device(device)
     if device.type != "cuda":
         return True
-    return _block_plan(library, _card_index(device), k is not None, grade,
-                       int(num_channels or 0), t, k or 0, q, d) > 0
+    if k is not None:
+        k = int(k)
+        return pfb_chunk(library, device, k, -(-t // k), d, precision)[0] > 0
+    return dense_chunk(library, device, t, d, precision, num_channels) > 0
 
 
-def check_pfb_tables(fn, library, poly_taps, dft_bank, num_taps, decimation,
-                     precision):
-    """(C, K, Q) of PFB-front tables on the card, or raise on a geometry
-    the kernel does not take at the grade ``precision``."""
+def check_pfb_tables(fn, poly_taps, dft_bank, num_taps, decimation):
+    """(C, K, Q) of PFB-front tables, or raise on shapes that are not a
+    (ceil(T/K), K) tap table and a (2C, 2K) bank with D | K."""
     q, k = poly_taps.shape
     c2, k2 = dft_bank.shape
     d = int(decimation)
@@ -391,12 +412,21 @@ def check_pfb_tables(fn, library, poly_taps, dft_bank, num_taps, decimation,
             f"{fn}: poly_taps {tuple(poly_taps.shape)}, dft_bank "
             f"{tuple(dft_bank.shape)}, T={num_taps}, D={d}: need "
             f"(ceil(T/K), K) and (2C, 2K) with D | K")
-    if not front_supported(library, poly_taps.device, num_taps, d, k,
-                           precision):
-        raise ValueError(
-            f"{fn}: a block for K={k}, D={d}, Q={q} at precision="
-            f"{precision!r} does not fit the card's shared memory")
     return c2 // 2, k, q
+
+
+def pfb_launch_plan(library, device, k, q, decimation, precision, plan):
+    """The (lanes, fold taps) a PFB launch takes: ``plan`` where the caller
+    forces one (a card test's knob), else ``pfb_chunk``'s; raise where no
+    block fits."""
+    if plan is None:
+        plan = pfb_chunk(library, device, k, q, decimation, precision)
+    lanes, uc = (int(v) for v in plan)
+    if lanes <= 0:
+        raise ValueError(
+            f"{library}: no block of the PFB front fits the card for K={k}, "
+            f"D={decimation}, Q={q} at precision={precision!r}")
+    return lanes, uc
 
 
 def select_front(model, library, impl, shifts, sample_rate, decimation,
@@ -406,14 +436,16 @@ def select_front(model, library, impl, shifts, sample_rate, decimation,
     live in ``library``.
 
     'pfb' and 'pfb_torch' need every shift on an Fs/K grid with D | K
-    (raise otherwise), and 'pfb' on the card needs the PFB kernel to take
-    the grid at the model's grade ``precision``. 'auto' on the card takes
-    the PFB front where ``pfb_preferred`` returns a grid and the kernel
-    takes it at the grade, and keeps the dense front otherwise; 'auto' on
-    the CPU runs the dense plain chain, as the JAX models do off the TPU.
-    The dense kernel takes any T and D (``dense_chunk``), so 'auto' and
-    'cuda' never refuse a dense front. The choice is made once, here,
-    before any launch.
+    (raise otherwise), and 'pfb' on the card needs the PFB kernel to plan
+    the grid at the model's grade ``precision`` (``front_supported``),
+    which it does for every grid the JAX package's PFB plans take. 'auto'
+    on the card takes the PFB front exactly where ``pfb_preferred``
+    returns a grid, as the JAX package's 'auto' takes its PFB kernel on a
+    TPU, and the dense front otherwise; 'auto' on the CPU runs the dense
+    plain chain, as the JAX models do off the TPU. Both kernels stage
+    what outgrows a block in chunks (``dense_chunk``, ``pfb_chunk``), so
+    no branch keeps the dense front because the PFB block does not fit.
+    The choice is made once, here, before any launch.
     """
     d, t = int(decimation), int(num_taps)
     on_card = device.type == "cuda"
@@ -431,8 +463,5 @@ def select_front(model, library, impl, shifts, sample_rate, decimation,
                 f"the dense front")
         return grid
     if impl == "auto" and on_card:
-        grid = pfb_preferred(shifts, sample_rate, d, t)
-        if grid is not None and front_supported(library, device, t, d,
-                                                grid[0], precision):
-            return grid
+        return pfb_preferred(shifts, sample_rate, d, t)
     return None

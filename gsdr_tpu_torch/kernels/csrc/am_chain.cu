@@ -39,15 +39,16 @@ __device__ __forceinline__ float envelope(float re, float im) {
 }
 
 // btab: dense_mma_tables (dense front) or pfb_mma_tables (PFB front), read
-// at bf16x3 and bf16x2; the dense front stages Tc taps at a time where
-// kChunked (use_chunked_kernel), else all T at once.
+// at bf16x3 and bf16x2; where kChunked, the dense front stages Tc taps at
+// a time (use_chunked_kernel) and the PFB front chunks of Tc lanes and
+// u-ranges of Uc fold taps (use_chunked_pfb), else each stages all at once.
 template <bool kPfb, int kGrade, bool kChunked = false>
 __global__ void __launch_bounds__(gsdr::block_threads<kPfb, kGrade>())
 am_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ bank, const float* __restrict__ hp,
     const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
-    int M, float* __restrict__ audio) {
+    int M, float* __restrict__ audio, int Uc) {
   constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -57,9 +58,18 @@ am_chain_tile(
   if constexpr (kPfb && kGrade != gsdr::kGradeF32) {
     // two threads per output row, each with one group of kCG channels
     constexpr int kOS = 8 * gsdr::kPfbNT + 1;
-    const float* out = gsdr::pfb_front_mma<kGrade, gsdr::kPfbNT>(
-        reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, hp,
-        reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y, g0);
+    const float* out;
+    if constexpr (kChunked) {
+      out = gsdr::pfb_front_mma_chunked<kGrade, gsdr::kPfbNT>(
+          reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, hp,
+          reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y,
+          g0, Tc, Uc);
+    } else {
+      out = gsdr::pfb_front_mma<kGrade, gsdr::kPfbNT>(
+          reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, hp,
+          reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y,
+          g0);
+    }
     const int row = threadIdx.x % kTile, cl0 = threadIdx.x / kTile * kCG;
     const int j = j0 + row;
     if (j >= M) return;
@@ -72,7 +82,10 @@ am_chain_tile(
   } else {
     const int j = j0 + threadIdx.x;
     float acc_re[kCG], acc_im[kCG];
-    if constexpr (kPfb) {
+    if constexpr (kPfb && kChunked) {
+      gsdr::pfb_front_chunked(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D,
+                              c0, g0, Tc, Uc, acc_re, acc_im);
+    } else if constexpr (kPfb) {
       gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D, c0, g0,
                       acc_re, acc_im);
     } else if constexpr (kGrade == gsdr::kGradeF32) {
@@ -96,43 +109,47 @@ am_chain_tile(
   }
 }
 
-// The dense tile kernel of a grade, one chunk or chunked.
-template <int kGrade>
-const void* dense_tile(bool chunked) {
-  return chunked ? (const void*)am_chain_tile<false, kGrade, true>
-                 : (const void*)am_chain_tile<false, kGrade, false>;
+// The tile kernel of a front (kPfb) and grade, one chunk or chunked.
+template <bool kPfb, int kGrade>
+const void* front_tile(bool chunked) {
+  return chunked ? (const void*)am_chain_tile<kPfb, kGrade, true>
+                 : (const void*)am_chain_tile<kPfb, kGrade, false>;
 }
 
 // The tile kernel of a front (pfb) and grade with its dynamic shared memory
 // for a chunk of Tc taps and D (dense; `chunked` picks the kernel that
-// walks chunks) or for (K, Q, D) (PFB), or nullptr for a grade the library
-// lacks.
+// walks chunks) or for (K, Q, D) and the plan of Tc lanes and Uc fold taps
+// a chunk (PFB; the chunked kernel where use_chunked_pfb), or nullptr for
+// a grade the library lacks.
 const void* tile_kernel(bool pfb, int grade, int Tc, int K, int Q, int D,
-                        size_t* smem, bool chunked = false) {
+                        size_t* smem, bool chunked = false, int Uc = 0) {
   if (pfb) {
+    const bool ch = gsdr::use_chunked_pfb(Tc, Uc, K, Q);
     switch (grade) {
       case gsdr::kGradeF32:
-        *smem = gsdr::pfb_smem_bytes(K, Q, D);
-        return (const void*)am_chain_tile<true, gsdr::kGradeF32>;
+        *smem = ch ? gsdr::pfb_chunk_bytes(K, Q, D, Tc, Uc)
+                   : gsdr::pfb_smem_bytes(K, Q, D);
+        return front_tile<true, gsdr::kGradeF32>(ch);
       case gsdr::kGradeBf16x2:
-        *smem = gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
-        return (const void*)am_chain_tile<true, gsdr::kGradeBf16x2>;
       case gsdr::kGradeBf16x3:
-        *smem = gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
-        return (const void*)am_chain_tile<true, gsdr::kGradeBf16x3>;
+        *smem = ch ? gsdr::pfb_mma_chunk_bytes(gsdr::kPfbNT, K, Q, D, Tc, Uc)
+                   : gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
+        return grade == gsdr::kGradeBf16x2
+                   ? front_tile<true, gsdr::kGradeBf16x2>(ch)
+                   : front_tile<true, gsdr::kGradeBf16x3>(ch);
     }
     return nullptr;
   }
   switch (grade) {
     case gsdr::kGradeF32:
       *smem = gsdr::toeplitz_smem_bytes(Tc, D);
-      return dense_tile<gsdr::kGradeF32>(chunked);
+      return front_tile<false, gsdr::kGradeF32>(chunked);
     case gsdr::kGradeBf16x2:
       *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
-      return dense_tile<gsdr::kGradeBf16x2>(chunked);
+      return front_tile<false, gsdr::kGradeBf16x2>(chunked);
     case gsdr::kGradeBf16x3:
       *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
-      return dense_tile<gsdr::kGradeBf16x3>(chunked);
+      return front_tile<false, gsdr::kGradeBf16x3>(chunked);
   }
   return nullptr;
 }
@@ -140,7 +157,7 @@ const void* tile_kernel(bool pfb, int grade, int Tc, int K, int Q, int D,
 template <bool kPfb, int kGrade, bool kChunked>
 int run_am(const void* buf_re, const void* buf_im, const void* bank,
            const void* hp, const void* btab, void* audio, int nb, int C,
-           int T, int Tc, int K, int Q, int D, int M, size_t smem,
+           int T, int Tc, int K, int Q, int D, int M, int Uc, size_t smem,
            void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       am_chain_tile<kPfb, kGrade, kChunked>,
@@ -153,33 +170,41 @@ int run_am(const void* buf_re, const void* buf_im, const void* bank,
          (cudaStream_t)stream>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank,
       (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M,
-      (float*)audio);
+      (float*)audio, Uc);
   return (int)cudaGetLastError();
 }
 
-// run_am of the front's kernel: the chunked dense one where `chunked`.
+// run_am of the front's kernel, the chunked one where `chunked`.
 template <bool kPfb, int kGrade, class... Args>
 int run_front(bool chunked, Args... args) {
-  if constexpr (!kPfb) {
-    if (chunked) return run_am<false, kGrade, true>(args...);
-  }
+  if (chunked) return run_am<kPfb, kGrade, true>(args...);
   return run_am<kPfb, kGrade, false>(args...);
 }
 
 // One call of the front (pfb) at `grade`, its geometry checked by the
-// caller; the dense front stages Tc <= T taps at a time.
+// caller; the dense front stages Tc <= T taps at a time, the PFB front
+// takes the plan (Tc lanes, Uc fold taps) a chunk, whose block must fit
+// the card (else too many resources, before launch).
 template <bool kPfb>
 int run_graded(int grade, const void* buf_re, const void* buf_im,
                const void* bank, const void* hp, const void* btab,
                void* audio, int nb, int C, int T, int Tc, int K, int Q, int D,
-               int M, void* stream) {
+               int M, int Uc, void* stream) {
   size_t smem = 0;
-  if (tile_kernel(kPfb, grade, Tc, K, Q, D, &smem) == nullptr)
-    return (int)cudaErrorInvalidValue;
-#define GSDR_AM(G)                                                        \
-  run_front<kPfb, G>(gsdr::use_chunked_kernel(Tc, T, D), buf_re, buf_im,   \
-                     bank, hp, btab, audio, nb, C, T, Tc, K, Q, D, M, smem, \
-                     stream)
+  const bool chunked = kPfb ? gsdr::use_chunked_pfb(Tc, Uc, K, Q)
+                            : gsdr::use_chunked_kernel(Tc, T, D);
+  const void* kernel = tile_kernel(kPfb, grade, Tc, K, Q, D, &smem, chunked,
+                                   Uc);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (kPfb) {
+    int fits = 0;
+    const cudaError_t err = gsdr::block_fits(kernel, smem, &fits);
+    if (err != cudaSuccess) return (int)err;
+    if (!fits) return (int)cudaErrorLaunchOutOfResources;
+  }
+#define GSDR_AM(G)                                                          \
+  run_front<kPfb, G>(chunked, buf_re, buf_im, bank, hp, btab, audio, nb, C, \
+                     T, Tc, K, Q, D, M, Uc, smem, stream)
   switch (grade) {
     case gsdr::kGradeBf16x2:
       return GSDR_AM(gsdr::kGradeBf16x2);
@@ -199,26 +224,39 @@ extern "C" const char* am_chain_error_string(int err) {
 
 // The block plan of the front at `grade` (0 f32, 2 bf16x2, 3 bf16x3) on
 // the current device, for any channel count C, as fm_chain_fits: the
-// dense front's chunk of taps (pfb = 0, T and D; 0 only where not even 8
-// taps fit), or 1 / 0 for the PFB front's block (pfb = 1, K, Q and D). An
-// unknown grade is an invalid value. Returns 0 or the CUDA error.
+// dense front's chunk of taps in plan[0] (pfb = 0, T and D; 0 only where
+// not even 8 taps fit), or the PFB front's (lanes, fold taps) a chunk in
+// plan[0..1] (pfb = 1, K, Q and D; gsdr::pfb_chunk). An unknown grade is
+// an invalid value. Returns 0 or the CUDA error.
 extern "C" int am_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
-                             int D, int* fits) {
+                             int D, int* plan) {
   (void)C;
   if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1 || K % D != 0)))
     return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  const void* kernel = tile_kernel(pfb != 0, grade, T, K, Q, D, &smem);
+  size_t smem = 0, b = 0;
+  if (pfb) {
+    const void* one = tile_kernel(true, grade, K, K, Q, D, &smem, false, Q);
+    if (one == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)gsdr::pfb_chunk(
+        one, smem, tile_kernel(true, grade, 8, K, Q, D, &b, true, 1), K, Q,
+        D,
+        [=](int lanes, int uc) {
+          size_t bytes = 0;
+          tile_kernel(true, grade, lanes, K, Q, D, &bytes, true, uc);
+          return bytes;
+        },
+        plan);
+  }
+  const void* kernel = tile_kernel(false, grade, T, K, Q, D, &smem);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  if (pfb) return (int)gsdr::block_fits(kernel, smem, fits);
   return (int)gsdr::dense_chunk(
       kernel, tile_kernel(false, grade, T, 0, 0, D, &smem, true), T,
       [=](int tc) {
-        size_t b = 0;
-        tile_kernel(false, grade, tc, 0, 0, D, &b);
-        return b;
+        size_t bytes = 0;
+        tile_kernel(false, grade, tc, 0, 0, D, &bytes);
+        return bytes;
       },
-      fits);
+      plan);
 }
 
 // Dense front at `grade`, Tc taps a block stages at once (am_chain_fits'
@@ -234,21 +272,25 @@ extern "C" int am_chain_launch(const void* buf_re, const void* buf_im,
       !gsdr::valid_chunk(Tc, T))
     return (int)cudaErrorInvalidValue;
   return run_graded<false>(grade, buf_re, buf_im, bank, nullptr, btab, audio,
-                           nb, C, T, Tc < T ? Tc : T, 0, 0, D, M, stream);
+                           nb, C, T, Tc < T ? Tc : T, 0, 0, D, M, 0, stream);
 }
 
 // PFB front at `grade`: channels on the Fs/K grid, D | K. hp (Q, K)
 // polyphase taps, bank planes-major (2C, 2K) read at f32, btab
 // pfb_mma_tables' (2, ceil(K/8), ceil(C/4), 16, 2) int32 read at bf16x3
-// and bf16x2, T the prototype's tap count (Q*K >= T).
+// and bf16x2, T the prototype's tap count (Q*K >= T). (lanes, uc) is the
+// plan (am_chain_fits', or any gsdr::valid_pfb_plan): (K, Q) the one-chunk
+// kernel, else the chunked one.
 extern "C" int pfb_am_chain_launch(const void* buf_re, const void* buf_im,
                                    const void* hp, const void* bank,
                                    const void* btab, void* audio, int nb,
                                    int C, int T, int K, int Q, int D, int M,
-                                   int grade, void* stream) {
+                                   int lanes, int uc, int grade,
+                                   void* stream) {
   if (C < 1 || T < 1 || D < 1 || K < 1 || K % D != 0 || Q < 1 ||
-      Q * K < T || M < 1 || M != (nb - T) / D + 1)
+      Q * K < T || M < 1 || M != (nb - T) / D + 1 ||
+      !gsdr::valid_pfb_plan(lanes, uc, K, Q))
     return (int)cudaErrorInvalidValue;
   return run_graded<true>(grade, buf_re, buf_im, bank, hp, btab, audio, nb,
-                          C, T, 0, K, Q, D, M, stream);
+                          C, T, lanes, K, Q, D, M, uc, stream);
 }

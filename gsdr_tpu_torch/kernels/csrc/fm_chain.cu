@@ -83,7 +83,9 @@ __device__ __forceinline__ float ipow(float a, int k) {
 // (dense_mma_tables) at bf16x3 and bf16x2, in chunks of Tc taps where
 // kChunked (fronts.cuh, dense_chunk, use_chunked_kernel), else all T at
 // once; the PFB one reads hp (Q, K) and the planes-major bank (2C, 2K) at
-// f32, or hp and btab (pfb_mma_tables) at the bf16 grades.
+// f32, or hp and btab (pfb_mma_tables) at the bf16 grades, in chunks of Tc
+// lanes and u-ranges of Uc fold taps where kChunked (fronts.cuh,
+// pfb_chunk, use_chunked_pfb), else all at once.
 template <bool kPfb, int kGrade, bool kChunked = false>
 __global__ void __launch_bounds__(gsdr::block_threads<kPfb, kGrade>())
 fm_chain_tile(
@@ -95,7 +97,7 @@ fm_chain_tile(
     const float* __restrict__ coef, float gain,
     const float* __restrict__ cf_re_in, const float* __restrict__ cf_im_in,
     float* __restrict__ audio, float* __restrict__ cf_re_out,
-    float* __restrict__ cf_im_out, float* __restrict__ zend) {
+    float* __restrict__ cf_im_out, float* __restrict__ zend, int Uc) {
   constexpr bool kPfbMma = kPfb && kGrade != gsdr::kGradeF32;
   constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
   constexpr int kThreads = gsdr::block_threads<kPfb, kGrade>();
@@ -128,10 +130,18 @@ fm_chain_tile(
   float acc_re[kCG], acc_im[kCG];
   const float* out = nullptr;
   const long g0 = (long)(j0 - 1) * D;
-  if constexpr (kPfbMma) {
+  if constexpr (kPfbMma && kChunked) {
+    out = gsdr::pfb_front_mma_chunked<kGrade, gsdr::kPfbNT>(
+        reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, hp,
+        reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y, g0,
+        Tc, Uc);
+  } else if constexpr (kPfbMma) {
     out = gsdr::pfb_front_mma<kGrade, gsdr::kPfbNT>(
         reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, hp,
         reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y, g0);
+  } else if constexpr (kPfb && kChunked) {
+    gsdr::pfb_front_chunked(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D,
+                            blockIdx.y * kCG, g0, Tc, Uc, acc_re, acc_im);
   } else if constexpr (kPfb) {
     gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D,
                     blockIdx.y * kCG, g0, acc_re, acc_im);
@@ -354,7 +364,8 @@ int run_chain(const void* buf_re, const void* buf_im, const void* bank,
               const void* cf_im_in, const void* cz_in, void* audio,
               void* cf_re_out, void* cf_im_out, void* cz_out, void* zend,
               void* zstart, int nb, int C, int T, int Tc, int K, int Q, int D,
-              int M, int ntiles, float gain, size_t smem, void* stream) {
+              int M, int ntiles, float gain, size_t smem, void* stream,
+              int Uc = 0) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaFuncSetAttribute(
       fm_chain_tile<kPfb, kGrade, kChunked>,
@@ -368,7 +379,7 @@ int run_chain(const void* buf_re, const void* buf_im, const void* bank,
       (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M, ntiles,
       (const float*)table, (const int*)n0_rot, (const float*)coef, gain,
       (const float*)cf_re_in, (const float*)cf_im_in, (float*)audio,
-      (float*)cf_re_out, (float*)cf_im_out, (float*)zend);
+      (float*)cf_re_out, (float*)cf_im_out, (float*)zend, Uc);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   fm_chain_tile_scan<<<C, kScan, 0, st>>>(
       (const float*)zend, (const float*)cz_in, (const float*)coef, M, ntiles,
@@ -393,23 +404,33 @@ const void* dense_tile(bool chunked) {
                  : (const void*)fm_chain_tile<false, kGrade, false>;
 }
 
+// The PFB tile kernel of a grade, one chunk or chunked.
+template <int kGrade>
+const void* pfb_tile(bool chunked) {
+  return chunked ? (const void*)fm_chain_tile<true, kGrade, true>
+                 : (const void*)fm_chain_tile<true, kGrade, false>;
+}
+
 // The tile kernel of a front (pfb) and grade with its dynamic shared memory
 // for a chunk of Tc taps and D (dense; `chunked` picks the kernel that
-// walks chunks) or for (K, Q, D) (PFB), or nullptr for a grade the library
-// lacks.
+// walks chunks) or for (K, Q, D) and the plan of Tc lanes and Uc fold taps
+// a chunk (PFB; the chunked kernel where use_chunked_pfb), or nullptr for
+// a grade the library lacks.
 const void* tile_kernel(bool pfb, int grade, int Tc, int K, int Q, int D,
-                        size_t* smem, bool chunked = false) {
+                        size_t* smem, bool chunked = false, int Uc = 0) {
   if (pfb) {
+    const bool ch = gsdr::use_chunked_pfb(Tc, Uc, K, Q);
     switch (grade) {
       case gsdr::kGradeF32:
-        *smem = gsdr::pfb_smem_bytes(K, Q, D);
-        return (const void*)fm_chain_tile<true, gsdr::kGradeF32>;
+        *smem = ch ? gsdr::pfb_chunk_bytes(K, Q, D, Tc, Uc)
+                   : gsdr::pfb_smem_bytes(K, Q, D);
+        return pfb_tile<gsdr::kGradeF32>(ch);
       case gsdr::kGradeBf16x2:
-        *smem = gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
-        return (const void*)fm_chain_tile<true, gsdr::kGradeBf16x2>;
       case gsdr::kGradeBf16x3:
-        *smem = gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
-        return (const void*)fm_chain_tile<true, gsdr::kGradeBf16x3>;
+        *smem = ch ? gsdr::pfb_mma_chunk_bytes(gsdr::kPfbNT, K, Q, D, Tc, Uc)
+                   : gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
+        return grade == gsdr::kGradeBf16x2 ? pfb_tile<gsdr::kGradeBf16x2>(ch)
+                                           : pfb_tile<gsdr::kGradeBf16x3>(ch);
     }
     return nullptr;
   }
@@ -431,28 +452,42 @@ const void* tile_kernel(bool pfb, int grade, int Tc, int K, int Q, int D,
 
 // The block plan of the front at `grade` (0 f32, 2 bf16x2, 3 bf16x3) on
 // the current device, for any channel count C (grid.y covers the
-// channels): for the dense front (pfb = 0, with T and D) *fits = the taps
-// a block stages at once (gsdr::dense_chunk: T in one chunk where the
+// channels): for the dense front (pfb = 0, with T and D) plan[0] = the
+// taps a block stages at once (gsdr::dense_chunk: T in one chunk where the
 // whole bank fits; 0 only where not even 8 taps fit); for the PFB front
-// (pfb = 1, with K, Q and D) *fits = 1 when its block fits, else 0.
-// Returns 0 or the CUDA error; an unknown grade is an invalid value.
+// (pfb = 1, with K, Q and D) plan[0..1] = the lanes and fold taps a chunk
+// takes (gsdr::pfb_chunk: (K, Q) where one chunk fits, (0, 0) where
+// nothing fits). Returns 0 or the CUDA error; an unknown grade is an
+// invalid value.
 extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
-                             int D, int* fits) {
+                             int D, int* plan) {
   (void)C;
   if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1 || K % D != 0)))
     return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  const void* kernel = tile_kernel(pfb != 0, grade, T, K, Q, D, &smem);
+  size_t smem = 0, b = 0;
+  if (pfb) {
+    const void* one = tile_kernel(true, grade, K, K, Q, D, &smem, false, Q);
+    if (one == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)gsdr::pfb_chunk(
+        one, smem, tile_kernel(true, grade, 8, K, Q, D, &b, true, 1), K, Q,
+        D,
+        [=](int lanes, int uc) {
+          size_t bytes = 0;
+          tile_kernel(true, grade, lanes, K, Q, D, &bytes, true, uc);
+          return bytes;
+        },
+        plan);
+  }
+  const void* kernel = tile_kernel(false, grade, T, K, Q, D, &smem);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  if (pfb) return (int)gsdr::block_fits(kernel, smem, fits);
   return (int)gsdr::dense_chunk(
       kernel, tile_kernel(false, grade, T, 0, 0, D, &smem, true), T,
       [=](int tc) {
-        size_t b = 0;
-        tile_kernel(false, grade, tc, 0, 0, D, &b);
-        return b;
+        size_t bytes = 0;
+        tile_kernel(false, grade, tc, 0, 0, D, &bytes);
+        return bytes;
       },
-      fits);
+      plan);
 }
 
 extern "C" const char* fm_chain_error_string(int err) {
@@ -503,6 +538,9 @@ extern "C" int fm_chain_launch(
 // polyphase taps; bank planes-major (2C, 2K), read at f32; btab
 // pfb_mma_tables' (2, ceil(K/8), ceil(C/4), 16, 2) int32, read at bf16x3
 // and bf16x2. T is the prototype's tap count (Q*K >= T), which sets M.
+// (lanes, uc) is the plan (fm_chain_fits', or any gsdr::valid_pfb_plan):
+// (K, Q) the one-chunk kernel, else the chunked one. A plan whose block
+// does not fit the card is refused before launch (too many resources).
 // Other shapes as fm_chain_launch.
 extern "C" int pfb_fm_chain_launch(
     const void* buf_re, const void* buf_im, const void* hp, const void* bank,
@@ -510,19 +548,29 @@ extern "C" int pfb_fm_chain_launch(
     const void* coef, const void* cf_re_in, const void* cf_im_in,
     const void* cz_in, void* audio, void* cf_re_out, void* cf_im_out,
     void* cz_out, void* zend, void* zstart, int nb, int C, int T, int K,
-    int Q, int D, int M, int ntiles, int grade, float gain, void* stream) {
+    int Q, int D, int M, int ntiles, int lanes, int uc, int grade,
+    float gain, void* stream) {
   if (C < 1 || T < 1 || D < 1 || K < 1 || K % D != 0 || Q < 1 ||
       Q * K < T || M < 1 || M != (nb - T) / D + 1 ||
-      ntiles != (M + kOut - 1) / kOut)
+      ntiles != (M + kOut - 1) / kOut || !gsdr::valid_pfb_plan(lanes, uc, K, Q))
     return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  if (tile_kernel(true, grade, T, K, Q, D, &smem) == nullptr)
-    return (int)cudaErrorInvalidValue;
-#define GSDR_PFB_CHAIN(G)                                                    \
-  run_chain<true, G, false>(buf_re, buf_im, bank, hp, btab, table, n0_rot,  \
-                            coef, cf_re_in, cf_im_in, cz_in, audio,         \
-                            cf_re_out, cf_im_out, cz_out, zend, zstart, nb, \
-                            C, T, 0, K, Q, D, M, ntiles, gain, smem, stream)
+  const void* kernel = tile_kernel(true, grade, lanes, K, Q, D, &smem, false,
+                                   uc);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  int fits = 0;
+  const cudaError_t err = gsdr::block_fits(kernel, smem, &fits);
+  if (err != cudaSuccess) return (int)err;
+  if (!fits) return (int)cudaErrorLaunchOutOfResources;
+#define GSDR_PFB_CHAIN_AT(G, CHUNKED)                                        \
+  run_chain<true, G, CHUNKED>(buf_re, buf_im, bank, hp, btab, table, n0_rot, \
+                              coef, cf_re_in, cf_im_in, cz_in, audio,        \
+                              cf_re_out, cf_im_out, cz_out, zend, zstart, nb, \
+                              C, T, lanes, K, Q, D, M, ntiles, gain, smem,   \
+                              stream, uc)
+#define GSDR_PFB_CHAIN(G)                                             \
+  (gsdr::use_chunked_pfb(lanes, uc, K, Q) ? GSDR_PFB_CHAIN_AT(G, true) \
+                                          : GSDR_PFB_CHAIN_AT(G, false))
   switch (grade) {
     case gsdr::kGradeBf16x2:
       return GSDR_PFB_CHAIN(gsdr::kGradeBf16x2);
@@ -532,4 +580,5 @@ extern "C" int pfb_fm_chain_launch(
       return GSDR_PFB_CHAIN(gsdr::kGradeF32);
   }
 #undef GSDR_PFB_CHAIN
+#undef GSDR_PFB_CHAIN_AT
 }

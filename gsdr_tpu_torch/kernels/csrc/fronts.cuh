@@ -179,6 +179,90 @@ __host__ __device__ inline size_t pfb_mma_smem_bytes(int nt, int K, int Q,
   return b + pfb_mma_taps_bytes(K, Q) + (win > out ? win : out);
 }
 
+// The PFB fronts in chunks (pfb_front_chunked, pfb_front_mma_chunked), for
+// a grid whose bank, taps or window outgrow one block. The lanes keep the
+// one-chunk order: groups of Dc = min(D, kPhaseChunk) phases, a group's
+// lanes kappa = p*P + s in 8-lane blocks (padded per group, as
+// pfb_mma_geom pads them); a chunk is up to `lanes`/8 consecutive blocks
+// of one group, and a block stages only its chunk's B rows or bank rows,
+// tap columns and window phases. Its fold taps u run in u-ranges of `uc`
+// taps each, one window of frames [u0*P + s_lo, (u1-1)*P + s_hi + kTile)
+// a range, s_lo..s_hi the chunk's lanes' s; where there is more than one
+// range, every fold partial waits in a shared fold tile between ranges,
+// summed in ascending u as one pass sums it. A plan (lanes >= K, uc >= Q)
+// is the one-chunk kernel (pfb_front, pfb_front_mma), which stays as it
+// was: the chunked kernel is another instantiation (use_chunked_pfb).
+// Chunk boundaries always fall on the one-chunk kernel's 8-lane blocks,
+// so a chunked launch equals the one-chunk launch bit for bit at every
+// grade.
+__host__ __device__ inline bool use_chunked_pfb(int lanes, int uc, int K,
+                                                int Q) {
+  return lanes < K || uc < Q;
+}
+
+// A plan a launch may take: the one-chunk plan, or chunks of a positive
+// multiple of 8 lanes (or the whole group, lanes >= K) and uc >= 1.
+__host__ __device__ inline bool valid_pfb_plan(int lanes, int uc, int K,
+                                               int Q) {
+  return uc >= 1 && (lanes >= K || (lanes >= 8 && lanes % 8 == 0));
+}
+
+// Blocks of 8 lanes a chunk takes: lanes/8, at most a group's KB0.
+__host__ __device__ inline int pfb_chunk_blocks(int K, int D, int lanes) {
+  const int dc = D < kPhaseChunk ? D : kPhaseChunk;
+  const int kb0 = (dc * (K / D) + 7) / 8, nkb = (lanes + 7) / 8;
+  return nkb < kb0 ? nkb : kb0;
+}
+
+// The most frames a chunk of nkb blocks stages for a u-range of uc taps:
+// (uc - 1)*P + the span of its lanes' s + kTile. A chunk may take the
+// last lanes of one phase and the first of the next (span P - 1) unless
+// the group is one phase (D = 1), whose chunks span 8*nkb - 1 at most.
+__host__ __device__ inline int pfb_chunk_frames(int K, int D, int nkb,
+                                                int uc) {
+  const int P = K / D;
+  const int span = D == 1 && 8 * nkb < P ? 8 * nkb - 1 : P - 1;
+  return (uc - 1) * P + span + kTile;
+}
+
+// pfb_front_chunked's dynamic shared memory: the chunk's bank rows [L][kCG]
+// as float4 (L = its lanes, at most a group's), its taps [uc][L] padded to
+// 16 bytes, the fold tile [L][2][kTile] where uc < Q, then the window of
+// at most Dc phases per plane.
+__host__ __device__ inline size_t pfb_chunk_bytes(int K, int Q, int D,
+                                                  int lanes, int uc) {
+  const int dc = D < kPhaseChunk ? D : kPhaseChunk;
+  const int nkb = pfb_chunk_blocks(K, D, lanes);
+  const size_t L = 8 * nkb < dc * (K / D) ? 8 * nkb : dc * (K / D);
+  if (uc > Q) uc = Q;
+  const size_t taps = ((size_t)uc * L * sizeof(float) + 15) / 16 * 16;
+  const size_t fold = uc < Q ? 2 * L * kTile * sizeof(float) : 0;
+  return L * kCG * sizeof(float4) + taps + fold +
+         2 * (size_t)dc * pfb_chunk_frames(K, D, nkb, uc) * sizeof(float);
+}
+
+// pfb_front_mma_chunked's dynamic shared memory: the chunk's B, hi and lo
+// parts [2][nkb][nt][16] uint2, its taps [uc][8*nkb] padded to 16 bytes,
+// the fold tile [nkb][8][kPfbThreads] where uc < Q (each thread's eight
+// fold partials of a block), then one window buffer of Ls words a frame;
+// the kTile x (8*nt + 1) output tile reuses all of it after the product.
+__host__ __device__ inline size_t pfb_mma_chunk_bytes(int nt, int K, int Q,
+                                                      int D, int lanes,
+                                                      int uc) {
+  const PfbMmaGeom g = pfb_mma_geom(K, Q, D);
+  const int nkb = pfb_chunk_blocks(K, D, lanes);
+  if (uc > Q) uc = Q;
+  const size_t b = 2 * (size_t)nkb * nt * 16 * sizeof(uint2);
+  const size_t taps = ((size_t)uc * 8 * nkb * sizeof(float) + 15) / 16 * 16;
+  const size_t fold =
+      uc < Q ? (size_t)nkb * 8 * kPfbThreads * sizeof(float) : 0;
+  const size_t win =
+      2 * (size_t)pfb_chunk_frames(K, D, nkb, uc) * g.Ls * sizeof(float);
+  const size_t all = b + taps + fold + win;
+  const size_t out = (size_t)kTile * (8 * nt + 1) * sizeof(float);
+  return all > out ? all : out;
+}
+
 // Channels and threads per block of a tile kernel: the tensor-core PFB
 // front covers 32 channels with one fold, and its block has two threads
 // per output row, so that its back end takes the two groups of kCG
@@ -250,6 +334,61 @@ cudaError_t dense_chunk(const void* one, const void* chunked, int T,
     else hi = mid - 1;
   }
   *chunk = 8 * lo;
+  return cudaSuccess;
+}
+
+// The PFB fronts' chunk plan: sets plan[0..1] to (lanes, uc), the lanes a
+// chunk takes and the fold taps a u-range takes, on the current device:
+// (K, Q), one chunk, where the one-chunk kernel's block fits (`one`, whose
+// dynamic shared memory is one_bytes); else the plan of the chunked
+// kernel (`chunked`, bytes(lanes, uc) dynamic bytes) that stages the
+// fewest windows: a u-range of all Q taps where its block fits at some
+// chunk of lanes, else for each chunk of 8*nkb lanes (nkb <= max_blocks,
+// a group's) the most taps a u-range can take, the plan with the fewest
+// chunks x u-ranges, the larger chunk on a tie. (0, 0) where nothing
+// fits, which does not happen for P = K/D up to a few hundred. Returns 0
+// or the CUDA error. The libraries answer <library>_fits with it for the
+// PFB front.
+template <class Bytes>
+cudaError_t pfb_chunk(const void* one, size_t one_bytes, const void* chunked,
+                      int K, int Q, int D, Bytes bytes, int* plan) {
+  size_t room = 0;
+  cudaError_t err = block_room(one, &room);
+  if (err != cudaSuccess) return err;
+  plan[0] = plan[1] = 0;
+  if (one_bytes <= room) {
+    plan[0] = K;
+    plan[1] = Q;
+    return cudaSuccess;
+  }
+  if ((err = block_room(chunked, &room)) != cudaSuccess) return err;
+  const int P = K / D, dc = D < kPhaseChunk ? D : kPhaseChunk;
+  long best = -1;
+  for (int nkb = pfb_chunk_blocks(K, D, K); nkb >= 1; --nkb) {
+    int uc = Q;
+    if (bytes(8 * nkb, Q) > room) {
+      int lo = 0, hi = Q - 1;   // the most taps below Q whose block fits
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) / 2;
+        if (bytes(8 * nkb, mid) <= room) lo = mid;
+        else hi = mid - 1;
+      }
+      if (lo == 0) continue;
+      uc = lo;
+    }
+    if (!use_chunked_pfb(8 * nkb, uc, K, Q)) continue;   // the one chunk
+    long chunks = 0;   // chunks a block walks, over every group
+    for (int p0 = 0; p0 < D; p0 += dc) {
+      const int np = D - p0 < dc ? D - p0 : dc;
+      chunks += ((np * P + 7) / 8 + nkb - 1) / nkb;
+    }
+    const long cost = chunks * ((Q + uc - 1) / uc);
+    if (best < 0 || cost < best) {
+      best = cost;
+      plan[0] = 8 * nkb;
+      plan[1] = uc;
+    }
+  }
   return cudaSuccess;
 }
 
@@ -740,6 +879,104 @@ __device__ __forceinline__ void pfb_front(
   }
 }
 
+// pfb_front in chunks of `lanes` lanes and u-ranges of `uc` fold taps (the
+// plan, pfb_chunk): the same contract, sums and order. A chunk takes the
+// lanes kappa in [ka, kz) of its group of Dc phases (kappa = pl*P + s,
+// lane v = p0 + pl + s*D) and stages their bank rows gb[kappa - ka][kCG]
+// (float4, as pfb_front), their taps hs[u - u0][kappa - ka] and, per
+// u-range, the window of its phases pa..pb, frames f0 + k of each plane
+// at xp[pl*nfr + k], f0 = u0*P + s_lo: output row r reads frame
+// r + (s - s_lo) + (u - u0)*P. Each lane's fold runs fmaf in ascending u
+// from 0 as pfb_front's; between u-ranges it waits in the fold tile
+// ft[kappa - ka][plane][row]; after the last, the lane's products join
+// the sums in ascending kappa. So a chunked launch equals the one-chunk
+// launch bit for bit.
+__device__ __forceinline__ void pfb_front_chunked(
+    float* smem, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, const float* __restrict__ hp,
+    const float* __restrict__ bank, int C, int K, int Q, int D, int c0,
+    long g0, int lanes, int uc, float (&acc_re)[kCG],
+    float (&acc_im)[kCG]) {
+  const int tid = threadIdx.x;
+  const int P = K / D, Dc = D < kPhaseChunk ? D : kPhaseChunk;
+  const int L = min(8 * pfb_chunk_blocks(K, D, lanes), Dc * P);
+  uc = min(uc, Q);
+  float4* gb = reinterpret_cast<float4*>(smem);
+  float* hs = smem + 4 * L * kCG;
+  float* ft = hs + (uc * L + 3) / 4 * 4;
+  float* xp = ft + (uc < Q ? 2 * L * kTile : 0);
+#pragma unroll
+  for (int c = 0; c < kCG; ++c) acc_re[c] = acc_im[c] = 0.f;
+  for (int p0 = 0; p0 < D; p0 += Dc) {
+    const int glanes = min(Dc, D - p0) * P;
+    for (int ka = 0; ka < glanes; ka += L) {
+      const int kz = min(ka + L, glanes), nl = kz - ka;
+      const int pa = ka / P, pb = (kz - 1) / P, npc = pb - pa + 1;
+      const int s_lo = pa == pb ? ka % P : 0;
+      const int s_hi = pa == pb ? (kz - 1) % P : P - 1;
+      __syncthreads();   // the previous chunk's readers are done
+      for (int idx = tid; idx < nl * kCG; idx += kTile) {
+        const int kap = ka + idx / kCG, cg = c0 + idx % kCG;
+        const int v = p0 + kap / P + (kap % P) * D;
+        float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (cg < C) {
+          const float* re_row = bank + (long)cg * 2 * K;
+          const float* im_row = bank + (long)(C + cg) * 2 * K;
+          g = make_float4(re_row[v], re_row[K + v], im_row[v], im_row[K + v]);
+        }
+        gb[idx] = g;
+      }
+      for (int u0 = 0; u0 < Q; u0 += uc) {
+        const int u1 = min(Q, u0 + uc), f0 = u0 * P + s_lo;
+        const int nfr = (u1 - 1 - u0) * P + s_hi - s_lo + kTile;
+        if (u0 > 0) __syncthreads();   // the last u-range's readers are done
+        for (int idx = tid; idx < (u1 - u0) * nl; idx += kTile) {
+          const int u = u0 + idx / nl, kap = ka + idx % nl;
+          hs[(u - u0) * L + kap - ka] =
+              hp[(long)u * K + p0 + kap / P + (kap % P) * D];
+        }
+        for (int l = tid; l < npc * nfr; l += kTile) {
+          const int pl = l % npc, k = l / npc;
+          const long g = g0 + (long)(f0 + k) * D + p0 + pa + pl;
+          const bool in = g >= 0 && g < nb;
+          xp[pl * nfr + k] = in ? buf_re[g] : 0.f;
+          xp[(npc + pl) * nfr + k] = in ? buf_im[g] : 0.f;
+        }
+        __syncthreads();
+        for (int kap = ka; kap < kz; ++kap) {
+          const int s = kap % P;
+          const float* xr = xp + (kap / P - pa) * nfr + tid + s - s_lo;
+          const float* xi = xr + npc * nfr;
+          const float* h = hs + kap - ka;
+          float* f = ft + (kap - ka) * 2 * kTile + tid;
+          float ar = 0.f, ai = 0.f;
+          if (u0 > 0) {
+            ar = f[0];
+            ai = f[kTile];
+          }
+          for (int u = 0; u < u1 - u0; ++u) {
+            const float hu = h[u * L];
+            ar = fmaf(hu, xr[u * P], ar);
+            ai = fmaf(hu, xi[u * P], ai);
+          }
+          if (u1 < Q) {   // the fold waits for the next u-range
+            f[0] = ar;
+            f[kTile] = ai;
+            continue;
+          }
+          const float4* g = gb + (kap - ka) * kCG;
+#pragma unroll
+          for (int c = 0; c < kCG; ++c) {
+            const float4 w = g[c];
+            acc_re[c] = fmaf(w.x, ar, fmaf(w.y, ai, acc_re[c]));
+            acc_im[c] = fmaf(w.z, ar, fmaf(w.w, ai, acc_im[c]));
+          }
+        }
+      }
+    }
+  }
+}
+
 // One 4-byte asynchronous copy from global to shared memory, zero-filled
 // when `valid` is false (src-size 0: nothing is read from src).
 __device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
@@ -988,6 +1225,204 @@ __device__ __forceinline__ const float* pfb_front_mma(
   }
 
   // the fragments to the output tile, in the window's space
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int col = 8 * nt + 2 * tig;
+    out[r0 * kOS + col] = d[nt][0];
+    out[r0 * kOS + col + 1] = d[nt][1];
+    out[(r0 + 8) * kOS + col] = d[nt][2];
+    out[(r0 + 8) * kOS + col + 1] = d[nt][3];
+  }
+  __syncthreads();
+  return out;
+}
+
+// pfb_front_mma in chunks of `lanes` lanes and u-ranges of `uc` fold taps
+// (the plan, pfb_chunk): the same contract, values and order. A chunk is
+// nk <= nkb consecutive 8-lane blocks kb0.. of group ch (lanes kappa in
+// [ka, kz) of its Dc phases, as pfb_front_mma numbers them); it gathers
+// their B rows into bs [2][nkb][kNT][16] as pfb_front_mma does, and per
+// u-range its taps hs[u - u0][kappa - ka] and, with cp.async, the window
+// of its phases pa..pb, frames f0 + k at word k*Ls + pl of each plane,
+// f0 = u0*P + s_lo: output row r reads frame r + (s - s_lo) + (u - u0)*P.
+// Each thread folds its fragment's lanes and rows as pfb_front_mma does,
+// __fmul_rn at u = 0 and __fadd_rn(__fmul_rn) on in ascending u; between
+// u-ranges its eight partials of a block wait in the fold tile
+// ft[kbl][q][tid]; after the last range the whole fold is split, hi and
+// lo, and multiplied. The blocks run in pfb_front_mma's order, with the
+// same A and B fragments, so a chunked launch equals the one-chunk launch
+// bit for bit. Returns the output tile as pfb_front_mma, at the start of
+// dynamic shared memory.
+template <int kGrade, int kNT>
+__device__ __forceinline__ const float* pfb_front_mma_chunked(
+    unsigned char* smem, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, const float* __restrict__ hp,
+    const uint32_t* __restrict__ btab, int C, int K, int Q, int D, int group,
+    long g0, int lanes, int uc) {
+  static_assert(kGrade == kGradeBf16x3 || kGrade == kGradeBf16x2,
+                "tensor-core grades are bf16x3 and bf16x2");
+  static_assert(kPfbThreads == 2 * kTile, "16 warps of 16 rows");
+  constexpr int kOS = 8 * kNT + 1;   // output tile row stride, in floats
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const PfbMmaGeom geo = pfb_mma_geom(K, Q, D);
+  const int P = geo.P, Ls = geo.Ls, NT = (C + 3) / 4, KBt = (K + 7) / 8;
+  const int nkb = pfb_chunk_blocks(K, D, lanes);
+  uc = min(uc, Q);
+  uint2* bs = reinterpret_cast<uint2*>(smem);
+  uint32_t* bw = reinterpret_cast<uint32_t*>(bs);
+  float* hs = reinterpret_cast<float*>(bs + 2 * nkb * kNT * 16);
+  float* ft = hs + (uc * 8 * nkb + 3) / 4 * 4;
+  float* win = ft + (uc < Q ? nkb * 8 * kPfbThreads : 0);
+  float* out = reinterpret_cast<float*>(smem);
+  // 16-byte copies where every frame's run of samples can be 16-byte aligned
+  const bool vec_ok = D % 4 == 0 && g0 % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(buf_re) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(buf_im) % 16 == 0;
+
+  const int gid = lane >> 2, tig = lane & 3;
+  // an odd GEMM column (wi, wr) from its even neighbour (wr, -wi)
+  const uint32_t sel = (gid & 1) ? 0x1032u : 0x3210u;
+  const uint32_t flip = (gid & 1) ? 0x8000u : 0u;
+  const uint2* bl = bs + 4 * (gid >> 1) + tig;
+  const int r0 = warp * 16 + gid;
+  float d[kNT][4];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[nt][i] = 0.f;
+
+  for (int ch = 0; ch < geo.nch; ++ch) {
+    const int p0 = ch * geo.Dc;
+    const int glanes = min(geo.Dc, D - p0) * P, kbc = (glanes + 7) / 8;
+    for (int kb0 = 0; kb0 < kbc; kb0 += nkb) {
+      const int nk = min(nkb, kbc - kb0), tl = 8 * nk;
+      const int ka = 8 * kb0, kz = min(ka + tl, glanes);
+      const int pa = ka / P, pb = (kz - 1) / P, npc = pb - pa + 1;
+      const int s_lo = pa == pb ? ka % P : 0;
+      const int s_hi = pa == pb ? (kz - 1) % P : P - 1;
+      __syncthreads();   // the previous chunk's readers are done
+      // B in the block's lane order, as pfb_front_mma gathers it
+      for (int pk = warp; pk < 2 * nk; pk += kPfbThreads / 32) {
+        const int part = pk / nk, i = pk - part * nk;
+        const int e = lane >> 1;
+        const int kap = ka + 8 * i + (e & 3) + 4 * (lane & 1);
+        const bool ok = kap < glanes;
+        const int v = ok ? p0 + kap / P + (kap % P) * D : 0, vq = v & 7;
+        const uint32_t* src = btab + ((long)part * KBt + (v >> 3)) * NT * 32 +
+                              (4 * (e >> 2) + (vq & 3)) * 2 + (vq >> 2);
+        uint32_t* dst = bw + (long)(part * nkb + i) * kNT * 32 + lane;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int ntg = group * kNT + nt;
+          dst[nt * 32] = ok && ntg < NT ? src[(long)ntg * 32] : 0u;
+        }
+      }
+      for (int u0 = 0; u0 < Q; u0 += uc) {
+        const int u1 = min(Q, u0 + uc), f0 = u0 * P + s_lo;
+        const int nfr = (u1 - 1 - u0) * P + s_hi - s_lo + kTile;
+        if (u0 > 0) __syncthreads();   // the last u-range's readers are done
+        for (int i = tid; i < (u1 - u0) * tl; i += kPfbThreads) {
+          const int kap = ka + i % tl;
+          hs[i] = kap < kz ? hp[(long)(u0 + i / tl) * K + p0 + kap / P +
+                                (kap % P) * D]
+                           : 0.f;
+        }
+        pfb_stage_phases(win, buf_re, buf_im, nb, g0 + (long)f0 * D, D,
+                         p0 + pa, npc, nfr, Ls,
+                         vec_ok && (p0 + pa) % 4 == 0 && npc % 4 == 0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        const float* xr = win + r0 * Ls;
+        const float* xi = xr + nfr * Ls;
+        for (int kbl = 0; kbl < nk; ++kbl) {
+          // the fold of lanes kappa = ka + 8*kbl + tig (h = 0) and + 4
+          // (h = 1) at rows r0 and r0 + 8 (rr); a lane past the chunk's
+          // folds to zero
+          int off[2];
+          const float* tp[2];
+          bool ok[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int kap = ka + 8 * kbl + tig + 4 * h;
+            ok[h] = kap < kz;
+            off[h] = ok[h] ? (kap % P - s_lo) * Ls + kap / P - pa : 0;
+            tp[h] = hs + (ok[h] ? kap - ka : 0);
+          }
+          float fr[2][2], fi[2][2];
+          float* fo = ft + kbl * 8 * kPfbThreads + tid;
+          const int us = P * Ls;   // one fold tap further: P frames
+          int u = 0;
+          if (u0 == 0) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float h0 = ok[h] ? tp[h][0] : 0.f;
+#pragma unroll
+              for (int rr = 0; rr < 2; ++rr) {
+                const int o = off[h] + 8 * rr * Ls;
+                fr[h][rr] = __fmul_rn(xr[o], h0);
+                fi[h][rr] = __fmul_rn(xi[o], h0);
+              }
+            }
+            u = 1;
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              fr[q >> 1][q & 1] = fo[q * kPfbThreads];
+              fi[q >> 1][q & 1] = fo[(4 + q) * kPfbThreads];
+            }
+          }
+          for (; u < u1 - u0; ++u) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float hu = ok[h] ? tp[h][u * tl] : 0.f;
+#pragma unroll
+              for (int rr = 0; rr < 2; ++rr) {
+                const int o = off[h] + 8 * rr * Ls + u * us;
+                fr[h][rr] = __fadd_rn(fr[h][rr], __fmul_rn(xr[o], hu));
+                fi[h][rr] = __fadd_rn(fi[h][rr], __fmul_rn(xi[o], hu));
+              }
+            }
+          }
+          if (u1 < Q) {   // the fold waits for the next u-range
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              fo[q * kPfbThreads] = fr[q >> 1][q & 1];
+              fo[(4 + q) * kPfbThreads] = fi[q >> 1][q & 1];
+            }
+            continue;
+          }
+          // A fragment: register q holds lane h = q / 2 at row r0 + 8*(q % 2)
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float ar = fr[q >> 1][q & 1], ai = fi[q >> 1][q & 1];
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(ar, ai);
+            ah[q] = bf16x2_bits(hi);
+            if constexpr (kGrade == kGradeBf16x3) {
+              al[q] = bf16x2_bits(__floats2bfloat162_rn(
+                  __fsub_rn(ar, __low2float(hi)),
+                  __fsub_rn(ai, __high2float(hi))));
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) {
+            const uint2 h = bl[(kbl * kNT + nt) * 16];
+            const uint2 l = bl[((nkb + kbl) * kNT + nt) * 16];
+            const uint32_t h0 = __byte_perm(h.x, 0u, sel) ^ flip;
+            const uint32_t h1 = __byte_perm(h.y, 0u, sel) ^ flip;
+            const uint32_t l0 = __byte_perm(l.x, 0u, sel) ^ flip;
+            const uint32_t l1 = __byte_perm(l.y, 0u, sel) ^ flip;
+            mma_bf16(d[nt], ah, h0, h1);
+            mma_bf16(d[nt], ah, l0, l1);
+            if constexpr (kGrade == kGradeBf16x3) mma_bf16(d[nt], al, h0, h1);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();   // every warp is done: the output tile reuses the space
+
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt) {
     const int col = 8 * nt + 2 * tig;

@@ -16,7 +16,10 @@ between them at any block.
 tensors and take their plain versions, ``fm_chain_reference`` and
 ``pfb_fm_chain_reference``, only for tensors on the CPU. The dense front
 takes any T and D: its block stages the taps in chunks where the whole
-bank does not fit (``chain.dense_chunk``). Either front runs at a grade
+bank does not fit (``chain.dense_chunk``); the PFB front takes any grid
+with D | K the JAX package's plans take: its block stages the lanes and
+fold taps in chunks where the whole bank, taps or window do not fit
+(``chain.pfb_chunk``). Either front runs at a grade
 (``precision``, the JAX package's): 'bf16x3', the kernels' default as it
 is ``fm_chain_pallas``'s and
 ``pfb_fm_chain_pallas``'s, and 'bf16x2' on the tensor cores, 'f32' on the
@@ -42,6 +45,7 @@ from gsdr_tpu_torch.kernels.chain import (
     graded_bank_front,
     graded_uniform_front,
     load_chain_library,
+    pfb_launch_plan,
     pfb_mma_tables,
 )
 from gsdr_tpu_torch.ops.channelize import rotate_bank
@@ -138,7 +142,8 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fm_chain_launch.argtypes = [p] * 16 + [i] * 8 + [ctypes.c_float, p]
     lib.fm_chain_launch.restype = i
-    lib.pfb_fm_chain_launch.argtypes = [p] * 17 + [i] * 9 + [ctypes.c_float, p]
+    lib.pfb_fm_chain_launch.argtypes = ([p] * 17 + [i] * 11
+                                        + [ctypes.c_float, p])
     lib.pfb_fm_chain_launch.restype = i
     lib.fm_chain_tile_outputs.argtypes = []
     lib.fm_chain_tile_outputs.restype = i
@@ -205,21 +210,24 @@ def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation, gain, deemph,
 
 def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
                 decimation, gain, deemph, carry_f, carry_z,
-                precision="bf16x3"):
+                precision="bf16x3", plan=None):
+    """The PFB-front kernel; ``plan`` as ``chain.ChainKernel`` says."""
     dev = buf.re.device
     grade = grade_code("pfb_fm_chain", precision)
-    c, k, q = check_pfb_tables("pfb_fm_chain", "fm_chain", poly_taps,
-                               dft_bank, num_taps, decimation, precision)
+    c, k, q = check_pfb_tables("pfb_fm_chain", poly_taps, dft_bank,
+                               num_taps, decimation)
     check_operands("pfb_fm_chain", {
         "poly_taps": (poly_taps, (q, k)),
         "dft_bank": (dft_bank, (2 * c, 2 * k))}, dev)
     t = int(num_taps)
+    lanes, uc = pfb_launch_plan("fm_chain", dev, k, q, decimation, precision,
+                                plan)
     btab = pfb_mma_tables(dft_bank).data_ptr() if grade else None
     return _launch(
         "pfb_fm_chain",
         ((poly_taps.data_ptr(), dft_bank.data_ptr(), btab), (t, k, q),
-         (grade,)), buf, lo_table, n0_rot, c, t, int(decimation), gain,
-        deemph, carry_f, carry_z)
+         (lanes, uc, grade)), buf, lo_table, n0_rot, c, t, int(decimation),
+        gain, deemph, carry_f, carry_z)
 
 
 fm_chain = ChainKernel("fm_chain", fm_chain_reference, _launch_dense)

@@ -15,14 +15,17 @@ axes:
 
 IIR state is the one sequential dependency: ``iir.py`` carries it across
 time shards exactly with one all_gather of per-shard states and powers of
-the state-transition matrix from the host. ``multihost.initialize`` brings
+the state-transition matrix from the host (``make_sharded_iir_step`` makes
+it a streaming step). The sharded steps compile over NCCL
+(``utils.compile.compile_step``, the port's ``jax.jit``); under gloo they
+run eagerly. ``multihost.initialize`` brings
 up the process group (NCCL, one card a rank, by default; gloo for ranks
 that share a card or run on the CPU).
 """
 
 from gsdr_tpu_torch.parallel.mesh import make_mesh
 from gsdr_tpu_torch.parallel.halo import left_halo, right_halo
-from gsdr_tpu_torch.parallel.iir import sharded_iir
+from gsdr_tpu_torch.parallel.iir import make_sharded_iir_step, sharded_iir
 from gsdr_tpu_torch.parallel.channelizer import (
     sharded_fir,
     make_sharded_fm_step,
@@ -39,6 +42,7 @@ __all__ = [
     "left_halo",
     "right_halo",
     "sharded_iir",
+    "make_sharded_iir_step",
     "sharded_fir",
     "make_sharded_fm_step",
     "make_sharded_am_step",

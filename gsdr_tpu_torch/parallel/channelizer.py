@@ -44,8 +44,17 @@ Two decompositions, chosen by the model's ``impl``:
     the de-emphasis and masked sums for the carried tails, in plain
     float32.
 
-A sharded step on CUDA tensors never runs a kernel's plain version, and a
-shard geometry that the fused decomposition cannot take raises.
+A sharded step on CUDA tensors never runs a kernel's plain version. Both
+kernels' fronts take every geometry the JAX package's plans take (the
+PFB front's bank, taps and window staged in chunks where they outgrow a
+block), so the fused decomposition raises only for a shard length that D
+(and, on the PFB front, K) does not divide, or one shorter than its halo.
+
+The step objects are what ``utils.compile.compile_step`` captures over
+NCCL, the port's ``jax.jit(make_sharded_fm_step(...))``: a step reads no
+device value on the host, its restore powers are built on its first call
+(the capture's warm-up), and ``mesh.sent`` counts a replay as an eager
+call. ``compile_step`` refuses a step whose mesh runs over gloo.
 """
 
 import numpy as np

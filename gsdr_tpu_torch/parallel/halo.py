@@ -18,13 +18,15 @@ on a world of one, NCCL's self-copy costs host time and moves nothing.
 Functions take a tensor or a planar ``ComplexArray`` on the last axis; a
 planar one moves as one stacked tensor. Shard 0 (or the last shard) gets
 ``fill`` if given, else zeros, as JAX's does. Each collective adds the
-elements it hands over to ``mesh.sent``.
+elements it hands over to ``mesh.sent`` (``utils.compile.tally``: a step
+compiled by ``compile_step`` adds them at every replay).
 """
 
 import torch
 import torch.distributed as dist
 
 from gsdr_tpu_torch.carray import ComplexArray
+from gsdr_tpu_torch.utils.compile import tally
 
 
 def _stacked(x):
@@ -42,7 +44,7 @@ def all_gather(x, mesh, axis="time"):
         return [x]
     out = [torch.empty_like(v) for _ in range(mesh.shape[axis])]
     dist.all_gather(out, v, group=mesh.get_group(axis))
-    mesh.sent["all_gather"] += v.numel()
+    tally(mesh.sent, "all_gather", v.numel())
     return [rebuild(o) for o in out]
 
 
@@ -53,7 +55,7 @@ def all_reduce_sum(x, mesh, axis="time"):
     v, rebuild = _stacked(x)
     v = v.clone()
     dist.all_reduce(v, group=mesh.get_group(axis))
-    mesh.sent["all_reduce"] += v.numel()
+    tally(mesh.sent, "all_reduce", v.numel())
     return rebuild(v)
 
 

@@ -19,6 +19,11 @@ decomposition of ``ops/iir.py`` one level up.
 JAX's shards all start from zero state and add M^{Ls} zi; starting shard
 0 from zi is the same sum, one term earlier, and leaves a one-shard axis
 with nothing to correct.
+
+``make_sharded_iir_step`` wraps it as a streaming step, (zi, x) -> (zf,
+y), which ``utils.compile.compile_step`` captures over NCCL as JAX jits
+it: the host powers are built on the step's first call (the capture's
+warm-up), and nothing in the step reads a value back to the host.
 """
 
 import functools
@@ -104,3 +109,31 @@ def sharded_iir(b, a, x_local, zi, mesh, axis="time", block_len=128):
             z = sum(states[k] @ P[s - 1 - k].T for k in range(s))
             y = y + z @ K.T
     return y, zf
+
+
+class ShardedIirStep:
+    """``sharded_iir`` as a streaming step for this rank: ``step(zi, x)``
+    -> (zf, y), the filter's state carried, the same on every rank of the
+    axis; ``init(shape)`` is the zero state for signals of leading shape
+    ``shape``. ``mesh`` is the rank's mesh (``compile_step`` reads its
+    backend)."""
+
+    def __init__(self, b, a, mesh, axis="time", block_len=128):
+        self.b, self.a = _host_coeffs(b), _host_coeffs(a)
+        self.mesh, self.axis, self.block_len = mesh, axis, block_len
+
+    def init(self, shape=()):
+        order = max(len(self.b), len(self.a)) - 1
+        return torch.zeros(tuple(shape) + (order,), dtype=torch.float32,
+                           device=self.mesh.device)
+
+    def __call__(self, zi, x):
+        y, zf = sharded_iir(self.b, self.a, x, zi, self.mesh, self.axis,
+                            self.block_len)
+        return zf, y
+
+
+def make_sharded_iir_step(b, a, mesh, axis="time", block_len=128):
+    """``sharded_iir(b, a, x, zi, mesh)`` as a step ``(zi, x) -> (zf, y)``
+    over the rank's time block (``ShardedIirStep``)."""
+    return ShardedIirStep(b, a, mesh, axis, block_len)

@@ -27,9 +27,18 @@ a CPU block it runs the step as it is, the port's plain path.
     output, as a ``jax.jit`` result is. The returned state is the graph's
     buffers: valid until the next call of the compiled step.
   - **No fallback.** On a CUDA block a step that cannot be captured (a
-    host sync such as ``.item()``, a gloo collective, an operation a graph
-    cannot hold) raises with the capture's error; it never runs eagerly
-    in its place.
+    host sync such as ``.item()``, an operation a graph cannot hold)
+    raises with the capture's error; it never runs eagerly in its place.
+    A step whose mesh (``step.mesh``, as the sharded steps of
+    ``parallel/`` have) runs over gloo raises before its warm-up: gloo's
+    collectives are host calls that no graph holds. Over NCCL the
+    collectives are captured.
+  - **Host-side counts.** What a step counts on the host while it runs
+    (``mesh.sent``, through ``tally``) is counted once a call: not in the
+    warm-up, and for the capture at every replay, so that it reads the
+    same whether the step runs eager or compiled. The kernels' launch
+    counters count the warm-up's and the capture's launches and no
+    replay.
 
 ``compile_step(step, steps=k)`` captures k chained steps on the same block
 as one graph (the counterpart of ``gsdr_tpu/utils/timing.py``'s
@@ -38,12 +47,52 @@ The replays of one compiled step, and the eager calls whose kernels share
 its scratch (B5), run on one stream at a time.
 """
 
+import contextlib
+import contextvars
+
 import torch
 
 from gsdr_tpu_torch.kernels.chain import graph_refs
 from gsdr_tpu_torch.utils.tree import tree_flatten, tree_unflatten
 
 _SCALARS = (bool, int, float, complex, str)
+_tallies = contextvars.ContextVar("graph_tallies", default=None)
+
+
+def tally(counter, key, n):
+    """Add ``n`` to ``counter[key]``, a count the host keeps of the work a
+    step enqueues: at once in an eager call; inside ``compile_step``'s
+    warm-up not at all, and inside its capture at every replay of the
+    graph (see the module's docstring)."""
+    log = _tallies.get()
+    if log is None:
+        counter[key] += n
+    else:
+        log.append((counter, key, n))
+
+
+@contextlib.contextmanager
+def _tallying(log):
+    token = _tallies.set(log)
+    try:
+        yield
+    finally:
+        _tallies.reset(token)
+
+
+def check_capturable(step, block):
+    """Raise where a CUDA graph cannot hold ``step`` on ``block``: a CUDA
+    block whose step's mesh (its ``mesh``, or its object's for a bound
+    method) runs its collectives over gloo."""
+    mesh = getattr(step, "mesh", None)
+    if mesh is None:
+        mesh = getattr(getattr(step, "__self__", None), "mesh", None)
+    if mesh is not None and getattr(mesh, "backend", None) == "gloo" \
+            and device_of(block).type == "cuda":
+        raise RuntimeError(
+            "compile_step: the step's mesh runs its collectives over gloo, "
+            "which a CUDA graph cannot capture; compile a step over an "
+            "NCCL mesh (one card a rank), or call the gloo step eagerly")
 
 
 def device_of(block):
@@ -110,10 +159,11 @@ class _Graph:
         blk = tree_unflatten(self.block_def, self.block_in)
         cur = torch.cuda.current_stream(stream.device)
         stream.wait_stream(cur)
-        with torch.cuda.stream(stream):
+        self.tallies = []   # the host-side counts of one replay
+        with torch.cuda.stream(stream), _tallying([]):
             warm(st, blk)
         try:
-            with graph_refs(self.refs), \
+            with graph_refs(self.refs), _tallying(self.tallies), \
                     torch.cuda.graph(self.graph, stream=stream):
                 new_state, out = run(st, blk)
                 self._loop_back(new_state)
@@ -175,6 +225,8 @@ class _Graph:
         _copy_in(self.state_in, s_leaves)
         _copy_in(self.block_in, b_leaves)
         self.graph.replay()
+        for counter, key, n in self.tallies:
+            counter[key] += n
         out = [x.clone() if isinstance(x, torch.Tensor) else x
                for x in self.out]
         return self.state_tree, tree_unflatten(self.out_def, out)
@@ -206,6 +258,7 @@ class CompiledStep:
     def _graph(self, state, block):
         """The graph of (state, block)'s signature, captured if new, with
         the flattened state and block."""
+        check_capturable(self.step, block)
         key, flat_state, flat_block = signature(state, block)
         g = self._graphs.get(key)
         if g is None:

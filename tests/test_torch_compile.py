@@ -473,3 +473,50 @@ def test_hold_for_graph_keeps_objects_for_the_capture():
     hold_for_graph(b)
     assert refs == [a]
     assert chain._unowned_refs.pop(id(b)) is b
+
+
+def test_compile_step_refuses_a_gloo_mesh_on_cuda_blocks():
+    """compile_step raises before any warm-up or capture where the step's
+    mesh runs over gloo and the block lies on the card (gloo's collectives
+    are host calls no CUDA graph holds): a check over the mesh's backend
+    and the block's device, so a stand-in block whose device is cuda shows
+    it without a card, and the step is never called. A bound method's
+    object's mesh counts too; an NCCL mesh, a mesh with no process group
+    and a CPU block pass the check. ``tally`` adds at once outside a
+    capture."""
+    import types
+
+    from gsdr_tpu_torch.parallel.mesh import Mesh
+    from gsdr_tpu_torch.utils.compile import check_capturable, tally
+
+    def mesh(backend):
+        return Mesh(1, 1, 0, {"channel": None, "time": None},
+                    torch.device("cpu"), backend)
+
+    class Step:
+        def __init__(self, backend):
+            self.mesh, self.calls = mesh(backend), 0
+
+        def __call__(self, state, x):
+            self.calls += 1
+            return state, x
+
+        def method(self, state, x):
+            return self(state, x)
+
+    cuda_block = types.SimpleNamespace(device=torch.device("cuda"))
+    for backend in ("gloo",):
+        step = Step(backend)
+        for fn in (step, step.method):
+            with pytest.raises(RuntimeError, match="over gloo"):
+                compile_step(fn)(torch.zeros(1), cuda_block)
+        assert step.calls == 0
+    for backend in ("nccl", None):
+        check_capturable(Step(backend), cuda_block)
+    step = Step("gloo")
+    check_capturable(step, torch.zeros(3))
+    state, out = compile_step(step)(torch.zeros(1), torch.ones(3))
+    assert step.calls == 1 and torch.equal(out, torch.ones(3))
+    sent = {"all_gather": 0}
+    tally(sent, "all_gather", 5)
+    assert sent == {"all_gather": 5}

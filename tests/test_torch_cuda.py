@@ -16,7 +16,11 @@ from gsdr_tpu_torch.kernels.am_chain import (
     pfb_am_chain,
     pfb_am_chain_reference,
 )
-from gsdr_tpu_torch.kernels.chain import dense_chunk, front_supported
+from gsdr_tpu_torch.kernels.chain import (
+    dense_chunk,
+    front_supported,
+    pfb_chunk,
+)
 from gsdr_tpu_torch.kernels.channelize import (
     channelize_kernel,
     channelize_reference,
@@ -37,6 +41,7 @@ from gsdr_tpu_torch.ops.qpsk256 import (
     qpsk256_demodulate,
 )
 from gsdr_tpu_torch.pipelines import AmReceiver, FmChannelizer, Qpsk256Modem
+from gsdr_tpu_torch.utils.tree import tree_flatten
 
 FS = 1_000_000.0
 SKIP = 256  # zero-primed warm-up outputs
@@ -254,17 +259,32 @@ def test_am_kernels_match_plain_on_card(card, k, d, t, c):
 
 @pytest.mark.cuda
 def test_shared_memory_check_on_card(card):
-    """The libraries count the tile kernels' static shared memory: a grid
-    whose dynamic size alone fits but whose total does not (K=712, D=89,
-    Q=4: 230,400 + 2,304 B for the FM kernel) is refused before launch.
-    A dense front too long for one block no longer makes the model raise:
+    """The libraries count the tile kernels' static shared memory: at
+    K=712, D=89, Q=4 the FM kernel's one-chunk block at f32 (230,400 B
+    dynamic, which alone fits, plus 2,304 B static) does not fit, so its
+    plan is the chunked kernel's, and a launch forced to the one-chunk plan
+    is refused before launch (too many resources; no launch counted);
+    the AM kernel's block, with less static memory, takes it in one chunk.
+    The grid then runs at every grade in both libraries, within the
+    grades' gates of the plain PFB chain (_witness_within). A dense front
+    too long for one block does not make the model raise either:
     AmReceiver at K=128, T=1021, D=128 (70 channels) takes the dense
     kernel in chunks of fewer than T taps, one launch a step, its
     envelopes within 4e-5 of its plain version at the grade: float32 sums
     of 3*T products in other orders, whose error grows with T (1e-5 holds
     to T=512; the H100 read 1.54e-5 here)."""
-    assert not front_supported("fm_chain", "cuda", 4 * 712, 89, 712)
-    assert front_supported("fm_chain", "cuda", 512, 64, 64)
+    assert front_supported("fm_chain", "cuda", 4 * 712, 89, 712)
+    assert pfb_chunk("fm_chain", "cuda", 712, 4, 89, "f32") != (712, 4)
+    assert pfb_chunk("am_chain", "cuda", 712, 4, 89, "f32") == (712, 4)
+    m = _witness_model(FmChannelizer, 712, 89, 2848, 8, "f32")
+    args = _witness_args(m, 712 * 64)
+    before = pfb_fm_chain.launches
+    with pytest.raises(RuntimeError, match="too many resources"):
+        pfb_fm_chain(*args, precision="f32", plan=(712, 4))
+    assert pfb_fm_chain.launches == before
+    for grade in GRADES:
+        for cls in (FmChannelizer, AmReceiver):
+            _witness_within(cls, 712, 89, 2848, grade)
     m = _grid_model(AmReceiver, "cuda", 128, 128, 1021, 70)
     assert m.front == "toeplitz"
     assert 8 <= dense_chunk("am_chain", "cuda", 1021, 128, m.precision) < 1021
@@ -730,43 +750,160 @@ def test_am_kernel_grades_match_plain_on_card(card, k, d, t, c, grade):
 
 @pytest.mark.cuda
 def test_pfb_grades_fit_and_refuse_on_card(card):
-    """Both libraries answer for the PFB front at each grade: the wideband
-    critical shape fits at every grade; K=640, D=64, T=1280 fits at f32
-    (a 204-KB block) and at neither bf16 grade (its lane-ordered B table
-    alone takes 160 KB): the models raise at construction, the wrappers
-    on the ctypes path before any launch."""
+    """Both libraries take every grade at the wideband critical shape in
+    one chunk, and K=640, D=64, T=1280 at every grade: at f32 in one
+    chunk (a 204-KB block), at the bf16 grades in chunks (their
+    lane-ordered B table alone takes 160 KB, so no one-chunk block fits,
+    and a launch forced to one chunk is refused before launch). The
+    models take the grid with impl='pfb' at each grade, and each launch
+    is within its grade's gate of the plain PFB chain (_witness_within)."""
     for lib in ("fm_chain", "am_chain"):
         for grade in GRADES:
-            assert front_supported(lib, "cuda", 512, 64, 64, grade)
-        assert front_supported(lib, "cuda", 1280, 64, 640, "f32")
+            assert pfb_chunk(lib, "cuda", 64, 8, 64, grade) == (64, 8)
+            assert front_supported(lib, "cuda", 1280, 64, 640, grade)
+        assert pfb_chunk(lib, "cuda", 640, 2, 64, "f32") == (640, 2)
         for grade in ("bf16x3", "bf16x2"):
-            assert not front_supported(lib, "cuda", 1280, 64, 640, grade)
-    kw = dict(frequency_deviation=75_000.0)
-    for grade in ("bf16x3", "bf16x2"):
-        with pytest.raises(ValueError, match="PFB kernel does not take"):
-            _grid_model(FmChannelizer, "pfb", 640, 64, 1280, 8,
-                        precision=grade, **kw)
-        with pytest.raises(ValueError, match="PFB kernel does not take"):
-            _grid_model(AmReceiver, "pfb", 640, 64, 1280, 8, precision=grade)
-    m = _grid_model(FmChannelizer, "pfb", 640, 64, 1280, 8, precision="f32",
-                    **kw)
-    am = _grid_model(AmReceiver, "pfb", 640, 64, 1280, 8, precision="f32")
-    n0, _, cf, cz = m.init()
-    nb = 1280 - 1 + 64 * 300
-    buf = TCA(torch.zeros(nb, device="cuda"), torch.zeros(nb, device="cuda"))
-    before = (pfb_fm_chain.launches, pfb_am_chain.launches)
-    for grade in ("bf16x3", "bf16x2"):
-        with pytest.raises(ValueError, match="shared memory"):
-            pfb_fm_chain(buf, m.poly_taps, m.dft_bank, 1280, m.lo_table, n0,
-                         64, m.gain, m.deemph, cf, cz, precision=grade)
-        with pytest.raises(ValueError, match="shared memory"):
-            pfb_am_chain(buf, am.poly_taps, am.dft_bank, 1280, am.lo_table,
-                         n0, 64, precision=grade)
-    assert (pfb_fm_chain.launches, pfb_am_chain.launches) == before
-    # the f32 grade of the same tables launches
-    pfb_am_chain(buf, am.poly_taps, am.dft_bank, 1280, am.lo_table, n0, 64,
-                 precision="f32")
-    assert pfb_am_chain.launches == before[1] + 1
+            lanes, uc = pfb_chunk(lib, "cuda", 640, 2, 64, grade)
+            assert 8 <= lanes < 640 and lanes % 8 == 0 and uc >= 1
+    for grade in GRADES:
+        for cls in (FmChannelizer, AmReceiver):
+            _witness_within(cls, 640, 64, 1280, grade)
+    m = _witness_model(AmReceiver, 640, 64, 1280, 8, "bf16x3")
+    args = _witness_args(m, 640 * 64)
+    before = pfb_am_chain.launches
+    with pytest.raises(RuntimeError, match="too many resources"):
+        pfb_am_chain(*args, precision="bf16x3", plan=(640, 2))
+    assert pfb_am_chain.launches == before
+
+
+def _witness_model(cls, k, d, t, c, grade):
+    """A receiver at impl='pfb' on the Fs/k grid with Fs = 1024*k (exact in
+    binary), c channels spread over it; FM at a tenth of a channel's
+    deviation and a 1-ms de-emphasis (chip_smoke.py's witness_model)."""
+    fs = 1024.0 * k
+    n = np.arange(t) - (t - 1) / 2.0
+    h = np.sinc(2 * (0.4 / k) * n) * np.hamming(t)
+    kw = {"frequency_deviation": 0.1 * fs / k, "deemphasis_tau": 1e-3} \
+        if cls is FmChannelizer else {}
+    return cls(sample_rate=fs, tuning_frequency=0.0,
+               channel_frequencies=tuple(-(fs / k) * ((7 * i) % k)
+                                         for i in range(c)),
+               decimation=d, low_pass_taps=tuple(h / h.sum()), impl="pfb",
+               precision=grade, device="cuda", **kw)
+
+
+def _witness_args(model, n, seed=3):
+    """The PFB kernel's arguments for the first n samples of a fresh stream
+    of the model: FM or 50%-AM carriers on its channels, tones a few
+    hundredths of a channel."""
+    r = np.random.default_rng(seed)
+    fs = model.sample_rate
+    spacing = fs / model.pfb_grid[0]
+    t = np.arange(n) / fs
+    sig = np.zeros(n, np.complex128)
+    fm = isinstance(model, FmChannelizer)
+    for i, f in enumerate(model.channel_frequencies):
+        tone = spacing * (0.04 + 0.0005 * i)
+        msg = np.sin(2 * np.pi * tone * t + r.uniform(0, 6))
+        ph = 2 * np.pi * f * t + r.uniform(0, 6)
+        if fm:
+            ph = ph + model.frequency_deviation / tone * msg
+            sig += np.exp(1j * ph) / len(model.channel_frequencies)
+        else:
+            sig += 0.6 * (1.0 + 0.5 * msg) * np.exp(1j * ph)
+    tail = model.init()[1]
+    buf = TCA(torch.cat([tail.re, torch.from_numpy(
+                  sig.real.astype(np.float32)).cuda()]),
+              torch.cat([tail.im, torch.from_numpy(
+                  sig.imag.astype(np.float32)).cuda()]))
+    n0, _, *carries = model.init()
+    head = (buf, model.poly_taps, model.dft_bank, model.num_taps,
+            model.lo_table, n0, model.decimation)
+    return head + ((model.gain, model.deemph, *carries) if fm else ())
+
+
+def _witness_within(cls, k, d, t, grade, c=40):
+    """One launch of the PFB kernel of a _witness_model at the grade on
+    1536 grid periods against its plain version at the grade: FM audio
+    within 1e-4 of max|audio| after SKIP outputs (the zero-primed first
+    output reads +-pi*gain in the plain chain, 0 in the kernel, and the
+    de-emphasis carries it a few ms), the discriminator's carry within
+    1e-4, the de-emphasis state, which is audio, within 1e-4 of
+    max|audio| (as chip_smoke.py's compare_fm: this audio reaches ~54);
+    AM envelopes within 4e-5 (float32 sums of 2K products a channel in
+    other orders at K up to 712)."""
+    m = _witness_model(cls, k, d, t, c, grade)
+    assert m.front == "pfb" and m.pfb_grid[0] == k
+    args = _witness_args(m, k * 1536)
+    fm = cls is FmChannelizer
+    kernel = pfb_fm_chain if fm else pfb_am_chain
+    ref = pfb_fm_chain_reference if fm else pfb_am_chain_reference
+    before = kernel.launches
+    got = kernel(*args, precision=grade)
+    assert kernel.launches == before + 1
+    want = ref(*args, precision=grade)
+    if fm:
+        y, w = got[0][:, SKIP:], want[0][:, SKIP:]
+        scale = float(w.abs().max())
+        assert float((y - w).abs().max()) <= 1e-4 * scale
+        for a, b in ((got[1].re, want[1].re), (got[1].im, want[1].im)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[2], want[2], rtol=0,
+                                   atol=1e-4 * max(1.0, scale))
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=4e-5)
+
+
+# (K, D) of the grid sweep: K >= 8, D | K, up to P*K <= 12,500 (the JAX
+# plans' VMEM budget's reach), crossing the three overflows of the
+# one-chunk block: the B table or bank (large K), the taps (Q*K) and the
+# window (Q*P)
+SWEEP_K = (8, 24, 64, 96, 128, 200, 256, 512, 640, 712, 960, 1024, 2048,
+           4096, 8192)
+SWEEP_Q = (1, 2, 4, 16, 64, 127)
+
+
+@pytest.mark.cuda
+def test_pfb_front_supported_over_the_grid_on_card(card):
+    """front_supported holds for the PFB front of fm_chain and am_chain at
+    every grade over the sweep of (K, D, Q), and the plan is one chunk
+    (K, Q) or a chunk of a multiple of 8 lanes."""
+    for k in SWEEP_K:
+        for d in [x for x in range(1, k + 1) if k % x == 0]:
+            if (k // d) * k > 12_500:
+                continue
+            for q in SWEEP_Q:
+                for lib in ("fm_chain", "am_chain"):
+                    for grade in GRADES:
+                        assert front_supported(lib, "cuda", q * k, d, k,
+                                               grade), (lib, grade, k, d, q)
+                        lanes, uc = pfb_chunk(lib, "cuda", k, q, d, grade)
+                        assert (lanes, uc) == (k, q) or (
+                            lanes % 8 == 0 and 8 <= lanes and 1 <= uc <= q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", GRADES)
+def test_pfb_forced_plans_bit_equal_on_card(card, grade):
+    """At the wideband critical grid (K=64, Q=8) and at D=8, B2 and B3-PFB
+    launched with plans forced into chunks (8 lanes and every tap; 16
+    lanes and u-ranges of 3 taps; 24 lanes and 1 tap) equal the
+    planner's one-chunk launch bit for bit: the chunks fall on the
+    one-chunk kernel's 8-lane blocks and every fold sums in ascending u."""
+    for cls, d in ((FmChannelizer, 64), (FmChannelizer, 8), (AmReceiver, 64)):
+        kw = {"frequency_deviation": 75_000.0} if cls is FmChannelizer \
+            else {}
+        m = _grid_model(cls, "pfb", 64, d, 512, 64, precision=grade, **kw)
+        assert pfb_chunk("fm_chain" if kw else "am_chain", "cuda", 64, 8, d,
+                         grade) == (64, 8)
+        args = _witness_args(m, 64 * 256)
+        kernel = pfb_fm_chain if kw else pfb_am_chain
+        want = tree_flatten(kernel(*args, precision=grade))[0]
+        for plan in ((8, 8), (16, 3), (24, 1)):
+            got = tree_flatten(kernel(*args, precision=grade, plan=plan))[0]
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (cls.__name__, d, plan)
 
 
 @pytest.mark.cuda
@@ -1489,6 +1626,48 @@ def test_sharded_fm_over_nccl_world_of_one_on_card(card, tmp_path):
                                atol=1e-4)
     np.testing.assert_allclose(rank["fm:state2.re"],
                                state[2].re.cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_compiled_sharded_steps_over_nccl_world_of_one_on_card(card,
+                                                                tmp_path):
+    """A 1x1 mesh over NCCL (a child process, a world of one): the sharded
+    FM step (the flagship's 16 channels, B1), AM step (a K=16 PFB shard,
+    B3-PFB) and make_sharded_iir_step (a biquad, B5) through compile_step
+    over two blocks equal their eager steps, the chains bit for bit and
+    the IIR within 1e-5 of max|y| (B5's gate between its launches), with
+    mesh.sent the same eager and compiled (none: a world of one calls no
+    collective)."""
+    import torch_shard_ranks
+    from gsdr_tpu_torch.kernels import _build
+
+    _build.build_all()      # here, not in the rank
+    fields, inputs = _shard_inputs()
+    n = np.arange(64) - 31.5
+    h = np.sinc(2 * (0.4 / 16) * n) * np.hamming(64)
+    am = dict(sample_rate=FS, tuning_frequency=0.0,
+              channel_frequencies=[-(FS / 16) * i for i in range(8)],
+              decimation=8, low_pass_taps=(h / h.sum()).tolist(),
+              impl="pfb", precision="bf16x3")
+    r = np.random.default_rng(9)
+    inputs["x"] = r.standard_normal(2 * SHARD_BLOCK).astype(np.float32)
+    b, a = [0.02, 0.04, 0.02], [1.0, -1.56, 0.64]
+    cases = [dict(key="c", kind="compiled", mesh=[1, 1], fm=fields, am=am,
+                  b=b, a=a, rf_fm="rf", rf_am="rf", x="x",
+                  block=SHARD_BLOCK, steps=2)]
+    (rank,) = torch_shard_ranks.spawn(tmp_path, cases, inputs, world=1,
+                                      backend="nccl", device="cuda")
+    for name in ("fm", "am", "iir"):
+        keys = [k for k in rank if k.startswith(f"c:{name}:eager:")]
+        assert len(keys) >= 4
+        for k in keys:
+            got, want = rank[k.replace(":eager:", ":compiled:")], rank[k]
+            if name == "iir" and not k.endswith(":sent"):
+                scale = np.abs(want).max()
+                assert np.abs(got - want).max() <= 1e-5 * scale, k
+            else:
+                assert np.array_equal(got, want), k
+        assert not rank[f"c:{name}:eager:sent"].any()
 
 
 @pytest.mark.cuda

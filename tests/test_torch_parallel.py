@@ -210,6 +210,16 @@ def _cases():
     cases.append(dict(key="am_pfb", kind="am", mesh=[2, 2], rf="rf_am",
                       block=BLOCK, segments=[[_pfb_am_fields("pfb"), 2]]))
 
+    # the sharded FM (fused, dense), AM (fused, PFB) and IIR steps
+    # through compile_step on (2, 2) against their eager steps
+    b, a = _stable_filter(rng, 2)
+    inputs["iir_step_x"] = rng.standard_normal(2 * BLOCK).astype(np.float32)
+    _put(inputs, "rf_pfb_am", noise(2 * BLOCK))
+    cases.append(dict(key="compiled", kind="compiled", mesh=[2, 2],
+                      fm=_fm_fields("auto"), am=_pfb_am_fields("pfb"),
+                      b=b, a=a, rf_fm="rf_fm", rf_am="rf_pfb_am",
+                      x="iir_step_x", block=BLOCK, steps=2))
+
     # modems on (2, 2)
     inputs["sym256"] = rng.integers(0, 256, (8, 512)).astype(np.int32)
     inputs["sym4"] = rng.integers(0, 4, (4, 1024)).astype(np.int32)
@@ -569,6 +579,24 @@ def test_sharded_modem_loopback_matches_jax(ranks, key):
     assert got_rx.dtype == np.int32
     np.testing.assert_array_equal(got_rx, syms)
     np.testing.assert_array_equal(got_rx, np.asarray(rx(want_tx)))
+
+
+def test_compiled_sharded_steps_are_the_eager_steps(ranks):
+    """compile_step over make_sharded_fm_step (fused, dense front),
+    make_sharded_am_step (fused, PFB front) and make_sharded_iir_step on a
+    (2, 2) gloo mesh of CPU blocks: on the CPU the compiled step runs the
+    step itself, so every output, state leaf and count of elements handed
+    to collectives equals the eager run's, on every rank (and a step over
+    gloo is not refused on CPU blocks)."""
+    for r in ranks:
+        keys = [k for k in r if k.startswith("compiled:")
+                and ":eager:" in k]
+        assert len(keys) >= 3 * 3
+        for k in keys:
+            got, want = r[k.replace(":eager:", ":compiled:")], r[k]
+            assert got.dtype == want.dtype and np.array_equal(got, want), k
+        for name in ("fm", "am", "iir"):
+            assert r[f"compiled:{name}:eager:sent"].sum() > 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,525 @@
+"""The PFB front at grids whose bank, taps or window do not fit one block
+of the card: a numpy transliteration of the chunked staging of
+``csrc/fronts.cuh`` (``pfb_front_chunked``, ``pfb_front_mma_chunked``:
+lane chunks, u-ranges of fold taps, the split after the whole fold)
+against the plain version, the cheap check of the kernels' index logic
+that the card tests then hold bit for bit; and the port against the JAX
+package on the CPU at those grids (the land-mobile NFM and VHF airband
+receivers, and the plain version against JAX's PFB kernel interpreted)."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gsdr_tpu.carray import ComplexArray as JCA
+from gsdr_tpu.kernels.fm_chain_pallas import pfb_fm_chain_pallas
+from gsdr_tpu.pipelines import AmReceiver as JAm
+from gsdr_tpu.pipelines import FmChannelizer as JFm
+from gsdr_tpu_torch.carray import ComplexArray as TCA
+from gsdr_tpu_torch.kernels.chain import (
+    graded_uniform_front,
+    pfb_mma_tables,
+    split_bf16,
+)
+from gsdr_tpu_torch.kernels.fm_chain import pfb_fm_chain_reference
+from gsdr_tpu_torch.ops.pfb import _dft_bank_stacked, _poly_taps
+from gsdr_tpu_torch.utils.convert import (
+    am_receiver_from_fields,
+    fm_channelizer_from_fields,
+    state_to_numpy,
+)
+
+TILE = 256        # outputs a block (fronts.cuh kTile)
+CG = 16           # channels a block at f32 (kCG)
+NTB = 8           # n-tiles of 4 channels a block at the bf16 grades (kPfbNT)
+PHASES = 16       # phases a group (kPhaseChunk)
+
+
+def _lowpass(num_taps, cutoff):
+    n = np.arange(num_taps) - (num_taps - 1) / 2.0
+    h = np.sinc(2 * cutoff * n) * np.hamming(num_taps)
+    return (h / h.sum()).astype(np.float32)
+
+
+def _rel(got, want):
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+# ---------------------------------------------------------------------------
+# The chunked staging, transliterated
+# ---------------------------------------------------------------------------
+
+def _ls(k, d):
+    """pfb_mma_geom's Ls: a group's phases padded to 4 mod 8 words."""
+    ls = -(-min(d, PHASES) // 4) * 4
+    return ls + 4 if ls % 8 == 0 else ls
+
+
+def _chunks(k, d, lanes):
+    """The chunks a block walks for a plan of ``lanes`` lanes
+    (pfb_chunk_blocks): (p0, glanes, ka, kz, nk) for each group of
+    min(D, 16) phases starting at p0, of glanes = np*P lanes, and each
+    chunk of nk 8-lane blocks there, lanes kappa in [ka, kz)."""
+    p, dc = k // d, min(d, PHASES)
+    nkb = min(-(-lanes // 8), -(-dc * p // 8))
+    for p0 in range(0, d, dc):
+        glanes = min(dc, d - p0) * p
+        kbc = -(-glanes // 8)
+        for b0 in range(0, kbc, nkb):
+            nk = min(nkb, kbc - b0)
+            yield p0, glanes, 8 * b0, min(8 * (b0 + nk), glanes), nk
+
+
+def _lane_span(p, ka, kz):
+    """(pa, pb, s_lo, s_hi): the chunk's first and last phase in its group
+    and the s its window's frames cover (all P where it spans phases)."""
+    pa, pb = ka // p, (kz - 1) // p
+    if pa == pb:
+        return pa, pb, ka % p, (kz - 1) % p
+    return pa, pb, 0, p - 1
+
+
+def _stage(x, g0, d, f0, nfr, p_first, npc):
+    """A u-range's window: (nfr, npc) samples x[g0 + (f0 + k)*D + p_first +
+    pl], zeros outside x."""
+    kk, pl = np.meshgrid(np.arange(nfr), np.arange(npc), indexing="ij")
+    g = g0 + (f0 + kk) * d + p_first + pl
+    inside = (g >= 0) & (g < x.shape[0])
+    return np.where(inside, x[np.clip(g, 0, x.shape[0] - 1)], 0)
+
+
+def _fmaf(a, b, c):
+    """float32 fma, each product exact in float64, one rounding after the
+    sum (a second rounding to float32: the emulation both plans share)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _pfb_front_f32(x, hp, bank, d, c0, g0, lanes, uc):
+    """``pfb_front_chunked`` (``pfb_front`` at the plan (K, Q)): per chunk
+    its bank rows and, per u-range, its taps and its window of phases
+    pa..pb, frames f0 + k, f0 = u0*P + s_lo; each lane's fold by fmaf in
+    ascending u from 0, kept between u-ranges; its products join the sums
+    in ascending kappa. Returns (TILE, CG) re and im, float32."""
+    q, k = hp.shape
+    p, c = k // d, bank.shape[0] // 2
+    uc = min(uc, q)
+    rows = np.arange(TILE)
+    acc_re = np.zeros((TILE, CG), np.float32)
+    acc_im = np.zeros((TILE, CG), np.float32)
+    cg = np.arange(c0, c0 + CG)
+    live = cg < c
+    cgc = np.minimum(cg, c - 1)
+    xre = x.real.astype(np.float32)
+    xim = x.imag.astype(np.float32)
+    for p0, glanes, ka, kz, _ in _chunks(k, d, lanes):
+        pa, pb, s_lo, s_hi = _lane_span(p, ka, kz)
+        npc = pb - pa + 1
+        v_of = {kap: p0 + kap // p + (kap % p) * d for kap in range(ka, kz)}
+        gb = {kap: [np.where(live, bank[row, col], 0).astype(np.float32)
+                    for row, col in ((cgc, v), (cgc, k + v), (c + cgc, v),
+                                     (c + cgc, k + v))]
+              for kap, v in v_of.items()}
+        kaps = np.arange(ka, kz)
+        s, pl = kaps % p, kaps // p - pa
+        vs = p0 + kaps // p + s * d
+        ar = ai = np.zeros((TILE, kz - ka), np.float32)
+        for u0 in range(0, q, uc):
+            u1 = min(q, u0 + uc)
+            f0 = u0 * p + s_lo
+            nfr = (u1 - 1 - u0) * p + s_hi - s_lo + TILE
+            wr = _stage(xre, g0, d, f0, nfr, p0 + pa, npc)
+            wi = _stage(xim, g0, d, f0, nfr, p0 + pa, npc)
+            for u in range(u0, u1):
+                fr = rows[:, None] + s - s_lo + (u - u0) * p
+                ar = _fmaf(hp[u, vs][None], wr[fr, pl], ar)
+                ai = _fmaf(hp[u, vs][None], wi[fr, pl], ai)
+        for j, kap in enumerate(range(ka, kz)):   # the sums in kappa order
+            w = gb[kap]
+            acc_re = _fmaf(w[0][None], ar[:, j, None],
+                           _fmaf(w[1][None], ai[:, j, None], acc_re))
+            acc_im = _fmaf(w[2][None], ar[:, j, None],
+                           _fmaf(w[3][None], ai[:, j, None], acc_im))
+    return acc_re, acc_im
+
+
+def _bf16_pair(words):
+    """The (low, high) bf16 halves of int32 words, as float64."""
+    w = np.asarray(words).astype(np.uint32)
+    lo = ((w & 0xFFFF) << 16).view(np.float32).astype(np.float64)
+    hi = (w & 0xFFFF0000).view(np.float32).astype(np.float64)
+    return lo, hi
+
+
+def _pfb_front_mma(x, hp, btab, k, d, group, g0, lanes, uc, grade):
+    """``pfb_front_mma_chunked`` (``pfb_front_mma`` at the plan (K, Q)):
+    per chunk of nk 8-lane blocks the B gather of the kernel (word iw of
+    entry e of n-tile nt is the pair of lane kappa = ka + 8i + (e & 3) +
+    4*iw, read from pfb_mma_tables' flat words at the kernel's index),
+    per u-range the taps hs[u - u0][kappa - ka] and the window, word
+    k*Ls + pl of each plane, read by row r at (r + s - s_lo + (u - u0)*P)
+    *Ls + pl; the fold __fmul_rn at u = 0, __fadd_rn(__fmul_rn) on, kept
+    between u-ranges; after the last, hi/lo split and the grade's passes
+    against B, each pass conj(w) * A with w = (G[c, v], G[c, K + v]).
+    Returns (y (TILE, 32) complex128, {kappa: fold (TILE,) complex64})."""
+    q = hp.shape[0]
+    p, ls = k // d, _ls(k, d)
+    uc = min(uc, q)
+    kbt, nt_all = btab.shape[1], btab.shape[2]
+    flat = btab.reshape(-1)
+    rows = np.arange(TILE)
+    xre = x.real.astype(np.float32)
+    xim = x.imag.astype(np.float32)
+    y = np.zeros((TILE, 4 * NTB), np.complex128)
+    folds = {}
+    for p0, glanes, ka, kz, nk in _chunks(k, d, lanes):
+        pa, pb, s_lo, s_hi = _lane_span(p, ka, kz)
+        npc = pb - pa + 1
+        # B: bs[part][i][nt][e][iw], as the warps gather it
+        bs = np.zeros((2, nk, NTB, 16, 2), np.int64)
+        for part in range(2):
+            for i in range(nk):
+                for lane in range(32):
+                    e, iw = lane >> 1, lane & 1
+                    kap = ka + 8 * i + (e & 3) + 4 * iw
+                    ok = kap < glanes
+                    v = p0 + kap // p + (kap % p) * d if ok else 0
+                    vq = v & 7
+                    src = ((part * kbt + (v >> 3)) * nt_all * 32
+                           + (4 * (e >> 2) + (vq & 3)) * 2 + (vq >> 2))
+                    for nt in range(NTB):
+                        ntg = group * NTB + nt
+                        if ok and ntg < nt_all:
+                            bs[part, i, nt, e, iw] = flat[src + ntg * 32]
+        tl = 8 * nk
+        partial = {}
+        for u0 in range(0, q, uc):
+            u1 = min(q, u0 + uc)
+            f0 = u0 * p + s_lo
+            nfr = (u1 - 1 - u0) * p + s_hi - s_lo + TILE
+            hs = np.zeros((u1 - u0) * tl, np.float32)
+            for i in range((u1 - u0) * tl):
+                kap = ka + i % tl
+                if kap < kz:
+                    hs[i] = hp[u0 + i // tl, p0 + kap // p + (kap % p) * d]
+            planes = []
+            for xs in (xre, xim):
+                w = np.zeros(nfr * ls, np.float32)
+                staged = _stage(xs, g0, d, f0, nfr, p0 + pa, npc)
+                for pl in range(npc):
+                    w[np.arange(nfr) * ls + pl] = staged[:, pl]
+                planes.append(w)
+            for kbl in range(nk):
+                # lanes j = tig + 4*h of the block, every row at once
+                kap = ka + 8 * kbl + np.arange(8)
+                ok = kap < kz
+                off = np.where(ok, (kap % p - s_lo) * ls + kap // p - pa, 0)
+                tp = np.where(ok, kap - ka, 0)
+                o0 = rows[:, None] * ls + off[None, :]
+                u = 0
+                if u0 == 0:
+                    h0 = np.where(ok, hs[tp], 0).astype(np.float32)
+                    fr = planes[0][o0] * h0
+                    fi = planes[1][o0] * h0
+                    u = 1
+                else:
+                    fr, fi = partial[kbl]
+                for uu in range(u, u1 - u0):
+                    hu = np.where(ok, hs[uu * tl + tp], 0).astype(np.float32)
+                    o = o0 + uu * p * ls
+                    fr = fr + planes[0][o] * hu
+                    fi = fi + planes[1][o] * hu
+                partial[kbl] = (fr, fi)
+                if u1 < q:
+                    continue
+                for j in np.flatnonzero(ok):
+                    folds[p0 * p + kap[j]] = fr[:, j] + 1j * fi[:, j]
+                ah_re, al_re = (t.double().numpy() for t in
+                                split_bf16(torch.from_numpy(fr)))
+                ah_im, al_im = (t.double().numpy() for t in
+                                split_bf16(torch.from_numpy(fi)))
+                ah, al = ah_re + 1j * ah_im, al_re + 1j * al_im
+                # B of the block: lane j = (e & 3) + 4*iw, channel 4*nt + cl
+                j = np.arange(8)
+                e = 4 * np.arange(4)[:, None] + (j & 3)[None, :]   # (cl, j)
+                bh = np.zeros((8, 4 * NTB), np.complex128)
+                blo = np.zeros_like(bh)
+                for nt in range(NTB):
+                    wh = _bf16_pair(bs[0, kbl, nt, e, j >> 2])
+                    wl = _bf16_pair(bs[1, kbl, nt, e, j >> 2])
+                    bh[:, 4 * nt:4 * nt + 4] = (wh[0] - 1j * wh[1]).T
+                    blo[:, 4 * nt:4 * nt + 4] = (wl[0] - 1j * wl[1]).T
+                acc = ah @ bh + ah @ blo
+                if grade == "bf16x3":
+                    acc = acc + al @ bh
+                y += acc
+    return y, folds
+
+
+def _signal(n, seed):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal(n) + 1j * r.standard_normal(n)).astype(
+        np.complex64)
+
+
+# (K, D, T): the three kinds of overflow at full size (the B table and
+# bank at K = 640 and 712, the taps and window at Q = 127 with P = 64,
+# both at K = 512, Q = 8) and a phase split across chunks (D = 89, P = 8);
+# each with forced plans (lanes, fold taps) of one 8-lane block a chunk
+# and all Q taps, and of 16 and 24 lanes with u-ranges of 3 and 40 taps
+# where Q exceeds them
+PFB_CASES = [(640, 64, 1280), (712, 89, 2848), (64, 1, 8128),
+             (128, 2, 16256), (512, 32, 4096)]
+PLANS = [(8, 1 << 30), (16, 3), (24, 40)]
+# a front against its plain version, of max|y|: float32 sums of 2K
+# products a channel (and Q-term folds at f32) in another order; their
+# worst case 2K * 2^-24 of the sum of |terms| is 8.5e-5 at K = 712, the
+# cases read up to 1.3e-6
+FRONT_TOL = 1e-5
+
+
+def _case(k, d, t, c=5, m=100):
+    """Tables and a signal of the second block (g0 = TILE*D) that ends m
+    outputs in, so that the window's last samples read as zeros."""
+    hp = _poly_taps(_lowpass(t, 0.4 / k), k)
+    bins = sorted({0, 1, 7, k // 2, k - 3})[:c]
+    bank = _dft_bank_stacked(bins, k)
+    n = t + d * (TILE + m - 1)
+    x = _signal(n, seed=k + d)
+    return hp, bank, x, len(bins), m
+
+
+@pytest.mark.parametrize("k,d,t", PFB_CASES)
+def test_chunked_f32_front_transliteration(k, d, t):
+    """pfb_front_chunked at three forced plans and its one-chunk plan
+    (K, Q): every plan bit-equal to the one-chunk plan (the same fmaf
+    sequence), and within FRONT_TOL of max|y| of graded_uniform_front at
+    f32."""
+    hp, bank, x, c, m = _case(k, d, t)
+    q = hp.shape[0]
+    want = graded_uniform_front(
+        TCA(torch.from_numpy(x.real.copy()), torch.from_numpy(x.imag.copy())),
+        torch.from_numpy(hp), torch.from_numpy(bank), t, d)
+    want = (want.re.double().numpy() + 1j * want.im.double().numpy())
+    want = want[:, TILE:TILE + m].T
+    one = _pfb_front_f32(x, hp, bank, d, 0, TILE * d, k, q)
+    got = one[0][:m, :c] + 1j * one[1][:m, :c].astype(np.float64)
+    assert _rel(got, want) <= FRONT_TOL
+    for lanes, uc in PLANS:
+        re, im = _pfb_front_f32(x, hp, bank, d, 0, TILE * d, lanes, uc)
+        assert np.array_equal(re, one[0]) and np.array_equal(im, one[1]), \
+            (lanes, uc)
+
+
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
+@pytest.mark.parametrize("k,d,t", PFB_CASES)
+def test_chunked_mma_front_transliteration(grade, k, d, t):
+    """pfb_front_mma_chunked at forced plans and its one-chunk plan: the
+    whole fold of every lane bit-equal to the fold the plain version
+    splits (x*hp[0], then + x*hp[u] in ascending u, each rounded), so the
+    split is taken after the whole fold; the products equal across plans
+    (the same fragments in the same block order) and within 1e-6 of
+    max|y| of graded_uniform_front at the grade (the passes' sums in
+    another order)."""
+    hp, bank, x, c, m = _case(k, d, t)
+    q = hp.shape[0]
+    g0 = TILE * d
+    xt = TCA(torch.from_numpy(x.real.copy()), torch.from_numpy(x.imag.copy()))
+    want = graded_uniform_front(xt, torch.from_numpy(hp),
+                                torch.from_numpy(bank), t, d,
+                                precision=grade)
+    want = (want.re.double().numpy() + 1j * want.im.double().numpy())
+    want = want[:, TILE:TILE + m].T
+    btab = pfb_mma_tables(torch.from_numpy(bank)).numpy()
+    # the plain version's fold of the block's rows, lane v
+    xp = np.zeros(g0 + (TILE - 1) * d + q * k, np.complex64)
+    xp[:x.shape[0]] = x
+    idx = g0 + np.arange(TILE)[:, None] * d + np.arange(k)[None, :]
+    fre = xp.real[idx] * hp[0]
+    fim = xp.imag[idx] * hp[0]
+    for u in range(1, q):
+        fre = fre + xp.real[idx + u * k] * hp[u]
+        fim = fim + xp.imag[idx + u * k] * hp[u]
+    p = k // d
+    ref = None
+    for lanes, uc in [(k, q)] + PLANS:
+        y, folds = _pfb_front_mma(x, hp, btab, k, d, 0, g0, lanes, uc, grade)
+        assert sorted(folds) == list(range(k))
+        for kap, f in folds.items():
+            v = kap // p + (kap % p) * d
+            assert np.array_equal(f.real, fre[:, v]) and \
+                np.array_equal(f.imag, fim[:, v]), (lanes, uc, kap)
+        ref = y if ref is None else ref
+        assert np.array_equal(y, ref), (lanes, uc)
+    assert _rel(ref[:m, :c], want) <= FRONT_TOL
+
+
+# ---------------------------------------------------------------------------
+# The receivers and the plain version against the JAX package at those grids
+# ---------------------------------------------------------------------------
+
+WIDE_FS = 8_000_000.0
+SKIP = 32         # outputs of the zero-primed start left out (T/D = 16)
+ENV_ATOL = 1e-5   # as tests/test_torch_am_radio.py
+
+
+def _nfm_lmr(channels):
+    """Land-mobile NFM on the 12.5-kHz raster of an 8-MHz capture (the
+    Fs/640 grid), 2.5-kHz deviation, a 2560-tap low-pass (Q = 4), D = 160
+    (P = 4, 50-kHz audio); ``channels`` contiguous channels of the 320."""
+    return JFm(sample_rate=WIDE_FS, tuning_frequency=0.0,
+               channel_frequencies=tuple(12_500.0 * (i - channels // 2)
+                                         for i in range(channels)),
+               frequency_deviation=2_500.0, decimation=160,
+               low_pass_taps=tuple(_lowpass(2560, 5_000.0 / WIDE_FS)
+                                   .tolist()), impl="pfb")
+
+
+# The airband's 8.33-kHz raster is 25/3 kHz, which no binary float holds,
+# and the grid detection (ops.pfb.uniform_grid, the JAX package's too)
+# takes the shifts' exact binary values: the capture runs at 7.99992 MHz,
+# whose Fs/960 = 8333.25 Hz is exact (0.083 Hz a channel off the raster)
+AIRBAND_FS = 7_999_920.0
+
+
+def _airband(channels):
+    """VHF airband AM on the 8.33-kHz raster (the Fs/960 grid of a
+    7.99992-MHz capture), a 3840-tap low-pass (Q = 4), D = 240 (P = 4);
+    ``channels`` contiguous channels of the 480."""
+    return JAm(sample_rate=AIRBAND_FS, tuning_frequency=0.0,
+               channel_frequencies=tuple(AIRBAND_FS / 960
+                                         * (i - channels // 2)
+                                         for i in range(channels)),
+               decimation=240,
+               low_pass_taps=tuple(_lowpass(3840, 3_000.0 / AIRBAND_FS)
+                                   .tolist()), impl="pfb")
+
+
+def _grid_carriers(model, n, am=False, seed=7):
+    """An FM carrier (the model's deviation) or a 50%-AM carrier on every
+    channel, tone 300 + 40*k Hz."""
+    r = np.random.default_rng(seed)
+    t = np.arange(n) / model.sample_rate
+    sig = np.zeros(n, np.complex128)
+    c = len(model.channel_frequencies)
+    for k, f in enumerate(model.channel_frequencies):
+        tone = 300.0 + 40.0 * k
+        msg = np.sin(2 * np.pi * tone * t + r.uniform(0, 6))
+        ph = 2 * np.pi * (f - model.tuning_frequency) * t + r.uniform(0, 6)
+        if am:
+            sig += 0.6 * (1.0 + 0.5 * msg) * np.exp(1j * ph) / c * 8
+        else:
+            sig += np.exp(1j * (ph + model.frequency_deviation / tone * msg)) / c
+    return sig.real.astype(np.float32), sig.imag.astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["pfb_nfm_lmr", "pfb_airband"])
+def test_receiver_matches_jax_pfb_at_wide_grids(name):
+    """The port's FmChannelizer (Fs/640 grid, D = 160, T = 2560) and
+    AmReceiver (Fs/960, D = 240, T = 3840) at impl='pfb_torch', the plain
+    chain of the PFB front that the chunked B2 and B3-PFB run on the card,
+    against JAX's impl='pfb' (its XLA fold and DFT bank) on the CPU, over
+    three streamed steps. Reduced from the deployed 320 and 480 channels
+    to 24 contiguous channels, and to steps of 256 (FM) and 128 (AM)
+    outputs, so that the CPU runs them in about a second; the grid, taps,
+    D and deviation are the deployed ones. FM audio within 1e-4 of
+    max|audio| after the first SKIP outputs (both plain float32 chains in
+    other orders, as tests/test_torch_fm_radio.py's wideband case), the
+    carries within 1e-4; AM envelopes within ENV_ATOL; the RF tails and n0
+    equal."""
+    fm = name == "pfb_nfm_lmr"
+    jm = _nfm_lmr(24) if fm else _airband(24)
+    fields = dict(dataclasses.asdict(jm), impl="xla")
+    tm = (fm_channelizer_from_fields if fm else am_receiver_from_fields)(
+        fields, device="cpu")
+    tm = type(tm)(**{**_fields(tm), "impl": "pfb_torch"}, device="cpu")
+    assert tm.front == "pfb" and tm.pfb_grid[0] == (640 if fm else 960)
+    d = jm.decimation
+    block = d * (256 if fm else 128)
+    re, im = _grid_carriers(jm, 3 * block, am=not fm)
+    js, ts = jm.init(), tm.init()
+    yj_all, yt_all = [], []
+    for i in range(3):
+        sl = slice(i * block, (i + 1) * block)
+        js, yj = jm.step(js, JCA(jnp.asarray(re[sl]), jnp.asarray(im[sl])))
+        ts, yt = tm.step(ts, TCA(torch.from_numpy(re[sl]),
+                                 torch.from_numpy(im[sl])))
+        yj_all.append(np.asarray(yj))
+        yt_all.append(yt.numpy())
+    yj, yt = np.concatenate(yj_all, -1), np.concatenate(yt_all, -1)
+    assert yt.shape == yj.shape == (24, 3 * block // d)
+    if fm:
+        assert _rel(yt[:, SKIP:], yj[:, SKIP:]) <= 1e-4
+    else:
+        assert np.max(np.abs(yt - yj)) <= ENV_ATOL
+    t_np = state_to_numpy(ts)
+    assert int(t_np[0]) == int(np.asarray(js[0]))
+    np.testing.assert_array_equal(t_np[1][0], np.asarray(js[1].re))
+    np.testing.assert_array_equal(t_np[1][1], np.asarray(js[1].im))
+    if fm:
+        np.testing.assert_allclose(t_np[2][0], np.asarray(js[2].re), atol=1e-4)
+        np.testing.assert_allclose(t_np[2][1], np.asarray(js[2].im), atol=1e-4)
+        np.testing.assert_allclose(t_np[3], np.asarray(js[3]), atol=1e-4)
+
+
+def _fields(model):
+    """The constructor arguments of a port receiver, impl included."""
+    kw = dict(sample_rate=model.sample_rate,
+              tuning_frequency=model.tuning_frequency,
+              channel_frequencies=model.channel_frequencies,
+              decimation=model.decimation,
+              low_pass_taps=model.low_pass_taps, impl=model.impl,
+              precision=model.precision)
+    if hasattr(model, "frequency_deviation"):
+        kw.update(frequency_deviation=model.frequency_deviation,
+                  deemphasis_tau=model.deemphasis_tau)
+    return kw
+
+
+def test_pfb_fm_chain_reference_matches_jax_kernel_interpret_at_k640():
+    """The plain version the card holds the chunked B2 to,
+    pfb_fm_chain_reference at f32, against JAX's PFB-fronted kernel
+    (pfb_fm_chain_pallas) interpreted at K = 640, D = 64, T = 1280 (the
+    B-table overflow's witness), 8 of the 640 bins, one step of 1280
+    outputs (one block of the JAX plan): audio within 2e-4 of max|audio|
+    after the zero-primed first output, the carries within 2e-4 of
+    max|audio| (tests/test_torch_fm_radio.py's PFB case)."""
+    k, d, t = 640, 64, 1280
+    fs = 1_000_000.0
+    jm = JFm(sample_rate=fs, tuning_frequency=0.0,
+             channel_frequencies=tuple(-(fs / k) * i
+                                       for i in (0, 1, 2, 5, 9, 320, 500, 639)),
+             frequency_deviation=300.0, decimation=d,
+             low_pass_taps=tuple(_lowpass(t, 0.4 / k).tolist()), impl="pfb",
+             precision="f32")
+    tm = fm_channelizer_from_fields(dataclasses.asdict(jm), device="cpu")
+    k_grid, bins = tm.pfb_grid
+    assert k_grid == k
+    n = d * 1280
+    re, im = _grid_carriers(jm, n, seed=3)
+    ifs = int(fs)
+    b, a = jm._deemph()
+    n0, tail, cf, cz = jm.init()
+    buf = JCA(jnp.concatenate([tail.re, jnp.asarray(re)]),
+              jnp.concatenate([tail.im, jnp.asarray(im)]))
+    rot0 = (n0 + jnp.int32(ifs - (t - 1) % ifs)) % ifs
+    yj, cfj, czj = pfb_fm_chain_pallas(
+        buf, jm.low_pass_taps, jm._lo_table(), rot0, d, jm.gain, b, a, cf,
+        cz, tuple(jm._shifts()), fs, bins, k_grid, precision="f32",
+        interpret=True)
+    tn0, ttail, tcf, tcz = tm.init()
+    tbuf = TCA(torch.cat([ttail.re, torch.from_numpy(re)]),
+               torch.cat([ttail.im, torch.from_numpy(im)]))
+    trot0 = torch.remainder(tn0 + (ifs - (t - 1) % ifs), ifs).to(torch.int32)
+    yt, cft, czt = pfb_fm_chain_reference(
+        tbuf, tm.poly_taps, tm.dft_bank, t, tm.lo_table, trot0, d, tm.gain,
+        tm.deemph, tcf, tcz)
+    yj = np.asarray(yj)
+    assert tuple(yt.shape) == yj.shape == (8, n // d)
+    assert _rel(yt.numpy()[:, 1:], yj[:, 1:]) <= 2e-4
+    scale = float(np.max(np.abs(yj[:, 1:])))
+    for got, want in ((cft.re, cfj.re), (cft.im, cfj.im), (czt, czj)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=0, atol=2e-4 * scale)

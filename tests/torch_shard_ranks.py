@@ -43,6 +43,7 @@ from gsdr_tpu_torch.parallel import (
     make_pod_mesh,
     make_sharded_am_step,
     make_sharded_fm_step,
+    make_sharded_iir_step,
     make_sharded_qpsk256_modem,
     make_sharded_qpsk_modem,
     right_halo,
@@ -184,9 +185,51 @@ def _audit(case, mesh, inputs, out, device):
             [mesh.sent[k] - before[k] for k in ("all_gather", "all_reduce")])
 
 
+def _compiled(case, mesh, inputs, out, device):
+    """The sharded FM and AM steps of the case's fields and a
+    make_sharded_iir_step, each eager and through compile_step over the
+    same blocks from the same state: every output, the final state and
+    the elements handed to collectives, of each run."""
+    from gsdr_tpu_torch.utils.compile import compile_step
+
+    fm = make_sharded_fm_step(
+        fm_channelizer_from_fields(case["fm"], device=device), mesh)
+    am = make_sharded_am_step(
+        am_receiver_from_fields(case["am"], device=device), mesh)
+    iir = make_sharded_iir_step(case["b"], case["a"], mesh)
+    t, s = mesh.shape["time"], mesh.coords["time"]
+    for name, step, state0, rf in (
+            ("fm", fm, fm.init(), case["rf_fm"]),
+            ("am", am, am.init(), case["rf_am"]),
+            ("iir", iir, iir.init(), case["x"])):
+        n_l = case["block"] // t
+        blocks = []
+        for b in range(case["steps"]):
+            cols = slice(b * case["block"] + s * n_l,
+                         b * case["block"] + (s + 1) * n_l)
+            blocks.append(torch.from_numpy(inputs[rf][cols]).to(device)
+                          if name == "iir" else ComplexArray(
+                              torch.from_numpy(inputs[rf + ".re"][cols])
+                              .to(device),
+                              torch.from_numpy(inputs[rf + ".im"][cols])
+                              .to(device)))
+        for how, run in (("eager", step), ("compiled", compile_step(step))):
+            before = dict(mesh.sent)
+            state = state0
+            for b, blk in enumerate(blocks):
+                state, y = run(state, blk)
+                _put(out, f"{case['key']}:{name}:{how}:out{b}", y)
+            leaves = state if isinstance(state, tuple) else (state,)
+            for i, leaf in enumerate(leaves):
+                _put(out, f"{case['key']}:{name}:{how}:state{i}", leaf)
+            out[f"{case['key']}:{name}:{how}:sent"] = np.array(
+                [mesh.sent[k] - before[k] for k in ("all_gather",
+                                                     "all_reduce")])
+
+
 RUN = {"left_halo": _halo, "right_halo": _halo, "fir": _fir, "iir": _iir,
        "fm": _stream, "am": _stream, "qpsk256": _modem, "qpsk": _modem,
-       "audit": _audit}
+       "audit": _audit, "compiled": _compiled}
 
 
 def _mesh(spec, device):

@@ -39,6 +39,14 @@
          (utils/compile.py) has, so it times an older tree too (copy this
          file into that tree's tools/);
          equal digests across trees say the outputs are bit-equal.
+  pfb:   the PFB front's one-chunk kernels at the main paths' shapes,
+         each grade: B2 at FM wideband critical and at its D=8 variant,
+         B3-PFB at AM wideband critical: device time per call by
+         torch.profiler (rounds of the three, interleaved), a digest of
+         each output, and the registers ptxas reports for each PFB tile
+         kernel. Like dense, it runs in an older tree too (copy this file
+         into that tree's tools/), so equal digests say the one-chunk
+         outputs are bit-equal across trees.
   fm_rx: the fm_rx command line at chip_smoke.py's five-station capture
          (2^24 int8 samples at 2.048 MHz, blocks of 2^20, the CLI's
          defaults): the wall clock of a warm run file to file without the
@@ -53,6 +61,7 @@ kernels are built from this checkout):
     python3 tools/probe_grades.py fm_rx
     python3 tools/probe_grades.py compiled
     python3 tools/probe_grades.py dense
+    python3 tools/probe_grades.py pfb
 """
 
 import inspect
@@ -202,6 +211,47 @@ def dense(rounds=3):
         for what, g, fn in calls:
             dev = cs.device_us(fn, reps=20)
             print(json.dumps({"probe": "dense", "round": r, "kernel": what,
+                              "grade": g, "device_us": sum(dev.values()),
+                              "by_kernel": dev}), flush=True)
+
+
+def tile_registers(reports):
+    """{kernel entry: registers} of the PFB tile kernels (kPfb true) in
+    the ptxas reports of build_all."""
+    regs, entry = {}, None
+    for line in "\n".join(reports.values()).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line and entry and "_tileILb1E" in entry:
+            regs[entry] = int(line.split("Used ")[1].split()[0])
+            entry = None
+    return regs
+
+
+def pfb(rounds=3):
+    calls = []
+    for g in cs.GRADES:
+        for d in (cs.GRID, 8):
+            m = cs.fm_wideband("pfb", d, precision=g)
+            buf = cs.buffer(m, cs.wideband_fm_signal(m, 0, cs.N, seed=11))
+            n0, _, cf, cz = m.init()
+            args = (buf, m.poly_taps, m.dft_bank, m.num_taps, m.lo_table, n0,
+                    m.decimation, m.gain, m.deemph, cf, cz)
+            calls.append((f"B2 FM wideband D={d}", g, lambda a=args, g=g:
+                          cs.pfb_fm_chain(*a, precision=g)))
+        m = cs.am_wideband("pfb", precision=g)
+        buf = cs.buffer(m, cs.am_signal(m, 0, cs.N, seed=11))
+        args = (buf, m.poly_taps, m.dft_bank, m.num_taps, m.lo_table,
+                m.init()[0], m.decimation)
+        calls.append(("B3-PFB AM wideband", g, lambda a=args, g=g:
+                      cs.pfb_am_chain(*a, precision=g)))
+    for what, g, fn in calls:
+        print(json.dumps({"probe": "pfb_digest", "kernel": what,
+                          "grade": g, "digest": digest(fn())}), flush=True)
+    for r in range(rounds):
+        for what, g, fn in calls:
+            dev = cs.device_us(fn, reps=20)
+            print(json.dumps({"probe": "pfb", "round": r, "kernel": what,
                               "grade": g, "device_us": sum(dev.values()),
                               "by_kernel": dev}), flush=True)
 
@@ -372,7 +422,7 @@ def fm_rx():
 def main():
     if not torch.cuda.is_available() or len(sys.argv) != 2 \
             or sys.argv[1] not in ("steps", "b4", "b5b6", "fm_rx",
-                                   "compiled", "dense"):
+                                   "compiled", "dense", "pfb"):
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
@@ -394,6 +444,11 @@ def main():
     elif sys.argv[1] == "dense":
         _build.build_all(["fm_chain", "am_chain", "channelize"])
         dense()
+    elif sys.argv[1] == "pfb":
+        reports = _build.build_all(["fm_chain", "am_chain"])
+        print(json.dumps({"probe": "pfb_registers",
+                          "registers": tile_registers(reports)}), flush=True)
+        pfb()
     else:
         _build.build_all(["channelize", "fm_chain"])
         steps() if sys.argv[1] == "steps" else b4()
