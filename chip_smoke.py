@@ -5,7 +5,9 @@ full width, 2^20 planar complex samples per step:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every kernel from gsdr_tpu_torch/kernels/csrc with nvcc, one
-     process per source, all at once;
+     process per source, all at once, and prints the registers and spill
+     bytes of the f32 PFB tile kernels (B2's and B3-PFB's, one chunk and
+     chunked), failing where one spills;
   3. the flagship FmChannelizer (16 channels spaced 60 kHz around 100 MHz,
      64-tap Hamming low-pass, D=4, Fs = 1 MHz): kernel B1 at each grade of
      its dense front (bf16x3, the default, and bf16x2 on the tensor cores,
@@ -167,6 +169,7 @@ Usage: python3 chip_smoke.py  (from the repository root, one GPU).
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -3714,6 +3717,38 @@ def run_chained(step, state, blocks):
     return state, outs
 
 
+def pfb_f32_registers(reports):
+    """Prints the registers and spill bytes ptxas reports for the f32 PFB
+    tile kernels (fm_chain_tile and am_chain_tile <true, 0, one chunk or
+    chunked>) and fails where one spills; a library that this run did not
+    build (already in build/) has no report, and the line says so."""
+    out, entry = {}, None
+    for line in "\n".join(reports.values()).splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d([a-z_]+_tile)ILb1ELi0ELb(\d)E", line)
+            entry = None
+            if m:
+                kind = "chunked" if m.group(2) == "1" else "one chunk"
+                entry = f"{m.group(1)}<true,f32,{kind}>"
+                out[entry] = {}
+        elif entry and "spill stores" in line:
+            for key in ("spill stores", "spill loads"):
+                out[entry][key.replace(" ", "_")] = int(
+                    line.split(f"bytes {key}")[0].split(",")[-1])
+        elif entry and "registers" in line:
+            out[entry]["registers"] = int(line.split("Used ")[1].split()[0])
+            entry = None
+    for name in ("fm_chain", "am_chain"):
+        if name in reports:
+            check(sum(1 for k in out if k.startswith(name)) == 2,
+                  f"ptxas report of {name}: the f32 PFB tile kernels missing")
+    for k, v in out.items():
+        check(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0,
+              f"{k} spills registers: {v}")
+    print(json.dumps({"phase": "ptxas_pfb_f32", "kernels": out,
+                      "built_now": sorted(reports), "card": CARD}))
+
+
 CARD = None
 
 
@@ -3740,6 +3775,7 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s for {_build.sources()}")
     for src, rep in reports.items():
         print(f"ptxas {src}:\n{rep.strip()}", file=sys.stderr)
+    pfb_f32_registers(reports)
 
     # 3-8) the receivers, the channelized link and the QPSK256 receiver
     kernels = flagship_phase() + fm_wideband_phase()

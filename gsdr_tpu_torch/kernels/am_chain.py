@@ -38,6 +38,7 @@ from gsdr_tpu_torch.kernels.chain import (
     graded_bank_front,
     graded_uniform_front,
     load_chain_library,
+    pfb_f32_tables,
     pfb_launch_plan,
     pfb_mma_tables,
 )
@@ -80,7 +81,7 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.am_chain_launch.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.am_chain_launch.restype = i
-    lib.pfb_am_chain_launch.argtypes = [p] * 6 + [i] * 10 + [p]
+    lib.pfb_am_chain_launch.argtypes = [p] * 5 + [i] * 10 + [p]
     lib.pfb_am_chain_launch.restype = i
     return lib
 
@@ -137,9 +138,8 @@ def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
     t = int(num_taps)
     lanes, uc = pfb_launch_plan("am_chain", dev, k, q, decimation, precision,
                                 plan)
-    btab = pfb_mma_tables(dft_bank).data_ptr() if grade else None
-    return _launch("pfb_am_chain",
-                   (poly_taps.data_ptr(), dft_bank.data_ptr(), btab),
+    btab = pfb_mma_tables(dft_bank) if grade else pfb_f32_tables(dft_bank)
+    return _launch("pfb_am_chain", (poly_taps.data_ptr(), btab.data_ptr()),
                    (t, k, q), buf, c, t, int(decimation), grade,
                    plan=(lanes, uc))
 

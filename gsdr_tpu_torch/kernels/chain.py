@@ -17,7 +17,8 @@
     'bf16x3' and 'bf16x2' on the tensor cores, as the JAX package's
     kernels define them; the bf16 split of the taps, the window and the
     fold (``split_bf16``), the tensor-core fronts' B tables
-    (``dense_mma_tables``, ``pfb_mma_tables``) and the plain versions of
+    (``dense_mma_tables``, ``pfb_mma_tables``), the f32 PFB front's bank
+    table (``pfb_f32_tables``) and the plain versions of
     the fronts at each grade (``graded_bank_front``,
     ``graded_uniform_front``);
   - ``select_front``, the receivers' choice between the dense and the PFB
@@ -226,14 +227,15 @@ def _mma_words(w):
 _MMA_TABLES = WeakIdKeyDictionary()
 
 
-def _cached_table(bank, build):
+def _cached_table(bank, build, kind="mma"):
     """build(bank), kept while the tensor lives and rebuilt after it is
-    written in place."""
-    hit = _MMA_TABLES.get(bank)
+    written in place; one table of each ``kind`` a tensor."""
+    hits = _MMA_TABLES.setdefault(bank, {})
+    hit = hits.get(kind)
     if hit is not None and hit[0] == bank._version:
         return hit[1]
     table = build(bank)
-    _MMA_TABLES[bank] = (bank._version, table)
+    hits[kind] = (bank._version, table)
     return table
 
 
@@ -253,6 +255,25 @@ def dense_mma_tables(tap_bank):
         tap_bank, lambda b: _mma_words(b[0::2].transpose(1, 2)))
 
 
+def _dft_rows(bank, fn):
+    """(re rows, C, K) of a planes-major (2C, 2K) DFT bank, or raise where
+    row C+c is not (-G[c, K:], G[c, :K]) bit for bit, the sign of a zero
+    included: the kernels form the im rows from the re rows."""
+    c2, k2 = bank.shape
+    c, k = c2 // 2, k2 // 2
+    re, im = bank[:c], bank[c:]
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    if c2 % 2 or k2 % 2 or not (same(im[:, :k], -re[:, k:])
+                                and same(im[:, k:], re[:, :k])):
+        raise ValueError(
+            f"{fn}: dft_bank must be a planes-major (2C, 2K) DFT bank whose "
+            f"row C+c is (-G[c, K:], G[c, :K])")
+    return re, c, k
+
+
 def pfb_mma_tables(dft_bank):
     """The tensor-core PFB front's B operand for a planes-major (2C, 2K)
     DFT bank (``ops.pfb._dft_bank_stacked``), on its device: the layout of
@@ -266,18 +287,33 @@ def pfb_mma_tables(dft_bank):
     forms in registers; a bank without that structure raises. Cached per
     tensor as ``dense_mma_tables``."""
     def build(bank):
-        c2, k2 = bank.shape
-        c, k = c2 // 2, k2 // 2
-        re, im = bank[:c], bank[c:]
-        if c2 % 2 or k2 % 2 or not (
-                torch.equal(im[:, :k], -re[:, k:])
-                and torch.equal(im[:, k:], re[:, :k])):
-            raise ValueError(
-                "pfb_mma_tables: dft_bank must be a planes-major (2C, 2K) "
-                "DFT bank whose row C+c is (-G[c, K:], G[c, :K])")
+        re, c, k = _dft_rows(bank, "pfb_mma_tables")
         return _mma_words(torch.stack([re[:, :k], re[:, k:]], dim=-1))
 
     return _cached_table(dft_bank, build)
+
+
+def pfb_f32_tables(dft_bank):
+    """The f32 PFB front's bank operand for a planes-major (2C, 2K) DFT
+    bank (``ops.pfb._dft_bank_stacked``), on its device: float32
+    (ceil(C/32), K, 32, 2); entry [g][v][cl] is (G[c, v], G[c, K+v]) of
+    channel c = 32*g + cl at lane v, zero past C, so that a block's
+    32 channels of one lane are 256 contiguous bytes. The bank's im rows
+    are not stored: row C+c must be (-G[c, K:], G[c, :K]) bit for bit,
+    which every DFT bank satisfies, and the kernel takes (-G[c, K+v],
+    G[c, v]) in their place, the same values, so its sums are the full
+    bank's; a bank without that structure raises. Cached per tensor as
+    ``dense_mma_tables``."""
+    def build(bank):
+        re, c, k = _dft_rows(bank, "pfb_f32_tables")
+        ng = -(-c // 32)
+        table = torch.zeros((ng * 32, k, 2), dtype=torch.float32,
+                            device=bank.device)
+        table[:c, :, 0] = re[:, :k]
+        table[:c, :, 1] = re[:, k:]
+        return table.reshape(ng, 32, k, 2).transpose(1, 2).contiguous()
+
+    return _cached_table(dft_bank, build, "f32")
 
 
 def check_operands(fn, operands, dev):

@@ -17,11 +17,11 @@
 // runs on the tensor cores at 15-22x the FP32 rate, and the function's
 // bytes (the window read once, the envelopes written once) bound it. The
 // envelope adds a few operations per output. What the design does about
-// that: the fronts of fronts.cuh; the f32 fronts and the dense
-// tensor-core front hold 16 channels per block, one thread per output; the
-// tensor-core PFB front 32, handed through its shared tile to two threads
-// per output, 16 channels each; the envelope is applied in registers and
-// written once, coalesced along j.
+// that: the fronts of fronts.cuh; the dense fronts hold 16 channels per
+// block, one thread per output; the PFB fronts (every grade) 32, handed
+// through their shared tile to two threads per output, 16 channels each;
+// the envelope is applied in registers and written once, coalesced along
+// j.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,34 +39,44 @@ __device__ __forceinline__ float envelope(float re, float im) {
 }
 
 // btab: dense_mma_tables (dense front) or pfb_mma_tables (PFB front), read
-// at bf16x3 and bf16x2; where kChunked, the dense front stages Tc taps at
-// a time (use_chunked_kernel) and the PFB front chunks of Tc lanes and
-// u-ranges of Uc fold taps (use_chunked_pfb), else each stages all at once.
+// at bf16x3 and bf16x2, and pfb_f32_tables (PFB front) at f32; where
+// kChunked, the dense front stages Tc taps at a time (use_chunked_kernel)
+// and the PFB front chunks of Tc lanes and u-ranges of Uc fold taps
+// (use_chunked_pfb), else each stages all at once.
 template <bool kPfb, int kGrade, bool kChunked = false>
-__global__ void __launch_bounds__(gsdr::block_threads<kPfb, kGrade>())
+__global__ void __launch_bounds__(gsdr::block_threads<kPfb>())
 am_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ bank, const float* __restrict__ hp,
     const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
     int M, float* __restrict__ audio, int Uc) {
-  constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
+  constexpr int kCh = gsdr::block_channels<kPfb>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  unsigned char* sbytes = reinterpret_cast<unsigned char*>(smem4);
   const int j0 = blockIdx.x * kTile;
   const int c0 = blockIdx.y * kCh;
   const long g0 = (long)j0 * D;
-  if constexpr (kPfb && kGrade != gsdr::kGradeF32) {
+  if constexpr (kPfb) {
     // two threads per output row, each with one group of kCG channels
     constexpr int kOS = 8 * gsdr::kPfbNT + 1;
     const float* out;
-    if constexpr (kChunked) {
+    if constexpr (kGrade == gsdr::kGradeF32 && kChunked) {
+      out = gsdr::pfb_front_chunked(sbytes, buf_re, buf_im, nb, hp,
+                                    reinterpret_cast<const float*>(btab), K,
+                                    Q, D, blockIdx.y, g0, Tc, Uc);
+    } else if constexpr (kGrade == gsdr::kGradeF32) {
+      out = gsdr::pfb_front(sbytes, buf_re, buf_im, nb, hp,
+                            reinterpret_cast<const float*>(btab), K, Q, D,
+                            blockIdx.y, g0);
+    } else if constexpr (kChunked) {
       out = gsdr::pfb_front_mma_chunked<kGrade, gsdr::kPfbNT>(
-          reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, hp,
+          sbytes, buf_re, buf_im, nb, hp,
           reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y,
           g0, Tc, Uc);
     } else {
       out = gsdr::pfb_front_mma<kGrade, gsdr::kPfbNT>(
-          reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, hp,
+          sbytes, buf_re, buf_im, nb, hp,
           reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y,
           g0);
     }
@@ -82,23 +92,17 @@ am_chain_tile(
   } else {
     const int j = j0 + threadIdx.x;
     float acc_re[kCG], acc_im[kCG];
-    if constexpr (kPfb && kChunked) {
-      gsdr::pfb_front_chunked(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D,
-                              c0, g0, Tc, Uc, acc_re, acc_im);
-    } else if constexpr (kPfb) {
-      gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D, c0, g0,
-                      acc_re, acc_im);
-    } else if constexpr (kGrade == gsdr::kGradeF32) {
+    if constexpr (kGrade == gsdr::kGradeF32) {
       gsdr::toeplitz_front<kChunked>(smem, buf_re, buf_im, nb, bank, C, T,
                                      Tc, D, c0, g0, acc_re, acc_im);
     } else if constexpr (kChunked) {
       gsdr::toeplitz_front_mma_chunked<kGrade, kCG / 4>(
-          reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, btab,
-          C, T, Tc, D, blockIdx.y, g0, acc_re, acc_im);
+          sbytes, buf_re, buf_im, nb, btab, C, T, Tc, D, blockIdx.y, g0,
+          acc_re, acc_im);
     } else {
-      gsdr::toeplitz_front_mma<kGrade, kCG / 4>(
-          reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, btab,
-          C, T, D, blockIdx.y, g0, acc_re, acc_im);
+      gsdr::toeplitz_front_mma<kGrade, kCG / 4>(sbytes, buf_re, buf_im, nb,
+                                                btab, C, T, D, blockIdx.y, g0,
+                                                acc_re, acc_im);
     }
     if (j >= M) return;
 #pragma unroll
@@ -163,10 +167,10 @@ int run_am(const void* buf_re, const void* buf_im, const void* bank,
       am_chain_tile<kPfb, kGrade, kChunked>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
+  constexpr int kCh = gsdr::block_channels<kPfb>();
   dim3 grid((M + kTile - 1) / kTile, (C + kCh - 1) / kCh);
   am_chain_tile<kPfb, kGrade, kChunked>
-      <<<grid, gsdr::block_threads<kPfb, kGrade>(), smem,
+      <<<grid, gsdr::block_threads<kPfb>(), smem,
          (cudaStream_t)stream>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank,
       (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M,
@@ -276,14 +280,14 @@ extern "C" int am_chain_launch(const void* buf_re, const void* buf_im,
 }
 
 // PFB front at `grade`: channels on the Fs/K grid, D | K. hp (Q, K)
-// polyphase taps, bank planes-major (2C, 2K) read at f32, btab
-// pfb_mma_tables' (2, ceil(K/8), ceil(C/4), 16, 2) int32 read at bf16x3
-// and bf16x2, T the prototype's tap count (Q*K >= T). (lanes, uc) is the
-// plan (am_chain_fits', or any gsdr::valid_pfb_plan): (K, Q) the one-chunk
-// kernel, else the chunked one.
+// polyphase taps, btab the DFT bank's table (pfb_f32_tables' (ceil(C/32),
+// K, 32, 2) float32 at f32, pfb_mma_tables' (2, ceil(K/8), ceil(C/4), 16,
+// 2) int32 at bf16x3 and bf16x2), T the prototype's tap count (Q*K >= T).
+// (lanes, uc) is the plan (am_chain_fits', or any gsdr::valid_pfb_plan):
+// (K, Q) the one-chunk kernel, else the chunked one.
 extern "C" int pfb_am_chain_launch(const void* buf_re, const void* buf_im,
-                                   const void* hp, const void* bank,
-                                   const void* btab, void* audio, int nb,
+                                   const void* hp, const void* btab,
+                                   void* audio, int nb,
                                    int C, int T, int K, int Q, int D, int M,
                                    int lanes, int uc, int grade,
                                    void* stream) {
@@ -291,6 +295,6 @@ extern "C" int pfb_am_chain_launch(const void* buf_re, const void* buf_im,
       Q * K < T || M < 1 || M != (nb - T) / D + 1 ||
       !gsdr::valid_pfb_plan(lanes, uc, K, Q))
     return (int)cudaErrorInvalidValue;
-  return run_graded<true>(grade, buf_re, buf_im, bank, hp, btab, audio, nb,
-                          C, T, lanes, K, Q, D, M, uc, stream);
+  return run_graded<true>(grade, buf_re, buf_im, nullptr, hp, btab, audio,
+                          nb, C, T, lanes, K, Q, D, M, uc, stream);
 }

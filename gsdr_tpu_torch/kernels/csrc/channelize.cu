@@ -65,10 +65,10 @@ __global__ void __launch_bounds__(kTile) channelize_tile(
   const int j = j0 + threadIdx.x;
   const long g0 = (long)j0 * D;
   float acc_re[kCh], acc_im[kCh];
-  if constexpr (kPfb) {
-    gsdr::pfb_front(smem, x_re, x_im, nb, hp, bank, C, K, Q, D, c0, g0,
-                    acc_re, acc_im);
-  } else if constexpr (kGrade == gsdr::kGradeF32) {
+  static_assert(!kPfb, "B4 runs the dense front; channelize_fits refuses "
+                "the PFB front, whose block takes 512 threads and 32 "
+                "channels (fronts.cuh, block_threads)");
+  if constexpr (kGrade == gsdr::kGradeF32) {
     gsdr::toeplitz_front<kChunked>(smem, x_re, x_im, nb, bank, C, T, Tc, D,
                                    c0, g0, acc_re, acc_im);
   } else if constexpr (kChunked) {

@@ -29,14 +29,14 @@
 //
 // What the design does about that:
 //  - one thread per decimated output holds 16 channels in registers for
-//    the back end. The f32 fronts reuse every input sample (dense) or fold
-//    value (PFB) for 16 channels, with the taps or the bank read as
-//    shared-memory broadcasts; the bf16 grades run the front as one GEMM
-//    per block on mma.sync (fronts.cuh, toeplitz_front_mma over 16
-//    channels, pfb_front_mma over 32, so that the fold is made once for
-//    32 channels) and hand the outputs to the threads through a shared
-//    tile, so the fragments are dead before the back end starts; with 32
-//    channels per block the back end walks its two groups of 16 over that
+//    the back end. The f32 dense front reuses every input sample for 16
+//    channels, with the taps read as shared-memory broadcasts; the bf16
+//    dense front runs as one GEMM per block on mma.sync (fronts.cuh,
+//    toeplitz_front_mma over 16 channels); the PFB front at every grade
+//    makes the fold once for 32 channels (pfb_front_mma on mma.sync,
+//    pfb_front in FP32 register tiles) and hands the outputs to the
+//    threads through a shared tile, so its registers are dead before the
+//    back end starts, which walks the block's two groups of 16 over that
 //    tile;
 //  - the rotor uses the exact digit-table phase with the same float32
 //    operation order as the plain chain, then one sincosf per output;
@@ -77,17 +77,17 @@ __device__ __forceinline__ float ipow(float a, int k) {
 }
 
 // Launch 1: front, rotor, discriminator and the zero-state de-emphasis of
-// one tile of kOut outputs for kCh channels; with the tensor-core PFB
-// front, two threads per output, one for each group of kCG channels. kPfb
-// selects the front: the dense one reads bank (2C, 2, T) at f32, or btab
-// (dense_mma_tables) at bf16x3 and bf16x2, in chunks of Tc taps where
-// kChunked (fronts.cuh, dense_chunk, use_chunked_kernel), else all T at
-// once; the PFB one reads hp (Q, K) and the planes-major bank (2C, 2K) at
-// f32, or hp and btab (pfb_mma_tables) at the bf16 grades, in chunks of Tc
-// lanes and u-ranges of Uc fold taps where kChunked (fronts.cuh,
-// pfb_chunk, use_chunked_pfb), else all at once.
+// one tile of kOut outputs for kCh channels; with the PFB front (every
+// grade), two threads per output, one for each group of kCG channels, read
+// from the front's output tile. kPfb selects the front: the dense one
+// reads bank (2C, 2, T) at f32, or btab (dense_mma_tables) at bf16x3 and
+// bf16x2, in chunks of Tc taps where kChunked (fronts.cuh, dense_chunk,
+// use_chunked_kernel), else all T at once; the PFB one reads hp (Q, K) and
+// btab (pfb_f32_tables at f32, pfb_mma_tables at the bf16 grades), in
+// chunks of Tc lanes and u-ranges of Uc fold taps where kChunked
+// (fronts.cuh, pfb_chunk, use_chunked_pfb), else all at once.
 template <bool kPfb, int kGrade, bool kChunked = false>
-__global__ void __launch_bounds__(gsdr::block_threads<kPfb, kGrade>())
+__global__ void __launch_bounds__(gsdr::block_threads<kPfb>())
 fm_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ bank, const float* __restrict__ hp,
@@ -98,11 +98,10 @@ fm_chain_tile(
     const float* __restrict__ cf_re_in, const float* __restrict__ cf_im_in,
     float* __restrict__ audio, float* __restrict__ cf_re_out,
     float* __restrict__ cf_im_out, float* __restrict__ zend, int Uc) {
-  constexpr bool kPfbMma = kPfb && kGrade != gsdr::kGradeF32;
-  constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
-  constexpr int kThreads = gsdr::block_threads<kPfb, kGrade>();
+  constexpr int kCh = gsdr::block_channels<kPfb>();
+  constexpr int kThreads = gsdr::block_threads<kPfb>();
   constexpr int kPar = kThreads / kTile;           // groups side by side
-  constexpr int kOS = 8 * gsdr::kPfbNT + 1;   // pfb_front_mma's tile stride
+  constexpr int kOS = 8 * gsdr::kPfbNT + 1;   // the PFB fronts' tile stride
   static_assert(kCh == kPar * kCG, "one group of kCG channels a thread");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -130,38 +129,41 @@ fm_chain_tile(
   float acc_re[kCG], acc_im[kCG];
   const float* out = nullptr;
   const long g0 = (long)(j0 - 1) * D;
-  if constexpr (kPfbMma && kChunked) {
+  unsigned char* sbytes = reinterpret_cast<unsigned char*>(smem4);
+  if constexpr (kPfb && kGrade == gsdr::kGradeF32 && kChunked) {
+    out = gsdr::pfb_front_chunked(sbytes, buf_re, buf_im, nb, hp,
+                                  reinterpret_cast<const float*>(btab), K, Q,
+                                  D, blockIdx.y, g0, Tc, Uc);
+  } else if constexpr (kPfb && kGrade == gsdr::kGradeF32) {
+    out = gsdr::pfb_front(sbytes, buf_re, buf_im, nb, hp,
+                          reinterpret_cast<const float*>(btab), K, Q, D,
+                          blockIdx.y, g0);
+  } else if constexpr (kPfb && kChunked) {
     out = gsdr::pfb_front_mma_chunked<kGrade, gsdr::kPfbNT>(
-        reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, hp,
+        sbytes, buf_re, buf_im, nb, hp,
         reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y, g0,
         Tc, Uc);
-  } else if constexpr (kPfbMma) {
-    out = gsdr::pfb_front_mma<kGrade, gsdr::kPfbNT>(
-        reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, hp,
-        reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y, g0);
-  } else if constexpr (kPfb && kChunked) {
-    gsdr::pfb_front_chunked(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D,
-                            blockIdx.y * kCG, g0, Tc, Uc, acc_re, acc_im);
   } else if constexpr (kPfb) {
-    gsdr::pfb_front(smem, buf_re, buf_im, nb, hp, bank, C, K, Q, D,
-                    blockIdx.y * kCG, g0, acc_re, acc_im);
+    out = gsdr::pfb_front_mma<kGrade, gsdr::kPfbNT>(
+        sbytes, buf_re, buf_im, nb, hp,
+        reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y, g0);
   } else if constexpr (kGrade == gsdr::kGradeF32) {
     gsdr::toeplitz_front<kChunked>(smem, buf_re, buf_im, nb, bank, C, T, Tc,
                                    D, blockIdx.y * kCG, g0, acc_re, acc_im);
   } else if constexpr (kChunked) {
     gsdr::toeplitz_front_mma_chunked<kGrade, kCG / 4>(
-        reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, btab, C,
-        T, Tc, D, blockIdx.y, g0, acc_re, acc_im);
+        sbytes, buf_re, buf_im, nb, btab, C, T, Tc, D, blockIdx.y, g0,
+        acc_re, acc_im);
   } else {
-    gsdr::toeplitz_front_mma<kGrade, kCG / 4>(
-        reinterpret_cast<unsigned char*>(smem4), buf_re, buf_im, nb, btab, C,
-        T, D, blockIdx.y, g0, acc_re, acc_im);
+    gsdr::toeplitz_front_mma<kGrade, kCG / 4>(sbytes, buf_re, buf_im, nb,
+                                              btab, C, T, D, blockIdx.y, g0,
+                                              acc_re, acc_im);
   }
 
   // the back end, for this thread's group of kCG channels
   const int c0 = blockIdx.y * kCh + grp * kCG;
   const float* gtab = tab + grp * kCG * 4;
-  if constexpr (kPfbMma) {
+  if constexpr (kPfb) {
 #pragma unroll
     for (int c = 0; c < kCG; ++c) {
       acc_re[c] = out[row * kOS + 2 * (grp * kCG + c)];
@@ -371,10 +373,10 @@ int run_chain(const void* buf_re, const void* buf_im, const void* bank,
       fm_chain_tile<kPfb, kGrade, kChunked>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kCh = gsdr::block_channels<kPfb, kGrade>();
+  constexpr int kCh = gsdr::block_channels<kPfb>();
   dim3 grid(ntiles, (C + kCh - 1) / kCh);
   fm_chain_tile<kPfb, kGrade, kChunked>
-      <<<grid, gsdr::block_threads<kPfb, kGrade>(), smem, st>>>(
+      <<<grid, gsdr::block_threads<kPfb>(), smem, st>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank,
       (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M, ntiles,
       (const float*)table, (const int*)n0_rot, (const float*)coef, gain,
@@ -535,17 +537,17 @@ extern "C" int fm_chain_launch(
 }
 
 // PFB front at `grade`: channels on the Fs/K grid, D | K. hp (Q, K)
-// polyphase taps; bank planes-major (2C, 2K), read at f32; btab
-// pfb_mma_tables' (2, ceil(K/8), ceil(C/4), 16, 2) int32, read at bf16x3
-// and bf16x2. T is the prototype's tap count (Q*K >= T), which sets M.
+// polyphase taps; btab the DFT bank's table: pfb_f32_tables' (ceil(C/32),
+// K, 32, 2) float32 at f32, pfb_mma_tables' (2, ceil(K/8), ceil(C/4), 16,
+// 2) int32 at bf16x3 and bf16x2. T is the prototype's tap count (Q*K >=
+// T), which sets M.
 // (lanes, uc) is the plan (fm_chain_fits', or any gsdr::valid_pfb_plan):
 // (K, Q) the one-chunk kernel, else the chunked one. A plan whose block
 // does not fit the card is refused before launch (too many resources).
 // Other shapes as fm_chain_launch.
 extern "C" int pfb_fm_chain_launch(
-    const void* buf_re, const void* buf_im, const void* hp, const void* bank,
-    const void* btab, const void* table, const void* n0_rot,
-    const void* coef, const void* cf_re_in, const void* cf_im_in,
+    const void* buf_re, const void* buf_im, const void* hp, const void* btab,
+    const void* table, const void* n0_rot, const void* coef, const void* cf_re_in, const void* cf_im_in,
     const void* cz_in, void* audio, void* cf_re_out, void* cf_im_out,
     void* cz_out, void* zend, void* zstart, int nb, int C, int T, int K,
     int Q, int D, int M, int ntiles, int lanes, int uc, int grade,
@@ -563,11 +565,11 @@ extern "C" int pfb_fm_chain_launch(
   if (err != cudaSuccess) return (int)err;
   if (!fits) return (int)cudaErrorLaunchOutOfResources;
 #define GSDR_PFB_CHAIN_AT(G, CHUNKED)                                        \
-  run_chain<true, G, CHUNKED>(buf_re, buf_im, bank, hp, btab, table, n0_rot, \
-                              coef, cf_re_in, cf_im_in, cz_in, audio,        \
-                              cf_re_out, cf_im_out, cz_out, zend, zstart, nb, \
-                              C, T, lanes, K, Q, D, M, ntiles, gain, smem,   \
-                              stream, uc)
+  run_chain<true, G, CHUNKED>(buf_re, buf_im, nullptr, hp, btab, table,      \
+                              n0_rot, coef, cf_re_in, cf_im_in, cz_in,       \
+                              audio, cf_re_out, cf_im_out, cz_out, zend,     \
+                              zstart, nb, C, T, lanes, K, Q, D, M, ntiles,   \
+                              gain, smem, stream, uc)
 #define GSDR_PFB_CHAIN(G)                                             \
   (gsdr::use_chunked_pfb(lanes, uc, K, Q) ? GSDR_PFB_CHAIN_AT(G, true) \
                                           : GSDR_PFB_CHAIN_AT(G, false))

@@ -1,25 +1,27 @@
 // The two fronts of the fused channelizer chains, as device functions
 // shared by the FM chain (fm_chain.cu) and the AM chain (am_chain.cu).
 //
-// A front computes, for one block of kTile threads and a group of kCG
-// channels c0..c0+kCG-1, the un-rotated filtered sample
+// A front computes, for one block of kTile output rows and a group of
+// channels, the un-rotated filtered sample
 //   y[c, j] = sum_t x[j*D + t] * g_c[t]
-// of the output whose window starts at sample g0 + threadIdx.x * D, into
-// the thread's registers acc_re[kCG], acc_im[kCG]. Samples outside
-// [0, nb) read as zeros.
+// of the output whose window starts at sample g0 + row * D. Samples
+// outside [0, nb) read as zeros.
 //
 //  - toeplitz_front: the dense complex tap bank, C*T complex MACs per
-//    output (gsdr_tpu/kernels/fm_chain_pallas.py, _window_dot).
+//    output (gsdr_tpu/kernels/fm_chain_pallas.py, _window_dot), kCG
+//    channels a block, one thread a row, into its registers.
 //  - pfb_front: channels on the uniform grid f_c = g_c * Fs / K with D | K
-//    (gsdr_tpu/kernels/fm_chain_pallas.py, _pfb_fold_dot): the polyphase
-//    fold a[v] = sum_u hp[u, v] * x[j*D + v + u*K] (Q = ceil(T/K) taps per
-//    lane v, shared by all channels), then the (2C, 2K) DFT-bank product
+//    (gsdr_tpu/kernels/fm_chain_pallas.py, _pfb_fold_dot) at f32: the
+//    polyphase fold a[v] = sum_u hp[u, v] * x[j*D + v + u*K] (Q = ceil(T/K)
+//    taps per lane v, shared by all channels), then the (2C, 2K) DFT-bank
+//    product
 //    y_re[c] = sum_v G[c, v] a_re[v] + G[c, K+v] a_im[v]
-//    y_im[c] = sum_v G[C+c, v] a_re[v] + G[C+c, K+v] a_im[v].
-//    The TPU kernel's lane roll with wrapped lanes from the next row is a
-//    layout device of the TPU; here each thread indexes its window
-//    directly, and each thread's fold feeds only its own output, so the
-//    fold never leaves registers.
+//    y_im[c] = sum_v G[C+c, v] a_re[v] + G[C+c, K+v] a_im[v],
+//    4*kPfbNT channels a block of kPfbThreads threads; the block folds each
+//    lane once into a shared A tile and multiplies it in register tiles
+//    (see below). The TPU kernel's lane roll with wrapped lanes from the
+//    next row is a layout device of the TPU; here the fold indexes its
+//    window directly.
 //
 //  - toeplitz_front_mma<kGrade, kNT>: the dense front on the tensor cores,
 //    at the JAX package's bf16x3 (kGrade 3) or bf16x2 (kGrade 2) grade
@@ -30,11 +32,11 @@
 //    bf16x3 or bf16x2 (fm_chain_pallas.py, _pfb_fold_dot with its grade
 //    arm _nt_grade_dot). See below.
 //
-// The f32 fronts and toeplitz_front_mma stage the block's input window in
-// shared memory in polyphase order, xp[p][k] = x[g0 + k*D + p], so
-// neighbouring threads (neighbouring outputs, D samples apart) read
-// neighbouring words. The dense fronts walk the taps in ascending chunks
-// of Tc (dense_chunk): a chunk stages its own taps and its own window,
+// The dense fronts stage the block's input window in shared memory in
+// polyphase order, xp[p][k] = x[g0 + k*D + p], so neighbouring threads
+// (neighbouring outputs, D samples apart) read neighbouring words. The
+// dense fronts walk the taps in ascending chunks of Tc (dense_chunk): a
+// chunk stages its own taps and its own window,
 // the min(Tc, D) phases of samples g0 + t0 + [0, (kTile-1)*D + Tc) it
 // touches, and the sums carry across chunks in registers (or mma.sync
 // accumulators) in the order of one pass over all T taps, so a chunked
@@ -49,10 +51,13 @@
 // fewer blocks a SM than the one-chunk kernel needs. The PFB
 // fronts stage kPhaseChunk phases at a time, which bounds their shared
 // memory for any D; pfb_front_mma keeps each chunk frame-major, so that it
-// stages with 16-byte copies. Tap and bank tables are read as broadcasts.
+// stages with 16-byte copies, pfb_front phase-major, so that its fold
+// reads 32 rows of one lane from 32 banks. Tap tables are read as
+// broadcasts.
 //
 // What bounds the dense front on the card, by grade: in f32, the FP32
-// FMAs, 8*C*T FLOP per output at 67 TFLOP/s; in bf16x3 and bf16x2, 3 or 2
+// FMAs, 8*C*T FLOP per output at 67 TFLOP/s (the PFB front's product
+// 8*C*K); in bf16x3 and bf16x2, 3 or 2
 // tensor-core passes of the same 8*C*T at 989 TFLOP/s, 15-22x less time,
 // so the grade is bound by the bytes of the function (the window read
 // once, the outputs written once) unless the block's own staging and
@@ -81,11 +86,17 @@
 
 namespace gsdr {
 
-constexpr int kTile = 256;        // threads per block, one output each
-constexpr int kCG = 16;           // channels per block (grid.y covers C)
+constexpr int kTile = 256;        // output rows a block (dense: one a thread)
+constexpr int kCG = 16;           // channels a dense block, or a thread's
 constexpr int kPhaseChunk = 16;   // PFB front: input phases staged at once
-constexpr int kPfbNT = 8;         // pfb_front_mma: n-tiles, 32 channels
-constexpr int kPfbThreads = 512;  // pfb_front_mma: 16 warps of 16 rows
+constexpr int kPfbNT = 8;         // PFB fronts: n-tiles of 4, 32 channels
+constexpr int kPfbThreads = 512;  // PFB fronts: threads a block
+constexpr int kPfbCh = 4 * kPfbNT;      // PFB fronts: channels a block
+constexpr int kPfbFoldLanes = 16;  // pfb_front: lanes an A tile folds
+constexpr int kPfbRows = 4;        // pfb_front: rows of a register tile
+constexpr int kPfbCols = 4;        // PFB f32 fronts: channels of a tile
+constexpr int kPfbWideRows = 8;    // pfb_front_chunked: rows of a tile
+constexpr int kPfbConsumers = 256;  // pfb_front_chunked: threads multiplying
 // Grades of the dense front: the number of tensor-core passes; 0 is the
 // FP32-FMA front, toeplitz_front.
 constexpr int kGradeF32 = 0;
@@ -129,10 +140,30 @@ __host__ __device__ inline size_t mma_smem_bytes(int grade, int nt, int Tc,
   return b + tp * sizeof(int) + (win > out ? win : out);
 }
 
+// pfb_front's A tile of `lanes` lanes, [lanes][2][kTile] floats.
+__host__ __device__ inline size_t pfb_a_bytes(int lanes) {
+  return (size_t)lanes * 2 * kTile * sizeof(float);
+}
+
+// The PFB fronts' output tile, kTile x (8*kPfbNT + 1) floats.
+__host__ __device__ inline size_t pfb_out_bytes() {
+  return (size_t)kTile * (8 * kPfbNT + 1) * sizeof(float);
+}
+
+// pfb_front's dynamic shared memory: the bank rows [K][kPfbCh] as float2
+// in lane order (pfb_f32_tables), two A tiles of kPfbFoldLanes lanes, the
+// taps (Q, K) padded to 16 bytes, then one or two (D > kPhaseChunk) window
+// buffers of Dc phases x Kr = kTile + Q*P - 1 frames a plane; the output
+// tile reuses the space after the product.
 __host__ __device__ inline size_t pfb_smem_bytes(int K, int Q, int D) {
   const size_t dc = D < kPhaseChunk ? D : kPhaseChunk;
-  const size_t kr = kTile + ((size_t)Q * K - 1) / D;
-  return sizeof(float) * ((size_t)K * kCG * 4 + (size_t)Q * K + 2 * dc * kr);
+  const size_t kr = kTile + (size_t)Q * (K / D) - 1;
+  const size_t nbuf = D > kPhaseChunk ? 2 : 1;
+  const size_t all = (size_t)K * kPfbCh * sizeof(float2) +
+                     2 * pfb_a_bytes(kPfbFoldLanes) +
+                     ((size_t)Q * K * sizeof(float) + 15) / 16 * 16 +
+                     nbuf * 2 * dc * kr * sizeof(float);
+  return all > pfb_out_bytes() ? all : pfb_out_bytes();
 }
 
 // The tensor-core PFB front's geometry for (K, Q, D), D | K. Lanes run in
@@ -188,13 +219,13 @@ __host__ __device__ inline size_t pfb_mma_smem_bytes(int nt, int K, int Q,
 // tap columns and window phases. Its fold taps u run in u-ranges of `uc`
 // taps each, one window of frames [u0*P + s_lo, (u1-1)*P + s_hi + kTile)
 // a range, s_lo..s_hi the chunk's lanes' s; where there is more than one
-// range, every fold partial waits in a shared fold tile between ranges,
-// summed in ascending u as one pass sums it. A plan (lanes >= K, uc >= Q)
-// is the one-chunk kernel (pfb_front, pfb_front_mma), which stays as it
-// was: the chunked kernel is another instantiation (use_chunked_pfb).
-// Chunk boundaries always fall on the one-chunk kernel's 8-lane blocks,
-// so a chunked launch equals the one-chunk launch bit for bit at every
-// grade.
+// range, every fold partial waits in a shared fold tile between ranges
+// (at f32 the chunk's A tile), summed in ascending u as one pass sums it.
+// A plan (lanes >= K, uc >= Q) is the one-chunk kernel (pfb_front,
+// pfb_front_mma): the chunked kernel is another instantiation
+// (use_chunked_pfb). Chunk boundaries always fall on the one-chunk
+// kernel's 8-lane blocks, so a chunked launch equals the one-chunk launch
+// bit for bit at every grade.
 __host__ __device__ inline bool use_chunked_pfb(int lanes, int uc, int K,
                                                 int Q) {
   return lanes < K || uc < Q;
@@ -225,20 +256,45 @@ __host__ __device__ inline int pfb_chunk_frames(int K, int D, int nkb,
   return (uc - 1) * P + span + kTile;
 }
 
-// pfb_front_chunked's dynamic shared memory: the chunk's bank rows [L][kCG]
-// as float4 (L = its lanes, at most a group's), its taps [uc][L] padded to
-// 16 bytes, the fold tile [L][2][kTile] where uc < Q, then the window of
-// at most Dc phases per plane.
+// Lanes of a chunk of pfb_front_chunked: 8*nkb, at most a group's.
+__host__ __device__ inline int pfb_chunk_lanes(int K, int D, int lanes) {
+  const int dc = D < kPhaseChunk ? D : kPhaseChunk;
+  const int l = 8 * pfb_chunk_blocks(K, D, lanes);
+  return l < dc * (K / D) ? l : dc * (K / D);
+}
+
+// The most phases a chunk of L consecutive lanes kappa = pl*P + s touches:
+// ceil((L - 1)/P) + 1, at most a group's.
+__host__ __device__ inline int pfb_chunk_phases(int K, int D, int L) {
+  const int dc = D < kPhaseChunk ? D : kPhaseChunk, P = K / D;
+  const int n = (L + P - 2) / P + 1;
+  return n < dc ? n : dc;
+}
+
+// Floats of one staging buffer of pfb_front_chunked: a u-range's taps
+// [uc][L] padded to 4, then its window, two planes of at most
+// pfb_chunk_phases x pfb_chunk_frames.
+__host__ __device__ inline size_t pfb_chunk_stage_floats(int K, int Q, int D,
+                                                         int lanes, int uc) {
+  const int L = pfb_chunk_lanes(K, D, lanes);
+  if (uc > Q) uc = Q;
+  return ((size_t)uc * L + 3) / 4 * 4 +
+         2 * (size_t)pfb_chunk_phases(K, D, L) *
+             pfb_chunk_frames(K, D, pfb_chunk_blocks(K, D, lanes), uc);
+}
+
+// pfb_front_chunked's dynamic shared memory: two buffers of a chunk's bank
+// rows [L][kPfbCh] as float2 (L = its lanes, at most a group's), two A
+// tiles of L lanes, then two staging buffers (pfb_chunk_stage_floats); the
+// output tile reuses the space after the product.
 __host__ __device__ inline size_t pfb_chunk_bytes(int K, int Q, int D,
                                                   int lanes, int uc) {
-  const int dc = D < kPhaseChunk ? D : kPhaseChunk;
-  const int nkb = pfb_chunk_blocks(K, D, lanes);
-  const size_t L = 8 * nkb < dc * (K / D) ? 8 * nkb : dc * (K / D);
-  if (uc > Q) uc = Q;
-  const size_t taps = ((size_t)uc * L * sizeof(float) + 15) / 16 * 16;
-  const size_t fold = uc < Q ? 2 * L * kTile * sizeof(float) : 0;
-  return L * kCG * sizeof(float4) + taps + fold +
-         2 * (size_t)dc * pfb_chunk_frames(K, D, nkb, uc) * sizeof(float);
+  const size_t L = pfb_chunk_lanes(K, D, lanes);
+  const size_t all = 2 * L * kPfbCh * sizeof(float2) +
+                     2 * pfb_a_bytes((int)L) +
+                     2 * pfb_chunk_stage_floats(K, Q, D, lanes, uc) *
+                         sizeof(float);
+  return all > pfb_out_bytes() ? all : pfb_out_bytes();
 }
 
 // pfb_front_mma_chunked's dynamic shared memory: the chunk's B, hi and lo
@@ -263,18 +319,18 @@ __host__ __device__ inline size_t pfb_mma_chunk_bytes(int nt, int K, int Q,
   return all > out ? all : out;
 }
 
-// Channels and threads per block of a tile kernel: the tensor-core PFB
-// front covers 32 channels with one fold, and its block has two threads
-// per output row, so that its back end takes the two groups of kCG
-// channels side by side; the other fronts kCG channels, one thread a row.
-template <bool kPfb, int kGrade>
+// Channels and threads per block of a tile kernel: the PFB fronts cover
+// kPfbCh channels with one fold, and their block has two threads per
+// output row, so that its back end takes the two groups of kCG channels
+// side by side; the dense fronts kCG channels, one thread a row.
+template <bool kPfb>
 __host__ __device__ constexpr int block_channels() {
-  return kPfb && kGrade != kGradeF32 ? 4 * kPfbNT : kCG;
+  return kPfb ? kPfbCh : kCG;
 }
 
-template <bool kPfb, int kGrade>
+template <bool kPfb>
 __host__ __device__ constexpr int block_threads() {
-  return kPfb && kGrade != kGradeF32 ? kPfbThreads : kTile;
+  return kPfb ? kPfbThreads : kTile;
 }
 
 // Sets *room to the dynamic shared memory a block of `kernel` may take on
@@ -813,170 +869,6 @@ __device__ __forceinline__ void toeplitz_front_mma_chunked(
   }
 }
 
-// PFB front. hp: (Q, K) zero-padded polyphase taps hp[u, v] = h[v + K u];
-// bank: planes-major (2C, 2K) DFT bank. Shared memory: the bank slice
-// [K][kCG] as float4 (G[c, v], G[c, K+v], G[C+c, v], G[C+c, K+v]), the
-// taps [Q][K], then kPhaseChunk phases of the window [Dc][Kr] per plane.
-// Output phase p of lane v = p + s*D reads xp[p][tid + s + u*P], P = K/D.
-__device__ __forceinline__ void pfb_front(
-    float* smem, const float* __restrict__ buf_re,
-    const float* __restrict__ buf_im, int nb, const float* __restrict__ hp,
-    const float* __restrict__ bank, int C, int K, int Q, int D, int c0,
-    long g0, float (&acc_re)[kCG], float (&acc_im)[kCG]) {
-  const int tid = threadIdx.x;
-  float4* gb = reinterpret_cast<float4*>(smem);
-  float* hps = smem + 4 * K * kCG;
-  const int Dc = D < kPhaseChunk ? D : kPhaseChunk;
-  const int Kr = kTile + (Q * K - 1) / D;
-  float* xp_re = hps + Q * K;
-  float* xp_im = xp_re + Dc * Kr;
-  const int P = K / D;
-  for (int idx = tid; idx < K * kCG; idx += kTile) {
-    const int v = idx / kCG, cg = c0 + idx % kCG;
-    float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (cg < C) {
-      const float* re_row = bank + (long)cg * 2 * K;
-      const float* im_row = bank + (long)(C + cg) * 2 * K;
-      g = make_float4(re_row[v], re_row[K + v], im_row[v], im_row[K + v]);
-    }
-    gb[idx] = g;
-  }
-  for (int idx = tid; idx < Q * K; idx += kTile) hps[idx] = hp[idx];
-
-#pragma unroll
-  for (int c = 0; c < kCG; ++c) acc_re[c] = acc_im[c] = 0.f;
-  for (int p0 = 0; p0 < D; p0 += Dc) {
-    const int np = D - p0 < Dc ? D - p0 : Dc;
-    __syncthreads();   // the previous chunk's readers are done
-    for (int l = tid; l < np * Kr; l += kTile) {
-      const int pl = l % np, k = l / np;
-      const long g = g0 + (long)k * D + p0 + pl;
-      const bool in = g >= 0 && g < nb;
-      xp_re[pl * Kr + k] = in ? buf_re[g] : 0.f;
-      xp_im[pl * Kr + k] = in ? buf_im[g] : 0.f;
-    }
-    __syncthreads();
-    for (int pl = 0; pl < np; ++pl) {
-      const float* xr = xp_re + pl * Kr + tid;
-      const float* xi = xp_im + pl * Kr + tid;
-      for (int s = 0; s < P; ++s) {
-        const int v = p0 + pl + s * D;
-        float ar = 0.f, ai = 0.f;
-        for (int u = 0; u < Q; ++u) {
-          const float h = hps[u * K + v];
-          ar = fmaf(h, xr[s + u * P], ar);
-          ai = fmaf(h, xi[s + u * P], ai);
-        }
-        const float4* g = gb + v * kCG;
-#pragma unroll
-        for (int c = 0; c < kCG; ++c) {
-          const float4 w = g[c];
-          acc_re[c] = fmaf(w.x, ar, fmaf(w.y, ai, acc_re[c]));
-          acc_im[c] = fmaf(w.z, ar, fmaf(w.w, ai, acc_im[c]));
-        }
-      }
-    }
-  }
-}
-
-// pfb_front in chunks of `lanes` lanes and u-ranges of `uc` fold taps (the
-// plan, pfb_chunk): the same contract, sums and order. A chunk takes the
-// lanes kappa in [ka, kz) of its group of Dc phases (kappa = pl*P + s,
-// lane v = p0 + pl + s*D) and stages their bank rows gb[kappa - ka][kCG]
-// (float4, as pfb_front), their taps hs[u - u0][kappa - ka] and, per
-// u-range, the window of its phases pa..pb, frames f0 + k of each plane
-// at xp[pl*nfr + k], f0 = u0*P + s_lo: output row r reads frame
-// r + (s - s_lo) + (u - u0)*P. Each lane's fold runs fmaf in ascending u
-// from 0 as pfb_front's; between u-ranges it waits in the fold tile
-// ft[kappa - ka][plane][row]; after the last, the lane's products join
-// the sums in ascending kappa. So a chunked launch equals the one-chunk
-// launch bit for bit.
-__device__ __forceinline__ void pfb_front_chunked(
-    float* smem, const float* __restrict__ buf_re,
-    const float* __restrict__ buf_im, int nb, const float* __restrict__ hp,
-    const float* __restrict__ bank, int C, int K, int Q, int D, int c0,
-    long g0, int lanes, int uc, float (&acc_re)[kCG],
-    float (&acc_im)[kCG]) {
-  const int tid = threadIdx.x;
-  const int P = K / D, Dc = D < kPhaseChunk ? D : kPhaseChunk;
-  const int L = min(8 * pfb_chunk_blocks(K, D, lanes), Dc * P);
-  uc = min(uc, Q);
-  float4* gb = reinterpret_cast<float4*>(smem);
-  float* hs = smem + 4 * L * kCG;
-  float* ft = hs + (uc * L + 3) / 4 * 4;
-  float* xp = ft + (uc < Q ? 2 * L * kTile : 0);
-#pragma unroll
-  for (int c = 0; c < kCG; ++c) acc_re[c] = acc_im[c] = 0.f;
-  for (int p0 = 0; p0 < D; p0 += Dc) {
-    const int glanes = min(Dc, D - p0) * P;
-    for (int ka = 0; ka < glanes; ka += L) {
-      const int kz = min(ka + L, glanes), nl = kz - ka;
-      const int pa = ka / P, pb = (kz - 1) / P, npc = pb - pa + 1;
-      const int s_lo = pa == pb ? ka % P : 0;
-      const int s_hi = pa == pb ? (kz - 1) % P : P - 1;
-      __syncthreads();   // the previous chunk's readers are done
-      for (int idx = tid; idx < nl * kCG; idx += kTile) {
-        const int kap = ka + idx / kCG, cg = c0 + idx % kCG;
-        const int v = p0 + kap / P + (kap % P) * D;
-        float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (cg < C) {
-          const float* re_row = bank + (long)cg * 2 * K;
-          const float* im_row = bank + (long)(C + cg) * 2 * K;
-          g = make_float4(re_row[v], re_row[K + v], im_row[v], im_row[K + v]);
-        }
-        gb[idx] = g;
-      }
-      for (int u0 = 0; u0 < Q; u0 += uc) {
-        const int u1 = min(Q, u0 + uc), f0 = u0 * P + s_lo;
-        const int nfr = (u1 - 1 - u0) * P + s_hi - s_lo + kTile;
-        if (u0 > 0) __syncthreads();   // the last u-range's readers are done
-        for (int idx = tid; idx < (u1 - u0) * nl; idx += kTile) {
-          const int u = u0 + idx / nl, kap = ka + idx % nl;
-          hs[(u - u0) * L + kap - ka] =
-              hp[(long)u * K + p0 + kap / P + (kap % P) * D];
-        }
-        for (int l = tid; l < npc * nfr; l += kTile) {
-          const int pl = l % npc, k = l / npc;
-          const long g = g0 + (long)(f0 + k) * D + p0 + pa + pl;
-          const bool in = g >= 0 && g < nb;
-          xp[pl * nfr + k] = in ? buf_re[g] : 0.f;
-          xp[(npc + pl) * nfr + k] = in ? buf_im[g] : 0.f;
-        }
-        __syncthreads();
-        for (int kap = ka; kap < kz; ++kap) {
-          const int s = kap % P;
-          const float* xr = xp + (kap / P - pa) * nfr + tid + s - s_lo;
-          const float* xi = xr + npc * nfr;
-          const float* h = hs + kap - ka;
-          float* f = ft + (kap - ka) * 2 * kTile + tid;
-          float ar = 0.f, ai = 0.f;
-          if (u0 > 0) {
-            ar = f[0];
-            ai = f[kTile];
-          }
-          for (int u = 0; u < u1 - u0; ++u) {
-            const float hu = h[u * L];
-            ar = fmaf(hu, xr[u * P], ar);
-            ai = fmaf(hu, xi[u * P], ai);
-          }
-          if (u1 < Q) {   // the fold waits for the next u-range
-            f[0] = ar;
-            f[kTile] = ai;
-            continue;
-          }
-          const float4* g = gb + (kap - ka) * kCG;
-#pragma unroll
-          for (int c = 0; c < kCG; ++c) {
-            const float4 w = g[c];
-            acc_re[c] = fmaf(w.x, ar, fmaf(w.y, ai, acc_re[c]));
-            acc_im[c] = fmaf(w.z, ar, fmaf(w.w, ai, acc_im[c]));
-          }
-        }
-      }
-    }
-  }
-}
-
 // One 4-byte asynchronous copy from global to shared memory, zero-filled
 // when `valid` is false (src-size 0: nothing is read from src).
 __device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
@@ -1433,6 +1325,477 @@ __device__ __forceinline__ const float* pfb_front_mma_chunked(
   }
   __syncthreads();
   return out;
+}
+
+// ---- The PFB front at f32 ------------------------------------------------
+//
+// pfb_front and pfb_front_chunked compute, for the block's kTile output
+// rows (window start g0 + r*D) and its kPfbCh channels c0 = group*kPfbCh
+// on, exactly the sums of one pass over the lanes: the fold
+//   A[r, v] = fmaf(hp[Q-1, v], x[.. + (Q-1)K], ... fmaf(hp[0, v], x, 0))
+// in ascending u from 0, then per output, lane after lane in the one-chunk
+// order (groups of Dc = min(D, kPhaseChunk) phases, a group's lanes kappa =
+// pl*P + s ascending, lane v = p0 + pl + s*D),
+//   y_re = fmaf(G[c, v], A_re, fmaf(G[c, K+v], A_im, y_re)),
+//   y_im = fmaf(G[C+c, v], A_re, fmaf(G[C+c, K+v], A_im, y_im)),
+// so that every plan gives every output the same sequence of roundings.
+//
+// What bounds it: the product's FP32 FMAs, 8*kPfbCh*K FLOP a row, against
+// 4*Q*K of fold, and the shared-memory loads that feed them (a 16-byte
+// load of a warp takes four wavefronts, one a quarter-warp). The block
+// folds each lane once for all its channels into a shared A tile,
+// a[lane][plane][row], and multiplies it in register tiles: thread (warp
+// w, lane l) owns rows 32*(w % 8) + 4*(l % 8) + i, i < kPfbRows, and two
+// pairs of neighbouring channels, 16*(w / 8) + 2*(l / 8) + {0, 1, 8, 9};
+// for each lane it reads its rows' (A_re, A_im) as two float4 (eight
+// distinct float4 a warp, consecutive) and its channels' (G[c, v],
+// G[c, K+v]) as two float4 (a broadcast in each quarter-warp), each
+// reused across the tile: 4 shared loads, 16 wavefronts a warp, for 64
+// FMAs, which keeps the loads level with the FMA pipe. The im row of a
+// DFT bank is its re row's halves swapped, one negated (pfb_f32_tables),
+// so (-G[c, K+v], G[c, v]) stand for (G[C+c, v], G[C+c, K+v]) with the
+// same bits. The fold gives each warp one lane and each thread eight rows
+// 32 apart, so a warp reads 32 consecutive words of the window (staged
+// phase-major: plane, phase, frame) and writes 32 of the A tile; its tap
+// is a broadcast. Staging is asynchronous (cp.async): the next step's
+// window, taps and bank rows are in flight while the block folds and
+// multiplies the current one. A lane's bank row is 256 contiguous bytes
+// of the table, copied 16 bytes a thread; window samples are 4-byte
+// copies, zero-filled outside [0, nb), neighbouring threads on
+// neighbouring phases (consecutive samples), stepped without divisions.
+//
+// pfb_front (one chunk) stages the taps (Q, K) and the first group's
+// window, then the bank rows [K][kPfbCh] in lane order (which land while
+// the first lanes fold), then the window one group at a time (two buffers
+// where D > Dc), and folds and multiplies kPfbFoldLanes lanes a step in two
+// A tiles: one __syncthreads a step. pfb_front_chunked walks the chunks of
+// the plan (lanes, uc) with its warps specialised: producers stage each
+// chunk's bank rows (two buffers) and per u-range its taps and window (two
+// buffers) and fold it into its A tile (two), carrying the partials across
+// u-ranges; consumers multiply the previous chunk meanwhile, in 8 x 4
+// register tiles.
+
+// Starts the copies of a window of npc phases from p_first and nfr frames
+// from f0 into xw[(plane*npc + pl)*nfr + k] = x[g0 + (f0 + k)*D + p_first
+// + pl], zeros outside [0, nb), by threads tid = 0..nt-1 (here and in
+// pfb_stage_lanes: the staging threads, numbered from 0).
+__device__ __forceinline__ void pfb_stage_window(
+    float* xw, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, long g0, int D, int f0,
+    int p_first, int npc, int nfr, int tid, int nt) {
+  const int n = npc * nfr;
+  // item l = k*npc + pl of thread tid of nt, stepped without a division
+  const int dpl = nt % npc, dk = nt / npc;
+  for (int pl = tid % npc, k = tid / npc; k < nfr;) {
+    const long g = g0 + (long)(f0 + k) * D + p_first + pl;
+    const bool in = g >= 0 && g < nb;
+    float* d = xw + pl * nfr + k;
+    cp_async_f32(d, buf_re + (in ? g : 0), in);
+    cp_async_f32(d + n, buf_im + (in ? g : 0), in);
+    pl += dpl;
+    k += dk;
+    if (pl >= npc) {
+      pl -= npc;
+      ++k;
+    }
+  }
+}
+
+// The phases pa..pb and the s range s_lo..s_hi that lanes [ka, kz) of a
+// group touch (all P where they span phases).
+struct PfbSpan {
+  int pa, pb, s_lo, s_hi;
+};
+
+__device__ __forceinline__ PfbSpan pfb_span(int P, int ka, int kz) {
+  PfbSpan r;
+  r.pa = ka / P;
+  r.pb = (kz - 1) / P;
+  r.s_lo = r.pa == r.pb ? ka % P : 0;
+  r.s_hi = r.pa == r.pb ? (kz - 1) % P : P - 1;
+  return r;
+}
+
+// Starts the copies of the bank rows of lanes [ka, kz) of the group at p0
+// (kappa = pl*P + s, lane v = p0 + pl + s*D) from channel group `group` of
+// ftab (pfb_f32_tables: (ceil(C/32), K, kPfbCh, 2), zeros past C) into
+// gb[(kappa - ka)*kPfbCh + cl] = (G[c, v], G[c, K+v]), 16-byte copies, a
+// lane's row of 256 bytes by neighbouring threads; and, where hs, of their
+// taps u0..u1-1 into hs[(u - u0)*L + kappa - ka].
+__device__ __forceinline__ void pfb_stage_lanes(
+    float* gb, float* hs, int L, const float* __restrict__ ftab,
+    const float* __restrict__ hp, int K, int D, int group, int p0, int ka,
+    int kz, int u0, int u1, int tid, int nt) {
+  constexpr int kRow = kPfbCh * 2 / 4;   // 16-byte copies a lane's row
+  const int P = K / D, nl = kz - ka;
+  if (gb) {
+    const float* src = ftab + (size_t)group * K * kPfbCh * 2;
+    for (int i = tid; i < nl * kRow; i += nt) {
+      const int kap = ka + i / kRow, q = i % kRow;
+      const int v = p0 + kap / P + (kap % P) * D;
+      cp_async_16(gb + (size_t)(kap - ka) * kPfbCh * 2 + 4 * q,
+                  src + (size_t)v * kPfbCh * 2 + 4 * q);
+    }
+  }
+  if (hs) {
+    for (int i = tid; i < (u1 - u0) * nl; i += nt) {
+      const int u = u0 + i / nl, kap = ka + i % nl;
+      cp_async_f32(hs + (u - u0) * L + kap - ka,
+                   hp + (long)u * K + p0 + kap / P + (kap % P) * D, true);
+    }
+  }
+}
+
+// Folds lanes ka..ka+nl-1 of the group at p0, fold taps u0..u1-1, into the
+// A tile a[j][plane][row] (j = kappa - ka): from zero where u0 == 0, else
+// on from the partials there. The window xw holds phases from p0 + pa,
+// frames from u0*P + s_lo, nfr frames a phase, planes `plane` floats
+// apart; the tap of lane j at u is taps[tap(j) + (u - u0)*tstride], tap(j)
+// = v (kByV: the taps (Q, K) as they are) or j + ka - kbase (a chunk's
+// staged taps from lane kbase). Folding warp w of nw takes lanes w, w +
+// nw, ..., each thread the rows lane + 32*i.
+template <bool kByV>
+__device__ __forceinline__ void pfb_fold(float* a, const float* xw, int plane,
+                                         int nfr, const float* taps,
+                                         int tstride, int P, int D, int p0,
+                                         int ka, int nl, int kbase,
+                                         PfbSpan sp, int u0, int u1, int w,
+                                         int nw) {
+  constexpr int kR = kTile / 32;
+  const int lane = threadIdx.x & 31;
+  for (int j = w; j < nl; j += nw) {
+    const int kap = ka + j, pl = kap / P, s = kap % P;
+    const float* xr = xw + (pl - sp.pa) * nfr + (s - sp.s_lo) + lane;
+    const float* xi = xr + plane;
+    const float* h = taps + (kByV ? p0 + pl + s * D : kap - kbase);
+    float* at = a + j * 2 * kTile + lane;
+    float fr[kR], fi[kR];
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      fr[i] = u0 == 0 ? 0.f : at[32 * i];
+      fi[i] = u0 == 0 ? 0.f : at[kTile + 32 * i];
+    }
+    for (int u = 0; u < u1 - u0; ++u) {
+      const float hu = h[u * tstride];
+      const int o = u * P;
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        fr[i] = fmaf(hu, xr[o + 32 * i], fr[i]);
+        fi[i] = fmaf(hu, xi[o + 32 * i], fi[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      at[32 * i] = fr[i];
+      at[kTile + 32 * i] = fi[i];
+    }
+  }
+}
+
+// A thread's register tile of kRows rows and kPfbCols channels: rows r0 +
+// i, channels cb + (c & 1) + 2*kRows*(c >> 1), two pairs of neighbouring
+// channels (one float4 of bank each). kRows = 4: all kPfbThreads threads,
+// a warp 32 rows x 16 channels; kRows = 8: the first kPfbConsumers
+// threads, a warp 32 rows x 32 channels.
+template <int kRows>
+struct PfbTile {
+  int r0, cb;
+  float re[kRows][kPfbCols], im[kRows][kPfbCols];
+};
+
+template <int kRows>
+__device__ __forceinline__ int pfb_tile_channel(const PfbTile<kRows>& t,
+                                                int c) {
+  return t.cb + (c & 1) + 2 * kRows * (c >> 1);
+}
+
+template <int kRows>
+__device__ __forceinline__ void pfb_tile_init(PfbTile<kRows>& t) {
+  static_assert(kPfbCols == 4 && (kRows == kPfbRows || kRows == kPfbWideRows)
+                    && kPfbThreads * kPfbRows * kPfbCols == kTile * kPfbCh &&
+                    kPfbConsumers * kPfbWideRows * kPfbCols == kTile * kPfbCh,
+                "tiles of 4 x 4 (every thread) or 8 x 4 (the consumers)");
+  constexpr int kGroups = 32 / kRows;   // row groups a warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  t.r0 = 32 * (warp % 8) + kRows * (lane % kGroups);
+  t.cb = 16 * (warp / 8) + 2 * (lane / kGroups);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < kPfbCols; ++c) t.re[i][c] = t.im[i][c] = 0.f;
+}
+
+// t += the products of lanes j < nl of the A tile a with their bank rows
+// gb[j][kPfbCh] (float2 (G[c, v], G[c, K+v]); the im row's (G[C+c, v],
+// G[C+c, K+v]) is (-G[c, K+v], G[c, v]) of a DFT bank), lane after lane.
+template <int kRows>
+__device__ __forceinline__ void pfb_product(PfbTile<kRows>& t, const float* a,
+                                            const float* gb, int nl) {
+  const float4* g4 = reinterpret_cast<const float4*>(gb) + t.cb / 2;
+  // unrolled where the registers allow it (an 8 x 4 tile spills at 2)
+#pragma unroll(kRows == kPfbRows ? 4 : 1)
+  for (int j = 0; j < nl; ++j) {
+    float ar[kRows], ai[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; i += 4) {
+      const float4 xr = *reinterpret_cast<const float4*>(
+          a + j * 2 * kTile + t.r0 + i);
+      const float4 xi = *reinterpret_cast<const float4*>(
+          a + j * 2 * kTile + kTile + t.r0 + i);
+      ar[i] = xr.x, ar[i + 1] = xr.y, ar[i + 2] = xr.z, ar[i + 3] = xr.w;
+      ai[i] = xi.x, ai[i + 1] = xi.y, ai[i + 2] = xi.z, ai[i + 3] = xi.w;
+    }
+    const float4 p0 = g4[j * kPfbCh / 2], p1 = g4[j * kPfbCh / 2 + kRows];
+    const float gr[kPfbCols] = {p0.x, p0.z, p1.x, p1.z};   // G[c, v]
+    const float gi[kPfbCols] = {p0.y, p0.w, p1.y, p1.w};   // G[c, K+v]
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kPfbCols; ++c) {
+        t.re[i][c] = fmaf(gr[c], ar[i], fmaf(gi[c], ai[i], t.re[i][c]));
+        t.im[i][c] = fmaf(-gi[c], ar[i], fmaf(gr[c], ai[i], t.im[i][c]));
+      }
+  }
+}
+
+// The register tiles to the output tile at the start of dynamic shared
+// memory (row r, column 2c re and 2c + 1 im of the block's channel c),
+// after every thread is done with the space; a thread that holds no tile
+// (holds false) only takes the barriers.
+template <int kRows>
+__device__ __forceinline__ const float* pfb_tile_out(
+    unsigned char* smem, const PfbTile<kRows>& t, bool holds = true) {
+  constexpr int kOS = 8 * kPfbNT + 1;
+  float* out = reinterpret_cast<float*>(smem);
+  __syncthreads();
+  if (holds) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kPfbCols; ++c) {
+        const int col = 2 * pfb_tile_channel(t, c);
+        out[(t.r0 + i) * kOS + col] = t.re[i][c];
+        out[(t.r0 + i) * kOS + col + 1] = t.im[i][c];
+      }
+  }
+  __syncthreads();
+  return out;
+}
+
+// PFB front at f32 in one chunk (plan (K, Q)). hp: (Q, K) zero-padded
+// polyphase taps hp[u, v] = h[v + K u]; ftab: pfb_f32_tables of the DFT
+// bank. Shared memory (pfb_smem_bytes): the bank rows [K][kPfbCh] float2
+// in lane order, two A tiles of kPfbFoldLanes lanes, the taps, the window
+// buffers. Returns the kTile x (8*kPfbNT + 1) output tile, as
+// pfb_front_mma; it stays valid until the caller's next write to dynamic
+// shared memory.
+__device__ __forceinline__ const float* pfb_front(
+    unsigned char* smem, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, const float* __restrict__ hp,
+    const float* __restrict__ ftab, int K, int Q, int D, int group,
+    long g0) {
+  const int P = K / D, Dc = D < kPhaseChunk ? D : kPhaseChunk;
+  const int Kr = kTile + Q * P - 1, wsize = 2 * Dc * Kr;
+  float* gb = reinterpret_cast<float*>(smem);
+  float* a = gb + (size_t)K * kPfbCh * 2;
+  float* hps = a + 2 * kPfbFoldLanes * 2 * kTile;
+  float* win = hps + (Q * K + 3) / 4 * 4;
+
+  // two copy groups: the taps and the first window, which the first fold
+  // reads, then the bank, which lands while it folds
+  for (int i = threadIdx.x; i < Q * K; i += kPfbThreads)
+    cp_async_f32(hps + i, hp + i, true);
+  pfb_stage_window(win, buf_re, buf_im, nb, g0, D, 0, 0, Dc, Kr,
+                   threadIdx.x, kPfbThreads);
+  cp_async_commit();
+  for (int p0 = 0; p0 < D; p0 += Dc)
+    pfb_stage_lanes(gb + (size_t)p0 * P * kPfbCh * 2, nullptr, 0, ftab, hp,
+                    K, D, group, p0, 0, min(Dc, D - p0) * P, 0, 0,
+                    threadIdx.x, kPfbThreads);
+  cp_async_commit();
+
+  PfbTile<kPfbRows> t;
+  pfb_tile_init(t);
+  const PfbSpan whole = {0, 0, 0, 0};
+  int step = 0;
+  for (int p0 = 0; p0 < D; p0 += Dc) {
+    const int np = min(Dc, D - p0), glanes = np * P;
+    if (p0 == 0) cp_async_wait<1>();   // the taps and this window
+    else cp_async_wait<0>();
+    __syncthreads();   // this group's window in; its readers' buffer free
+    if (p0 + Dc < D) {   // the next group's window, into the other buffer
+      pfb_stage_window(win + ((p0 / Dc + 1) & 1) * wsize, buf_re, buf_im, nb,
+                       g0, D, 0, p0 + Dc, min(Dc, D - p0 - Dc), Kr,
+                       threadIdx.x, kPfbThreads);
+      cp_async_commit();
+    }
+    const float* xw = win + ((p0 / Dc) & 1) * wsize;
+    for (int ka = 0; ka < glanes; ka += kPfbFoldLanes, ++step) {
+      const int nl = min(kPfbFoldLanes, glanes - ka);
+      float* at = a + (step & 1) * kPfbFoldLanes * 2 * kTile;
+      pfb_fold<true>(at, xw, np * Kr, Kr, hps, K, P, D, p0, ka, nl, 0, whole,
+                     0, Q, threadIdx.x >> 5, kPfbThreads / 32);
+      if (step == 0) {   // the bank, before the first product
+        if (p0 + Dc < D) cp_async_wait<1>();
+        else cp_async_wait<0>();
+      }
+      __syncthreads();   // the tile is folded; the other one is free
+      pfb_product(t, at, gb + (size_t)(p0 * P + ka) * kPfbCh * 2, nl);
+    }
+  }
+  return pfb_tile_out(smem, t);
+}
+
+// One step of pfb_front_chunked: lanes [ka, kz) of the group at p0 (of
+// glanes lanes), fold taps u0..u1-1; valid while p0 < D.
+struct PfbStep {
+  int p0, glanes, ka, kz, u0, u1;
+};
+
+// The step after s for chunks of L lanes and u-ranges of uc taps: the next
+// u-range, else the chunk's next, else the next group's first.
+__device__ __forceinline__ void pfb_next_step(PfbStep& s, int D, int P,
+                                              int Q, int L, int uc) {
+  const int Dc = D < kPhaseChunk ? D : kPhaseChunk;
+  if (s.u1 < Q) {
+    s.u0 = s.u1;
+    s.u1 = min(Q, s.u0 + uc);
+    return;
+  }
+  s.u0 = 0;
+  s.u1 = min(Q, uc);
+  s.ka = s.kz;
+  if (s.ka >= s.glanes) {
+    s.p0 += Dc;
+    s.glanes = min(Dc, D - s.p0) * P;
+    s.ka = 0;
+  }
+  s.kz = min(s.ka + L, s.glanes);
+}
+
+// Named barriers of pfb_front_chunked (0 is __syncthreads): a chunk's A
+// tile and bank rows full (two, by chunk parity) and free (two), and the
+// producers' own.
+constexpr int kBarFull = 1, kBarFree = 3, kBarProducers = 5;
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// pfb_front_chunked's producers (the threads from kPfbConsumers on): step
+// after step, stage the next u-range's window and taps and each chunk's
+// bank rows, fold, and hand each whole chunk to the consumers.
+__device__ __forceinline__ void pfb_produce(
+    float* gb, float* a, float* stage, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, const float* __restrict__ hp,
+    const float* __restrict__ ftab, int K, int Q, int D, int group, long g0,
+    int L, int uc, size_t ssize, size_t gsize, size_t asize) {
+  constexpr int kProducers = kPfbThreads - kPfbConsumers;
+  const int P = K / D, tsize = (uc * L + 3) / 4 * 4;
+  const int tid = threadIdx.x - kPfbConsumers;
+  // starts step s's window and taps into staging buffer sb
+  auto issue = [&](const PfbStep& s, int sb) {
+    const PfbSpan sp = pfb_span(P, s.ka, s.kz);
+    float* st = stage + sb * ssize;
+    pfb_stage_lanes(nullptr, st, L, ftab, hp, K, D, group, s.p0, s.ka, s.kz,
+                    s.u0, s.u1, tid, kProducers);
+    pfb_stage_window(st + tsize, buf_re, buf_im, nb, g0, D,
+                     s.u0 * P + sp.s_lo, s.p0 + sp.pa, sp.pb - sp.pa + 1,
+                     (s.u1 - 1 - s.u0) * P + sp.s_hi - sp.s_lo + kTile, tid,
+                     kProducers);
+    cp_async_commit();
+  };
+
+  PfbStep cur = {0, min(D, kPhaseChunk) * P, 0, 0, 0, min(Q, uc)};
+  cur.kz = min(L, cur.glanes);
+  issue(cur, 0);
+  for (int si = 0, c = 0; cur.p0 < D; ++si) {
+    const bool first = cur.u0 == 0;
+    if (first) {   // chunk c's buffers: free once chunk c - 2 is multiplied
+      if (c >= 2) named_sync(kBarFree + (c & 1), kPfbThreads);
+      pfb_stage_lanes(gb + (c & 1) * gsize, nullptr, 0, ftab, hp, K, D, group,
+                      cur.p0, cur.ka, cur.kz, 0, 0, tid, kProducers);
+      cp_async_commit();
+      cp_async_wait<1>();   // this step's window and taps
+    } else {
+      cp_async_wait<0>();
+    }
+    named_sync(kBarProducers, kProducers);   // in; the other buffer free
+    PfbStep nxt = cur;
+    pfb_next_step(nxt, D, P, Q, L, uc);
+    if (nxt.p0 < D) issue(nxt, (si + 1) & 1);
+    const PfbSpan sp = pfb_span(P, cur.ka, cur.kz);
+    const int nfr = (cur.u1 - 1 - cur.u0) * P + sp.s_hi - sp.s_lo + kTile;
+    const float* st = stage + (si & 1) * ssize;
+    pfb_fold<false>(a + (c & 1) * asize, st + tsize,
+                    (sp.pb - sp.pa + 1) * nfr, nfr, st, L, P, D, cur.p0,
+                    cur.ka, cur.kz - cur.ka, cur.ka, sp, cur.u0, cur.u1,
+                    (threadIdx.x >> 5) - kPfbConsumers / 32, kProducers / 32);
+    if (cur.u1 == Q) {   // chunk c is folded: hand it over with its bank
+      if (nxt.p0 < D) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      named_arrive(kBarFull + (c & 1), kPfbThreads);
+      ++c;
+    }
+    cur = nxt;
+  }
+}
+
+// pfb_front in chunks of `lanes` lanes and u-ranges of `uc` fold taps (the
+// plan, pfb_chunk): the same contract, sums and order, with its warps
+// specialised. The first kPfbConsumers threads (consumers) multiply, each
+// holding an 8 x 4 register tile (PfbTile<kPfbWideRows>: 8 row loads and
+// 2 bank loads a lane for 128 FMAs, which the FMA pipe, not the shared
+// loads, bounds); the other warps (producers) stage and fold. Chunk c's
+// bank rows and A tile live in buffer c & 1: the producers fold chunk c
+// while the consumers multiply chunk c - 1, and hand it over through the
+// named barriers (full, then free after its product). Shared memory
+// (pfb_chunk_bytes): two buffers of bank rows, two A tiles, two staging
+// buffers of a u-range's taps hs[u - u0][kappa - ka] and window (phases
+// pa..pb of its lanes, frames f0 = u0*P + s_lo on: output row r reads
+// frame r + (s - s_lo) + (u - u0)*P), the next u-range's in flight while
+// the producers fold the current one. Returns the output tile, as
+// pfb_front.
+__device__ __forceinline__ const float* pfb_front_chunked(
+    unsigned char* smem, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, const float* __restrict__ hp,
+    const float* __restrict__ ftab, int K, int Q, int D, int group, long g0,
+    int lanes, int uc) {
+  const int P = K / D, L = pfb_chunk_lanes(K, D, lanes);
+  uc = min(uc, Q);
+  const size_t ssize = pfb_chunk_stage_floats(K, Q, D, lanes, uc);
+  float* gb = reinterpret_cast<float*>(smem);
+  float* a = gb + 2 * (size_t)L * kPfbCh * 2;
+  float* stage = a + 2 * (size_t)L * 2 * kTile;
+  const size_t gsize = (size_t)L * kPfbCh * 2, asize = (size_t)L * 2 * kTile;
+  const int Dc = D < kPhaseChunk ? D : kPhaseChunk;
+  int nchunks = 0;
+  for (int p0 = 0; p0 < D; p0 += Dc)
+    nchunks += (min(Dc, D - p0) * P + L - 1) / L;
+
+  const bool consumer = threadIdx.x < kPfbConsumers;
+  PfbTile<kPfbWideRows> t;
+  if (consumer) {   // multiply chunk after chunk
+    pfb_tile_init(t);
+    int c = 0;
+    for (int p0 = 0; p0 < D; p0 += Dc) {
+      const int glanes = min(Dc, D - p0) * P;
+      for (int ka = 0; ka < glanes; ka += L, ++c) {
+        named_sync(kBarFull + (c & 1), kPfbThreads);
+        pfb_product(t, a + (c & 1) * asize, gb + (c & 1) * gsize,
+                    min(L, glanes - ka));
+        if (c + 2 < nchunks) named_arrive(kBarFree + (c & 1), kPfbThreads);
+      }
+    }
+  } else {
+    pfb_produce(gb, a, stage, buf_re, buf_im, nb, hp, ftab, K, Q, D, group,
+                g0, L, uc, ssize, gsize, asize);
+  }
+  return pfb_tile_out(smem, t, consumer);
 }
 
 }  // namespace gsdr

@@ -45,6 +45,7 @@ from gsdr_tpu_torch.kernels.chain import (
     graded_bank_front,
     graded_uniform_front,
     load_chain_library,
+    pfb_f32_tables,
     pfb_launch_plan,
     pfb_mma_tables,
 )
@@ -142,7 +143,7 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fm_chain_launch.argtypes = [p] * 16 + [i] * 8 + [ctypes.c_float, p]
     lib.fm_chain_launch.restype = i
-    lib.pfb_fm_chain_launch.argtypes = ([p] * 17 + [i] * 11
+    lib.pfb_fm_chain_launch.argtypes = ([p] * 16 + [i] * 11
                                         + [ctypes.c_float, p])
     lib.pfb_fm_chain_launch.restype = i
     lib.fm_chain_tile_outputs.argtypes = []
@@ -222,10 +223,10 @@ def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
     t = int(num_taps)
     lanes, uc = pfb_launch_plan("fm_chain", dev, k, q, decimation, precision,
                                 plan)
-    btab = pfb_mma_tables(dft_bank).data_ptr() if grade else None
+    btab = pfb_mma_tables(dft_bank) if grade else pfb_f32_tables(dft_bank)
     return _launch(
         "pfb_fm_chain",
-        ((poly_taps.data_ptr(), dft_bank.data_ptr(), btab), (t, k, q),
+        ((poly_taps.data_ptr(), btab.data_ptr()), (t, k, q),
          (lanes, uc, grade)), buf, lo_table, n0_rot, c, t, int(decimation),
         gain, deemph, carry_f, carry_z)
 

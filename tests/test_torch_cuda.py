@@ -257,31 +257,78 @@ def test_am_kernels_match_plain_on_card(card, k, d, t, c):
         (before[0] + 2, before[1] + 2)
 
 
+# The f32 PFB front's channel groups of 32: one partial group (C = 5),
+# a second group of 1 and of 15 channels (C = 33, 47) where the grid has
+# that many bins
+F32_GROUP_CASES = [(k, d, t, c) for k, d, t, _ in PFB_GEOMETRIES
+                   for c in (5, 33, 47) if c <= k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,t,c", F32_GROUP_CASES)
+def test_pfb_f32_kernels_match_plain_over_channel_groups_on_card(card, k, d,
+                                                                 t, c):
+    """B2 and B3-PFB at f32 against the plain PFB chains over two streamed
+    blocks of 2,777 outputs (a ragged last tile): FM audio within 1e-4 of
+    max|audio| after the warm-up, carries within 1e-4; AM envelopes within
+    1e-5; one launch a step."""
+    kw = dict(frequency_deviation=75_000.0)
+    fm = _grid_model(FmChannelizer, "pfb", k, d, t, c, precision="f32", **kw)
+    fm_plain = _grid_model(FmChannelizer, "pfb_torch", k, d, t, c, **kw)
+    am = _grid_model(AmReceiver, "pfb", k, d, t, c, precision="f32")
+    am_plain = _grid_model(AmReceiver, "pfb_torch", k, d, t, c)
+    n = d * 2_777
+    re, im = _grid_fm_signal(fm.channel_frequencies, 2 * n, seed=6)
+    are, aim = _am_signal(am.channel_frequencies, 2 * n, seed=8)
+    a = abs(float(fm.deemph[2]))
+    skip = int(np.ceil(np.log(1e-6) / np.log(max(a, 1e-3)))) + t // d + 8
+    sk, sp, ak, ap = fm.init(), fm_plain.init(), am.init(), am_plain.init()
+    before = (pfb_fm_chain.launches, pfb_am_chain.launches)
+    for i in range(2):
+        sl = slice(i * n, (i + 1) * n)
+        sk, yk = fm.step(sk, TCA(re[sl], im[sl]))
+        sp, yp = fm_plain.step(sp, TCA(re[sl], im[sl]))
+        s0 = skip if i == 0 else 0
+        err = (yk - yp)[:, s0:].abs().max() / yp[:, s0:].abs().max()
+        assert float(err) <= 1e-4
+        for x, y in ((sk[2].re, sp[2].re), (sk[2].im, sp[2].im),
+                     (sk[3], sp[3])):
+            torch.testing.assert_close(x, y, rtol=0, atol=1e-4)
+        ak, ek = am.step(ak, TCA(are[sl], aim[sl]))
+        ap, ep = am_plain.step(ap, TCA(are[sl], aim[sl]))
+        torch.testing.assert_close(ek, ep, rtol=0, atol=1e-5)
+    assert (pfb_fm_chain.launches, pfb_am_chain.launches) == \
+        (before[0] + 2, before[1] + 2)
+
+
 @pytest.mark.cuda
 def test_shared_memory_check_on_card(card):
     """The libraries count the tile kernels' static shared memory: at
-    K=712, D=89, Q=4 the FM kernel's one-chunk block at f32 (230,400 B
-    dynamic, which alone fits, plus 2,304 B static) does not fit, so its
-    plan is the chunked kernel's, and a launch forced to the one-chunk plan
-    is refused before launch (too many resources; no launch counted);
-    the AM kernel's block, with less static memory, takes it in one chunk.
-    The grid then runs at every grade in both libraries, within the
-    grades' gates of the plain PFB chain (_witness_within). A dense front
-    too long for one block does not make the model raise either:
-    AmReceiver at K=128, T=1021, D=128 (70 channels) takes the dense
-    kernel in chunks of fewer than T taps, one launch a step, its
-    envelopes within 4e-5 of its plain version at the grade: float32 sums
-    of 3*T products in other orders, whose error grows with T (1e-5 holds
-    to T=512; the H100 read 1.54e-5 here)."""
+    K=288, D=24, Q=6 the FM kernel's one-chunk block at f32 (229,888 B
+    dynamic, which alone fits, plus the 4,608 B of static memory of its
+    two threads a row) does not fit, so its plan is the chunked kernel's,
+    and a launch forced to the one-chunk plan is refused before launch
+    (too many resources; no launch counted); the AM kernel's block, with
+    no static memory, takes it in one chunk. K=712, D=89 runs at every
+    grade in both libraries, within the grades' gates of the plain PFB
+    chain (_witness_within). A dense front too long for one block does not
+    make the model raise either: AmReceiver at K=128, T=1021, D=128 (70
+    channels) takes the dense kernel in chunks of fewer than T taps, one
+    launch a step, its envelopes within 4e-5 of its plain version at the
+    grade: float32 sums of 3*T products in other orders, whose error grows
+    with T (1e-5 holds to T=512; the H100 read 1.54e-5 here)."""
     assert front_supported("fm_chain", "cuda", 4 * 712, 89, 712)
-    assert pfb_chunk("fm_chain", "cuda", 712, 4, 89, "f32") != (712, 4)
-    assert pfb_chunk("am_chain", "cuda", 712, 4, 89, "f32") == (712, 4)
-    m = _witness_model(FmChannelizer, 712, 89, 2848, 8, "f32")
-    args = _witness_args(m, 712 * 64)
+    assert front_supported("fm_chain", "cuda", 6 * 288, 24, 288)
+    assert pfb_chunk("fm_chain", "cuda", 288, 6, 24, "f32") != (288, 6)
+    assert pfb_chunk("am_chain", "cuda", 288, 6, 24, "f32") == (288, 6)
+    m = _witness_model(FmChannelizer, 288, 24, 1728, 8, "f32")
+    args = _witness_args(m, 288 * 64)
     before = pfb_fm_chain.launches
     with pytest.raises(RuntimeError, match="too many resources"):
-        pfb_fm_chain(*args, precision="f32", plan=(712, 4))
+        pfb_fm_chain(*args, precision="f32", plan=(288, 6))
     assert pfb_fm_chain.launches == before
+    for cls in (FmChannelizer, AmReceiver):
+        _witness_within(cls, 288, 24, 1728, "f32")
     for grade in GRADES:
         for cls in (FmChannelizer, AmReceiver):
             _witness_within(cls, 712, 89, 2848, grade)
@@ -751,29 +798,30 @@ def test_am_kernel_grades_match_plain_on_card(card, k, d, t, c, grade):
 @pytest.mark.cuda
 def test_pfb_grades_fit_and_refuse_on_card(card):
     """Both libraries take every grade at the wideband critical shape in
-    one chunk, and K=640, D=64, T=1280 at every grade: at f32 in one
-    chunk (a 204-KB block), at the bf16 grades in chunks (their
-    lane-ordered B table alone takes 160 KB, so no one-chunk block fits,
-    and a launch forced to one chunk is refused before launch). The
-    models take the grid with impl='pfb' at each grade, and each launch
-    is within its grade's gate of the plain PFB chain (_witness_within)."""
+    one chunk, and K=640, D=64, T=1280 at every grade in chunks: at f32
+    the 32-channel bank rows of 640 lanes and two A tiles take 224 KB
+    before the window, at the bf16 grades the lane-ordered B table 160
+    KB, so no one-chunk block fits, and a launch forced to one chunk is
+    refused before launch. The models take the grid with impl='pfb' at
+    each grade, and each launch is within its grade's gate of the plain
+    PFB chain (_witness_within)."""
     for lib in ("fm_chain", "am_chain"):
         for grade in GRADES:
             assert pfb_chunk(lib, "cuda", 64, 8, 64, grade) == (64, 8)
             assert front_supported(lib, "cuda", 1280, 64, 640, grade)
-        assert pfb_chunk(lib, "cuda", 640, 2, 64, "f32") == (640, 2)
-        for grade in ("bf16x3", "bf16x2"):
+        for grade in GRADES:
             lanes, uc = pfb_chunk(lib, "cuda", 640, 2, 64, grade)
             assert 8 <= lanes < 640 and lanes % 8 == 0 and uc >= 1
     for grade in GRADES:
         for cls in (FmChannelizer, AmReceiver):
             _witness_within(cls, 640, 64, 1280, grade)
-    m = _witness_model(AmReceiver, 640, 64, 1280, 8, "bf16x3")
-    args = _witness_args(m, 640 * 64)
-    before = pfb_am_chain.launches
-    with pytest.raises(RuntimeError, match="too many resources"):
-        pfb_am_chain(*args, precision="bf16x3", plan=(640, 2))
-    assert pfb_am_chain.launches == before
+    for grade in ("bf16x3", "f32"):
+        m = _witness_model(AmReceiver, 640, 64, 1280, 8, grade)
+        args = _witness_args(m, 640 * 64)
+        before = pfb_am_chain.launches
+        with pytest.raises(RuntimeError, match="too many resources"):
+            pfb_am_chain(*args, precision=grade, plan=(640, 2))
+        assert pfb_am_chain.launches == before
 
 
 def _witness_model(cls, k, d, t, c, grade):

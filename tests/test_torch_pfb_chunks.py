@@ -1,9 +1,11 @@
 """The PFB front at grids whose bank, taps or window do not fit one block
-of the card: a numpy transliteration of the chunked staging of
-``csrc/fronts.cuh`` (``pfb_front_chunked``, ``pfb_front_mma_chunked``:
-lane chunks, u-ranges of fold taps, the split after the whole fold)
-against the plain version, the cheap check of the kernels' index logic
-that the card tests then hold bit for bit; and the port against the JAX
+of the card: a numpy transliteration of ``csrc/fronts.cuh``'s PFB
+fronts (``pfb_front`` and ``pfb_front_chunked`` at f32: the fold once a
+block into the A tile, the register tiles, the double-buffered steps in
+the kernels' shared-memory layout; ``pfb_front_mma_chunked``: lane
+chunks, u-ranges of fold taps, the split after the whole fold) against
+the plain version, the cheap check of the kernels' index logic that the
+card tests then hold bit for bit; and the port against the JAX
 package on the CPU at those grids (the land-mobile NFM and VHF airband
 receivers, and the plain version against JAX's PFB kernel interpreted)."""
 
@@ -21,6 +23,7 @@ from gsdr_tpu.pipelines import FmChannelizer as JFm
 from gsdr_tpu_torch.carray import ComplexArray as TCA
 from gsdr_tpu_torch.kernels.chain import (
     graded_uniform_front,
+    pfb_f32_tables,
     pfb_mma_tables,
     split_bf16,
 )
@@ -97,52 +100,278 @@ def _fmaf(a, b, c):
     return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
 
 
-def _pfb_front_f32(x, hp, bank, d, c0, g0, lanes, uc):
-    """``pfb_front_chunked`` (``pfb_front`` at the plan (K, Q)): per chunk
-    its bank rows and, per u-range, its taps and its window of phases
-    pa..pb, frames f0 + k, f0 = u0*P + s_lo; each lane's fold by fmaf in
-    ascending u from 0, kept between u-ranges; its products join the sums
-    in ascending kappa. Returns (TILE, CG) re and im, float32."""
-    q, k = hp.shape
-    p, c = k // d, bank.shape[0] // 2
-    uc = min(uc, q)
+# pfb_front's and pfb_front_chunked's own constants (fronts.cuh; read
+# from the source by test_f32_front_constants_match_the_source)
+PFB_THREADS = 512   # threads a PFB block (kPfbThreads)
+FOLD_LANES = 16     # lanes pfb_front's A tile folds (kPfbFoldLanes)
+TILE_ROWS = 4       # rows of a thread's register tile (kPfbRows)
+WIDE_ROWS = 8       # rows of a consumer's tile, chunked (kPfbWideRows)
+CONSUMERS = 256     # threads that multiply, chunked (kPfbConsumers)
+TILE_COLS = 4       # channels of a thread's register tile (kPfbCols)
+PFB_CH = 4 * NTB    # channels a PFB block (kPfbCh)
+OUT_STRIDE = 8 * NTB + 1   # the output tile's row stride
+
+
+class _Smem:
+    """A block's dynamic shared memory as flat float32 regions at the
+    kernel's offsets; a write or read outside its region raises."""
+
+    def __init__(self, layout):
+        self.regions = {}
+        off = 0
+        for name, n in layout:
+            self.regions[name] = (off, n)
+            off += n
+        self.words = np.full(off, np.nan, np.float32)
+
+    def view(self, name):
+        off, n = self.regions[name]
+        return self.words[off:off + n]
+
+    def at(self, name, idx):
+        idx = np.asarray(idx)
+        assert idx.size == 0 or (idx.min() >= 0 and idx.max() <
+                                 self.regions[name][1]), name
+        return idx + self.regions[name][0]
+
+
+def _stage_window(mem, name, base, x, g0, d, f0, p_first, npc, nfr):
+    """pfb_stage_window: xw[(plane*npc + pl)*nfr + k] of a region from
+    word ``base``, zeros outside x."""
+    staged = [_stage(xs, g0, d, f0, nfr, p_first, npc)
+              for xs in (x.real.astype(np.float32),
+                         x.imag.astype(np.float32))]
+    k, pl = np.meshgrid(np.arange(nfr), np.arange(npc), indexing="ij")
+    for plane, w in enumerate(staged):
+        idx = base + (plane * npc + pl) * nfr + k
+        mem.words[mem.at(name, idx)] = w
+
+
+def _stage_lanes(mem, gb_at, hs_at, el, ftab, hp, k, d, group, p0, ka, kz,
+                 u0, u1):
+    """pfb_stage_lanes: the bank rows of lanes [ka, kz) of the group at p0
+    from channel group ``group`` of the f32 table (pfb_f32_tables) to
+    gb[(kappa - ka)*PFB_CH + cl] = (G[c, v], G[c, K+v]), a lane's 64
+    floats by 16-byte copies (gb_at: (region, base word), or None), and
+    their taps u0..u1-1 to hs[(u - u0)*L + kappa - ka] (hs_at, or None)."""
+    p = k // d
+    kap = np.arange(ka, kz)
+    v = p0 + kap // p + (kap % p) * d
+    if gb_at is not None:
+        name, base = gb_at
+        q = np.arange(PFB_CH * 2 // 4)           # 16-byte copies of a row
+        dst = (base + (kap - ka)[:, None, None] * PFB_CH * 2
+               + 4 * q[None, :, None] + np.arange(4)[None, None, :])
+        src = ftab[group].reshape(k, -1)[v][:, :, None]
+        mem.words[mem.at(name, dst)] = src.reshape(len(v), -1, 4)
+    if hs_at is not None:
+        name, base = hs_at
+        for u in range(u0, u1):
+            idx = base + (u - u0) * el + kap - ka
+            mem.words[mem.at(name, idx)] = hp[u, v]
+
+
+def _fold(mem, a_at, win_at, plane, nfr, taps_at, tstride, by_v, p, d, p0,
+          ka, nl, kbase, span, u0, u1):
+    """pfb_fold: warp w folds lanes j = w, w + 16, ... of [ka, ka + nl),
+    thread (lane) rows lane + 32*i, fmaf in ascending u from zero (u0 = 0)
+    or from the A tile's partials, into a[j][plane][row]."""
+    pa, _, s_lo, _ = span
     rows = np.arange(TILE)
-    acc_re = np.zeros((TILE, CG), np.float32)
-    acc_im = np.zeros((TILE, CG), np.float32)
-    cg = np.arange(c0, c0 + CG)
-    live = cg < c
-    cgc = np.minimum(cg, c - 1)
-    xre = x.real.astype(np.float32)
-    xim = x.imag.astype(np.float32)
-    for p0, glanes, ka, kz, _ in _chunks(k, d, lanes):
+    for j in range(nl):
+        kap = ka + j
+        pl, s = kap // p, kap % p
+        xr = win_at[1] + (pl - pa) * nfr + (s - s_lo) + rows
+        xi = xr + plane
+        h = taps_at[1] + (p0 + pl + s * d if by_v else kap - kbase)
+        at = a_at[1] + j * 2 * TILE + rows
+        a_idx = mem.at(a_at[0], np.stack([at, at + TILE]))
+        if u0 == 0:
+            fr = fi = np.zeros(TILE, np.float32)
+        else:
+            fr, fi = mem.words[a_idx]
+        for u in range(u1 - u0):
+            hu = mem.words[mem.at(taps_at[0], h + u * tstride)]
+            fr = _fmaf(hu, mem.words[mem.at(win_at[0], xr + u * p)], fr)
+            fi = _fmaf(hu, mem.words[mem.at(win_at[0], xi + u * p)], fi)
+        mem.words[a_idx] = np.stack([fr, fi])
+
+
+def _tiles(rows=TILE_ROWS):
+    """pfb_tile_init<rows>: each thread's rows r0 + i and channels cb +
+    (c & 1) + 2*rows*(c >> 1), as (threads, rows) and (threads, 4) arrays,
+    and cb; every thread at 4 rows, the consumers at 8."""
+    t = np.arange(PFB_THREADS if rows == TILE_ROWS else CONSUMERS)
+    lane, warp = t & 31, t >> 5
+    groups = 32 // rows
+    r0 = 32 * (warp % 8) + rows * (lane % groups)
+    cb = 16 * (warp // 8) + 2 * (lane // groups)
+    c = np.arange(TILE_COLS)
+    return (r0[:, None] + np.arange(rows)[None, :],
+            cb[:, None] + (c & 1)[None, :] + 2 * rows * (c >> 1)[None, :], cb)
+
+
+def _product(mem, acc, a_at, gb_at, nl):
+    """pfb_product: each thread's tile += lanes j < nl, lane after lane:
+    its rows' (A_re, A_im) and two float4 of bank, (G[c, v], G[c, K+v])
+    of its two channel pairs; the im row as (-G[c, K+v], G[c, v])."""
+    rows, _, cb = _tiles(acc[0].shape[1])
+    re, im = acc
+    for j in range(nl):
+        ar = mem.words[mem.at(a_at[0], a_at[1] + j * 2 * TILE + rows)]
+        ai = mem.words[mem.at(a_at[0], a_at[1] + j * 2 * TILE + TILE + rows)]
+        pair = [mem.words[mem.at(gb_at[0], gb_at[1] + j * PFB_CH * 2 + 2 * cb
+                                 [:, None] + off + np.arange(4)[None, :])]
+                for off in (0, 4 * rows.shape[1])]
+        gr = np.stack([pair[0][:, 0], pair[0][:, 2], pair[1][:, 0],
+                       pair[1][:, 2]], 1)
+        gi = np.stack([pair[0][:, 1], pair[0][:, 3], pair[1][:, 1],
+                       pair[1][:, 3]], 1)
+        re = _fmaf(gr[:, None, :], ar[:, :, None],
+                   _fmaf(gi[:, None, :], ai[:, :, None], re))
+        im = _fmaf(-gi[:, None, :], ar[:, :, None],
+                   _fmaf(gr[:, None, :], ai[:, :, None], im))
+    return re, im
+
+
+def _tile_out(acc):
+    """pfb_tile_out: the register tiles to the output tile (TILE,
+    OUT_STRIDE), every (row, channel) written once; returns (TILE,
+    PFB_CH) re and im."""
+    rows, cols, _ = _tiles(acc[0].shape[1])
+    out = np.full((TILE, OUT_STRIDE), np.nan, np.float32)
+    hits = np.zeros((TILE, PFB_CH), int)
+    np.add.at(hits, (rows[:, :, None], cols[:, None, :]), 1)
+    assert (hits == 1).all()
+    out[rows[:, :, None], 2 * cols[:, None, :]] = acc[0]
+    out[rows[:, :, None], 2 * cols[:, None, :] + 1] = acc[1]
+    return out[:, 0:2 * PFB_CH:2], out[:, 1:2 * PFB_CH:2]
+
+
+def _chunk_lanes(k, d, lanes):
+    dc, p = min(d, PHASES), k // d
+    nkb = min(-(-lanes // 8), -(-dc * p // 8))
+    return min(8 * nkb, dc * p), nkb
+
+
+def _chunk_frames(k, d, nkb, uc):
+    """pfb_chunk_frames."""
+    p = k // d
+    span = 8 * nkb - 1 if d == 1 and 8 * nkb < p else p - 1
+    return (uc - 1) * p + span + TILE
+
+
+def _pfb_front_f32(x, hp, bank, d, group, g0, lanes, uc):
+    """``pfb_front`` (the plan (K, Q)) or ``pfb_front_chunked`` for the
+    block of output rows g0 + r*D and channels group*32 on, from the
+    bank's f32 table (``pfb_f32_tables``), in the kernel's shared-memory
+    layout (``_Smem``: its regions, sized as
+    pfb_smem_bytes and pfb_chunk_bytes size them) and step order: each
+    step's staging into the other buffer before the current one is folded
+    (the double buffering), the fold into the A tile once for all 32
+    channels, the register tiles' products lane after lane. Returns (TILE,
+    32) re and im, float32."""
+    q, k = hp.shape
+    p = k // d
+    dc = min(d, PHASES)
+    ftab = pfb_f32_tables(torch.from_numpy(bank)).numpy()
+    acc = (np.zeros((PFB_THREADS, TILE_ROWS, TILE_COLS), np.float32),
+           np.zeros((PFB_THREADS, TILE_ROWS, TILE_COLS), np.float32))
+    if lanes >= k and uc >= q:        # pfb_front
+        kr = TILE + q * p - 1
+        wsize = 2 * dc * kr
+        mem = _Smem([("gb", k * PFB_CH * 2),
+                     ("a", 2 * FOLD_LANES * 2 * TILE),
+                     ("hps", -(-q * k // 4) * 4),
+                     ("win", (2 if d > PHASES else 1) * wsize)])
+        for p0 in range(0, d, dc):
+            _stage_lanes(mem, ("gb", p0 * p * PFB_CH * 2), None, 0, ftab, hp,
+                         k, d, group, p0, 0, min(dc, d - p0) * p, 0, 0)
+        assert mem.words.size * 4 <= _smem_bytes(k, q, d, lanes, uc)
+        mem.words[mem.at("hps", np.arange(q * k))] = hp.ravel()
+        _stage_window(mem, "win", 0, x, g0, d, 0, 0, dc, kr)
+        step = 0
+        for p0 in range(0, d, dc):
+            np_, gl = min(dc, d - p0), min(dc, d - p0) * p
+            if p0 + dc < d:
+                _stage_window(mem, "win", ((p0 // dc + 1) & 1) * wsize, x, g0,
+                              d, 0, p0 + dc, min(dc, d - p0 - dc), kr)
+            xw = ("win", ((p0 // dc) & 1) * wsize)
+            for ka in range(0, gl, FOLD_LANES):
+                nl = min(FOLD_LANES, gl - ka)
+                at = ("a", (step & 1) * FOLD_LANES * 2 * TILE)
+                _fold(mem, at, xw, np_ * kr, kr, ("hps", 0), k, True, p, d,
+                      p0, ka, nl, 0, (0, 0, 0, 0), 0, q)
+                acc = _product(mem, acc, at,
+                               ("gb", (p0 * p + ka) * PFB_CH * 2), nl)
+                step += 1
+        return _tile_out(acc)
+    el, nkb = _chunk_lanes(k, d, lanes)      # pfb_front_chunked
+    uc = min(uc, q)
+    tsize = -(-uc * el // 4) * 4
+    npc_max = min((el + p - 2) // p + 1, dc)
+    ssize = tsize + 2 * npc_max * _chunk_frames(k, d, nkb, uc)
+    mem = _Smem([("gb", 2 * el * PFB_CH * 2), ("a", 2 * el * 2 * TILE),
+                 ("stage", 2 * ssize)])
+    acc = tuple(np.zeros((CONSUMERS, WIDE_ROWS, TILE_COLS), np.float32)
+                for _ in range(2))
+    assert mem.words.size * 4 <= _smem_bytes(k, q, d, lanes, uc)
+    steps = []
+    for p0 in range(0, d, dc):
+        gl = min(dc, d - p0) * p
+        for ka in range(0, gl, el):
+            for u0 in range(0, q, uc):
+                steps.append((p0, ka, min(ka + el, gl), u0, min(q, u0 + uc)))
+
+    def issue(st, sb):
+        p0, ka, kz, u0, u1 = st
         pa, pb, s_lo, s_hi = _lane_span(p, ka, kz)
-        npc = pb - pa + 1
-        v_of = {kap: p0 + kap // p + (kap % p) * d for kap in range(ka, kz)}
-        gb = {kap: [np.where(live, bank[row, col], 0).astype(np.float32)
-                    for row, col in ((cgc, v), (cgc, k + v), (c + cgc, v),
-                                     (c + cgc, k + v))]
-              for kap, v in v_of.items()}
-        kaps = np.arange(ka, kz)
-        s, pl = kaps % p, kaps // p - pa
-        vs = p0 + kaps // p + s * d
-        ar = ai = np.zeros((TILE, kz - ka), np.float32)
-        for u0 in range(0, q, uc):
-            u1 = min(q, u0 + uc)
-            f0 = u0 * p + s_lo
-            nfr = (u1 - 1 - u0) * p + s_hi - s_lo + TILE
-            wr = _stage(xre, g0, d, f0, nfr, p0 + pa, npc)
-            wi = _stage(xim, g0, d, f0, nfr, p0 + pa, npc)
-            for u in range(u0, u1):
-                fr = rows[:, None] + s - s_lo + (u - u0) * p
-                ar = _fmaf(hp[u, vs][None], wr[fr, pl], ar)
-                ai = _fmaf(hp[u, vs][None], wi[fr, pl], ai)
-        for j, kap in enumerate(range(ka, kz)):   # the sums in kappa order
-            w = gb[kap]
-            acc_re = _fmaf(w[0][None], ar[:, j, None],
-                           _fmaf(w[1][None], ai[:, j, None], acc_re))
-            acc_im = _fmaf(w[2][None], ar[:, j, None],
-                           _fmaf(w[3][None], ai[:, j, None], acc_im))
-    return acc_re, acc_im
+        _stage_lanes(mem, None, ("stage", sb * ssize), el, ftab, hp, k, d,
+                     group, p0, ka, kz, u0, u1)
+        _stage_window(mem, "stage", sb * ssize + tsize, x, g0, d,
+                      u0 * p + s_lo, p0 + pa, pb - pa + 1,
+                      (u1 - 1 - u0) * p + s_hi - s_lo + TILE)
+
+    # the producers' steps; the consumers multiply chunk c from buffer c & 1
+    # once its last u-range is folded (in the kernel, while the producers
+    # fold chunk c + 1: the values do not depend on the overlap)
+    issue(steps[0], 0)
+    ci = 0
+    for si, cur in enumerate(steps):
+        p0, ka, kz, u0, u1 = cur
+        if u0 == 0:
+            _stage_lanes(mem, ("gb", (ci & 1) * el * PFB_CH * 2), None, 0,
+                         ftab, hp, k, d, group, p0, ka, kz, 0, 0)
+        if si + 1 < len(steps):
+            issue(steps[si + 1], (si + 1) & 1)
+        span = _lane_span(p, ka, kz)
+        nfr = (u1 - 1 - u0) * p + span[3] - span[2] + TILE
+        sb = (si & 1) * ssize
+        a_at = ("a", (ci & 1) * el * 2 * TILE)
+        _fold(mem, a_at, ("stage", sb + tsize),
+              (span[1] - span[0] + 1) * nfr, nfr, ("stage", sb), el, False,
+              p, d, p0, ka, kz - ka, ka, span, u0, u1)
+        if u1 == q:
+            acc = _product(mem, acc, a_at,
+                           ("gb", (ci & 1) * el * PFB_CH * 2), kz - ka)
+            ci += 1
+    return _tile_out(acc)
+
+
+def _smem_bytes(k, q, d, lanes, uc):
+    """The bytes pfb_smem_bytes (one chunk) or pfb_chunk_bytes gives."""
+    out = TILE * OUT_STRIDE * 4
+    dc, p = min(d, PHASES), k // d
+    if lanes >= k and uc >= q:
+        kr = TILE + q * p - 1
+        return max(out, k * PFB_CH * 8 + 2 * FOLD_LANES * 2 * TILE * 4
+                   + -(-q * k * 4 // 16) * 16
+                   + (2 if d > PHASES else 1) * 2 * dc * kr * 4)
+    el, nkb = _chunk_lanes(k, d, lanes)
+    uc = min(uc, q)
+    st = (-(-uc * el // 4) * 4 + 2 * min((el + p - 2) // p + 1, dc)
+          * _chunk_frames(k, d, nkb, uc))
+    return max(out, 2 * el * PFB_CH * 8 + 2 * el * 2 * TILE * 4 + 2 * st * 4)
 
 
 def _bf16_pair(words):
@@ -291,19 +520,23 @@ def _case(k, d, t, c=5, m=100):
     return hp, bank, x, len(bins), m
 
 
-@pytest.mark.parametrize("k,d,t", PFB_CASES)
-def test_chunked_f32_front_transliteration(k, d, t):
-    """pfb_front_chunked at three forced plans and its one-chunk plan
-    (K, Q): every plan bit-equal to the one-chunk plan (the same fmaf
-    sequence), and within FRONT_TOL of max|y| of graded_uniform_front at
-    f32."""
-    hp, bank, x, c, m = _case(k, d, t)
-    q = hp.shape[0]
+def _plain_front(x, hp, bank, t, d):
+    """graded_uniform_front at f32, (M, C) complex128."""
     want = graded_uniform_front(
         TCA(torch.from_numpy(x.real.copy()), torch.from_numpy(x.imag.copy())),
         torch.from_numpy(hp), torch.from_numpy(bank), t, d)
-    want = (want.re.double().numpy() + 1j * want.im.double().numpy())
-    want = want[:, TILE:TILE + m].T
+    return (want.re.double().numpy() + 1j * want.im.double().numpy()).T
+
+
+@pytest.mark.parametrize("k,d,t", PFB_CASES)
+def test_chunked_f32_front_transliteration(k, d, t):
+    """pfb_front_chunked at three forced plans and pfb_front at the plan
+    (K, Q), each in its shared-memory layout: every plan bit-equal to the
+    one-chunk plan (the same fmaf sequence), and within FRONT_TOL of
+    max|y| of graded_uniform_front at f32."""
+    hp, bank, x, c, m = _case(k, d, t)
+    q = hp.shape[0]
+    want = _plain_front(x, hp, bank, t, d)[TILE:TILE + m]
     one = _pfb_front_f32(x, hp, bank, d, 0, TILE * d, k, q)
     got = one[0][:m, :c] + 1j * one[1][:m, :c].astype(np.float64)
     assert _rel(got, want) <= FRONT_TOL
@@ -311,6 +544,104 @@ def test_chunked_f32_front_transliteration(k, d, t):
         re, im = _pfb_front_f32(x, hp, bank, d, 0, TILE * d, lanes, uc)
         assert np.array_equal(re, one[0]) and np.array_equal(im, one[1]), \
             (lanes, uc)
+
+
+# (K, D, T, C): a second group of 32 channels with 1 and with 15 of them,
+# at one chunk and in chunks of phases split across chunks (P = 4); the
+# first block (window from sample -D, as the FM kernel's) and a ragged
+# last one
+WIDE_CASES = [(64, 16, 512, 33), (64, 4, 256, 47), (200, 50, 800, 47)]
+
+
+@pytest.mark.parametrize("k,d,t,c", WIDE_CASES)
+def test_f32_front_second_channel_group(k, d, t, c):
+    """Both channel groups of a block of C = 33 or 47 channels (the second
+    partly past C, whose bank reads as zeros) through pfb_front and
+    pfb_front_chunked, in the first block (g0 = -D) and a last one ending
+    m < 256 outputs in: each plan bit-equal to the one-chunk plan, the
+    channels past C zero, every real channel within FRONT_TOL of max|y| of
+    graded_uniform_front."""
+    hp = _poly_taps(_lowpass(t, 0.4 / k), k)
+    q = hp.shape[0]
+    bank = _dft_bank_stacked([(7 * i + 3) % k for i in range(c)], k)
+    m = 77
+    n = t + d * (TILE + m - 1)
+    x = _signal(n, seed=k + c)
+    want = _plain_front(x, hp, bank, t, d)
+    for g0, rows in ((-d, slice(0, TILE - 1)), (TILE * d, slice(0, m))):
+        first = g0 < 0
+        for group in (0, 1):
+            one = _pfb_front_f32(x, hp, bank, d, group, g0, k, q)
+            y = one[0] + 1j * one[1].astype(np.float64)
+            live = min(PFB_CH, c - group * PFB_CH)
+            assert not y[:, live:].any()
+            ref = want[(0 if first else TILE):, group * PFB_CH:][
+                :TILE - 1 if first else m, :live]
+            got = y[1:, :live] if first else y[rows, :live]
+            assert _rel(got, ref) <= FRONT_TOL, (g0, group)
+            for lanes, uc in PLANS:
+                re, im = _pfb_front_f32(x, hp, bank, d, group, g0, lanes, uc)
+                assert np.array_equal(re, one[0]) and \
+                    np.array_equal(im, one[1]), (g0, group, lanes, uc)
+
+
+def _stepped(npc, nfr, nt):
+    """The items (k, pl) pfb_stage_window's nt threads visit, each from its
+    index, stepped by nt with the kernel's carry; returns the visits as
+    flat item indices k*npc + pl."""
+    t = np.arange(nt)
+    pl, k = t % npc, t // npc
+    dpl, dk = nt % npc, nt // npc
+    seen = []
+    while (k < nfr).any():
+        live = k < nfr
+        seen.append((k * npc + pl)[live])
+        pl, k = pl + dpl, k + dk
+        c = pl >= npc
+        pl, k = np.where(c, pl - npc, pl), k + c
+    return np.concatenate(seen) if seen else np.zeros(0, int)
+
+
+@pytest.mark.parametrize("nt", [PFB_THREADS, PFB_THREADS - CONSUMERS])
+@pytest.mark.parametrize("npc,nfr", [(1, 300), (16, 263), (12, 271),
+                                     (13, 267), (3, 129), (9, 271),
+                                     (5, 3)])
+def test_f32_staging_steps_visit_every_item_once(npc, nfr, nt):
+    """pfb_stage_window steps its items (a sample of each phase and frame)
+    by its thread count, all threads (pfb_front) or the producers
+    (pfb_front_chunked), with a carry in place of a division: every item is
+    visited once."""
+    got = np.sort(_stepped(npc, nfr, nt))
+    assert np.array_equal(got, np.arange(npc * nfr))
+
+
+def test_f32_front_constants_match_the_source():
+    """The constants this file mirrors equal fronts.cuh's, and the
+    shared-memory sizes the transliteration lays out are the ones the
+    kernels ask for (pfb_smem_bytes, pfb_chunk_bytes) at the cases'
+    plans: the 4 x 4 register tiles of 512 threads cover the block's 256
+    rows x 32 channels."""
+    import re
+    from gsdr_tpu_torch.kernels import _build
+
+    src = (_build.CSRC / "fronts.cuh").read_text()
+    consts = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
+    assert {name: int(consts[name]) for name in (
+        "kTile", "kCG", "kPhaseChunk", "kPfbNT", "kPfbThreads",
+        "kPfbFoldLanes", "kPfbRows", "kPfbCols", "kPfbWideRows",
+        "kPfbConsumers")} == {
+        "kTile": TILE, "kCG": CG, "kPhaseChunk": PHASES, "kPfbNT": NTB,
+        "kPfbThreads": PFB_THREADS, "kPfbFoldLanes": FOLD_LANES,
+        "kPfbRows": TILE_ROWS, "kPfbCols": TILE_COLS,
+        "kPfbWideRows": WIDE_ROWS, "kPfbConsumers": CONSUMERS}
+    assert re.search(r"^constexpr int kPfbCh = 4 \* kPfbNT;", src, re.M)
+    assert PFB_THREADS * TILE_ROWS * TILE_COLS == TILE * PFB_CH
+    assert CONSUMERS * WIDE_ROWS * TILE_COLS == TILE * PFB_CH
+    # the witnesses of tests/test_torch_cuda.py: the FM tile kernel's 4,608
+    # static bytes push K=288, D=24, Q=6 out of one chunk, not AM's
+    assert 232_448 - 4_608 < _smem_bytes(288, 6, 24, 288, 6) <= 232_448
+    assert _smem_bytes(640, 2, 64, 640, 2) > 232_448
+    assert _smem_bytes(64, 8, 64, 64, 8) <= 232_448 - 4_608
 
 
 @pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])

@@ -31,7 +31,11 @@ from gsdr_tpu_torch.kernels.am_chain import (
     am_chain_reference,
     pfb_am_chain_reference,
 )
-from gsdr_tpu_torch.kernels.chain import graded_uniform_front, pfb_mma_tables
+from gsdr_tpu_torch.kernels.chain import (
+    graded_uniform_front,
+    pfb_f32_tables,
+    pfb_mma_tables,
+)
 from gsdr_tpu_torch.kernels.fm_chain import pfb_fm_chain_reference
 from gsdr_tpu_torch.ops.pfb import (
     _dft_bank_stacked,
@@ -117,6 +121,46 @@ def test_pfb_mma_tables_cached_and_checked():
     broken[3, 1] += 0.25
     with pytest.raises(ValueError, match="DFT bank"):
         pfb_mma_tables(broken)
+
+
+@pytest.mark.parametrize("k,bins", [(8, [0, 3, 5]), (64, list(range(33))),
+                                    (100, [1, 7, 50, 99])])
+def test_pfb_f32_tables_layout_and_exact_structure(k, bins):
+    """The f32 PFB front's bank table, as fronts.cuh reads it: entry
+    [g][v][cl] holds (G[c, v], G[c, K+v]) of channel c = 32*g + cl, zero
+    past C; JAX's DFT bank has im rows equal to the re rows' halves
+    swapped, the first negated, bit for bit (zero signs included), so the
+    kernel's (-G[c, K+v], G[c, v]) are the bank's values. Cached per
+    tensor beside the bf16 table; a bank off that structure, even by the
+    sign of a zero, raises."""
+    c = len(bins)
+    bank = _dft_bank_stacked(bins, k)
+    np.testing.assert_array_equal(bank, j_dft_bank_stacked(bins, k, c))
+    bits = bank.view(np.int32)
+    np.testing.assert_array_equal(bits[c:, :k], (-bank[:c, k:]).view(np.int32))
+    np.testing.assert_array_equal(bits[c:, k:], bits[:c, :k])
+    t = torch.from_numpy(bank)
+    table = pfb_f32_tables(t)
+    ng = -(-c // 32)
+    assert table.dtype == torch.float32
+    assert tuple(table.shape) == (ng, k, 32, 2)
+    flat = table.numpy().transpose(0, 2, 1, 3).reshape(ng * 32, k, 2)
+    np.testing.assert_array_equal(flat[:c, :, 0], bank[:c, :k])
+    np.testing.assert_array_equal(flat[:c, :, 1], bank[:c, k:])
+    assert not flat[c:].any()
+    assert pfb_f32_tables(t) is table
+    assert pfb_mma_tables(t) is not table and pfb_f32_tables(t) is table
+    zero = np.flatnonzero(bank[c:, :k] == 0)
+    if zero.size:   # +0 where the structure gives -0: off by a zero's sign
+        signed = bank.copy()
+        r, col = divmod(int(zero[0]), k)
+        signed[c + r, col] = -signed[c + r, col]
+        with pytest.raises(ValueError, match="DFT bank"):
+            pfb_f32_tables(torch.from_numpy(signed))
+    broken = bank.copy()
+    broken[c, 1] += 0.25
+    with pytest.raises(ValueError, match="DFT bank"):
+        pfb_f32_tables(torch.from_numpy(broken))
 
 
 def _emulate(x_re, x_im, hp, bank, t, d, grade):

@@ -39,14 +39,16 @@
          (utils/compile.py) has, so it times an older tree too (copy this
          file into that tree's tools/);
          equal digests across trees say the outputs are bit-equal.
-  pfb:   the PFB front's one-chunk kernels at the main paths' shapes,
-         each grade: B2 at FM wideband critical and at its D=8 variant,
-         B3-PFB at AM wideband critical: device time per call by
-         torch.profiler (rounds of the three, interleaved), a digest of
-         each output, and the registers ptxas reports for each PFB tile
-         kernel. Like dense, it runs in an older tree too (copy this file
-         into that tree's tools/), so equal digests say the one-chunk
-         outputs are bit-equal across trees.
+  pfb:   the PFB front's kernels at each grade: B2 at FM wideband
+         critical and at its D=8 variant, B3-PFB at AM wideband critical
+         (one chunk), B2 at pfb_nfm_lmr_320 and B3-PFB at pfb_airband_480
+         (chunked), and both at the K=640 and K=712 witnesses: device time
+         per call by torch.profiler (rounds of all, interleaved), a digest
+         of each output, and the registers and spill bytes ptxas reports
+         for every tile kernel of B1-B4 (run it before anything else
+         builds in that tree). Like dense, it runs in a tree since PR 13
+         too (copy this file into that tree's tools/), so equal digests say
+         the outputs are bit-equal across trees.
   fm_rx: the fm_rx command line at chip_smoke.py's five-station capture
          (2^24 int8 samples at 2.048 MHz, blocks of 2^20, the CLI's
          defaults): the wall clock of a warm run file to file without the
@@ -66,6 +68,7 @@ kernels are built from this checkout):
 
 import inspect
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -216,35 +219,70 @@ def dense(rounds=3):
 
 
 def tile_registers(reports):
-    """{kernel entry: registers} of the PFB tile kernels (kPfb true) in
-    the ptxas reports of build_all."""
-    regs, entry = {}, None
+    """{tile kernel<template arguments>: {registers, spill_stores,
+    spill_loads}} of every tile kernel (fm_chain_tile, am_chain_tile,
+    channelize_tile; the first argument 1 for the PFB front, then the
+    grade and whether chunked) in the ptxas reports of build_all (bytes of
+    spill stores and loads)."""
+    out, entry = {}, None
     for line in "\n".join(reports.values()).splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "registers" in line and entry and "_tileILb1E" in entry:
-            regs[entry] = int(line.split("Used ")[1].split()[0])
+            m = re.search(r"\d([a-z_]+_tile)I((?:L[bi]\d+E)+)E", line)
             entry = None
-    return regs
+            if m:
+                args = ",".join(re.findall(r"L[bi](\d+)E", m.group(2)))
+                entry = f"{m.group(1)}<{args}>"
+                out[entry] = {}
+        elif entry and "spill stores" in line:
+            out[entry]["spill_stores"] = int(
+                line.split("bytes spill stores")[0].split(",")[-1])
+            out[entry]["spill_loads"] = int(
+                line.split("bytes spill loads")[0].split(",")[-1])
+        elif entry and "registers" in line:
+            out[entry]["registers"] = int(line.split("Used ")[1].split()[0])
+            entry = None
+    return out
 
 
-def pfb(rounds=3):
+def pfb_calls():
+    """(what, grade, call) of each PFB launch the pfb probe times: B2 at FM
+    wideband critical and at D=8 and B3-PFB at AM wideband critical (one
+    chunk), pfb_nfm_lmr_320 (B2) and pfb_airband_480 (B3-PFB) on
+    chip_smoke.py's first block, and the K=640, D=64, T=1280 and K=712,
+    D=89, T=2848 witnesses (40 channels, B2 and B3-PFB), each grade."""
     calls = []
     for g in cs.GRADES:
         for d in (cs.GRID, 8):
             m = cs.fm_wideband("pfb", d, precision=g)
             buf = cs.buffer(m, cs.wideband_fm_signal(m, 0, cs.N, seed=11))
-            n0, _, cf, cz = m.init()
-            args = (buf, m.poly_taps, m.dft_bank, m.num_taps, m.lo_table, n0,
-                    m.decimation, m.gain, m.deemph, cf, cz)
-            calls.append((f"B2 FM wideband D={d}", g, lambda a=args, g=g:
-                          cs.pfb_fm_chain(*a, precision=g)))
+            calls.append((f"B2 FM wideband D={d}", g, m, buf))
         m = cs.am_wideband("pfb", precision=g)
-        buf = cs.buffer(m, cs.am_signal(m, 0, cs.N, seed=11))
-        args = (buf, m.poly_taps, m.dft_bank, m.num_taps, m.lo_table,
-                m.init()[0], m.decimation)
-        calls.append(("B3-PFB AM wideband", g, lambda a=args, g=g:
-                      cs.pfb_am_chain(*a, precision=g)))
+        calls.append(("B3-PFB AM wideband", g, m,
+                      cs.buffer(m, cs.am_signal(m, 0, cs.N, seed=11))))
+        m = cs.pfb_nfm_lmr("pfb", precision=g)
+        calls.append(("B2 pfb_nfm_lmr_320", g, m,
+                      cs.buffer(m, cs.lmr_signal(m, 0, cs.PFB_N, seed=11))))
+        m = cs.pfb_airband("pfb", precision=g)
+        calls.append(("B3-PFB pfb_airband_480", g, m,
+                      cs.buffer(m, cs.air_signal(m, 0, cs.PFB_N, seed=11))))
+        for k, d, t in ((640, 64, 1280), (712, 89, 2848)):
+            for cls, name in ((cs.FmChannelizer, "B2"),
+                              (cs.AmReceiver, "B3-PFB")):
+                m = cs.witness_model(cls, k, d, t, 40, g)
+                calls.append((f"{name} witness K={k}", g, m, cs.buffer(
+                    m, cs.witness_signal(m, 0, k * 1536))))
+    out = []
+    for what, g, m, buf in calls:
+        kernel = (cs.pfb_fm_chain if isinstance(m, cs.FmChannelizer)
+                  else cs.pfb_am_chain)
+        args = cs.pfb_args(m, buf)
+        out.append((what, g, lambda a=args, g=g, f=kernel:
+                    f(*a, precision=g)))
+    return out
+
+
+def pfb(rounds=3):
+    calls = pfb_calls()
     for what, g, fn in calls:
         print(json.dumps({"probe": "pfb_digest", "kernel": what,
                           "grade": g, "digest": digest(fn())}), flush=True)
@@ -445,7 +483,7 @@ def main():
         _build.build_all(["fm_chain", "am_chain", "channelize"])
         dense()
     elif sys.argv[1] == "pfb":
-        reports = _build.build_all(["fm_chain", "am_chain"])
+        reports = _build.build_all(["fm_chain", "am_chain", "channelize"])
         print(json.dumps({"probe": "pfb_registers",
                           "registers": tile_registers(reports)}), flush=True)
         pfb()
