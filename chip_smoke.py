@@ -979,6 +979,7 @@ def fm_wideband_phase():
     dense_ms = {g: cuda_ms(lambda: fm_chain(*d_args, precision=g), reps=10)
                 for g in GRADES}
     fm_chain.launches = before
+    dense_library_ms = cuda_ms(dense_front_library(dense, buf), reps=10)
     tf32_ms = cuda_ms(pfb_front_library(model, buf, tf32=True), reps=20)
     entries, by_grade = [], {}
     for grade in GRADES:
@@ -1007,6 +1008,8 @@ def fm_wideband_phase():
         "dense_kernel_ms_by_grade": dense_ms,
         "dense_bound_by_grade": {
             g: bound(*fm_bound(dense, buf.re.shape[-1], g)) for g in GRADES},
+        "dense_library_ms": dense_library_ms,
+        "dense_library": DENSE_LIBRARY,
         "library_ms": entries[0]["library_ms"], "library": PFB_LIBRARY,
         "library_tf32_ms": tf32_ms, "library_tf32": PFB_TF32_LIBRARY,
         "card": CARD}))
@@ -1042,6 +1045,8 @@ def fm_d8_phase():
         k.launches = before[name]
     print(json.dumps({
         "phase": "fm_wideband_64ch_d8", "pfb_by_grade": by_grade,
+        "library_ms": cuda_ms(pfb_front_library(kern, buf), reps=10),
+        "library": PFB_LIBRARY,
         "dense_f32_kernel_ms": dense_ms,
         "dense_f32_bound": bound(*fm_bound(dense, buf.re.shape[-1])),
         "card": CARD}))
@@ -1086,7 +1091,8 @@ def am_phase():
         "phase": "am_wideband_dense_f32", "kernel_ms": dense_ms,
         "kernel_device_us": dense_dev,
         "bound": bound(*am_bound(dense, buf.re.shape[-1])),
-        "card": CARD}))
+        "library_ms": cuda_ms(dense_front_library(dense, buf), reps=10),
+        "library": DENSE_LIBRARY, "card": CARD}))
 
     entries = []
     for model, kernel, plain, library, what, name, errs in (
@@ -1848,6 +1854,12 @@ def chunked(library, t, d, grade, c=None):
     return dense_chunk(library, "cuda", t, d, grade, num_channels=c)
 
 
+def fma_floor_us(c, t, m):
+    """The direct bank's FP32 FMA floor of m outputs of C channels and T
+    taps: 8*C*T FLOP an output at the 67-TFLOP/s FP32 peak, in us."""
+    return 8.0 * c * t * m / PEAK_FP32_FLOPS * 1e6
+
+
 def forced_chunks_equal(what, kernel, args, **kw):
     """kernel(*args, chunk=tc) for each forced chunk against the planner's
     launch, bit for bit (every output leaf); counters restored."""
@@ -1897,12 +1909,14 @@ def dense_model_path(name, make, signal, kernel, plain_ref, bound_fn,
     equal to eager, and timed. Returns the kernels-line entry."""
     model, plain = make("auto"), make("torch")
     grade, lib = model.precision, kernel.name
-    t, d = model.num_taps, model.decimation
-    tc = chunked(lib, t, d, grade)
+    t, d, c = model.num_taps, model.decimation, model.num_channels
+    tc = chunked(lib, t, d, grade, c)
     check(model.front == "toeplitz" and tc < t,
           f"{name}: dense front in chunks (chunk {tc} of {t} taps)")
     fm = isinstance(model, FmChannelizer)
-    tol_f32 = (FM_GRADE_TOL if fm else AM_GRADE_TOL)[grade]
+    # at f32 the plain version at the grade is the f32 chain: the long gate
+    tol_f32 = (FM_GRADE_TOL[grade] if fm
+               else AM_LONG_ATOL if grade == "f32" else AM_GRADE_TOL[grade])
     if fm:
         max_abs, rel_plain = compare_fm(model, [PlainAtGrade(model)], signal)
         _, rel_f32 = compare_fm(model, [plain], signal, tol=tol_f32)
@@ -1923,8 +1937,9 @@ def dense_model_path(name, make, signal, kernel, plain_ref, bound_fn,
     timing = time_kernel(kernel, plain_ref, dense_front_library(model, buf),
                          args, precision=grade)
     bnd = bound(*bound_fn(model, buf.re.shape[-1], grade))
+    floor_us = fma_floor_us(c, t, (buf.re.shape[-1] - t) // d + 1)
     line = {"phase": f"dense_{name}", "grade": grade,
-            "C": model.num_channels, "T": t, "D": d, "chunk": tc,
+            "C": c, "T": t, "D": d, "chunk": tc,
             "launches": got[lib],
             "vs_plain": rel_plain, "vs_f32": rel_f32,
             "eager_ms": eager_ms, "compiled_ms": comp_ms,
@@ -1932,7 +1947,7 @@ def dense_model_path(name, make, signal, kernel, plain_ref, bound_fn,
             "kernel_ms": timing[0], "kernel_device_us": timing[1],
             "plain_ms": timing[2], "library_ms": timing[3],
             "library": DENSE_LIBRARY, "bound_us": bnd[0] * 1e3,
-            "bound_by": bnd[1], "card": CARD}
+            "bound_by": bnd[1], "fma_floor_us": floor_us, "card": CARD}
     print(json.dumps(line))
     print(f"main path: {name} ({lib} at {grade}, T={t}, D={d}, chunks of "
           f"{tc} taps), {STEPS} steps, launches {got[lib]}, tones "
@@ -1942,18 +1957,22 @@ def dense_model_path(name, make, signal, kernel, plain_ref, bound_fn,
                 else "gsdr_tpu/kernels/fm_chain_pallas.py:551")
     return kernel_entry(lib, f"gsdr_tpu_torch/kernels/csrc/{lib}.cu",
                         replaces, got[lib], max_abs, timing, bnd,
-                        grade=grade, path=name, chunk=tc)
+                        grade=grade, path=name, chunk=tc,
+                        fma_floor_ms=floor_us / 1e3)
 
 
-def dense_transmux_path():
-    """pfb_channelize_block(impl='auto') at K = 32, Q = 127 through B4 in
-    chunks: held to its plain version at bf16x3 and to the fold path over
-    two blocks, 8 blocks counted, compiled equal to eager, timed."""
+def dense_transmux_path(grade="bf16x3"):
+    """The transmux's K = 32 with Q = 127 through B4 in chunks: at bf16x3
+    pfb_channelize_block(impl='auto'), the route, and at f32 the kernel at
+    that grade on the stream the route reads (each block behind the last
+    (Q-1)*K samples): held to its plain version at the grade and to the
+    fold path over two blocks, 8 blocks counted, compiled equal to eager,
+    timed."""
     k, q = TMX_K, TMX_LONG_Q
     taps = lowpass64(q * k, 0.5 / k)
     hist = (q - 1) * k
     bank = _analysis_tables(_taps_key(taps), k, "cuda")[0]
-    tc = chunked("channelize", q * k, k, "bf16x3", k)
+    tc = chunked("channelize", q * k, k, grade, k)
     check(tc < q * k, f"transmux K={k}, Q={q}: one chunk of {tc} taps")
     blocks = [grid_carriers(k, i * N, N) for i in range(STEPS)]
     bufs, prev = [], ComplexArray.zeros((hist,), device="cuda")
@@ -1961,44 +1980,64 @@ def dense_transmux_path():
         bufs.append(ComplexArray(torch.cat([prev.re, rf.re]),
                                  torch.cat([prev.im, rf.im])))
         prev = rf[..., N - hist:]
-    y_auto, got = counted(
-        f"pfb_channelize_block(impl='auto') at K={k}, Q={q}",
-        lambda: receive(blocks, taps, k, impl="auto"), {"channelize": STEPS})
+
+    def receive_step(tail, rf):
+        if grade == "bf16x3":
+            y, tail = pfb_channelize_block(rf, taps, k, tail=tail,
+                                           impl="auto")
+            return tail, y
+        buf = ComplexArray(torch.cat([tail.re, rf.re]),
+                           torch.cat([tail.im, rf.im]))
+        return (buf[..., buf.shape[-1] - hist:],
+                channelize_kernel(buf, bank, k, precision=grade))
+
+    def stream():
+        tail, outs = ComplexArray.zeros((hist,), device="cuda"), []
+        for rf in blocks:
+            tail, y = receive_step(tail, rf)
+            outs.append(y)
+        return stitch(outs, q)
+
+    route = ("pfb_channelize_block(impl='auto')" if grade == "bf16x3"
+             else f"channelize_kernel at {grade}")
+    y_auto, got = counted(f"{route} at K={k}, Q={q}", stream,
+                          {"channelize": STEPS})
     y_fold = receive(blocks[:2], taps, k, impl="torch")
-    y_plain = stitch([channelize_reference(b, bank, k, "bf16x3")
+    y_plain = stitch([channelize_reference(b, bank, k, grade)
                       for b in bufs[:2]], q)
     y2 = y_auto[..., :y_fold.shape[-1]]
     err, scale = planar_err(y2, y_plain)
     err_fold, _ = planar_err(y2, y_fold)
+    fold_tol = B4_FOLD_TOL[grade] if grade == "bf16x3" else B4_LONG_REL_TOL
     check(err <= B4_LONG_REL_TOL * scale,
-          f"B4 at K={k}, Q={q} vs plain: {err:.3g} of max|y| {scale:.3g}")
-    check(err_fold <= B4_FOLD_TOL["bf16x3"] * scale,
-          f"B4 at K={k}, Q={q} vs fold path: {err_fold:.3g}")
+          f"B4 at K={k}, Q={q}, {grade} vs plain: {err:.3g} of max|y| "
+          f"{scale:.3g}")
+    check(err_fold <= fold_tol * scale,
+          f"B4 at K={k}, Q={q}, {grade} vs fold path: {err_fold:.3g}")
     check(bool(torch.isfinite(y_auto.re).all()
                and torch.isfinite(y_auto.im).all()), "non-finite B4 output")
-
-    def receive_step(tail, rf):
-        y, tail = pfb_channelize_block(rf, taps, k, tail=tail, impl="auto")
-        return tail, y
-
+    name = "transmux_q127" + ("" if grade == "bf16x3" else f"_{grade}")
     eager_ms, comp_ms, comp_us, comp_idle = compiled_times(
-        "transmux_q127", receive_step,
-        ComplexArray.zeros((hist,), device="cuda"), blocks, {"channelize": 1})
-    timing, bnd, line, _ = b4_timing("dense_transmux_q127", bufs[0], taps, k,
-                                     "bf16x3")
+        name, receive_step, ComplexArray.zeros((hist,), device="cuda"),
+        blocks, {"channelize": 1})
+    timing, bnd, line, _ = b4_timing(f"dense_{name}", bufs[0], taps, k,
+                                     grade)
+    floor_us = fma_floor_us(k, q * k, line["M"])
     line.update({"chunk": tc, "launches": got["channelize"],
                  "max_abs_err": err, "vs_fold_path": err_fold,
                  "eager_ms": eager_ms, "compiled_ms": comp_ms,
                  "compiled_device_us": comp_us,
-                 "compiled_idle_share": comp_idle})
+                 "compiled_idle_share": comp_idle,
+                 "fma_floor_us": floor_us})
     print(json.dumps(line))
-    print(f"main path: transmux K={k}, Q={q} (T={q * k}, chunks of {tc} "
-          f"taps), {STEPS} blocks, launches {got}; vs plain {err / scale:.3g}"
-          f", vs fold path {err_fold / scale:.3g} of max|y|")
+    print(f"main path: transmux K={k}, Q={q} at {grade} (T={q * k}, chunks "
+          f"of {tc} taps), {STEPS} blocks, launches {got}; vs plain "
+          f"{err / scale:.3g}, vs fold path {err_fold / scale:.3g} of max|y|")
     return kernel_entry(
         "channelize", "gsdr_tpu_torch/kernels/csrc/channelize.cu",
         "gsdr_tpu/kernels/channelize_pallas.py:57", got["channelize"], err,
-        timing, bnd, grade="bf16x3", path="transmux_q127", chunk=tc)
+        timing, bnd, grade=grade, path=name, chunk=tc,
+        fma_floor_ms=floor_us / 1e3)
 
 
 def dense_ops_path():
@@ -2083,7 +2122,8 @@ def dense_ops_path():
 def forced_chunk_checks():
     """The planner's one-chunk launch against launches forced to stage
     FORCED_CHUNKS taps at a time, bit for bit: B1 at the flagship at each
-    grade, B3-dense at am_d and B4 at the transmux's K = 32, Q = 8."""
+    grade, B3-dense at am_d and B4 at the transmux's K = 32, Q = 8 at
+    bf16x3 and f32."""
     for grade in GRADES:
         model = flagship("cuda", precision=grade)
         check(chunked("fm_chain", 64, 4, grade) == 64,
@@ -2096,30 +2136,32 @@ def forced_chunk_checks():
              model.gain, model.deemph, cf, cz), precision=grade)
     model = am_d("cuda")
     buf = buffer(model, am_signal(model, 0, N, seed=11))
-    forced_chunks_equal("B3-dense am_d", am_chain,
-                        (buf, model.tap_bank, model.lo_table,
-                         model.init()[0], model.decimation),
-                        precision="bf16x3")
     k, q = TMX_K, TMX_Q
     taps = lowpass64(q * k, 0.5 / k)
     bank = _analysis_tables(_taps_key(taps), k, "cuda")[0]
     x = grid_carriers(k, 0, N + (q - 1) * k)
-    check(chunked("channelize", q * k, k, "bf16x3", k) == q * k,
-          "transmux K=32, Q=8: one chunk")
-    forced_chunks_equal("B4 transmux K=32", channelize_kernel, (x, bank, k),
-                        precision="bf16x3")
+    for grade in ("bf16x3", "f32"):
+        forced_chunks_equal(f"B3-dense am_d at {grade}", am_chain,
+                            (buf, model.tap_bank, model.lo_table,
+                             model.init()[0], model.decimation),
+                            precision=grade)
+        check(chunked("channelize", q * k, k, grade, k) == q * k,
+              f"transmux K=32, Q=8 at {grade}: one chunk")
+        forced_chunks_equal(f"B4 transmux K=32 at {grade}",
+                            channelize_kernel, (x, bank, k), precision=grade)
     print(f"forced chunks {FORCED_CHUNKS}: B1 at the flagship at each "
-          f"grade, B3-dense at am_d and B4 at the transmux bit-equal to the "
-          f"one-chunk launch")
+          f"grade, B3-dense at am_d and B4 at the transmux at bf16x3 and "
+          f"f32 bit-equal to the one-chunk launch")
 
 
 def dense_phase():
     """Phase 11: the dense front at geometries whose bank and window do not
-    fit one block (nfm_scanner, long_filter at bf16x3 and f32, am_d128,
-    transmux_q127) or whose D exceeds its taps (ops_d256), each counted
-    through its main path and held to its plain version at the grade and
-    the f32 plain chain; the forced-chunk checks. Returns the kernels-line
-    entries, one a path (two for the ops)."""
+    fit one block (nfm_scanner, long_filter, am_d128 and transmux_q127,
+    each but the scanner at bf16x3 and at f32, so that the chunked f32
+    front runs through all three launchers) or whose D exceeds its taps
+    (ops_d256), each counted through its main path and held to its plain
+    version at the grade and the f32 plain chain; the forced-chunk checks.
+    Returns the kernels-line entries, one a path (two for the ops)."""
     entries = [dense_model_path(name, make, signal, kernel, ref, bnd,
                                 tones, hi)
                for name, make, signal, kernel, ref, bnd, tones, hi in (
@@ -2131,8 +2173,11 @@ def dense_phase():
          lambda impl: long_filter(impl, precision="f32"), fm_signal,
          fm_chain, fm_chain_reference, fm_bound, flagship_tone, None),
         ("am_d128", am_d128, am_signal, am_chain, am_chain_reference,
-         am_bound, grid_tone, 1_000.0))]
-    entries.append(dense_transmux_path())
+         am_bound, grid_tone, 1_000.0),
+        ("am_d128_f32", lambda impl: am_d128(impl, precision="f32"),
+         am_signal, am_chain, am_chain_reference, am_bound, grid_tone,
+         1_000.0))]
+    entries += [dense_transmux_path(g) for g in ("bf16x3", "f32")]
     entries += dense_ops_path()
     forced_chunk_checks()
     return entries
@@ -3717,19 +3762,29 @@ def run_chained(step, state, blocks):
     return state, outs
 
 
-def pfb_f32_registers(reports):
-    """Prints the registers and spill bytes ptxas reports for the f32 PFB
-    tile kernels (fm_chain_tile and am_chain_tile <true, 0, one chunk or
-    chunked>) and fails where one spills; a library that this run did not
-    build (already in build/) has no report, and the line says so."""
+def f32_registers(reports):
+    """Prints the registers and spill bytes ptxas reports for the f32 tile
+    kernels: the PFB front's (fm_chain_tile and am_chain_tile <true, 0, one
+    chunk or chunked>) and the dense front's (fm_chain_tile, am_chain_tile
+    and channelize_tile at f32 for 8, 16 and 32 channels a block, one chunk
+    or chunked), and fails where one spills; a library that this run did
+    not build (already in build/) has no report, and the line says so."""
     out, entry = {}, None
     for line in "\n".join(reports.values()).splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d([a-z_]+_tile)ILb1ELi0ELb(\d)E", line)
+            m = re.search(r"\d([a-z_]+_tile)I((?:L[bi]\d+E)+)E", line)
             entry = None
-            if m:
-                kind = "chunked" if m.group(2) == "1" else "one chunk"
-                entry = f"{m.group(1)}<true,f32,{kind}>"
+            args = [int(a) for a in re.findall(r"L[bi](\d+)E",
+                                                m.group(2))] if m else []
+            if m and len(args) == 4 and args[1] == 0:
+                # fm/am: <pfb, grade, chunked, ch>; channelize: <pfb,
+                # grade, ch, chunked>
+                pfb, ch, ck = ((args[0], args[2], args[3])
+                               if m.group(1) == "channelize_tile"
+                               else (args[0], args[3], args[2]))
+                kind = "chunked" if ck else "one chunk"
+                entry = (f"{m.group(1)}<{'pfb' if pfb else 'dense'},f32,"
+                         f"{ch} channels,{kind}>")
                 out[entry] = {}
         elif entry and "spill stores" in line:
             for key in ("spill stores", "spill loads"):
@@ -3738,14 +3793,14 @@ def pfb_f32_registers(reports):
         elif entry and "registers" in line:
             out[entry]["registers"] = int(line.split("Used ")[1].split()[0])
             entry = None
-    for name in ("fm_chain", "am_chain"):
+    for name, want in (("fm_chain", 8), ("am_chain", 8), ("channelize", 6)):
         if name in reports:
-            check(sum(1 for k in out if k.startswith(name)) == 2,
-                  f"ptxas report of {name}: the f32 PFB tile kernels missing")
+            check(sum(1 for k in out if k.startswith(name)) == want,
+                  f"ptxas report of {name}: f32 tile kernels missing")
     for k, v in out.items():
         check(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0,
               f"{k} spills registers: {v}")
-    print(json.dumps({"phase": "ptxas_pfb_f32", "kernels": out,
+    print(json.dumps({"phase": "ptxas_f32", "kernels": out,
                       "built_now": sorted(reports), "card": CARD}))
 
 
@@ -3775,7 +3830,7 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s for {_build.sources()}")
     for src, rep in reports.items():
         print(f"ptxas {src}:\n{rep.strip()}", file=sys.stderr)
-    pfb_f32_registers(reports)
+    f32_registers(reports)
 
     # 3-8) the receivers, the channelized link and the QPSK256 receiver
     kernels = flagship_phase() + fm_wideband_phase()

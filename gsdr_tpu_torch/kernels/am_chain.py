@@ -32,8 +32,9 @@ from gsdr_tpu_torch.kernels.chain import (
     check_operands,
     check_pfb_tables,
     cuda_error,
-    dense_mma_tables,
     dense_chunk,
+    dense_f32_tables,
+    dense_mma_tables,
     grade_code,
     graded_bank_front,
     graded_uniform_front,
@@ -118,11 +119,13 @@ def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation,
     if two != 2 or c2 % 2:
         raise ValueError(f"am_chain: tap_bank shape {tuple(tap_bank.shape)}")
     check_operands("am_chain", {"tap_bank": (tap_bank, (c2, 2, t))}, dev)
-    tc = dense_chunk("am_chain", dev, t, decimation, precision) \
+    tc = dense_chunk("am_chain", dev, t, decimation, precision, c2 // 2) \
         if chunk is None else int(chunk)
-    btab = dense_mma_tables(tap_bank).data_ptr() if grade else None
-    return _launch("am_chain", (tap_bank.data_ptr(), btab), (t, tc), buf,
-                   c2 // 2, t, int(decimation), grade)
+    table = dense_mma_tables(tap_bank) if grade \
+        else dense_f32_tables(tap_bank)
+    ptrs = (None, table.data_ptr()) if grade else (table.data_ptr(), None)
+    return _launch("am_chain", ptrs, (t, tc), buf, c2 // 2, t,
+                   int(decimation), grade)
 
 
 def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,

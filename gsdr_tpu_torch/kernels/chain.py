@@ -17,8 +17,9 @@
     'bf16x3' and 'bf16x2' on the tensor cores, as the JAX package's
     kernels define them; the bf16 split of the taps, the window and the
     fold (``split_bf16``), the tensor-core fronts' B tables
-    (``dense_mma_tables``, ``pfb_mma_tables``), the f32 PFB front's bank
-    table (``pfb_f32_tables``) and the plain versions of
+    (``dense_mma_tables``, ``pfb_mma_tables``), the f32 fronts' tap and
+    bank tables (``dense_f32_tables``, ``pfb_f32_tables``) and the plain
+    versions of
     the fronts at each grade (``graded_bank_front``,
     ``graded_uniform_front``);
   - ``select_front``, the receivers' choice between the dense and the PFB
@@ -255,6 +256,27 @@ def dense_mma_tables(tap_bank):
         tap_bank, lambda b: _mma_words(b[0::2].transpose(1, 2)))
 
 
+def dense_f32_tables(tap_bank):
+    """The f32 dense front's tap operand for a (2C, 2, T) complex tap bank
+    (``make_complex_tap_bank``), on its device: float32 (ceil(C/8), T, 8,
+    2); entry [g][t][cl] is (gr, gi) of channel c = 8*g + cl at tap t,
+    the bank's rows 4c (gr, applied to x_re) and 4c + 2 (gi) at column t,
+    zero past C. A group's 8 channels of one tap are 64 contiguous bytes
+    and a chunk of its taps one contiguous range, which a block copies 16
+    bytes a thread. Cached per tensor as ``dense_mma_tables``."""
+    def build(bank):
+        c2, _, t = bank.shape
+        c = c2 // 2
+        ng = -(-c // 8)
+        table = torch.zeros((ng * 8, t, 2), dtype=torch.float32,
+                            device=bank.device)
+        table[:c, :, 0] = bank[0::2, 0]
+        table[:c, :, 1] = bank[1::2, 0]
+        return table.reshape(ng, 8, t, 2).transpose(1, 2).contiguous()
+
+    return _cached_table(tap_bank, build, "dense_f32")
+
+
 def _dft_rows(bank, fn):
     """(re rows, C, K) of a planes-major (2C, 2K) DFT bank, or raise where
     row C+c is not (-G[c, K:], G[c, :K]) bit for bit, the sign of a zero
@@ -379,11 +401,19 @@ def dense_chunk(library, device, num_taps, decimation, precision="f32",
     """The taps a block of ``library``'s dense front stages at once on the
     card ``device`` at the grade ``precision``: T where the whole bank and
     its window fit the block's shared memory (one pass, as at the flagship,
-    am_d and the transmux's K=32, Q=8), else the largest multiple of 8
-    below T whose block fits; the block then walks the bank in ascending
-    chunks, with the same sums in the same order. The library plans it
-    from the geometry it launches with (``csrc/fronts.cuh``,
-    ``dense_chunk``). ``num_channels`` as ``front_supported``."""
+    am_d and the transmux's K=32, Q=8), else chunks: at the bf16 grades
+    the largest multiple of 8 below T whose block fits; at 'f32', whose
+    chunked block holds two staging buffers and stages the next chunk
+    while it multiplies one, the largest multiple of 8 whose block lets
+    two blocks share a SM where that chunk spans D taps or more (one
+    window of all D phases a chunk, as the 2049-tap long filter's 352 at
+    D=4), else the largest that fits (the transmux at Q=127: 192 of
+    D=32, not 24). The block walks
+    the bank in ascending chunks, with the same sums in the same order.
+    The library plans it from the geometry it launches with
+    (``csrc/fronts.cuh``, ``dense_chunk``); the f32 block takes 8, 16 or
+    32 channels by C (``toeplitz_front``), so ``num_channels`` (as
+    ``front_supported``; None: any C, the widest block) sets its plan."""
     grade = grade_code(library, precision)
     return _block_plan(library, _card_index(torch.device(device)), False,
                        grade, int(num_channels or 0), int(num_taps), 0, 0,
@@ -421,8 +451,8 @@ def front_supported(library, device, num_taps, decimation, k=None,
     package's PFB plans take; on the card the answer is the library's
     plan. The plain chains on the CPU take any geometry.
     ``num_channels`` is the bank's C, on which the channelizer's block
-    depends at the bf16 grades (None: any C, the widest block). A library
-    without the grade raises."""
+    depends at the bf16 grades and every dense block at 'f32' (None: any
+    C, the widest block). A library without the grade raises."""
     grade_code(library, precision)
     t, d = int(num_taps), int(decimation)
     if k is not None and int(k) % d != 0:

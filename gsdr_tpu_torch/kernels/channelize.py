@@ -26,8 +26,9 @@ from gsdr_tpu_torch.kernels.chain import (
     ChainKernel,
     check_operands,
     cuda_error,
-    dense_mma_tables,
     dense_chunk,
+    dense_f32_tables,
+    dense_mma_tables,
     grade_code,
     graded_bank_front,
     load_chain_library,
@@ -72,11 +73,14 @@ def _launch(x, tap_bank, decimation, precision="bf16x3", chunk=None):
     m = (n - t) // d + 1
     y_re = torch.empty((c, m), dtype=torch.float32, device=dev)
     y_im = torch.empty((c, m), dtype=torch.float32, device=dev)
-    btab = dense_mma_tables(tap_bank).data_ptr() if grade else None
+    table = dense_mma_tables(tap_bank) if grade \
+        else dense_f32_tables(tap_bank)
+    ftab, btab = (None, table.data_ptr()) if grade \
+        else (table.data_ptr(), None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _library().channelize_launch(
-            x.re.data_ptr(), x.im.data_ptr(), tap_bank.data_ptr(), btab,
+            x.re.data_ptr(), x.im.data_ptr(), ftab, btab,
             y_re.data_ptr(), y_im.data_ptr(), n, c, t, tc, d, m, grade,
             stream)
     cuda_error("channelize", "channelize kernel launch", err)

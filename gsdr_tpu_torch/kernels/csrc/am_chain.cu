@@ -17,11 +17,15 @@
 // runs on the tensor cores at 15-22x the FP32 rate, and the function's
 // bytes (the window read once, the envelopes written once) bound it. The
 // envelope adds a few operations per output. What the design does about
-// that: the fronts of fronts.cuh; the dense fronts hold 16 channels per
-// block, one thread per output; the PFB fronts (every grade) 32, handed
-// through their shared tile to two threads per output, 16 channels each;
-// the envelope is applied in registers and written once, coalesced along
-// j.
+// that: the fronts of fronts.cuh; the bf16 dense front holds 16 channels
+// per block, one thread per output; the f32 dense front 8, 16 or 32 (by
+// C: am_d's 8 multiplies no zero channel) in register tiles of 4 rows x 8
+// channels (4 x 4 in a block of 8: twice the warps where a large D leaves
+// few blocks), a thread per tile; the PFB fronts (every
+// grade) 32, handed through their shared tile to two threads per output,
+// 16 channels each; the f32 fronts' tiles are read back a channel's rows
+// at a time; the envelope is applied in registers and written once,
+// coalesced along j.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -38,21 +42,31 @@ __device__ __forceinline__ float envelope(float re, float im) {
   return 2.f * fminf(fmaxf(mag, 0.f), 1.f) - 1.f;
 }
 
+// Threads of a block of the front (kPfb) and grade for kCh channels a
+// block: the PFB fronts' kPfbThreads, the bf16 dense front's one a row,
+// the f32 dense front's tile holders.
+template <bool kPfb, int kGrade, int kCh>
+constexpr int am_threads() {
+  return !kPfb && kGrade == gsdr::kGradeF32
+             ? gsdr::dense_f32_threads(kCh, gsdr::dense_cols(kCh))
+             : gsdr::block_threads<kPfb>();
+}
+
 // btab: dense_mma_tables (dense front) or pfb_mma_tables (PFB front), read
-// at bf16x3 and bf16x2, and pfb_f32_tables (PFB front) at f32; where
+// at bf16x3 and bf16x2, and at f32 ftab, dense_f32_tables (dense front,
+// kCh channels a block), or btab, pfb_f32_tables (PFB front); where
 // kChunked, the dense front stages Tc taps at a time (use_chunked_kernel)
 // and the PFB front chunks of Tc lanes and u-ranges of Uc fold taps
 // (use_chunked_pfb), else each stages all at once.
-template <bool kPfb, int kGrade, bool kChunked = false>
-__global__ void __launch_bounds__(gsdr::block_threads<kPfb>())
+template <bool kPfb, int kGrade, bool kChunked = false,
+          int kCh = gsdr::block_channels<kPfb>()>
+__global__ void __launch_bounds__(am_threads<kPfb, kGrade, kCh>())
 am_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
-    int nb, const float* __restrict__ bank, const float* __restrict__ hp,
+    int nb, const float* __restrict__ ftab, const float* __restrict__ hp,
     const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
     int M, float* __restrict__ audio, int Uc) {
-  constexpr int kCh = gsdr::block_channels<kPfb>();
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   unsigned char* sbytes = reinterpret_cast<unsigned char*>(smem4);
   const int j0 = blockIdx.x * kTile;
   const int c0 = blockIdx.y * kCh;
@@ -89,13 +103,22 @@ am_chain_tile(
         audio[(long)(c0 + c) * M + j] =
             envelope(out[row * kOS + 2 * c], out[row * kOS + 2 * c + 1]);
     }
+  } else if constexpr (kGrade == gsdr::kGradeF32) {
+    // a channel's rows at a time from the front's tile, coalesced along j
+    constexpr int kOS = 2 * kCh + 1;
+    const float* out =
+        gsdr::toeplitz_front<kChunked, kCh, gsdr::dense_cols(kCh), 1>(
+            sbytes, buf_re, buf_im, nb, ftab, C, T, Tc, D, blockIdx.y, g0);
+    for (int i = threadIdx.x; i < kCh * kTile; i += blockDim.x) {
+      const int c = i / kTile, row = i % kTile, j = j0 + row;
+      if (j < M && c0 + c < C)
+        audio[(long)(c0 + c) * M + j] =
+            envelope(out[row * kOS + 2 * c], out[row * kOS + 2 * c + 1]);
+    }
   } else {
     const int j = j0 + threadIdx.x;
     float acc_re[kCG], acc_im[kCG];
-    if constexpr (kGrade == gsdr::kGradeF32) {
-      gsdr::toeplitz_front<kChunked>(smem, buf_re, buf_im, nb, bank, C, T,
-                                     Tc, D, c0, g0, acc_re, acc_im);
-    } else if constexpr (kChunked) {
+    if constexpr (kChunked) {
       gsdr::toeplitz_front_mma_chunked<kGrade, kCG / 4>(
           sbytes, buf_re, buf_im, nb, btab, C, T, Tc, D, blockIdx.y, g0,
           acc_re, acc_im);
@@ -113,20 +136,23 @@ am_chain_tile(
   }
 }
 
-// The tile kernel of a front (kPfb) and grade, one chunk or chunked.
-template <bool kPfb, int kGrade>
+// The tile kernel of a front (kPfb) and grade for kCh channels a block,
+// one chunk or chunked.
+template <bool kPfb, int kGrade, int kCh = gsdr::block_channels<kPfb>()>
 const void* front_tile(bool chunked) {
-  return chunked ? (const void*)am_chain_tile<kPfb, kGrade, true>
-                 : (const void*)am_chain_tile<kPfb, kGrade, false>;
+  return chunked ? (const void*)am_chain_tile<kPfb, kGrade, true, kCh>
+                 : (const void*)am_chain_tile<kPfb, kGrade, false, kCh>;
 }
 
 // The tile kernel of a front (pfb) and grade with its dynamic shared memory
-// for a chunk of Tc taps and D (dense; `chunked` picks the kernel that
-// walks chunks) or for (K, Q, D) and the plan of Tc lanes and Uc fold taps
-// a chunk (PFB; the chunked kernel where use_chunked_pfb), or nullptr for
-// a grade the library lacks.
-const void* tile_kernel(bool pfb, int grade, int Tc, int K, int Q, int D,
-                        size_t* smem, bool chunked = false, int Uc = 0) {
+// for C channels and a chunk of Tc of T taps at D (dense, at f32 in blocks
+// of dense_f32_channels(C); `chunked` picks the kernel that walks chunks)
+// or for (K, Q, D) and the plan of Tc lanes and Uc fold taps a chunk (PFB;
+// the chunked kernel where use_chunked_pfb), or nullptr for a grade the
+// library lacks.
+const void* tile_kernel(bool pfb, int grade, int C, int T, int Tc, int K,
+                        int Q, int D, size_t* smem, bool chunked = false,
+                        int Uc = 0) {
   if (pfb) {
     const bool ch = gsdr::use_chunked_pfb(Tc, Uc, K, Q);
     switch (grade) {
@@ -145,9 +171,13 @@ const void* tile_kernel(bool pfb, int grade, int Tc, int K, int Q, int D,
     return nullptr;
   }
   switch (grade) {
-    case gsdr::kGradeF32:
-      *smem = gsdr::toeplitz_smem_bytes(Tc, D);
-      return front_tile<false, gsdr::kGradeF32>(chunked);
+    case gsdr::kGradeF32: {
+      const int ch = gsdr::dense_f32_channels(C);
+      *smem = gsdr::toeplitz_smem_bytes(ch, Tc, T, D);
+      return ch == 8    ? front_tile<false, gsdr::kGradeF32, 8>(chunked)
+             : ch == 16 ? front_tile<false, gsdr::kGradeF32, 16>(chunked)
+                        : front_tile<false, gsdr::kGradeF32, 32>(chunked);
+    }
     case gsdr::kGradeBf16x2:
       *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
       return front_tile<false, gsdr::kGradeBf16x2>(chunked);
@@ -158,31 +188,31 @@ const void* tile_kernel(bool pfb, int grade, int Tc, int K, int Q, int D,
   return nullptr;
 }
 
-template <bool kPfb, int kGrade, bool kChunked>
-int run_am(const void* buf_re, const void* buf_im, const void* bank,
+template <bool kPfb, int kGrade, bool kChunked, int kCh>
+int run_am(const void* buf_re, const void* buf_im, const void* ftab,
            const void* hp, const void* btab, void* audio, int nb, int C,
            int T, int Tc, int K, int Q, int D, int M, int Uc, size_t smem,
            void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      am_chain_tile<kPfb, kGrade, kChunked>,
+      am_chain_tile<kPfb, kGrade, kChunked, kCh>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kCh = gsdr::block_channels<kPfb>();
   dim3 grid((M + kTile - 1) / kTile, (C + kCh - 1) / kCh);
-  am_chain_tile<kPfb, kGrade, kChunked>
-      <<<grid, gsdr::block_threads<kPfb>(), smem,
+  am_chain_tile<kPfb, kGrade, kChunked, kCh>
+      <<<grid, am_threads<kPfb, kGrade, kCh>(), smem,
          (cudaStream_t)stream>>>(
-      (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank,
+      (const float*)buf_re, (const float*)buf_im, nb, (const float*)ftab,
       (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M,
       (float*)audio, Uc);
   return (int)cudaGetLastError();
 }
 
 // run_am of the front's kernel, the chunked one where `chunked`.
-template <bool kPfb, int kGrade, class... Args>
+template <bool kPfb, int kGrade, int kCh = gsdr::block_channels<kPfb>(),
+          class... Args>
 int run_front(bool chunked, Args... args) {
-  if (chunked) return run_am<kPfb, kGrade, true>(args...);
-  return run_am<kPfb, kGrade, false>(args...);
+  if (chunked) return run_am<kPfb, kGrade, true, kCh>(args...);
+  return run_am<kPfb, kGrade, false, kCh>(args...);
 }
 
 // One call of the front (pfb) at `grade`, its geometry checked by the
@@ -191,14 +221,14 @@ int run_front(bool chunked, Args... args) {
 // the card (else too many resources, before launch).
 template <bool kPfb>
 int run_graded(int grade, const void* buf_re, const void* buf_im,
-               const void* bank, const void* hp, const void* btab,
+               const void* ftab, const void* hp, const void* btab,
                void* audio, int nb, int C, int T, int Tc, int K, int Q, int D,
                int M, int Uc, void* stream) {
   size_t smem = 0;
   const bool chunked = kPfb ? gsdr::use_chunked_pfb(Tc, Uc, K, Q)
                             : gsdr::use_chunked_kernel(Tc, T, D);
-  const void* kernel = tile_kernel(kPfb, grade, Tc, K, Q, D, &smem, chunked,
-                                   Uc);
+  const void* kernel = tile_kernel(kPfb, grade, C, T, Tc, K, Q, D, &smem,
+                                   chunked, Uc);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   if (kPfb) {
     int fits = 0;
@@ -206,16 +236,27 @@ int run_graded(int grade, const void* buf_re, const void* buf_im,
     if (err != cudaSuccess) return (int)err;
     if (!fits) return (int)cudaErrorLaunchOutOfResources;
   }
-#define GSDR_AM(G)                                                          \
-  run_front<kPfb, G>(chunked, buf_re, buf_im, bank, hp, btab, audio, nb, C, \
-                     T, Tc, K, Q, D, M, Uc, smem, stream)
+#define GSDR_AM(G, CH)                                                      \
+  run_front<kPfb, G, CH>(chunked, buf_re, buf_im, ftab, hp, btab, audio, nb, \
+                         C, T, Tc, K, Q, D, M, Uc, smem, stream)
+  constexpr int kCh = gsdr::block_channels<kPfb>();
   switch (grade) {
     case gsdr::kGradeBf16x2:
-      return GSDR_AM(gsdr::kGradeBf16x2);
+      return GSDR_AM(gsdr::kGradeBf16x2, kCh);
     case gsdr::kGradeBf16x3:
-      return GSDR_AM(gsdr::kGradeBf16x3);
-    default:
-      return GSDR_AM(gsdr::kGradeF32);
+      return GSDR_AM(gsdr::kGradeBf16x3, kCh);
+  }
+  if constexpr (kPfb) {
+    return GSDR_AM(gsdr::kGradeF32, kCh);
+  } else {
+    switch (gsdr::dense_f32_channels(C)) {
+      case 8:
+        return GSDR_AM(gsdr::kGradeF32, 8);
+      case 16:
+        return GSDR_AM(gsdr::kGradeF32, 16);
+      default:
+        return GSDR_AM(gsdr::kGradeF32, 32);
+    }
   }
 #undef GSDR_AM
 }
@@ -228,54 +269,56 @@ extern "C" const char* am_chain_error_string(int err) {
 
 // The block plan of the front at `grade` (0 f32, 2 bf16x2, 3 bf16x3) on
 // the current device, for any channel count C, as fm_chain_fits: the
-// dense front's chunk of taps in plan[0] (pfb = 0, T and D; 0 only where
-// not even 8 taps fit), or the PFB front's (lanes, fold taps) a chunk in
+// dense front's chunk of taps in plan[0] (pfb = 0, T and D, and C, on
+// which the f32 block depends; 0 only where not even 8 taps fit), or the
+// PFB front's (lanes, fold taps) a chunk in
 // plan[0..1] (pfb = 1, K, Q and D; gsdr::pfb_chunk). An unknown grade is
 // an invalid value. Returns 0 or the CUDA error.
 extern "C" int am_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
                              int D, int* plan) {
-  (void)C;
   if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1 || K % D != 0)))
     return (int)cudaErrorInvalidValue;
   size_t smem = 0, b = 0;
   if (pfb) {
-    const void* one = tile_kernel(true, grade, K, K, Q, D, &smem, false, Q);
+    const void* one =
+        tile_kernel(true, grade, C, T, K, K, Q, D, &smem, false, Q);
     if (one == nullptr) return (int)cudaErrorInvalidValue;
     return (int)gsdr::pfb_chunk(
-        one, smem, tile_kernel(true, grade, 8, K, Q, D, &b, true, 1), K, Q,
-        D,
+        one, smem, tile_kernel(true, grade, C, T, 8, K, Q, D, &b, true, 1),
+        K, Q, D,
         [=](int lanes, int uc) {
           size_t bytes = 0;
-          tile_kernel(true, grade, lanes, K, Q, D, &bytes, true, uc);
+          tile_kernel(true, grade, C, T, lanes, K, Q, D, &bytes, true, uc);
           return bytes;
         },
         plan);
   }
-  const void* kernel = tile_kernel(false, grade, T, K, Q, D, &smem);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const void* one = tile_kernel(false, grade, C, T, T, 0, 0, D, &smem);
+  if (one == nullptr) return (int)cudaErrorInvalidValue;
   return (int)gsdr::dense_chunk(
-      kernel, tile_kernel(false, grade, T, 0, 0, D, &smem, true), T,
+      one, tile_kernel(false, grade, C, T, T, 0, 0, D, &b, true), T,
       [=](int tc) {
         size_t bytes = 0;
-        tile_kernel(false, grade, tc, 0, 0, D, &bytes);
+        tile_kernel(false, grade, C, T, tc, 0, 0, D, &bytes, tc < T);
         return bytes;
       },
-      plan);
+      plan, grade == gsdr::kGradeF32 ? D : 0);
 }
 
 // Dense front at `grade`, Tc taps a block stages at once (am_chain_fits'
 // plan, or any chunk gsdr::valid_chunk takes whose block fits). Shapes:
-// buf planes (nb,), bank (2C, 2, T) read at f32, btab dense_mma_tables'
-// (2, ceil(T/8), ceil(C/4), 16, 2) int32 read at bf16x3 and bf16x2, audio
-// (C, M) with M = (nb - T)/D + 1. Returns 0 or the CUDA error code.
+// buf planes (nb,), ftab dense_f32_tables' (ceil(C/8), T, 8, 2) float32
+// read at f32, btab dense_mma_tables' (2, ceil(T/8), ceil(C/4), 16, 2)
+// int32 read at bf16x3 and bf16x2, audio (C, M) with M = (nb - T)/D + 1.
+// Returns 0 or the CUDA error code.
 extern "C" int am_chain_launch(const void* buf_re, const void* buf_im,
-                               const void* bank, const void* btab,
+                               const void* ftab, const void* btab,
                                void* audio, int nb, int C, int T, int Tc,
                                int D, int M, int grade, void* stream) {
   if (C < 1 || T < 1 || D < 1 || M < 1 || M != (nb - T) / D + 1 ||
       !gsdr::valid_chunk(Tc, T))
     return (int)cudaErrorInvalidValue;
-  return run_graded<false>(grade, buf_re, buf_im, bank, nullptr, btab, audio,
+  return run_graded<false>(grade, buf_re, buf_im, ftab, nullptr, btab, audio,
                            nb, C, T, Tc < T ? Tc : T, 0, 0, D, M, 0, stream);
 }
 

@@ -23,13 +23,17 @@
 // TFLOP/s, and at bf16x2 4.3 us, so at both the bytes bound the function,
 // and the block's own staging, which no second block hides at 134 KB of
 // shared memory, holds the kernel. What
-// the design does about that: at f32, one thread per output with 16
-// channels in registers, the taps read as float4 shared-memory broadcasts
-// and the window staged once per block in polyphase order (conflict-free
-// for any D); at bf16x3 and bf16x2, one mma.sync GEMM per block
-// (toeplitz_front_mma) over up to 32 channels, so that the transmux's 32
-// channels stage their window once and not once per 16. The stores
-// coalesce along j for each channel.
+// the design does about that: at f32, the dense front's register tiles of
+// 4 rows x 8 channels (4 x 4 in a block of 8) over 8, 16 or 32 channels a
+// block (by C), so that
+// the transmux's 32 channels stage their window once, its taps from a
+// contiguous table with cp.async (fronts.cuh, toeplitz_front); at bf16x3
+// and bf16x2, one mma.sync GEMM per block (toeplitz_front_mma) over up to
+// 32 channels, likewise. At the transmux (K = 32, 2^20 samples) a block of
+// 256 rows makes 128 blocks for 132 SMs: fewer rows a block would not
+// shorten the busiest SM's share (128*k blocks of 1/k the work still put
+// k on some SM), so the block keeps its 256 rows. The stores coalesce
+// along j for each channel.
 
 #include <cuda_runtime.h>
 
@@ -37,7 +41,6 @@
 
 namespace {
 
-using gsdr::kCG;
 using gsdr::kTile;
 
 // Channels per block at the bf16 grades: 16 (4 n-tiles of 4) for a bank
@@ -49,86 +52,111 @@ using gsdr::kTile;
 // which needs more shared memory.
 inline int mma_block_channels(int C) { return C >= 1 && C <= 16 ? 16 : 32; }
 
-// kCh channels per block: kCG at f32, 16 or 32 at the bf16 grades; the
-// dense front in chunks of Tc taps where kChunked (use_chunked_kernel),
-// else all T at once.
+// Threads of a block at a grade for kCh channels: one a row at the bf16
+// grades, the f32 dense front's tile holders at f32.
+template <int kGrade, int kCh>
+constexpr int tile_threads() {
+  return kGrade == gsdr::kGradeF32
+             ? gsdr::dense_f32_threads(kCh, gsdr::dense_cols(kCh))
+             : kTile;
+}
+
+// kCh channels per block: 8, 16 or 32 at f32 (gsdr::dense_f32_channels),
+// 16 or 32 at the bf16 grades; the dense front in chunks of Tc taps where
+// kChunked (use_chunked_kernel), else all T at once. ftab is
+// dense_f32_tables' table (f32), btab dense_mma_tables' (bf16 grades).
 template <bool kPfb, int kGrade, int kCh, bool kChunked = false>
-__global__ void __launch_bounds__(kTile) channelize_tile(
+__global__ void __launch_bounds__(tile_threads<kGrade, kCh>())
+channelize_tile(
     const float* __restrict__ x_re, const float* __restrict__ x_im, int nb,
-    const float* __restrict__ bank, const float* __restrict__ hp,
+    const float* __restrict__ ftab, const float* __restrict__ hp,
     const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
     int M, float* __restrict__ y_re, float* __restrict__ y_im) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   const int j0 = blockIdx.x * kTile;
   const int c0 = blockIdx.y * kCh;
   const int j = j0 + threadIdx.x;
   const long g0 = (long)j0 * D;
-  float acc_re[kCh], acc_im[kCh];
   static_assert(!kPfb, "B4 runs the dense front; channelize_fits refuses "
                 "the PFB front, whose block takes 512 threads and 32 "
                 "channels (fronts.cuh, block_threads)");
   if constexpr (kGrade == gsdr::kGradeF32) {
-    gsdr::toeplitz_front<kChunked>(smem, x_re, x_im, nb, bank, C, T, Tc, D,
-                                   c0, g0, acc_re, acc_im);
-  } else if constexpr (kChunked) {
-    gsdr::toeplitz_front_mma_chunked<kGrade, kCh / 4>(
-        reinterpret_cast<unsigned char*>(smem4), x_re, x_im, nb, btab, C, T,
-        Tc, D, blockIdx.y, g0, acc_re, acc_im);
+    // a channel's rows at a time from the front's tile, coalesced along j
+    constexpr int kOS = 2 * kCh + 1;
+    const float* out =
+        gsdr::toeplitz_front<kChunked, kCh, gsdr::dense_cols(kCh), 1>(
+            reinterpret_cast<unsigned char*>(smem4), x_re, x_im, nb, ftab, C,
+            T, Tc, D, blockIdx.y, g0);
+    for (int i = threadIdx.x; i < kCh * kTile; i += blockDim.x) {
+      const int c = i / kTile, row = i % kTile;
+      if (j0 + row < M && c0 + c < C) {
+        y_re[(long)(c0 + c) * M + j0 + row] = out[row * kOS + 2 * c];
+        y_im[(long)(c0 + c) * M + j0 + row] = out[row * kOS + 2 * c + 1];
+      }
+    }
   } else {
-    gsdr::toeplitz_front_mma<kGrade, kCh / 4>(
-        reinterpret_cast<unsigned char*>(smem4), x_re, x_im, nb, btab, C, T,
-        D, blockIdx.y, g0, acc_re, acc_im);
-  }
-  if (j >= M) return;
+    float acc_re[kCh], acc_im[kCh];
+    if constexpr (kChunked) {
+      gsdr::toeplitz_front_mma_chunked<kGrade, kCh / 4>(
+          reinterpret_cast<unsigned char*>(smem4), x_re, x_im, nb, btab, C,
+          T, Tc, D, blockIdx.y, g0, acc_re, acc_im);
+    } else {
+      gsdr::toeplitz_front_mma<kGrade, kCh / 4>(
+          reinterpret_cast<unsigned char*>(smem4), x_re, x_im, nb, btab, C,
+          T, D, blockIdx.y, g0, acc_re, acc_im);
+    }
+    if (j >= M) return;
 #pragma unroll
-  for (int c = 0; c < kCh; ++c) {
-    if (c0 + c < C) {
-      y_re[(long)(c0 + c) * M + j] = acc_re[c];
-      y_im[(long)(c0 + c) * M + j] = acc_im[c];
+    for (int c = 0; c < kCh; ++c) {
+      if (c0 + c < C) {
+        y_re[(long)(c0 + c) * M + j] = acc_re[c];
+        y_im[(long)(c0 + c) * M + j] = acc_im[c];
+      }
     }
   }
 }
 
 // The dense tile kernel of a grade for kCh channels per block, one chunk
-// or chunked, and its dynamic shared memory for a chunk of Tc taps.
+// or chunked, and its dynamic shared memory for a chunk of Tc of T taps.
 template <int kGrade, int kCh>
-const void* dense_tile(int Tc, int D, size_t* smem, bool chunked = false) {
+const void* dense_tile(int Tc, int T, int D, size_t* smem,
+                       bool chunked = false) {
   *smem = kGrade == gsdr::kGradeF32
-              ? gsdr::toeplitz_smem_bytes(Tc, D)
+              ? gsdr::toeplitz_smem_bytes(kCh, Tc, T, D)
               : gsdr::mma_smem_bytes(kGrade, kCh / 4, Tc, D);
   return chunked ? (const void*)channelize_tile<false, kGrade, kCh, true>
                  : (const void*)channelize_tile<false, kGrade, kCh, false>;
 }
 
-// dense_tile's chunk plan for a bank of T taps (gsdr::dense_chunk).
+// dense_tile's chunk plan for a bank of T taps (gsdr::dense_chunk; at f32
+// two buffers, and two blocks a SM where such a chunk spans D taps).
 template <int kGrade, int kCh>
 cudaError_t plan_tile(int T, int D, int* chunk) {
   size_t smem = 0;
   return gsdr::dense_chunk(
-      dense_tile<kGrade, kCh>(T, D, &smem),
-      dense_tile<kGrade, kCh>(T, D, &smem, true), T,
+      dense_tile<kGrade, kCh>(T, T, D, &smem),
+      dense_tile<kGrade, kCh>(T, T, D, &smem, true), T,
       [=](int tc) {
         size_t b = 0;
-        dense_tile<kGrade, kCh>(tc, D, &b);
+        dense_tile<kGrade, kCh>(tc, T, D, &b);
         return b;
       },
-      chunk);
+      chunk, kGrade == gsdr::kGradeF32 ? D : 0);
 }
 
 template <int kGrade, int kCh, bool kChunked>
-cudaError_t run_tile(const void* x_re, const void* x_im, const void* bank,
+cudaError_t run_tile(const void* x_re, const void* x_im, const void* ftab,
                      const void* btab, void* y_re, void* y_im, int nb, int C,
                      int T, int Tc, int D, int M, cudaStream_t stream) {
   size_t smem = 0;
-  const void* kernel = dense_tile<kGrade, kCh>(Tc, D, &smem, kChunked);
+  const void* kernel = dense_tile<kGrade, kCh>(Tc, T, D, &smem, kChunked);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((M + kTile - 1) / kTile, (C + kCh - 1) / kCh);
   channelize_tile<false, kGrade, kCh, kChunked>
-      <<<grid, kTile, smem, stream>>>(
-      (const float*)x_re, (const float*)x_im, nb, (const float*)bank, nullptr,
+      <<<grid, tile_threads<kGrade, kCh>(), smem, stream>>>(
+      (const float*)x_re, (const float*)x_im, nb, (const float*)ftab, nullptr,
       (const uint2*)btab, C, T, Tc, 0, 0, D, M, (float*)y_re, (float*)y_im);
   return cudaGetLastError();
 }
@@ -153,7 +181,13 @@ extern "C" int channelize_fits(int pfb, int grade, int C, int T, int K, int Q,
   const bool wide = mma_block_channels(C) == 32;
   switch (grade) {
     case gsdr::kGradeF32:
-      return (int)plan_tile<gsdr::kGradeF32, kCG>(T, D, fits);
+      switch (gsdr::dense_f32_channels(C)) {
+        case 8:
+          return (int)plan_tile<gsdr::kGradeF32, 8>(T, D, fits);
+        case 16:
+          return (int)plan_tile<gsdr::kGradeF32, 16>(T, D, fits);
+      }
+      return (int)plan_tile<gsdr::kGradeF32, 32>(T, D, fits);
     case gsdr::kGradeBf16x2:
       return (int)(wide ? plan_tile<gsdr::kGradeBf16x2, 32>(T, D, fits)
                         : plan_tile<gsdr::kGradeBf16x2, 16>(T, D, fits));
@@ -164,14 +198,15 @@ extern "C" int channelize_fits(int pfb, int grade, int C, int T, int K, int Q,
   return (int)cudaErrorInvalidValue;
 }
 
-// Shapes: x planes (nb,), bank (2C, 2, T) read at f32, btab
+// Shapes: x planes (nb,), ftab dense_f32_tables' (ceil(C/8), T, 8, 2)
+// float32 read at f32, btab
 // dense_mma_tables' (2, ceil(T/8), ceil(C/4), 16, 2) int32 read at bf16x3
 // and bf16x2, y planes (C, M) with M = (nb - T)/D + 1; grade as
 // channelize_fits, Tc taps a block stages at once (channelize_fits' plan,
 // or any chunk gsdr::valid_chunk takes whose block fits). Returns 0 or the
 // CUDA error code.
 extern "C" int channelize_launch(const void* x_re, const void* x_im,
-                                 const void* bank, const void* btab,
+                                 const void* ftab, const void* btab,
                                  void* y_re, void* y_im, int nb, int C, int T,
                                  int Tc, int D, int M, int grade,
                                  void* stream) {
@@ -182,14 +217,20 @@ extern "C" int channelize_launch(const void* x_re, const void* x_im,
   cudaStream_t st = (cudaStream_t)stream;
   const bool wide = mma_block_channels(C) == 32;
 #define GSDR_TILE_AT(G, CH, CHUNKED)                                   \
-  run_tile<G, CH, CHUNKED>(x_re, x_im, bank, btab, y_re, y_im, nb, C, T, \
+  run_tile<G, CH, CHUNKED>(x_re, x_im, ftab, btab, y_re, y_im, nb, C, T, \
                            Tc, D, M, st)
 #define GSDR_TILE(G, CH)                                          \
   (gsdr::use_chunked_kernel(Tc, T, D) ? GSDR_TILE_AT(G, CH, true) \
                                       : GSDR_TILE_AT(G, CH, false))
   switch (grade) {
     case gsdr::kGradeF32:
-      return (int)GSDR_TILE(gsdr::kGradeF32, kCG);
+      switch (gsdr::dense_f32_channels(C)) {
+        case 8:
+          return (int)GSDR_TILE(gsdr::kGradeF32, 8);
+        case 16:
+          return (int)GSDR_TILE(gsdr::kGradeF32, 16);
+      }
+      return (int)GSDR_TILE(gsdr::kGradeF32, 32);
     case gsdr::kGradeBf16x2:
       return (int)(wide ? GSDR_TILE(gsdr::kGradeBf16x2, 32)
                         : GSDR_TILE(gsdr::kGradeBf16x2, 16));

@@ -28,16 +28,21 @@
 // (3.8 us) bound the function at every grade.
 //
 // What the design does about that:
-//  - one thread per decimated output holds 16 channels in registers for
-//    the back end. The f32 dense front reuses every input sample for 16
-//    channels, with the taps read as shared-memory broadcasts; the bf16
-//    dense front runs as one GEMM per block on mma.sync (fronts.cuh,
-//    toeplitz_front_mma over 16 channels); the PFB front at every grade
-//    makes the fold once for 32 channels (pfb_front_mma on mma.sync,
-//    pfb_front in FP32 register tiles) and hands the outputs to the
-//    threads through a shared tile, so its registers are dead before the
-//    back end starts, which walks the block's two groups of 16 over that
-//    tile;
+//  - one thread per decimated output holds 16 channels (8 in a block of
+//    8) in registers for the back end. The f32 dense front multiplies 8,
+//    16 or 32 channels a block (by C) in register tiles of 4 rows x 4
+//    channels on every thread (one chunk: the back end keeps its
+//    occupancy) or 4 x 8 on half of them (chunked: a long bank's FMAs,
+//    the product unrolled by 4), its taps staged
+//    from a contiguous table with cp.async, the next chunk in flight while
+//    it multiplies one (fronts.cuh, toeplitz_front, fm_dense_cols); the
+//    bf16 dense front runs as one GEMM per block on
+//    mma.sync (toeplitz_front_mma over 16 channels); the PFB front at
+//    every grade makes the fold once for 32 channels (pfb_front_mma on
+//    mma.sync, pfb_front in FP32 register tiles). The f32 fronts hand the
+//    outputs to the threads through a shared tile, so their registers are
+//    dead before the back end starts, which walks a block of 32 channels
+//    as two groups of 16 over that tile;
 //  - the rotor uses the exact digit-table phase with the same float32
 //    operation order as the plain chain, then one sincosf per output;
 //  - the discriminator takes f[j-1] from the neighbouring lane by shuffle
@@ -77,20 +82,23 @@ __device__ __forceinline__ float ipow(float a, int k) {
 }
 
 // Launch 1: front, rotor, discriminator and the zero-state de-emphasis of
-// one tile of kOut outputs for kCh channels; with the PFB front (every
-// grade), two threads per output, one for each group of kCG channels, read
-// from the front's output tile. kPfb selects the front: the dense one
-// reads bank (2C, 2, T) at f32, or btab (dense_mma_tables) at bf16x3 and
-// bf16x2, in chunks of Tc taps where kChunked (fronts.cuh, dense_chunk,
-// use_chunked_kernel), else all T at once; the PFB one reads hp (Q, K) and
+// one tile of kOut outputs for kCh channels; a block of 32 channels (the
+// PFB front at every grade, the dense front at f32 where C > 16) has two
+// threads per output, one for each group of kCG channels, reading the
+// front's output tile, as the f32 dense front's blocks of 8 and 16 do.
+// kPfb selects the front: the dense one reads ftab (dense_f32_tables) at
+// f32, or btab (dense_mma_tables) at bf16x3 and bf16x2, in chunks of Tc
+// taps where kChunked (fronts.cuh, dense_chunk, use_chunked_kernel), else
+// all T at once; the PFB one reads hp (Q, K) and
 // btab (pfb_f32_tables at f32, pfb_mma_tables at the bf16 grades), in
 // chunks of Tc lanes and u-ranges of Uc fold taps where kChunked
 // (fronts.cuh, pfb_chunk, use_chunked_pfb), else all at once.
-template <bool kPfb, int kGrade, bool kChunked = false>
-__global__ void __launch_bounds__(gsdr::block_threads<kPfb>())
+template <bool kPfb, int kGrade, bool kChunked = false,
+          int kCh = gsdr::block_channels<kPfb>()>
+__global__ void __launch_bounds__(gsdr::back_threads(kCh))
 fm_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
-    int nb, const float* __restrict__ bank, const float* __restrict__ hp,
+    int nb, const float* __restrict__ ftab, const float* __restrict__ hp,
     const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
     int M, int ntiles, const float* __restrict__ table,
     const int* __restrict__ n0_rot,
@@ -98,17 +106,23 @@ fm_chain_tile(
     const float* __restrict__ cf_re_in, const float* __restrict__ cf_im_in,
     float* __restrict__ audio, float* __restrict__ cf_re_out,
     float* __restrict__ cf_im_out, float* __restrict__ zend, int Uc) {
-  constexpr int kCh = gsdr::block_channels<kPfb>();
-  constexpr int kThreads = gsdr::block_threads<kPfb>();
+  constexpr int kBe = gsdr::back_channels(kCh);    // channels a thread
+  constexpr int kThreads = gsdr::back_threads(kCh);
   constexpr int kPar = kThreads / kTile;           // groups side by side
-  constexpr int kOS = 8 * gsdr::kPfbNT + 1;   // the PFB fronts' tile stride
-  static_assert(kCh == kPar * kCG, "one group of kCG channels a thread");
+  constexpr int kOS = 2 * kCh + 1;   // the f32 and PFB fronts' tile stride
+  constexpr bool kTileOut = kPfb || kGrade == gsdr::kGradeF32;
+  static_assert(kCh == kPar * kBe, "one group of kBe channels a thread");
+  static_assert(kTileOut || kCh == kCG, "the bf16 dense front: 16 channels");
+  constexpr int kCols = gsdr::fm_dense_cols(kChunked);   // f32 dense tiles
+  constexpr int kUnroll = gsdr::fm_dense_unroll(kChunked);
+  static_assert(kPfb || kGrade != gsdr::kGradeF32 ||
+                    gsdr::dense_f32_threads(kCh, kCols) <= kThreads,
+                "the f32 dense front's tiles within the block");
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float tab[kCh * 4];
-  __shared__ float y_edge[kPar][kWarps][kCG][2];
-  __shared__ float z_edge[kPar][kWarps][kCG];
-  __shared__ float z_last[kPar][kWarps][kCG];
+  __shared__ float y_edge[kPar][kWarps][kBe][2];
+  __shared__ float z_edge[kPar][kWarps][kBe];
+  __shared__ float z_last[kPar][kWarps][kBe];
 
   const int tid = threadIdx.x;
   const int row = tid % kTile;                     // output row of the tile
@@ -126,7 +140,7 @@ fm_chain_tile(
   }
 
   // ---- 1) front ------------------------------------------------------------
-  float acc_re[kCG], acc_im[kCG];
+  float acc_re[kBe], acc_im[kBe];
   const float* out = nullptr;
   const long g0 = (long)(j0 - 1) * D;
   unsigned char* sbytes = reinterpret_cast<unsigned char*>(smem4);
@@ -148,8 +162,8 @@ fm_chain_tile(
         sbytes, buf_re, buf_im, nb, hp,
         reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y, g0);
   } else if constexpr (kGrade == gsdr::kGradeF32) {
-    gsdr::toeplitz_front<kChunked>(smem, buf_re, buf_im, nb, bank, C, T, Tc,
-                                   D, blockIdx.y * kCG, g0, acc_re, acc_im);
+    out = gsdr::toeplitz_front<kChunked, kCh, kCols, kUnroll>(
+        sbytes, buf_re, buf_im, nb, ftab, C, T, Tc, D, blockIdx.y, g0);
   } else if constexpr (kChunked) {
     gsdr::toeplitz_front_mma_chunked<kGrade, kCG / 4>(
         sbytes, buf_re, buf_im, nb, btab, C, T, Tc, D, blockIdx.y, g0,
@@ -160,14 +174,14 @@ fm_chain_tile(
                                               acc_re, acc_im);
   }
 
-  // the back end, for this thread's group of kCG channels
-  const int c0 = blockIdx.y * kCh + grp * kCG;
-  const float* gtab = tab + grp * kCG * 4;
-  if constexpr (kPfb) {
+  // the back end, for this thread's group of kBe channels
+  const int c0 = blockIdx.y * kCh + grp * kBe;
+  const float* gtab = tab + grp * kBe * 4;
+  if constexpr (kTileOut) {
 #pragma unroll
-    for (int c = 0; c < kCG; ++c) {
-      acc_re[c] = out[row * kOS + 2 * (grp * kCG + c)];
-      acc_im[c] = out[row * kOS + 2 * (grp * kCG + c) + 1];
+    for (int c = 0; c < kBe; ++c) {
+      acc_re[c] = out[row * kOS + 2 * (grp * kBe + c)];
+      acc_im[c] = out[row * kOS + 2 * (grp * kBe + c) + 1];
     }
   }
   const int idx = n0_rot[0] + j * D;
@@ -180,7 +194,7 @@ fm_chain_tile(
 
   // ---- 2) LO rotor from the digit table ------------------------------------
 #pragma unroll
-  for (int c = 0; c < kCG; ++c) {
+  for (int c = 0; c < kBe; ++c) {
     float acc = 0.f;
 #pragma unroll
     for (int d = 0; d < 4; ++d)
@@ -194,14 +208,14 @@ fm_chain_tile(
   }
   if (j < 0) {   // block 0, thread 0: the carried previous sample
 #pragma unroll
-    for (int c = 0; c < kCG; ++c) {
+    for (int c = 0; c < kBe; ++c) {
       acc_re[c] = c0 + c < C ? cf_re_in[c0 + c] : 0.f;
       acc_im[c] = c0 + c < C ? cf_im_in[c0 + c] : 0.f;
     }
   }
   if (j == M - 1) {
 #pragma unroll
-    for (int c = 0; c < kCG; ++c) {
+    for (int c = 0; c < kBe; ++c) {
       if (c0 + c < C) {
         cf_re_out[c0 + c] = acc_re[c];
         cf_im_out[c0 + c] = acc_im[c];
@@ -212,15 +226,15 @@ fm_chain_tile(
   // ---- 3) discriminator: f[j] * conj(f[j-1]) -------------------------------
   if (lane == 31) {
 #pragma unroll
-    for (int c = 0; c < kCG; ++c) {
+    for (int c = 0; c < kBe; ++c) {
       y_edge[grp][warp][c][0] = acc_re[c];
       y_edge[grp][warp][c][1] = acc_im[c];
     }
   }
   __syncthreads();
-  float dsc[kCG];
+  float dsc[kBe];
 #pragma unroll
-  for (int c = 0; c < kCG; ++c) {
+  for (int c = 0; c < kBe; ++c) {
     float pr = __shfl_up_sync(kFull, acc_re[c], 1);
     float pi = __shfl_up_sync(kFull, acc_im[c], 1);
     if (lane == 0 && warp > 0) {
@@ -237,13 +251,13 @@ fm_chain_tile(
   }
 
   // ---- 4) de-emphasis from z = 0 at the tile start -------------------------
-  float z[kCG];
+  float z[kBe];
 #pragma unroll
-  for (int c = 0; c < kCG; ++c) z[c] = cc * dsc[c];
+  for (int c = 0; c < kBe; ++c) z[c] = cc * dsc[c];
   float as = a;   // a^s
   for (int s = 1; s < 32; s <<= 1) {
 #pragma unroll
-    for (int c = 0; c < kCG; ++c) {
+    for (int c = 0; c < kBe; ++c) {
       const float v = __shfl_up_sync(kFull, z[c], s);
       if (lane >= s) z[c] = fmaf(as, v, z[c]);
     }
@@ -251,13 +265,13 @@ fm_chain_tile(
   }
   if (lane == 31) {
 #pragma unroll
-    for (int c = 0; c < kCG; ++c) z_edge[grp][warp][c] = z[c];
+    for (int c = 0; c < kBe; ++c) z_edge[grp][warp][c] = z[c];
   }
   __syncthreads();
   const float a32 = as;            // a^32
   const float a_lane = ipow(a, lane + 1);
 #pragma unroll
-  for (int c = 0; c < kCG; ++c) {
+  for (int c = 0; c < kBe; ++c) {
     float sprev = 0.f;             // state at the end of the previous warp
     for (int w = 0; w < warp; ++w)
       sprev = fmaf(a32, sprev, z_edge[grp][w][c]);
@@ -265,11 +279,11 @@ fm_chain_tile(
   }
   if (lane == 31) {
 #pragma unroll
-    for (int c = 0; c < kCG; ++c) z_last[grp][warp][c] = z[c];
+    for (int c = 0; c < kBe; ++c) z_last[grp][warp][c] = z[c];
   }
   __syncthreads();
 #pragma unroll
-  for (int c = 0; c < kCG; ++c) {
+  for (int c = 0; c < kBe; ++c) {
     float zp = __shfl_up_sync(kFull, z[c], 1);
     if (lane == 0 && warp > 0) zp = z_last[grp][warp - 1][c];
     if (c0 + c < C) {
@@ -359,8 +373,9 @@ __global__ void fm_chain_inject(float* __restrict__ audio,
 }
 
 // The three launches of one chain call; returns 0 or the first CUDA error.
-template <bool kPfb, int kGrade, bool kChunked>
-int run_chain(const void* buf_re, const void* buf_im, const void* bank,
+template <bool kPfb, int kGrade, bool kChunked,
+          int kCh = gsdr::block_channels<kPfb>()>
+int run_chain(const void* buf_re, const void* buf_im, const void* ftab,
               const void* hp, const void* btab, const void* table,
               const void* n0_rot, const void* coef, const void* cf_re_in,
               const void* cf_im_in, const void* cz_in, void* audio,
@@ -370,14 +385,13 @@ int run_chain(const void* buf_re, const void* buf_im, const void* bank,
               int Uc = 0) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaFuncSetAttribute(
-      fm_chain_tile<kPfb, kGrade, kChunked>,
+      fm_chain_tile<kPfb, kGrade, kChunked, kCh>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kCh = gsdr::block_channels<kPfb>();
   dim3 grid(ntiles, (C + kCh - 1) / kCh);
-  fm_chain_tile<kPfb, kGrade, kChunked>
-      <<<grid, gsdr::block_threads<kPfb>(), smem, st>>>(
-      (const float*)buf_re, (const float*)buf_im, nb, (const float*)bank,
+  fm_chain_tile<kPfb, kGrade, kChunked, kCh>
+      <<<grid, gsdr::back_threads(kCh), smem, st>>>(
+      (const float*)buf_re, (const float*)buf_im, nb, (const float*)ftab,
       (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M, ntiles,
       (const float*)table, (const int*)n0_rot, (const float*)coef, gain,
       (const float*)cf_re_in, (const float*)cf_im_in, (float*)audio,
@@ -399,11 +413,12 @@ extern "C" int fm_chain_tile_outputs() { return kOut; }
 
 namespace {
 
-// The dense tile kernel of a grade, one chunk or chunked.
-template <int kGrade>
+// The dense tile kernel of a grade for kCh channels a block, one chunk or
+// chunked.
+template <int kGrade, int kCh = kCG>
 const void* dense_tile(bool chunked) {
-  return chunked ? (const void*)fm_chain_tile<false, kGrade, true>
-                 : (const void*)fm_chain_tile<false, kGrade, false>;
+  return chunked ? (const void*)fm_chain_tile<false, kGrade, true, kCh>
+                 : (const void*)fm_chain_tile<false, kGrade, false, kCh>;
 }
 
 // The PFB tile kernel of a grade, one chunk or chunked.
@@ -413,33 +428,41 @@ const void* pfb_tile(bool chunked) {
                  : (const void*)fm_chain_tile<true, kGrade, false>;
 }
 
-// The tile kernel of a front (pfb) and grade with its dynamic shared memory
-// for a chunk of Tc taps and D (dense; `chunked` picks the kernel that
-// walks chunks) or for (K, Q, D) and the plan of Tc lanes and Uc fold taps
-// a chunk (PFB; the chunked kernel where use_chunked_pfb), or nullptr for
-// a grade the library lacks.
-const void* tile_kernel(bool pfb, int grade, int Tc, int K, int Q, int D,
-                        size_t* smem, bool chunked = false, int Uc = 0) {
-  if (pfb) {
-    const bool ch = gsdr::use_chunked_pfb(Tc, Uc, K, Q);
-    switch (grade) {
-      case gsdr::kGradeF32:
-        *smem = ch ? gsdr::pfb_chunk_bytes(K, Q, D, Tc, Uc)
-                   : gsdr::pfb_smem_bytes(K, Q, D);
-        return pfb_tile<gsdr::kGradeF32>(ch);
-      case gsdr::kGradeBf16x2:
-      case gsdr::kGradeBf16x3:
-        *smem = ch ? gsdr::pfb_mma_chunk_bytes(gsdr::kPfbNT, K, Q, D, Tc, Uc)
-                   : gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
-        return grade == gsdr::kGradeBf16x2 ? pfb_tile<gsdr::kGradeBf16x2>(ch)
-                                           : pfb_tile<gsdr::kGradeBf16x3>(ch);
-    }
-    return nullptr;
-  }
+// The PFB tile kernel of a grade with its dynamic shared memory for
+// (K, Q, D) and the plan of Tc lanes and Uc fold taps a chunk (the chunked
+// kernel where use_chunked_pfb), or nullptr for a grade the library lacks.
+const void* pfb_kernel(int grade, int Tc, int K, int Q, int D, size_t* smem,
+                       int Uc) {
+  const bool ch = gsdr::use_chunked_pfb(Tc, Uc, K, Q);
   switch (grade) {
     case gsdr::kGradeF32:
-      *smem = gsdr::toeplitz_smem_bytes(Tc, D);
-      return dense_tile<gsdr::kGradeF32>(chunked);
+      *smem = ch ? gsdr::pfb_chunk_bytes(K, Q, D, Tc, Uc)
+                 : gsdr::pfb_smem_bytes(K, Q, D);
+      return pfb_tile<gsdr::kGradeF32>(ch);
+    case gsdr::kGradeBf16x2:
+    case gsdr::kGradeBf16x3:
+      *smem = ch ? gsdr::pfb_mma_chunk_bytes(gsdr::kPfbNT, K, Q, D, Tc, Uc)
+                 : gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
+      return grade == gsdr::kGradeBf16x2 ? pfb_tile<gsdr::kGradeBf16x2>(ch)
+                                         : pfb_tile<gsdr::kGradeBf16x3>(ch);
+  }
+  return nullptr;
+}
+
+// The dense tile kernel of a grade for C channels (at f32 in blocks of
+// dense_f32_channels(C)), one chunk or `chunked`, with its dynamic shared
+// memory for a chunk of Tc of T taps at D, or nullptr for a grade the
+// library lacks.
+const void* dense_kernel(int grade, int C, int T, int Tc, int D,
+                         size_t* smem, bool chunked) {
+  switch (grade) {
+    case gsdr::kGradeF32: {
+      const int ch = gsdr::dense_f32_channels(C);
+      *smem = gsdr::toeplitz_smem_bytes(ch, Tc, T, D);
+      return ch == 8    ? dense_tile<gsdr::kGradeF32, 8>(chunked)
+             : ch == 16 ? dense_tile<gsdr::kGradeF32, 16>(chunked)
+                        : dense_tile<gsdr::kGradeF32, 32>(chunked);
+    }
     case gsdr::kGradeBf16x2:
       *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
       return dense_tile<gsdr::kGradeBf16x2>(chunked);
@@ -454,42 +477,42 @@ const void* tile_kernel(bool pfb, int grade, int Tc, int K, int Q, int D,
 
 // The block plan of the front at `grade` (0 f32, 2 bf16x2, 3 bf16x3) on
 // the current device, for any channel count C (grid.y covers the
-// channels): for the dense front (pfb = 0, with T and D) plan[0] = the
+// channels): for the dense front (pfb = 0, with T and D, and C, on which
+// the f32 block depends; C < 1: any C, the widest block) plan[0] = the
 // taps a block stages at once (gsdr::dense_chunk: T in one chunk where the
-// whole bank fits; 0 only where not even 8 taps fit); for the PFB front
+// whole bank fits; at f32 else chunks whose two buffers let two blocks
+// share a SM; 0 only where not even 8 taps fit); for the PFB front
 // (pfb = 1, with K, Q and D) plan[0..1] = the lanes and fold taps a chunk
 // takes (gsdr::pfb_chunk: (K, Q) where one chunk fits, (0, 0) where
 // nothing fits). Returns 0 or the CUDA error; an unknown grade is an
 // invalid value.
 extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
                              int D, int* plan) {
-  (void)C;
   if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1 || K % D != 0)))
     return (int)cudaErrorInvalidValue;
   size_t smem = 0, b = 0;
   if (pfb) {
-    const void* one = tile_kernel(true, grade, K, K, Q, D, &smem, false, Q);
+    const void* one = pfb_kernel(grade, K, K, Q, D, &smem, Q);
     if (one == nullptr) return (int)cudaErrorInvalidValue;
     return (int)gsdr::pfb_chunk(
-        one, smem, tile_kernel(true, grade, 8, K, Q, D, &b, true, 1), K, Q,
-        D,
+        one, smem, pfb_kernel(grade, 8, K, Q, D, &b, 1), K, Q, D,
         [=](int lanes, int uc) {
           size_t bytes = 0;
-          tile_kernel(true, grade, lanes, K, Q, D, &bytes, true, uc);
+          pfb_kernel(grade, lanes, K, Q, D, &bytes, uc);
           return bytes;
         },
         plan);
   }
-  const void* kernel = tile_kernel(false, grade, T, K, Q, D, &smem);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const void* one = dense_kernel(grade, C, T, T, D, &smem, false);
+  if (one == nullptr) return (int)cudaErrorInvalidValue;
   return (int)gsdr::dense_chunk(
-      kernel, tile_kernel(false, grade, T, 0, 0, D, &smem, true), T,
+      one, dense_kernel(grade, C, T, T, D, &b, true), T,
       [=](int tc) {
         size_t bytes = 0;
-        tile_kernel(false, grade, tc, 0, 0, D, &bytes);
+        dense_kernel(grade, C, T, tc, D, &bytes, tc < T);
         return bytes;
       },
-      plan);
+      plan, grade == gsdr::kGradeF32 ? D : 0);
 }
 
 extern "C" const char* fm_chain_error_string(int err) {
@@ -498,12 +521,13 @@ extern "C" const char* fm_chain_error_string(int err) {
 
 // Dense front at `grade` (as fm_chain_fits), Tc taps a block stages at
 // once (fm_chain_fits' plan, or any chunk gsdr::valid_chunk takes whose
-// block fits). Shapes: buf planes (nb,), bank (2C, 2, T) read at f32,
-// btab dense_mma_tables' (2, ceil(T/8), ceil(C/4), 16, 2) int32 read at
+// block fits). Shapes: buf planes (nb,), ftab dense_f32_tables' (ceil(C/8),
+// T, 8, 2) float32 read at f32, btab dense_mma_tables' (2, ceil(T/8),
+// ceil(C/4), 16, 2) int32 read at
 // bf16x3 and bf16x2, table (C, 4), n0_rot (1,) int32, coef (3,) = (b0,
 // cc, a), carries (C,), audio (C, M), zend/zstart (C, ntiles) scratch.
 extern "C" int fm_chain_launch(
-    const void* buf_re, const void* buf_im, const void* bank,
+    const void* buf_re, const void* buf_im, const void* ftab,
     const void* btab, const void* table, const void* n0_rot,
     const void* coef, const void* cf_re_in, const void* cf_im_in,
     const void* cz_in, void* audio, void* cf_re_out, void* cf_im_out,
@@ -513,24 +537,31 @@ extern "C" int fm_chain_launch(
       ntiles != (M + kOut - 1) / kOut || !gsdr::valid_chunk(Tc, T))
     return (int)cudaErrorInvalidValue;
   Tc = Tc < T ? Tc : T;
+  const bool chunked = gsdr::use_chunked_kernel(Tc, T, D);
   size_t smem = 0;
-  if (tile_kernel(false, grade, Tc, 0, 0, D, &smem) == nullptr)
+  if (dense_kernel(grade, C, T, Tc, D, &smem, chunked) == nullptr)
     return (int)cudaErrorInvalidValue;
-#define GSDR_DENSE_CHAIN_AT(G, CHUNKED)                                      \
-  run_chain<false, G, CHUNKED>(                                             \
-      buf_re, buf_im, bank, nullptr, btab, table, n0_rot, coef, cf_re_in,   \
+#define GSDR_DENSE_CHAIN_AT(G, CHUNKED, CH)                                  \
+  run_chain<false, G, CHUNKED, CH>(                                         \
+      buf_re, buf_im, ftab, nullptr, btab, table, n0_rot, coef, cf_re_in,   \
       cf_im_in, cz_in, audio, cf_re_out, cf_im_out, cz_out, zend, zstart,   \
       nb, C, T, Tc, 0, 0, D, M, ntiles, gain, smem, stream)
-#define GSDR_DENSE_CHAIN(G)                                      \
-  (gsdr::use_chunked_kernel(Tc, T, D) ? GSDR_DENSE_CHAIN_AT(G, true) \
-                                      : GSDR_DENSE_CHAIN_AT(G, false))
+#define GSDR_DENSE_CHAIN(G, CH)                \
+  (chunked ? GSDR_DENSE_CHAIN_AT(G, true, CH)  \
+           : GSDR_DENSE_CHAIN_AT(G, false, CH))
   switch (grade) {
     case gsdr::kGradeBf16x2:
-      return GSDR_DENSE_CHAIN(gsdr::kGradeBf16x2);
+      return GSDR_DENSE_CHAIN(gsdr::kGradeBf16x2, kCG);
     case gsdr::kGradeBf16x3:
-      return GSDR_DENSE_CHAIN(gsdr::kGradeBf16x3);
+      return GSDR_DENSE_CHAIN(gsdr::kGradeBf16x3, kCG);
+  }
+  switch (gsdr::dense_f32_channels(C)) {
+    case 8:
+      return GSDR_DENSE_CHAIN(gsdr::kGradeF32, 8);
+    case 16:
+      return GSDR_DENSE_CHAIN(gsdr::kGradeF32, 16);
     default:
-      return GSDR_DENSE_CHAIN(gsdr::kGradeF32);
+      return GSDR_DENSE_CHAIN(gsdr::kGradeF32, 32);
   }
 #undef GSDR_DENSE_CHAIN
 #undef GSDR_DENSE_CHAIN_AT
@@ -557,8 +588,7 @@ extern "C" int pfb_fm_chain_launch(
       ntiles != (M + kOut - 1) / kOut || !gsdr::valid_pfb_plan(lanes, uc, K, Q))
     return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  const void* kernel = tile_kernel(true, grade, lanes, K, Q, D, &smem, false,
-                                   uc);
+  const void* kernel = pfb_kernel(grade, lanes, K, Q, D, &smem, uc);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   int fits = 0;
   const cudaError_t err = gsdr::block_fits(kernel, smem, &fits);

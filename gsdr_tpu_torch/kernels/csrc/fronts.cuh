@@ -7,9 +7,10 @@
 // of the output whose window starts at sample g0 + row * D. Samples
 // outside [0, nb) read as zeros.
 //
-//  - toeplitz_front: the dense complex tap bank, C*T complex MACs per
-//    output (gsdr_tpu/kernels/fm_chain_pallas.py, _window_dot), kCG
-//    channels a block, one thread a row, into its registers.
+//  - toeplitz_front: the dense complex tap bank at f32, C*T complex MACs
+//    per output (gsdr_tpu/kernels/fm_chain_pallas.py, _window_dot), 8, 16
+//    or 32 channels a block, in register tiles of rows x channels, into a
+//    shared output tile (see "The dense front at f32" below).
 //  - pfb_front: channels on the uniform grid f_c = g_c * Fs / K with D | K
 //    (gsdr_tpu/kernels/fm_chain_pallas.py, _pfb_fold_dot) at f32: the
 //    polyphase fold a[v] = sum_u hp[u, v] * x[j*D + v + u*K] (Q = ceil(T/K)
@@ -42,7 +43,8 @@
 // accumulators) in the order of one pass over all T taps, so a chunked
 // launch equals a one-chunk launch bit for bit. Tc = T, one chunk, where
 // the whole bank and window fit the block; else the largest multiple of 8
-// that does, which bounds their shared memory for any T and D. Each dense
+// that does (at f32, that does in two staging buffers with two blocks a
+// SM), which bounds their shared memory for any T and D. Each dense
 // front is two kernels (use_chunked_kernel): a one-chunk kernel for
 // Tc = T >= D, which stages every phase before its sums start, and a
 // chunked kernel for Tc < T or T < D, which stages only the phases a chunk
@@ -86,8 +88,9 @@
 
 namespace gsdr {
 
-constexpr int kTile = 256;        // output rows a block (dense: one a thread)
-constexpr int kCG = 16;           // channels a dense block, or a thread's
+constexpr int kTile = 256;        // output rows a block
+constexpr int kCG = 16;           // channels a bf16 dense block, or a thread's
+constexpr int kDenseRows = 4;     // f32 dense front: rows of a tile, 32 apart
 constexpr int kPhaseChunk = 16;   // PFB front: input phases staged at once
 constexpr int kPfbNT = 8;         // PFB fronts: n-tiles of 4, 32 channels
 constexpr int kPfbThreads = 512;  // PFB fronts: threads a block
@@ -108,12 +111,68 @@ __host__ __device__ inline int chunk_phases(int Tc, int D) {
   return Tc < D ? Tc : D;
 }
 
-// Dynamic shared memory of each front, in bytes; the dense fronts' for a
-// chunk of Tc taps.
-__host__ __device__ inline size_t toeplitz_smem_bytes(int Tc, int D) {
-  const size_t kr = kTile + (Tc - 1) / D;
-  return sizeof(float) * ((size_t)Tc * kCG * 2 +
-                          2 * (size_t)chunk_phases(Tc, D) * kr);
+// Channels a block of the f32 dense front takes for a bank of C channels:
+// 8, 16 or 32 (C < 1 stands for any C: 32, the widest block).
+__host__ __device__ constexpr int dense_f32_channels(int C) {
+  return C >= 1 && C <= 8 ? 8 : C >= 1 && C <= 16 ? 16 : 32;
+}
+
+// Threads of the f32 dense front that hold a register tile of `cols`
+// channels (4 or 8), for ch channels a block: kTile / (32 * kDenseRows)
+// warps of rows for each `cols` channels.
+__host__ __device__ constexpr int dense_f32_threads(int ch, int cols) {
+  return kTile / kDenseRows * (ch / cols);
+}
+
+// The tile widths and product unrolls the launchers take (H100, PR 15:
+// each the fastest of the variants timed there): the FM chain's one-chunk
+// kernel 4 channels (its 256 threads all hold tiles, and its back end
+// keeps four blocks a SM at 64 registers), its chunked kernel 8 unrolled
+// by 4 (a long bank's FMAs on the four warps of a block that hold tiles:
+// 1625 us at the 2049-tap filter against 1720 unrolled by 2, 1880 by 1);
+// the AM chain and the channelizer 4 for a block of 8 channels (128
+// threads: a large D leaves few blocks), else 8; unrolled by 1 but for
+// the FM chunked kernel (fewer registers, more blocks a SM: the transmux
+// 52 us against 57.5 unrolled by 2).
+__host__ __device__ constexpr int fm_dense_cols(bool chunked) {
+  return chunked ? 8 : 4;
+}
+
+__host__ __device__ constexpr int fm_dense_unroll(bool chunked) {
+  return chunked ? 4 : 1;
+}
+
+__host__ __device__ constexpr int dense_cols(int ch) {
+  return ch == 8 ? 4 : 8;
+}
+
+// Pairs between two phases of the f32 dense front's window for a chunk
+// of Tc taps: Kr = kTile + (Tc - 1)/D frames, made odd, so that a warp's
+// staging copies to neighbouring phases fall on different banks (Kr = 256,
+// a chunk shorter than D, would put them all on one).
+__host__ __device__ inline int dense_phase_stride(int Tc, int D) {
+  return (kTile + (Tc - 1) / D) | 1;
+}
+
+// Floats of one staging buffer of the f32 dense front: a chunk of Tc taps
+// of ch/8 groups [ch/8][Tc][8][2], then its window [Dc][Ks] of (re, im)
+// pairs, Dc = chunk_phases(Tc, D), Ks = dense_phase_stride(Tc, D); padded
+// to 16 bytes.
+__host__ __device__ inline size_t dense_f32_buffer_floats(int ch, int Tc,
+                                                          int D) {
+  return ((size_t)16 * (ch / 8) * Tc + 2 * (size_t)chunk_phases(Tc, D) *
+                                           dense_phase_stride(Tc, D) +
+          3) / 4 * 4;
+}
+
+// The f32 dense front's dynamic shared memory for ch channels a block and
+// a chunk of Tc <= T taps: one staging buffer for one chunk, two where
+// Tc < T; the kTile x (2*ch + 1) output tile reuses the space.
+__host__ __device__ inline size_t toeplitz_smem_bytes(int ch, int Tc, int T,
+                                                      int D) {
+  const size_t all = (Tc < T ? 2 : 1) * dense_f32_buffer_floats(ch, Tc, D);
+  const size_t out = (size_t)kTile * (2 * ch + 1);
+  return sizeof(float) * (all > out ? all : out);
 }
 
 // Words per phase of the tensor-core front's window: the Kr = kTile +
@@ -322,7 +381,8 @@ __host__ __device__ inline size_t pfb_mma_chunk_bytes(int nt, int K, int Q,
 // Channels and threads per block of a tile kernel: the PFB fronts cover
 // kPfbCh channels with one fold, and their block has two threads per
 // output row, so that its back end takes the two groups of kCG channels
-// side by side; the dense fronts kCG channels, one thread a row.
+// side by side; the bf16 dense fronts kCG channels, one thread a row (the
+// f32 dense front: dense_f32_channels, back_threads).
 template <bool kPfb>
 __host__ __device__ constexpr int block_channels() {
   return kPfb ? kPfbCh : kCG;
@@ -331,6 +391,17 @@ __host__ __device__ constexpr int block_channels() {
 template <bool kPfb>
 __host__ __device__ constexpr int block_threads() {
   return kPfb ? kPfbThreads : kTile;
+}
+
+// The channels a thread of a back end that takes one output row a thread
+// (the FM chain's) holds for ch channels a block: kCG, or all of an
+// 8-channel block; and that block's threads, one a row and group.
+__host__ __device__ constexpr int back_channels(int ch) {
+  return ch < kCG ? ch : kCG;
+}
+
+__host__ __device__ constexpr int back_threads(int ch) {
+  return kTile * (ch / back_channels(ch));
 }
 
 // Sets *room to the dynamic shared memory a block of `kernel` may take on
@@ -363,33 +434,71 @@ inline cudaError_t block_fits(const void* kernel, size_t dynamic, int* fits) {
   return err;
 }
 
+// Sets *room to the dynamic shared memory a block of `kernel` may take so
+// that two of its blocks share a SM on the current device: half the SM's
+// shared memory less a block's reservation and the kernel's static shared
+// memory (0 where that leaves nothing). Returns 0 or the CUDA error.
+inline cudaError_t pair_room(const void* kernel, size_t* room) {
+  int dev = 0, per_sm = 0, reserved = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    const size_t used = (size_t)reserved + attr.sharedSizeBytes;
+    *room = (size_t)per_sm / 2 > used ? (size_t)per_sm / 2 - used : 0;
+  }
+  return err;
+}
+
 // The dense fronts' chunk plan: sets *chunk to the taps a block stages at
 // once on the current device, T where the whole bank and window fit a
 // block, else the largest multiple of 8 below T that fits, or 0 where not
 // even 8 taps do; a block of either kernel of the front, `one` (one
 // chunk) and `chunked`, whose static shared memory may differ. bytes(Tc)
 // is the block's dynamic shared memory for a chunk of Tc taps,
-// non-decreasing in Tc. Returns 0 or the CUDA error. The libraries answer
-// <library>_fits with it for the dense front.
+// non-decreasing in Tc. Where pair_span > 0 (the f32 front, whose chunked
+// kernel stages the next chunk while it multiplies one; pair_span = D), a
+// chunk below T is the largest whose block lets two blocks share a SM
+// (pair_room) where that chunk spans pair_span taps or more, so that a
+// chunk stages one window of all D phases; else, where two blocks would
+// take chunks shorter than D, each restaging its phases' window (the
+// transmux at Q=127 on the H100: 1267 us in chunks of 24 of D=32 taps
+// against 869 in the one-block chunks of 192), the largest that fits.
+// Returns 0 or the CUDA error. The libraries answer <library>_fits with
+// it for the dense front.
 template <class Bytes>
 cudaError_t dense_chunk(const void* one, const void* chunked, int T,
-                        Bytes bytes, int* chunk) {
-  size_t room = 0, room_chunked = 0;
+                        Bytes bytes, int* chunk, int pair_span = 0) {
+  size_t room = 0, room_chunked = 0, room_pair = 0;
   cudaError_t err = block_room(one, &room);
   if (err == cudaSuccess) err = block_room(chunked, &room_chunked);
+  if (err == cudaSuccess && pair_span > 0)
+    err = pair_room(chunked, &room_pair);
   if (err != cudaSuccess) return err;
   if (room_chunked < room) room = room_chunked;
   if (bytes(T) <= room) {
     *chunk = T;
     return cudaSuccess;
   }
-  int lo = 0, hi = (T - 1) / 8;   // chunks of 8*m taps, 1 <= m <= hi
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (bytes(8 * mid) <= room) lo = mid;
-    else hi = mid - 1;
-  }
-  *chunk = 8 * lo;
+  // the largest chunk of 8*m taps, 1 <= m < T/8, whose block takes at
+  // most `lim` bytes; 0 where none does
+  auto largest = [&](size_t lim) {
+    int lo = 0, hi = (T - 1) / 8;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (bytes(8 * mid) <= lim) lo = mid;
+      else hi = mid - 1;
+    }
+    return 8 * lo;
+  };
+  *chunk = pair_span > 0 ? largest(room_pair < room ? room_pair : room) : 0;
+  if (*chunk < pair_span || *chunk == 0) *chunk = largest(room);
   return cudaSuccess;
 }
 
@@ -459,96 +568,6 @@ __host__ __device__ inline bool valid_chunk(int Tc, int T) {
 // one-chunk kernel would stage at all D phases.
 __host__ __device__ inline bool use_chunked_kernel(int Tc, int T, int D) {
   return Tc < T || T < D;
-}
-
-// Stages taps t0..t0+nt-1 of the dense front's f32 bank for channels
-// c0..c0+kCG-1 as (re, im) pairs, taps[(t - t0)*kCG + c], and the window
-// of samples g0 + t0 + k*D + p, p < Dc, k < Kr, in polyphase order
-// xp[p*Kr + k] for each plane; samples outside [0, nb) as zeros.
-__device__ __forceinline__ void toeplitz_stage(
-    float* taps, float* xp_re, float* xp_im,
-    const float* __restrict__ buf_re, const float* __restrict__ buf_im,
-    int nb, const float* __restrict__ bank, int C, int T, int D, int c0,
-    long g0, int t0, int nt, int Dc, int Kr) {
-  const int tid = threadIdx.x;
-  for (int idx = tid; idx < nt * kCG; idx += kTile) {
-    const int t = t0 + idx / kCG, cg = c0 + idx % kCG;
-    taps[2 * idx] = cg < C ? bank[(4L * cg) * T + t] : 0.f;           // gr
-    taps[2 * idx + 1] = cg < C ? bank[(4L * cg + 2) * T + t] : 0.f;   // gi
-  }
-  for (int l = tid; l < Dc * Kr; l += kTile) {
-    const int p = l % Dc, k = l / Dc;
-    const long g = g0 + t0 + (long)k * D + p;
-    const bool in = g >= 0 && g < nb;
-    xp_re[p * Kr + k] = in ? buf_re[g] : 0.f;
-    xp_im[p * Kr + k] = in ? buf_im[g] : 0.f;
-  }
-}
-
-// acc += the products of one staged chunk of nt taps (toeplitz_stage), in
-// ascending t, with fmaf.
-__device__ __forceinline__ void toeplitz_product(
-    const float* taps, const float* xp_re, const float* xp_im, int nt,
-    int D, int Kr, float (&acc_re)[kCG], float (&acc_im)[kCG]) {
-  const int tid = threadIdx.x;
-  const float4* taps4 = reinterpret_cast<const float4*>(taps);
-  int p = 0, q = 0;
-  for (int t = 0; t < nt; ++t) {
-    const float xr = xp_re[p * Kr + tid + q];
-    const float xi = xp_im[p * Kr + tid + q];
-#pragma unroll
-    for (int c2 = 0; c2 < kCG / 2; ++c2) {
-      const float4 g = taps4[t * (kCG / 2) + c2];
-      acc_re[2 * c2] = fmaf(xr, g.x, fmaf(-xi, g.y, acc_re[2 * c2]));
-      acc_im[2 * c2] = fmaf(xr, g.y, fmaf(xi, g.x, acc_im[2 * c2]));
-      acc_re[2 * c2 + 1] = fmaf(xr, g.z, fmaf(-xi, g.w, acc_re[2 * c2 + 1]));
-      acc_im[2 * c2 + 1] = fmaf(xr, g.w, fmaf(xi, g.z, acc_im[2 * c2 + 1]));
-    }
-    if (++p == D) {
-      p = 0;
-      ++q;
-    }
-  }
-}
-
-// Dense front. bank: (2C, 2, T) from make_complex_tap_bank; row 4c holds
-// gr_c (applied to x_re), row 4c+2 holds gi_c. Shared memory: a chunk's
-// taps [Tc][kCG][2] as (re, im) pairs read as float4 broadcasts, then its
-// window [Dc][Kr] for each plane, Dc = chunk_phases(Tc, D), Kr = kTile +
-// (Tc - 1)/D: xp[p][k] = x[g0 + t0 + k*D + p]. Each output sums its taps
-// in ascending t with fmaf. kChunked = false: one chunk, Tc = T, staged
-// before the sums start, so that no accumulator is live while it stages;
-// kChunked: chunks of Tc taps, the sums carried across them in registers.
-template <bool kChunked>
-__device__ __forceinline__ void toeplitz_front(
-    float* smem, const float* __restrict__ buf_re,
-    const float* __restrict__ buf_im, int nb, const float* __restrict__ bank,
-    int C, int T, int Tc, int D, int c0, long g0, float (&acc_re)[kCG],
-    float (&acc_im)[kCG]) {
-  if constexpr (!kChunked) Tc = T;
-  const int Dc = chunk_phases(Tc, D), Kr = kTile + (Tc - 1) / D;
-  float* taps = smem;
-  float* xp_re = taps + Tc * kCG * 2;
-  float* xp_im = xp_re + Dc * Kr;
-  if constexpr (!kChunked) {
-    toeplitz_stage(taps, xp_re, xp_im, buf_re, buf_im, nb, bank, C, T, D, c0,
-                   g0, 0, T, Dc, Kr);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int c = 0; c < kCG; ++c) acc_re[c] = acc_im[c] = 0.f;
-  if constexpr (!kChunked) {
-    toeplitz_product(taps, xp_re, xp_im, T, D, Kr, acc_re, acc_im);
-  } else {
-    for (int t0 = 0; t0 < T; t0 += Tc) {
-      const int nt = T - t0 < Tc ? T - t0 : Tc;
-      if (t0 > 0) __syncthreads();   // the previous chunk's readers are done
-      toeplitz_stage(taps, xp_re, xp_im, buf_re, buf_im, nb, bank, C, T, D,
-                     c0, g0, t0, nt, Dc, Kr);
-      __syncthreads();
-      toeplitz_product(taps, xp_re, xp_im, nt, D, Kr, acc_re, acc_im);
-    }
-  }
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
@@ -1796,6 +1815,233 @@ __device__ __forceinline__ const float* pfb_front_chunked(
                 g0, L, uc, ssize, gsize, asize);
   }
   return pfb_tile_out(smem, t, consumer);
+}
+
+// ---- The dense front at f32 ----------------------------------------------
+//
+// toeplitz_front<kChunked, kCh, kCols> computes, for the block's kTile
+// output rows (window start g0 + r*D) and its kCh channels (the 8-channel
+// groups group*kCh/8 on of dense_f32_tables), per output from zero, tap
+// after tap in ascending t,
+//   re = fmaf(xr, gr, fmaf(-xi, gi, re)),  im = fmaf(xr, gi, fmaf(xi, gr, im)),
+// (xr, xi) = x[g0 + r*D + t] and (gr, gi) the channel's tap t: one chunk
+// or across chunks, the same sequence of roundings, so that every plan
+// gives every output the same bits (and PR 1-3's one-thread-a-row loop
+// gave the same).
+//
+// What bounds it: the FP32 FMAs, 8 FLOP a tap, channel and row, and the
+// shared-memory loads that feed them (a warp's 16-byte broadcast takes
+// four wavefronts, one a quarter-warp; its 8-byte load of 32 neighbouring
+// pairs two). A thread holds a register tile of kDenseRows rows, r0 + 32*i,
+// and kCols channels of one group of the table: per tap it reads its rows'
+// (xr, xi) as four float2 (32 consecutive pairs a warp) and its channels'
+// (gr, gi) as kCols/2 float4 broadcasts: at 8 channels 8 + 16 = 24
+// wavefronts a warp for 128 FMAs, at 4 16 for 64, where one thread a row
+// with 16 channels took 2 + 32 for 64. Warp w takes rows 128*(w % 2) on
+// and channels kCols*(w / 2) on; the block's first
+// dense_f32_threads(kCh, kCols) threads hold tiles, and any others (the
+// FM chain's back end takes one thread a row and 16 channels) only stage.
+// The widths trade the shared pipe against registers: 64 accumulators at
+// 8 channels take ~110-125 registers, 32 at 4 ~55-65 (fm_dense_cols,
+// dense_cols). Staging is asynchronous (cp.async): a chunk's taps are one
+// contiguous range of the table a group, copied 16 bytes a thread, its
+// window 4-byte copies of neighbouring samples by neighbouring threads,
+// zero-filled outside [0, nb), the phases an odd number of pairs apart
+// (dense_phase_stride). The one-chunk kernel stages all T taps and then
+// multiplies; the chunked kernel stages chunk i + 1 into the other of two
+// buffers while it multiplies chunk i. The tiles end in the kTile x
+// (2*kCh + 1) output tile, which reuses the staging space: row r, column
+// 2c (re) and 2c + 1 (im) of the block's channel c.
+
+template <int kCols>
+struct DenseTile {
+  int r0, grp;   // first row; its kCols channels' place in the block
+  float re[kDenseRows][kCols], im[kDenseRows][kCols];
+};
+
+template <int kCols>
+__device__ __forceinline__ void dense_tile_init(DenseTile<kCols>& t) {
+  static_assert(kTile == 2 * 32 * kDenseRows && (kCols == 4 || kCols == 8),
+                "two warps of rows for each 4 or 8 channels");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  t.r0 = (kTile / 2) * (warp & 1) + lane;
+  t.grp = warp >> 1;
+#pragma unroll
+  for (int i = 0; i < kDenseRows; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) t.re[i][c] = t.im[i][c] = 0.f;
+}
+
+// The offset of a tile's first (gr, gi) in a staging buffer's taps of Tc
+// taps a group.
+template <int kCols>
+__device__ __forceinline__ size_t dense_tile_taps(const DenseTile<kCols>& t,
+                                                  int Tc) {
+  const int c = kCols * t.grp;   // the tile's first channel
+  return (size_t)(c / 8) * Tc * 16 + 2 * (c % 8);
+}
+
+// t += the products of taps 0..nt-1 of a staged chunk, in ascending t: gt
+// is the tile's first channel's (gr, gi) in its group's taps [Tc][8][2]
+// (dense_tile_taps), xw the window [Dc][Ks] of (re, im) pairs; row r
+// reads pair (t % D)*Ks + r + t/D at tap t; the loop unrolled kUnroll
+// times.
+template <int kCols, int kUnroll>
+__device__ __forceinline__ void dense_product(DenseTile<kCols>& t,
+                                              const float* gt,
+                                              const float2* xw, int nt,
+                                              int D, int Ks) {
+  const float2* xr = xw + t.r0;
+  int p = 0, q = 0;   // tap q*D + p
+#pragma unroll(kUnroll)
+  for (int tl = 0; tl < nt; ++tl) {
+    const float2* xs = xr + p * Ks + q;
+    float2 x[kDenseRows];
+#pragma unroll
+    for (int i = 0; i < kDenseRows; ++i) x[i] = xs[32 * i];
+    const float4* g4 = reinterpret_cast<const float4*>(gt + 16 * tl);
+    float gr[kCols], gi[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols / 2; ++j) {
+      const float4 g = g4[j];
+      gr[2 * j] = g.x;
+      gi[2 * j] = g.y;
+      gr[2 * j + 1] = g.z;
+      gi[2 * j + 1] = g.w;
+    }
+#pragma unroll
+    for (int i = 0; i < kDenseRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        t.re[i][c] = fmaf(x[i].x, gr[c], fmaf(-x[i].y, gi[c], t.re[i][c]));
+        t.im[i][c] = fmaf(x[i].x, gi[c], fmaf(x[i].y, gr[c], t.im[i][c]));
+      }
+    if (++p == D) {
+      p = 0;
+      ++q;
+    }
+  }
+}
+
+// Starts the copies of taps t0..t0+nt-1 of the block's kCh/8 groups, from
+// group gb on of ftab (dense_f32_tables, (G, T, 8, 2)), into st[s][tl][8][2]
+// (Tc taps a group; a group past G as zeros), and of the window of samples
+// g0 + t0 + k*D + p, p < Dc, k < kTile + (Tc - 1)/D, into the (re, im)
+// pairs after them, pair p*Ks + k, samples outside [0, nb) as zeros; by
+// all the block's threads.
+template <int kCh>
+__device__ __forceinline__ void dense_stage(
+    float* st, const float* __restrict__ ftab, int G, int T, int gb, int t0,
+    int nt, int Tc, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, long g0, int D, int Dc,
+    int Ks) {
+  constexpr int kGroups = kCh / 8;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int n4 = 4 * nt;   // 16-byte copies of a group's taps
+  for (int i = tid; i < kGroups * n4; i += nth) {
+    const int s = i / n4, e = i - s * n4;
+    float* d = st + (size_t)s * Tc * 16 + 4 * e;
+    if (gb + s < G)
+      cp_async_16(d, ftab + ((size_t)(gb + s) * T + t0) * 16 + 4 * e);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float* xw = st + (size_t)kGroups * Tc * 16;
+  const long gw = g0 + t0;
+  const int kr = kTile + (Tc - 1) / D;
+  for (int l = tid; l < Dc * kr; l += nth) {
+    const int p = l % Dc, k = l / Dc;
+    const long g = gw + (long)k * D + p;
+    const bool in = g >= 0 && g < nb;
+    float* d = xw + 2 * (p * Ks + k);
+    cp_async_f32(d, buf_re + (in ? g : 0), in);
+    cp_async_f32(d + 1, buf_im + (in ? g : 0), in);
+  }
+}
+
+// The register tiles to the output tile at the start of dynamic shared
+// memory, after every thread is done with the space; a thread that holds
+// no tile only takes the barriers.
+template <int kCh, int kCols>
+__device__ __forceinline__ const float* dense_tile_out(
+    unsigned char* smem, const DenseTile<kCols>& t, bool holds) {
+  constexpr int kOS = 2 * kCh + 1;
+  float* out = reinterpret_cast<float*>(smem);
+  __syncthreads();
+  if (holds) {
+#pragma unroll
+    for (int i = 0; i < kDenseRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int o = (t.r0 + 32 * i) * kOS + 2 * (kCols * t.grp + c);
+        out[o] = t.re[i][c];
+        out[o + 1] = t.im[i][c];
+      }
+  }
+  __syncthreads();
+  return out;
+}
+
+// Dense front at f32 for the kCh channels of channel block `group` (see
+// above), in register tiles of kCols channels, the product's loop unrolled
+// kUnroll times. ftab: dense_f32_tables of
+// the (2C, 2, T) bank. kChunked = false: one chunk, Tc = T (>= D);
+// kChunked: chunks of Tc taps (Tc < T, or T < D with Tc = T), each with
+// its own window of chunk_phases(Tc, D) phases, in two staging buffers
+// (toeplitz_smem_bytes). Returns the output tile; it stays valid until the
+// caller's next write to dynamic shared memory.
+template <bool kChunked, int kCh, int kCols, int kUnroll>
+__device__ __forceinline__ const float* toeplitz_front(
+    unsigned char* smem, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, const float* __restrict__ ftab,
+    int C, int T, int Tc, int D, int group, long g0) {
+  static_assert(kCh % 8 == 0 && kCh % kCols == 0,
+                "whole groups of 8 channels, whole tiles");
+  if constexpr (!kChunked) Tc = T;
+  const int Dc = chunk_phases(Tc, D), Ks = dense_phase_stride(Tc, D);
+  const int G = (C + 7) / 8, gb = group * (kCh / 8);
+  const size_t tsize = (size_t)(kCh / 8) * Tc * 16;   // taps of a buffer
+  const size_t bsize = dense_f32_buffer_floats(kCh, Tc, D);
+  float* st = reinterpret_cast<float*>(smem);
+  const bool holds = threadIdx.x < dense_f32_threads(kCh, kCols);
+  DenseTile<kCols> t;
+  dense_tile_init(t);
+  const size_t gt = dense_tile_taps(t, Tc);
+  if constexpr (!kChunked) {
+    dense_stage<kCh>(st, ftab, G, T, gb, 0, T, T, buf_re, buf_im, nb, g0, D,
+                     Dc, Ks);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (holds)
+      dense_product<kCols, kUnroll>(
+          t, st + gt, reinterpret_cast<const float2*>(st + tsize), T, D, Ks);
+  } else {
+    const int nch = (T + Tc - 1) / Tc;
+    dense_stage<kCh>(st, ftab, G, T, gb, 0, min(Tc, T), Tc, buf_re, buf_im,
+                     nb, g0, D, Dc, Ks);
+    cp_async_commit();
+    for (int c = 0; c < nch; ++c) {
+      const float* cur = st + (c & 1) * bsize;
+      if (c + 1 < nch) {   // the next chunk, into the other buffer
+        const int t1 = (c + 1) * Tc;
+        dense_stage<kCh>(st + ((c + 1) & 1) * bsize, ftab, G, T, gb, t1,
+                         min(Tc, T - t1), Tc, buf_re, buf_im, nb, g0, D, Dc,
+                         Ks);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();   // chunk c is in for every thread
+      if (holds)
+        dense_product<kCols, kUnroll>(
+            t, cur + gt, reinterpret_cast<const float2*>(cur + tsize),
+            min(Tc, T - c * Tc), D, Ks);
+      if (c + 2 < nch) __syncthreads();   // its buffer is free for c + 2
+    }
+  }
+  return dense_tile_out<kCh>(smem, t, holds);
 }
 
 }  // namespace gsdr

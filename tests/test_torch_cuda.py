@@ -5,6 +5,9 @@ only the port, so it runs on a machine without JAX:
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 
+import re
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,7 @@ from gsdr_tpu_torch.kernels.am_chain import (
     pfb_am_chain,
     pfb_am_chain_reference,
 )
+from gsdr_tpu_torch.kernels import _build
 from gsdr_tpu_torch.kernels.chain import (
     dense_chunk,
     front_supported,
@@ -560,15 +564,22 @@ def test_channelize_kernel_grades_match_plain_on_card(card, c, t, d, grade):
 def test_grades_fit_and_refuse_on_card(card):
     """Each library answers for each grade of its dense front: the
     flagship, the transmux, the FM wideband and the am_d shapes fit one
-    block at every grade (one chunk of all T taps); T=1021 at D=128, which
-    does not, fits in chunks: FmChannelizer takes it, and B4 launches it
-    within 4e-5 of max|y| of its plain version at the grade (T=1021's
-    longer sums, as test_channelize_block_follows_channels_on_card); an
-    unknown grade raises."""
+    block at every grade (one chunk of all T taps); at f32 the FM
+    wideband shape's 64 channels take blocks of 32, whose taps and window
+    at T=512, D=64 (262 KB) do not, so it runs in chunks, while a block of
+    16 channels still takes it in one; T=1021 at D=128, which does not
+    fit, fits in chunks: FmChannelizer takes it, and B4 launches it within
+    4e-5 of max|y| of its plain version at the grade (T=1021's longer
+    sums, as test_channelize_block_follows_channels_on_card); an unknown
+    grade raises."""
     for grade in GRADES:
         for lib, t, d in (("fm_chain", 64, 4), ("fm_chain", 512, 64),
                           ("channelize", 256, 32), ("channelize", 128, 16),
                           ("am_chain", 32, 4)):
+            if grade == "f32" and (t, d) == (512, 64):
+                assert dense_chunk(lib, "cuda", t, d, grade, 16) == t
+                assert 8 <= dense_chunk(lib, "cuda", t, d, grade, 64) < t
+                continue
             assert dense_chunk(lib, "cuda", t, d, grade) == t
         for lib in ("fm_chain", "channelize", "am_chain"):
             assert front_supported(lib, "cuda", 1021, 128, precision=grade)
@@ -690,6 +701,136 @@ def test_forced_chunks_equal_one_chunk_on_card(card, grade):
     assert dense_chunk("channelize", "cuda", 8 * k, k, grade, k) == 8 * k
     _forced_chunks(lambda tc: channelize_kernel(x, bank, k, precision=grade,
                                                 chunk=tc), (8, 64, 24))
+
+
+def _f32_dense_run(lib, c, t, d, n, seed):
+    """run(chunk) of one f32 dense launch of ``lib`` (B1, B3-dense or B4)
+    for C channels, T taps and D over n random samples (the FM chain with
+    an identity rotor and a de-emphasis; its outputs need no meaning to be
+    held bit for bit); ``chunk`` None takes the library's plan."""
+    x = _planar_cuda(n, seed)
+    bank = _bank(c, t)
+    if lib == "channelize":
+        return lambda tc: channelize_kernel(x, bank, d, precision="f32",
+                                            chunk=tc)
+    n0 = torch.zeros(1, dtype=torch.int32, device="cuda")
+    lo = torch.zeros((c, 4), device="cuda")
+    if lib == "am_chain":
+        return lambda tc: am_chain(x, bank, lo, n0, d, precision="f32",
+                                   chunk=tc)
+    zeros = torch.zeros((c, 1), device="cuda")
+    deemph = torch.tensor([0.5, 0.25, 0.5], device="cuda")
+    return lambda tc: fm_chain(x, bank, lo, n0, d, 1.0, deemph,
+                               TCA(zeros, zeros), zeros, precision="f32",
+                               chunk=tc)
+
+
+# (library, C, T, D, forced chunks): f32 dense geometries whose one-chunk
+# block fits (the flagship's 16 channels at 257 taps, am_d's 8 at 129, the
+# transmux's 32 at K=32, Q=8), and the phase-11 paths whose planned chunk
+# is a chunked launch (the 2049-tap long filter, am_d128, the transmux at
+# Q=127; am_d128 takes no 64-tap chunk: its two buffers of 64 of D=128
+# phases would need 270 KB)
+F32_CHUNK_CASES = [("fm_chain", 16, 257, 4, (8, 24, 64)),
+                   ("am_chain", 8, 129, 4, (8, 24, 64)),
+                   ("channelize", 32, 256, 32, (8, 24, 64)),
+                   ("fm_chain", 16, 2049, 4, (8, 24, 64)),
+                   ("am_chain", 8, 1021, 128, (8, 24)),
+                   ("channelize", 32, 4064, 32, (8, 24, 64))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lib,c,t,d,forced", F32_CHUNK_CASES)
+def test_f32_dense_chunks_bit_equal_on_card(card, lib, c, t, d, forced):
+    """B1, B3-dense and B4 at f32: the planned launch (one chunk where its
+    block fits, else chunks of a multiple of 8 taps in two staging
+    buffers) and launches forced to 8, 24 and 64 taps a chunk give every
+    output bit for bit, the same fmaf over ascending t from zero in the
+    tiled, double-buffered front."""
+    tc = dense_chunk(lib, "cuda", t, d, "f32", c)
+    assert tc == t if t <= 257 else (8 <= tc < t and tc % 8 == 0)
+    run = _f32_dense_run(lib, c, t, d, t + d * (3 * 256 + 41), seed=c + t)
+    _forced_chunks(run, forced)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 24])
+def test_f32_dense_blocks_of_8_and_32_channels_on_card(card, c):
+    """The f32 dense front's blocks of 8 channels (C = 8) and of 32 (C =
+    24, one block with 8 zero channels; the FM chain's back end two
+    threads a row) against the plain versions at f32: B1 through
+    FmChannelizer(impl='cuda') within 1e-4 of max|audio| after the
+    warm-up and its carries within 1e-4, B3-dense through AmReceiver
+    within 1e-5, B4 within 1e-5 of max|y|."""
+    kern, plain = (_model(impl, c, 64, 4, precision="f32")
+                   for impl in ("cuda", "torch"))
+    re, im = _fm_signal(kern.channel_frequencies, 40_000, seed=c)
+    (sk, yk), (sp, yp) = (m.step(m.init(), TCA(re, im))
+                          for m in (kern, plain))
+    err = (yk - yp)[:, SKIP:].abs().max() / yp[:, SKIP:].abs().max()
+    assert float(err) <= 1e-4
+    for a, b in ((sk[2].re, sp[2].re), (sk[2].im, sp[2].im), (sk[3], sp[3])):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    n_ = np.arange(32) - 15.5
+    h = np.sinc(2 * 0.04 * n_) * np.hamming(32)
+    freqs = tuple(100e6 - 400e3 + 25e3 * i for i in range(c))
+    am, am_plain = (AmReceiver(FS, 100e6, freqs, 4, tuple(h / h.sum()),
+                               impl=impl, precision="f32", device="cuda")
+                    for impl in ("cuda", "torch"))
+    ra, ia = _am_signal([f - 100e6 for f in freqs], 40_000, seed=c + 1)
+    before = am_chain.launches
+    _, ya = am.step(am.init(), TCA(ra, ia))
+    _, yb = am_plain.step(am_plain.init(), TCA(ra, ia))
+    assert am_chain.launches == before + 1
+    torch.testing.assert_close(ya, yb, rtol=0, atol=1e-5)
+    n = 256 + 8 * (5 * 256 + 37)
+    x = _planar_cuda(n, seed=c + 2)
+    bank = _bank(c, 256)
+    y = channelize_kernel(x, bank, 8, precision="f32")
+    want = channelize_reference(x, bank, 8, "f32")
+    scale = float(torch.maximum(want.re.abs().max(), want.im.abs().max()))
+    for a, b in ((y.re, want.re), (y.im, want.im)):
+        assert float((a - b).abs().max()) <= 1e-5 * scale
+
+
+def _ptxas_spills(tmp_path, libraries):
+    """{kernel: (spill store bytes, spill load bytes)} of every kernel of
+    the libraries, from ptxas's report of a fresh nvcc build of each (the
+    build's own command, -Xptxas -v; one process a source, all at once)."""
+    procs = [subprocess.Popen(
+        _build.nvcc_command(name, tmp_path / f"lib{name}.so"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in libraries]
+    report = ""
+    for proc in procs:
+        out, err = proc.communicate()
+        assert proc.returncode == 0, err
+        report += out + err
+    spills, entry = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            entry = m.group(1)
+        elif entry and "spill stores" in line:
+            spills[entry] = tuple(int(v) for v in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+            entry = None
+    return spills
+
+
+@pytest.mark.cuda
+def test_f32_dense_tile_kernels_do_not_spill_on_card(card, tmp_path):
+    """No f32 dense tile kernel (B1, B3-dense and B4 at f32: blocks of 8,
+    16 and 32 channels, one chunk and chunked, 18 kernels) spills
+    registers, by ptxas's report (the FM chain's 32-byte stack frame is
+    sincosf's slow path, in every FM tile kernel, not a spill)."""
+    spills = _ptxas_spills(tmp_path, ("fm_chain", "am_chain", "channelize"))
+    pattern = (r"(fm_chain_tile|am_chain_tile)ILb0ELi0ELb\dELi\d+E|"
+               r"channelize_tileILb0ELi0ELi\d+ELb\dE")
+    found = {k: v for k, v in spills.items() if re.search(pattern, k)}
+    assert len(found) == 18, sorted(found)
+    for kernel, (stores, loads) in found.items():
+        assert stores == 0 and loads == 0, (kernel, stores, loads)
 
 
 # (K, D, T, C) for the tensor-core PFB front: critical (P = 1, four phase

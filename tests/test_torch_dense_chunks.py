@@ -1,10 +1,15 @@
 """The dense front at geometries whose bank does not fit one block of the
 card: the port against the JAX package on the CPU at those geometries
 (the receivers, the single-channel ops and the plain version against
-JAX's fused kernel interpreted), and a numpy transliteration of the
+JAX's fused kernel interpreted), and numpy transliterations of the
 chunked staging of ``csrc/fronts.cuh`` (``toeplitz_front``,
 ``toeplitz_front_mma``) against the plain version, the cheap check of the
-kernels' index logic that the card tests then hold bit for bit."""
+kernels' index logic that the card tests then hold bit for bit. The f32
+front's is its block in its shared-memory layout: the tap table
+(``dense_f32_tables``), the thread -> (rows, channels) map of its register
+tiles, the double-buffered chunk walk and the output tile."""
+
+import re
 
 import dataclasses
 
@@ -20,7 +25,12 @@ from gsdr_tpu.kernels.fm_chain_pallas import fm_chain_pallas
 from gsdr_tpu.pipelines import AmReceiver as JAm
 from gsdr_tpu.pipelines import FmChannelizer as JFm
 from gsdr_tpu_torch.carray import ComplexArray as TCA
-from gsdr_tpu_torch.kernels.chain import dense_mma_tables, split_bf16
+from gsdr_tpu_torch.kernels import _build
+from gsdr_tpu_torch.kernels.chain import (
+    dense_f32_tables,
+    dense_mma_tables,
+    split_bf16,
+)
 from gsdr_tpu_torch.kernels.channelize import channelize_reference
 from gsdr_tpu_torch.kernels.fm_chain import fm_chain_reference
 from gsdr_tpu_torch.ops.am import am_demod_fused
@@ -33,7 +43,11 @@ from gsdr_tpu_torch.utils.convert import (
 )
 
 TILE = 256        # outputs a block (fronts.cuh kTile)
-CG = 16           # channels a block at f32 (kCG)
+# the f32 front's register tile (fronts.cuh; read from the source by
+# test_f32_dense_constants_match_the_source): rows 32 apart (kDenseRows),
+# and 4 or 8 channels of one table group, the launcher's choice
+ROWS = 4
+WIDTHS = (4, 8)
 
 
 def _lowpass(num_taps, cutoff):
@@ -59,22 +73,134 @@ def _stage(x, g0, d, dc, kr):
     return np.where(inside, x[np.clip(g, 0, x.shape[0] - 1)], 0)
 
 
-def _toeplitz_front(x, bank, t, tc, d, c0, g0):
-    """``toeplitz_front``: taps in chunks of tc, each with its own taps and
-    its own window of min(tc, D) phases of TILE + (tc-1)//D words."""
-    g = (bank[0::2, 0] + 1j * bank[1::2, 0]).astype(np.complex128)
-    taps = np.zeros((CG, t), np.complex128)
-    n = min(CG, g.shape[0] - c0)
-    taps[:n] = g[c0:c0 + n]
+def _f32_channels(c):
+    """dense_f32_channels: 8, 16 or 32 channels a block by C."""
+    return 8 if c <= 8 else 16 if c <= 16 else 32
+
+
+def _f32_threads(ch, cols):
+    """dense_f32_threads: the threads that hold a register tile."""
+    return TILE // ROWS * (ch // cols)
+
+
+def _dense_cols(ch):
+    """dense_cols: the AM chain's and the channelizer's tile width."""
+    return 4 if ch == 8 else 8
+
+
+def _phase_stride_f32(tc, d):
+    """dense_phase_stride: Kr = TILE + (tc-1)//D frames, made odd."""
+    return (TILE + (tc - 1) // d) | 1
+
+
+def _buffer_floats(ch, tc, d):
+    """dense_f32_buffer_floats: a chunk's taps [ch/8][tc][8][2] and window
+    [min(tc, D)][Ks] of (re, im) pairs, padded to 4 floats."""
+    return (16 * (ch // 8) * tc + 2 * min(tc, d) * _phase_stride_f32(tc, d)
+            + 3) // 4 * 4
+
+
+def _smem_floats(ch, tc, t, d):
+    """toeplitz_smem_bytes / 4: one buffer, two where tc < T; the output
+    tile reuses them."""
+    return max((2 if tc < t else 1) * _buffer_floats(ch, tc, d),
+               TILE * (2 * ch + 1))
+
+
+def _fmaf(a, b, c):
+    """float32 fma, the product exact in float64, one rounding after the
+    sum (then to float32: the emulation every plan shares)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _dense_stage(sm, base, ftab, t0, nt, tc, gb, x, g0, d, dc, kr, ch):
+    """dense_stage: taps t0..t0+nt-1 of groups gb.. of the table into
+    sm[base + s*tc*16 + 16*tl + 2*cl (+1)] (zeros past the table's
+    groups), the window sample g0 + t0 + k*D + p (k < kr) into the (re,
+    im) pair p*Ks + k after them, zeros outside x; every index inside the
+    buffer."""
+    ng, t_all = ftab.shape[:2]
+    flat = ftab.reshape(ng, t_all * 16)
+    end = base + _buffer_floats(ch, tc, d)
+    for s_ in range(ch // 8):
+        dst = base + s_ * tc * 16
+        sm[dst:dst + 16 * nt] = (flat[gb + s_, 16 * t0:16 * (t0 + nt)]
+                                 if gb + s_ < ng else 0.0)
+    xw = base + (ch // 8) * tc * 16
+    l = np.arange(dc * kr)
+    p, k = l % dc, l // dc
+    g = g0 + t0 + k * d + p
+    inside = (g >= 0) & (g < x.shape[0])
+    v = np.where(inside, x[np.clip(g, 0, x.shape[0] - 1)], 0)
+    at = xw + 2 * (p * _phase_stride_f32(tc, d) + k)
+    assert at.max() + 1 < end and dst + 16 * nt <= xw
+    sm[at] = v.real
+    sm[at + 1] = v.imag
+
+
+def _dense_product(acc_re, acc_im, sm, base, tc, nt, d, ch, cols):
+    """dense_product for every tile holder at once: thread tid (warp w,
+    lane) holds rows 128*(w % 2) + lane + 32*i and channels cols*(w // 2)
+    + c; tap tl reads pair (tl % D)*Ks + r + tl//D of the window and the
+    channel's (gr, gi) at 16*tl + 2*(its place in its group of 8), in
+    ascending tl with fmaf."""
+    ks = _phase_stride_f32(tc, d)
+    tid = np.arange(_f32_threads(ch, cols))
+    warp, lane = tid // 32, tid % 32
+    rows = ((TILE // 2) * (warp % 2) + lane)[:, None] + 32 * np.arange(ROWS)
+    first = cols * (warp // 2)          # the tile's first channel
+    gt = base + (first // 8) * tc * 16 + 2 * (first % 8)
+    xw = base + (ch // 8) * tc * 16
+    for tl in range(nt):
+        at = xw + 2 * ((tl % d) * ks + tl // d + rows)
+        xr, xi = sm[at][:, :, None], sm[at + 1][:, :, None]
+        gat = gt[:, None] + 16 * tl + 2 * np.arange(cols)
+        gr, gi = sm[gat][:, None, :], sm[gat + 1][:, None, :]
+        acc_re[:] = _fmaf(xr, gr, _fmaf(-xi, gi, acc_re))
+        acc_im[:] = _fmaf(xr, gi, _fmaf(xi, gr, acc_im))
+
+
+def _toeplitz_front(x, ftab, c, t, tc, d, group, g0, cols=None):
+    """``toeplitz_front`` at f32 for channel block ``group`` (float32 x) in
+    tiles of ``cols`` channels (default: the channelizer's width): the
+    block's shared memory as NaNs, chunk 0 staged into buffer 0, then for
+    each chunk the next one staged into the other buffer before the
+    chunk's product (the copies in flight), the tiles written to the
+    output tile at the start of shared memory; returns the tile as complex
+    (TILE, ch) and the float32 sums."""
+    ch = _f32_channels(c)
+    cols = cols or _dense_cols(ch)
     tc = min(tc, t)
     dc, kr = min(tc, d), TILE + (tc - 1) // d
-    acc = np.zeros((TILE, CG), np.complex128)
-    rows = np.arange(TILE)
-    for t0 in range(0, t, tc):
-        xp = _stage(x, g0 + t0, d, dc, kr)
-        for tl in range(min(tc, t - t0)):
-            acc += xp[tl % d, rows + tl // d][:, None] * taps[None, :, t0 + tl]
-    return acc
+    bsize = _buffer_floats(ch, tc, d)
+    sm = np.full(_smem_floats(ch, tc, t, d), np.nan, np.float32)
+    gb = group * (ch // 8)
+    nth = _f32_threads(ch, cols)
+    acc_re = np.zeros((nth, ROWS, cols), np.float32)
+    acc_im = np.zeros_like(acc_re)
+    nch = -(-t // tc)
+    _dense_stage(sm, 0, ftab, 0, min(tc, t), tc, gb, x, g0, d, dc, kr, ch)
+    for ci in range(nch):
+        if ci + 1 < nch:
+            t1 = (ci + 1) * tc
+            _dense_stage(sm, ((ci + 1) % 2) * bsize, ftab, t1,
+                         min(tc, t - t1), tc, gb, x, g0, d, dc, kr, ch)
+        _dense_product(acc_re, acc_im, sm, (ci % 2) * bsize, tc,
+                       min(tc, t - ci * tc), d, ch, cols)
+    kos = 2 * ch + 1
+    tid = np.arange(nth)
+    warp, lane = tid // 32, tid % 32
+    rows = ((TILE // 2) * (warp % 2) + lane)[:, None, None] \
+        + 32 * np.arange(ROWS)[None, :, None]
+    chans = (cols * (warp // 2))[:, None, None] \
+        + np.arange(cols)[None, None, :]
+    at = rows * kos + 2 * chans
+    sm[at] = acc_re
+    sm[at + 1] = acc_im
+    tile = sm[:TILE * kos].reshape(TILE, kos)
+    out = tile[:, 0:2 * ch:2].astype(np.float64) \
+        + 1j * tile[:, 1:2 * ch:2].astype(np.float64)
+    return out, acc_re, acc_im
 
 
 def _phase_stride(tp, d):
@@ -174,16 +300,141 @@ def test_chunked_front_transliteration_matches_plain(grade, c, t, d, tc):
     want = (want.re.double().numpy() + 1j * want.im.double().numpy())[:, TILE:]
     g0 = TILE * d
     if grade == "f32":
+        ftab = dense_f32_tables(torch.from_numpy(bank)).numpy()
         got = np.concatenate([
-            _toeplitz_front(x, bank, t, tc, d, c0, g0)
-            for c0 in range(0, c, CG)], axis=1)[:m, :c].T
+            _toeplitz_front(x.astype(np.complex64), ftab, c, t, tc, d, grp,
+                            g0)[0]
+            for grp in range(-(-c // _f32_channels(c)))], axis=1)[:m, :c].T
     else:
         table = dense_mma_tables(torch.from_numpy(bank)).numpy()
         got = np.concatenate([
             _toeplitz_front_mma(x, table, t, tc, d, grp, 4, g0, grade)
-            for grp in range(-(-c // CG))], axis=1)[:m, :c].T
+            for grp in range(-(-c // 16))], axis=1)[:m, :c].T
     assert got.shape == want.shape
     assert _rel(got, want) <= 1e-6
+
+
+# (C, T, D, Tc) beyond CHUNK_CASES for the f32 block: am_d's 8 channels (a
+# block of 8, 64 threads) and the transmux's 32 (a block of 32, 256
+# threads), each in chunks whose last one is shorter than the rest
+F32_CASES = [(8, 61, 4, 24), (32, 256, 32, 56)]
+
+
+def _f32_case(c, t, d, seed):
+    """A bank of C channels, T taps and the second block's signal, as
+    test_chunked_front_transliteration_matches_plain makes them."""
+    taps = _lowpass(t, 0.05)
+    shifts = [-1000.0 / (2 * c + 3) * i for i in range(c)]
+    bank = make_complex_tap_bank(taps, shifts, 1000.0)
+    n = t + d * (TILE + 100 - 1)
+    return bank, _window_signal(n, seed=seed).astype(np.complex64)
+
+
+@pytest.mark.parametrize("c,t,d,tc", F32_CASES)
+def test_f32_dense_block_of_8_and_32_channels_matches_plain(c, t, d, tc):
+    """The f32 block transliterated at C = 8 and C = 32, whose blocks take
+    8 and 32 channels: within 1e-6 of max|y| of the plain version at f32,
+    at the second block of a signal that ends inside it."""
+    bank, x = _f32_case(c, t, d, seed=t + d)
+    assert _f32_channels(c) == c
+    want = channelize_reference(
+        TCA(torch.from_numpy(x.real.copy()), torch.from_numpy(x.imag.copy())),
+        torch.from_numpy(bank), d, "f32")
+    want = (want.re.double().numpy() + 1j * want.im.double().numpy())[:, TILE:]
+    ftab = dense_f32_tables(torch.from_numpy(bank)).numpy()
+    got = _toeplitz_front(x, ftab, c, t, tc, d, 0, TILE * d)[0][:100].T
+    assert got.shape == want.shape
+    assert _rel(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("cols", WIDTHS)
+@pytest.mark.parametrize("c,t,d,tc", CHUNK_CASES + F32_CASES)
+def test_f32_dense_chunks_equal_one_chunk_transliterated(c, t, d, tc, cols):
+    """The f32 block's double-buffered chunk walk gives every output the
+    one-chunk walk's sums bit for bit (the same fmaf over ascending t from
+    zero), at the case's chunk and at 8 taps, on every channel block, in
+    tiles of 4 and of 8 channels; and the output tile holds every row and
+    channel (no NaN of unstaged shared memory)."""
+    bank, x = _f32_case(c, t, d, seed=3 * t + d)
+    ftab = dense_f32_tables(torch.from_numpy(bank)).numpy()
+    for grp in range(-(-c // _f32_channels(c))):
+        one, re1, im1 = _toeplitz_front(x, ftab, c, t, t, d, grp, TILE * d,
+                                        cols)
+        assert not np.isnan(one).any()
+        for chunk in (tc, 8):
+            _, re2, im2 = _toeplitz_front(x, ftab, c, t, chunk, d, grp,
+                                          TILE * d, cols)
+            assert np.array_equal(re1.view(np.int32), re2.view(np.int32))
+            assert np.array_equal(im1.view(np.int32), im2.view(np.int32))
+
+
+@pytest.mark.parametrize("c", [1, 8, 16, 32, 40])
+def test_dense_f32_tables_layout(c):
+    """dense_f32_tables against make_complex_tap_bank's rows bit for bit:
+    (ceil(C/8), T, 8, 2) float32, entry [g][t][cl] = (row 4c, row 4c + 2)
+    of the bank's (4C, T) view at column t for c = 8g + cl, zeros past C
+    (a block's group of 8 channels of one tap is 64 contiguous bytes)."""
+    t = 13
+    rng = np.random.default_rng(c)
+    bank = make_complex_tap_bank(
+        rng.standard_normal(t).astype(np.float32),
+        [-2e3 * i - 137.0 for i in range(c)], 1e5)
+    table = dense_f32_tables(torch.from_numpy(bank))
+    ng = -(-c // 8)
+    assert table.dtype == torch.float32 and table.is_contiguous()
+    assert tuple(table.shape) == (ng, t, 8, 2)
+    rows = bank.reshape(4 * c, t)
+    tab = table.numpy()
+    for ch in range(8 * ng):
+        g, cl = divmod(ch, 8)
+        if ch < c:
+            assert np.array_equal(tab[g, :, cl, 0].view(np.int32),
+                                  rows[4 * ch].view(np.int32))
+            assert np.array_equal(tab[g, :, cl, 1].view(np.int32),
+                                  rows[4 * ch + 2].view(np.int32))
+        else:
+            assert not tab[g, :, cl].any()
+
+
+def test_dense_f32_tables_cached_per_tensor():
+    """The table is built once per bank tensor, kept beside its tensor-core
+    table, and rebuilt after the bank is written in place."""
+    bank = torch.from_numpy(make_complex_tap_bank(
+        _lowpass(9, 0.1), [0.0, -250.0, 300.0], 1000.0))
+    first = dense_f32_tables(bank)
+    assert dense_f32_tables(bank) is first
+    mma = dense_mma_tables(bank)
+    assert dense_f32_tables(bank) is first and dense_mma_tables(bank) is mma
+    bank.mul_(2.0)
+    again = dense_f32_tables(bank)
+    assert again is not first
+    assert torch.equal(again, 2.0 * first)
+
+
+def test_f32_dense_constants_match_the_source():
+    """The constants and rules the f32 transliteration mirrors equal
+    fronts.cuh's: tiles of 4 rows, two warps of rows for each 4 or 8
+    channels, blocks of 8, 16 or 32 channels by C, the launchers' widths
+    (the FM chain 4 in one chunk and 8 chunked, unrolled by 1 and 4; the
+    AM chain and the channelizer 4 in a block of 8 and else 8), and the
+    window's odd phase stride."""
+    src = (_build.CSRC / "fronts.cuh").read_text()
+    consts = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
+    assert {n: int(consts[n]) for n in ("kTile", "kDenseRows")} == {
+        "kTile": TILE, "kDenseRows": ROWS}
+    for line in ("return C >= 1 && C <= 8 ? 8 : C >= 1 && C <= 16 ? 16 : 32;",
+                 "return kTile / kDenseRows * (ch / cols);",
+                 "return chunked ? 8 : 4;", "return chunked ? 4 : 1;",
+                 "return ch == 8 ? 4 : 8;",
+                 "return (kTile + (Tc - 1) / D) | 1;"):
+        assert line in src
+    assert [_f32_channels(c) for c in (1, 8, 9, 16, 17, 40)] == \
+        [8, 8, 16, 16, 32, 32]
+    assert [_f32_threads(ch, _dense_cols(ch)) for ch in (8, 16, 32)] == \
+        [128, 128, 256]
+    assert [_f32_threads(ch, 4) for ch in (8, 16, 32)] == [128, 256, 512]
+    assert _phase_stride_f32(24, 128) == 257 and _phase_stride_f32(64, 4) \
+        == 271
 
 
 # ---------------------------------------------------------------------------

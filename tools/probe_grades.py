@@ -33,12 +33,17 @@
          time by CUDA events and a 20-step graph's time per step.
   dense: the dense front's kernels at the main paths' one-chunk shapes,
          each grade: B1 at the flagship, B3-dense at am_d, B4 at the
-         transmux's K=32, Q=8: device time per call by torch.profiler
-         (rounds of the three, interleaved), and a digest of each output.
-         It uses only what every tree of the port with the compiled step
-         (utils/compile.py) has, so it times an older tree too (copy this
-         file into that tree's tools/);
-         equal digests across trees say the outputs are bit-equal.
+         transmux's K=32, Q=8 (and at f32 at bench_pfb's K=16); and at
+         f32 the chunked paths of
+         chip_smoke.py's phase 11 (B1 at the 2049-tap long filter,
+         B3-dense at am_d128, B4 at the transmux's Q=127) on their first
+         block: device time per call by torch.profiler (rounds of all,
+         interleaved), and a digest of each output, also of the f32
+         one-chunk shapes' launches forced to chip_smoke.FORCED_CHUNKS taps
+         a chunk. It uses only what every tree of the port with the chunked
+         dense front (PR 12) has, so it times an older tree too (copy this
+         file into that tree's tools/); equal digests across trees say the
+         outputs are bit-equal.
   pfb:   the PFB front's kernels at each grade: B2 at FM wideband
          critical and at its D=8 variant, B3-PFB at AM wideband critical
          (one chunk), B2 at pfb_nfm_lmr_320 and B3-PFB at pfb_airband_480
@@ -184,8 +189,33 @@ def digest(out):
             for x in leaves]
 
 
+def dense_f32_chunked():
+    """(what, call) of the f32 dense launches on chip_smoke.py's chunked
+    paths: B1 at long_filter, B3-dense at am_d128 (first block each) and
+    B4 at the transmux's K=32, Q=127 on a first block behind its zero
+    history."""
+    m = cs.long_filter("cuda", precision="f32")
+    buf = cs.buffer(m, cs.fm_signal(m, 0, cs.N, seed=11))
+    n0, _, cf, cz = m.init()
+    fm = (buf, m.tap_bank, m.lo_table, n0, m.decimation, m.gain, m.deemph,
+          cf, cz)
+    m = cs.am_d128("cuda", precision="f32")
+    buf = cs.buffer(m, cs.am_signal(m, 0, cs.N, seed=11))
+    am = (buf, m.tap_bank, m.lo_table, m.init()[0], m.decimation)
+    k, q = cs.TMX_K, cs.TMX_LONG_Q
+    taps = cs.lowpass64(q * k, 0.5 / k)
+    bank = _analysis_tables(_taps_key(taps), k, "cuda")[0]
+    rf = cs.grid_carriers(k, 0, cs.N)
+    pad = torch.zeros((q - 1) * k, device="cuda")
+    x = ComplexArray(torch.cat([pad, rf.re]), torch.cat([pad, rf.im]))
+    return [("B1 long_filter", lambda: cs.fm_chain(*fm, precision="f32")),
+            ("B3-dense am_d128", lambda: cs.am_chain(*am, precision="f32")),
+            ("B4 transmux K=32, Q=127", lambda: channelize_kernel(
+                x, bank, k, precision="f32"))]
+
+
 def dense(rounds=3):
-    calls = []
+    calls, forced = [], []
     for g in cs.GRADES:
         m = cs.flagship("cuda", precision=g)
         buf = cs.buffer(m, cs.fm_signal(m, 0, cs.N, seed=11))
@@ -207,7 +237,20 @@ def dense(rounds=3):
                          torch.randn(cs.N, generator=gen, device="cuda"))
         calls.append(("B4 transmux K=32", g, lambda x=x, b=bank, g=g:
                       channelize_kernel(x, b, cs.TMX_K, precision=g)))
+    taps = cs.lowpass64(8 * 16, 0.4 / 16)
+    bank16 = _analysis_tables(_taps_key(taps), 16, "cuda")[0]
+    calls.append(("B4 bench_pfb K=16", "f32", lambda x=x, b=bank16:
+                  channelize_kernel(x, b, 16, precision="f32")))
+    # the f32 one-chunk launches forced into chunks: digests only
     for what, g, fn in calls:
+        if g == "f32":
+            kernel = {"B1": cs.fm_chain, "B3": cs.am_chain}.get(
+                what[:2], channelize_kernel)
+            for tc in cs.FORCED_CHUNKS:
+                forced.append((f"{what}, chunks of {tc}", g, lambda f=fn,
+                               k=kernel, tc=tc: _forced(f, k, tc)))
+    calls += [(what, "f32", fn) for what, fn in dense_f32_chunked()]
+    for what, g, fn in calls + forced:
         print(json.dumps({"probe": "dense_digest", "kernel": what,
                           "grade": g, "digest": digest(fn())}), flush=True)
     for r in range(rounds):
@@ -216,6 +259,17 @@ def dense(rounds=3):
             print(json.dumps({"probe": "dense", "round": r, "kernel": what,
                               "grade": g, "device_us": sum(dev.values()),
                               "by_kernel": dev}), flush=True)
+
+
+def _forced(call, kernel, chunk):
+    """call() with the kernel's launches forced to ``chunk`` taps a chunk
+    (the wrappers' ``chunk`` argument, a test's knob)."""
+    launch = kernel.launch
+    kernel.launch = lambda *a, **kw: launch(*a, chunk=chunk, **kw)
+    try:
+        return call()
+    finally:
+        kernel.launch = launch
 
 
 def tile_registers(reports):
