@@ -198,7 +198,12 @@ from gsdr_tpu_torch.kernels.am_chain import (
     pfb_am_chain,
     pfb_am_chain_reference,
 )
-from gsdr_tpu_torch.kernels.chain import dense_chunk, front_supported, pfb_chunk
+from gsdr_tpu_torch.kernels.chain import (
+    dense_block,
+    dense_chunk,
+    front_supported,
+    pfb_chunk,
+)
 from gsdr_tpu_torch.kernels.channelize import (
     channelize_kernel,
     channelize_reference,
@@ -512,11 +517,14 @@ def device_us(fn, reps, tries=3):
     records over reps, rounded), so a record the trace drops (in this
     process a trace can come back one record short) does not lower the
     time. A trace that records no device activity is taken again, up to
-    ``tries`` times; an empty result means not measured."""
+    ``tries`` times; an empty result means not measured. An empty trace
+    first takes the records an earlier trace lost (as family_records)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
     out = {}
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
@@ -685,14 +693,31 @@ def main_path(model, blocks, want_counts):
     return outs, got
 
 
-def time_calls(fn):
+# A call's device time by torch.profiler may exceed its time by CUDA events
+# by this much before the trace is retaken: the two clocks differ by a
+# percent or so on a call that keeps the card busy (a trace's records
+# counted twice read 2x, as dense_long_filter_bf16x3's compiled call did
+# once: 2048 us of device time in a 1.118-ms call)
+DEVICE_OVER_EVENT = 1.02
+
+
+def time_calls(fn, tries=3):
     """(ms per call back to back, device us per call by kernel, idle
-    share); launch counters are restored."""
+    share); launch counters are restored. A trace whose device time per
+    call exceeds the call's event time (DEVICE_OVER_EVENT) is taken again,
+    up to ``tries`` times, and fails the phase if it persists."""
     before = counts()
     ms = cuda_ms(fn, reps=20)
-    dev = device_us(fn, reps=10)
+    for _ in range(tries):
+        dev = device_us(fn, reps=10)
+        if sum(dev.values()) <= DEVICE_OVER_EVENT * ms * 1e3:
+            break
     for name, k in COUNTERS.items():
         k.launches = before[name]
+    check(sum(dev.values()) <= DEVICE_OVER_EVENT * ms * 1e3,
+          f"device time {sum(dev.values()):.1f} us a call exceeds the "
+          f"call's {ms * 1e3:.1f} us by CUDA events in {tries} traces "
+          f"({dev})")
     idle = 1.0 - sum(dev.values()) / (ms * 1e3) if dev else None
     return ms, dev, idle
 
@@ -1849,9 +1874,17 @@ def grid_carriers(k, start, n, seed=7):
     return ComplexArray(re.float(), im.float())
 
 
-def chunked(library, t, d, grade, c=None):
-    """The taps a block stages at once for this geometry (dense_chunk)."""
-    return dense_chunk(library, "cuda", t, d, grade, num_channels=c)
+def chunked(library, t, d, grade, c=None, m=None):
+    """The taps a block stages at once for this geometry (dense_chunk), for
+    m outputs a launch (None: any)."""
+    return dense_chunk(library, "cuda", t, d, grade, num_channels=c,
+                       num_outputs=m)
+
+
+def mma_block(library, t, d, grade, c, m):
+    """[channels, rows] of the block a dense launch of m outputs takes
+    (dense_block; the bf16 chunked kernel's depends on m)."""
+    return list(dense_block(library, "cuda", t, d, grade, c, m)[1:])
 
 
 def fma_floor_us(c, t, m):
@@ -1860,12 +1893,20 @@ def fma_floor_us(c, t, m):
     return 8.0 * c * t * m / PEAK_FP32_FLOPS * 1e6
 
 
-def forced_chunks_equal(what, kernel, args, **kw):
+def forced_fit(t, d, rows):
+    """FORCED_CHUNKS but those whose two staging buffers a block of `rows`
+    rows cannot hold at the bf16 grades: two chunks of 64 of D >= 128
+    phases at 256 rows would need 270 KB."""
+    return tuple(tc for tc in FORCED_CHUNKS
+                 if tc < 64 or d < 128 or rows < 256)
+
+
+def forced_chunks_equal(what, kernel, args, chunks=FORCED_CHUNKS, **kw):
     """kernel(*args, chunk=tc) for each forced chunk against the planner's
     launch, bit for bit (every output leaf); counters restored."""
     before = kernel.launches
     want = tree_leaves(kernel(*args, **kw))
-    for tc in FORCED_CHUNKS:
+    for tc in chunks:
         got = tree_leaves(kernel(*args, chunk=tc, **kw))
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               f"{what}: a launch in chunks of {tc} taps differs from the "
@@ -1910,7 +1951,8 @@ def dense_model_path(name, make, signal, kernel, plain_ref, bound_fn,
     model, plain = make("auto"), make("torch")
     grade, lib = model.precision, kernel.name
     t, d, c = model.num_taps, model.decimation, model.num_channels
-    tc = chunked(lib, t, d, grade, c)
+    tc = chunked(lib, t, d, grade, c, N // d)
+    block = mma_block(lib, t, d, grade, c, N // d)
     check(model.front == "toeplitz" and tc < t,
           f"{name}: dense front in chunks (chunk {tc} of {t} taps)")
     fm = isinstance(model, FmChannelizer)
@@ -1934,12 +1976,16 @@ def dense_model_path(name, make, signal, kernel, plain_ref, bound_fn,
     n0, _, *carries = model.init()
     args = (buf, model.tap_bank, model.lo_table, n0, d) + (
         (model.gain, model.deemph, *carries) if fm else ())
+    if grade != "f32":   # the planner's chunks against forced ones
+        forced_chunks_equal(f"{name} at {grade}", kernel, args,
+                            chunks=forced_fit(t, d, block[1]),
+                            precision=grade)
     timing = time_kernel(kernel, plain_ref, dense_front_library(model, buf),
                          args, precision=grade)
     bnd = bound(*bound_fn(model, buf.re.shape[-1], grade))
     floor_us = fma_floor_us(c, t, (buf.re.shape[-1] - t) // d + 1)
     line = {"phase": f"dense_{name}", "grade": grade,
-            "C": c, "T": t, "D": d, "chunk": tc,
+            "C": c, "T": t, "D": d, "chunk": tc, "block": block,
             "launches": got[lib],
             "vs_plain": rel_plain, "vs_f32": rel_f32,
             "eager_ms": eager_ms, "compiled_ms": comp_ms,
@@ -1957,7 +2003,7 @@ def dense_model_path(name, make, signal, kernel, plain_ref, bound_fn,
                 else "gsdr_tpu/kernels/fm_chain_pallas.py:551")
     return kernel_entry(lib, f"gsdr_tpu_torch/kernels/csrc/{lib}.cu",
                         replaces, got[lib], max_abs, timing, bnd,
-                        grade=grade, path=name, chunk=tc,
+                        grade=grade, path=name, chunk=tc, block=block,
                         fma_floor_ms=floor_us / 1e3)
 
 
@@ -1972,7 +2018,9 @@ def dense_transmux_path(grade="bf16x3"):
     taps = lowpass64(q * k, 0.5 / k)
     hist = (q - 1) * k
     bank = _analysis_tables(_taps_key(taps), k, "cuda")[0]
-    tc = chunked("channelize", q * k, k, grade, k)
+    m = (N + hist - q * k) // k + 1
+    tc = chunked("channelize", q * k, k, grade, k, m)
+    block = mma_block("channelize", q * k, k, grade, k, m)
     check(tc < q * k, f"transmux K={k}, Q={q}: one chunk of {tc} taps")
     blocks = [grid_carriers(k, i * N, N) for i in range(STEPS)]
     bufs, prev = [], ComplexArray.zeros((hist,), device="cuda")
@@ -2016,6 +2064,10 @@ def dense_transmux_path(grade="bf16x3"):
           f"B4 at K={k}, Q={q}, {grade} vs fold path: {err_fold:.3g}")
     check(bool(torch.isfinite(y_auto.re).all()
                and torch.isfinite(y_auto.im).all()), "non-finite B4 output")
+    if grade != "f32":
+        forced_chunks_equal(f"B4 transmux K={k}, Q={q} at {grade}",
+                            channelize_kernel, (bufs[0], bank, k),
+                            precision=grade)
     name = "transmux_q127" + ("" if grade == "bf16x3" else f"_{grade}")
     eager_ms, comp_ms, comp_us, comp_idle = compiled_times(
         name, receive_step, ComplexArray.zeros((hist,), device="cuda"),
@@ -2023,7 +2075,7 @@ def dense_transmux_path(grade="bf16x3"):
     timing, bnd, line, _ = b4_timing(f"dense_{name}", bufs[0], taps, k,
                                      grade)
     floor_us = fma_floor_us(k, q * k, line["M"])
-    line.update({"chunk": tc, "launches": got["channelize"],
+    line.update({"chunk": tc, "block": block, "launches": got["channelize"],
                  "max_abs_err": err, "vs_fold_path": err_fold,
                  "eager_ms": eager_ms, "compiled_ms": comp_ms,
                  "compiled_device_us": comp_us,
@@ -2036,7 +2088,7 @@ def dense_transmux_path(grade="bf16x3"):
     return kernel_entry(
         "channelize", "gsdr_tpu_torch/kernels/csrc/channelize.cu",
         "gsdr_tpu/kernels/channelize_pallas.py:57", got["channelize"], err,
-        timing, bnd, grade=grade, path=name, chunk=tc,
+        timing, bnd, grade=grade, path=name, chunk=tc, block=block,
         fma_floor_ms=floor_us / 1e3)
 
 
@@ -2067,9 +2119,14 @@ def dense_ops_path():
              am_chain_args(xa, taps, FS, -OPS_FC, d), am_bound,
              single_channel_model(AmReceiver, taps, d))):
         lib = kernel.name
-        tc = chunked(lib, len(taps), d, "bf16x3")
+        m = (N - len(taps)) // d + 1
+        tc = chunked(lib, len(taps), d, "bf16x3", 1, m)
+        block = mma_block(lib, len(taps), d, "bf16x3", 1, m)
         y, got = counted(f"{op}(impl='auto') at D={d}", lambda: call(sig),
                          {lib: 1})
+        forced_chunks_equal(f"{op} at D={d}", kernel, args,
+                            chunks=forced_fit(len(taps), d, block[1]),
+                            precision="bf16x3")
         if lib == "fm_chain":
             want = ref(*args, precision="bf16x3")[0][0, 1:]
             f32 = ref(*args, precision="f32")[0][0, 1:]
@@ -2101,7 +2158,8 @@ def dense_ops_path():
                                          bound_fn, "bf16x3")
         print(json.dumps({
             "phase": f"dense_{op}_d{d}", "grade": "bf16x3", "T": len(taps),
-            "D": d, "chunk": tc, "launches": got[lib], "vs_plain": e_plain,
+            "D": d, "chunk": tc, "block": block, "launches": got[lib],
+            "vs_plain": e_plain,
             "vs_f32": e_f32, "eager_ms": eager_ms, "compiled_ms": comp_ms,
             "compiled_device_us": comp_us, "compiled_idle_share": comp_idle,
             "kernel_ms": timing[0], "kernel_device_us": timing[1],
@@ -2115,7 +2173,8 @@ def dense_ops_path():
             lib, f"gsdr_tpu_torch/kernels/csrc/{lib}.cu",
             "gsdr_tpu/kernels/fm_chain_pallas.py:"
             + ("888" if lib == "fm_chain" else "551"), got[lib], e_plain,
-            timing, bnd, grade="bf16x3", path=f"ops_d{d}", chunk=tc))
+            timing, bnd, grade="bf16x3", path=f"ops_d{d}", chunk=tc,
+            block=block))
     return entries
 
 
@@ -3776,9 +3835,9 @@ def f32_registers(reports):
             entry = None
             args = [int(a) for a in re.findall(r"L[bi](\d+)E",
                                                 m.group(2))] if m else []
-            if m and len(args) == 4 and args[1] == 0:
-                # fm/am: <pfb, grade, chunked, ch>; channelize: <pfb,
-                # grade, ch, chunked>
+            if m and len(args) in (4, 5) and args[1] == 0:
+                # fm/am: <pfb, grade, chunked, ch(, rows)>; channelize:
+                # <pfb, grade, ch, chunked(, rows)>; kTile rows at f32
                 pfb, ch, ck = ((args[0], args[2], args[3])
                                if m.group(1) == "channelize_tile"
                                else (args[0], args[3], args[2]))

@@ -119,8 +119,9 @@ def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation,
     if two != 2 or c2 % 2:
         raise ValueError(f"am_chain: tap_bank shape {tuple(tap_bank.shape)}")
     check_operands("am_chain", {"tap_bank": (tap_bank, (c2, 2, t))}, dev)
-    tc = dense_chunk("am_chain", dev, t, decimation, precision, c2 // 2) \
-        if chunk is None else int(chunk)
+    m = (buf.re.shape[-1] - t) // max(int(decimation), 1) + 1
+    tc = dense_chunk("am_chain", dev, t, decimation, precision, c2 // 2,
+                     m) if chunk is None else int(chunk)
     table = dense_mma_tables(tap_bank) if grade \
         else dense_f32_tables(tap_bank)
     ptrs = (None, table.data_ptr()) if grade else (table.data_ptr(), None)

@@ -359,7 +359,7 @@ def load_chain_library(library):
     lib = load_library(library)
     if hasattr(lib, library + "_fits"):
         fits = getattr(lib, library + "_fits")
-        fits.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+        fits.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
         fits.restype = ctypes.c_int
     errs = getattr(lib, library + "_error_string")
     errs.argtypes = [ctypes.c_int]
@@ -377,18 +377,20 @@ def cuda_error(library, what, err):
 
 @functools.lru_cache(maxsize=None)
 def _block_plan(library, device_index, pfb, grade, channels, num_taps, k, q,
-                decimation):
-    """``<library>_fits``' plan on the card ``device_index``, two ints: for
-    the dense front the taps a block stages at once (and 0), for the PFB
-    front the (lanes, fold taps) a chunk takes; a first 0 where no block
-    fits."""
+                decimation, outputs=0):
+    """``<library>_fits``' plan on the card ``device_index``, three ints:
+    for the dense front the taps a block stages at once and the channels
+    and rows of the block that launches them (for ``outputs`` M outputs,
+    0: any M), for the PFB front the (lanes, fold taps) a chunk takes (and
+    0); a first 0 where no block fits."""
     lib = load_chain_library(library)
-    plan = (ctypes.c_int * 2)(0, 0)
+    plan = (ctypes.c_int * 3)(0, 0, 0)
     with torch.cuda.device(device_index):
         err = getattr(lib, library + "_fits")(
-            int(pfb), grade, channels, num_taps, k, q, decimation, plan)
+            int(pfb), grade, channels, num_taps, k, q, decimation, outputs,
+            plan)
     cuda_error(library, f"{library}_fits", err)
-    return plan[0], plan[1]
+    return plan[0], plan[1], plan[2]
 
 
 def _card_index(device):
@@ -397,27 +399,37 @@ def _card_index(device):
 
 
 def dense_chunk(library, device, num_taps, decimation, precision="f32",
-                num_channels=None):
+                num_channels=None, num_outputs=None):
     """The taps a block of ``library``'s dense front stages at once on the
     card ``device`` at the grade ``precision``: T where the whole bank and
     its window fit the block's shared memory (one pass, as at the flagship,
-    am_d and the transmux's K=32, Q=8), else chunks: at the bf16 grades
-    the largest multiple of 8 below T whose block fits; at 'f32', whose
-    chunked block holds two staging buffers and stages the next chunk
-    while it multiplies one, the largest multiple of 8 whose block lets
-    two blocks share a SM where that chunk spans D taps or more (one
-    window of all D phases a chunk, as the 2049-tap long filter's 352 at
-    D=4), else the largest that fits (the transmux at Q=127: 192 of
-    D=32, not 24). The block walks
-    the bank in ascending chunks, with the same sums in the same order.
-    The library plans it from the geometry it launches with
-    (``csrc/fronts.cuh``, ``dense_chunk``); the f32 block takes 8, 16 or
-    32 channels by C (``toeplitz_front``), so ``num_channels`` (as
-    ``front_supported``; None: any C, the widest block) sets its plan."""
+    am_d and the transmux's K=32, Q=8), else chunks: each chunked block
+    holds two staging buffers and stages the next chunk while it
+    multiplies one, so a chunk is the largest multiple of 8 whose block
+    lets two blocks share a SM where that chunk spans D taps or more (one
+    window of all D phases a chunk, as the 2049-tap long filter's at D=4),
+    else the largest that fits (the transmux at Q=127, D=32). The block
+    walks the bank in ascending chunks, with the same sums in the same
+    order. The library plans it from the geometry it launches with
+    (``csrc/fronts.cuh``, ``dense_chunk``); the block depends on C (at
+    'f32' 8, 16 or 32 channels, ``toeplitz_front``) and, for the bf16
+    grades' chunked kernel, on the outputs M too (``mma_chunk_block``: 4-32
+    channels and, in B3 and B4, 64-256 rows, to fill the card), so
+    ``num_channels`` and ``num_outputs`` (as ``front_supported``; None: any
+    C or M, the widest block) set its plan."""
+    return dense_block(library, device, num_taps, decimation, precision,
+                       num_channels, num_outputs)[0]
+
+
+def dense_block(library, device, num_taps, decimation, precision="f32",
+                num_channels=None, num_outputs=None):
+    """(chunk, channels, rows) of the dense launch ``dense_chunk`` plans:
+    its chunk of taps and the channels and output rows of the block that
+    launches it."""
     grade = grade_code(library, precision)
     return _block_plan(library, _card_index(torch.device(device)), False,
                        grade, int(num_channels or 0), int(num_taps), 0, 0,
-                       int(decimation))[0]
+                       int(decimation), int(num_outputs or 0))
 
 
 def pfb_chunk(library, device, k, q, decimation, precision="f32"):
@@ -438,7 +450,7 @@ def pfb_chunk(library, device, k, q, decimation, precision="f32"):
         raise ValueError(f"{library}: the PFB front needs D | K (D={d}, "
                          f"K={k})")
     return _block_plan(library, _card_index(torch.device(device)), True,
-                       grade, 0, k * int(q), k, int(q), d)
+                       grade, 0, k * int(q), k, int(q), d)[:2]
 
 
 def front_supported(library, device, num_taps, decimation, k=None,

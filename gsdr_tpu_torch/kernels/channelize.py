@@ -68,9 +68,9 @@ def _launch(x, tap_bank, decimation, precision="bf16x3", chunk=None):
     if d < 1 or n < t:
         raise ValueError(f"channelize: N={n} < T={t} or D={d} < 1")
     c = c2 // 2
-    tc = dense_chunk("channelize", dev, t, d, precision, num_channels=c) \
-        if chunk is None else int(chunk)
     m = (n - t) // d + 1
+    tc = dense_chunk("channelize", dev, t, d, precision, num_channels=c,
+                     num_outputs=m) if chunk is None else int(chunk)
     y_re = torch.empty((c, m), dtype=torch.float32, device=dev)
     y_im = torch.empty((c, m), dtype=torch.float32, device=dev)
     table = dense_mma_tables(tap_bank) if grade \

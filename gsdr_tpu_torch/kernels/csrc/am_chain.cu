@@ -18,7 +18,10 @@
 // bytes (the window read once, the envelopes written once) bound it. The
 // envelope adds a few operations per output. What the design does about
 // that: the fronts of fronts.cuh; the bf16 dense front holds 16 channels
-// per block, one thread per output; the f32 dense front 8, 16 or 32 (by
+// per block, one thread per output (in chunks 4, 8 or 16 channels by C
+// and 256, 128 or 64 rows, so that a large D fills the card: am_d128's 8
+// channels, 32 row tiles of 256, take 128 blocks of 64 rows and multiply
+// no zero channel, mma_chunk_block); the f32 dense front 8, 16 or 32 (by
 // C: am_d's 8 multiplies no zero channel) in register tiles of 4 rows x 8
 // channels (4 x 4 in a block of 8: twice the warps where a large D leaves
 // few blocks), a thread per tile; the PFB fronts (every
@@ -42,14 +45,15 @@ __device__ __forceinline__ float envelope(float re, float im) {
   return 2.f * fminf(fmaxf(mag, 0.f), 1.f) - 1.f;
 }
 
-// Threads of a block of the front (kPfb) and grade for kCh channels a
-// block: the PFB fronts' kPfbThreads, the bf16 dense front's one a row,
-// the f32 dense front's tile holders.
-template <bool kPfb, int kGrade, int kCh>
+// Threads of a block of the front (kPfb) and grade for kCh channels and
+// kRows rows a block: the PFB fronts' kPfbThreads, the bf16 dense front's
+// one a row, the f32 dense front's tile holders.
+template <bool kPfb, int kGrade, int kCh, int kRows = kTile>
 constexpr int am_threads() {
-  return !kPfb && kGrade == gsdr::kGradeF32
-             ? gsdr::dense_f32_threads(kCh, gsdr::dense_cols(kCh))
-             : gsdr::block_threads<kPfb>();
+  return kPfb                        ? gsdr::block_threads<kPfb>()
+         : kGrade == gsdr::kGradeF32 ? gsdr::dense_f32_threads(
+                                           kCh, gsdr::dense_cols(kCh))
+                                     : kRows;
 }
 
 // btab: dense_mma_tables (dense front) or pfb_mma_tables (PFB front), read
@@ -57,18 +61,24 @@ constexpr int am_threads() {
 // kCh channels a block), or btab, pfb_f32_tables (PFB front); where
 // kChunked, the dense front stages Tc taps at a time (use_chunked_kernel)
 // and the PFB front chunks of Tc lanes and u-ranges of Uc fold taps
-// (use_chunked_pfb), else each stages all at once.
+// (use_chunked_pfb), else each stages all at once. A block takes kTile
+// output rows, but for the bf16 dense front's chunked kernel, which takes
+// kRows (gsdr::mma_chunk_block: 4, 8 or 16 channels and 256, 128 or 64
+// rows, to fill the card where a large D leaves few blocks).
 template <bool kPfb, int kGrade, bool kChunked = false,
-          int kCh = gsdr::block_channels<kPfb>()>
-__global__ void __launch_bounds__(am_threads<kPfb, kGrade, kCh>())
+          int kCh = gsdr::block_channels<kPfb>(), int kRows = kTile>
+__global__ void __launch_bounds__(am_threads<kPfb, kGrade, kCh, kRows>())
 am_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ ftab, const float* __restrict__ hp,
     const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
     int M, float* __restrict__ audio, int Uc) {
+  static_assert(kRows == kTile ||
+                    (!kPfb && kGrade != gsdr::kGradeF32 && kChunked),
+                "fewer rows only in the bf16 dense front's chunked kernel");
   extern __shared__ float4 smem4[];
   unsigned char* sbytes = reinterpret_cast<unsigned char*>(smem4);
-  const int j0 = blockIdx.x * kTile;
+  const int j0 = blockIdx.x * kRows;
   const int c0 = blockIdx.y * kCh;
   const long g0 = (long)j0 * D;
   if constexpr (kPfb) {
@@ -117,19 +127,20 @@ am_chain_tile(
     }
   } else {
     const int j = j0 + threadIdx.x;
-    float acc_re[kCG], acc_im[kCG];
+    float acc_re[kCh], acc_im[kCh];
     if constexpr (kChunked) {
-      gsdr::toeplitz_front_mma_chunked<kGrade, kCG / 4>(
+      gsdr::toeplitz_front_mma_chunked<kGrade, kCh / 4, kRows>(
           sbytes, buf_re, buf_im, nb, btab, C, T, Tc, D, blockIdx.y, g0,
           acc_re, acc_im);
     } else {
+      static_assert(kCh == kCG, "the one-chunk bf16 block: 16 channels");
       gsdr::toeplitz_front_mma<kGrade, kCG / 4>(sbytes, buf_re, buf_im, nb,
                                                 btab, C, T, D, blockIdx.y, g0,
                                                 acc_re, acc_im);
     }
     if (j >= M) return;
 #pragma unroll
-    for (int c = 0; c < kCG; ++c) {
+    for (int c = 0; c < kCh; ++c) {
       if (c0 + c < C)
         audio[(long)(c0 + c) * M + j] = envelope(acc_re[c], acc_im[c]);
     }
@@ -144,15 +155,32 @@ const void* front_tile(bool chunked) {
                  : (const void*)am_chain_tile<kPfb, kGrade, false, kCh>;
 }
 
+// The bf16 chunked kernel's block for C channels and M outputs (M < 1:
+// any M; gsdr::mma_chunk_block): 4, 8 or 16 channels, 256, 128 or 64 rows.
+gsdr::MmaBlock mma_block(int C, int M) {
+  return gsdr::mma_chunk_block(C, M, kCG, gsdr::kMmaMinRows, 0);
+}
+
+// The bf16 chunked tile kernel of a grade for a block of kCh channels and
+// kRows rows.
+template <int kGrade>
+struct MmaTile {
+  template <int kCh, int kRows>
+  const void* run() const {
+    return (const void*)am_chain_tile<false, kGrade, true, kCh, kRows>;
+  }
+};
+
 // The tile kernel of a front (pfb) and grade with its dynamic shared memory
 // for C channels and a chunk of Tc of T taps at D (dense, at f32 in blocks
-// of dense_f32_channels(C); `chunked` picks the kernel that walks chunks)
-// or for (K, Q, D) and the plan of Tc lanes and Uc fold taps a chunk (PFB;
-// the chunked kernel where use_chunked_pfb), or nullptr for a grade the
+// of dense_f32_channels(C), the bf16 chunked kernel in blocks of
+// mma_block(C, M); `chunked` picks the kernel that walks chunks) or for
+// (K, Q, D) and the plan of Tc lanes and Uc fold taps a chunk (PFB; the
+// chunked kernel where use_chunked_pfb), or nullptr for a grade the
 // library lacks.
 const void* tile_kernel(bool pfb, int grade, int C, int T, int Tc, int K,
                         int Q, int D, size_t* smem, bool chunked = false,
-                        int Uc = 0) {
+                        int Uc = 0, int M = 0) {
   if (pfb) {
     const bool ch = gsdr::use_chunked_pfb(Tc, Uc, K, Q);
     switch (grade) {
@@ -179,27 +207,37 @@ const void* tile_kernel(bool pfb, int grade, int C, int T, int Tc, int K,
                         : front_tile<false, gsdr::kGradeF32, 32>(chunked);
     }
     case gsdr::kGradeBf16x2:
-      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
-      return front_tile<false, gsdr::kGradeBf16x2>(chunked);
-    case gsdr::kGradeBf16x3:
-      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
-      return front_tile<false, gsdr::kGradeBf16x3>(chunked);
+    case gsdr::kGradeBf16x3: {
+      if (!chunked) {
+        *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
+        return grade == gsdr::kGradeBf16x2
+                   ? front_tile<false, gsdr::kGradeBf16x2>(false)
+                   : front_tile<false, gsdr::kGradeBf16x3>(false);
+      }
+      const gsdr::MmaBlock b = mma_block(C, M);
+      *smem = gsdr::mma_chunked_smem_bytes(b.ch / 4, b.rows, Tc, T, D);
+      return grade == gsdr::kGradeBf16x2
+                 ? gsdr::with_mma_block<kCG, gsdr::kMmaMinRows>(
+                       b, MmaTile<gsdr::kGradeBf16x2>{})
+                 : gsdr::with_mma_block<kCG, gsdr::kMmaMinRows>(
+                       b, MmaTile<gsdr::kGradeBf16x3>{});
+    }
   }
   return nullptr;
 }
 
-template <bool kPfb, int kGrade, bool kChunked, int kCh>
+template <bool kPfb, int kGrade, bool kChunked, int kCh, int kRows = kTile>
 int run_am(const void* buf_re, const void* buf_im, const void* ftab,
            const void* hp, const void* btab, void* audio, int nb, int C,
            int T, int Tc, int K, int Q, int D, int M, int Uc, size_t smem,
            void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      am_chain_tile<kPfb, kGrade, kChunked, kCh>,
+      am_chain_tile<kPfb, kGrade, kChunked, kCh, kRows>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((M + kTile - 1) / kTile, (C + kCh - 1) / kCh);
-  am_chain_tile<kPfb, kGrade, kChunked, kCh>
-      <<<grid, am_threads<kPfb, kGrade, kCh>(), smem,
+  dim3 grid((M + kRows - 1) / kRows, (C + kCh - 1) / kCh);
+  am_chain_tile<kPfb, kGrade, kChunked, kCh, kRows>
+      <<<grid, am_threads<kPfb, kGrade, kCh, kRows>(), smem,
          (cudaStream_t)stream>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)ftab,
       (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M,
@@ -215,6 +253,23 @@ int run_front(bool chunked, Args... args) {
   return run_am<kPfb, kGrade, false, kCh>(args...);
 }
 
+// run_am of the bf16 chunked kernel of a grade for a block of kCh
+// channels and kRows rows.
+template <int kGrade>
+struct MmaRun {
+  const void *buf_re, *buf_im, *btab;
+  void* audio;
+  int nb, C, T, Tc, D, M;
+  size_t smem;
+  void* stream;
+  template <int kCh, int kRows>
+  int run() const {
+    return run_am<false, kGrade, true, kCh, kRows>(
+        buf_re, buf_im, nullptr, nullptr, btab, audio, nb, C, T, Tc, 0, 0, D,
+        M, 0, smem, stream);
+  }
+};
+
 // One call of the front (pfb) at `grade`, its geometry checked by the
 // caller; the dense front stages Tc <= T taps at a time, the PFB front
 // takes the plan (Tc lanes, Uc fold taps) a chunk, whose block must fit
@@ -228,8 +283,20 @@ int run_graded(int grade, const void* buf_re, const void* buf_im,
   const bool chunked = kPfb ? gsdr::use_chunked_pfb(Tc, Uc, K, Q)
                             : gsdr::use_chunked_kernel(Tc, T, D);
   const void* kernel = tile_kernel(kPfb, grade, C, T, Tc, K, Q, D, &smem,
-                                   chunked, Uc);
+                                   chunked, Uc, M);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (!kPfb && chunked && grade != gsdr::kGradeF32) {
+    const gsdr::MmaBlock b = mma_block(C, M);
+    return grade == gsdr::kGradeBf16x2
+               ? gsdr::with_mma_block<kCG, gsdr::kMmaMinRows>(
+                     b, MmaRun<gsdr::kGradeBf16x2>{buf_re, buf_im, btab,
+                                                  audio, nb, C, T, Tc, D, M,
+                                                  smem, stream})
+               : gsdr::with_mma_block<kCG, gsdr::kMmaMinRows>(
+                     b, MmaRun<gsdr::kGradeBf16x3>{buf_re, buf_im, btab,
+                                                  audio, nb, C, T, Tc, D, M,
+                                                  smem, stream});
+  }
   if (kPfb) {
     int fits = 0;
     const cudaError_t err = gsdr::block_fits(kernel, smem, &fits);
@@ -240,7 +307,7 @@ int run_graded(int grade, const void* buf_re, const void* buf_im,
   run_front<kPfb, G, CH>(chunked, buf_re, buf_im, ftab, hp, btab, audio, nb, \
                          C, T, Tc, K, Q, D, M, Uc, smem, stream)
   constexpr int kCh = gsdr::block_channels<kPfb>();
-  switch (grade) {
+  switch (grade) {   // the PFB front, or the dense front's one chunk
     case gsdr::kGradeBf16x2:
       return GSDR_AM(gsdr::kGradeBf16x2, kCh);
     case gsdr::kGradeBf16x3:
@@ -269,13 +336,13 @@ extern "C" const char* am_chain_error_string(int err) {
 
 // The block plan of the front at `grade` (0 f32, 2 bf16x2, 3 bf16x3) on
 // the current device, for any channel count C, as fm_chain_fits: the
-// dense front's chunk of taps in plan[0] (pfb = 0, T and D, and C, on
-// which the f32 block depends; 0 only where not even 8 taps fit), or the
-// PFB front's (lanes, fold taps) a chunk in
-// plan[0..1] (pfb = 1, K, Q and D; gsdr::pfb_chunk). An unknown grade is
-// an invalid value. Returns 0 or the CUDA error.
+// dense front's chunk of taps in plan[0] and its block's channels and rows
+// in plan[1..2] (pfb = 0, T and D, and C and M, on which the block
+// depends; 0 only where not even 8 taps fit), or the PFB front's (lanes,
+// fold taps) a chunk in plan[0..1] (pfb = 1, K, Q and D; gsdr::pfb_chunk).
+// An unknown grade is an invalid value. Returns 0 or the CUDA error.
 extern "C" int am_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
-                             int D, int* plan) {
+                             int D, int M, int* plan) {
   if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1 || K % D != 0)))
     return (int)cudaErrorInvalidValue;
   size_t smem = 0, b = 0;
@@ -295,14 +362,23 @@ extern "C" int am_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
   }
   const void* one = tile_kernel(false, grade, C, T, T, 0, 0, D, &smem);
   if (one == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)gsdr::dense_chunk(
-      one, tile_kernel(false, grade, C, T, T, 0, 0, D, &b, true), T,
+  const cudaError_t err = gsdr::dense_chunk(
+      one, tile_kernel(false, grade, C, T, T, 0, 0, D, &b, true, 0, M), T,
       [=](int tc) {
         size_t bytes = 0;
-        tile_kernel(false, grade, C, T, tc, 0, 0, D, &bytes, tc < T);
+        tile_kernel(false, grade, C, T, tc, 0, 0, D, &bytes,
+                    gsdr::use_chunked_kernel(tc, T, D), 0, M);
         return bytes;
       },
-      plan, grade == gsdr::kGradeF32 ? D : 0);
+      plan, D);
+  const bool mma = grade != gsdr::kGradeF32 &&
+                   gsdr::use_chunked_kernel(plan[0], T, D);
+  const gsdr::MmaBlock blk = mma_block(C, M);
+  plan[1] = grade == gsdr::kGradeF32 ? gsdr::dense_f32_channels(C)
+            : mma                    ? blk.ch
+                                     : kCG;
+  plan[2] = mma ? blk.rows : kTile;
+  return (int)err;
 }
 
 // Dense front at `grade`, Tc taps a block stages at once (am_chain_fits'

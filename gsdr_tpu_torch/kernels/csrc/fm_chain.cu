@@ -37,7 +37,10 @@
 //    from a contiguous table with cp.async, the next chunk in flight while
 //    it multiplies one (fronts.cuh, toeplitz_front, fm_dense_cols); the
 //    bf16 dense front runs as one GEMM per block on
-//    mma.sync (toeplitz_front_mma over 16 channels); the PFB front at
+//    mma.sync (toeplitz_front_mma over 16 channels; in chunks,
+//    toeplitz_front_mma_chunked over 4, 8 or 16 by C and the grid, its
+//    chunks double-buffered: the narrowband scanner's 33 tiles of 16
+//    channels take 132 blocks of 4); the PFB front at
 //    every grade makes the fold once for 32 channels (pfb_front_mma on
 //    mma.sync, pfb_front in FP32 register tiles). The f32 fronts hand the
 //    outputs to the threads through a shared tile, so their registers are
@@ -112,7 +115,8 @@ fm_chain_tile(
   constexpr int kOS = 2 * kCh + 1;   // the f32 and PFB fronts' tile stride
   constexpr bool kTileOut = kPfb || kGrade == gsdr::kGradeF32;
   static_assert(kCh == kPar * kBe, "one group of kBe channels a thread");
-  static_assert(kTileOut || kCh == kCG, "the bf16 dense front: 16 channels");
+  static_assert(kTileOut || kCh == kCG || kChunked,
+                "the bf16 dense front: 16 channels in one chunk");
   constexpr int kCols = gsdr::fm_dense_cols(kChunked);   // f32 dense tiles
   constexpr int kUnroll = gsdr::fm_dense_unroll(kChunked);
   static_assert(kPfb || kGrade != gsdr::kGradeF32 ||
@@ -165,7 +169,7 @@ fm_chain_tile(
     out = gsdr::toeplitz_front<kChunked, kCh, kCols, kUnroll>(
         sbytes, buf_re, buf_im, nb, ftab, C, T, Tc, D, blockIdx.y, g0);
   } else if constexpr (kChunked) {
-    gsdr::toeplitz_front_mma_chunked<kGrade, kCG / 4>(
+    gsdr::toeplitz_front_mma_chunked<kGrade, kCh / 4>(
         sbytes, buf_re, buf_im, nb, btab, C, T, Tc, D, blockIdx.y, g0,
         acc_re, acc_im);
   } else {
@@ -449,11 +453,28 @@ const void* pfb_kernel(int grade, int Tc, int K, int Q, int D, size_t* smem,
   return nullptr;
 }
 
-// The dense tile kernel of a grade for C channels (at f32 in blocks of
-// dense_f32_channels(C)), one chunk or `chunked`, with its dynamic shared
-// memory for a chunk of Tc of T taps at D, or nullptr for a grade the
-// library lacks.
-const void* dense_kernel(int grade, int C, int T, int Tc, int D,
+// The bf16 chunked kernel's block for C channels and M outputs (M < 1:
+// any M): 4, 8 or 16 channels, kTile rows, since the de-emphasis tile
+// scan spans a block's rows (gsdr::mma_chunk_block).
+gsdr::MmaBlock mma_block(int C, int M) {
+  return gsdr::mma_chunk_block(C, M, kCG, kTile, kTile - kOut);
+}
+
+// The bf16 chunked tile kernel of a grade for a block of kCh channels.
+template <int kGrade>
+struct MmaTile {
+  template <int kCh, int kRows>
+  const void* run() const {
+    return (const void*)fm_chain_tile<false, kGrade, true, kCh>;
+  }
+};
+
+// The dense tile kernel of a grade for C channels and M outputs (at f32 in
+// blocks of dense_f32_channels(C); the bf16 chunked kernel in blocks of
+// mma_block(C, M)), one chunk or `chunked`, with its dynamic shared memory
+// for a chunk of Tc of T taps at D, or nullptr for a grade the library
+// lacks.
+const void* dense_kernel(int grade, int C, int T, int Tc, int D, int M,
                          size_t* smem, bool chunked) {
   switch (grade) {
     case gsdr::kGradeF32: {
@@ -464,11 +485,21 @@ const void* dense_kernel(int grade, int C, int T, int Tc, int D,
                         : dense_tile<gsdr::kGradeF32, 32>(chunked);
     }
     case gsdr::kGradeBf16x2:
-      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
-      return dense_tile<gsdr::kGradeBf16x2>(chunked);
-    case gsdr::kGradeBf16x3:
-      *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
-      return dense_tile<gsdr::kGradeBf16x3>(chunked);
+    case gsdr::kGradeBf16x3: {
+      if (!chunked) {
+        *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
+        return grade == gsdr::kGradeBf16x2
+                   ? dense_tile<gsdr::kGradeBf16x2>(false)
+                   : dense_tile<gsdr::kGradeBf16x3>(false);
+      }
+      const gsdr::MmaBlock b = mma_block(C, M);
+      *smem = gsdr::mma_chunked_smem_bytes(b.ch / 4, kTile, Tc, T, D);
+      return grade == gsdr::kGradeBf16x2
+                 ? gsdr::with_mma_block<kCG, kTile>(
+                       b, MmaTile<gsdr::kGradeBf16x2>{})
+                 : gsdr::with_mma_block<kCG, kTile>(
+                       b, MmaTile<gsdr::kGradeBf16x3>{});
+    }
   }
   return nullptr;
 }
@@ -477,17 +508,19 @@ const void* dense_kernel(int grade, int C, int T, int Tc, int D,
 
 // The block plan of the front at `grade` (0 f32, 2 bf16x2, 3 bf16x3) on
 // the current device, for any channel count C (grid.y covers the
-// channels): for the dense front (pfb = 0, with T and D, and C, on which
-// the f32 block depends; C < 1: any C, the widest block) plan[0] = the
-// taps a block stages at once (gsdr::dense_chunk: T in one chunk where the
-// whole bank fits; at f32 else chunks whose two buffers let two blocks
-// share a SM; 0 only where not even 8 taps fit); for the PFB front
+// channels): for the dense front (pfb = 0, with T and D, C and M, on which
+// the block depends; C < 1: any C, M < 1: any M, the widest block)
+// plan[0] = the taps a block stages at once (gsdr::dense_chunk: T in one
+// chunk where the whole bank fits; else chunks whose two buffers let two
+// blocks share a SM where such a chunk spans D taps, else the largest that
+// fits; 0 only where not even 8 taps fit), plan[1] and plan[2] the
+// channels and rows of the block that launch takes; for the PFB front
 // (pfb = 1, with K, Q and D) plan[0..1] = the lanes and fold taps a chunk
 // takes (gsdr::pfb_chunk: (K, Q) where one chunk fits, (0, 0) where
 // nothing fits). Returns 0 or the CUDA error; an unknown grade is an
 // invalid value.
 extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
-                             int D, int* plan) {
+                             int D, int M, int* plan) {
   if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1 || K % D != 0)))
     return (int)cudaErrorInvalidValue;
   size_t smem = 0, b = 0;
@@ -503,16 +536,24 @@ extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
         },
         plan);
   }
-  const void* one = dense_kernel(grade, C, T, T, D, &smem, false);
+  const void* one = dense_kernel(grade, C, T, T, D, M, &smem, false);
   if (one == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)gsdr::dense_chunk(
-      one, dense_kernel(grade, C, T, T, D, &b, true), T,
+  const cudaError_t err = gsdr::dense_chunk(
+      one, dense_kernel(grade, C, T, T, D, M, &b, true), T,
       [=](int tc) {
         size_t bytes = 0;
-        dense_kernel(grade, C, T, tc, D, &bytes, tc < T);
+        dense_kernel(grade, C, T, tc, D, M, &bytes,
+                     gsdr::use_chunked_kernel(tc, T, D));
         return bytes;
       },
-      plan, grade == gsdr::kGradeF32 ? D : 0);
+      plan, D);
+  const bool mma = grade != gsdr::kGradeF32 &&
+                   gsdr::use_chunked_kernel(plan[0], T, D);
+  plan[1] = grade == gsdr::kGradeF32 ? gsdr::dense_f32_channels(C)
+            : mma                    ? mma_block(C, M).ch
+                                     : kCG;
+  plan[2] = kTile;
+  return (int)err;
 }
 
 extern "C" const char* fm_chain_error_string(int err) {
@@ -539,7 +580,7 @@ extern "C" int fm_chain_launch(
   Tc = Tc < T ? Tc : T;
   const bool chunked = gsdr::use_chunked_kernel(Tc, T, D);
   size_t smem = 0;
-  if (dense_kernel(grade, C, T, Tc, D, &smem, chunked) == nullptr)
+  if (dense_kernel(grade, C, T, Tc, D, M, &smem, chunked) == nullptr)
     return (int)cudaErrorInvalidValue;
 #define GSDR_DENSE_CHAIN_AT(G, CHUNKED, CH)                                  \
   run_chain<false, G, CHUNKED, CH>(                                         \
@@ -549,11 +590,17 @@ extern "C" int fm_chain_launch(
 #define GSDR_DENSE_CHAIN(G, CH)                \
   (chunked ? GSDR_DENSE_CHAIN_AT(G, true, CH)  \
            : GSDR_DENSE_CHAIN_AT(G, false, CH))
+#define GSDR_MMA_CHAIN(G)                                                   \
+  (!chunked ? GSDR_DENSE_CHAIN_AT(G, false, kCG)                            \
+   : b.ch == 4 ? GSDR_DENSE_CHAIN_AT(G, true, 4)                            \
+   : b.ch == 8 ? GSDR_DENSE_CHAIN_AT(G, true, 8)                            \
+               : GSDR_DENSE_CHAIN_AT(G, true, kCG))
+  const gsdr::MmaBlock b = mma_block(C, M);
   switch (grade) {
     case gsdr::kGradeBf16x2:
-      return GSDR_DENSE_CHAIN(gsdr::kGradeBf16x2, kCG);
+      return GSDR_MMA_CHAIN(gsdr::kGradeBf16x2);
     case gsdr::kGradeBf16x3:
-      return GSDR_DENSE_CHAIN(gsdr::kGradeBf16x3, kCG);
+      return GSDR_MMA_CHAIN(gsdr::kGradeBf16x3);
   }
   switch (gsdr::dense_f32_channels(C)) {
     case 8:
@@ -563,6 +610,7 @@ extern "C" int fm_chain_launch(
     default:
       return GSDR_DENSE_CHAIN(gsdr::kGradeF32, 32);
   }
+#undef GSDR_MMA_CHAIN
 #undef GSDR_DENSE_CHAIN
 #undef GSDR_DENSE_CHAIN_AT
 }

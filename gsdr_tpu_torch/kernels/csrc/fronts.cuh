@@ -27,7 +27,8 @@
 //  - toeplitz_front_mma<kGrade, kNT>: the dense front on the tensor cores,
 //    at the JAX package's bf16x3 (kGrade 3) or bf16x2 (kGrade 2) grade
 //    (fm_chain_pallas.py, _window_dot's grade arm), and
-//    toeplitz_front_mma_chunked, the same over chunks of taps. See below.
+//    toeplitz_front_mma_chunked, the same over chunks of taps, double
+//    buffered, in blocks of 4-32 channels and 64-256 rows. See below.
 //
 //  - pfb_front_mma<kGrade, kNT>: the PFB front on the tensor cores at
 //    bf16x3 or bf16x2 (fm_chain_pallas.py, _pfb_fold_dot with its grade
@@ -35,7 +36,9 @@
 //
 // The dense fronts stage the block's input window in shared memory in
 // polyphase order, xp[p][k] = x[g0 + k*D + p], so neighbouring threads
-// (neighbouring outputs, D samples apart) read neighbouring words. The
+// (neighbouring outputs, D samples apart) read neighbouring words (the
+// chunked tensor-core front frame-major, so that it stages with 16-byte
+// copies, at a frame stride that keeps its A loads on 32 banks). The
 // dense fronts walk the taps in ascending chunks of Tc (dense_chunk): a
 // chunk stages its own taps and its own window,
 // the min(Tc, D) phases of samples g0 + t0 + [0, (kTile-1)*D + Tc) it
@@ -43,14 +46,15 @@
 // accumulators) in the order of one pass over all T taps, so a chunked
 // launch equals a one-chunk launch bit for bit. Tc = T, one chunk, where
 // the whole bank and window fit the block; else the largest multiple of 8
-// that does (at f32, that does in two staging buffers with two blocks a
-// SM), which bounds their shared memory for any T and D. Each dense
+// that does in two staging buffers (with two blocks a SM where such a
+// chunk spans D taps), which bounds their shared memory for any T and D.
+// Each dense
 // front is two kernels (use_chunked_kernel): a one-chunk kernel for
 // Tc = T >= D, which stages every phase before its sums start, and a
 // chunked kernel for Tc < T or T < D, which stages only the phases a chunk
-// touches; its accumulators stay live through each chunk's staging, which
-// takes more registers (B1 at bf16x3 108 against 72 on the H100), and so
-// fewer blocks a SM than the one-chunk kernel needs. The PFB
+// touches, the next chunk while it multiplies one; its accumulators stay
+// live through the staging, which takes more registers than the one-chunk
+// kernel (B1 at bf16x3: 111 against 72 on the H100). The PFB
 // fronts stage kPhaseChunk phases at a time, which bounds their shared
 // memory for any D; pfb_front_mma keeps each chunk frame-major, so that it
 // stages with 16-byte copies, pfb_front phase-major, so that its fold
@@ -100,6 +104,7 @@ constexpr int kPfbRows = 4;        // pfb_front: rows of a register tile
 constexpr int kPfbCols = 4;        // PFB f32 fronts: channels of a tile
 constexpr int kPfbWideRows = 8;    // pfb_front_chunked: rows of a tile
 constexpr int kPfbConsumers = 256;  // pfb_front_chunked: threads multiplying
+constexpr int kMmaStages = 2;   // toeplitz_front_mma_chunked: chunks a ring
 // Grades of the dense front: the number of tensor-core passes; 0 is the
 // FP32-FMA front, toeplitz_front.
 constexpr int kGradeF32 = 0;
@@ -197,6 +202,52 @@ __host__ __device__ inline size_t mma_smem_bytes(int grade, int nt, int Tc,
                      mma_phase_stride((int)tp, D) * sizeof(uint32_t);
   const size_t out = (size_t)kTile * (8 * nt + 1) * sizeof(float);
   return b + tp * sizeof(int) + (win > out ? win : out);
+}
+
+// The geometry of toeplitz_front_mma_chunked for a block of nt n-tiles
+// (4*nt channels) and `rows` output rows, a chunk of Tc of T taps at D:
+// KBc blocks of 8 taps a chunk (all KB = ceil(T/8) where Tc >= T), Tcp =
+// 8*KBc taps; the window's Kr = rows + (Tcp - 1)/D frames of Dc =
+// chunk_phases(Tcp, D) phases, frame-major at Lp words a frame (Dc padded
+// to 4 mod 8, so that the 8 rows x 4 taps of an A fragment fall on 32
+// banks and a frame's run of samples is whole 16-byte copies); nch chunks
+// in a ring of nbuf = min(nch, kMmaStages) staging buffers.
+// Shared memory: the tap offsets (Tcp ints, padded to 16 bytes, at 0),
+// then each buffer of `buf` bytes at boff + b*buf: the chunk's B
+// [2][KBc][nt][16] uint2 (bbytes), then its window, two planes of Kr*Lp
+// words.
+struct MmaChunkGeom {
+  int KBc, Tcp, Dc, Kr, Lp, nch, nbuf;
+  size_t boff, bbytes, buf;
+};
+
+__host__ __device__ inline MmaChunkGeom mma_chunk_geom(int nt, int rows,
+                                                       int Tc, int T, int D) {
+  MmaChunkGeom g;
+  const int kb = (T + 7) / 8;
+  g.KBc = Tc >= T ? kb : Tc / 8;
+  g.Tcp = 8 * g.KBc;
+  g.Dc = chunk_phases(g.Tcp, D);
+  g.Kr = rows + (g.Tcp - 1) / D;
+  g.Lp = g.Dc + (12 - g.Dc % 8) % 8;
+  g.nch = (kb + g.KBc - 1) / g.KBc;
+  g.nbuf = g.nch < kMmaStages ? g.nch : kMmaStages;
+  g.boff = ((size_t)g.Tcp * sizeof(int) + 15) / 16 * 16;
+  g.bbytes = 2 * (size_t)g.KBc * nt * 16 * sizeof(uint2);
+  g.buf = g.bbytes + 2 * (size_t)g.Kr * g.Lp * sizeof(uint32_t);
+  return g;
+}
+
+// toeplitz_front_mma_chunked's dynamic shared memory: the offsets and the
+// staging buffers (mma_chunk_geom); the rows x (8*nt + 1) output tile
+// reuses the space after the product.
+__host__ __device__ inline size_t mma_chunked_smem_bytes(int nt, int rows,
+                                                         int Tc, int T,
+                                                         int D) {
+  const MmaChunkGeom g = mma_chunk_geom(nt, rows, Tc, T, D);
+  const size_t all = g.boff + g.nbuf * g.buf;
+  const size_t out = (size_t)rows * (8 * nt + 1) * sizeof(float);
+  return all > out ? all : out;
 }
 
 // pfb_front's A tile of `lanes` lanes, [lanes][2][kTile] floats.
@@ -382,7 +433,8 @@ __host__ __device__ inline size_t pfb_mma_chunk_bytes(int nt, int K, int Q,
 // kPfbCh channels with one fold, and their block has two threads per
 // output row, so that its back end takes the two groups of kCG channels
 // side by side; the bf16 dense fronts kCG channels, one thread a row (the
-// f32 dense front: dense_f32_channels, back_threads).
+// chunked one: mma_chunk_block; the f32 dense front: dense_f32_channels,
+// back_threads).
 template <bool kPfb>
 __host__ __device__ constexpr int block_channels() {
   return kPfb ? kPfbCh : kCG;
@@ -456,22 +508,93 @@ inline cudaError_t pair_room(const void* kernel, size_t* room) {
   return err;
 }
 
+// Streaming multiprocessors of the current device, 0 where it cannot be
+// read.
+inline int device_sms() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+// The block of the bf16 dense front's chunked kernel
+// (toeplitz_front_mma_chunked): `ch` channels (4, 8, 16 or 32: 4*kNT) and
+// `rows` output rows (kTile, or 128 or 64 where the launcher's rows are
+// independent).
+struct MmaBlock {
+  int ch, rows;
+};
+
+constexpr int kMmaMinRows = 64;   // the fewest rows of a B3 or B4 block
+
+// The chunked bf16 block for C channels and M outputs on the current
+// device: the fewest channels of 4, 8, 16 (32 where max_ch is 32) that
+// hold C, so that no block multiplies more than 3 zero channels (am_d128's
+// 8 took a block of 16 before), and kTile rows; then, while the grid with
+// half the rows (down to min_rows) still fits one wave of the card's SMs,
+// half the rows, and after that, while it does with half the channels (down
+// to 4), half the channels. A block of rows r makes ceil(M / (r - overlap))
+// row tiles (the FM chain's tiles overlap by one output). Each n-tile's and
+// each row's sums are independent of the others, so the outputs do not
+// depend on the block. M < 1: any M, the widest block (the most shared
+// memory).
+inline MmaBlock mma_chunk_block(int C, int M, int max_ch, int min_rows,
+                                int overlap) {
+  MmaBlock b{4, kTile};
+  while (b.ch < C && b.ch < max_ch) b.ch *= 2;
+  const int sms = M >= 1 ? device_sms() : 0;
+  if (sms < 1) return b;
+  auto blocks = [&](int ch, int rows) {
+    const long out = rows - overlap;
+    return (M + out - 1) / out * ((C + ch - 1) / ch);
+  };
+  while (b.rows > min_rows && blocks(b.ch, b.rows / 2) <= sms) b.rows /= 2;
+  while (b.ch > 4 && blocks(b.ch / 2, b.rows) <= sms) b.ch /= 2;
+  return b;
+}
+
+// f.template run<kCh, kRows>() for the block b of a launcher whose blocks
+// take at most kMaxCh channels and at least kMinRows rows (one
+// instantiation each).
+template <int kMaxCh, int kRows, class F>
+auto with_mma_channels(int ch, const F& f) {
+  if constexpr (kMaxCh >= 32) {
+    if (ch == 32) return f.template run<32, kRows>();
+  }
+  if (ch == 4) return f.template run<4, kRows>();
+  if (ch == 8) return f.template run<8, kRows>();
+  return f.template run<16, kRows>();
+}
+
+template <int kMaxCh, int kMinRows, class F>
+auto with_mma_block(const MmaBlock& b, const F& f) {
+  if constexpr (kMinRows <= 64) {
+    if (b.rows == 64) return with_mma_channels<kMaxCh, 64>(b.ch, f);
+  }
+  if constexpr (kMinRows <= 128) {
+    if (b.rows == 128) return with_mma_channels<kMaxCh, 128>(b.ch, f);
+  }
+  return with_mma_channels<kMaxCh, kTile>(b.ch, f);
+}
+
 // The dense fronts' chunk plan: sets *chunk to the taps a block stages at
 // once on the current device, T where the whole bank and window fit a
 // block, else the largest multiple of 8 below T that fits, or 0 where not
 // even 8 taps do; a block of either kernel of the front, `one` (one
 // chunk) and `chunked`, whose static shared memory may differ. bytes(Tc)
 // is the block's dynamic shared memory for a chunk of Tc taps,
-// non-decreasing in Tc. Where pair_span > 0 (the f32 front, whose chunked
-// kernel stages the next chunk while it multiplies one; pair_span = D), a
+// non-decreasing in Tc below T. Where pair_span > 0 (pair_span = D: every
+// chunked kernel stages the next chunk while it multiplies one), a
 // chunk below T is the largest whose block lets two blocks share a SM
 // (pair_room) where that chunk spans pair_span taps or more, so that a
 // chunk stages one window of all D phases; else, where two blocks would
 // take chunks shorter than D, each restaging its phases' window (the
 // transmux at Q=127 on the H100: 1267 us in chunks of 24 of D=32 taps
-// against 869 in the one-block chunks of 192), the largest that fits.
-// Returns 0 or the CUDA error. The libraries answer <library>_fits with
-// it for the dense front.
+// against 869 in the one-block chunks of 192, at f32), the largest that
+// fits. Returns 0 or the CUDA error. The libraries answer <library>_fits
+// with it for the dense front.
 template <class Bytes>
 cudaError_t dense_chunk(const void* one, const void* chunked, int T,
                         Bytes bytes, int* chunk, int pair_span = 0) {
@@ -584,105 +707,182 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Splits one window sample (xr, xi) into bf16 hi at word s (and lo at
-// bf16x3, lo_at words on).
-template <int kGrade>
-__device__ __forceinline__ void mma_put(uint32_t* win, int s, int lo_at,
-                                        float xr, float xi) {
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(xr, xi);
-  win[s] = bf16x2_bits(hi);
-  if constexpr (kGrade == kGradeBf16x3) {
-    win[lo_at + s] = bf16x2_bits(__floats2bfloat162_rn(
-        xr - __low2float(hi), xi - __high2float(hi)));
-  }
+// One 4-byte asynchronous copy from global to shared memory, zero-filled
+// when `valid` is false (src-size 0: nothing is read from src).
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
 }
 
-// Stages one chunk of toeplitz_front_mma: B's blocks kb0..kb0+nkb-1 of
-// 8 taps for the group's n-tiles into bs [2][KBc][kNT][16] (zeros past
-// nkb and NT), and the window of samples g0 + 8*kb0 + k*D + p, p < Dc,
-// k < Kr, split into bf16 hi (and lo at bf16x3, Dc*Ks words on) at word
-// p*Ks + k; samples outside [0, nb) as zeros. Where the chunk touches
-// all D phases, sample l of the window is simply g0 + 8*kb0 + l, read in
-// one contiguous sweep.
-template <int kGrade, int kNT>
-__device__ __forceinline__ void mma_stage(
-    uint2* bs, uint32_t* win, const float* __restrict__ buf_re,
-    const float* __restrict__ buf_im, int nb,
-    const uint2* __restrict__ btab, int KB, int NT, int D, int group,
-    long g0, int kb0, int nkb, int KBc, int Dc, int Ks, int Kr) {
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One 16-byte asynchronous copy from global to shared memory; both
+// addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Starts the copies of one chunk of toeplitz_front_mma_chunked into a
+// staging buffer of geometry g (mma_chunk_geom), by the block's nth
+// threads: B's blocks kb0..kb0+nkb-1 of 8 taps for the group's kNT
+// n-tiles, 16-byte copies of the table's contiguous (part, kb) rows into
+// bs [2][KBc][kNT][16] (an n-tile past NT as zeros); and the raw window,
+// re of sample g0 + 8*kb0 + k*D + p (p < Dc, k < Kr) into word k*Lp + p of
+// plane 0 and im into plane 1, samples outside [0, nb) zero-filled:
+// neighbouring threads copy neighbouring samples of a frame's run, four a
+// 16-byte copy where the runs start 16-byte aligned (vec), else one.
+template <int kNT>
+__device__ __forceinline__ void mma_chunk_stage(
+    unsigned char* buf, const MmaChunkGeom& g,
+    const float* __restrict__ buf_re, const float* __restrict__ buf_im,
+    int nb, const uint2* __restrict__ btab, int KB, int NT, int D,
+    int group, long g0, int kb0, int nkb, int nth, bool vec) {
   const int tid = threadIdx.x;
-  const int nbs = KBc * kNT * 16;   // uint2 per part in shared memory
-  for (int i = tid; i < 2 * nbs; i += kTile) {
-    const int part = i / nbs, kb = (i % nbs) / (kNT * 16);
-    const int nt = (i / 16) % kNT, e = i % 16;
-    const int ntg = group * kNT + nt;
-    bs[i] = ntg < NT && kb < nkb
-                ? btab[((long)(part * KB + kb0 + kb) * NT + ntg) * 16 + e]
-                : make_uint2(0u, 0u);
+  uint2* bs = reinterpret_cast<uint2*>(buf);
+  constexpr int kPer = kNT * 8;   // 16-byte copies of a (part, kb) row
+  const int nkp = nkb * kPer;
+  for (int i = tid; i < 2 * nkp; i += nth) {
+    const int part = i / nkp, r = i - part * nkp;
+    const int kb = r / kPer, e = r - kb * kPer;
+    float* dst = reinterpret_cast<float*>(
+        bs + ((size_t)(part * g.KBc + kb) * kNT) * 16 + 2 * e);
+    if (group * kNT + e / 8 < NT)
+      cp_async_16(dst, reinterpret_cast<const float*>(
+                           btab + ((long)(part * KB + kb0 + kb) * NT +
+                                   group * kNT) * 16 + 2 * e));
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  float* w0 = reinterpret_cast<float*>(buf + g.bbytes);
+  float* w1 = w0 + (size_t)g.Kr * g.Lp;
   const long gc = g0 + 8L * kb0;
-  if (Dc == D) {
-    for (int l = tid; l < D * Kr; l += kTile) {
-      const long g = gc + l;
-      const bool in = g >= 0 && g < nb;
-      mma_put<kGrade>(win, (l % D) * Ks + l / D, D * Ks,
-                      in ? buf_re[g] : 0.f, in ? buf_im[g] : 0.f);
+  const int w = vec ? 4 : 1;           // samples a copy
+  const int nq = g.Dc / w;             // copies a frame
+  for (int i = tid; i < g.Kr * nq; i += nth) {
+    const int k = i / nq, p = (i - k * nq) * w;
+    const long s = gc + (long)k * D + p;
+    float* d0 = w0 + k * g.Lp + p;
+    float* d1 = w1 + k * g.Lp + p;
+    if (vec && s >= 0 && s + 4 <= nb) {
+      cp_async_16(d0, buf_re + s);
+      cp_async_16(d1, buf_im + s);
+    } else {
+      for (int j = 0; j < w; ++j) {
+        const bool in = s + j >= 0 && s + j < nb;
+        cp_async_f32(d0 + j, buf_re + (in ? s + j : 0), in);
+        cp_async_f32(d1 + j, buf_im + (in ? s + j : 0), in);
+      }
     }
-    return;
-  }
-  for (int l = tid; l < Dc * Kr; l += kTile) {
-    const int p = l % Dc, k = l / Dc;
-    const long g = gc + (long)k * D + p;
-    const bool in = g >= 0 && g < nb;
-    mma_put<kGrade>(win, p * Ks + k, Dc * Ks, in ? buf_re[g] : 0.f,
-                    in ? buf_im[g] : 0.f);
   }
 }
 
-// d += the products of one staged chunk of nkb blocks of 8 taps
-// (mma_stage), in ascending kb: warp rows r0 and r0 + 16, lane (gid, tig).
+// Splits a staged raw window in place, by the block's nth threads: each
+// (re, im) of planes 0 and 1 (`words` words a plane, a multiple of 4)
+// becomes the bf16 pair hi = bf16(x) in plane 0 and, at bf16x3, lo =
+// bf16(x - hi) in plane 1, as JAX's (w - wh.astype(f32)).astype(bf16).
+template <int kGrade>
+__device__ __forceinline__ void mma_chunk_split(float* w0, int words,
+                                                int nth) {
+  float4* p0 = reinterpret_cast<float4*>(w0);
+  float4* p1 = reinterpret_cast<float4*>(w0 + words);
+  for (int i = threadIdx.x; i < words / 4; i += nth) {
+    const float4 re = p0[i], im = p1[i];
+    const float xr[4] = {re.x, re.y, re.z, re.w};
+    const float xi[4] = {im.x, im.y, im.z, im.w};
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(xr[j], xi[j]);
+      hi[j] = bf16x2_bits(h);
+      lo[j] = bf16x2_bits(__floats2bfloat162_rn(xr[j] - __low2float(h),
+                                                xi[j] - __high2float(h)));
+    }
+    reinterpret_cast<uint4*>(p0)[i] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    if constexpr (kGrade == kGradeBf16x3)
+      reinterpret_cast<uint4*>(p1)[i] =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// d += the products of one staged and split chunk of nkb blocks of 8 taps
+// (mma_chunk_stage, mma_chunk_split), in ascending kb: warp rows r0 and
+// r0 + 16, lane (gid, tig); A of row r and tap tl at word off[tl] + r*Lp of
+// the hi plane (lo `plane` words on). Each accumulator takes, for each
+// block of 8 taps, Ah*Bh, then Ah*Bl, then (bf16x3) Al*Bh, as
+// toeplitz_front_mma's; the passes run over all the warp's accumulators in
+// turn, so that no mma waits on the one before it. The loop is unrolled by
+// 2 but in blocks of 16 channels (H100, tools/dense_variants.py: Q=127's
+// 32 channels 5% and am_d128's 8 9% faster unrolled, the long filter's 16
+// 2% slower, and blocks of 16 channels and fewer rows spilled).
 template <int kGrade, int kNT>
 __device__ __forceinline__ void mma_product(
     float (&d)[2][kNT][4], const uint2* bs, const uint32_t* win,
-    const int* off, int nkb, int KBc, int Dc, int Ks, int r0, int gid,
+    const int* off, int nkb, int KBc, int plane, int Lp, int r0, int gid,
     int tig) {
   // an odd GEMM column (gi, gr) from its even neighbour (gr, -gi)
   const uint32_t sel = (gid & 1) ? 0x1032u : 0x3210u;
   const uint32_t flip = (gid & 1) ? 0x8000u : 0u;
   const uint2* bl = bs + 4 * (gid >> 1) + tig;
-  const uint32_t* wl = win + Dc * Ks;   // the lo part at bf16x3
+  const uint32_t* wl = win + plane;   // the lo part at bf16x3
+  const int rr = r0 * Lp, r8 = 8 * Lp;
+  constexpr int kUnroll = kNT == 4 ? 1 : 2;
+#pragma unroll(kUnroll)
   for (int kb = 0; kb < nkb; ++kb) {
-    const int o0 = off[8 * kb + tig], o1 = off[8 * kb + tig + 4];
+    const int o0 = off[8 * kb + tig] + rr, o1 = off[8 * kb + tig + 4] + rr;
     uint32_t ah[2][4], al[2][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
-      const int r = r0 + 16 * mt;
-      ah[mt][0] = win[o0 + r];
-      ah[mt][1] = win[o0 + r + 8];
-      ah[mt][2] = win[o1 + r];
-      ah[mt][3] = win[o1 + r + 8];
+      const int m = 2 * mt * r8;
+      ah[mt][0] = win[o0 + m];
+      ah[mt][1] = win[o0 + m + r8];
+      ah[mt][2] = win[o1 + m];
+      ah[mt][3] = win[o1 + m + r8];
       if constexpr (kGrade == kGradeBf16x3) {
-        al[mt][0] = wl[o0 + r];
-        al[mt][1] = wl[o0 + r + 8];
-        al[mt][2] = wl[o1 + r];
-        al[mt][3] = wl[o1 + r + 8];
+        al[mt][0] = wl[o0 + m];
+        al[mt][1] = wl[o0 + m + r8];
+        al[mt][2] = wl[o1 + m];
+        al[mt][3] = wl[o1 + m + r8];
       }
     }
+    uint32_t bh[kNT][2], blo[kNT][2];
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
       const uint2 h = bl[(kb * kNT + nt) * 16];
       const uint2 l = bl[((KBc + kb) * kNT + nt) * 16];
-      const uint32_t h0 = __byte_perm(h.x, 0u, sel) ^ flip;
-      const uint32_t h1 = __byte_perm(h.y, 0u, sel) ^ flip;
-      const uint32_t l0 = __byte_perm(l.x, 0u, sel) ^ flip;
-      const uint32_t l1 = __byte_perm(l.y, 0u, sel) ^ flip;
+      bh[nt][0] = __byte_perm(h.x, 0u, sel) ^ flip;
+      bh[nt][1] = __byte_perm(h.y, 0u, sel) ^ flip;
+      blo[nt][0] = __byte_perm(l.x, 0u, sel) ^ flip;
+      blo[nt][1] = __byte_perm(l.y, 0u, sel) ^ flip;
+    }
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        mma_bf16(d[mt][nt], ah[mt], h0, h1);
-        mma_bf16(d[mt][nt], ah[mt], l0, l1);
-        if constexpr (kGrade == kGradeBf16x3)
-          mma_bf16(d[mt][nt], al[mt], h0, h1);
-      }
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        mma_bf16(d[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        mma_bf16(d[mt][nt], ah[mt], blo[nt][0], blo[nt][1]);
+    if constexpr (kGrade == kGradeBf16x3) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma_bf16(d[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
     }
   }
 }
@@ -819,15 +1019,23 @@ __device__ __forceinline__ void toeplitz_front_mma(
 
 // toeplitz_front_mma over the taps in chunks of KBc = Tc/8 blocks of 8
 // (Tc < T, or T < D: every chunk stages only the min(Tc, D) phases it
-// touches), t0 = 8*kb0; the same contract, sums and order. Shared memory:
-// the chunk's B [2][KBc][kNT][16] uint2, the offsets of its taps in its
-// window, off[tl] = (tl % D)*Ks + tl/D for tl < Tcp = 8*KBc, then the
-// window [parts][Dc][Ks] of (re, im) bf16 pairs, Dc = chunk_phases(Tcp,
-// D), word (tl % D)*Ks + r + tl/D for output row r and tap t0 + tl, i.e.
-// sample g0 + t0 + r*D + tl (mma_stage). The accumulators take the blocks
-// of 8 taps in ascending kb across chunks, so a chunked launch equals a
-// one-chunk launch bit for bit.
-template <int kGrade, int kNT>
+// touches), for a block of kRows output rows (kRows/32 warps, each 32 rows
+// against all kNT n-tiles; one thread a row reads its 4*kNT channels back)
+// and the 4*kNT channels of channel group `group`; the same contract as
+// toeplitz_front_mma, and the same sums in the same order: each output's
+// accumulators take the same m16n8k16 A and B fragments in ascending
+// blocks of 8 taps across chunks, so a chunked launch equals a one-chunk
+// launch bit for bit at any block shape.
+//
+// The design: chunks c + 1 .. c + kMmaStages - 1 are copied
+// (cp.async, mma_chunk_stage) into the other buffers of a ring while
+// chunk c is split and multiplied; a chunk's window lands raw,
+// frame-major, and is split into
+// bf16 hi and lo in place (mma_chunk_split) just before its product.
+// Shared memory (mma_chunk_geom): off[tl] = (tl / D)*Lp + tl % D for tl <
+// Tcp, then the buffers; word off[tl] + r*Lp of a buffer's window is
+// sample g0 + 8*kb0 + r*D + tl of output row r and tap 8*kb0 + tl.
+template <int kGrade, int kNT, int kRows = kTile>
 __device__ __forceinline__ void toeplitz_front_mma_chunked(
     unsigned char* smem, const float* __restrict__ buf_re,
     const float* __restrict__ buf_im, int nb,
@@ -835,17 +1043,19 @@ __device__ __forceinline__ void toeplitz_front_mma_chunked(
     long g0, float (&acc_re)[4 * kNT], float (&acc_im)[4 * kNT]) {
   static_assert(kGrade == kGradeBf16x3 || kGrade == kGradeBf16x2,
                 "tensor-core grades are bf16x3 and bf16x2");
+  static_assert(kRows % 32 == 0 && kRows <= kTile, "whole warps of rows");
   constexpr int kOS = 8 * kNT + 1;   // output tile row stride, in floats
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int KB = (T + 7) / 8, NT = (C + 3) / 4;
-  const int KBc = Tc >= T ? KB : Tc / 8, Tcp = 8 * KBc;
-  const int Dc = chunk_phases(Tcp, D), Ks = mma_phase_stride(Tcp, D);
-  const int Kr = kTile + (Tcp - 1) / D;
-  uint2* bs = reinterpret_cast<uint2*>(smem);
-  int* off = reinterpret_cast<int*>(bs + 2 * KBc * kNT * 16);
-  uint32_t* win = reinterpret_cast<uint32_t*>(off + Tcp);
-  float* out = reinterpret_cast<float*>(win);
-  for (int t = tid; t < Tcp; t += kTile) off[t] = (t % D) * Ks + t / D;
+  const MmaChunkGeom g = mma_chunk_geom(kNT, kRows, Tc, T, D);
+  int* off = reinterpret_cast<int*>(smem);
+  unsigned char* bufs = smem + g.boff;
+  float* out = reinterpret_cast<float*>(smem);
+  for (int t = tid; t < g.Tcp; t += kRows) off[t] = (t / D) * g.Lp + t % D;
+  // 16-byte copies where every frame's run starts 16-byte aligned
+  const bool vec = D % 4 == 0 && g.Dc % 4 == 0 && g0 % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(buf_re) |
+                     reinterpret_cast<uintptr_t>(buf_im)) & 15) == 0;
 
   const int gid = lane >> 2, tig = lane & 3;
   const int r0 = warp * 32 + gid;
@@ -857,16 +1067,39 @@ __device__ __forceinline__ void toeplitz_front_mma_chunked(
 #pragma unroll
       for (int i = 0; i < 4; ++i) d[mt][nt][i] = 0.f;
 
-  for (int kb0 = 0; kb0 < KB; kb0 += KBc) {
-    const int nkb = KB - kb0 < KBc ? KB - kb0 : KBc;
-    if (kb0 > 0) __syncthreads();   // the previous chunk's readers are done
-    mma_stage<kGrade, kNT>(bs, win, buf_re, buf_im, nb, btab, KB, NT, D,
-                           group, g0, kb0, nkb, KBc, Dc, Ks, Kr);
-    __syncthreads();
-    mma_product<kGrade, kNT>(d, bs, win, off, nkb, KBc, Dc, Ks, r0, gid,
+  // chunks 0 .. kMmaStages - 2 in flight; a group committed for every
+  // chunk slot, empty past the last chunk, so that wait_group counts
+  // chunks
+#pragma unroll
+  for (int c = 0; c < kMmaStages - 1; ++c) {
+    const int kb1 = c * g.KBc;
+    if (kb1 < KB)
+      mma_chunk_stage<kNT>(bufs + c * g.buf, g, buf_re, buf_im, nb, btab, KB,
+                           NT, D, group, g0, kb1,
+                           KB - kb1 < g.KBc ? KB - kb1 : g.KBc, kRows, vec);
+    cp_async_commit();
+  }
+  for (int c = 0, kb0 = 0; kb0 < KB; ++c, kb0 += g.KBc) {
+    const int nkb = KB - kb0 < g.KBc ? KB - kb0 : g.KBc;
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();   // chunk c is in; every warp is done with chunk c - 1
+    const int kb1 = kb0 + (kMmaStages - 1) * g.KBc;
+    if (kb1 < KB)      // chunk c + kMmaStages - 1, into chunk c - 1's buffer
+      mma_chunk_stage<kNT>(bufs + ((c + kMmaStages - 1) % kMmaStages) * g.buf,
+                           g, buf_re, buf_im, nb, btab, KB, NT, D, group, g0,
+                           kb1, KB - kb1 < g.KBc ? KB - kb1 : g.KBc, kRows,
+                           vec);
+    cp_async_commit();
+    unsigned char* cur = bufs + (c % kMmaStages) * g.buf;
+    uint32_t* win = reinterpret_cast<uint32_t*>(cur + g.bbytes);
+    mma_chunk_split<kGrade>(reinterpret_cast<float*>(win), g.Kr * g.Lp,
+                            kRows);
+    __syncthreads();   // chunk c's window is split
+    mma_product<kGrade, kNT>(d, reinterpret_cast<const uint2*>(cur), win,
+                             off, nkb, g.KBc, g.Kr * g.Lp, g.Lp, r0, gid,
                              tig);
   }
-  __syncthreads();   // every warp is done with the window: the tile reuses it
+  __syncthreads();   // every warp is done with the buffers: the tile reuses them
 
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
@@ -886,34 +1119,6 @@ __device__ __forceinline__ void toeplitz_front_mma_chunked(
     acc_re[c] = out[tid * kOS + 2 * c];
     acc_im[c] = out[tid * kOS + 2 * c + 1];
   }
-}
-
-// One 4-byte asynchronous copy from global to shared memory, zero-filled
-// when `valid` is false (src-size 0: nothing is read from src).
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
-                                             bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// One 16-byte asynchronous copy from global to shared memory; both
-// addresses 16-byte aligned.
-__device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
 }
 
 // Starts the copies of phases p0..p0+np-1 of the block's window into the

@@ -21,6 +21,7 @@ from gsdr_tpu_torch.kernels.am_chain import (
 )
 from gsdr_tpu_torch.kernels import _build
 from gsdr_tpu_torch.kernels.chain import (
+    dense_block,
     dense_chunk,
     front_supported,
     pfb_chunk,
@@ -703,25 +704,26 @@ def test_forced_chunks_equal_one_chunk_on_card(card, grade):
                                                 chunk=tc), (8, 64, 24))
 
 
-def _f32_dense_run(lib, c, t, d, n, seed):
-    """run(chunk) of one f32 dense launch of ``lib`` (B1, B3-dense or B4)
-    for C channels, T taps and D over n random samples (the FM chain with
-    an identity rotor and a de-emphasis; its outputs need no meaning to be
-    held bit for bit); ``chunk`` None takes the library's plan."""
+def _f32_dense_run(lib, c, t, d, n, seed, grade="f32"):
+    """run(chunk) of one dense launch of ``lib`` (B1, B3-dense or B4) at
+    the grade (f32 unless said) for C channels, T taps and D over n random
+    samples (the FM chain with an identity rotor and a de-emphasis; its
+    outputs need no meaning to be held bit for bit); ``chunk`` None takes
+    the library's plan."""
     x = _planar_cuda(n, seed)
     bank = _bank(c, t)
     if lib == "channelize":
-        return lambda tc: channelize_kernel(x, bank, d, precision="f32",
+        return lambda tc: channelize_kernel(x, bank, d, precision=grade,
                                             chunk=tc)
     n0 = torch.zeros(1, dtype=torch.int32, device="cuda")
     lo = torch.zeros((c, 4), device="cuda")
     if lib == "am_chain":
-        return lambda tc: am_chain(x, bank, lo, n0, d, precision="f32",
+        return lambda tc: am_chain(x, bank, lo, n0, d, precision=grade,
                                    chunk=tc)
     zeros = torch.zeros((c, 1), device="cuda")
     deemph = torch.tensor([0.5, 0.25, 0.5], device="cuda")
     return lambda tc: fm_chain(x, bank, lo, n0, d, 1.0, deemph,
-                               TCA(zeros, zeros), zeros, precision="f32",
+                               TCA(zeros, zeros), zeros, precision=grade,
                                chunk=tc)
 
 
@@ -791,6 +793,68 @@ def test_f32_dense_blocks_of_8_and_32_channels_on_card(card, c):
     scale = float(torch.maximum(want.re.abs().max(), want.im.abs().max()))
     for a, b in ((y.re, want.re), (y.im, want.im)):
         assert float((a - b).abs().max()) <= 1e-5 * scale
+
+
+# (library, C, T, D, outputs M, forced chunks, block on 132 SMs): the bf16
+# chunked kernel at each block shape its launchers take
+# (fronts.cuh, mma_chunk_block: channels by C, then on the H100 fewer rows
+# (B3, B4) and channels while the grid still fits one wave), whose one
+# chunk fits (the chunked launches against the one-chunk kernel's), T < D
+# (every launch chunked), and the phase-11 paths (the planner's chunks
+# against forced ones; a block of 256 rows takes no 64-tap chunk at D >=
+# 128: two buffers of 64 phases would need 270 KB)
+MMA_CHUNK_CASES = [
+    ("fm_chain", 16, 257, 4, 255 * 8, (8, 24, 64), (4, 256)),
+    ("fm_chain", 16, 257, 4, 255 * 40, (8, 24, 64), (8, 256)),
+    ("fm_chain", 16, 257, 4, 255 * 100, (8, 24, 64), (16, 256)),
+    ("fm_chain", 1, 65, 256, 4096, (8, 24), (4, 256)),
+    ("fm_chain", 16, 257, 128, 8192, (8, 24), (4, 256)),
+    ("am_chain", 8, 129, 4, 8192, (8, 24, 64), (8, 64)),
+    ("am_chain", 16, 129, 4, 4096, (8, 24, 64), (8, 64)),
+    ("am_chain", 3, 65, 256, 4096, (8, 24, 64), (4, 64)),
+    ("am_chain", 8, 1021, 128, 8192, (8, 24, 64), (8, 64)),
+    ("channelize", 32, 256, 32, 8192, (8, 24, 64), (32, 64)),
+    ("channelize", 5, 61, 4, 20000, (8, 24, 64), (8, 256)),
+    ("channelize", 12, 130, 8, 2000, (8, 24, 64), (4, 64)),
+    ("channelize", 24, 256, 32, 16384, (8, 24, 64), (32, 128)),
+    ("channelize", 32, 4064, 32, 32768, (8, 24, 64), (32, 256)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
+@pytest.mark.parametrize("lib,c,t,d,m,forced,block", MMA_CHUNK_CASES)
+def test_mma_chunked_blocks_bit_equal_on_card(card, grade, lib, c, t, d, m,
+                                              forced, block):
+    """B1, B3-dense and B4 at bf16x3 and bf16x2 at each block shape of the
+    chunked tensor-core front (4, 8, 16, 32 channels; 256, 128, 64 rows):
+    the planned launch (the one-chunk kernel where its block fits, else
+    the chunked kernel's planned chunks in two staging buffers) and
+    launches forced to 8, 24 and 64 taps a chunk give every output bit for
+    bit, the same mma.sync fragments in ascending blocks of 8 taps; the
+    library reports the block (on a card of 132 SMs, the one listed)."""
+    tc, ch, rows = dense_block(lib, "cuda", t, d, grade, c, m)
+    assert tc == t or (8 <= tc < t and tc % 8 == 0)
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132 \
+            and (tc < t or t < d):
+        assert (ch, rows) == block
+    run = _f32_dense_run(lib, c, t, d, t + d * (m - 1), seed=c + t + m,
+                         grade=grade)
+    _forced_chunks(run, forced)
+
+
+@pytest.mark.cuda
+def test_mma_chunked_tile_kernels_do_not_spill_on_card(card, tmp_path):
+    """No bf16 chunked dense tile kernel (B1 at 4, 8 and 16 channels; B3 at
+    4, 8 and 16 channels and 256, 128 and 64 rows; B4 also at 32 channels;
+    each grade: 48 kernels) spills registers, by ptxas's report."""
+    spills = _ptxas_spills(tmp_path, ("fm_chain", "am_chain", "channelize"))
+    pattern = (r"(fm_chain_tile|am_chain_tile)ILb0ELi[23]ELb1ELi\d+E|"
+               r"channelize_tileILb0ELi[23]ELi\d+ELb1E")
+    found = {k: v for k, v in spills.items() if re.search(pattern, k)}
+    assert len(found) == 48, sorted(found)
+    for kernel, (stores, loads) in found.items():
+        assert stores == 0 and loads == 0, (kernel, stores, loads)
 
 
 def _ptxas_spills(tmp_path, libraries):

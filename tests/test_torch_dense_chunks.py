@@ -203,12 +203,6 @@ def _toeplitz_front(x, ftab, c, t, tc, d, group, g0, cols=None):
     return out, acc_re, acc_im
 
 
-def _phase_stride(tp, d):
-    """``mma_phase_stride``: Kr words padded to 8 mod 32."""
-    kr = TILE + (tp - 1) // d
-    return kr + ((8 - kr % 32) + 32) % 32
-
-
 def _pairs(words):
     """The bf16 (plane 0, plane 1) pairs of int32 words, as float64."""
     w = words.astype(np.uint32)
@@ -217,52 +211,246 @@ def _pairs(words):
     return lo, hi
 
 
-def _toeplitz_front_mma(x, table, t, tc, d, group, nt_block, g0, grade):
-    """``toeplitz_front_mma``: chunks of KBc blocks of 8 taps; per chunk B's
-    rows kb0..kb0+nkb-1 of ``dense_mma_tables`` and the window from g0 +
-    8*kb0, read at off[tl] + r, off[tl] = (tl % D)*Ks + tl//D, the lo part
-    Dc*Ks words after the hi part. A word's pair is (re, im) of a sample;
-    a B entry's pair is (gr, -gi) of a tap; the product is their complex
-    product, summed over the grade's passes."""
-    kb_all, nt_all = table.shape[1], table.shape[2]
-    kbc = kb_all if tc >= t else tc // 8
+# The bf16 chunked front's block (fronts.cuh, mma_chunk_block; read from
+# the source by test_mma_chunked_constants_match_the_source): 4, 8, 16
+# (B4: 32) channels and, in B3 and B4, 256, 128 or 64 rows; the block
+# shapes the transliteration takes, as (n-tiles, rows)
+MIN_ROWS = 64
+STAGES = 2         # kMmaStages: chunks in the block's ring of buffers
+MMA_BLOCKS = [(4, 256), (2, 256), (1, 256), (2, 64), (1, 128), (8, 256),
+              (4, 64)]
+NAN_WORD = np.uint32(0x7FC0DEAD)   # a NaN's bits: shared memory not staged
+
+
+def _frame_stride(dc):
+    """``mma_chunk_geom``'s Lp: Dc words padded to 4 mod 8."""
+    return dc + (12 - dc % 8) % 8
+
+
+def _mma_geom(nt, rows, tc, t, d, stages=STAGES):
+    """``mma_chunk_geom``, sizes in 32-bit words: KBc blocks of 8 taps a
+    chunk, Tcp taps, Kr frames of Dc phases at Lp words a frame, nch
+    chunks in a ring of nbuf = min(nch, stages) buffers of ``buf`` words
+    at ``boff`` (the offsets' Tcp ints before them, padded to 16 bytes),
+    B's ``bwords`` first in each."""
+    kb = -(-t // 8)
+    kbc = kb if tc >= t else tc // 8
     tcp = 8 * kbc
-    dc, ks = min(tcp, d), _phase_stride(tcp, d)
-    kr = TILE + (tcp - 1) // d
-    off = np.array([(tl % d) * ks + tl // d for tl in range(tcp)])
-    xh_re, xl_re = (v.double().numpy() for v in split_bf16(
-        torch.from_numpy(x.real.astype(np.float32))))
-    xh_im, xl_im = (v.double().numpy() for v in split_bf16(
-        torch.from_numpy(x.imag.astype(np.float32))))
-    parts = [xh_re + 1j * xh_im, xl_re + 1j * xl_im]
-    acc = np.zeros((TILE, 4 * nt_block), np.complex128)
-    rows = np.arange(TILE)
-    for kb0 in range(0, kb_all, kbc):
-        nkb = min(kbc, kb_all - kb0)
-        win = [np.zeros(dc * ks, np.complex128) for _ in parts]
-        for w, xs in zip(win, parts):
-            staged = _stage(xs, g0 + 8 * kb0, d, dc, kr)
-            for p in range(dc):
-                w[p * ks:p * ks + kr] = staged[p]
+    dc = min(tcp, d)
+    g = dict(KB=kb, KBc=kbc, Tcp=tcp, Dc=dc, Kr=rows + (tcp - 1) // d,
+             Lp=_frame_stride(dc), nch=-(-kb // kbc))
+    g["nbuf"] = min(g["nch"], stages)
+    g["boff"] = (4 * tcp + 15) // 16 * 4
+    g["bwords"] = 2 * kbc * nt * 16 * 2
+    g["plane"] = g["Kr"] * g["Lp"]
+    g["buf"] = g["bwords"] + 2 * g["plane"]
+    return g
+
+
+def _mma_smem_words(nt, rows, tc, t, d, stages=STAGES):
+    """``mma_chunked_smem_bytes`` / 4: the offsets and buffers, or the
+    output tile that reuses them."""
+    g = _mma_geom(nt, rows, tc, t, d, stages)
+    return max(g["boff"] + g["nbuf"] * g["buf"], rows * (8 * nt + 1))
+
+
+def _stage_items(dc, kr, vec):
+    """mma_chunk_stage's window copies in the threads' order: copy i takes
+    frame k = i // nq and phases p..p+w-1, p = (i % nq)*w, w = 4 samples
+    a copy where ``vec`` (16 bytes), else 1; nq = Dc/w copies a frame.
+    Returns (p, k) of every sample copied, copy after copy."""
+    w = 4 if vec else 1
+    nq = dc // w
+    i = np.arange(kr * nq)
+    k, p = i // nq, (i % nq) * w
+    return ((p[:, None] + np.arange(w)).ravel(),
+            np.repeat(k, w))
+
+
+def _bf16_words(re, im):
+    """The bf16 pairs (re in the low 16 bits) of float32 planes, rounded to
+    nearest even as __floats2bfloat162_rn, and the float32 values they
+    hold."""
+    def bits(v):
+        b = torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16)
+        return (b.view(torch.int16).numpy().astype(np.uint32) & 0xFFFF,
+                b.float().numpy())
+    (br, fr), (bi, fi) = bits(re), bits(im)
+    return br | (bi << 16), fr, fi
+
+
+class _MmaBlock:
+    """toeplitz_front_mma_chunked's block in its shared memory, 32-bit
+    words filled with a NaN, with a tag a word (the chunk that staged it,
+    -1 none) and the copies in flight: staging, the wait, the in-place
+    split and the product's fragment reads, each checked against the
+    buffers' use (a word the product reads was staged by its chunk; no copy
+    or store lands in a buffer a split or product still reads)."""
+
+    def __init__(self, x, table, c, t, tc, d, group, nt, rows, g0, grade,
+                 stages=STAGES):
+        self.x = (x.real.astype(np.float32), x.imag.astype(np.float32))
+        self.words = table.reshape(-1).view(np.uint32)   # (2, KB, NT, 16, 2)
+        self.nt_all = -(-c // 4)
+        self.t, self.d, self.group, self.nt, self.rows = t, d, group, nt, rows
+        self.g0, self.grade = g0, grade
+        self.stages = stages
+        self.g = _mma_geom(nt, rows, tc, t, d, stages)
+        self.size = _mma_smem_words(nt, rows, tc, t, d, stages)
+        self.mem = np.full(self.size, NAN_WORD, np.uint32)
+        self.tag = np.full(self.size, -1, np.int64)
+        self.pending = []        # (index array, values, chunk)
+        self.counts = []         # per chunk: every B word and (p, k) once
+
+    def buffer(self, c):
+        return self.g["boff"] + (c % self.stages) * self.g["buf"]
+
+    def stage(self, c):
+        """mma_chunk_stage of chunk c into buffer c % stages: the copies
+        in flight, the zero stores of n-tiles past NT at once."""
+        g, nt = self.g, self.nt
+        kb0 = c * g["KBc"]
+        nkb = min(g["KBc"], g["KB"] - kb0)
+        base = self.buffer(c)
+        per = nt * 8                     # 16-byte copies a (part, kb) row
+        i = np.arange(2 * nkb * per)
+        part, r = i // (nkb * per), i % (nkb * per)
+        kb, e = r // per, r % per
+        dst = base + 2 * (((part * g["KBc"] + kb) * nt) * 16 + 2 * e)
+        src = 2 * (((part * g["KB"] + kb0 + kb) * self.nt_all
+                    + self.group * nt) * 16 + 2 * e)
+        live = self.group * nt + e // 8 < self.nt_all
+        four = np.arange(4)
+        idx = [(dst[live][:, None] + four).ravel()]
+        vals = [self.words[(src[live][:, None] + four).ravel()]]
+        zero = (dst[~live][:, None] + four).ravel()
+        assert zero.size == 0 or zero.max() < base + g["bwords"]
+        self.store(zero, np.zeros(zero.size, np.uint32), c)
+        vec = self.d % 4 == 0 and g["Dc"] % 4 == 0 and self.g0 % 4 == 0
+        p, k = _stage_items(g["Dc"], g["Kr"], vec)
+        s = self.g0 + 8 * kb0 + k * self.d + p
+        inside = (s >= 0) & (s < self.x[0].shape[0])
+        at = base + g["bwords"] + k * g["Lp"] + p
+        for plane, xs in enumerate(self.x):
+            v = np.where(inside, xs[np.clip(s, 0, xs.shape[0] - 1)], 0)
+            idx.append(at + plane * g["plane"])
+            vals.append(v.astype(np.float32).view(np.uint32))
+        idx = np.concatenate(idx)
+        # every B word of the chunk and every (phase, frame) once, inside
+        # the chunk's buffer
+        assert np.unique(idx).size == idx.size
+        assert idx.min() >= base and idx.max() < base + g["buf"]
+        assert np.unique(p * g["Kr"] + k).size == g["Dc"] * g["Kr"]
+        self.counts.append(idx.size)
+        self.pending.append((idx, np.concatenate(vals), c))
+
+    def store(self, idx, vals, c):
+        self.mem[idx] = vals
+        self.tag[idx] = c
+
+    def wait(self, c):
+        """cp.async.wait_group (stages - 2) and __syncthreads: the copies of
+        chunks up to c land, the later ones stay in flight."""
+        for idx, vals, ci in self.pending:
+            if ci <= c:
+                self.store(idx, vals, ci)
+        self.pending = [p for p in self.pending if p[2] > c]
+
+    def check_free(self, idx):
+        """No copy in flight or later store lands on words being read."""
+        for pidx, _, _ in self.pending:
+            assert not np.intersect1d(pidx, idx).size, "buffer overwritten"
+
+    def split(self, c):
+        """mma_chunk_split of chunk c's buffer in place: plane 0 (re)
+        becomes hi, plane 1 (im) lo (bf16x3)."""
+        g = self.g
+        w0 = self.buffer(c) + g["bwords"]
+        n = g["plane"]
+        at = np.arange(w0, w0 + n)
+        self.check_free(np.concatenate([at, at + n]))
+        re = self.mem[at].view(np.float32)
+        im = self.mem[at + n].view(np.float32)
+        hi, fr, fi = _bf16_words(re, im)
+        lo = _bf16_words(re - fr, im - fi)[0]
+        self.mem[at] = hi
+        if self.grade == "bf16x3":
+            self.mem[at + n] = lo
+
+    def product(self, c, off, acc):
+        """mma_product over chunk c's blocks of 8 taps in ascending kb:
+        lane (gid, tig) of warp w reads rows r = w*32 + gid + 16*mt (+8)
+        at off[8*kb + tig] + r*Lp and off[8*kb + tig + 4] + r*Lp, B entry
+        4*(gid/2) + tig of each n-tile; every word read was staged by
+        chunk c."""
+        g, nt, rows = self.g, self.nt, self.rows
+        kb0 = c * g["KBc"]
+        nkb = min(g["KBc"], g["KB"] - kb0)
+        base = self.buffer(c)
+        w0 = base + g["bwords"]
+        r = np.arange(rows)
         for kb in range(nkb):
-            for nt in range(nt_block):
-                ntg = group * nt_block + nt
-                if ntg >= nt_all:
-                    continue
-                for e in range(16):
-                    cl, q = divmod(e, 4)
-                    for i in range(2):
-                        j = q + 4 * i
-                        a = [w[off[8 * kb + j] + rows] for w in win]
-                        gr, gi_neg = (_pairs(table[part, kb0 + kb, ntg, e, i])
-                                      for part in (0, 1))
-                        bh = gr[0] - 1j * gr[1]
-                        bl = gi_neg[0] - 1j * gi_neg[1]
-                        y = a[0] * bh + a[0] * bl
-                        if grade == "bf16x3":
-                            y = y + a[1] * bh
-                        acc[:, 4 * nt + cl] += y
-    return acc
+            a_at = (w0 + off[8 * kb + np.arange(8)][None, :]
+                    + g["Lp"] * r[:, None])
+            lo_at = a_at + g["plane"]
+            e = np.arange(16)
+            b_at = base + 2 * ((kb * nt + np.arange(nt))[:, None] * 16
+                               + e)[..., None] + np.arange(2)
+            bl_at = b_at + 2 * g["KBc"] * nt * 16
+            reads = [a_at, b_at, bl_at] + (
+                [lo_at] if self.grade == "bf16x3" else [])
+            for at in reads:
+                assert at.max() < base + g["buf"]
+                assert (self.tag[at] == c).all(), "read a word not staged"
+                self.check_free(at.ravel())
+            xh = _pairs(self.mem[a_at])
+            xh = xh[0] + 1j * xh[1]                        # (rows, 8)
+            if self.grade == "bf16x3":
+                xl = _pairs(self.mem[lo_at])
+                xl = xl[0] + 1j * xl[1]
+            # entry [nt][4*cl + q][i]: (gr, -gi) of channel 4*nt + cl at
+            # tap q + 4*i of the block
+            bh, bl = (_pairs(self.mem[at]) for at in (b_at, bl_at))
+            gh = (bh[0] - 1j * bh[1]).reshape(nt, 4, 4, 2)
+            gl = (bl[0] - 1j * bl[1]).reshape(nt, 4, 4, 2)
+            gh = gh.transpose(0, 1, 3, 2).reshape(4 * nt, 8)   # (ch, tap)
+            gl = gl.transpose(0, 1, 3, 2).reshape(4 * nt, 8)
+            y = xh @ gh.T + xh @ gl.T
+            if self.grade == "bf16x3":
+                y = y + xl @ gh.T
+            acc += y
+
+    def run(self):
+        """The kernel's walk: the offsets, chunks 0 .. stages-2 in flight,
+        then per chunk c the wait for it, chunk c + stages - 1 in flight
+        into chunk c - 1's buffer, the split and the product; the
+        accumulators (rows, 4*nt) as complex128."""
+        g = self.g
+        tl = np.arange(g["Tcp"])
+        off = (tl // self.d) * g["Lp"] + tl % self.d
+        self.store(np.arange(g["Tcp"]), off.astype(np.uint32), -2)
+        acc = np.zeros((self.rows, 4 * self.nt), np.complex128)
+        for c in range(min(self.stages - 1, g["nch"])):
+            self.stage(c)
+        for c in range(g["nch"]):
+            self.wait(c)
+            if c + self.stages - 1 < g["nch"]:
+                self.stage(c + self.stages - 1)
+            self.split(c)
+            self.product(c, off, acc)
+        assert not self.pending
+        tile = self.rows * (8 * self.nt + 1)
+        assert tile <= self.size
+        return acc
+
+
+def _toeplitz_front_mma(x, table, c, t, tc, d, group, nt_block, g0, grade,
+                        rows=TILE, stages=STAGES):
+    """``toeplitz_front_mma_chunked`` for channel group ``group`` of
+    4*nt_block channels and ``rows`` rows, a ring of ``stages`` buffers:
+    the block's accumulators (rows, 4*nt_block), complex128 (_MmaBlock)."""
+    return _MmaBlock(x, table, c, t, tc, d, group, nt_block, rows, g0,
+                     grade, stages).run()
 
 
 def _window_signal(n, seed):
@@ -308,10 +496,199 @@ def test_chunked_front_transliteration_matches_plain(grade, c, t, d, tc):
     else:
         table = dense_mma_tables(torch.from_numpy(bank)).numpy()
         got = np.concatenate([
-            _toeplitz_front_mma(x, table, t, tc, d, grp, 4, g0, grade)
+            _toeplitz_front_mma(x, table, c, t, tc, d, grp, 4, g0, grade)
             for grp in range(-(-c // 16))], axis=1)[:m, :c].T
     assert got.shape == want.shape
     assert _rel(got, want) <= 1e-6
+
+
+def _mma_block(c, m, max_ch, min_rows, overlap, sms):
+    """``mma_chunk_block`` on a card of ``sms`` SMs: the fewest of 4, 8, 16
+    (32) channels that hold C and kTile rows; then half the rows (down to
+    min_rows), then half the channels (down to 4), while the grid of
+    ceil(M / (rows - overlap)) x ceil(C / ch) blocks fits one wave (M < 1:
+    any M, the widest block)."""
+    ch, rows = 4, TILE
+    while ch < c and ch < max_ch:
+        ch *= 2
+    if m < 1:
+        return ch, rows
+
+    def blocks(ch_, rows_):
+        return -(-m // (rows_ - overlap)) * -(-c // ch_)
+    while rows > min_rows and blocks(ch, rows // 2) <= sms:
+        rows //= 2
+    while ch > 4 and blocks(ch // 2, rows) <= sms:
+        ch //= 2
+    return ch, rows
+
+
+# (C, T, D, Tc) for the bf16 chunked block at every shape: T < D in one
+# chunk, a chunk spanning D (all phases) with a short last one, chunks
+# shorter than D, a ragged last channel group
+MMA_CASES = [(3, 65, 256, 65), (9, 61, 4, 16), (5, 257, 128, 96)]
+
+
+def _mma_case(c, t, d, rows, seed):
+    """A bank of C channels and T taps, and a signal whose second block of
+    ``rows`` rows (g0 = rows*D) ends after 40 outputs."""
+    taps = _lowpass(t, 0.05)
+    shifts = [-1000.0 / (2 * c + 3) * i for i in range(c)]
+    bank = make_complex_tap_bank(taps, shifts, 1000.0)
+    n = t + d * (rows + 40 - 1)
+    return bank, _window_signal(n, seed=seed)
+
+
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
+@pytest.mark.parametrize("nt,rows", MMA_BLOCKS)
+@pytest.mark.parametrize("c,t,d,tc", MMA_CASES)
+def test_mma_chunked_block_shapes_match_plain(grade, nt, rows, c, t, d, tc):
+    """toeplitz_front_mma_chunked transliterated at every block shape the
+    launchers take (4, 8, 16 and 32 channels; 256, 128 and 64 rows), its
+    double-buffered walk in its shared-memory layout: within 1e-6 of
+    max|y| of the plain version at the grade, every channel group, at the
+    second block of a signal that ends inside it."""
+    bank, x = _mma_case(c, t, d, rows, seed=t + d + rows)
+    want = channelize_reference(
+        TCA(torch.from_numpy(x.real.astype(np.float32)),
+            torch.from_numpy(x.imag.astype(np.float32))),
+        torch.from_numpy(bank), d, grade)
+    want = (want.re.double().numpy()
+            + 1j * want.im.double().numpy())[:, rows:]
+    table = dense_mma_tables(torch.from_numpy(bank)).numpy()
+    got = np.concatenate([
+        _toeplitz_front_mma(x, table, c, t, tc, d, grp, nt, rows * d, grade,
+                            rows)
+        for grp in range(-(-c // (4 * nt)))], axis=1)[:40, :c].T
+    assert got.shape == want.shape
+    assert _rel(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("stages", [STAGES, 3])
+@pytest.mark.parametrize("nt,rows", MMA_BLOCKS)
+def test_mma_chunks_equal_one_chunk_transliterated(nt, rows, stages):
+    """The bf16 chunked walk gives every output the one-chunk walk's
+    fragments in the same order: the transliterated sums (exact in
+    float64, one kb after another) of chunks of 16, 24 and 8 taps equal
+    those of one chunk bit for bit, for T >= D and T < D, at every block
+    shape, on every channel group, in the kernel's ring and in a ring of
+    three (the staging, split and offsets of each chunk index the same
+    samples and taps; no copy lands in a buffer being read)."""
+    grade = "bf16x3"
+    for c, t, d in ((9, 61, 4), (6, 40, 64)):
+        bank, x = _mma_case(c, t, d, rows, seed=5 * t + d)
+        table = dense_mma_tables(torch.from_numpy(bank)).numpy()
+        for grp in range(-(-c // (4 * nt))):
+            one = _toeplitz_front_mma(x, table, c, t, t, d, grp, nt,
+                                      rows * d, grade, rows, stages)
+            assert not np.isnan(one).any()
+            for chunk in (16, 24, 8):
+                got = _toeplitz_front_mma(x, table, c, t, chunk, d, grp, nt,
+                                          rows * d, grade, rows, stages)
+                assert np.array_equal(got, one), (c, t, d, grp, chunk)
+
+
+@pytest.mark.parametrize("dc,kr", [(1, 300), (4, 319), (7, 70), (8, 64),
+                                   (24, 257), (72, 257), (128, 65),
+                                   (33, 67)])
+def test_mma_staging_visits_every_item_once(dc, kr):
+    """mma_chunk_stage's window copies (Kr frames of Dc phases, 4 samples a
+    16-byte copy where the runs align, else 1) visit every (phase, frame)
+    once; and at the frame stride Lp (Dc padded to 4 mod 8) the 32 words
+    an A fragment load reads (8 rows x 4 taps, D >= 4 or D = Dc) fall on
+    32 banks, the two that a 16-byte copy of a quarter-warp writes at most
+    two words of a bank."""
+    for vec in (False, True) if dc % 4 == 0 else (False,):
+        p, k = _stage_items(dc, kr, vec)
+        assert np.array_equal(np.sort(k * dc + p), np.arange(dc * kr))
+    lp = _frame_stride(dc)
+    assert lp % 8 == 4 and dc <= lp < dc + 8
+    d = dc
+    off = lambda t: (t // d) * lp + t % d
+    gid, tig = np.meshgrid(np.arange(8), np.arange(4), indexing="ij")
+    for kb in range(min(4, -(-dc // 8))):
+        for r0 in (0, 32, 224):
+            if d >= 4:
+                words = off(8 * kb + tig) + (r0 + gid) * lp
+                assert np.unique(words % 32).size == 32
+    if dc % 4 == 0:   # a quarter-warp's eight 16-byte copies
+        p, k = _stage_items(dc, kr, True)
+        starts = (k * lp + p)[::4]
+        for q in range(0, min(starts.size, 256), 8):
+            groups = (starts[q:q + 8] // 4) % 8
+            assert np.bincount(groups).max() <= 2
+
+
+def test_mma_chunked_block_choices():
+    """mma_chunk_block on the H100's 132 SMs at the paths of
+    chip_smoke.py's phase 11: the narrowband scanner (B1, 33 tiles of 255
+    outputs) takes 4-channel blocks, 132 of them; the long filter keeps 16
+    channels; am_d128 (B3-dense, C = 8, 8192 outputs) 8 channels and 64
+    rows, 128 blocks, no zero channel; the transmux at Q = 127 (B4, C = 32)
+    one 32-channel block of 256 rows a tile; am_demod at D = 256 (C = 1,
+    4096 outputs) 4 channels and 64 rows; fm_demod there 4 channels."""
+    fm = dict(max_ch=16, min_rows=TILE, overlap=1, sms=132)
+    am = dict(max_ch=16, min_rows=MIN_ROWS, overlap=0, sms=132)
+    b4 = dict(max_ch=32, min_rows=MIN_ROWS, overlap=0, sms=132)
+    assert _mma_block(16, 8192, **fm) == (4, 256)
+    assert _mma_block(16, (1 << 20) // 4, **fm) == (16, 256)
+    assert _mma_block(8, 8192, **am) == (8, 64)
+    assert _mma_block(32, 32768, **b4) == (32, 256)
+    assert _mma_block(1, 4096, **am) == (4, 64)
+    assert _mma_block(1, 4096, **fm) == (4, 256)
+    assert _mma_block(5, 0, **b4) == (8, 256)   # any M: rows kTile
+
+
+def test_mma_chunked_constants_match_the_source():
+    """The geometry (a frame-major window at Lp words a frame), the block
+    rule and the staging order the bf16 transliteration mirrors are
+    fronts.cuh's and the launchers' (the FM
+    chain keeps kTile rows; B3 and B4 go down to kMmaMinRows; B4 to 32
+    channels)."""
+    src = (_build.CSRC / "fronts.cuh").read_text()
+    consts = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
+    assert int(consts["kMmaMinRows"]) == MIN_ROWS
+    assert int(consts["kMmaStages"]) == STAGES
+    for line in (
+            "g.KBc = Tc >= T ? kb : Tc / 8;",
+            "g.Kr = rows + (g.Tcp - 1) / D;",
+            "g.Lp = g.Dc + (12 - g.Dc % 8) % 8;",
+            "g.nbuf = g.nch < kMmaStages ? g.nch : kMmaStages;",
+            "cp_async_wait<kMmaStages - 2>();",
+            "g.boff = ((size_t)g.Tcp * sizeof(int) + 15) / 16 * 16;",
+            "g.bbytes = 2 * (size_t)g.KBc * nt * 16 * sizeof(uint2);",
+            "g.buf = g.bbytes + 2 * (size_t)g.Kr * g.Lp * sizeof(uint32_t);",
+            "off[t] = (t / D) * g.Lp + t % D;",
+            "const int k = i / nq, p = (i - k * nq) * w;",
+            "const bool vec = D % 4 == 0 && g.Dc % 4 == 0 && g0 % 4 == 0 &&",
+            "while (b.ch < C && b.ch < max_ch) b.ch *= 2;",
+            "while (b.rows > min_rows && blocks(b.ch, b.rows / 2) <= sms) "
+            "b.rows /= 2;",
+            "while (b.ch > 4 && blocks(b.ch / 2, b.rows) <= sms) b.ch /= 2;"):
+        assert line in src, line
+    for lib, call in (
+            ("fm_chain", "gsdr::mma_chunk_block(C, M, kCG, kTile, "
+                         "kTile - kOut)"),
+            ("am_chain", "gsdr::mma_chunk_block(C, M, kCG, "
+                         "gsdr::kMmaMinRows, 0)"),
+            ("channelize", "gsdr::mma_chunk_block(C, M, 32, "
+                           "gsdr::kMmaMinRows, 0)")):
+        assert call in (_build.CSRC / f"{lib}.cu").read_text(), lib
+
+
+def test_dense_variants_apply_to_the_sources():
+    """Every edit of tools/dense_variants.py (the variants of the bf16
+    chunked front timed on the card) finds its text once in the sources."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "dense_variants", _build.CSRC.parents[2] / "tools" /
+        "dense_variants.py")
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    for name, edits in variants.VARIANTS.items():
+        for source, text, _ in edits:
+            assert (_build.CSRC / source).read_text().count(text) == 1, name
 
 
 # (C, T, D, Tc) beyond CHUNK_CASES for the f32 block: am_d's 8 channels (a

@@ -33,17 +33,25 @@
          time by CUDA events and a 20-step graph's time per step.
   dense: the dense front's kernels at the main paths' one-chunk shapes,
          each grade: B1 at the flagship, B3-dense at am_d, B4 at the
-         transmux's K=32, Q=8 (and at f32 at bench_pfb's K=16); and at
-         f32 the chunked paths of
-         chip_smoke.py's phase 11 (B1 at the 2049-tap long filter,
-         B3-dense at am_d128, B4 at the transmux's Q=127) on their first
-         block: device time per call by torch.profiler (rounds of all,
-         interleaved), and a digest of each output, also of the f32
+         transmux's K=32, Q=8 (and at f32 at bench_pfb's K=16); the
+         chunked paths of chip_smoke.py's phase 11 on their first block,
+         at f32 (B1 at the 2049-tap long filter, B3-dense at am_d128, B4
+         at the transmux's Q=127) and at bf16x3 and bf16x2 (those, B1 at
+         the narrowband scanner, and fm_demod's B1 and am_demod's B3-dense
+         at T=65, D=256), with F.conv1d's time for each of the latter as
+         library_ms: device time per call by torch.profiler (rounds of
+         all, interleaved), and a digest of each output, also of the
          one-chunk shapes' launches forced to chip_smoke.FORCED_CHUNKS taps
-         a chunk. It uses only what every tree of the port with the chunked
+         a chunk, and the registers and spill bytes ptxas reports for
+         every tile kernel (as pfb). It uses only what every tree of the
+         port with the chunked
          dense front (PR 12) has, so it times an older tree too (copy this
          file into that tree's tools/); equal digests across trees say the
          outputs are bit-equal.
+  dense_mma: dense's bf16 chunked launches alone, each also forced to
+         other chunks at bf16x3 (FORCED_MMA), with their digests and the
+         tile kernels' registers: the quick timing of a variant of the
+         front (tools/dense_variants.py runs it in each variant's tree).
   pfb:   the PFB front's kernels at each grade: B2 at FM wideband
          critical and at its D=8 variant, B3-PFB at AM wideband critical
          (one chunk), B2 at pfb_nfm_lmr_320 and B3-PFB at pfb_airband_480
@@ -68,6 +76,7 @@ kernels are built from this checkout):
     python3 tools/probe_grades.py fm_rx
     python3 tools/probe_grades.py compiled
     python3 tools/probe_grades.py dense
+    python3 tools/probe_grades.py dense_mma
     python3 tools/probe_grades.py pfb
 """
 
@@ -214,6 +223,60 @@ def dense_f32_chunked():
                 x, bank, k, precision="f32"))]
 
 
+def dense_mma_chunked():
+    """(what, grade, call, library) of the bf16x3 and bf16x2 dense launches
+    that take the chunked kernel on chip_smoke.py's phase-11 paths: B1 at
+    the 2049-tap long filter and the narrowband scanner, B3-dense at
+    am_d128 (first block each), B4 at the transmux's K=32, Q=127 (a first
+    block behind its zero history), and fm_demod's B1 and am_demod's
+    B3-dense at one channel, T=65, D=256 (T < D) on 2^20 samples; library,
+    the same front by F.conv1d of the bank (TF32 off), as chip_smoke.py
+    times it."""
+    k, q = cs.TMX_K, cs.TMX_LONG_Q
+    bank = _analysis_tables(_taps_key(cs.lowpass64(q * k, 0.5 / k)), k,
+                            "cuda")[0]
+    rf = cs.grid_carriers(k, 0, cs.N)
+    pad = torch.zeros((q - 1) * k, device="cuda")
+    x = ComplexArray(torch.cat([pad, rf.re]), torch.cat([pad, rf.im]))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    xo = ComplexArray(torch.randn(cs.N, generator=gen, device="cuda"),
+                      torch.randn(cs.N, generator=gen, device="cuda"))
+    d, taps = cs.OPS_WIDE_D, cs.OPS_TAPS
+    fm_op = cs.fm_chain_args(xo, taps, cs.FS, -cs.OPS_FC,
+                             cs.fm_demod_gain(cs.FS, cs.OPS_WIDE_DEV), d)
+    am_op = cs.am_chain_args(xo, taps, cs.FS, -cs.OPS_FC, d)
+    out = []
+    for g in ("bf16x3", "bf16x2"):
+        for what, make, signal in (
+                ("B1 long_filter", cs.long_filter, cs.fm_signal),
+                ("B1 nfm_scanner", cs.nfm_scanner, cs.nfm_signal)):
+            m = make("cuda", precision=g)
+            buf = cs.buffer(m, signal(m, 0, cs.N, seed=11))
+            n0, _, cf, cz = m.init()
+            args = (buf, m.tap_bank, m.lo_table, n0, m.decimation, m.gain,
+                    m.deemph, cf, cz)
+            out.append((what, g, lambda a=args, g=g:
+                        cs.fm_chain(*a, precision=g),
+                        cs.conv_library(buf, m.tap_bank, m.decimation)))
+        m = cs.am_d128("cuda", precision=g)
+        buf = cs.buffer(m, cs.am_signal(m, 0, cs.N, seed=11))
+        args = (buf, m.tap_bank, m.lo_table, m.init()[0], m.decimation)
+        out.append(("B3-dense am_d128", g, lambda a=args, g=g:
+                    cs.am_chain(*a, precision=g),
+                    cs.conv_library(buf, m.tap_bank, m.decimation)))
+        out.append(("B4 transmux K=32, Q=127", g, lambda g=g:
+                     channelize_kernel(x, bank, k, precision=g),
+                     cs.conv_library(x, bank, k)))
+        out.append(("B1 fm_demod D=256", g, lambda g=g:
+                    cs.fm_chain(*fm_op, precision=g),
+                    cs.conv_library(fm_op[0], fm_op[1], d)))
+        out.append(("B3-dense am_demod D=256", g, lambda g=g:
+                    cs.am_chain(*am_op, precision=g),
+                    cs.conv_library(am_op[0], am_op[1], d)))
+    return out
+
+
 def dense(rounds=3):
     calls, forced = [], []
     for g in cs.GRADES:
@@ -241,15 +304,17 @@ def dense(rounds=3):
     bank16 = _analysis_tables(_taps_key(taps), 16, "cuda")[0]
     calls.append(("B4 bench_pfb K=16", "f32", lambda x=x, b=bank16:
                   channelize_kernel(x, b, 16, precision="f32")))
-    # the f32 one-chunk launches forced into chunks: digests only
+    # the one-chunk launches forced into chunks (the chunked kernels, at
+    # the f32 blocks and the bf16 blocks of the outputs' M): digests only
     for what, g, fn in calls:
-        if g == "f32":
-            kernel = {"B1": cs.fm_chain, "B3": cs.am_chain}.get(
-                what[:2], channelize_kernel)
-            for tc in cs.FORCED_CHUNKS:
-                forced.append((f"{what}, chunks of {tc}", g, lambda f=fn,
-                               k=kernel, tc=tc: _forced(f, k, tc)))
+        kernel = {"B1": cs.fm_chain, "B3": cs.am_chain}.get(
+            what[:2], channelize_kernel)
+        for tc in cs.FORCED_CHUNKS:
+            forced.append((f"{what}, chunks of {tc}", g, lambda f=fn,
+                           k=kernel, tc=tc: _forced(f, k, tc)))
     calls += [(what, "f32", fn) for what, fn in dense_f32_chunked()]
+    mma = dense_mma_chunked()
+    calls += [(what, g, fn) for what, g, fn, _ in mma]
     for what, g, fn in calls + forced:
         print(json.dumps({"probe": "dense_digest", "kernel": what,
                           "grade": g, "digest": digest(fn())}), flush=True)
@@ -259,6 +324,53 @@ def dense(rounds=3):
             print(json.dumps({"probe": "dense", "round": r, "kernel": what,
                               "grade": g, "device_us": sum(dev.values()),
                               "by_kernel": dev}), flush=True)
+        for what, g, _, library in mma:
+            if g == "bf16x3":   # the library's time does not hang on it
+                print(json.dumps({"probe": "dense_library", "round": r,
+                                  "kernel": what, "library": "F.conv1d",
+                                  "library_ms": cs.cuda_ms(library,
+                                                           reps=20)}),
+                      flush=True)
+
+
+def dense_mma(rounds=3):
+    """The bf16 chunked launches of dense_mma_chunked, each planned and,
+    at bf16x3, forced to FORCED_MMA chunks (a chunk whose block does not
+    fit says so): a digest of each planned output, then device time per
+    call by torch.profiler, rounds of all, interleaved."""
+    calls = dense_mma_chunked()
+    kernels = {"B1": cs.fm_chain, "B3": cs.am_chain}
+    for what, g, fn, _ in calls:
+        print(json.dumps({"probe": "dense_mma_digest", "kernel": what,
+                          "grade": g, "digest": digest(fn())}), flush=True)
+    for r in range(rounds):
+        for what, g, fn, _ in calls:
+            runs = [(None, fn)]
+            if g == "bf16x3":
+                kernel = kernels.get(what[:2], channelize_kernel)
+                runs += [(tc, lambda f=fn, k=kernel, tc=tc: _forced(f, k, tc))
+                         for tc in FORCED_MMA.get(what, ())]
+            for tc, f in runs:
+                try:
+                    dev = cs.device_us(f, reps=20)
+                except RuntimeError as e:   # the forced block does not fit
+                    print(json.dumps({"probe": "dense_mma", "kernel": what,
+                                      "grade": g, "chunk": tc,
+                                      "error": str(e)}), flush=True)
+                    continue
+                print(json.dumps({"probe": "dense_mma", "round": r,
+                                  "kernel": what, "grade": g, "chunk": tc,
+                                  "device_us": sum(dev.values())}),
+                      flush=True)
+
+
+# chunks dense_mma forces beside the plan: one block a SM and smaller
+# chunks at the long filter (the plan: two blocks a SM), smaller ones at
+# Q=127, am_d128 and the scanner
+FORCED_MMA = {"B1 long_filter": (256, 512, 768),
+              "B4 transmux K=32, Q=127": (64, 96, 136),
+              "B3-dense am_d128": (128, 256, 384),
+              "B1 nfm_scanner": (24, 32)}
 
 
 def _forced(call, kernel, chunk):
@@ -514,7 +626,7 @@ def fm_rx():
 def main():
     if not torch.cuda.is_available() or len(sys.argv) != 2 \
             or sys.argv[1] not in ("steps", "b4", "b5b6", "fm_rx",
-                                   "compiled", "dense", "pfb"):
+                                   "compiled", "dense", "dense_mma", "pfb"):
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
@@ -534,8 +646,15 @@ def main():
         _build.build_all(["fm_chain", "iir", "qpsk256"])
         compiled()
     elif sys.argv[1] == "dense":
-        _build.build_all(["fm_chain", "am_chain", "channelize"])
+        reports = _build.build_all(["fm_chain", "am_chain", "channelize"])
+        print(json.dumps({"probe": "dense_registers",
+                          "registers": tile_registers(reports)}), flush=True)
         dense()
+    elif sys.argv[1] == "dense_mma":
+        reports = _build.build_all(["fm_chain", "am_chain", "channelize"])
+        print(json.dumps({"probe": "dense_registers",
+                          "registers": tile_registers(reports)}), flush=True)
+        dense_mma()
     elif sys.argv[1] == "pfb":
         reports = _build.build_all(["fm_chain", "am_chain", "channelize"])
         print(json.dumps({"probe": "pfb_registers",
