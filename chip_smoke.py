@@ -2534,9 +2534,11 @@ def forced_plans_equal(what, kernel, args, q, **kw):
 
 
 def forced_plan_checks():
-    """The planner's one-chunk launch against launches forced into chunks
-    (FORCED_PLANS), bit for bit at each grade: B2 at FM wideband critical
-    and at its D = 8 variant, B3-PFB at AM wideband critical."""
+    """The planner's launch against launches forced into chunks
+    (FORCED_PLANS), bit for bit: at each grade B2 at FM wideband critical
+    and at its D = 8 variant and B3-PFB at AM wideband critical (one
+    chunk planned); at bf16x3 and bf16x2 B2 at pfb_nfm_lmr_320 and
+    B3-PFB at pfb_airband_480 (chunks planned)."""
     for grade in GRADES:
         for make, d, kernel, signal in (
                 (fm_wideband, GRID, pfb_fm_chain, wideband_fm_signal),
@@ -2550,9 +2552,24 @@ def forced_plan_checks():
             buf = buffer(model, signal(model, 0, N, seed=11))
             forced_plans_equal(f"{kernel.name} D={d} at {grade}", kernel,
                                pfb_args(model, buf), q, precision=grade)
+    for grade in ("bf16x3", "bf16x2"):
+        for make, kernel, signal in (
+                (pfb_nfm_lmr, pfb_fm_chain, lmr_signal),
+                (pfb_airband, pfb_am_chain, air_signal)):
+            model = make("pfb", precision=grade)
+            k = model.pfb_grid[0]
+            q = -(-model.num_taps // k)
+            plan = pfb_plan(model)
+            check(plan[0] < k or plan[1] < q,
+                  f"{kernel.name} at K={k}, {grade}: chunked")
+            buf = buffer(model, signal(model, 0, PFB_N, seed=11))
+            forced_plans_equal(f"{kernel.name} K={k} at {grade}", kernel,
+                               pfb_args(model, buf), q, precision=grade)
     print(f"forced plans {FORCED_PLANS}: B2 at FM wideband critical and "
           f"D=8 and B3-PFB at AM wideband critical, each grade, bit-equal "
-          f"to the one-chunk launch")
+          f"to the one-chunk launch; B2 at pfb_nfm_lmr_320 and B3-PFB at "
+          f"pfb_airband_480, bf16x3 and bf16x2, bit-equal to the planned "
+          f"chunked launch")
 
 
 def pfb_phase():
@@ -3821,6 +3838,43 @@ def run_chained(step, state, blocks):
     return state, outs
 
 
+def tile_reports(reports):
+    """[(tile kernel, [template arguments], {registers, spill_stores,
+    spill_loads})] of every tile kernel (fm_chain_tile, am_chain_tile,
+    channelize_tile) in the ptxas reports of build_all."""
+    out, entry = [], None
+    for line in "\n".join(reports.values()).splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d([a-z_]+_tile)I((?:L[bi]\d+E)+)E", line)
+            entry = None
+            if m:
+                entry = {}
+                out.append((m.group(1), [int(a) for a in re.findall(
+                    r"L[bi](\d+)E", m.group(2))], entry))
+        elif entry is not None and "spill stores" in line:
+            for key in ("spill stores", "spill loads"):
+                entry[key.replace(" ", "_")] = int(
+                    line.split(f"bytes {key}")[0].split(",")[-1])
+        elif entry is not None and "registers" in line:
+            entry["registers"] = int(line.split("Used ")[1].split()[0])
+            entry = None
+    return out
+
+
+def check_no_spills(phase, out, reports, want):
+    """Fails where a kernel of ``out`` spills or a library built now
+    lacks its ``want[library]`` kernels; prints the phase's line."""
+    for name, n in want.items():
+        if name in reports:
+            check(sum(1 for k in out if k.startswith(name)) == n,
+                  f"ptxas report of {name}: {phase} tile kernels missing")
+    for k, v in out.items():
+        check(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0,
+              f"{k} spills registers: {v}")
+    print(json.dumps({"phase": phase, "kernels": out,
+                      "built_now": sorted(reports), "card": CARD}))
+
+
 def f32_registers(reports):
     """Prints the registers and spill bytes ptxas reports for the f32 tile
     kernels: the PFB front's (fm_chain_tile and am_chain_tile <true, 0, one
@@ -3828,39 +3882,33 @@ def f32_registers(reports):
     and channelize_tile at f32 for 8, 16 and 32 channels a block, one chunk
     or chunked), and fails where one spills; a library that this run did
     not build (already in build/) has no report, and the line says so."""
-    out, entry = {}, None
-    for line in "\n".join(reports.values()).splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"\d([a-z_]+_tile)I((?:L[bi]\d+E)+)E", line)
-            entry = None
-            args = [int(a) for a in re.findall(r"L[bi](\d+)E",
-                                                m.group(2))] if m else []
-            if m and len(args) in (4, 5) and args[1] == 0:
-                # fm/am: <pfb, grade, chunked, ch(, rows)>; channelize:
-                # <pfb, grade, ch, chunked(, rows)>; kTile rows at f32
-                pfb, ch, ck = ((args[0], args[2], args[3])
-                               if m.group(1) == "channelize_tile"
-                               else (args[0], args[3], args[2]))
-                kind = "chunked" if ck else "one chunk"
-                entry = (f"{m.group(1)}<{'pfb' if pfb else 'dense'},f32,"
-                         f"{ch} channels,{kind}>")
-                out[entry] = {}
-        elif entry and "spill stores" in line:
-            for key in ("spill stores", "spill loads"):
-                out[entry][key.replace(" ", "_")] = int(
-                    line.split(f"bytes {key}")[0].split(",")[-1])
-        elif entry and "registers" in line:
-            out[entry]["registers"] = int(line.split("Used ")[1].split()[0])
-            entry = None
-    for name, want in (("fm_chain", 8), ("am_chain", 8), ("channelize", 6)):
-        if name in reports:
-            check(sum(1 for k in out if k.startswith(name)) == want,
-                  f"ptxas report of {name}: f32 tile kernels missing")
-    for k, v in out.items():
-        check(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0,
-              f"{k} spills registers: {v}")
-    print(json.dumps({"phase": "ptxas_f32", "kernels": out,
-                      "built_now": sorted(reports), "card": CARD}))
+    out = {}
+    for name, args, regs in tile_reports(reports):
+        if len(args) in (4, 5) and args[1] == 0:
+            # fm/am: <pfb, grade, chunked, ch(, rows)>; channelize:
+            # <pfb, grade, ch, chunked(, rows)>; kTile rows at f32
+            pfb, ch, ck = ((args[0], args[2], args[3])
+                           if name == "channelize_tile"
+                           else (args[0], args[3], args[2]))
+            kind = "chunked" if ck else "one chunk"
+            out[f"{name}<{'pfb' if pfb else 'dense'},f32,{ch} channels,"
+                f"{kind}>"] = regs
+    check_no_spills("ptxas_f32", out, reports,
+                    {"fm_chain": 8, "am_chain": 8, "channelize": 6})
+
+
+def pfb_mma_registers(reports):
+    """Prints the registers and spill bytes ptxas reports for the bf16
+    PFB front's chunked tile kernels (fm_chain_tile and am_chain_tile
+    <true, 3 or 2, chunked>, pfb_front_mma_chunked's block of 8 consumer
+    and 8 producer warps) and fails where one spills, as f32_registers."""
+    out = {}
+    for name, args, regs in tile_reports(reports):
+        if name != "channelize_tile" and args[:1] == [1] and \
+                args[1] in (2, 3) and args[2] == 1:
+            out[f"{name}<pfb,bf16x{args[1]},chunked>"] = regs
+    check_no_spills("ptxas_pfb_mma", out, reports,
+                    {"fm_chain": 2, "am_chain": 2})
 
 
 CARD = None
@@ -3890,6 +3938,7 @@ def main():
     for src, rep in reports.items():
         print(f"ptxas {src}:\n{rep.strip()}", file=sys.stderr)
     f32_registers(reports)
+    pfb_mma_registers(reports)
 
     # 3-8) the receivers, the channelized link and the QPSK256 receiver
     kernels = flagship_phase() + fm_wideband_phase()

@@ -39,9 +39,8 @@ from gsdr_tpu_torch.kernels.chain import (
     graded_bank_front,
     graded_uniform_front,
     load_chain_library,
-    pfb_f32_tables,
     pfb_launch_plan,
-    pfb_mma_tables,
+    pfb_operands,
 )
 from gsdr_tpu_torch.ops.channelize import rotate_bank
 from gsdr_tpu_torch.ops.quad_demod import quad_am_demod
@@ -142,8 +141,9 @@ def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
     t = int(num_taps)
     lanes, uc = pfb_launch_plan("am_chain", dev, k, q, decimation, precision,
                                 plan)
-    btab = pfb_mma_tables(dft_bank) if grade else pfb_f32_tables(dft_bank)
-    return _launch("pfb_am_chain", (poly_taps.data_ptr(), btab.data_ptr()),
+    taps, btab = pfb_operands(poly_taps, dft_bank, decimation, grade,
+                              (lanes, uc))
+    return _launch("pfb_am_chain", (taps.data_ptr(), btab.data_ptr()),
                    (t, k, q), buf, c, t, int(decimation), grade,
                    plan=(lanes, uc))
 

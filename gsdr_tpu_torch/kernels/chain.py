@@ -17,10 +17,11 @@
     'bf16x3' and 'bf16x2' on the tensor cores, as the JAX package's
     kernels define them; the bf16 split of the taps, the window and the
     fold (``split_bf16``), the tensor-core fronts' B tables
-    (``dense_mma_tables``, ``pfb_mma_tables``), the f32 fronts' tap and
-    bank tables (``dense_f32_tables``, ``pfb_f32_tables``) and the plain
-    versions of
-    the fronts at each grade (``graded_bank_front``,
+    (``dense_mma_tables``, ``pfb_mma_tables``; for the PFB front's chunked
+    kernel its taps and B table in its lane order, ``pfb_chunk_taps`` and
+    ``pfb_mma_chunk_tables``, picked by ``pfb_operands``), the f32 fronts'
+    tap and bank tables (``dense_f32_tables``, ``pfb_f32_tables``) and the
+    plain versions of the fronts at each grade (``graded_bank_front``,
     ``graded_uniform_front``);
   - ``select_front``, the receivers' choice between the dense and the PFB
     front, made once at construction;
@@ -313,6 +314,101 @@ def pfb_mma_tables(dft_bank):
         return _mma_words(torch.stack([re[:, :k], re[:, k:]], dim=-1))
 
     return _cached_table(dft_bank, build)
+
+
+@functools.lru_cache(maxsize=None)
+def pfb_lane_order(k, decimation):
+    """The lanes v of the bf16 PFB front's chunked kernel
+    (``fronts.cuh``, pfb_front_mma_chunked) in its order, -1 for padding:
+    groups of Dc = min(D, 16) phases from p0, a group's lanes kappa = pl*P
+    + s (v = p0 + pl + s*D, P = K/D) in ascending kappa, padded to whole
+    blocks of 8 lanes, so that group g starts at lane 8*g*ceil(Dc*P/8)
+    and a chunk's lanes are one run of the order."""
+    k, d = int(k), int(decimation)
+    p, dc = k // d, min(d, 16)
+    order = []
+    for p0 in range(0, d, dc):
+        lanes = [p0 + kap // p + (kap % p) * d
+                 for kap in range(min(dc, d - p0) * p)]
+        order += lanes + [-1] * (-len(lanes) % 8)
+    return tuple(order)
+
+
+def _lane_gather(table, k, decimation):
+    """table (..., K, ...) with its lane axis (axis 1) in
+    ``pfb_lane_order``, zeros at padding lanes."""
+    order = torch.tensor(pfb_lane_order(k, decimation), device=table.device)
+    out = torch.zeros((table.shape[0], order.numel()) + table.shape[2:],
+                      dtype=table.dtype, device=table.device)
+    live = order >= 0
+    out[:, live] = table[:, order[live]]
+    return out
+
+
+def pfb_mma_chunk_tables(dft_bank, decimation):
+    """The B operand of the bf16 PFB front's chunked kernel, one pair of
+    words a lane of the warp: int32 (2, KBg, ceil(C/4), 32, 2), KBg blocks
+    of 8 lanes of ``pfb_lane_order(K, D)``, zero at padding lanes. Entry
+    [part][kb][nt][4*g + t] holds the m16n8k16 B fragment of thread (g, t)
+    of the warp for n-tile nt, block kb: for even g ``pfb_mma_tables``'
+    entry [part][kb'][nt][4*(g/2) + t] of the block's lanes (kb' their
+    block there, the lanes v = order[8*kb + t + 4*i]); for odd g (the odd
+    GEMM column, the channel's im row) the same words with their halves
+    swapped and the new low half negated, so the kernel forms nothing in
+    registers and a chunk's B rows are one contiguous range. A bank
+    without the DFT structure raises, as for ``pfb_mma_tables``. Cached per
+    bank tensor and D, as ``dense_mma_tables``."""
+    d = int(decimation)
+
+    def build(bank):
+        re, c, k = _dft_rows(bank, "pfb_mma_chunk_tables")
+        if d < 1 or k % d:
+            raise ValueError(f"pfb_mma_chunk_tables: need D | K (D={d}, "
+                             f"K={k})")
+        w = torch.stack([re[:, :k], re[:, k:]], dim=-1)     # (C, K, 2)
+        words = _mma_words(_lane_gather(w, k, d))          # (.., 16, 2)
+        lane = torch.arange(32, device=bank.device)
+        g = lane // 4
+        out = words[:, :, :, 4 * (g // 2) + lane % 4].long() & 0xFFFFFFFF
+        odd = ((out >> 16) | ((out & 0xFFFF) << 16)) ^ 0x8000
+        out = torch.where((g % 2 == 1)[:, None], odd, out)
+        return torch.where(out >= 1 << 31, out - (1 << 32),
+                           out).to(torch.int32).contiguous()
+
+    return _cached_table(dft_bank, build, ("mma_chunk", d))
+
+
+def pfb_chunk_taps(poly_taps, decimation):
+    """The (Q, K) polyphase taps with their lanes in ``pfb_lane_order(K,
+    D)``: float32 (Q, 8*KBg), zero at padding lanes, so that a u-range's
+    taps of a chunk are one contiguous run of each row, which the bf16
+    PFB front's chunked kernel copies 16 bytes at a time. Cached per tap
+    tensor and D, as ``dense_mma_tables``."""
+    d = int(decimation)
+
+    def build(taps):
+        k = taps.shape[1]
+        if d < 1 or k % d:
+            raise ValueError(f"pfb_chunk_taps: need D | K (D={d}, K={k})")
+        return _lane_gather(taps, k, d).contiguous()
+
+    return _cached_table(poly_taps, build, ("chunk_taps", d))
+
+
+def pfb_operands(poly_taps, dft_bank, decimation, grade, plan):
+    """(taps, bank table) a PFB launch of ``grade`` and ``plan`` (lanes,
+    uc) reads: at 'f32' the taps and ``pfb_f32_tables``; at the bf16
+    grades the taps and ``pfb_mma_tables`` for the one-chunk kernel,
+    ``pfb_chunk_taps`` and ``pfb_mma_chunk_tables`` for the chunked one
+    (lanes < K or uc < Q, ``fronts.cuh``'s use_chunked_pfb)."""
+    if not grade:
+        return poly_taps, pfb_f32_tables(dft_bank)
+    q, k = poly_taps.shape
+    lanes, uc = plan
+    if int(lanes) < k or int(uc) < q:
+        return (pfb_chunk_taps(poly_taps, decimation),
+                pfb_mma_chunk_tables(dft_bank, decimation))
+    return poly_taps, pfb_mma_tables(dft_bank)
 
 
 def pfb_f32_tables(dft_bank):

@@ -56,7 +56,8 @@ constexpr int am_threads() {
                                      : kRows;
 }
 
-// btab: dense_mma_tables (dense front) or pfb_mma_tables (PFB front), read
+// btab: dense_mma_tables (dense front) or pfb_mma_tables (PFB front; in
+// chunks, with hp, pfb_mma_chunk_tables and pfb_chunk_taps), read
 // at bf16x3 and bf16x2, and at f32 ftab, dense_f32_tables (dense front,
 // kCh channels a block), or btab, pfb_f32_tables (PFB front); where
 // kChunked, the dense front stages Tc taps at a time (use_chunked_kernel)
@@ -403,7 +404,9 @@ extern "C" int am_chain_launch(const void* buf_re, const void* buf_im,
 // K, 32, 2) float32 at f32, pfb_mma_tables' (2, ceil(K/8), ceil(C/4), 16,
 // 2) int32 at bf16x3 and bf16x2), T the prototype's tap count (Q*K >= T).
 // (lanes, uc) is the plan (am_chain_fits', or any gsdr::valid_pfb_plan):
-// (K, Q) the one-chunk kernel, else the chunked one.
+// (K, Q) the one-chunk kernel, else the chunked one, which at bf16x3 and
+// bf16x2 reads hp and btab in its lane order (pfb_chunk_taps,
+// pfb_mma_chunk_tables; as pfb_fm_chain_launch).
 extern "C" int pfb_am_chain_launch(const void* buf_re, const void* buf_im,
                                    const void* hp, const void* btab,
                                    void* audio, int nb,

@@ -95,7 +95,8 @@ __device__ __forceinline__ float ipow(float a, int k) {
 // all T at once; the PFB one reads hp (Q, K) and
 // btab (pfb_f32_tables at f32, pfb_mma_tables at the bf16 grades), in
 // chunks of Tc lanes and u-ranges of Uc fold taps where kChunked
-// (fronts.cuh, pfb_chunk, use_chunked_pfb), else all at once.
+// (fronts.cuh, pfb_chunk, use_chunked_pfb; at the bf16 grades hp and btab
+// are then pfb_chunk_taps and pfb_mma_chunk_tables), else all at once.
 template <bool kPfb, int kGrade, bool kChunked = false,
           int kCh = gsdr::block_channels<kPfb>()>
 __global__ void __launch_bounds__(gsdr::back_threads(kCh))
@@ -621,7 +622,10 @@ extern "C" int fm_chain_launch(
 // 2) int32 at bf16x3 and bf16x2. T is the prototype's tap count (Q*K >=
 // T), which sets M.
 // (lanes, uc) is the plan (fm_chain_fits', or any gsdr::valid_pfb_plan):
-// (K, Q) the one-chunk kernel, else the chunked one. A plan whose block
+// (K, Q) the one-chunk kernel, else the chunked one, which at bf16x3 and
+// bf16x2 reads both tables in its lane order (kernels/chain.py,
+// pfb_chunk_taps' (Q, 8*KBg) and pfb_mma_chunk_tables' (2, KBg,
+// ceil(C/4), 32, 2), KBg blocks of 8 lanes). A plan whose block
 // does not fit the card is refused before launch (too many resources).
 // Other shapes as fm_chain_launch.
 extern "C" int pfb_fm_chain_launch(

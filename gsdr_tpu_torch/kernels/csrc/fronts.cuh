@@ -32,7 +32,9 @@
 //
 //  - pfb_front_mma<kGrade, kNT>: the PFB front on the tensor cores at
 //    bf16x3 or bf16x2 (fm_chain_pallas.py, _pfb_fold_dot with its grade
-//    arm _nt_grade_dot). See below.
+//    arm _nt_grade_dot), and pfb_front_mma_chunked, the same over chunks
+//    of lanes and fold taps, its warps split into producers that stage
+//    and fold and consumers that multiply. See below.
 //
 // The dense fronts stage the block's input window in shared memory in
 // polyphase order, xp[p][k] = x[g0 + k*D + p], so neighbouring threads
@@ -105,6 +107,9 @@ constexpr int kPfbCols = 4;        // PFB f32 fronts: channels of a tile
 constexpr int kPfbWideRows = 8;    // pfb_front_chunked: rows of a tile
 constexpr int kPfbConsumers = 256;  // pfb_front_chunked: threads multiplying
 constexpr int kMmaStages = 2;   // toeplitz_front_mma_chunked: chunks a ring
+// pfb_front_mma_chunked: words of an 8-lane block's A tile, the bf16 hi and
+// lo words of the kTile/16 m-tiles' fragments, four a thread
+constexpr int kPfbABlockWords = 2 * (kTile / 16) * 32 * 4;
 // Grades of the dense front: the number of tensor-core passes; 0 is the
 // FP32-FMA front, toeplitz_front.
 constexpr int kGradeF32 = 0;
@@ -329,8 +334,9 @@ __host__ __device__ inline size_t pfb_mma_smem_bytes(int nt, int K, int Q,
 // tap columns and window phases. Its fold taps u run in u-ranges of `uc`
 // taps each, one window of frames [u0*P + s_lo, (u1-1)*P + s_hi + kTile)
 // a range, s_lo..s_hi the chunk's lanes' s; where there is more than one
-// range, every fold partial waits in a shared fold tile between ranges
-// (at f32 the chunk's A tile), summed in ascending u as one pass sums it.
+// range, every fold partial waits in the chunk's A tile between ranges
+// (at the bf16 grades as float32 in the words of its fragments), summed
+// in ascending u as one pass sums it.
 // A plan (lanes >= K, uc >= Q) is the one-chunk kernel (pfb_front,
 // pfb_front_mma): the chunked kernel is another instantiation
 // (use_chunked_pfb). Chunk boundaries always fall on the one-chunk
@@ -407,24 +413,52 @@ __host__ __device__ inline size_t pfb_chunk_bytes(int K, int Q, int D,
   return all > pfb_out_bytes() ? all : pfb_out_bytes();
 }
 
-// pfb_front_mma_chunked's dynamic shared memory: the chunk's B, hi and lo
-// parts [2][nkb][nt][16] uint2, its taps [uc][8*nkb] padded to 16 bytes,
-// the fold tile [nkb][8][kPfbThreads] where uc < Q (each thread's eight
-// fold partials of a block), then one window buffer of Ls words a frame;
-// the kTile x (8*nt + 1) output tile reuses all of it after the product.
+// Frames a phase pair of pfb_front_mma_chunked's window holds for nfr
+// frames (two words a frame, the pair's phases side by side): nfr padded
+// to 8 mod 16, so that two neighbouring pairs are 16 mod 32 words apart
+// and a fold load whose lanes span them falls on different banks.
+__host__ __device__ inline int pfb_mma_pair_stride(int nfr) {
+  return nfr + (24 - nfr % 16) % 16;
+}
+
+// pfb_front_mma_chunked's geometry for the plan (lanes, uc) and nt n-tiles:
+// chunks of nkb 8-lane blocks (L lanes at most) and u-ranges of uc fold
+// taps; per block of 8 lanes, its A tile of kPfbABlockWords words; a
+// staging buffer holds a u-range's taps [uc][8*nkb] and its window, two
+// planes of at most np2 = ceil(npc/2) phase pairs of 2*Lf words (Lf the
+// pair stride of the most frames a u-range stages). Bytes of one A tile,
+// one B buffer [2][nkb][nt][32] uint2 (a fragment a lane) and one staging
+// buffer; the block holds two of each.
+struct PfbMmaChunkGeom {
+  int nkb, L, uc, npc, Lf;
+  size_t abytes, bbytes, sbytes;
+};
+
+__host__ __device__ inline PfbMmaChunkGeom pfb_mma_chunk_geom(int nt, int K,
+                                                              int Q, int D,
+                                                              int lanes,
+                                                              int uc) {
+  PfbMmaChunkGeom g;
+  g.nkb = pfb_chunk_blocks(K, D, lanes);
+  g.L = pfb_chunk_lanes(K, D, lanes);
+  g.uc = uc < Q ? uc : Q;
+  g.npc = pfb_chunk_phases(K, D, g.L);
+  g.Lf = pfb_mma_pair_stride(pfb_chunk_frames(K, D, g.nkb, g.uc));
+  g.abytes = (size_t)g.nkb * kPfbABlockWords * sizeof(uint32_t);
+  g.bbytes = 2 * (size_t)g.nkb * nt * 32 * sizeof(uint2);
+  g.sbytes = ((size_t)g.uc * 8 * g.nkb +
+              4 * (size_t)((g.npc + 1) / 2) * g.Lf) * sizeof(float);
+  return g;
+}
+
+// pfb_front_mma_chunked's dynamic shared memory: two A tiles, two B buffers
+// and two staging buffers (pfb_mma_chunk_geom); the kTile x (8*nt + 1)
+// output tile reuses the space after the product.
 __host__ __device__ inline size_t pfb_mma_chunk_bytes(int nt, int K, int Q,
                                                       int D, int lanes,
                                                       int uc) {
-  const PfbMmaGeom g = pfb_mma_geom(K, Q, D);
-  const int nkb = pfb_chunk_blocks(K, D, lanes);
-  if (uc > Q) uc = Q;
-  const size_t b = 2 * (size_t)nkb * nt * 16 * sizeof(uint2);
-  const size_t taps = ((size_t)uc * 8 * nkb * sizeof(float) + 15) / 16 * 16;
-  const size_t fold =
-      uc < Q ? (size_t)nkb * 8 * kPfbThreads * sizeof(float) : 0;
-  const size_t win =
-      2 * (size_t)pfb_chunk_frames(K, D, nkb, uc) * g.Ls * sizeof(float);
-  const size_t all = b + taps + fold + win;
+  const PfbMmaChunkGeom g = pfb_mma_chunk_geom(nt, K, Q, D, lanes, uc);
+  const size_t all = 2 * (g.abytes + g.bbytes + g.sbytes);
   const size_t out = (size_t)kTile * (8 * nt + 1) * sizeof(float);
   return all > out ? all : out;
 }
@@ -724,6 +758,15 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One 8-byte asynchronous copy from global to shared memory; both
+// addresses 8-byte aligned.
+__device__ __forceinline__ void cp_async_8(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
 }
 
 // One 16-byte asynchronous copy from global to shared memory; both
@@ -1353,204 +1396,6 @@ __device__ __forceinline__ const float* pfb_front_mma(
   return out;
 }
 
-// pfb_front_mma in chunks of `lanes` lanes and u-ranges of `uc` fold taps
-// (the plan, pfb_chunk): the same contract, values and order. A chunk is
-// nk <= nkb consecutive 8-lane blocks kb0.. of group ch (lanes kappa in
-// [ka, kz) of its Dc phases, as pfb_front_mma numbers them); it gathers
-// their B rows into bs [2][nkb][kNT][16] as pfb_front_mma does, and per
-// u-range its taps hs[u - u0][kappa - ka] and, with cp.async, the window
-// of its phases pa..pb, frames f0 + k at word k*Ls + pl of each plane,
-// f0 = u0*P + s_lo: output row r reads frame r + (s - s_lo) + (u - u0)*P.
-// Each thread folds its fragment's lanes and rows as pfb_front_mma does,
-// __fmul_rn at u = 0 and __fadd_rn(__fmul_rn) on in ascending u; between
-// u-ranges its eight partials of a block wait in the fold tile
-// ft[kbl][q][tid]; after the last range the whole fold is split, hi and
-// lo, and multiplied. The blocks run in pfb_front_mma's order, with the
-// same A and B fragments, so a chunked launch equals the one-chunk launch
-// bit for bit. Returns the output tile as pfb_front_mma, at the start of
-// dynamic shared memory.
-template <int kGrade, int kNT>
-__device__ __forceinline__ const float* pfb_front_mma_chunked(
-    unsigned char* smem, const float* __restrict__ buf_re,
-    const float* __restrict__ buf_im, int nb, const float* __restrict__ hp,
-    const uint32_t* __restrict__ btab, int C, int K, int Q, int D, int group,
-    long g0, int lanes, int uc) {
-  static_assert(kGrade == kGradeBf16x3 || kGrade == kGradeBf16x2,
-                "tensor-core grades are bf16x3 and bf16x2");
-  static_assert(kPfbThreads == 2 * kTile, "16 warps of 16 rows");
-  constexpr int kOS = 8 * kNT + 1;   // output tile row stride, in floats
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const PfbMmaGeom geo = pfb_mma_geom(K, Q, D);
-  const int P = geo.P, Ls = geo.Ls, NT = (C + 3) / 4, KBt = (K + 7) / 8;
-  const int nkb = pfb_chunk_blocks(K, D, lanes);
-  uc = min(uc, Q);
-  uint2* bs = reinterpret_cast<uint2*>(smem);
-  uint32_t* bw = reinterpret_cast<uint32_t*>(bs);
-  float* hs = reinterpret_cast<float*>(bs + 2 * nkb * kNT * 16);
-  float* ft = hs + (uc * 8 * nkb + 3) / 4 * 4;
-  float* win = ft + (uc < Q ? nkb * 8 * kPfbThreads : 0);
-  float* out = reinterpret_cast<float*>(smem);
-  // 16-byte copies where every frame's run of samples can be 16-byte aligned
-  const bool vec_ok = D % 4 == 0 && g0 % 4 == 0 &&
-                      reinterpret_cast<uintptr_t>(buf_re) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(buf_im) % 16 == 0;
-
-  const int gid = lane >> 2, tig = lane & 3;
-  // an odd GEMM column (wi, wr) from its even neighbour (wr, -wi)
-  const uint32_t sel = (gid & 1) ? 0x1032u : 0x3210u;
-  const uint32_t flip = (gid & 1) ? 0x8000u : 0u;
-  const uint2* bl = bs + 4 * (gid >> 1) + tig;
-  const int r0 = warp * 16 + gid;
-  float d[kNT][4];
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) d[nt][i] = 0.f;
-
-  for (int ch = 0; ch < geo.nch; ++ch) {
-    const int p0 = ch * geo.Dc;
-    const int glanes = min(geo.Dc, D - p0) * P, kbc = (glanes + 7) / 8;
-    for (int kb0 = 0; kb0 < kbc; kb0 += nkb) {
-      const int nk = min(nkb, kbc - kb0), tl = 8 * nk;
-      const int ka = 8 * kb0, kz = min(ka + tl, glanes);
-      const int pa = ka / P, pb = (kz - 1) / P, npc = pb - pa + 1;
-      const int s_lo = pa == pb ? ka % P : 0;
-      const int s_hi = pa == pb ? (kz - 1) % P : P - 1;
-      __syncthreads();   // the previous chunk's readers are done
-      // B in the block's lane order, as pfb_front_mma gathers it
-      for (int pk = warp; pk < 2 * nk; pk += kPfbThreads / 32) {
-        const int part = pk / nk, i = pk - part * nk;
-        const int e = lane >> 1;
-        const int kap = ka + 8 * i + (e & 3) + 4 * (lane & 1);
-        const bool ok = kap < glanes;
-        const int v = ok ? p0 + kap / P + (kap % P) * D : 0, vq = v & 7;
-        const uint32_t* src = btab + ((long)part * KBt + (v >> 3)) * NT * 32 +
-                              (4 * (e >> 2) + (vq & 3)) * 2 + (vq >> 2);
-        uint32_t* dst = bw + (long)(part * nkb + i) * kNT * 32 + lane;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const int ntg = group * kNT + nt;
-          dst[nt * 32] = ok && ntg < NT ? src[(long)ntg * 32] : 0u;
-        }
-      }
-      for (int u0 = 0; u0 < Q; u0 += uc) {
-        const int u1 = min(Q, u0 + uc), f0 = u0 * P + s_lo;
-        const int nfr = (u1 - 1 - u0) * P + s_hi - s_lo + kTile;
-        if (u0 > 0) __syncthreads();   // the last u-range's readers are done
-        for (int i = tid; i < (u1 - u0) * tl; i += kPfbThreads) {
-          const int kap = ka + i % tl;
-          hs[i] = kap < kz ? hp[(long)(u0 + i / tl) * K + p0 + kap / P +
-                                (kap % P) * D]
-                           : 0.f;
-        }
-        pfb_stage_phases(win, buf_re, buf_im, nb, g0 + (long)f0 * D, D,
-                         p0 + pa, npc, nfr, Ls,
-                         vec_ok && (p0 + pa) % 4 == 0 && npc % 4 == 0);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        const float* xr = win + r0 * Ls;
-        const float* xi = xr + nfr * Ls;
-        for (int kbl = 0; kbl < nk; ++kbl) {
-          // the fold of lanes kappa = ka + 8*kbl + tig (h = 0) and + 4
-          // (h = 1) at rows r0 and r0 + 8 (rr); a lane past the chunk's
-          // folds to zero
-          int off[2];
-          const float* tp[2];
-          bool ok[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int kap = ka + 8 * kbl + tig + 4 * h;
-            ok[h] = kap < kz;
-            off[h] = ok[h] ? (kap % P - s_lo) * Ls + kap / P - pa : 0;
-            tp[h] = hs + (ok[h] ? kap - ka : 0);
-          }
-          float fr[2][2], fi[2][2];
-          float* fo = ft + kbl * 8 * kPfbThreads + tid;
-          const int us = P * Ls;   // one fold tap further: P frames
-          int u = 0;
-          if (u0 == 0) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float h0 = ok[h] ? tp[h][0] : 0.f;
-#pragma unroll
-              for (int rr = 0; rr < 2; ++rr) {
-                const int o = off[h] + 8 * rr * Ls;
-                fr[h][rr] = __fmul_rn(xr[o], h0);
-                fi[h][rr] = __fmul_rn(xi[o], h0);
-              }
-            }
-            u = 1;
-          } else {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              fr[q >> 1][q & 1] = fo[q * kPfbThreads];
-              fi[q >> 1][q & 1] = fo[(4 + q) * kPfbThreads];
-            }
-          }
-          for (; u < u1 - u0; ++u) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float hu = ok[h] ? tp[h][u * tl] : 0.f;
-#pragma unroll
-              for (int rr = 0; rr < 2; ++rr) {
-                const int o = off[h] + 8 * rr * Ls + u * us;
-                fr[h][rr] = __fadd_rn(fr[h][rr], __fmul_rn(xr[o], hu));
-                fi[h][rr] = __fadd_rn(fi[h][rr], __fmul_rn(xi[o], hu));
-              }
-            }
-          }
-          if (u1 < Q) {   // the fold waits for the next u-range
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              fo[q * kPfbThreads] = fr[q >> 1][q & 1];
-              fo[(4 + q) * kPfbThreads] = fi[q >> 1][q & 1];
-            }
-            continue;
-          }
-          // A fragment: register q holds lane h = q / 2 at row r0 + 8*(q % 2)
-          uint32_t ah[4], al[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float ar = fr[q >> 1][q & 1], ai = fi[q >> 1][q & 1];
-            const __nv_bfloat162 hi = __floats2bfloat162_rn(ar, ai);
-            ah[q] = bf16x2_bits(hi);
-            if constexpr (kGrade == kGradeBf16x3) {
-              al[q] = bf16x2_bits(__floats2bfloat162_rn(
-                  __fsub_rn(ar, __low2float(hi)),
-                  __fsub_rn(ai, __high2float(hi))));
-            }
-          }
-#pragma unroll
-          for (int nt = 0; nt < kNT; ++nt) {
-            const uint2 h = bl[(kbl * kNT + nt) * 16];
-            const uint2 l = bl[((nkb + kbl) * kNT + nt) * 16];
-            const uint32_t h0 = __byte_perm(h.x, 0u, sel) ^ flip;
-            const uint32_t h1 = __byte_perm(h.y, 0u, sel) ^ flip;
-            const uint32_t l0 = __byte_perm(l.x, 0u, sel) ^ flip;
-            const uint32_t l1 = __byte_perm(l.y, 0u, sel) ^ flip;
-            mma_bf16(d[nt], ah, h0, h1);
-            mma_bf16(d[nt], ah, l0, l1);
-            if constexpr (kGrade == kGradeBf16x3) mma_bf16(d[nt], al, h0, h1);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();   // every warp is done: the output tile reuses the space
-
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    const int col = 8 * nt + 2 * tig;
-    out[r0 * kOS + col] = d[nt][0];
-    out[r0 * kOS + col + 1] = d[nt][1];
-    out[(r0 + 8) * kOS + col] = d[nt][2];
-    out[(r0 + 8) * kOS + col + 1] = d[nt][3];
-  }
-  __syncthreads();
-  return out;
-}
-
 // ---- The PFB front at f32 ------------------------------------------------
 //
 // pfb_front and pfb_front_chunked compute, for the block's kTile output
@@ -1897,10 +1742,11 @@ __device__ __forceinline__ void pfb_next_step(PfbStep& s, int D, int P,
   s.kz = min(s.ka + L, s.glanes);
 }
 
-// Named barriers of pfb_front_chunked (0 is __syncthreads): a chunk's A
-// tile and bank rows full (two, by chunk parity) and free (two), and the
-// producers' own.
+// Named barriers of the chunked PFB fronts (0 is __syncthreads): a chunk's
+// A tile (and, at f32, bank rows) full (two, by chunk parity) and free
+// (two), the producers' own and (pfb_front_mma_chunked) the consumers'.
 constexpr int kBarFull = 1, kBarFree = 3, kBarProducers = 5;
+constexpr int kBarConsumers = 6;
 
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
@@ -2020,6 +1866,491 @@ __device__ __forceinline__ const float* pfb_front_chunked(
                 g0, L, uc, ssize, gsize, asize);
   }
   return pfb_tile_out(smem, t, consumer);
+}
+
+// ---- The bf16 PFB front in chunks ---------------------------------------
+//
+// pfb_front_mma_chunked is pfb_front_mma in chunks of `lanes` lanes and
+// u-ranges of `uc` fold taps (the plan, pfb_chunk), for a grid whose B
+// table, taps or window outgrow one block: the same contract, values and
+// order. A chunk is up to nkb consecutive 8-lane blocks of one group, in
+// pfb_front_mma's lane order; every fold value is made as there, __fmul_rn
+// at u = 0, then __fadd_rn(acc, __fmul_rn(x, hp[u])) in ascending u across
+// u-ranges, split hi/lo after the last, and every accumulator takes the
+// same m16n8k16 fragments, block after block, Ah*Bh, Ah*Bl, then (bf16x3)
+// Al*Bh: a chunked launch equals the one-chunk launch bit for bit.
+//
+// What bounds it on the card: per chunk, the product (3 or 2 tensor-core
+// passes of 8*C*8 FLOP a row and 8-lane block) and the fold (2*Q shared
+// loads and roundings a value, two planes, for all 32 channels). The first
+// chunked kernel ran them one after the other on the same 16 warps, each
+// accumulator's three passes back to back, behind a staging of each chunk
+// that nothing overlapped, from a frame-major window where a fold load's
+// frames 8 apart shared a bank. What the design does about it:
+//  - warps specialised, as pfb_front_chunked: the first kPfbConsumers
+//    threads (8 warps of 32 rows, two m-tiles against the kNT n-tiles)
+//    multiply; the other 8 warps (producers) stage and fold. Chunk c's
+//    fold goes into A tile c & 1, the bf16 hi and lo words in fragment
+//    order, [block][hi, lo][m-tile][lane][4] (kPfbABlockWords a block), so
+//    that a consumer loads each fragment with one 16-byte load; the
+//    producers fold chunk c + 1 while the consumers multiply chunk c, handed
+//    over through the named barriers full and free.
+//  - producer thread (gid, tig) of warp pw folds what consumer thread
+//    (gid, tig) reads: lanes tig and tig + 4 of each block, rows gid and
+//    gid + 8 of m-tiles 2*pw and 2*pw + 1, both planes. Between u-ranges
+//    its partials wait as float32 in its own fragment's words of the A
+//    tile; after the last it writes the split there.
+//  - the window is staged in phase pairs, frames contiguous
+//    (pfb_mma_stage_window: a frame's pair one 8-byte cp.async where D
+//    is even, pairs pfb_mma_pair_stride frames apart), so a warp's fold
+//    load reads frames gid + s of its 8 rows and 4 lanes on distinct
+//    banks; at P = 4, Q = 4 (the NFM and airband grids) a block's lanes
+//    tig and tig + 4 are one pair, read by one 8-byte load, and rows 8
+//    apart share frames, so 10 loads a plane serve a thread's 32 products
+//    (pfb_mma_fold_slide), where the first design loaded each. The host
+//    lays the taps and B out in the chunks' lane order (kernels/chain.py,
+//    pfb_chunk_taps and pfb_mma_chunk_tables: groups of Dc phases, kappa =
+//    pl*P + s, padded per group to 8-lane blocks, zeros there), so a
+//    u-range's taps are one contiguous run of each row, 16-byte copies,
+//    and a chunk's B rows too. Step s + 1 (a u-range of a chunk) is in
+//    flight into the other of two staging buffers while the producers fold
+//    step s.
+//  - the consumers stage each chunk's B rows themselves, into the other of
+//    two B buffers while they multiply the current chunk, and per 8-lane
+//    block run each pass over all 2*kNT accumulators in turn, so that no
+//    mma waits on the one before it.
+
+// Starts the copies of a window of npc phases from p_first and nfr frames
+// from f0, x[g0 + (f0 + k)*D + p_first + pl], into pfb_front_mma_chunked's
+// layout: the phases in pairs, phase pl of frame k at word (pl/2*lf + k)*2
+// + pl%2 of plane 0 (re) and `plane` words on (im); zeros outside [0, nb)
+// and past the window's phases. Where vec (every pair 8-byte aligned in
+// the buffers), a pair of a frame is one 8-byte copy, else two of 4 bytes;
+// neighbouring threads copy neighbouring pairs, by threads tid of nt.
+__device__ __forceinline__ void pfb_mma_stage_window(
+    float* xw, int plane, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, long g0, int D, int f0,
+    int p_first, int npc, int nfr, int lf, bool vec, int tid, int nt) {
+  const int np2 = (npc + 1) / 2;
+  // item l = k*np2 + pp of thread tid of nt, stepped without a division
+  const int dpp = nt % np2, dk = nt / np2;
+  for (int pp = tid % np2, k = tid / np2; k < nfr;) {
+    const long g = g0 + (long)(f0 + k) * D + p_first + 2 * pp;
+    const bool two = 2 * pp + 1 < npc;   // the pair's second phase is in
+    float* d = xw + 2 * (pp * lf + k);
+    if (vec && two && g >= 0 && g + 2 <= nb) {
+      cp_async_8(d, buf_re + g);
+      cp_async_8(d + plane, buf_im + g);
+    } else {
+      for (int e = 0; e < 2; ++e) {
+        const bool in = (e == 0 || two) && g + e >= 0 && g + e < nb;
+        cp_async_f32(d + e, buf_re + (in ? g + e : 0), in);
+        cp_async_f32(d + plane + e, buf_im + (in ? g + e : 0), in);
+      }
+    }
+    pp += dpp;
+    k += dk;
+    if (pp >= np2) {
+      pp -= np2;
+      ++k;
+    }
+  }
+}
+
+// Starts the copies of the B rows of blocks kbg0..kbg0+nk-1 of
+// pfb_mma_chunk_tables (KBg blocks, NT n-tiles) for the group's kNT
+// n-tiles into bs [2][nkb][kNT][32] uint2: 16-byte copies of contiguous
+// rows (an n-tile past NT as zeros), by threads tid of nth.
+template <int kNT>
+__device__ __forceinline__ void pfb_mma_stage_b(
+    uint2* bs, const uint2* __restrict__ btab, int KBg, int NT, int group,
+    int kbg0, int nk, int nkb, int tid, int nth) {
+  constexpr int kPer = kNT * 16;   // 16-byte copies of a (part, block) row
+  const int n = nk * kPer;
+  for (int i = tid; i < 2 * n; i += nth) {
+    const int part = i / n, r = i - part * n;
+    const int kb = r / kPer, e = r - kb * kPer;
+    float* dst = reinterpret_cast<float*>(
+        bs + (size_t)(part * nkb + kb) * kNT * 32 + 2 * e);
+    if (group * kNT + e / 16 < NT)
+      cp_async_16(dst, reinterpret_cast<const float*>(
+                           btab + ((long)(part * KBg + kbg0 + kb) * NT +
+                                   group * kNT) * 32 + 2 * e));
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// d += the products of one chunk's nk blocks of 8 lanes, in ascending
+// block: consumer warp cw takes m-tiles 2*cw and 2*cw + 1 (rows 32*cw +
+// 16*mt + gid and + 8), its A fragments the 16-byte words [kb][part][mt]
+// [lane] of the A tile `at`, its B fragments the words [part][kb][nt][lane]
+// of bs [2][nkb][kNT][32], the values pfb_front_mma forms in registers.
+template <int kGrade, int kNT>
+__device__ __forceinline__ void pfb_mma_product(float (&d)[2][kNT][4],
+                                                const uint4* at,
+                                                const uint2* bs, int nk,
+                                                int nkb, int cw, int lane) {
+  constexpr int kMt = kTile / 16;
+  const uint2* bl = bs + lane;
+  for (int kb = 0; kb < nk; ++kb) {
+    const uint4* af = at + ((size_t)kb * 2 * kMt + 2 * cw) * 32 + lane;
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const uint4 h = af[mt * 32];
+      ah[mt][0] = h.x, ah[mt][1] = h.y, ah[mt][2] = h.z, ah[mt][3] = h.w;
+      if constexpr (kGrade == kGradeBf16x3) {
+        const uint4 l = af[(kMt + mt) * 32];
+        al[mt][0] = l.x, al[mt][1] = l.y, al[mt][2] = l.z, al[mt][3] = l.w;
+      }
+    }
+    uint32_t bh[kNT][2];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const uint2 h = bl[(kb * kNT + nt) * 32];
+      bh[nt][0] = h.x;
+      bh[nt][1] = h.y;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        mma_bf16(d[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const uint2 l = bl[((nkb + kb) * kNT + nt) * 32];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_bf16(d[mt][nt], ah[mt], l.x, l.y);
+    }
+    if constexpr (kGrade == kGradeBf16x3) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma_bf16(d[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+    }
+  }
+}
+
+// The fold of one whole 8-lane block over a step of all kQ taps at P = 4
+// (the NFM and airband grids: Q = 4): its lanes tig and tig + 4 are
+// phases 2i and 2i + 1 of the window at one s, one pair, so one 8-byte
+// load reads both; and a thread's rows gid + 8*j (j = 2*mt + rr) read
+// frame gid + 8*j + 4*u at tap u, so 6 + kQ loads of a plane serve its
+// 2*4*kQ products, where pfb_mma_fold's loop loads each; every sum is the
+// same, in ascending u.
+template <int kQ>
+__device__ __forceinline__ void pfb_mma_fold_slide(float (&fr)[2][4],
+                                                   float (&fi)[2][4],
+                                                   const float* xp,
+                                                   int plane,
+                                                   const float* tp, int tl) {
+  constexpr int kN = 6 + kQ;
+  float t[2][kQ];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) t[h][u] = tp[u * tl + 4 * h];
+#pragma unroll
+  for (int pn = 0; pn < 2; ++pn) {
+    const float2* x = reinterpret_cast<const float2*>(xp + pn * plane);
+    float2 w[kN];
+#pragma unroll
+    for (int m = 0; m < kN; ++m) w[m] = x[4 * m];   // frames 4 apart
+    float(&f)[2][4] = pn ? fi : fr;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float a0 = __fmul_rn(w[2 * j].x, t[0][0]);
+      float a1 = __fmul_rn(w[2 * j].y, t[1][0]);
+#pragma unroll
+      for (int u = 1; u < kQ; ++u) {
+        a0 = __fadd_rn(a0, __fmul_rn(w[2 * j + u].x, t[0][u]));
+        a1 = __fadd_rn(a1, __fmul_rn(w[2 * j + u].y, t[1][u]));
+      }
+      f[j >> 1][j & 1] = a0;         // lane tig, q = rr
+      f[j >> 1][2 + (j & 1)] = a1;   // lane tig + 4, q = 2 + rr
+    }
+  }
+}
+
+// Folds step s (lanes [ka, kz) of a group, fold taps u0..u1-1) into the A
+// tile `at`: producer warp pw, thread (gid, tig), the values of lanes ka +
+// 8*kb + tig + 4*h at rows 32*pw + 16*mt + gid + 8*rr, register q = 2*h +
+// rr of m-tile mt's fragments. The window xw holds the step's phases pa..
+// of the group from frame u0*P + s_lo in pairs (pfb_mma_stage_window, lf
+// frames a pair), plane 1 `plane` words on: row r of lane (pl, s) reads
+// frame r + s - s_lo + (u - u0)*P of phase pl - pa; the taps
+// hs[(u - u0)*tl + kappa - ka], zeros past
+// kz, where a lane folds phase pa at s_lo with zero taps (so its values,
+// zeros of either sign, are those a chunked launch always gave it).
+template <int kGrade>
+__device__ __forceinline__ void pfb_mma_fold(uint4* at, const float* xw,
+                                             int plane, int lf,
+                                             const float* hs, int tl, int P,
+                                             int Q, const PfbSpan& sp,
+                                             const PfbStep& s, int pw,
+                                             int lane) {
+  constexpr int kMt = kTile / 16;
+  const int gid = lane >> 2, tig = lane & 3, nu = s.u1 - s.u0;
+  const float* xr = xw + 2 * (32 * pw + gid);
+  for (int kb = 0; kb < tl / 8; ++kb) {
+    const float* tp = hs + 8 * kb + tig;   // lane h's tap at tp[4*h]
+    uint4* slot = at + ((size_t)kb * 2 * kMt + 2 * pw) * 32 + lane;
+    float fr[2][4], fi[2][4];   // [mt][q]
+    int u = 0;
+    // the main paths' grids, a whole block of lanes: the sliding fold
+    const bool slide =
+        P == 4 && Q == 4 && nu == 4 && s.ka + 8 * kb + 8 <= s.kz;
+    int xo[2] = {0, 0};   // lane h's word in the window, frame s - s_lo
+    if (slide) {          // lanes of phases 2i and 2i + 1 at s = kappa % 4
+      const int kap = s.ka + 8 * kb + tig;
+      xo[0] = 2 * ((((kap >> 2) - sp.pa) >> 1) * lf + (kap & 3) - sp.s_lo);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kap = s.ka + 8 * kb + tig + 4 * h;
+        const int pl = kap / P - sp.pa;
+        if (kap < s.kz)
+          xo[h] = 2 * ((pl >> 1) * lf + kap % P - sp.s_lo) + (pl & 1);
+      }
+    }
+    if (slide) {
+      pfb_mma_fold_slide<4>(fr, fi, xr + xo[0], plane, tp, tl);
+      u = nu;
+    } else if (s.u0 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float h0 = tp[4 * h];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int o = xo[h] + 2 * (16 * mt + 8 * rr);
+            fr[mt][2 * h + rr] = __fmul_rn(xr[o], h0);
+            fi[mt][2 * h + rr] = __fmul_rn(xr[plane + o], h0);
+          }
+      }
+      u = 1;
+    } else {   // the partials of the u-ranges before
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const uint4 pr = slot[mt * 32], pi = slot[(kMt + mt) * 32];
+        fr[mt][0] = __uint_as_float(pr.x), fr[mt][1] = __uint_as_float(pr.y);
+        fr[mt][2] = __uint_as_float(pr.z), fr[mt][3] = __uint_as_float(pr.w);
+        fi[mt][0] = __uint_as_float(pi.x), fi[mt][1] = __uint_as_float(pi.y);
+        fi[mt][2] = __uint_as_float(pi.z), fi[mt][3] = __uint_as_float(pi.w);
+      }
+    }
+#pragma unroll 1
+    for (; u < nu; ++u) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float hu = tp[u * tl + 4 * h];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int o = xo[h] + 2 * (16 * mt + 8 * rr + u * P);
+            const int q = 2 * h + rr;
+            fr[mt][q] = __fadd_rn(fr[mt][q], __fmul_rn(xr[o], hu));
+            fi[mt][q] = __fadd_rn(fi[mt][q], __fmul_rn(xr[plane + o], hu));
+          }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (s.u1 < Q) {   // the fold waits for the next u-range
+        slot[mt * 32] = make_uint4(
+            __float_as_uint(fr[mt][0]), __float_as_uint(fr[mt][1]),
+            __float_as_uint(fr[mt][2]), __float_as_uint(fr[mt][3]));
+        slot[(kMt + mt) * 32] = make_uint4(
+            __float_as_uint(fi[mt][0]), __float_as_uint(fi[mt][1]),
+            __float_as_uint(fi[mt][2]), __float_as_uint(fi[mt][3]));
+        continue;
+      }
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float ar = fr[mt][q], ai = fi[mt][q];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(ar, ai);
+        ah[q] = bf16x2_bits(hi);
+        al[q] = bf16x2_bits(__floats2bfloat162_rn(
+            __fsub_rn(ar, __low2float(hi)), __fsub_rn(ai, __high2float(hi))));
+      }
+      slot[mt * 32] = make_uint4(ah[0], ah[1], ah[2], ah[3]);
+      if constexpr (kGrade == kGradeBf16x3)
+        slot[(kMt + mt) * 32] = make_uint4(al[0], al[1], al[2], al[3]);
+    }
+  }
+}
+
+// pfb_front_mma_chunked's producers (the threads from kPfbConsumers on):
+// step after step, stage the next step's taps and window and fold the
+// current one into its chunk's A tile, handing each folded chunk over.
+// hq: pfb_chunk_taps (Q, 8*KBg).
+template <int kGrade>
+__device__ __forceinline__ void pfb_mma_produce(
+    uint4* a, float* stage, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, const float* __restrict__ hq,
+    int K, int Q, int D, long g0, const PfbMmaGeom& geo,
+    const PfbMmaChunkGeom& g) {
+  constexpr int kProducers = kPfbThreads - kPfbConsumers;
+  const int P = geo.P, tq = 8 * geo.KBg, tsize = g.uc * 8 * g.nkb;
+  const int tid = threadIdx.x - kPfbConsumers;
+  const size_t atile = g.abytes / sizeof(uint4);
+  const size_t ssize = g.sbytes / sizeof(float);
+  // 8-byte copies of phase pairs where D keeps every pair's parity
+  const bool vec = D % 2 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(buf_re) |
+                     reinterpret_cast<uintptr_t>(buf_im)) & 7) == 0;
+  // the window's frames of a step, and its phase stride
+  auto frames = [&](const PfbStep& s, const PfbSpan& sp) {
+    return (s.u1 - 1 - s.u0) * P + sp.s_hi - sp.s_lo + kTile;
+  };
+  // starts step s's taps and window into staging buffer sb
+  auto issue = [&](const PfbStep& s, int sb) {
+    const PfbSpan sp = pfb_span(P, s.ka, s.kz);
+    float* st = stage + sb * ssize;
+    const int tl = 8 * ((s.kz - s.ka + 7) / 8), n4 = tl / 4;
+    const float* src =
+        hq + (long)s.u0 * tq + 8 * (s.p0 / geo.Dc) * geo.KB0 + s.ka;
+    for (int i = tid; i < (s.u1 - s.u0) * n4; i += kProducers) {
+      const int u = i / n4, e = i - u * n4;
+      cp_async_16(st + u * tl + 4 * e, src + (long)u * tq + 4 * e);
+    }
+    const int nfr = frames(s, sp), lf = pfb_mma_pair_stride(nfr);
+    const int npc = sp.pb - sp.pa + 1, f0 = s.u0 * P + sp.s_lo;
+    const int p_first = s.p0 + sp.pa;
+    pfb_mma_stage_window(st + tsize, 2 * ((npc + 1) / 2) * lf, buf_re,
+                         buf_im, nb, g0, D, f0, p_first, npc, nfr, lf,
+                         vec && (g0 + (long)f0 * D + p_first) % 2 == 0, tid,
+                         kProducers);
+    cp_async_commit();
+  };
+
+  PfbStep cur = {0, geo.Dc * P, 0, 0, 0, g.uc};
+  cur.kz = min(g.L, cur.glanes);
+  issue(cur, 0);
+  for (int si = 0, c = 0; cur.p0 < D; ++si) {
+    cp_async_wait<0>();
+    named_sync(kBarProducers, kProducers);   // step si in; the other free
+    PfbStep nxt = cur;
+    pfb_next_step(nxt, D, P, Q, g.L, g.uc);
+    if (nxt.p0 < D) issue(nxt, (si + 1) & 1);
+    // chunk c's A tile: free once chunk c - 2 is multiplied
+    if (cur.u0 == 0 && c >= 2) named_sync(kBarFree + (c & 1), kPfbThreads);
+    const PfbSpan sp = pfb_span(P, cur.ka, cur.kz);
+    const int lf = pfb_mma_pair_stride(frames(cur, sp));
+    const float* st = stage + (si & 1) * ssize;
+    pfb_mma_fold<kGrade>(a + (c & 1) * atile, st + tsize,
+                         2 * ((sp.pb - sp.pa + 2) / 2) * lf, lf, st,
+                         8 * ((cur.kz - cur.ka + 7) / 8), P, Q, sp, cur,
+                         tid >> 5, tid & 31);
+    if (cur.u1 == Q) {   // chunk c is folded: hand it over
+      named_arrive(kBarFull + (c & 1), kPfbThreads);
+      ++c;
+    }
+    cur = nxt;
+  }
+}
+
+// pfb_front_mma_chunked's consumers (the first kPfbConsumers threads):
+// chunk after chunk, stage the next chunk's B rows and multiply the
+// current one from its A tile. btab: pfb_mma_chunk_tables (2, KBg, NT,
+// 32, 2).
+template <int kGrade, int kNT>
+__device__ __forceinline__ void pfb_mma_consume(
+    float (&d)[2][kNT][4], const uint4* a, uint2* bs,
+    const uint2* __restrict__ btab, int NT, int Q, int D, int group,
+    const PfbMmaGeom& geo, const PfbMmaChunkGeom& g) {
+  const int tid = threadIdx.x, P = geo.P;
+  const size_t atile = g.abytes / sizeof(uint4);
+  const size_t bsize = g.bbytes / sizeof(uint2);
+  int nchunks = 0;
+  for (int p0 = 0; p0 < D; p0 += geo.Dc)
+    nchunks += (min(geo.Dc, D - p0) * P + g.L - 1) / g.L;
+  // starts chunk s's B rows into B buffer b
+  auto stage_b = [&](const PfbStep& s, int b) {
+    pfb_mma_stage_b<kNT>(bs + b * bsize, btab, geo.KBg, NT, group,
+                         (s.p0 / geo.Dc) * geo.KB0 + s.ka / 8,
+                         (s.kz - s.ka + 7) / 8, g.nkb, tid, kPfbConsumers);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[mt][nt][i] = 0.f;
+
+  PfbStep cur = {0, geo.Dc * P, 0, 0, 0, Q};
+  cur.kz = min(g.L, cur.glanes);
+  stage_b(cur, 0);
+  for (int c = 0; c < nchunks; ++c) {
+    PfbStep nxt = cur;
+    pfb_next_step(nxt, D, P, Q, g.L, Q);
+    cp_async_wait<0>();
+    // chunk c's B in; every consumer is done with chunk c - 1's buffer
+    named_sync(kBarConsumers, kPfbConsumers);
+    if (c + 1 < nchunks) stage_b(nxt, (c + 1) & 1);
+    named_sync(kBarFull + (c & 1), kPfbThreads);   // chunk c is folded
+    pfb_mma_product<kGrade, kNT>(d, a + (c & 1) * atile, bs + (c & 1) * bsize,
+                                 (cur.kz - cur.ka + 7) / 8, g.nkb, tid >> 5,
+                                 tid & 31);
+    if (c + 2 < nchunks) named_arrive(kBarFree + (c & 1), kPfbThreads);
+    cur = nxt;
+  }
+}
+
+// The bf16 PFB front in chunks (above), for the 4*kNT channels of channel
+// group `group`, grade kGrade, the plan (lanes, uc). hq: pfb_chunk_taps
+// (Q, 8*KBg), btab: pfb_mma_chunk_tables (2, KBg, ceil(C/4), 32, 2), both
+// in the chunks' lane order. Shared memory (pfb_mma_chunk_bytes): two A
+// tiles, two B buffers, two staging buffers. Returns the output tile, as
+// pfb_front_mma.
+template <int kGrade, int kNT>
+__device__ __forceinline__ const float* pfb_front_mma_chunked(
+    unsigned char* smem, const float* __restrict__ buf_re,
+    const float* __restrict__ buf_im, int nb, const float* __restrict__ hq,
+    const uint32_t* __restrict__ btab, int C, int K, int Q, int D, int group,
+    long g0, int lanes, int uc) {
+  static_assert(kGrade == kGradeBf16x3 || kGrade == kGradeBf16x2,
+                "tensor-core grades are bf16x3 and bf16x2");
+  static_assert(kPfbConsumers == kTile &&
+                    kPfbThreads - kPfbConsumers == kTile,
+                "8 consumer warps of 32 rows, 8 producer warps of 32 rows");
+  constexpr int kOS = 8 * kNT + 1;   // output tile row stride, in floats
+  const PfbMmaGeom geo = pfb_mma_geom(K, Q, D);
+  const PfbMmaChunkGeom g = pfb_mma_chunk_geom(kNT, K, Q, D, lanes, uc);
+  uint4* a = reinterpret_cast<uint4*>(smem);
+  uint2* bs = reinterpret_cast<uint2*>(smem + 2 * g.abytes);
+  float* stage = reinterpret_cast<float*>(smem + 2 * (g.abytes + g.bbytes));
+  float* out = reinterpret_cast<float*>(smem);
+  const bool consumer = threadIdx.x < kPfbConsumers;
+  float d[2][kNT][4];
+  if (consumer)
+    pfb_mma_consume<kGrade, kNT>(d, a, bs, reinterpret_cast<const uint2*>(btab),
+                                 (C + 3) / 4, Q, D, group, geo, g);
+  else
+    pfb_mma_produce<kGrade>(a, stage, buf_re, buf_im, nb, hq, K, Q, D, g0,
+                            geo, g);
+  __syncthreads();   // every warp is done: the output tile reuses the space
+  if (consumer) {
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int r = 32 * (threadIdx.x >> 5) + 16 * mt + gid;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int col = 8 * nt + 2 * tig;
+        out[r * kOS + col] = d[mt][nt][0];
+        out[r * kOS + col + 1] = d[mt][nt][1];
+        out[(r + 8) * kOS + col] = d[mt][nt][2];
+        out[(r + 8) * kOS + col + 1] = d[mt][nt][3];
+      }
+    }
+  }
+  __syncthreads();
+  return out;
 }
 
 // ---- The dense front at f32 ----------------------------------------------

@@ -46,9 +46,8 @@ from gsdr_tpu_torch.kernels.chain import (
     graded_bank_front,
     graded_uniform_front,
     load_chain_library,
-    pfb_f32_tables,
     pfb_launch_plan,
-    pfb_mma_tables,
+    pfb_operands,
 )
 from gsdr_tpu_torch.ops.channelize import rotate_bank
 from gsdr_tpu_torch.ops.iir import iir_block
@@ -226,10 +225,11 @@ def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
     t = int(num_taps)
     lanes, uc = pfb_launch_plan("fm_chain", dev, k, q, decimation, precision,
                                 plan)
-    btab = pfb_mma_tables(dft_bank) if grade else pfb_f32_tables(dft_bank)
+    taps, btab = pfb_operands(poly_taps, dft_bank, decimation, grade,
+                              (lanes, uc))
     return _launch(
         "pfb_fm_chain",
-        ((poly_taps.data_ptr(), btab.data_ptr()), (t, k, q),
+        ((taps.data_ptr(), btab.data_ptr()), (t, k, q),
          (lanes, uc, grade)), buf, lo_table, n0_rot, c, t, int(decimation),
         gain, deemph, carry_f, carry_z)
 

@@ -1159,6 +1159,51 @@ def test_pfb_forced_plans_bit_equal_on_card(card, grade):
                 assert torch.equal(a, b), (cls.__name__, d, plan)
 
 
+# (K, D, T) of chunked bf16 PFB launches: the NFM grid (P = 4, Q = 4, D a
+# multiple of 16; 40 channels, two channel groups) and the witnesses
+CHUNKED_PFB = [(640, 160, 2560), (640, 64, 1280), (712, 89, 2848)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
+def test_pfb_chunked_forced_plans_bit_equal_on_card(card, grade):
+    """Where the planner takes pfb_front_mma_chunked (the NFM grid and the
+    K=640 and K=712 witnesses), B2's and B3-PFB's planned launch equals
+    launches forced to (8 lanes, every tap), (16, 3) and (24, 1) bit for
+    bit: every plan's chunks fall on the one-chunk kernel's 8-lane blocks,
+    its folds sum in ascending u across u-ranges and its accumulators take
+    the same fragments in the same order."""
+    for k, d, t in CHUNKED_PFB:
+        q = -(-t // k)
+        for cls, kernel, lib in ((FmChannelizer, pfb_fm_chain, "fm_chain"),
+                                 (AmReceiver, pfb_am_chain, "am_chain")):
+            lanes, uc = pfb_chunk(lib, "cuda", k, q, d, grade)
+            assert lanes < k or uc < q, (lib, k, lanes, uc)
+            m = _witness_model(cls, k, d, t, 40, grade)
+            args = _witness_args(m, k * 1536)
+            want = tree_flatten(kernel(*args, precision=grade))[0]
+            for plan in ((8, q), (16, 3), (24, 1)):
+                got = tree_flatten(kernel(*args, precision=grade,
+                                          plan=plan))[0]
+                assert len(got) == len(want)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (lib, k, d, plan)
+
+
+@pytest.mark.cuda
+def test_pfb_mma_chunked_tile_kernels_do_not_spill_on_card(card, tmp_path):
+    """No bf16 chunked PFB tile kernel (B2 and B3-PFB at bf16x3 and
+    bf16x2: pfb_front_mma_chunked's 8 consumer warps with 64 accumulators
+    each and 8 producer warps under the 512-thread block's 128 registers)
+    spills registers, by ptxas's report."""
+    spills = _ptxas_spills(tmp_path, ("fm_chain", "am_chain"))
+    pattern = r"(fm_chain_tile|am_chain_tile)ILb1ELi[23]ELb1E"
+    found = {k: v for k, v in spills.items() if re.search(pattern, k)}
+    assert len(found) == 4, sorted(found)
+    for kernel, (stores, loads) in found.items():
+        assert stores == 0 and loads == 0, (kernel, stores, loads)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
 def test_channelize_block_follows_channels_on_card(card, grade):

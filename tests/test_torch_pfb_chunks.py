@@ -10,6 +10,7 @@ package on the CPU at those grids (the land-mobile NFM and VHF airband
 receivers, and the plain version against JAX's PFB kernel interpreted)."""
 
 import dataclasses
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,8 +24,9 @@ from gsdr_tpu.pipelines import FmChannelizer as JFm
 from gsdr_tpu_torch.carray import ComplexArray as TCA
 from gsdr_tpu_torch.kernels.chain import (
     graded_uniform_front,
+    pfb_chunk_taps,
     pfb_f32_tables,
-    pfb_mma_tables,
+    pfb_mma_chunk_tables,
     split_bf16,
 )
 from gsdr_tpu_torch.kernels.fm_chain import pfb_fm_chain_reference
@@ -54,12 +56,6 @@ def _rel(got, want):
 # ---------------------------------------------------------------------------
 # The chunked staging, transliterated
 # ---------------------------------------------------------------------------
-
-def _ls(k, d):
-    """pfb_mma_geom's Ls: a group's phases padded to 4 mod 8 words."""
-    ls = -(-min(d, PHASES) // 4) * 4
-    return ls + 4 if ls % 8 == 0 else ls
-
 
 def _chunks(k, d, lanes):
     """The chunks a block walks for a plan of ``lanes`` lanes
@@ -382,109 +378,406 @@ def _bf16_pair(words):
     return lo, hi
 
 
-def _pfb_front_mma(x, hp, btab, k, d, group, g0, lanes, uc, grade):
-    """``pfb_front_mma_chunked`` (``pfb_front_mma`` at the plan (K, Q)):
-    per chunk of nk 8-lane blocks the B gather of the kernel (word iw of
-    entry e of n-tile nt is the pair of lane kappa = ka + 8i + (e & 3) +
-    4*iw, read from pfb_mma_tables' flat words at the kernel's index),
-    per u-range the taps hs[u - u0][kappa - ka] and the window, word
-    k*Ls + pl of each plane, read by row r at (r + s - s_lo + (u - u0)*P)
-    *Ls + pl; the fold __fmul_rn at u = 0, __fadd_rn(__fmul_rn) on, kept
-    between u-ranges; after the last, hi/lo split and the grade's passes
-    against B, each pass conj(w) * A with w = (G[c, v], G[c, K + v]).
-    Returns (y (TILE, 32) complex128, {kappa: fold (TILE,) complex64})."""
-    q = hp.shape[0]
-    p, ls = k // d, _ls(k, d)
+# pfb_front_mma_chunked's block (fronts.cuh; read from the source by
+# test_mma_front_constants_match_the_source): 8 consumer warps of two
+# m-tiles and 8 producer warps of two; per 8-lane block an A tile of the
+# bf16 hi and lo words of every m-tile's fragments, four a thread
+MTILES = TILE // 16
+A_BLOCK_WORDS = 2 * MTILES * 32 * 4     # kPfbABlockWords
+PRODUCERS = PFB_THREADS - CONSUMERS
+NAN_WORD = np.uint32(0x7FC0DEAD)        # a NaN's bits: shared memory not written
+# the tags of a word: the step (producers' staging), chunk (consumers' B,
+# the A tile's split) or u-range (a partial fold) that wrote it
+STEP, BROWS, AFOLD, PART = 1 << 40, 2 << 40, 3 << 40, 4 << 40
+
+
+def _pair_stride(nfr):
+    """pfb_mma_pair_stride: nfr padded to 8 mod 16 (frames a phase pair)."""
+    return nfr + (24 - nfr % 16) % 16
+
+
+def _chunk_phases(k, d, el):
+    """pfb_chunk_phases: the most phases a chunk of el lanes touches."""
+    dc, p = min(d, PHASES), k // d
+    return min((el + p - 2) // p + 1, dc)
+
+
+def _mma_chunk_geom(k, q, d, lanes, uc):
+    """pfb_mma_chunk_geom, sizes in 32-bit words: nkb blocks and L lanes a
+    chunk, uc taps a u-range, at most npc phases, in pairs of Lf frames
+    (two words a frame), a staged window; an A tile, a B buffer and a
+    staging buffer (two of each)."""
+    el, nkb = _chunk_lanes(k, d, lanes)
     uc = min(uc, q)
-    kbt, nt_all = btab.shape[1], btab.shape[2]
-    flat = btab.reshape(-1)
-    rows = np.arange(TILE)
-    xre = x.real.astype(np.float32)
-    xim = x.imag.astype(np.float32)
-    y = np.zeros((TILE, 4 * NTB), np.complex128)
-    folds = {}
-    for p0, glanes, ka, kz, nk in _chunks(k, d, lanes):
-        pa, pb, s_lo, s_hi = _lane_span(p, ka, kz)
-        npc = pb - pa + 1
-        # B: bs[part][i][nt][e][iw], as the warps gather it
-        bs = np.zeros((2, nk, NTB, 16, 2), np.int64)
-        for part in range(2):
-            for i in range(nk):
-                for lane in range(32):
-                    e, iw = lane >> 1, lane & 1
-                    kap = ka + 8 * i + (e & 3) + 4 * iw
-                    ok = kap < glanes
-                    v = p0 + kap // p + (kap % p) * d if ok else 0
-                    vq = v & 7
-                    src = ((part * kbt + (v >> 3)) * nt_all * 32
-                           + (4 * (e >> 2) + (vq & 3)) * 2 + (vq >> 2))
-                    for nt in range(NTB):
-                        ntg = group * NTB + nt
-                        if ok and ntg < nt_all:
-                            bs[part, i, nt, e, iw] = flat[src + ntg * 32]
-        tl = 8 * nk
-        partial = {}
-        for u0 in range(0, q, uc):
-            u1 = min(q, u0 + uc)
-            f0 = u0 * p + s_lo
-            nfr = (u1 - 1 - u0) * p + s_hi - s_lo + TILE
-            hs = np.zeros((u1 - u0) * tl, np.float32)
-            for i in range((u1 - u0) * tl):
-                kap = ka + i % tl
-                if kap < kz:
-                    hs[i] = hp[u0 + i // tl, p0 + kap // p + (kap % p) * d]
-            planes = []
-            for xs in (xre, xim):
-                w = np.zeros(nfr * ls, np.float32)
-                staged = _stage(xs, g0, d, f0, nfr, p0 + pa, npc)
-                for pl in range(npc):
-                    w[np.arange(nfr) * ls + pl] = staged[:, pl]
-                planes.append(w)
-            for kbl in range(nk):
-                # lanes j = tig + 4*h of the block, every row at once
-                kap = ka + 8 * kbl + np.arange(8)
-                ok = kap < kz
-                off = np.where(ok, (kap % p - s_lo) * ls + kap // p - pa, 0)
-                tp = np.where(ok, kap - ka, 0)
-                o0 = rows[:, None] * ls + off[None, :]
+    lf = _pair_stride(_chunk_frames(k, d, nkb, uc))
+    npc = _chunk_phases(k, d, el)
+    return dict(nkb=nkb, L=el, uc=uc, npc=npc, Lf=lf, a=nkb * A_BLOCK_WORDS,
+                b=2 * nkb * NTB * 32 * 2, taps=uc * 8 * nkb,
+                s=uc * 8 * nkb + 4 * ((npc + 1) // 2) * lf)
+
+
+def _mma_chunk_bytes(k, q, d, lanes, uc):
+    """pfb_mma_chunk_bytes: two of each buffer, or the output tile."""
+    g = _mma_chunk_geom(k, q, d, lanes, uc)
+    return 4 * max(2 * (g["a"] + g["b"] + g["s"]), TILE * OUT_STRIDE)
+
+
+def _bf16_split(re, im):
+    """The hi and lo words of float32 (re, im): hi = bf16(re) | bf16(im) << 16
+    rounded to nearest even, as __floats2bfloat162_rn, and lo the same of
+    (re - hi_re, im - hi_im), each difference rounded to float32."""
+    def bits(v):
+        b = torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16)
+        return (b.view(torch.int16).numpy().astype(np.uint32) & 0xFFFF,
+                b.float().numpy())
+    (hr, fr), (hi_, fi) = bits(re), bits(im)
+    (lr, _), (li, _) = bits(re - fr), bits(im - fi)
+    return hr | (hi_ << 16), lr | (li << 16)
+
+
+class _PfbMmaBlock:
+    """pfb_front_mma_chunked's block in its shared memory: 32-bit words
+    filled with a NaN, a tag a word (what wrote it last, -1 nothing) and
+    the copies each role has in flight. The producers walk the steps
+    (chunk, u-range): wait for their copies, start the next step's taps and
+    window into the other staging buffer, fold the current step into its
+    chunk's A tile (thread by thread, at the kernel's indices), and hand a
+    folded chunk over; the consumers walk the chunks: wait for their B
+    copies, start the next chunk's B rows into the other B buffer, wait for
+    the chunk's fold and multiply it fragment by fragment. The producers
+    run as far ahead as the named barriers let them (full(c) after chunk
+    c's fold; free(c) after chunk c's product, which chunk c + 2's fold
+    waits for). Every read checks that the word was written by the step,
+    chunk or u-range it belongs to and that no copy in flight lands on it;
+    every staging checks that each word is written once, inside its
+    buffer."""
+
+    def __init__(self, x, hp, bank, k, d, group, g0, lanes, uc, grade):
+        q = hp.shape[0]
+        self.k, self.q, self.d, self.p = k, q, d, k // d
+        self.group, self.g0, self.grade = group, g0, grade
+        self.x = (x.real.astype(np.float32), x.imag.astype(np.float32))
+        self.hq = pfb_chunk_taps(torch.from_numpy(hp), d).numpy()
+        tab = pfb_mma_chunk_tables(torch.from_numpy(bank), d).numpy()
+        self.kbg, self.nt_all = tab.shape[1], tab.shape[2]
+        self.btab = tab.reshape(-1).view(np.uint32)
+        self.dc = min(d, PHASES)
+        self.kb0 = -(-self.dc * self.p // 8)          # blocks a group, KB0
+        self.g = g = _mma_chunk_geom(k, q, d, lanes, uc)
+        self.chunks = list(_chunks(k, d, lanes))
+        self.steps = [(c, p0, ka, kz, u0, min(q, u0 + g["uc"]))
+                      for c, (p0, _, ka, kz, _) in enumerate(self.chunks)
+                      for u0 in range(0, q, g["uc"])]
+        self.b0 = 2 * g["a"]                 # A tiles at 0, then B, stage
+        self.s0 = self.b0 + 2 * g["b"]
+        size = self.s0 + 2 * g["s"]
+        assert 4 * size <= _mma_chunk_bytes(k, q, d, lanes, uc)
+        self.mem = np.full(max(size, TILE * OUT_STRIDE), NAN_WORD, np.uint32)
+        self.tag = np.full(self.mem.size, -1, np.int64)
+        self.pending = {"p": [], "c": []}
+        self.inflight = np.zeros(self.mem.size, bool)
+        self.full, self.free = set(), set()
+        self.acc = np.zeros((TILE, 4 * NTB), np.complex128)
+        self.folds = {}
+        # word indices staged and read, by (kind, step or chunk)
+        self.staged, self.seen = {}, {}
+
+    # -- memory ---------------------------------------------------------
+    def store(self, idx, vals, tag):
+        self.mem[idx] = vals
+        self.tag[idx] = tag
+
+    def copy(self, role, idx, vals, tag, lo, hi):
+        """Copies in flight (cp.async), each word once, inside [lo, hi)."""
+        idx = np.asarray(idx).ravel()
+        assert np.unique(idx).size == idx.size, "a word staged twice"
+        assert idx.min() >= lo and idx.max() < hi, "a copy outside its buffer"
+        self.inflight[idx] = True
+        self.pending[role].append((idx, np.asarray(vals).ravel(), tag))
+
+    def wait(self, role):
+        """cp.async.wait_group 0: the role's copies land."""
+        for idx, vals, tag in self.pending[role]:
+            self.store(idx, vals, tag)
+            self.inflight[idx] = False
+        self.pending[role] = []
+
+    def read(self, idx, tag, kind=None):
+        assert (self.tag[idx] == tag).all(), "read a word not written for it"
+        assert not self.inflight[idx].any(), \
+            "a copy lands in a buffer being read"
+        if kind is not None:
+            self.seen.setdefault((kind, tag), []).append(np.ravel(idx))
+        return self.mem[idx]
+
+    # -- producers ------------------------------------------------------
+    def span(self, step):
+        """(pa, npc, s_lo, nfr, lf, tl) of a step's window and taps."""
+        _, _, ka, kz, u0, u1 = step
+        pa, pb, s_lo, s_hi = _lane_span(self.p, ka, kz)
+        nfr = (u1 - 1 - u0) * self.p + s_hi - s_lo + TILE
+        return pa, pb - pa + 1, s_lo, nfr, _pair_stride(nfr), \
+            8 * -(-(kz - ka) // 8)
+
+    def stage_step(self, si, sb):
+        """The step's taps (16-byte copies of runs of pfb_chunk_taps' rows,
+        item i = (u, e) in the producers' order) and window
+        (pfb_mma_stage_window: items (pair pp, frame k) stepped by the
+        producers, both phases of a pair at words 2*(pp*lf + k) + e of a
+        plane, a phase past the window's as zero) into staging buffer
+        sb."""
+        step = self.steps[si]
+        _, p0, ka, _, u0, u1 = step
+        g, p = self.g, self.p
+        pa, npc, s_lo, nfr, lf, tl = self.span(step)
+        assert npc <= g["npc"] and lf <= g["Lf"] and (u1 - u0) * tl <= \
+            g["taps"]
+        base = self.s0 + sb * g["s"]
+        n4 = tl // 4
+        i = np.arange((u1 - u0) * n4)
+        u, e = i // n4, i % n4
+        col = 8 * (p0 // self.dc) * self.kb0 + ka + 4 * e
+        four = np.arange(4)
+        idx = [base + (u * tl + 4 * e)[:, None] + four]
+        vals = [self.hq[(u0 + u)[:, None], col[:, None] + four]]
+        self.staged[("taps", STEP + si)] = idx[0].ravel()
+        np2 = (npc + 1) // 2
+        visit = _stepped(np2, nfr, PRODUCERS)
+        pp, kk = visit % np2, visit // np2
+        pl = np.concatenate([2 * pp, 2 * pp + 1])
+        kk = np.concatenate([kk, kk])
+        for plane, xs in enumerate(self.x):
+            w = _stage(xs, self.g0, self.d, u0 * p + s_lo, nfr, p0 + pa,
+                       2 * np2)
+            w[:, npc:] = 0             # a phase past the window: zeros
+            idx.append(base + g["taps"] + plane * 2 * np2 * lf
+                       + 2 * ((pl >> 1) * lf + kk) + (pl & 1))
+            vals.append(w[kk, pl].astype(np.float32))
+        self.staged[("window", STEP + si)] = np.concatenate(idx[1:])
+        self.copy("p", np.concatenate([a.ravel() for a in idx]),
+                  np.concatenate([v.ravel() for v in vals]).view(np.uint32),
+                  STEP + si, base, base + g["s"])
+
+    def fold(self, si):
+        """pfb_mma_fold of step si into A tile c & 1: producer warp pw,
+        thread (gid, tig), m-tile 2*pw + mt, register q = 2*h + rr, lane
+        ka + 8*kb + tig + 4*h at row 32*pw + 16*mt + gid + 8*rr."""
+        step = self.steps[si]
+        c, p0, ka, kz, u0, u1 = step
+        g, p = self.g, self.p
+        pa, npc, s_lo, nfr, lf, tl = self.span(step)
+        base = self.s0 + (si & 1) * g["s"]
+        xw, plane = base + g["taps"], 2 * ((npc + 1) // 2) * lf
+        pw, lane, mt, q = np.ix_(np.arange(8), np.arange(32), np.arange(2),
+                                 np.arange(4))
+        gid, tig, h, rr = lane >> 2, lane & 3, q >> 1, q & 1
+        row = 32 * pw + 16 * mt + gid + 8 * rr
+        shape = (8, 32, 2, 4)
+        tag = STEP + si
+        for kb in range(tl // 8):
+            kap = ka + 8 * kb + tig + 4 * h
+            ok = kap < kz
+            pl = kap // p - pa
+            xo = np.where(ok, 2 * ((pl >> 1) * lf + kap % p - s_lo)
+                          + (pl & 1), 0)
+            xr = np.broadcast_to(xw + 2 * row + xo, shape)
+            tp = np.broadcast_to(base + 8 * kb + tig + 4 * h, shape)
+            slot = np.broadcast_to(
+                (((kb * 2) * MTILES + 2 * pw + mt) * 32 + lane) * 4 + q
+                + (c & 1) * g["a"], shape)
+            lo_slot = slot + MTILES * 32 * 4
+            f32 = np.float32
+            if p == 4 and self.q == 4 and u1 - u0 == 4 and \
+                    ka + 8 * kb + 8 <= kz:
+                fr, fi = self.fold_slide(xw + 2 * (32 * pw + gid) + xo, h,
+                                         plane, tp, tl, tag, mt, rr)
+                u = u1 - u0
+            elif u0 == 0:
+                h0 = self.read(tp, tag, "taps").view(f32)
+                fr = self.read(xr, tag, "window").view(f32) * h0
+                fi = self.read(xr + plane, tag, "window").view(f32) * h0
+                u = 1
+            else:
+                fr = self.read(slot, PART + c * 4096 + u0).view(f32)
+                fi = self.read(lo_slot, PART + c * 4096 + u0).view(f32)
                 u = 0
-                if u0 == 0:
-                    h0 = np.where(ok, hs[tp], 0).astype(np.float32)
-                    fr = planes[0][o0] * h0
-                    fi = planes[1][o0] * h0
-                    u = 1
-                else:
-                    fr, fi = partial[kbl]
-                for uu in range(u, u1 - u0):
-                    hu = np.where(ok, hs[uu * tl + tp], 0).astype(np.float32)
-                    o = o0 + uu * p * ls
-                    fr = fr + planes[0][o] * hu
-                    fi = fi + planes[1][o] * hu
-                partial[kbl] = (fr, fi)
-                if u1 < q:
-                    continue
-                for j in np.flatnonzero(ok):
-                    folds[p0 * p + kap[j]] = fr[:, j] + 1j * fi[:, j]
-                ah_re, al_re = (t.double().numpy() for t in
-                                split_bf16(torch.from_numpy(fr)))
-                ah_im, al_im = (t.double().numpy() for t in
-                                split_bf16(torch.from_numpy(fi)))
-                ah, al = ah_re + 1j * ah_im, al_re + 1j * al_im
-                # B of the block: lane j = (e & 3) + 4*iw, channel 4*nt + cl
-                j = np.arange(8)
-                e = 4 * np.arange(4)[:, None] + (j & 3)[None, :]   # (cl, j)
-                bh = np.zeros((8, 4 * NTB), np.complex128)
-                blo = np.zeros_like(bh)
-                for nt in range(NTB):
-                    wh = _bf16_pair(bs[0, kbl, nt, e, j >> 2])
-                    wl = _bf16_pair(bs[1, kbl, nt, e, j >> 2])
-                    bh[:, 4 * nt:4 * nt + 4] = (wh[0] - 1j * wh[1]).T
-                    blo[:, 4 * nt:4 * nt + 4] = (wl[0] - 1j * wl[1]).T
-                acc = ah @ bh + ah @ blo
-                if grade == "bf16x3":
-                    acc = acc + al @ bh
-                y += acc
-    return y, folds
+            for uu in range(u, u1 - u0):
+                hu = self.read(tp + uu * tl, tag, "taps").view(f32)
+                fr = fr + self.read(xr + 2 * uu * p, tag,
+                                    "window").view(f32) * hu
+                fi = fi + self.read(xr + plane + 2 * uu * p, tag,
+                                    "window").view(f32) * hu
+            if u1 < self.q:   # the partials wait in the thread's own words
+                self.store(slot, fr.view(np.uint32), PART + c * 4096 + u1)
+                self.store(lo_slot, fi.view(np.uint32), PART + c * 4096 + u1)
+                continue
+            whole = np.zeros((TILE, 8), np.complex64)
+            whole[row, np.broadcast_to(tig + 4 * h, shape)] = fr + 1j * fi
+            for j in range(8):
+                if ka + 8 * kb + j < kz:
+                    self.folds[p0 * p + ka + 8 * kb + j] = whole[:, j]
+            hi, lo = _bf16_split(fr, fi)
+            self.store(slot, hi, AFOLD + c)
+            if self.grade == "bf16x3":
+                self.store(lo_slot, lo, AFOLD + c)
+
+    def fold_slide(self, xp, h, plane, tp, tl, tag, mt, rr):
+        """pfb_mma_fold_slide<4>: per plane the 10 8-byte words xp + 8*m
+        (xp: frame gid of the thread's lane tig, phase pair of lanes tig
+        and tig + 4, so word e = h is lane tig + 4*h), each read once,
+        serve rows gid + 8*j at tap u as m = 2*j + u; each sum x*t[0], then
+        + x*t[u] in ascending u."""
+        f32 = np.float32
+        xp = xp - h   # the pair's first word (lane tig)
+        assert (xp % 2 == 0).all(), "an 8-byte load off its alignment"
+        t = [self.read(tp + u * tl, tag, "taps").view(f32) for u in range(4)]
+        w = [[self.read(xp + 8 * m + h + pn * plane, tag,
+                        "window").view(f32) for m in range(10)]
+             for pn in range(2)]
+        j = 2 * mt + rr
+        out = []
+        for pn in range(2):
+            acc = np.choose(j, [w[pn][2 * jj] for jj in range(4)]) * t[0]
+            for u in range(1, 4):
+                acc = acc + np.choose(
+                    j, [w[pn][2 * jj + u] for jj in range(4)]) * t[u]
+            out.append(acc)
+        return out
+
+    def producers(self):
+        self.stage_step(0, 0)
+        c = 0
+        for si, (sc, *_, u0, u1) in enumerate(self.steps):
+            self.wait("p")
+            if si + 1 < len(self.steps):
+                self.stage_step(si + 1, (si + 1) & 1)
+            if u0 == 0 and sc >= 2:
+                yield ("free", sc - 2)
+            self.fold(si)
+            if u1 == self.q:
+                self.full.add(sc)
+                c += 1
+        assert c == len(self.chunks)
+
+    # -- consumers ------------------------------------------------------
+    def stage_b(self, c, b):
+        """pfb_mma_stage_b: chunk c's B rows, a fragment a lane, 16-byte
+        copies of contiguous table rows, into B buffer b; an n-tile past NT
+        as zeros."""
+        p0, _, ka, _, nk = self.chunks[c]
+        g = self.g
+        base = self.b0 + b * g["b"]
+        kbg0 = (p0 // self.dc) * self.kb0 + ka // 8
+        per = NTB * 16
+        i = np.arange(2 * nk * per)
+        part, r = i // (nk * per), i % (nk * per)
+        kb, e = r // per, r % per
+        dst = base + 2 * (((part * g["nkb"] + kb) * NTB) * 32 + 2 * e)
+        src = 2 * (((part * self.kbg + kbg0 + kb) * self.nt_all
+                    + self.group * NTB) * 32 + 2 * e)
+        live = self.group * NTB + e // 16 < self.nt_all
+        four = np.arange(4)
+        self.store((dst[~live][:, None] + four).ravel(), 0, BROWS + c)
+        self.staged[("B", BROWS + c)] = (dst[:, None] + four).ravel()
+        self.copy("c", dst[live][:, None] + four,
+                  self.btab[(src[live][:, None] + four).ravel()],
+                  BROWS + c, base, base + g["b"])
+
+    def product(self, c):
+        """pfb_mma_product of chunk c: consumer warp cw reads the 16-byte
+        words [kb][part][2*cw + m][lane] of A tile c & 1 and every B entry
+        of its blocks; A's fragment register q of lane (gid, tig) is lane
+        tig + 4*(q >> 1) at row 32*cw + 16*m + gid + 8*(q & 1). Each pass
+        conj(w) * A, w = (G[c, v], G[c, K + v]), summed in complex128."""
+        _, _, _, _, nk = self.chunks[c]
+        g = self.g
+        at = (c & 1) * g["a"]
+        bb = self.b0 + (c & 1) * g["b"]
+        cw, lane, m, q = np.ix_(np.arange(8), np.arange(32), np.arange(2),
+                                np.arange(4))
+        row = np.broadcast_to(32 * cw + 16 * m + (lane >> 2) + 8 * (q & 1),
+                              (8, 32, 2, 4))
+        col = np.broadcast_to((lane & 3) + 4 * (q >> 1), (8, 32, 2, 4))
+        hits = np.zeros((TILE, 8), int)
+        np.add.at(hits, (row, col), 1)
+        assert (hits == 1).all()
+        nt, cl, j = np.ix_(np.arange(NTB), np.arange(4), np.arange(8))
+        for kb in range(nk):
+            a_at = at + (((kb * 2) * MTILES + 2 * cw + m) * 32 + lane) * 4 + q
+            parts = [a_at] + ([a_at + MTILES * 32 * 4]
+                              if self.grade == "bf16x3" else [])
+            a = []
+            for at_ in parts:
+                re_, im_ = _bf16_pair(self.read(at_, AFOLD + c))
+                y = np.zeros((TILE, 8), np.complex128)
+                y[row, col] = re_ + 1j * im_
+                a.append(y)
+            w = []
+            for part in range(2):
+                # lane 4*g + t's two words of n-tile nt: the fragment of
+                # its even GEMM column (g even: entry 4*(g/2) + t of
+                # pfb_mma_tables' layout) or odd one (the same words with
+                # their halves swapped, the new low half negated)
+                words = self.read(bb + 2 * (((part * g["nkb"] + kb) * NTB
+                                             + np.arange(NTB)[:, None]) * 32
+                                            + np.arange(32)[None, :])[..., None]
+                                  + np.arange(2), BROWS + c, "B")
+                ev = words.reshape(NTB, 4, 2, 4, 2)[:, :, 0]   # (nt,cl,t,i)
+                od = words.reshape(NTB, 4, 2, 4, 2)[:, :, 1].astype(np.uint32)
+                live = max(0, min(NTB, self.nt_all - self.group * NTB))
+                assert np.array_equal(   # (n-tiles past NT: zeros staged)
+                    od[:live],
+                    ((ev[:live] >> 16) | (ev[:live] << 16)) ^ 0x8000)
+                # lane j = t + 4*i of the block, channel 4*nt + cl
+                re_, im_ = _bf16_pair(ev[nt, cl, j & 3, j >> 2])
+                # (nt, cl, j) -> (j, channel 4*nt + cl)
+                w.append((re_ - 1j * im_).transpose(2, 0, 1).reshape(8, -1))
+            self.acc += a[0] @ w[0] + a[0] @ w[1]
+            if self.grade == "bf16x3":
+                self.acc += a[1] @ w[0]
+
+    def consumers(self):
+        n = len(self.chunks)
+        self.stage_b(0, 0)
+        for c in range(n):
+            self.wait("c")
+            if c + 1 < n:
+                self.stage_b(c + 1, (c + 1) & 1)
+            yield ("full", c)
+            self.product(c)
+            if c + 2 < n:
+                self.free.add(c)
+
+    def run(self):
+        """Both roles to the end, the producers first wherever the barriers
+        let both run: (accumulators (TILE, 32) complex128, {lane kappa of
+        the one-chunk order: its whole fold (TILE,) complex64})."""
+        gens = {"p": self.producers(), "c": self.consumers()}
+        waits = {"p": None, "c": None}
+        while gens:
+            moved = False
+            for role in ("p", "c"):
+                while role in gens:
+                    w = waits[role]
+                    if w is not None and w[1] not in (
+                            self.free if w[0] == "free" else self.full):
+                        break
+                    try:
+                        waits[role] = next(gens[role])
+                    except StopIteration:
+                        del gens[role]
+                    moved = True
+            assert moved, "the roles wait on each other"
+        assert not self.pending["p"] and not self.pending["c"]
+        return self.acc, self.folds
+
+
+def _pfb_front_mma(x, hp, bank, k, d, group, g0, lanes, uc, grade):
+    """``pfb_front_mma_chunked`` for channel group ``group`` and the plan
+    (lanes, uc), in its shared memory (_PfbMmaBlock): (y (TILE, 32)
+    complex128, {kappa: whole fold (TILE,) complex64})."""
+    return _PfbMmaBlock(x, hp, bank, k, d, group, g0, lanes, uc,
+                        grade).run()
 
 
 def _signal(n, seed):
@@ -496,11 +789,12 @@ def _signal(n, seed):
 # (K, D, T): the three kinds of overflow at full size (the B table and
 # bank at K = 640 and 712, the taps and window at Q = 127 with P = 64,
 # both at K = 512, Q = 8) and a phase split across chunks (D = 89, P = 8);
-# each with forced plans (lanes, fold taps) of one 8-lane block a chunk
-# and all Q taps, and of 16 and 24 lanes with u-ranges of 3 and 40 taps
-# where Q exceeds them
+# the main paths' P = 4, Q = 4 (the bf16 front's sliding-window fold) at
+# a small K; each with forced plans (lanes, fold taps) of one 8-lane
+# block a chunk and all Q taps, and of 16 and 24 lanes with u-ranges of 3
+# and 40 taps where Q exceeds them
 PFB_CASES = [(640, 64, 1280), (712, 89, 2848), (64, 1, 8128),
-             (128, 2, 16256), (512, 32, 4096)]
+             (128, 2, 16256), (512, 32, 4096), (64, 16, 256)]
 PLANS = [(8, 1 << 30), (16, 3), (24, 40)]
 # a front against its plain version, of max|y|: float32 sums of 2K
 # products a channel (and Q-term folds at f32) in another order; their
@@ -644,6 +938,123 @@ def test_f32_front_constants_match_the_source():
     assert _smem_bytes(64, 8, 64, 64, 8) <= 232_448 - 4_608
 
 
+# the card's opt-in shared memory a block and the FM PFB tile kernel's
+# static shared memory (the AM one has none)
+SMEM_OPTIN = 232_448
+FM_STATIC = 4_608
+
+
+def _mma_plan(k, q, d, room):
+    """fronts.cuh's pfb_chunk for the bf16 chunked kernel (its one-chunk
+    kernel not fitting): for each chunk of 8*nkb lanes, nkb up to a
+    group's, all Q taps a u-range where the block fits, else the most
+    that do; the plan with the fewest chunks x u-ranges, the larger chunk
+    on a tie."""
+    p, dc = k // d, min(d, PHASES)
+    best, plan = None, (0, 0)
+    for nkb in range(min(-(-k // 8), -(-dc * p // 8)), 0, -1):
+        uc = q
+        if _mma_chunk_bytes(k, q, d, 8 * nkb, q) > room:
+            lo, hi = 0, q - 1
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                if _mma_chunk_bytes(k, q, d, 8 * nkb, mid) <= room:
+                    lo = mid
+                else:
+                    hi = mid - 1
+            if lo == 0:
+                continue
+            uc = lo
+        if not (8 * nkb < k or uc < q):
+            continue
+        chunks = sum(-(-(-(-min(dc, d - p0) * p // 8)) // nkb)
+                     for p0 in range(0, d, dc))
+        cost = chunks * -(-q // uc)
+        if best is None or cost < best:
+            best, plan = cost, (8 * nkb, uc)
+    return plan
+
+
+# (K, D, T, room, plan): the main paths' grids, B2's pfb_nfm_lmr_320 and
+# B3-PFB's pfb_airband_480, and the K=640 and K=712 witnesses through B2
+MAIN_PLANS = [(640, 160, 2560, SMEM_OPTIN - FM_STATIC, (32, 4)),
+              (960, 240, 3840, SMEM_OPTIN, (32, 4)),
+              (640, 64, 1280, SMEM_OPTIN - FM_STATIC, (32, 2)),
+              (712, 89, 2848, SMEM_OPTIN - FM_STATIC, (32, 4))]
+
+
+@pytest.mark.parametrize("k,d,t,room,plan", MAIN_PLANS)
+def test_mma_chunk_plans_at_the_main_paths(k, d, t, room, plan):
+    """The planner's plan for the bf16 chunked kernel at the main paths'
+    grids: two A tiles of 8-lane blocks (16 KB each a block), two B
+    buffers and two staging buffers fit the block with every fold tap in
+    one u-range; one more 8-lane block does not."""
+    q = -(-t // k)
+    assert _mma_plan(k, q, d, room) == plan
+    assert _mma_chunk_bytes(k, q, d, *plan) <= room
+    assert _mma_chunk_bytes(k, q, d, plan[0] + 8, q) > room
+
+
+@pytest.mark.parametrize("k,d,t,room,plan", MAIN_PLANS[:2])
+def test_mma_staging_stages_each_item_once(k, d, t, room, plan):
+    """At the NFM and airband plans, the block in its shared memory
+    (_PfbMmaBlock, which checks every copy's words once inside its buffer,
+    every read against the step or chunk that wrote it and against the
+    copies in flight): each chunk's B rows are staged once into the buffer
+    its product reads and every staged B word is read; each step's taps
+    likewise; each step's window words are staged once and the fold reads
+    only staged words, all but the edge frames of the chunk's first and
+    last phase (the window spans s_lo..s_hi of all its phases)."""
+    q = -(-t // k)
+    hp = _poly_taps(_lowpass(t, 0.4 / k), k)
+    bank = _dft_bank_stacked([0, 1, k // 2, k - 1], k)
+    x = _signal(t + d * (2 * TILE + 7), seed=3)
+    block = _PfbMmaBlock(x, hp, bank, k, d, 0, TILE * d, *plan, "bf16x3")
+    block.run()
+    assert len(block.chunks) == 2 * -(-d // PHASES)
+    for (kind, tag), staged in block.staged.items():
+        read = np.unique(np.concatenate(block.seen[(kind, tag)]))
+        assert np.unique(staged).size == staged.size, (kind, tag)
+        assert np.isin(read, staged).all(), (kind, tag)
+        if kind in ("B", "taps"):
+            assert read.size == staged.size, (kind, tag)
+        else:
+            assert read.size >= 0.98 * staged.size, (kind, tag)
+
+
+def test_mma_front_constants_match_the_source():
+    """The block the transliteration mirrors is fronts.cuh's: the A tile's
+    words a block, the phase stride, two of each buffer, 8 consumer and 8
+    producer warps, and the named barriers."""
+    import re
+    from gsdr_tpu_torch.kernels import _build
+
+    src = (_build.CSRC / "fronts.cuh").read_text()
+    consts = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
+    assert int(consts["kPfbConsumers"]) == CONSUMERS == TILE
+    assert int(consts["kBarConsumers"]) not in (1, 2, 3, 4, 5)
+    for line in (
+            "constexpr int kPfbABlockWords = 2 * (kTile / 16) * 32 * 4;",
+            "return nfr + (24 - nfr % 16) % 16;",
+            "g.nkb = pfb_chunk_blocks(K, D, lanes);",
+            "g.L = pfb_chunk_lanes(K, D, lanes);",
+            "g.npc = pfb_chunk_phases(K, D, g.L);",
+            "g.Lf = pfb_mma_pair_stride(pfb_chunk_frames(K, D, g.nkb, g.uc));",
+            "g.abytes = (size_t)g.nkb * kPfbABlockWords * sizeof(uint32_t);",
+            "g.bbytes = 2 * (size_t)g.nkb * nt * 32 * sizeof(uint2);",
+            "const size_t all = 2 * (g.abytes + g.bbytes + g.sbytes);",
+            "float* d = xw + 2 * (pp * lf + k);",
+            "for (int m = 0; m < kN; ++m) w[m] = x[4 * m];"):
+        assert line in src, line
+    assert re.search(r"g\.sbytes = \(\(size_t\)g\.uc \* 8 \* g\.nkb \+\s+"
+                     r"4 \* \(size_t\)\(\(g\.npc \+ 1\) / 2\) \* g\.Lf\) \*"
+                     r"\s+sizeof\(float\);", src)
+    assert A_BLOCK_WORDS == 4096 and PRODUCERS == TILE
+    for nfr in (256, 271, 272, 287, 288, 300):
+        assert _pair_stride(nfr) % 16 == 8 and 0 <= \
+            _pair_stride(nfr) - nfr < 16
+
+
 @pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
 @pytest.mark.parametrize("k,d,t", PFB_CASES)
 def test_chunked_mma_front_transliteration(grade, k, d, t):
@@ -663,7 +1074,6 @@ def test_chunked_mma_front_transliteration(grade, k, d, t):
                                 precision=grade)
     want = (want.re.double().numpy() + 1j * want.im.double().numpy())
     want = want[:, TILE:TILE + m].T
-    btab = pfb_mma_tables(torch.from_numpy(bank)).numpy()
     # the plain version's fold of the block's rows, lane v
     xp = np.zeros(g0 + (TILE - 1) * d + q * k, np.complex64)
     xp[:x.shape[0]] = x
@@ -676,7 +1086,7 @@ def test_chunked_mma_front_transliteration(grade, k, d, t):
     p = k // d
     ref = None
     for lanes, uc in [(k, q)] + PLANS:
-        y, folds = _pfb_front_mma(x, hp, btab, k, d, 0, g0, lanes, uc, grade)
+        y, folds = _pfb_front_mma(x, hp, bank, k, d, 0, g0, lanes, uc, grade)
         assert sorted(folds) == list(range(k))
         for kap, f in folds.items():
             v = kap // p + (kap % p) * d
@@ -854,3 +1264,24 @@ def test_pfb_fm_chain_reference_matches_jax_kernel_interpret_at_k640():
     for got, want in ((cft.re, cfj.re), (cft.im, cfj.im), (czt, czj)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=0, atol=2e-4 * scale)
+
+
+def test_pfb_variants_apply_to_the_sources():
+    """Every edit of tools/pfb_variants.py (the variants and ablations of
+    the bf16 chunked PFB front timed on the card) finds its text once in
+    the sources."""
+    import importlib.util
+    from gsdr_tpu_torch.kernels import _build
+
+    tools = _build.CSRC.parents[2] / "tools"
+    sys.path.insert(0, str(tools))
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "pfb_variants", tools / "pfb_variants.py")
+        variants = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(variants)
+    finally:
+        sys.path.remove(str(tools))
+    for name, edits in variants.VARIANTS.items():
+        for source, text, _ in edits:
+            assert (_build.CSRC / source).read_text().count(text) == 1, name

@@ -33,8 +33,12 @@ from gsdr_tpu_torch.kernels.am_chain import (
 )
 from gsdr_tpu_torch.kernels.chain import (
     graded_uniform_front,
+    pfb_chunk_taps,
     pfb_f32_tables,
+    pfb_lane_order,
+    pfb_mma_chunk_tables,
     pfb_mma_tables,
+    pfb_operands,
 )
 from gsdr_tpu_torch.kernels.fm_chain import pfb_fm_chain_reference
 from gsdr_tpu_torch.ops.pfb import (
@@ -121,6 +125,121 @@ def test_pfb_mma_tables_cached_and_checked():
     broken[3, 1] += 0.25
     with pytest.raises(ValueError, match="DFT bank"):
         pfb_mma_tables(broken)
+
+
+def _chunk_order(k, d):
+    """The chunked kernel's lane order written out from its definition:
+    groups of min(D, 16) phases, lanes kappa = pl*P + s of a group, each
+    group padded with -1 to a multiple of 8 lanes."""
+    p, dc = k // d, min(d, 16)
+    out = []
+    for p0 in range(0, d, dc):
+        np_ = min(dc, d - p0)
+        group = [p0 + pl + s * d for pl in range(np_) for s in range(p)]
+        out += group + [-1] * (-len(group) % 8)
+    return np.array(out)
+
+
+# (K, D, bins): the NFM and airband grids, a group of 5 phases of P = 4
+# (padding), the K=712 witness (a last group of 9 phases), D = 1 and P = 1
+CHUNK_GRIDS = [(640, 160, [0, 1, 319, 639]), (960, 240, [2, 479, 958]),
+               (20, 5, [0, 3, 19]), (712, 89, [0, 7, 355, 711]),
+               (64, 1, [0, 63]), (48, 48, [1, 2, 3, 4, 5])]
+
+
+@pytest.mark.parametrize("k,d,bins", CHUNK_GRIDS)
+def test_pfb_chunk_tables_are_the_lane_order_of_the_one_chunk_tables(
+        k, d, bins):
+    """pfb_mma_chunk_tables and pfb_chunk_taps, as the bf16 PFB front's
+    chunked kernel reads them: pfb_mma_tables' lanes and the (Q, K) taps'
+    columns in the kernel's lane order (groups of min(D, 16) phases, lanes
+    kappa = pl*P + s, each group padded to 8-lane blocks), array-equal to
+    that permutation with zeros at the padding; a chunk of 8-lane blocks
+    is one contiguous run of both. The B table holds a warp lane's
+    fragment: lane 4*g + t takes entry 4*(g/2) + t, as is for even g, for
+    odd g (the odd GEMM column) with its halves swapped and the new low
+    half negated, as pfb_front_mma forms it in registers."""
+    c = len(bins)
+    bank = torch.from_numpy(_dft_bank_stacked(bins, k))
+    taps = torch.from_numpy(_poly_taps(
+        np.asarray(_lowpass(3 * k - 5, 0.4 / k), np.float32), k))
+    order = _chunk_order(k, d)
+    assert pfb_lane_order(k, d) == tuple(order.tolist())
+    assert sorted(order[order >= 0].tolist()) == list(range(k))
+    kbg = order.size // 8
+    table = pfb_mma_chunk_tables(bank, d)
+    assert table.dtype == torch.int32
+    assert tuple(table.shape) == (2, kbg, -(-c // 4), 32, 2)
+    lanes = table.numpy().reshape(2, kbg, -1, 4, 2, 4, 2)   # [.., cl, g%2]
+    even = lanes[:, :, :, :, 0].view(np.uint32)
+    odd = lanes[:, :, :, :, 1].view(np.uint32)
+    np.testing.assert_array_equal(odd, ((even >> 16) | (even << 16)) ^ 0x8000)
+    table = torch.from_numpy(np.ascontiguousarray(
+        lanes[:, :, :, :, 0]).reshape(2, kbg, -1, 16, 2))
+    q, i = np.meshgrid(np.arange(4), np.arange(2), indexing="ij")
+
+    def by_lane(tab):
+        """[part][nt][cl][lane] of a table whose entry [part][kb][nt][4*cl
+        + q][i] holds lane 8*kb + q + 4*i."""
+        tab = tab.numpy()
+        two, kb_n, nt, _, _ = tab.shape
+        out = np.zeros((two, nt, 4, 8 * kb_n), np.int32)
+        for kb in range(kb_n):
+            out[..., 8 * kb + q + 4 * i] = tab[:, kb].reshape(
+                two, nt, 4, 4, 2)[..., q, i]
+        return out
+
+    one = by_lane(pfb_mma_tables(bank))
+    want = np.zeros(one.shape[:3] + (order.size,), np.int32)
+    want[..., order >= 0] = one[..., order[order >= 0]]
+    np.testing.assert_array_equal(by_lane(table), want)
+    hq = pfb_chunk_taps(taps, d)
+    assert hq.dtype == torch.float32 and hq.is_contiguous()
+    assert tuple(hq.shape) == (taps.shape[0], order.size)
+    want_taps = np.zeros(hq.shape, np.float32)
+    want_taps[:, order >= 0] = taps.numpy()[:, order[order >= 0]]
+    np.testing.assert_array_equal(hq.numpy(), want_taps)
+
+
+def test_pfb_chunk_tables_cached_and_checked():
+    """Both chunked tables are cached per tensor and D beside the
+    one-chunk tables, rebuilt after the tensor is written in place;
+    pfb_operands hands the one-chunk launch pfb_mma_tables and the tap
+    tensor, the chunked launch the chunked tables, f32 its own table; a
+    bank off the DFT structure, or D not dividing K, raises."""
+    bank = torch.from_numpy(_dft_bank_stacked([0, 3, 5], 40))
+    taps = torch.from_numpy(_poly_taps(
+        np.asarray(_lowpass(100, 0.01), np.float32), 40))
+    first = pfb_mma_chunk_tables(bank, 10)
+    assert pfb_mma_chunk_tables(bank, 10) is first
+    assert pfb_mma_chunk_tables(bank, 20) is not first
+    assert pfb_mma_tables(bank) is not first
+    assert pfb_mma_chunk_tables(bank, 10) is first
+    hq = pfb_chunk_taps(taps, 10)
+    assert pfb_chunk_taps(taps, 10) is hq
+    q = taps.shape[0]
+    assert pfb_operands(taps, bank, 10, 3, (40, q)) == (
+        taps, pfb_mma_tables(bank))
+    for plan in ((8, q), (40, q - 1)):
+        got = pfb_operands(taps, bank, 10, 2, plan)
+        assert got[0] is hq and got[1] is first
+    assert pfb_operands(taps, bank, 10, 0, (8, 1))[1] is pfb_f32_tables(bank)
+    bank.mul_(0.5)
+    second = pfb_mma_chunk_tables(bank, 10)
+    assert second is not first
+    for a, b in zip(_halves(second), _halves(first)):
+        np.testing.assert_array_equal(a, 0.5 * b)
+    taps.mul_(2.0)
+    np.testing.assert_array_equal(pfb_chunk_taps(taps, 10).numpy(),
+                                  2.0 * hq.numpy())
+    broken = bank.clone()
+    broken[3, 1] += 0.25
+    with pytest.raises(ValueError, match="DFT bank"):
+        pfb_mma_chunk_tables(broken, 10)
+    with pytest.raises(ValueError, match="D | K"):
+        pfb_mma_chunk_tables(bank, 7)
+    with pytest.raises(ValueError, match="D | K"):
+        pfb_chunk_taps(taps, 7)
 
 
 @pytest.mark.parametrize("k,bins", [(8, [0, 3, 5]), (64, list(range(33))),

@@ -52,9 +52,10 @@ VARIANTS = {
 }
 
 
-def make_tree(name):
+def make_tree(name, edits):
     """build/variants/<name>: this checkout's package, chip_smoke.py and
-    tools/, with the variant's edits."""
+    tools/, with the variant's edits [(source under csrc/, text,
+    replacement)]."""
     dst = ROOT / "build" / "variants" / name
     shutil.rmtree(dst, ignore_errors=True)
     dst.mkdir(parents=True)
@@ -63,7 +64,7 @@ def make_tree(name):
     shutil.copytree(ROOT / "tools", dst / "tools",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
-    for source, text, replacement in VARIANTS[name]:
+    for source, text, replacement in edits:
         path = dst / CSRC / source
         src = path.read_text()
         if text not in src:
@@ -72,16 +73,20 @@ def make_tree(name):
     return dst
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("variants", nargs="*", help=", ".join(VARIANTS))
+def main(variants=VARIANTS, probe="dense_mma", doc=__doc__):
+    """Runs `tools/probe_grades.py <probe>` in this checkout and in each
+    named variant's tree (all of ``variants`` where none is named), in
+    turns."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
+    ap.add_argument("variants", nargs="*", help=", ".join(variants))
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
-    names = args.variants or list(VARIANTS)
-    unknown = set(names) - set(VARIANTS)
+    names = args.variants or list(variants)
+    unknown = set(names) - set(variants)
     if unknown:
         ap.error(f"unknown variants {sorted(unknown)}")
-    trees = [("checkout", ROOT)] + [(n, make_tree(n)) for n in names]
+    trees = [("checkout", ROOT)] + [(n, make_tree(n, variants[n]))
+                                    for n in names]
     build = ("from gsdr_tpu_torch.kernels import _build; "
              "_build.build_all(['fm_chain', 'am_chain', 'channelize'])")
     procs = [subprocess.Popen([sys.executable, "-c", build], cwd=tree)
@@ -91,10 +96,12 @@ def main():
     for r in range(args.rounds):
         for name, tree in trees:
             out = subprocess.run(
-                [sys.executable, "tools/probe_grades.py", "dense_mma"],
+                [sys.executable, "tools/probe_grades.py", probe],
                 cwd=tree, capture_output=True, text=True, timeout=900)
-            if out.returncode != 0:
-                raise SystemExit(f"{name}: dense_mma failed\n{out.stderr}")
+            if out.returncode != 0:   # say so and go on with the others
+                print(json.dumps({"variant": name, "run": r,
+                                  "error": out.stderr[-2000:]}), flush=True)
+                continue
             for line in out.stdout.splitlines():
                 if line.startswith("{"):
                     rec = json.loads(line)

@@ -56,12 +56,19 @@
          critical and at its D=8 variant, B3-PFB at AM wideband critical
          (one chunk), B2 at pfb_nfm_lmr_320 and B3-PFB at pfb_airband_480
          (chunked), and both at the K=640 and K=712 witnesses: device time
-         per call by torch.profiler (rounds of all, interleaved), a digest
+         per call by torch.profiler (rounds of all, interleaved), for the
+         chunked paths the library's time (a grouped F.conv1d fold and one
+         torch.matmul, TF32 off) as library_ms, a digest
          of each output, and the registers and spill bytes ptxas reports
          for every tile kernel of B1-B4 (run it before anything else
          builds in that tree). Like dense, it runs in a tree since PR 13
          too (copy this file into that tree's tools/), so equal digests say
          the outputs are bit-equal across trees.
+  pfb_mma: pfb's chunked bf16 launches alone (NFM, airband, witnesses at
+         bf16x3 and bf16x2), the main paths' also forced to other plans
+         (FORCED_PFB), with their digests, the tile kernel's device time
+         and the tile kernels' registers: the quick timing of a variant of
+         the front (tools/pfb_variants.py runs it in each variant's tree).
   fm_rx: the fm_rx command line at chip_smoke.py's five-station capture
          (2^24 int8 samples at 2.048 MHz, blocks of 2^20, the CLI's
          defaults): the wall clock of a warm run file to file without the
@@ -78,6 +85,7 @@ kernels are built from this checkout):
     python3 tools/probe_grades.py dense
     python3 tools/probe_grades.py dense_mma
     python3 tools/probe_grades.py pfb
+    python3 tools/probe_grades.py pfb_mma
 """
 
 import inspect
@@ -411,53 +419,140 @@ def tile_registers(reports):
 
 
 def pfb_calls():
-    """(what, grade, call) of each PFB launch the pfb probe times: B2 at FM
-    wideband critical and at D=8 and B3-PFB at AM wideband critical (one
-    chunk), pfb_nfm_lmr_320 (B2) and pfb_airband_480 (B3-PFB) on
-    chip_smoke.py's first block, and the K=640, D=64, T=1280 and K=712,
-    D=89, T=2848 witnesses (40 channels, B2 and B3-PFB), each grade."""
+    """(what, grade, call, library) of each PFB launch the pfb probe times:
+    B2 at FM wideband critical and at D=8 and B3-PFB at AM wideband
+    critical (one chunk), pfb_nfm_lmr_320 (B2) and pfb_airband_480 (B3-PFB)
+    on chip_smoke.py's first block, and the K=640, D=64, T=1280 and K=712,
+    D=89, T=2848 witnesses (40 channels, B2 and B3-PFB), each grade;
+    library, for the chunked paths, the same front by a grouped F.conv1d
+    fold and one torch.matmul with the DFT bank, TF32 off (chip_smoke.py's
+    pfb_front_library), else None."""
     calls = []
     for g in cs.GRADES:
         for d in (cs.GRID, 8):
             m = cs.fm_wideband("pfb", d, precision=g)
             buf = cs.buffer(m, cs.wideband_fm_signal(m, 0, cs.N, seed=11))
-            calls.append((f"B2 FM wideband D={d}", g, m, buf))
+            calls.append((f"B2 FM wideband D={d}", g, m, buf, False))
         m = cs.am_wideband("pfb", precision=g)
         calls.append(("B3-PFB AM wideband", g, m,
-                      cs.buffer(m, cs.am_signal(m, 0, cs.N, seed=11))))
+                      cs.buffer(m, cs.am_signal(m, 0, cs.N, seed=11)), False))
         m = cs.pfb_nfm_lmr("pfb", precision=g)
         calls.append(("B2 pfb_nfm_lmr_320", g, m,
-                      cs.buffer(m, cs.lmr_signal(m, 0, cs.PFB_N, seed=11))))
+                      cs.buffer(m, cs.lmr_signal(m, 0, cs.PFB_N, seed=11)),
+                      True))
         m = cs.pfb_airband("pfb", precision=g)
         calls.append(("B3-PFB pfb_airband_480", g, m,
-                      cs.buffer(m, cs.air_signal(m, 0, cs.PFB_N, seed=11))))
+                      cs.buffer(m, cs.air_signal(m, 0, cs.PFB_N, seed=11)),
+                      True))
         for k, d, t in ((640, 64, 1280), (712, 89, 2848)):
             for cls, name in ((cs.FmChannelizer, "B2"),
                               (cs.AmReceiver, "B3-PFB")):
                 m = cs.witness_model(cls, k, d, t, 40, g)
                 calls.append((f"{name} witness K={k}", g, m, cs.buffer(
-                    m, cs.witness_signal(m, 0, k * 1536))))
+                    m, cs.witness_signal(m, 0, k * 1536)), True))
     out = []
-    for what, g, m, buf in calls:
-        kernel = (cs.pfb_fm_chain if isinstance(m, cs.FmChannelizer)
-                  else cs.pfb_am_chain)
+    for what, g, m, buf, chunked in calls:
+        fm = isinstance(m, cs.FmChannelizer)
+        kernel = cs.pfb_fm_chain if fm else cs.pfb_am_chain
         args = cs.pfb_args(m, buf)
         out.append((what, g, lambda a=args, g=g, f=kernel:
-                    f(*a, precision=g)))
+                    f(*a, precision=g),
+                    cs.pfb_front_library(m, buf) if chunked else None))
+        if chunked:
+            floors.append((what, g, m, buf.re.shape[-1], fm))
     return out
+
+
+floors = []   # (what, grade, model, samples, fm) of pfb_calls' chunked paths
+
+
+def pfb_floors():
+    """Prints, for each chunked path of pfb_calls, its bound (chip_smoke's
+    `bound`: bytes against the least operations) and, at a bf16 grade, the
+    tensor-pass floor of its DFT-bank product alone (chip_smoke's
+    `tensor_ops` at the dense bf16 peak)."""
+    for what, g, m, nb, fm in floors:
+        outputs = (nb - m.num_taps) // m.decimation + 1
+        tensor = cs.tensor_ops(m, outputs, g)
+        bnd = cs.bound(*(cs.fm_bound if fm else cs.am_bound)(m, nb, g))
+        print(json.dumps({
+            "probe": "pfb_floor", "kernel": what, "grade": g,
+            "bound_us": bnd[0] * 1e3, "bound_by": bnd[1],
+            "tensor_floor_us": (tensor[0] / cs.PEAK_BF16_FLOPS * 1e6
+                                if tensor else None)}), flush=True)
 
 
 def pfb(rounds=3):
     calls = pfb_calls()
-    for what, g, fn in calls:
+    pfb_floors()
+    for what, g, fn, _ in calls:
         print(json.dumps({"probe": "pfb_digest", "kernel": what,
                           "grade": g, "digest": digest(fn())}), flush=True)
     for r in range(rounds):
-        for what, g, fn in calls:
+        for what, g, fn, library in calls:
             dev = cs.device_us(fn, reps=20)
             print(json.dumps({"probe": "pfb", "round": r, "kernel": what,
                               "grade": g, "device_us": sum(dev.values()),
                               "by_kernel": dev}), flush=True)
+            if library is not None and g == "bf16x3":
+                print(json.dumps({"probe": "pfb_library", "round": r,
+                                  "kernel": what,
+                                  "library": "grouped F.conv1d fold + "
+                                             "torch.matmul, TF32 off",
+                                  "library_ms": cs.cuda_ms(library,
+                                                           reps=10)}),
+                      flush=True)
+
+
+# plans pfb_mma forces beside the planner's at the main paths' grids (a
+# plan whose block does not fit says so)
+FORCED_PFB = {"B2 pfb_nfm_lmr_320": ((16, 4), (24, 4), (32, 2)),
+              "B3-PFB pfb_airband_480": ((16, 4), (24, 4), (32, 2))}
+
+
+def pfb_mma(rounds=3):
+    """pfb's chunked bf16 launches (the NFM and airband paths and the
+    witnesses at bf16x3 and bf16x2), each planned and, at the main paths'
+    grids, forced to FORCED_PFB plans: a digest of each planned output,
+    then the tile kernel's device time per call by torch.profiler (the
+    kernel whose name holds "tile"), rounds of all, interleaved: the quick
+    timing of a variant of the front (tools/pfb_variants.py runs it in
+    each variant's tree)."""
+    calls = [(what, g, fn) for what, g, fn, library in pfb_calls()
+             if library is not None and g != "f32"]
+    for what, g, fn in calls:
+        print(json.dumps({"probe": "pfb_mma_digest", "kernel": what,
+                          "grade": g, "digest": digest(fn())}), flush=True)
+    kernels = {"B2": cs.pfb_fm_chain, "B3": cs.pfb_am_chain}
+    for r in range(rounds):
+        for what, g, fn in calls:
+            runs = [(None, fn)] + [
+                (p, lambda f=fn, k=kernels[what[:2]], p=p: _planned(f, k, p))
+                for p in FORCED_PFB.get(what, ())]
+            for plan, f in runs:
+                try:
+                    dev = cs.device_us(f, reps=20)
+                except RuntimeError as e:   # the forced block does not fit
+                    print(json.dumps({"probe": "pfb_mma", "kernel": what,
+                                      "grade": g, "plan": plan,
+                                      "error": str(e)}), flush=True)
+                    continue
+                print(json.dumps({
+                    "probe": "pfb_mma", "round": r, "kernel": what,
+                    "grade": g, "plan": plan,
+                    "tile_us": sum(v for k, v in dev.items() if "tile" in k),
+                    "device_us": sum(dev.values())}), flush=True)
+
+
+def _planned(call, kernel, plan):
+    """call() with the PFB kernel's launches forced to ``plan`` (the
+    wrappers' ``plan`` argument, a test's knob)."""
+    launch = kernel.launch
+    kernel.launch = lambda *a, **kw: launch(*a, plan=plan, **kw)
+    try:
+        return call()
+    finally:
+        kernel.launch = launch
 
 
 def profile_call(fn, reps=20):
@@ -626,7 +721,8 @@ def fm_rx():
 def main():
     if not torch.cuda.is_available() or len(sys.argv) != 2 \
             or sys.argv[1] not in ("steps", "b4", "b5b6", "fm_rx",
-                                   "compiled", "dense", "dense_mma", "pfb"):
+                                   "compiled", "dense", "dense_mma", "pfb",
+                                   "pfb_mma"):
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
@@ -655,11 +751,11 @@ def main():
         print(json.dumps({"probe": "dense_registers",
                           "registers": tile_registers(reports)}), flush=True)
         dense_mma()
-    elif sys.argv[1] == "pfb":
+    elif sys.argv[1] in ("pfb", "pfb_mma"):
         reports = _build.build_all(["fm_chain", "am_chain", "channelize"])
         print(json.dumps({"probe": "pfb_registers",
                           "registers": tile_registers(reports)}), flush=True)
-        pfb()
+        pfb() if sys.argv[1] == "pfb" else pfb_mma()
     else:
         _build.build_all(["channelize", "fm_chain"])
         steps() if sys.argv[1] == "steps" else b4()
