@@ -26,7 +26,11 @@
   - ``select_front``, the receivers' choice between the dense and the PFB
     front, made once at construction;
   - ``hold_for_graph``: what a launch captured in a CUDA graph needs kept
-    alive beyond the tensors the capture allocates (B5's scratch).
+    alive beyond the tensors the capture allocates (the look-back
+    scratch);
+  - ``LookBackScratch``: the per-stream scratch of a kernel with a
+    decoupled look-back (B5's IIR and the FM chain's de-emphasis,
+    ``csrc/lookback.cuh``), never reset between calls.
 """
 
 import contextlib
@@ -66,7 +70,8 @@ class ChainKernel:
     plan, ``dense_chunk``), and the PFB-front launches ``plan``, the
     (lanes, fold taps) a block stages at once (default ``pfb_chunk``'s),
     which the card tests force smaller to run the chunked paths at small
-    geometries; the plain versions have no such arguments. ``launches``
+    geometries, and ``fm_chain`` ``channels``, the channels of its bf16
+    block; the plain versions have no such arguments. ``launches``
     counts kernel launches and nothing else."""
 
     def __init__(self, name, plain, launch):
@@ -112,6 +117,55 @@ def hold_for_graph(obj):
         _unowned_refs[id(obj)] = obj
     else:
         refs.append(obj)
+
+
+class _Slots:
+    """A look-back scratch of ``slots`` slots on one (device, stream):
+    zeroed when allocated, then reused by every call on that stream
+    without a reset. Its header, on the device, counts the calls (each
+    stamps its published states with a new epoch) and their tickets; the
+    kernel advances it, so eager calls and replays of a CUDA graph share a
+    scratch in any order."""
+
+    __slots__ = ("buf", "slots")
+
+    def __init__(self, slots, nbytes, dev):
+        self.slots = slots
+        self.buf = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+
+
+class LookBackScratch:
+    """The scratches of one library's look-back, one per (device, stream)
+    in ``by_stream`` (keyed by (device index, stream)); ``nbytes(slots)``
+    is the library's size of a scratch of ``slots`` slots, ``min_slots``
+    the slots the first scratch of a stream holds."""
+
+    def __init__(self, library, nbytes, min_slots):
+        self.library = library
+        self.nbytes = nbytes
+        self.min_slots = min_slots
+        self.by_stream = {}
+
+    def get(self, dev, stream, slots):
+        """The scratch of (dev, stream) with room for ``slots`` slots; a
+        larger one replaces it when a call needs more. Inside a CUDA-graph
+        capture the scratch must exist already (a warm-up call outside the
+        capture makes it), and the graph keeps it alive: its launch holds
+        the pointer, even after an eager call has replaced it here."""
+        key = (dev.index, stream)
+        s = self.by_stream.get(key)
+        capturing = torch.cuda.is_current_stream_capturing()
+        if s is None or s.slots < slots:
+            if capturing:
+                raise RuntimeError(
+                    f"{self.library}: no scratch of {slots} slots on the "
+                    "capturing stream; run the step once on that stream "
+                    "before the capture")
+            n = max(slots, self.min_slots)
+            s = self.by_stream[key] = _Slots(n, self.nbytes(n), dev)
+        if capturing:
+            hold_for_graph(s)
+        return s
 
 
 def grade_code(fn, precision):

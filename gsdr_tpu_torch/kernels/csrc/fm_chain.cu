@@ -11,7 +11,8 @@
 //   d[c,j]  = gain * atan2(f[c,j] * conj(f[c,j-1]))   discriminator
 //   z[c,j]  = cc*d[c,j] + a*z[c,j-1],  out[c,j] = b0*d[c,j] + z[c,j-1]
 // with f[c,-1] and z[c,-1] carried in from the previous block and the
-// carries exported at j = M-1.
+// carries exported at j = M-1. One grid launch a call, at every grade and
+// front, one chunk or chunked.
 //
 // What bounds it on the card, by grade. The f32 dense front issues
 // C*T*8/D FP32 operations per input sample (2048 at the flagship 16
@@ -20,16 +21,17 @@
 // bf16x3 the same product is 3 tensor-core passes, 6.4 GFLOP at 989
 // TFLOP/s, 6.5 us (bf16x2: 2 passes, 4.3 us): the function is then bound by
 // its bytes, and the back end (sincos, atan2 and the de-emphasis scan, ~16
-// FP32 operations per output and channel besides) and the two launches
-// after the tile are what remain. The PFB front issues (4T + 8CK)/D (544
+// FP32 operations per output and channel besides) is what remains. The
+// PFB front issues (4T + 8CK)/D (544
 // at 64 channels on the Fs/64 grid, 512 taps, D=64: 0.57 GFLOP per step,
 // 94% of it the dense DFT-bank product); at bf16x3 that product is 3
 // tensor-core passes, 1.6 GFLOP, ~1.6 us, and the ~13 MB of HBM traffic
 // (3.8 us) bound the function at every grade.
 //
 // What the design does about that:
-//  - one thread per decimated output holds 16 channels (8 in a block of
-//    8) in registers for the back end. The f32 dense front multiplies 8,
+//  - one thread per decimated output holds 16 channels (4 or 8 in a block
+//    of 4 or 8) in registers for the back end, so that it walks only the
+//    channels that exist. The f32 dense front multiplies 8,
 //    16 or 32 channels a block (by C) in register tiles of 4 rows x 4
 //    channels on every thread (one chunk: the back end keeps its
 //    occupancy) or 4 x 8 on half of them (chunked: a long bank's FMAs,
@@ -37,7 +39,8 @@
 //    from a contiguous table with cp.async, the next chunk in flight while
 //    it multiplies one (fronts.cuh, toeplitz_front, fm_dense_cols); the
 //    bf16 dense front runs as one GEMM per block on
-//    mma.sync (toeplitz_front_mma over 16 channels; in chunks,
+//    mma.sync (toeplitz_front_mma over 4, 8 or 16 channels by C,
+//    one_chunk_channels; in chunks,
 //    toeplitz_front_mma_chunked over 4, 8 or 16 by C and the grid, its
 //    chunks double-buffered: the narrowband scanner's 33 tiles of 16
 //    channels take 132 blocks of 4); the PFB front at
@@ -53,26 +56,64 @@
 //    previous block's last output (one extra window, or one extra fold and
 //    bank row with the PFB front: row 0 of the block's GEMM), so blocks
 //    need no ordering;
-//  - the de-emphasis is linear, so blocks scan their tile from z = 0
-//    (launch 1), a small scan over tiles finds every tile's true start
-//    state (launch 2), and a last pass adds a^(j-j0) * z_start (launch 3).
-//    One pass with a decoupled look-back would save launches 2 and 3.
+//  - the de-emphasis is linear, so a block scans its tile from z = 0,
+//    publishes the tile's zero-state end (its aggregate), finds its true
+//    start state by a decoupled look-back over the tiles before it in its
+//    channel group (the words of 16-64 tiles polled by the whole block at
+//    once, then a thread a channel walks them, start_state; lookback.cuh:
+//    tickets, so that every tile it waits for is running, and stamped
+//    words in a per-stream scratch that no call resets), adds
+//    a^(j-j0) * z_start to each output in registers before it stores it,
+//    and publishes its inclusive end state. The audio crosses the card's
+//    memory once, in one launch a call. What that costs: a block idles
+//    while the tiles before finish their scans (a fifth of a flagship
+//    block's time; tools/back_end_timeline.py measures it), so the
+//    one-chunk dense blocks are bound to 1024 threads a SM (64
+//    registers), and a thread holds only its outputs from a zero tile
+//    start while it waits; heavy blocks (the 2049-tap filter) wait longer
+//    than the launches they replace took.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "fronts.cuh"
+#include "lookback.cuh"
 
 namespace {
 
 using gsdr::kCG;
 using gsdr::kTile;
+using gsdr::lookback::epoch_of;
+using gsdr::lookback::kTicketMask;
+using gsdr::lookback::ld_relaxed;
+using gsdr::lookback::st_relaxed;
+using gsdr::lookback::stamp;
+using gsdr::lookback::unstamp;
 constexpr int kOut = kTile - 1;       // new outputs per block
 constexpr int kWarps = kTile / 32;
-constexpr int kScan = 1024;           // threads of the tile-scan block
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr unsigned kFull = 0xffffffffu;
+
+// The channels of the one-chunk bf16 dense block for C channels: the
+// fewest of 4, 8 and kCG that hold C (C < 1: any C, kCG), so that the
+// front and the back end walk only the channels that exist. Each output
+// column's sum on the tensor cores is independent of the others, so the
+// outputs do not depend on the block.
+__host__ __device__ constexpr int one_chunk_channels(int C) {
+  return C >= 1 && C <= 4 ? 4 : C >= 1 && C <= 8 ? 8 : kCG;
+}
+
+// The de-emphasis scratch of a (device, stream) (lookback.cuh): after the
+// header, one stamped word a slot for the aggregates (each tile's
+// zero-state end), then one a slot for the inclusive states (each tile's
+// end from its true start); slot k*C + c for tile k of channel c.
+struct Scratch {
+  unsigned long long* head;
+  long slots;
+  unsigned long long* agg;
+  unsigned long long* incl;
+};
 
 __device__ __forceinline__ float ipow(float a, int k) {
   float r = 1.f, b = a;
@@ -84,11 +125,82 @@ __device__ __forceinline__ float ipow(float a, int k) {
   return r;
 }
 
-// Launch 1: front, rotor, discriminator and the zero-state de-emphasis of
-// one tile of kOut outputs for kCh channels; a block of 32 channels (the
+// The de-emphasis state of channel c at the start of `tile`, z_start[tile],
+// where z_start[0] = zi and z_start[k+1] = fmaf(A, z_start[k], zend[k])
+// with A = a^kOut (every predecessor is a whole tile). The look-back reads
+// the tiles before, nearest first: it stops at the first whose inclusive
+// state (z_start[i+1]) is published, at tile -1 (zi), or at the first i
+// where the composed power A^(tile - i), the weight of z_start[i], is
+// exactly 0 in float32, beyond which nothing can add a bit (a de-emphasis
+// at a = 0, or one that decays in a few tiles, ends there at once). It
+// takes the words of the kW tiles nearest from the block's window (win:
+// the inclusive word of tile - m at (m - 1)*kCh + cl, its aggregate kW*kCh
+// words on; polled by the whole block at once), reads further tiles from
+// the scratch, and polls again only the words of a tile that had
+// published neither state. Then it composes forward from that state with
+// the aggregates, in the order of the recursion.
+template <int kW, int kCh>
+__device__ __forceinline__ float start_state(const Scratch& sc,
+                                             unsigned long long* win, int cl,
+                                             int c, int C, int tile, float a,
+                                             float zi, unsigned epoch) {
+  unsigned long long* inc = win + cl;
+  unsigned long long* agg = win + kW * kCh + cl;
+  const float A = ipow(a, kOut);
+  const long long t0 = clock64();
+  float P = 1.f, z = 0.f, v;
+  int from = 0;      // the farthest tile distance composed forward
+  for (int m = 1;; ++m) {
+    const int i = tile - m;
+    if (i < 0) {
+      z = zi;
+      from = m - 1;
+      break;
+    }
+    P *= A;
+    const long s = (long)i * C + c;
+    const bool near = m <= kW;
+    unsigned long long wi = near ? inc[(m - 1) * kCh] : ld_relaxed(sc.incl + s);
+    unsigned long long wa = near ? agg[(m - 1) * kCh] : ld_relaxed(sc.agg + s);
+    // z_start[i] weighs nothing where P is 0: its aggregate is enough
+    while (!unstamp(wa, epoch, v) && (P == 0.f || !unstamp(wi, epoch, v))) {
+      gsdr::lookback::spin_since(t0);
+      wi = ld_relaxed(sc.incl + s);
+      wa = ld_relaxed(sc.agg + s);
+    }
+    if (near) agg[(m - 1) * kCh] = wa;
+    if (P == 0.f) {   // start from 0 before tile i
+      from = m;
+      break;
+    }
+    if (unstamp(wi, epoch, v)) {
+      z = v;
+      from = m - 1;
+      break;
+    }
+  }
+  for (int m = from; m >= 1; --m) {
+    unstamp(m <= kW ? agg[(m - 1) * kCh]
+                    : ld_relaxed(sc.agg + (long)(tile - m) * C + c),
+            epoch, v);
+    z = fmaf(A, z, v);
+  }
+  return z;
+}
+
+__device__ __forceinline__ int shared_int(const int& v) {
+  return *reinterpret_cast<const volatile int*>(&v);
+}
+
+// One tile of kOut outputs for kCh channels, in one pass: front, rotor,
+// discriminator and de-emphasis; a block of 32 channels (the
 // PFB front at every grade, the dense front at f32 where C > 16) has two
 // threads per output, one for each group of kCG channels, reading the
 // front's output tile, as the f32 dense front's blocks of 8 and 16 do.
+// A block's tile and channel group come from its ticket t (lookback.cuh):
+// tile t / groups, group t % groups, so that tile k - 1 of a group always
+// holds a lower ticket than tile k (some blocks hold 100-210 KB of shared
+// memory, one a SM: a spin never waits on a block that is not running).
 // kPfb selects the front: the dense one reads ftab (dense_f32_tables) at
 // f32, or btab (dense_mma_tables) at bf16x3 and bf16x2, in chunks of Tc
 // taps where kChunked (fronts.cuh, dense_chunk, use_chunked_kernel), else
@@ -99,7 +211,9 @@ __device__ __forceinline__ float ipow(float a, int k) {
 // are then pfb_chunk_taps and pfb_mma_chunk_tables), else all at once.
 template <bool kPfb, int kGrade, bool kChunked = false,
           int kCh = gsdr::block_channels<kPfb>()>
-__global__ void __launch_bounds__(gsdr::back_threads(kCh))
+__global__ void __launch_bounds__(
+    gsdr::back_threads(kCh),
+    !kPfb && !kChunked ? 1024 / gsdr::back_threads(kCh) : 1)
 fm_chain_tile(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ ftab, const float* __restrict__ hp,
@@ -108,16 +222,17 @@ fm_chain_tile(
     const int* __restrict__ n0_rot,
     const float* __restrict__ coef, float gain,
     const float* __restrict__ cf_re_in, const float* __restrict__ cf_im_in,
-    float* __restrict__ audio, float* __restrict__ cf_re_out,
-    float* __restrict__ cf_im_out, float* __restrict__ zend, int Uc) {
+    const float* __restrict__ cz_in, float* __restrict__ audio,
+    float* __restrict__ cf_re_out, float* __restrict__ cf_im_out,
+    float* __restrict__ cz_out, Scratch sc, int Uc) {
   constexpr int kBe = gsdr::back_channels(kCh);    // channels a thread
   constexpr int kThreads = gsdr::back_threads(kCh);
   constexpr int kPar = kThreads / kTile;           // groups side by side
   constexpr int kOS = 2 * kCh + 1;   // the f32 and PFB fronts' tile stride
   constexpr bool kTileOut = kPfb || kGrade == gsdr::kGradeF32;
   static_assert(kCh == kPar * kBe, "one group of kBe channels a thread");
-  static_assert(kTileOut || kCh == kCG || kChunked,
-                "the bf16 dense front: 16 channels in one chunk");
+  static_assert(kTileOut || kCh == 4 || kCh == 8 || kCh == kCG,
+                "the bf16 dense front: 4, 8 or 16 channels a block");
   constexpr int kCols = gsdr::fm_dense_cols(kChunked);   // f32 dense tiles
   constexpr int kUnroll = gsdr::fm_dense_unroll(kChunked);
   static_assert(kPfb || kGrade != gsdr::kGradeF32 ||
@@ -128,59 +243,84 @@ fm_chain_tile(
   __shared__ float y_edge[kPar][kWarps][kBe][2];
   __shared__ float z_edge[kPar][kWarps][kBe];
   __shared__ float z_last[kPar][kWarps][kBe];
+  __shared__ float z_start[kCh];
+  __shared__ float zend_s[kCh];      // the tile's zero-state ends
+  // the ticket's head, tile and channel group, read from shared memory
+  // where they are used (shared_int), so that no register holds them
+  // across the front and the rotor
+  __shared__ unsigned long long head_s;
+  __shared__ int tile_s, group_s;
 
   const int tid = threadIdx.x;
+  if (tid == 0) {
+    const unsigned long long head = gsdr::lookback::take_ticket(
+        sc.head, gridDim.x, [=](unsigned long long h) {
+          // a slot past this call's tiles is read and written by none of
+          // its blocks
+          const long s = (long)((unsigned)h % (unsigned)sc.slots);
+          if (s >= (long)ntiles * C) {
+            const unsigned long long zero = h + 1;   // 0.f, this epoch
+            st_relaxed(sc.agg + s, zero);
+            st_relaxed(sc.incl + s, zero);
+          }
+        });
+    const int ticket = (int)(head & kTicketMask);
+    // a ticket past the grid: a call on this scratch from another stream
+    if (ticket >= (int)gridDim.x) __trap();
+    const int groups = (C + kCh - 1) / kCh;
+    head_s = head;
+    tile_s = ticket / groups;
+    group_s = ticket % groups;
+  }
+  __syncthreads();
   const int row = tid % kTile;                     // output row of the tile
   const int grp = tid / kTile;                     // channel group
   const int lane = row & 31;
   const int warp = row >> 5;
-  const int tile = blockIdx.x;
-  const int j0 = tile * kOut;
-  const int j = j0 - 1 + row;                      // this thread's output
 
   // read after the front's __syncthreads
   for (int idx = tid; idx < kCh * 4; idx += kThreads) {
-    const int cg = blockIdx.y * kCh + idx / 4;
+    const int cg = shared_int(group_s) * kCh + idx / 4;
     tab[idx] = cg < C ? table[cg * 4 + idx % 4] : 0.f;
   }
 
   // ---- 1) front ------------------------------------------------------------
   float acc_re[kBe], acc_im[kBe];
   const float* out = nullptr;
-  const long g0 = (long)(j0 - 1) * D;
+  const int group = shared_int(group_s);
+  const long g0 = (long)(shared_int(tile_s) * kOut - 1) * D;
   unsigned char* sbytes = reinterpret_cast<unsigned char*>(smem4);
   if constexpr (kPfb && kGrade == gsdr::kGradeF32 && kChunked) {
     out = gsdr::pfb_front_chunked(sbytes, buf_re, buf_im, nb, hp,
                                   reinterpret_cast<const float*>(btab), K, Q,
-                                  D, blockIdx.y, g0, Tc, Uc);
+                                  D, group, g0, Tc, Uc);
   } else if constexpr (kPfb && kGrade == gsdr::kGradeF32) {
     out = gsdr::pfb_front(sbytes, buf_re, buf_im, nb, hp,
                           reinterpret_cast<const float*>(btab), K, Q, D,
-                          blockIdx.y, g0);
+                          group, g0);
   } else if constexpr (kPfb && kChunked) {
     out = gsdr::pfb_front_mma_chunked<kGrade, gsdr::kPfbNT>(
         sbytes, buf_re, buf_im, nb, hp,
-        reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y, g0,
-        Tc, Uc);
+        reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, group, g0, Tc,
+        Uc);
   } else if constexpr (kPfb) {
     out = gsdr::pfb_front_mma<kGrade, gsdr::kPfbNT>(
         sbytes, buf_re, buf_im, nb, hp,
-        reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y, g0);
+        reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, group, g0);
   } else if constexpr (kGrade == gsdr::kGradeF32) {
     out = gsdr::toeplitz_front<kChunked, kCh, kCols, kUnroll>(
-        sbytes, buf_re, buf_im, nb, ftab, C, T, Tc, D, blockIdx.y, g0);
+        sbytes, buf_re, buf_im, nb, ftab, C, T, Tc, D, group, g0);
   } else if constexpr (kChunked) {
     gsdr::toeplitz_front_mma_chunked<kGrade, kCh / 4>(
-        sbytes, buf_re, buf_im, nb, btab, C, T, Tc, D, blockIdx.y, g0,
-        acc_re, acc_im);
+        sbytes, buf_re, buf_im, nb, btab, C, T, Tc, D, group, g0, acc_re,
+        acc_im);
   } else {
-    gsdr::toeplitz_front_mma<kGrade, kCG / 4>(sbytes, buf_re, buf_im, nb,
-                                              btab, C, T, D, blockIdx.y, g0,
+    gsdr::toeplitz_front_mma<kGrade, kCh / 4>(sbytes, buf_re, buf_im, nb,
+                                              btab, C, T, D, group, g0,
                                               acc_re, acc_im);
   }
 
   // the back end, for this thread's group of kBe channels
-  const int c0 = blockIdx.y * kCh + grp * kBe;
   const float* gtab = tab + grp * kBe * 4;
   if constexpr (kTileOut) {
 #pragma unroll
@@ -189,13 +329,10 @@ fm_chain_tile(
       acc_im[c] = out[row * kOS + 2 * (grp * kBe + c) + 1];
     }
   }
-  const int idx = n0_rot[0] + j * D;
+  const int idx = n0_rot[0] + (shared_int(tile_s) * kOut - 1 + row) * D;
   float fdig[4];
 #pragma unroll
   for (int d = 0; d < 4; ++d) fdig[d] = (float)((idx >> (8 * d)) & 255);
-  const float b0 = coef[0], cc = coef[1], a = coef[2];
-  const bool real = row > 0 && j < M;   // an output this block writes
-  const int n_real = min(kOut, M - j0);   // outputs of this tile
 
   // ---- 2) LO rotor from the digit table ------------------------------------
 #pragma unroll
@@ -211,6 +348,12 @@ fm_chain_tile(
     acc_re[c] = yr * co - yi * s;
     acc_im[c] = yr * s + yi * co;
   }
+  const int tile = shared_int(tile_s);
+  const int j0 = tile * kOut;
+  const int j = j0 - 1 + row;                      // this thread's output
+  const int c0 = shared_int(group_s) * kCh + grp * kBe;
+  const bool real = row > 0 && j < M;   // an output this block writes
+  const int n_real = min(kOut, M - j0);   // outputs of this tile
   if (j < 0) {   // block 0, thread 0: the carried previous sample
 #pragma unroll
     for (int c = 0; c < kBe; ++c) {
@@ -256,6 +399,7 @@ fm_chain_tile(
   }
 
   // ---- 4) de-emphasis from z = 0 at the tile start -------------------------
+  const float cc = coef[1], a = coef[2];
   float z[kBe];
 #pragma unroll
   for (int c = 0; c < kBe; ++c) z[c] = cc * dsc[c];
@@ -287,134 +431,116 @@ fm_chain_tile(
     for (int c = 0; c < kBe; ++c) z_last[grp][warp][c] = z[c];
   }
   __syncthreads();
+
+  // ---- 5) the tile's start state by the look-back, then the outputs ------
+  const unsigned epoch = epoch_of(head_s);
+  if (row == n_real) {   // the aggregate: the tile's zero-state end
+#pragma unroll
+    for (int c = 0; c < kBe; ++c) {
+      zend_s[grp * kBe + c] = z[c];
+      if (c0 + c < C)
+        st_relaxed(sc.agg + (long)tile * C + c0 + c, stamp(z[c], epoch));
+    }
+  }
+  // the outputs from a zero tile start, b0*d[j] + z[j-1], the only values
+  // a thread holds while the block looks back
+  const float b0 = coef[0];
+  float y0[kBe];
 #pragma unroll
   for (int c = 0; c < kBe; ++c) {
     float zp = __shfl_up_sync(kFull, z[c], 1);
     if (lane == 0 && warp > 0) zp = z_last[grp][warp - 1][c];
+    y0[c] = fmaf(b0, dsc[c], zp);
+  }
+  {
+    // the look-back: the words of the kW tiles before this one, for every
+    // channel of the block, polled at once (a thread a word pair, into the
+    // front's shared memory, free now: 16 bytes a thread, under every
+    // front's output tile), then a thread a channel walks them
+    constexpr int kW = kThreads / kCh;
+    unsigned long long* win = reinterpret_cast<unsigned long long*>(smem4);
+    const int cg = shared_int(group_s) * kCh;
+    const int m = tid / kCh + 1, c = cg + tid % kCh;
+    const long slot = (long)(tile - m) * C + c;
+    const bool polled = tile - m >= 0 && c < C;
+    win[tid] = polled ? ld_relaxed(sc.incl + slot) : 0ull;
+    win[kThreads + tid] = polled ? ld_relaxed(sc.agg + slot) : 0ull;
+    __syncthreads();
+    if (tid < kCh) {
+      z_start[tid] = cg + tid < C
+                         ? start_state<kW, kCh>(sc, win, tid, cg + tid, C,
+                                                tile, a, cz_in[cg + tid],
+                                                epoch)
+                         : 0.f;
+    }
+  }
+  const float a_row = row > 0 ? ipow(a, row - 1) : 0.f;   // a^(j - j0)
+  __syncthreads();
+  const float a_tile = ipow(a, n_real);
+#pragma unroll
+  for (int c = 0; c < kBe; ++c) {
     if (c0 + c < C) {
-      if (real) audio[(long)(c0 + c) * M + j] = fmaf(b0, dsc[c], zp);
-      if (row == n_real) zend[(long)(c0 + c) * ntiles + tile] = z[c];
+      const float zs = z_start[grp * kBe + c];
+      if (real) audio[(long)(c0 + c) * M + j] = fmaf(a_row, zs, y0[c]);
+      if (row == n_real) {   // the inclusive state; the last tile's is zf
+        const float incl = fmaf(a_tile, zs, zend_s[grp * kBe + c]);
+        st_relaxed(sc.incl + (long)tile * C + c0 + c, stamp(incl, epoch));
+        if (tile == ntiles - 1) cz_out[c0 + c] = incl;
+      }
     }
   }
 }
 
-// Launch 2: per channel, the true start state of every tile,
-// z_start[k+1] = a^L_k * z_start[k] + zend[k], from z_start[0] = zi.
-__global__ void __launch_bounds__(kScan) fm_chain_tile_scan(
-    const float* __restrict__ zend, const float* __restrict__ zi,
-    const float* __restrict__ coef, int M, int ntiles,
-    float* __restrict__ zstart, float* __restrict__ zf) {
-  __shared__ float w_a[kScan / 32], w_u[kScan / 32];
-  __shared__ float chunk_end;
-  const int c = blockIdx.x, tid = threadIdx.x, lane = tid & 31,
-            warp = tid >> 5;
-  const float a = coef[2];
-  const float* ze = zend + (long)c * ntiles;
-  float* zs = zstart + (long)c * ntiles;
-  float carry = zi[c];
-  if (tid == 0) zs[0] = carry;
-  for (int base = 0; base < ntiles; base += kScan) {
-    const int k = base + tid;
-    float A = 1.f, u = 0.f;        // the affine map of tile k
-    if (k < ntiles) {
-      A = ipow(a, min(kOut, M - k * kOut));
-      u = ze[k];
-    }
-    for (int s = 1; s < 32; s <<= 1) {
-      const float ap = __shfl_up_sync(kFull, A, s);
-      const float up = __shfl_up_sync(kFull, u, s);
-      if (lane >= s) {
-        u = fmaf(A, up, u);
-        A *= ap;
-      }
-    }
-    if (lane == 31) {
-      w_a[warp] = A;
-      w_u[warp] = u;
-    }
-    __syncthreads();
-    if (warp == 0) {               // scan of the warp totals
-      float wa = w_a[lane], wu = w_u[lane];
-      for (int s = 1; s < 32; s <<= 1) {
-        const float ap = __shfl_up_sync(kFull, wa, s);
-        const float up = __shfl_up_sync(kFull, wu, s);
-        if (lane >= s) {
-          wu = fmaf(wa, up, wu);
-          wa *= ap;
-        }
-      }
-      __syncwarp();
-      w_a[lane] = wa;
-      w_u[lane] = wu;
-    }
-    __syncthreads();
-    if (warp > 0) {                // compose after the previous warps
-      u = fmaf(A, w_u[warp - 1], u);
-      A *= w_a[warp - 1];
-    }
-    const float z_after = fmaf(A, carry, u);
-    if (k < ntiles) {
-      if (k + 1 < ntiles) zs[k + 1] = z_after;
-      else zf[c] = z_after;
-    }
-    if (tid == kScan - 1) chunk_end = z_after;
-    __syncthreads();
-    carry = chunk_end;
-    __syncthreads();
-  }
-}
-
-// Launch 3: out[c, j] += a^(j - j0) * z_start[c, tile(j)].
-__global__ void fm_chain_inject(float* __restrict__ audio,
-                                const float* __restrict__ zstart,
-                                const float* __restrict__ coef, int C, int M,
-                                int ntiles) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long)C * M) return;
-  const int c = (int)(i / M), j = (int)(i % M);
-  const int k = j / kOut;
-  audio[i] = fmaf(ipow(coef[2], j - k * kOut), zstart[(long)c * ntiles + k],
-                  audio[i]);
-}
-
-// The three launches of one chain call; returns 0 or the first CUDA error.
+// The one launch of a chain call; returns 0 or the CUDA error.
 template <bool kPfb, int kGrade, bool kChunked,
           int kCh = gsdr::block_channels<kPfb>()>
 int run_chain(const void* buf_re, const void* buf_im, const void* ftab,
               const void* hp, const void* btab, const void* table,
               const void* n0_rot, const void* coef, const void* cf_re_in,
               const void* cf_im_in, const void* cz_in, void* audio,
-              void* cf_re_out, void* cf_im_out, void* cz_out, void* zend,
-              void* zstart, int nb, int C, int T, int Tc, int K, int Q, int D,
-              int M, int ntiles, float gain, size_t smem, void* stream,
+              void* cf_re_out, void* cf_im_out, void* cz_out,
+              const Scratch& sc, int nb, int C, int T, int Tc, int K, int Q,
+              int D, int M, int ntiles, float gain, size_t smem, void* stream,
               int Uc = 0) {
-  cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaFuncSetAttribute(
       fm_chain_tile<kPfb, kGrade, kChunked, kCh>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(ntiles, (C + kCh - 1) / kCh);
+  const unsigned blocks = (unsigned)ntiles * ((C + kCh - 1) / kCh);
   fm_chain_tile<kPfb, kGrade, kChunked, kCh>
-      <<<grid, gsdr::back_threads(kCh), smem, st>>>(
+      <<<blocks, gsdr::back_threads(kCh), smem, (cudaStream_t)stream>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)ftab,
       (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M, ntiles,
       (const float*)table, (const int*)n0_rot, (const float*)coef, gain,
-      (const float*)cf_re_in, (const float*)cf_im_in, (float*)audio,
-      (float*)cf_re_out, (float*)cf_im_out, (float*)zend, Uc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fm_chain_tile_scan<<<C, kScan, 0, st>>>(
-      (const float*)zend, (const float*)cz_in, (const float*)coef, M, ntiles,
-      (float*)zstart, (float*)cz_out);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long total = (long)C * M;
-  fm_chain_inject<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      (float*)audio, (const float*)zstart, (const float*)coef, C, M, ntiles);
+      (const float*)cf_re_in, (const float*)cf_im_in, (const float*)cz_in,
+      (float*)audio, (float*)cf_re_out, (float*)cf_im_out, (float*)cz_out,
+      sc, Uc);
   return (int)cudaGetLastError();
+}
+
+// The scratch at `scratch` of `slots` slots, or false where a call of
+// ntiles tiles of C channels does not fit it.
+bool scratch_at(void* scratch, long slots, int ntiles, int C, Scratch* sc) {
+  // slots under the header's refresh argument, and every slot of the call
+  if (scratch == nullptr || slots > 0x7fffffffL || (long)ntiles * C > slots)
+    return false;
+  char* s = (char*)scratch;
+  sc->head = (unsigned long long*)s;
+  sc->slots = slots;
+  sc->agg = (unsigned long long*)(s + gsdr::lookback::kHeader);
+  sc->incl = sc->agg + slots;
+  return true;
 }
 
 }  // namespace
 
 extern "C" int fm_chain_tile_outputs() { return kOut; }
+
+// Bytes of de-emphasis scratch for `slots` slots (tiles times channels of
+// a call).
+extern "C" long fm_chain_scratch_bytes(long slots) {
+  return gsdr::lookback::kHeader + slots * 2 * 8;
+}
 
 namespace {
 
@@ -470,36 +596,49 @@ struct MmaTile {
   }
 };
 
+// The channels of the bf16 dense block for C channels and M outputs: `ch`
+// where a caller forces it (4, 8 or 16; 0: planned), else the chunked
+// kernel's mma_block(C, M) or the one-chunk kernel's
+// one_chunk_channels(C). Each output column's sum is independent of the
+// others, so the outputs do not depend on the block.
+int mma_channels(int C, int M, bool chunked, int ch) {
+  return ch > 0 ? ch : chunked ? mma_block(C, M).ch : one_chunk_channels(C);
+}
+
 // The dense tile kernel of a grade for C channels and M outputs (at f32 in
-// blocks of dense_f32_channels(C); the bf16 chunked kernel in blocks of
-// mma_block(C, M)), one chunk or `chunked`, with its dynamic shared memory
-// for a chunk of Tc of T taps at D, or nullptr for a grade the library
-// lacks.
+// blocks of dense_f32_channels(C); at the bf16 grades in blocks of
+// mma_channels(C, M, chunked, ch)), one chunk or `chunked`, with its
+// dynamic shared memory for a chunk of Tc of T taps at D, or nullptr for a
+// grade the library lacks.
 const void* dense_kernel(int grade, int C, int T, int Tc, int D, int M,
-                         size_t* smem, bool chunked) {
+                         size_t* smem, bool chunked, int ch = 0) {
   switch (grade) {
     case gsdr::kGradeF32: {
-      const int ch = gsdr::dense_f32_channels(C);
-      *smem = gsdr::toeplitz_smem_bytes(ch, Tc, T, D);
-      return ch == 8    ? dense_tile<gsdr::kGradeF32, 8>(chunked)
-             : ch == 16 ? dense_tile<gsdr::kGradeF32, 16>(chunked)
-                        : dense_tile<gsdr::kGradeF32, 32>(chunked);
+      const int fch = gsdr::dense_f32_channels(C);
+      *smem = gsdr::toeplitz_smem_bytes(fch, Tc, T, D);
+      return fch == 8    ? dense_tile<gsdr::kGradeF32, 8>(chunked)
+             : fch == 16 ? dense_tile<gsdr::kGradeF32, 16>(chunked)
+                         : dense_tile<gsdr::kGradeF32, 32>(chunked);
     }
     case gsdr::kGradeBf16x2:
     case gsdr::kGradeBf16x3: {
-      if (!chunked) {
-        *smem = gsdr::mma_smem_bytes(grade, kCG / 4, Tc, D);
+      const gsdr::MmaBlock b{mma_channels(C, M, chunked, ch), kTile};
+      *smem = chunked
+                  ? gsdr::mma_chunked_smem_bytes(b.ch / 4, kTile, Tc, T, D)
+                  : gsdr::mma_smem_bytes(grade, b.ch / 4, Tc, D);
+      if (chunked)
         return grade == gsdr::kGradeBf16x2
-                   ? dense_tile<gsdr::kGradeBf16x2>(false)
-                   : dense_tile<gsdr::kGradeBf16x3>(false);
-      }
-      const gsdr::MmaBlock b = mma_block(C, M);
-      *smem = gsdr::mma_chunked_smem_bytes(b.ch / 4, kTile, Tc, T, D);
-      return grade == gsdr::kGradeBf16x2
-                 ? gsdr::with_mma_block<kCG, kTile>(
-                       b, MmaTile<gsdr::kGradeBf16x2>{})
-                 : gsdr::with_mma_block<kCG, kTile>(
-                       b, MmaTile<gsdr::kGradeBf16x3>{});
+                   ? gsdr::with_mma_block<kCG, kTile>(
+                         b, MmaTile<gsdr::kGradeBf16x2>{})
+                   : gsdr::with_mma_block<kCG, kTile>(
+                         b, MmaTile<gsdr::kGradeBf16x3>{});
+      const bool x2 = grade == gsdr::kGradeBf16x2;
+      return b.ch == 4   ? (x2 ? dense_tile<gsdr::kGradeBf16x2, 4>(false)
+                               : dense_tile<gsdr::kGradeBf16x3, 4>(false))
+             : b.ch == 8 ? (x2 ? dense_tile<gsdr::kGradeBf16x2, 8>(false)
+                               : dense_tile<gsdr::kGradeBf16x3, 8>(false))
+                         : (x2 ? dense_tile<gsdr::kGradeBf16x2>(false)
+                               : dense_tile<gsdr::kGradeBf16x3>(false));
     }
   }
   return nullptr;
@@ -508,18 +647,19 @@ const void* dense_kernel(int grade, int C, int T, int Tc, int D, int M,
 }  // namespace
 
 // The block plan of the front at `grade` (0 f32, 2 bf16x2, 3 bf16x3) on
-// the current device, for any channel count C (grid.y covers the
+// the current device, for any channel count C (the grid covers the
 // channels): for the dense front (pfb = 0, with T and D, C and M, on which
 // the block depends; C < 1: any C, M < 1: any M, the widest block)
 // plan[0] = the taps a block stages at once (gsdr::dense_chunk: T in one
 // chunk where the whole bank fits; else chunks whose two buffers let two
 // blocks share a SM where such a chunk spans D taps, else the largest that
 // fits; 0 only where not even 8 taps fit), plan[1] and plan[2] the
-// channels and rows of the block that launch takes; for the PFB front
-// (pfb = 1, with K, Q and D) plan[0..1] = the lanes and fold taps a chunk
-// takes (gsdr::pfb_chunk: (K, Q) where one chunk fits, (0, 0) where
-// nothing fits). Returns 0 or the CUDA error; an unknown grade is an
-// invalid value.
+// channels and rows of the block that launch takes (at the bf16 grades
+// mma_channels: one_chunk_channels(C) for one chunk, mma_block(C, M) for
+// the chunked kernel); for the PFB front (pfb = 1, with K, Q and D)
+// plan[0..1] = the lanes and fold taps a chunk takes (gsdr::pfb_chunk:
+// (K, Q) where one chunk fits, (0, 0) where nothing fits). Returns 0 or the
+// CUDA error; an unknown grade is an invalid value.
 extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
                              int D, int M, int* plan) {
   if (T < 1 || D < 1 || (pfb && (K < 1 || Q < 1 || K % D != 0)))
@@ -548,11 +688,10 @@ extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
         return bytes;
       },
       plan, D);
-  const bool mma = grade != gsdr::kGradeF32 &&
-                   gsdr::use_chunked_kernel(plan[0], T, D);
-  plan[1] = grade == gsdr::kGradeF32 ? gsdr::dense_f32_channels(C)
-            : mma                    ? mma_block(C, M).ch
-                                     : kCG;
+  plan[1] = grade == gsdr::kGradeF32
+                ? gsdr::dense_f32_channels(C)
+                : mma_channels(C, M, gsdr::use_chunked_kernel(plan[0], T, D),
+                               0);
   plan[2] = kTile;
   return (int)err;
 }
@@ -563,40 +702,48 @@ extern "C" const char* fm_chain_error_string(int err) {
 
 // Dense front at `grade` (as fm_chain_fits), Tc taps a block stages at
 // once (fm_chain_fits' plan, or any chunk gsdr::valid_chunk takes whose
-// block fits). Shapes: buf planes (nb,), ftab dense_f32_tables' (ceil(C/8),
-// T, 8, 2) float32 read at f32, btab dense_mma_tables' (2, ceil(T/8),
-// ceil(C/4), 16, 2) int32 read at
-// bf16x3 and bf16x2, table (C, 4), n0_rot (1,) int32, coef (3,) = (b0,
-// cc, a), carries (C,), audio (C, M), zend/zstart (C, ntiles) scratch.
+// block fits), ch channels a bf16 block (4, 8 or 16 to force one; 0: the
+// plan's; 0 at f32). Shapes: buf planes (nb,), ftab dense_f32_tables'
+// (ceil(C/8), T, 8, 2) float32 read at f32, btab dense_mma_tables' (2,
+// ceil(T/8), ceil(C/4), 16, 2) int32 read at bf16x3 and bf16x2, table (C,
+// 4), n0_rot (1,) int32, coef (3,) = (b0, cc, a), carries (C,), audio (C,
+// M). scratch: fm_chain_scratch_bytes(slots) bytes, slots >= C *
+// ceil(M / fm_chain_tile_outputs()), zeroed once when allocated and then
+// kept by the caller for the calls of one stream (eager or replayed from a
+// CUDA graph, in any order; lookback.cuh).
 extern "C" int fm_chain_launch(
     const void* buf_re, const void* buf_im, const void* ftab,
     const void* btab, const void* table, const void* n0_rot,
     const void* coef, const void* cf_re_in, const void* cf_im_in,
     const void* cz_in, void* audio, void* cf_re_out, void* cf_im_out,
-    void* cz_out, void* zend, void* zstart, int nb, int C, int T, int Tc,
-    int D, int M, int ntiles, int grade, float gain, void* stream) {
+    void* cz_out, void* scratch, long slots, int nb, int C, int T, int Tc,
+    int D, int M, int ch, int grade, float gain, void* stream) {
+  const int ntiles = M > 0 ? (M + kOut - 1) / kOut : 0;
+  Scratch sc;
   if (C < 1 || T < 1 || D < 1 || M < 1 || M != (nb - T) / D + 1 ||
-      ntiles != (M + kOut - 1) / kOut || !gsdr::valid_chunk(Tc, T))
+      !gsdr::valid_chunk(Tc, T) ||
+      !(ch == 0 || (grade != gsdr::kGradeF32 &&
+                    (ch == 4 || ch == 8 || ch == kCG))) ||
+      !scratch_at(scratch, slots, ntiles, C, &sc))
     return (int)cudaErrorInvalidValue;
   Tc = Tc < T ? Tc : T;
   const bool chunked = gsdr::use_chunked_kernel(Tc, T, D);
   size_t smem = 0;
-  if (dense_kernel(grade, C, T, Tc, D, M, &smem, chunked) == nullptr)
+  if (dense_kernel(grade, C, T, Tc, D, M, &smem, chunked, ch) == nullptr)
     return (int)cudaErrorInvalidValue;
 #define GSDR_DENSE_CHAIN_AT(G, CHUNKED, CH)                                  \
   run_chain<false, G, CHUNKED, CH>(                                         \
       buf_re, buf_im, ftab, nullptr, btab, table, n0_rot, coef, cf_re_in,   \
-      cf_im_in, cz_in, audio, cf_re_out, cf_im_out, cz_out, zend, zstart,   \
-      nb, C, T, Tc, 0, 0, D, M, ntiles, gain, smem, stream)
+      cf_im_in, cz_in, audio, cf_re_out, cf_im_out, cz_out, sc, nb, C, T,   \
+      Tc, 0, 0, D, M, ntiles, gain, smem, stream)
 #define GSDR_DENSE_CHAIN(G, CH)                \
   (chunked ? GSDR_DENSE_CHAIN_AT(G, true, CH)  \
            : GSDR_DENSE_CHAIN_AT(G, false, CH))
-#define GSDR_MMA_CHAIN(G)                                                   \
-  (!chunked ? GSDR_DENSE_CHAIN_AT(G, false, kCG)                            \
-   : b.ch == 4 ? GSDR_DENSE_CHAIN_AT(G, true, 4)                            \
-   : b.ch == 8 ? GSDR_DENSE_CHAIN_AT(G, true, 8)                            \
-               : GSDR_DENSE_CHAIN_AT(G, true, kCG))
-  const gsdr::MmaBlock b = mma_block(C, M);
+#define GSDR_MMA_CHAIN(G)                       \
+  (bch == 4   ? GSDR_DENSE_CHAIN(G, 4)           \
+   : bch == 8 ? GSDR_DENSE_CHAIN(G, 8)           \
+              : GSDR_DENSE_CHAIN(G, kCG))
+  const int bch = mma_channels(C, M, chunked, ch);
   switch (grade) {
     case gsdr::kGradeBf16x2:
       return GSDR_MMA_CHAIN(gsdr::kGradeBf16x2);
@@ -627,17 +774,20 @@ extern "C" int fm_chain_launch(
 // pfb_chunk_taps' (Q, 8*KBg) and pfb_mma_chunk_tables' (2, KBg,
 // ceil(C/4), 32, 2), KBg blocks of 8 lanes). A plan whose block
 // does not fit the card is refused before launch (too many resources).
-// Other shapes as fm_chain_launch.
+// Other shapes and the scratch as fm_chain_launch.
 extern "C" int pfb_fm_chain_launch(
     const void* buf_re, const void* buf_im, const void* hp, const void* btab,
-    const void* table, const void* n0_rot, const void* coef, const void* cf_re_in, const void* cf_im_in,
-    const void* cz_in, void* audio, void* cf_re_out, void* cf_im_out,
-    void* cz_out, void* zend, void* zstart, int nb, int C, int T, int K,
-    int Q, int D, int M, int ntiles, int lanes, int uc, int grade,
-    float gain, void* stream) {
+    const void* table, const void* n0_rot, const void* coef,
+    const void* cf_re_in, const void* cf_im_in, const void* cz_in,
+    void* audio, void* cf_re_out, void* cf_im_out, void* cz_out,
+    void* scratch, long slots, int nb, int C, int T, int K, int Q, int D,
+    int M, int lanes, int uc, int grade, float gain, void* stream) {
+  const int ntiles = M > 0 ? (M + kOut - 1) / kOut : 0;
+  Scratch sc;
   if (C < 1 || T < 1 || D < 1 || K < 1 || K % D != 0 || Q < 1 ||
       Q * K < T || M < 1 || M != (nb - T) / D + 1 ||
-      ntiles != (M + kOut - 1) / kOut || !gsdr::valid_pfb_plan(lanes, uc, K, Q))
+      !gsdr::valid_pfb_plan(lanes, uc, K, Q) ||
+      !scratch_at(scratch, slots, ntiles, C, &sc))
     return (int)cudaErrorInvalidValue;
   size_t smem = 0;
   const void* kernel = pfb_kernel(grade, lanes, K, Q, D, &smem, uc);
@@ -649,9 +799,9 @@ extern "C" int pfb_fm_chain_launch(
 #define GSDR_PFB_CHAIN_AT(G, CHUNKED)                                        \
   run_chain<true, G, CHUNKED>(buf_re, buf_im, nullptr, hp, btab, table,      \
                               n0_rot, coef, cf_re_in, cf_im_in, cz_in,       \
-                              audio, cf_re_out, cf_im_out, cz_out, zend,     \
-                              zstart, nb, C, T, lanes, K, Q, D, M, ntiles,   \
-                              gain, smem, stream, uc)
+                              audio, cf_re_out, cf_im_out, cz_out, sc, nb,   \
+                              C, T, lanes, K, Q, D, M, ntiles, gain, smem,   \
+                              stream, uc)
 #define GSDR_PFB_CHAIN(G)                                             \
   (gsdr::use_chunked_pfb(lanes, uc, K, Q) ? GSDR_PFB_CHAIN_AT(G, true) \
                                           : GSDR_PFB_CHAIN_AT(G, false))

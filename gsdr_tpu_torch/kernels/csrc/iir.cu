@@ -44,12 +44,10 @@
 //     state after it, and thread 0 publishes the tile's inclusive state.
 //     Samples past N read as 0 and are not written, so any N >= 1 works.
 // Every published float carries the call's epoch, so the scratch needs no
-// reset between calls, and a reader needs no fence (see put_slot). The
-// epoch and the ticket count live in the scratch's header, on the device
-// (see the header below): the call that takes a grid's last ticket
-// advances them for the next call, so the host passes no per-call counter
-// and a launch captured in a CUDA graph is a new call at every replay;
-// eager calls and replays may interleave on one stream.
+// reset between calls, and a reader needs no fence; the epoch and the
+// ticket count live in the scratch's header, on the device, so a launch
+// captured in a CUDA graph is a new call at every replay (lookback.cuh,
+// the machinery B5 shares with the FM chain's de-emphasis).
 //
 // What bounds it on the card: bytes. One float32 read and one write per
 // sample (8 B) against ~10 FLOP per pole pair per sample for the state
@@ -65,7 +63,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
+
+using gsdr::lookback::epoch_of;
+using gsdr::lookback::kHeader;
+using gsdr::lookback::kTicketMask;
+using gsdr::lookback::ld_relaxed;
+using gsdr::lookback::st_relaxed;
 
 // One geometry serves both main-path sizes: 256 tiles at stream_fm's 2^18
 // samples (two per SM of an H100), 1024 at bench_iir's 2^20 (all resident
@@ -95,7 +101,6 @@ constexpr int kMaxPairs = 4;
 constexpr int kMaxOrder = 8;
 constexpr int kMaxRows = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr long kMaxSpins = 1L << 25;       // look-back polls before a trap
 
 // coef layout, float32, complex values as (re, im) at even offsets:
 //   kB0            b0
@@ -119,27 +124,12 @@ constexpr int kLookPow = kPow + 2 * kMaxPairs * kPowLen;
 constexpr int kLookLen = kWindow + 1;
 constexpr int kCoefLen = kLookPow + 2 * kMaxPairs * kLookLen;
 
-// scratch layout: a 64-byte header, then per slot (row * ntiles + tile)
-// the aggregate, then per slot the inclusive state, each kSlotWords words
-// (see put_slot). The header's first word is the call's head: the index
-// h of its epoch in the high 32 bits (epoch = h + 1, so the zeroed
-// scratch's words, of epoch 0, never read as published) and the tickets
-// taken in the low 32. Each block takes its ticket by one atomic add on
-// the head, which also hands it the epoch. The block that takes the
-// grid's last ticket is the last of the call to touch the head: it sets
-// the next call's head (index h + 1 mod kStampPeriod, no ticket). The
-// block of the first ticket, whose work ends first, refreshes slot h mod
-// slots: every word of it that this call neither reads nor writes (all
-// of it outside the grid; the words past its P poles inside). So every
-// word of every slot is written at least once
-// in any 2 * slots calls (twice the slots around the index's wrap),
-// fewer than the kStampPeriod calls after which an epoch comes back: no
-// word can carry the epoch of a call that did not write it, and the
-// epoch's wrap needs no reset.
-constexpr long kHeader = 64;
+// scratch layout (lookback.cuh): the 64-byte header, then per slot (row *
+// ntiles + tile) the aggregate, then per slot the inclusive state, each
+// kSlotWords words (see put_slot). The block of a call's first ticket
+// refreshes slot h mod slots: all of it outside the grid, its words past
+// the call's P poles inside.
 constexpr int kSlotWords = 2 * kMaxPairs;
-constexpr unsigned long long kStampPeriod = 0xffffffffull;   // epochs 1..2^32-1
-constexpr unsigned long long kTicketMask = 0xffffffffull;
 
 struct Rows {
   const float* x[kMaxRows];
@@ -187,28 +177,6 @@ __device__ __forceinline__ float2 shfl_xor2(float2 v, int d) {
                      __shfl_xor_sync(kFull, v.y, d));
 }
 
-// Publication. Each float of a published state travels in its own 64-bit
-// word beside the call's epoch, (float bits) << 32 | epoch, stored and
-// loaded as single-copy-atomic relaxed accesses at GPU scope (strong, so
-// never served from a stale L1 line or kept in a register). A reader
-// takes a state only when every word of it carries the current epoch, so
-// it can never see a flag before its value, nor mix two calls: no fence
-// and no release/acquire pair is needed, and publishing costs one store
-// per float. A word of an earlier call reads as not ready.
-__device__ __forceinline__ unsigned long long ld_relaxed(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_relaxed(unsigned long long* p,
-                                           unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
-}
-
 // P complex values to a slot, each float stamped with the epoch
 template <int P>
 __device__ __forceinline__ void put_slot(unsigned long long* dst,
@@ -216,48 +184,29 @@ __device__ __forceinline__ void put_slot(unsigned long long* dst,
                                          unsigned epoch) {
 #pragma unroll
   for (int k = 0; k < P; ++k) {
-    st_relaxed(dst + 2 * k,
-               (unsigned long long)__float_as_uint(v[k].x) << 32 | epoch);
-    st_relaxed(dst + 2 * k + 1,
-               (unsigned long long)__float_as_uint(v[k].y) << 32 | epoch);
+    st_relaxed(dst + 2 * k, gsdr::lookback::stamp(v[k].x, epoch));
+    st_relaxed(dst + 2 * k + 1, gsdr::lookback::stamp(v[k].y, epoch));
   }
 }
 
-// The ticket of a block (see the header). The block that takes the
-// call's last one sets the next call's head; the block of the first one,
-// whose work ends first, refreshes slot h mod slots. Returns the head as
-// the block's atomic add found it.
+// The ticket of a block (lookback.cuh); the block of the call's first
+// ticket refreshes slot h mod slots.
 template <int P>
 __device__ __forceinline__ unsigned long long take_ticket(const Scratch& sc) {
-  const unsigned long long head = atomicAdd(sc.head, 1ull);
-  const unsigned long long h = head >> 32, taken = head & kTicketMask;
-  if (taken + 1 == gridDim.x) {
-    // every other block of the call has taken its ticket: nothing of this
-    // call reads or adds to the head after this exchange
-    atomicExch(sc.head, (h + 1 == kStampPeriod ? 0ull : h + 1) << 32);
-  }
-  if (taken == 0) {
-    // a slot outside the grid is read by no block of this call; inside,
-    // its words past the P poles are read and written by none
-    const long c = (long)((unsigned)h % (unsigned)sc.slots);
-    const int first = c >= (long)gridDim.x ? 0 : 2 * P;
-    const unsigned long long zero = h + 1;   // 0.f stamped with the epoch
+  return gsdr::lookback::take_ticket(
+      sc.head, gridDim.x, [=](unsigned long long h) {
+        // a slot outside the grid is read by no block of this call;
+        // inside, its words past the P poles are read and written by none
+        const long c = (long)((unsigned)h % (unsigned)sc.slots);
+        const int first = c >= (long)gridDim.x ? 0 : 2 * P;
+        const unsigned long long zero = h + 1;   // 0.f stamped with the epoch
 #pragma unroll
-    for (int w = 0; w < kSlotWords; ++w) {
-      if (w < first) continue;
-      st_relaxed(sc.agg + kSlotWords * c + w, zero);
-      st_relaxed(sc.incl + kSlotWords * c + w, zero);
-    }
-  }
-  return head;
-}
-
-// The epoch of the call from the head a block's ticket returned, read
-// from shared memory where it is used, so that no register holds it
-// across the block's work (a kernel parameter took none)
-__device__ __forceinline__ unsigned epoch_of(
-    const volatile unsigned long long& head) {
-  return (unsigned)(head >> 32) + 1;
+        for (int w = 0; w < kSlotWords; ++w) {
+          if (w < first) continue;
+          st_relaxed(sc.agg + kSlotWords * c + w, zero);
+          st_relaxed(sc.incl + kSlotWords * c + w, zero);
+        }
+      });
 }
 
 // A slot's P complex values; true when every word is of this epoch
@@ -359,11 +308,7 @@ __device__ __forceinline__ void look_back(
         pending |= !has_inc && !has_agg;
       }
       if (!__any_sync(kFull, pending)) break;
-      // every awaited tile belongs to a running block that publishes its
-      // aggregate without waiting: a state missing for ~1 s is a fault (a
-      // scratch used by two streams at once), not a wait
-      if (++spins > kMaxSpins) __trap();
-      __nanosleep(20);
+      gsdr::lookback::spin(spins);
     } while (true);
     int first = kWindow;   // e of the nearest terminal predecessor
 #pragma unroll

@@ -13,13 +13,15 @@ the last output. Both fronts share the state, so a stream may switch
 between them at any block.
 
 ``fm_chain`` and ``pfb_fm_chain`` launch ``csrc/fm_chain.cu`` for CUDA
-tensors and take their plain versions, ``fm_chain_reference`` and
-``pfb_fm_chain_reference``, only for tensors on the CPU. The dense front
-takes any T and D: its block stages the taps in chunks where the whole
-bank does not fit (``chain.dense_chunk``); the PFB front takes any grid
-with D | K the JAX package's plans take: its block stages the lanes and
-fold taps in chunks where the whole bank, taps or window do not fit
-(``chain.pfb_chunk``). Either front runs at a grade
+tensors, one grid launch a call (the de-emphasis start state of each tile
+by a decoupled look-back over a per-stream scratch that no call resets,
+``chain.LookBackScratch``), and take their plain versions,
+``fm_chain_reference`` and ``pfb_fm_chain_reference``, only for tensors on
+the CPU. The dense front takes any T and D: its block stages the taps in
+chunks where the whole bank does not fit (``chain.dense_chunk``); the PFB
+front takes any grid with D | K the JAX package's plans take: its block
+stages the lanes and fold taps in chunks where the whole bank, taps or
+window do not fit (``chain.pfb_chunk``). Either front runs at a grade
 (``precision``, the JAX package's): 'bf16x3', the kernels' default as it
 is ``fm_chain_pallas``'s and
 ``pfb_fm_chain_pallas``'s, and 'bf16x2' on the tensor cores, 'f32' on the
@@ -36,6 +38,7 @@ import torch
 from gsdr_tpu_torch.carray import ComplexArray
 from gsdr_tpu_torch.kernels.chain import (
     ChainKernel,
+    LookBackScratch,
     check_operands,
     check_pfb_tables,
     cuda_error,
@@ -140,23 +143,35 @@ def pfb_fm_chain_reference(buf, poly_taps, dft_bank, num_taps, lo_table,
 def _library():
     """The built fm_chain library, its launch signatures declared."""
     lib = load_chain_library("fm_chain")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fm_chain_launch.argtypes = [p] * 16 + [i] * 8 + [ctypes.c_float, p]
+    p, i, lng = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.fm_chain_launch.argtypes = ([p] * 15 + [lng] + [i] * 8
+                                    + [ctypes.c_float, p])
     lib.fm_chain_launch.restype = i
-    lib.pfb_fm_chain_launch.argtypes = ([p] * 16 + [i] * 11
+    lib.pfb_fm_chain_launch.argtypes = ([p] * 15 + [lng] + [i] * 10
                                         + [ctypes.c_float, p])
     lib.pfb_fm_chain_launch.restype = i
     lib.fm_chain_tile_outputs.argtypes = []
     lib.fm_chain_tile_outputs.restype = i
+    lib.fm_chain_scratch_bytes.argtypes = [lng]
+    lib.fm_chain_scratch_bytes.restype = lng
     return lib
+
+
+# The de-emphasis look-back's scratch of each (device index, stream): one
+# slot a tile and channel of a call (csrc/fm_chain.cu), shared by both
+# fronts
+_scratches = LookBackScratch(
+    "fm_chain", lambda slots: _library().fm_chain_scratch_bytes(slots),
+    1 << 15)
 
 
 def _launch(fn, front_args, buf, lo_table, n0_rot, c, t, d, gain, deemph,
             carry_f, carry_z):
-    """Check the back end's operands, allocate the outputs and scratch, and
-    launch ``fn`` of the fm_chain library. ``front_args`` are the pointers
-    that come between the buffer planes and the table, the ints between C
-    and D, and those between ntiles and the gain."""
+    """Check the back end's operands, allocate the outputs, and launch
+    ``fn`` of the fm_chain library, one grid launch, on the stream's
+    look-back scratch. ``front_args`` are the pointers that come between
+    the buffer planes and the table, the ints between C and D, and those
+    between M and the gain."""
     dev = buf.re.device
     nb = buf.re.shape[-1]
     check_operands(fn, {
@@ -176,24 +191,30 @@ def _launch(fn, front_args, buf, lo_table, n0_rot, c, t, d, gain, deemph,
     f_re = torch.empty((c, 1), dtype=torch.float32, device=dev)
     f_im = torch.empty((c, 1), dtype=torch.float32, device=dev)
     z_out = torch.empty((c, 1), dtype=torch.float32, device=dev)
-    scratch = torch.empty((2, c, ntiles), dtype=torch.float32, device=dev)
     ptrs, ints, tail_ints = front_args
     n0 = n0_rot.reshape(1).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    scr = _scratches.get(dev, stream, ntiles * c)
     with torch.cuda.device(dev):
         err = getattr(lib, fn + "_launch")(
             buf.re.data_ptr(), buf.im.data_ptr(), *ptrs,
             lo_table.data_ptr(), n0.data_ptr(), deemph.data_ptr(),
             carry_f.re.data_ptr(), carry_f.im.data_ptr(), carry_z.data_ptr(),
             audio.data_ptr(), f_re.data_ptr(), f_im.data_ptr(),
-            z_out.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            nb, c, *ints, d, m, ntiles, *tail_ints, float(gain), stream)
+            z_out.data_ptr(), scr.buf.data_ptr(), scr.slots,
+            nb, c, *ints, d, m, *tail_ints, float(gain), stream)
     cuda_error("fm_chain", f"{fn} kernel launch", err)
     return audio, ComplexArray(f_re, f_im), z_out
 
 
 def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation, gain, deemph,
-                  carry_f, carry_z, precision="bf16x3", chunk=None):
+                  carry_f, carry_z, precision="bf16x3", chunk=None,
+                  channels=None):
+    """The dense-front kernel; ``chunk`` as ``chain.ChainKernel`` says, and
+    ``channels`` the channels of a bf16 block (4, 8 or 16; default the
+    library's plan, ``chain.dense_block``), a card test's knob: each
+    output column's sum is independent of the block's others, so every
+    block gives the same outputs."""
     dev = buf.re.device
     grade = grade_code("fm_chain", precision)
     c2, two, t = tap_bank.shape
@@ -206,7 +227,7 @@ def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation, gain, deemph,
     table = dense_mma_tables(tap_bank) if grade \
         else dense_f32_tables(tap_bank)
     ptrs = (None, table.data_ptr()) if grade else (table.data_ptr(), None)
-    return _launch("fm_chain", (ptrs, (t, tc), (grade,)),
+    return _launch("fm_chain", (ptrs, (t, tc), (int(channels or 0), grade)),
                    buf, lo_table, n0_rot, c2 // 2, t, int(decimation), gain,
                    deemph, carry_f, carry_z)
 

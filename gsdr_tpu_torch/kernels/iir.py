@@ -38,9 +38,9 @@ import torch
 from gsdr_tpu_torch.carray import ComplexArray
 from gsdr_tpu_torch.kernels.chain import (
     ChainKernel,
+    LookBackScratch,
     check_operands,
     cuda_error,
-    hold_for_graph,
     load_chain_library,
 )
 
@@ -361,44 +361,11 @@ def look_back_horizon(radii, tile):
     return min(h, MAX_HORIZON)
 
 
-class _Scratch:
-    """The look-back's scratch of one (device, stream): zeroed when
-    allocated, then reused by every call on that stream without a reset.
-    Its header, on the device, counts the calls (each stamps its states
-    with a new epoch) and their tickets; ``csrc/iir.cu`` advances it, so
-    eager calls and replays of a CUDA graph share a scratch in any
-    order."""
-
-    __slots__ = ("buf", "slots")
-
-    def __init__(self, slots, dev):
-        self.slots = slots
-        self.buf = torch.zeros(_library().iir_scratch_bytes(slots),
-                               dtype=torch.uint8, device=dev)
-
-
 MIN_SLOTS = 8192        # tiles the first scratch of a stream holds
-_scratch = {}
-
-
-def _scratch_for(dev, stream, slots):
-    """The scratch of (dev, stream) with room for ``slots`` tiles; a
-    larger one replaces it when a call needs more. Inside a CUDA-graph
-    capture the scratch must exist already (a warm-up call outside the
-    capture makes it), and the graph keeps it alive: its launch holds the
-    pointer, even after an eager call has replaced it here."""
-    key = (dev.index, stream)
-    s = _scratch.get(key)
-    capturing = torch.cuda.is_current_stream_capturing()
-    if s is None or s.slots < slots:
-        if capturing:
-            raise RuntimeError(
-                f"iir: no scratch of {slots} tiles on the capturing stream; "
-                "run the step once on that stream before the capture")
-        s = _scratch[key] = _Scratch(max(slots, MIN_SLOTS), dev)
-    if capturing:
-        hold_for_graph(s)
-    return s
+# the look-back's scratch of each (device index, stream) by key
+_scratches = LookBackScratch(
+    "iir", lambda slots: _library().iir_scratch_bytes(slots), MIN_SLOTS)
+_scratch = _scratches.by_stream
 
 
 def _pointers(ts):
@@ -435,7 +402,7 @@ def _launch(x, filt, zi):
         horizon = look_back_horizon(
             tuple(abs(p) for p in filt.diag.poles), tile)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        scr = _scratch_for(dev, stream, slots)
+        scr = _scratches.get(dev, stream, slots)
         with torch.cuda.device(dev):
             err = _library().iir_launch(
                 len(rows), _pointers(rows), _pointers(ys), _pointers(zrows),

@@ -2371,3 +2371,144 @@ def test_time_step_times_a_graph_and_an_eager_burst_on_card(card):
     eager = time_step(step, state0, blocks[0], iters=8, reps=3, eager=True)
     assert 0 < graph and 0 < eager
     assert graph <= 1.5 * eager
+
+
+# ---------------------------------------------------------------------------
+# the FM chain's back end in one launch (csrc/fm_chain.cu: the de-emphasis
+# start state by a decoupled look-back)
+# ---------------------------------------------------------------------------
+
+def _graph_nodes(fn, tmp_path):
+    """(nodes, debug dump) of one call of fn() captured as a CUDA graph on
+    a stream of its own, after a call there that builds its tables and
+    scratch: every kernel launch and memory operation of the call is one
+    node. Counts without the profiler."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    # kept, not instantiated: the capture's graph itself is dumped
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    path = tmp_path / "call.dot"
+    graph.debug_dump(str(path))
+    dot = path.read_text()
+    return len(re.findall(r"\bshape\s*=", dot)), dot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", GRADES)
+def test_fm_chain_is_one_grid_launch_on_card(card, grade, tmp_path):
+    """Every FM chain call is one grid launch of fm_chain_tile, no scan or
+    inject launch and no allocation of its own: the CUDA graph of one call
+    holds that one node, for B1 in one chunk (16 channels, 64 taps, D=4)
+    and chunked (chunks of 24 taps; T=65 < D=256), B2 in one chunk (K=64,
+    D=64, 64 channels) and chunked (plan 8 lanes x 8 taps); on the default
+    stream the calls reuse the stream's one scratch."""
+    from gsdr_tpu_torch.kernels import fm_chain as fk
+
+    m = _model("cuda", 16, 64, 4, precision=grade)
+    re_, im_ = _fm_signal(m.channel_frequencies, 8192 + 63, seed=21)
+    n0, _, cf, cz = m.init()
+    args = (TCA(re_, im_), m.tap_bank, m.lo_table, n0, 4, m.gain, m.deemph,
+            cf, cz)
+    wide = _f32_dense_run("fm_chain", 1, 65, 256, 65 + 256 * 4095, seed=22,
+                          grade=grade)
+    pm = _grid_model(FmChannelizer, "pfb", 64, 64, 512, 64, precision=grade,
+                     frequency_deviation=75_000.0)
+    pargs = _witness_args(pm, 64 * 256)
+    runs = [lambda: fm_chain(*args, precision=grade),
+            lambda: fm_chain(*args, precision=grade, chunk=24),
+            lambda: wide(None),
+            lambda: pfb_fm_chain(*pargs, precision=grade),
+            lambda: pfb_fm_chain(*pargs, precision=grade, plan=(8, 8))]
+    for run in runs:
+        nodes, dot = _graph_nodes(run, tmp_path)
+        assert nodes == 1 and "fm_chain_tile" in dot, dot[:2000]
+    key = (torch.cuda.current_device(),
+           torch.cuda.current_stream().cuda_stream)
+    for run in runs:
+        run()
+    scr = fk._scratches.by_stream[key]
+    for run in runs:
+        run()
+    torch.cuda.synchronize()
+    assert fk._scratches.by_stream[key] is scr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
+@pytest.mark.parametrize("c", [1, 3, 5, 8])
+def test_fm_narrow_one_chunk_blocks_bit_equal_on_card(card, grade, c):
+    """The one-chunk bf16 block the planner takes at C <= 8 (4 channels up
+    to C = 4, 8 up to 8: fm_chain.cu's one_chunk_channels) equals launches
+    forced to 16 channels, and to 8 at C <= 4, bit for bit, audio and
+    carries: each output column's mma.sync sum is independent of the
+    block's others, and the back end walks each channel alike. T = 65,
+    D = 4 (fm_demod's bank at C = 1), a de-emphasis whose a^255 is 0."""
+    t, d, n = 65, 4, 65 + 4 * 8191
+    m = _model("cuda", c, t, d, precision=grade)
+    tc, ch, rows = dense_block("fm_chain", "cuda", t, d, grade, c,
+                               (n - t) // d + 1)
+    assert (tc, ch, rows) == (t, 4 if c <= 4 else 8, 256)
+    re, im = _fm_signal(m.channel_frequencies, n, seed=30 + c)
+    n0, _, cf, cz = m.init()
+    deemph = torch.tensor([0.5, 0.25, 0.5], device="cuda")
+    args = (TCA(re, im), m.tap_bank, m.lo_table, n0, d, m.gain, deemph, cf,
+            torch.full_like(cz, 0.3))
+    want = _flat(fm_chain(*args, precision=grade))
+    for forced in (16,) + ((8,) if c <= 4 else ()):
+        got = _flat(fm_chain(*args, precision=grade, channels=forced))
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (c, forced)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", GRADES)
+def test_fm_look_back_stress_on_card(card, grade):
+    """a = 0.999 (a^255 ~ 0.77: a look-back stops only at an inclusive
+    state or tile -1) over many tiles: B1 at 16 channels over 2^22 samples
+    (4112 tiles) and B2 at 64 channels, two blocks of 32 a tile, over 2^20
+    samples at D=8 (515 tiles), zi != 0: held to the plain chain at the
+    grade, audio within 1e-4 of max|audio| past the warm-up's first 16384
+    outputs (64 tiles), the
+    de-emphasis state within 1e-4 max(1, max|audio|), the discriminator's
+    carry within 1e-4; a second call on the same inputs is bit-equal."""
+    deemph = torch.tensor([5e-4, 5e-4, 0.999], device="cuda")
+    m = _model("cuda", 16, 64, 4, precision=grade)
+    re, im = _fm_signal(m.channel_frequencies, (1 << 22) + 63, seed=31)
+    n0, _, cf, cz = m.init()
+    zi = torch.linspace(-0.4, 0.4, 16, device="cuda")[:, None].contiguous()
+    dense = (fm_chain, fm_chain_reference,
+             (TCA(re, im), m.tap_bank, m.lo_table, n0, 4, m.gain, deemph,
+              cf, zi))
+    # 1-kHz deviation keeps every step of the carriers' phase far from the
+    # discriminator's branch cut, where a 2*pi*gain slip would persist
+    # through this de-emphasis for thousands of outputs
+    pm = _grid_model(FmChannelizer, "pfb", 64, 8, 512, 64, precision=grade,
+                     frequency_deviation=1_000.0)
+    pargs = list(_witness_args(pm, 1 << 20))
+    pargs[-1] = torch.linspace(-0.4, 0.4, 64,
+                               device="cuda")[:, None].contiguous()
+    pargs[-3] = deemph
+    pfb = (pfb_fm_chain, pfb_fm_chain_reference, tuple(pargs))
+    for kernel, plain, a in (dense, pfb):
+        got = kernel(*a, precision=grade)
+        again = kernel(*a, precision=grade)
+        want = plain(*a, precision=grade)
+        torch.cuda.synchronize()
+        for x, y in zip(_flat(got), _flat(again)):
+            assert torch.equal(x, y), kernel.name
+        # past the first 16384 outputs: the zero-primed warm-up puts a few
+        # samples on the discriminator's branch cut, where kernel and plain
+        # version may slip by 2*pi*gain apart, and at a = 0.999 such a slip
+        # decays over thousands of outputs (a^16384 ~ 8e-8)
+        scale = float(want[0][:, 16384:].abs().max())
+        err = float((got[0] - want[0])[:, 16384:].abs().max())
+        assert err <= 1e-4 * scale, (kernel.name, err, scale)
+        assert float((got[2] - want[2]).abs().max()) <= \
+            1e-4 * max(1.0, scale)
+        for x, y in ((got[1].re, want[1].re), (got[1].im, want[1].im)):
+            assert float((x - y).abs().max()) <= 1e-4

@@ -451,18 +451,20 @@ def _header_calls(period, slots, grids, refresh="all"):
 
 
 def test_scratch_header_never_serves_a_stale_epoch():
-    """The device-side call counter of B5 (csrc/iir.cu's header): with
-    2 * slots - 1 under the epoch period (the launch refuses more than
-    0x7fffffff slots, the period is 2^32 - 1), no call can take a word
+    """The device-side call counter of B5 (csrc/iir.cu's header, the
+    machinery of csrc/lookback.cuh): with 2 * slots - 1 under the epoch
+    period (the launch refuses more than 0x7fffffff slots, the period is
+    2^32 - 1), no call can take a word
     stamped with its epoch by an earlier call, for random calls, across
     the index's wrap, and for the worst patterns (a call over every slot
     at four poles, then calls of one tile, or of one pole, until its
     epoch comes round, then a call over every slot at four poles again).
     Without the refresh, or with slots refreshed only outside the grid,
     those patterns do serve one: the check has teeth."""
-    src = (Path(tk.__file__).parent / "csrc" / "iir.cu").read_text()
-    period = int(re.search(r"kStampPeriod = (0x[0-9a-f]+)ull", src).group(1),
-                 16)
+    csrc = Path(tk.__file__).parent / "csrc"
+    src = (csrc / "iir.cu").read_text()
+    period = int(re.search(r"kStampPeriod = (0x[0-9a-f]+)ull",
+                           (csrc / "lookback.cuh").read_text()).group(1), 16)
     assert period == (1 << 32) - 1
     assert "slots > 0x7fffffffL" in src and 2 * 0x7fffffff - 1 < period
     period, slots = 13, 6

@@ -69,6 +69,27 @@
          (FORCED_PFB), with their digests, the tile kernel's device time
          and the tile kernels' registers: the quick timing of a variant of
          the front (tools/pfb_variants.py runs it in each variant's tree).
+  back_end: the FM chain (B1, B2) at the rows its back end moves: B1 at
+         the flagship (each grade), at fm_demod's one channel (T=65, D=4),
+         at the fm_rx CLI's five stations (T=129, D=8, 2.048 MHz) and
+         fm_broadcast_rx's three (T=128, D=8, 2 MHz), at the 2049-tap long
+         filter (chunked); B2 at FM wideband critical, at D=8 and at
+         pfb_nfm_lmr_320 (chunked), bf16x3 unless said; 2^20 samples (the
+         NFM path 983,040): for each the de-emphasis a and a^255 (float32
+         square-and-multiply, as the kernel forms it), device time per
+         call by torch.profiler (rounds of all, interleaved), the nodes of
+         a CUDA graph of one call, F.conv1d's time for the dense front of the
+         small-C rows (TF32 off), and the compiled flagship step's time
+         a call (utils/compile.py, CUDA events). With a path, every
+         output is saved there (torch.save), for
+  back_end_quick: back_end's QUICK_BACK_END rows alone, two rounds, no
+         outputs saved (tools/back_end_variants.py runs it in each tree).
+  back_end_diff PARENT CHANGE: per path, whether each output of the two
+         saves is equal (torch.equal) or its largest difference, the
+         audio's of max|audio|, the de-emphasis state's of max(1,
+         max|audio|). It uses only what every tree of the port with the
+         bf16 chunked PFB front has, so it runs in the parent's tree too
+         (copy this file into that tree's tools/).
   fm_rx: the fm_rx command line at chip_smoke.py's five-station capture
          (2^24 int8 samples at 2.048 MHz, blocks of 2^20, the CLI's
          defaults): the wall clock of a warm run file to file without the
@@ -86,6 +107,9 @@ kernels are built from this checkout):
     python3 tools/probe_grades.py dense_mma
     python3 tools/probe_grades.py pfb
     python3 tools/probe_grades.py pfb_mma
+    python3 tools/probe_grades.py back_end [OUT.pt]
+    python3 tools/probe_grades.py back_end_quick
+    python3 tools/probe_grades.py back_end_diff PARENT.pt CHANGE.pt
 """
 
 import inspect
@@ -97,6 +121,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -685,6 +710,173 @@ def compiled():
             "state_leaves": len(s_leaves), "card": cs.CARD}), flush=True)
 
 
+def _ipow32(a, k):
+    """a^k as the FM kernel's ipow forms it: float32 square-and-multiply."""
+    r, b = torch.tensor(1.0), torch.tensor(float(a))
+    while k:
+        if k & 1:
+            r = r * b
+        b = b * b
+        k >>= 1
+    return float(r)
+
+
+def _carriers(model, n, seed=7):
+    """FM carriers on the model's channels, 0.35 rad of tone each, made on
+    the card in float64."""
+    phases = np.random.default_rng(seed).uniform(0, 6, model.num_channels)
+    t = torch.arange(n, dtype=torch.float64, device="cuda") / \
+        model.sample_rate
+    re = torch.zeros(n, dtype=torch.float64, device="cuda")
+    im = torch.zeros_like(re)
+    for k, f in enumerate(model.channel_frequencies):
+        msg = torch.sin(2 * np.pi * (700.0 + 370.0 * k) * t + phases[k])
+        ph = 2 * np.pi * (f - model.tuning_frequency) * t + 0.35 * msg
+        re += torch.cos(ph) / model.num_channels
+        im += torch.sin(ph) / model.num_channels
+    return ComplexArray(re.float(), im.float())
+
+
+def back_end_calls():
+    """(what, grade, call, de-emphasis a, library or None) of each FM
+    chain launch the back_end probe times."""
+    from gsdr_tpu_torch.examples.fm_broadcast_rx import lowpass as bc_lp
+    from gsdr_tpu_torch.tools.fm_rx import design_lowpass
+
+    calls = []
+
+    def dense(what, m, g, rf, library=False):
+        buf = cs.buffer(m, rf)
+        n0, _, cf, cz = m.init()
+        args = (buf, m.tap_bank, m.lo_table, n0, m.decimation, m.gain,
+                m.deemph, cf, cz)
+        calls.append((what, g, lambda: cs.fm_chain(*args, precision=g),
+                      float(m.deemph[2]),
+                      cs.conv_library(buf, m.tap_bank, m.decimation)
+                      if library else None))
+
+    for g in cs.GRADES:
+        m = cs.flagship("cuda", precision=g)
+        dense("B1 flagship", m, g, cs.fm_signal(m, 0, cs.N, seed=11))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    t = torch.arange(cs.N, device="cuda", dtype=torch.float64) / cs.FS
+    ph = (2 * np.pi * cs.OPS_FC * t + (cs.OPS_DEV / cs.OPS_TONE)
+          * torch.sin(2 * np.pi * cs.OPS_TONE * t))
+    x = ComplexArray(torch.cos(ph).float(), torch.sin(ph).float())
+    op = cs.fm_chain_args(x, cs.OPS_TAPS, cs.FS, -cs.OPS_FC,
+                          cs.fm_demod_gain(cs.FS, cs.OPS_DEV), cs.OPS_D)
+    calls.append(("B1 fm_demod C=1, T=65, D=4", "bf16x3",
+                  lambda: cs.fm_chain(*op, precision="bf16x3"),
+                  float(op[6][2]),
+                  cs.conv_library(op[0], op[1], cs.OPS_D)))
+    m = cs.FmChannelizer(
+        sample_rate=cs.RX_FS, tuning_frequency=0.0,
+        channel_frequencies=cs.RX_STATIONS, frequency_deviation=75e3,
+        decimation=8, low_pass_taps=design_lowpass(129, 0.4 / 8),
+        deemphasis_tau=75e-6, device="cuda")
+    dense("B1 fm_rx C=5, T=129, D=8", m, "bf16x3", _carriers(m, cs.N), True)
+    m = cs.FmChannelizer(
+        sample_rate=2_000_000.0, tuning_frequency=0.0,
+        channel_frequencies=(-400_000.0, 0.0, 500_000.0),
+        frequency_deviation=75_000.0, decimation=8,
+        low_pass_taps=bc_lp(128, 0.05), device="cuda")
+    dense("B1 fm_broadcast_rx C=3, T=128, D=8", m, "bf16x3",
+          _carriers(m, cs.N), True)
+    m = cs.long_filter("cuda", precision="bf16x3")
+    dense("B1 long_filter (chunked)", m, "bf16x3",
+          cs.fm_signal(m, 0, cs.N, seed=11))
+    for what, m, rf in (
+            ("B2 FM wideband D=64", cs.fm_wideband("pfb", cs.GRID), None),
+            ("B2 FM wideband D=8", cs.fm_wideband("pfb", 8), None),
+            ("B2 pfb_nfm_lmr_320 (chunked)", cs.pfb_nfm_lmr("pfb"), 1)):
+        rf = (cs.lmr_signal(m, 0, cs.PFB_N, seed=11) if rf
+              else cs.wideband_fm_signal(m, 0, cs.N, seed=11))
+        args = cs.pfb_args(m, cs.buffer(m, rf))
+        calls.append((what, "bf16x3", lambda a=args:
+                      cs.pfb_fm_chain(*a, precision="bf16x3"),
+                      float(m.deemph[2]), None))
+    return calls
+
+
+# the back_end_quick rows: the flagship at bf16x3 and f32, fm_rx, the
+# long filter and B2 at D=8 (tools/back_end_variants.py's probe)
+QUICK_BACK_END = ("B1 flagship bf16x3", "B1 flagship f32",
+                  "B1 fm_rx C=5, T=129, D=8 bf16x3",
+                  "B1 long_filter (chunked) bf16x3",
+                  "B2 FM wideband D=8 bf16x3")
+
+
+def back_end(out=None, rounds=3, quick=False):
+    from gsdr_tpu_torch.utils.compile import compile_step
+
+    calls = back_end_calls()
+    if quick:
+        calls = [c for c in calls if f"{c[0]} {c[1]}" in QUICK_BACK_END]
+    saved = {}
+    # the nodes of a CUDA graph of one call (chip_smoke.graph_nodes; none
+    # in an older tree, whose FM call was three grid launches)
+    nodes = getattr(cs, "graph_nodes", None)
+    for what, g, fn, a, _ in calls:
+        a255 = _ipow32(a, 255)
+        res = fn()
+        saved[f"{what} {g}"] = [x.cpu() for x in cs.tree_leaves(res)]
+        print(json.dumps({"probe": "back_end_path", "kernel": what,
+                          "grade": g, "a": a, "a255": a255,
+                          "exact": a255 == 0.0,
+                          "graph_nodes_per_call":
+                              nodes(fn)[0] if nodes else None,
+                          "digest": digest(res)}), flush=True)
+    if out:
+        torch.save(saved, out)
+    if quick:
+        for r in range(rounds):
+            for what, g, fn, _, _ in calls:
+                dev = cs.device_us(fn, reps=20)
+                print(json.dumps({"probe": "back_end", "round": r,
+                                  "kernel": what, "grade": g,
+                                  "device_us": sum(dev.values())}),
+                      flush=True)
+        return
+    m = cs.flagship("auto")
+    block = cs.fm_signal(m, 0, cs.N, seed=11)
+    run = compile_step(m.step)
+    state = run(m.init(), block)[0]
+
+    def step():
+        nonlocal state
+        state, _ = run(state, block)
+
+    for r in range(rounds):
+        for what, g, fn, _, library in calls:
+            dev = cs.device_us(fn, reps=20)
+            line = {"probe": "back_end", "round": r, "kernel": what,
+                    "grade": g, "device_us": sum(dev.values()),
+                    "by_kernel": dev}
+            if library is not None:
+                line.update({"library": "F.conv1d, TF32 off",
+                             "library_ms": cs.cuda_ms(library, reps=20)})
+            print(json.dumps(line), flush=True)
+        print(json.dumps({"probe": "back_end_compiled", "round": r,
+                          "path": "flagship bf16x3",
+                          "compiled_ms": cs.cuda_ms(step, reps=20)}),
+              flush=True)
+
+
+def back_end_diff(parent, change):
+    a, b = torch.load(parent), torch.load(change)
+    for what in a:
+        want, got = a[what], b[what]
+        scale = float(want[0].abs().max())
+        diffs = [float((x - y).abs().max()) for x, y in zip(got, want)]
+        print(json.dumps({
+            "probe": "back_end_diff", "kernel": what,
+            "equal": all(torch.equal(x, y) for x, y in zip(got, want)),
+            "audio_vs_max": diffs[0] / scale,
+            "zf_vs_max1": diffs[-1] / max(1.0, scale),
+            "carry_f": diffs[1:-1]}), flush=True)
+
+
 def fm_rx():
     import cProfile
     import pstats
@@ -719,10 +911,15 @@ def fm_rx():
 
 
 def main():
-    if not torch.cuda.is_available() or len(sys.argv) != 2 \
+    if len(sys.argv) == 4 and sys.argv[1] == "back_end_diff":
+        back_end_diff(sys.argv[2], sys.argv[3])
+        return 0
+    if not torch.cuda.is_available() or not (
+            len(sys.argv) == 2 or sys.argv[1:2] == ["back_end"]) \
+            or len(sys.argv) > 3 \
             or sys.argv[1] not in ("steps", "b4", "b5b6", "fm_rx",
                                    "compiled", "dense", "dense_mma", "pfb",
-                                   "pfb_mma"):
+                                   "pfb_mma", "back_end", "back_end_quick"):
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
@@ -738,6 +935,14 @@ def main():
     elif sys.argv[1] == "fm_rx":
         _build.build_all(["fm_chain"])
         fm_rx()
+    elif sys.argv[1] in ("back_end", "back_end_quick"):
+        reports = _build.build_all(["fm_chain"])
+        print(json.dumps({"probe": "back_end_registers",
+                          "registers": tile_registers(reports)}), flush=True)
+        if sys.argv[1] == "back_end_quick":
+            back_end(rounds=2, quick=True)
+        else:
+            back_end(sys.argv[2] if len(sys.argv) == 3 else None)
     elif sys.argv[1] == "compiled":
         _build.build_all(["fm_chain", "iir", "qpsk256"])
         compiled()
