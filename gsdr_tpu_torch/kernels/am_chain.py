@@ -19,7 +19,10 @@ staged in chunks where its bank, taps or window do not fit
 (``chain.pfb_chunk``). Both fronts run at a
 grade (``precision``), as in ``fm_chain``: 'bf16x3' (the
 kernels' default, as ``am_chain_pallas``'s), 'bf16x2', 'f32'; the plain
-versions emulate it and default to 'f32'.
+versions emulate it and default to 'f32'. Where tracing counts
+(``utils/profiling.py``, COUNTERS), the PFB front's chunked launch at
+'bf16x3' takes the counted instantiation (``csrc/clocks.cuh``), which adds
+its clocks into ``pfb_counters``.
 """
 
 import ctypes
@@ -28,9 +31,11 @@ import functools
 import torch
 
 from gsdr_tpu_torch.kernels.chain import (
+    CHAIN_CLOCKS,
     ChainKernel,
     check_operands,
     check_pfb_tables,
+    counted_launch,
     cuda_error,
     dense_chunk,
     dense_f32_tables,
@@ -44,6 +49,7 @@ from gsdr_tpu_torch.kernels.chain import (
 )
 from gsdr_tpu_torch.ops.channelize import rotate_bank
 from gsdr_tpu_torch.ops.quad_demod import quad_am_demod
+from gsdr_tpu_torch.utils.profiling import KernelCounters
 
 
 def am_chain_reference(buf, tap_bank, lo_table, n0_rot, decimation,
@@ -81,15 +87,23 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.am_chain_launch.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.am_chain_launch.restype = i
-    lib.pfb_am_chain_launch.argtypes = [p] * 5 + [i] * 10 + [p]
+    lib.pfb_am_chain_launch.argtypes = [p] * 5 + [i] * 10 + [p, p]
     lib.pfb_am_chain_launch.restype = i
     return lib
 
 
-def _launch(fn, ptrs, ints, buf, c, t, d, grade, plan=()):
+# The counted PFB kernel's counters (kernels/chain.py, CHAIN_CLOCKS): no
+# look-back, so no poll clocks or polls
+pfb_counters = KernelCounters(
+    "pfb_am_chain", (None if f in ("poll_clocks", "polls") else f
+                     for f in CHAIN_CLOCKS))
+
+
+def _launch(fn, ptrs, ints, buf, c, t, d, grade, plan=(), counted=()):
     """Check the buffer, allocate the audio and launch ``fn`` at ``grade``;
     ``ptrs`` and ``ints`` are the front's tables and sizes, ``plan`` the
-    PFB front's (lanes, fold taps)."""
+    PFB front's (lanes, fold taps), ``counted`` its counter buffer (its
+    address, or None: no counted kernel)."""
     dev = buf.re.device
     nb = buf.re.shape[-1]
     check_operands(fn, {"buf.re": (buf.re, (nb,)),
@@ -103,7 +117,7 @@ def _launch(fn, ptrs, ints, buf, c, t, d, grade, plan=()):
     with torch.cuda.device(dev):
         err = getattr(lib, fn + "_launch")(
             buf.re.data_ptr(), buf.im.data_ptr(), *ptrs, audio.data_ptr(),
-            nb, c, *ints, d, m, *plan, grade, stream)
+            nb, c, *ints, d, m, *plan, grade, stream, *counted)
     cuda_error("am_chain", f"{fn} kernel launch", err)
     return audio
 
@@ -143,9 +157,10 @@ def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
                                 plan)
     taps, btab = pfb_operands(poly_taps, dft_bank, decimation, grade,
                               (lanes, uc))
+    counted = counted_launch(pfb_counters, dev, grade, (lanes, uc), k, q)
     return _launch("pfb_am_chain", (taps.data_ptr(), btab.data_ptr()),
                    (t, k, q), buf, c, t, int(decimation), grade,
-                   plan=(lanes, uc))
+                   plan=(lanes, uc), counted=(counted,))
 
 
 am_chain = ChainKernel("am_chain", am_chain_reference, _launch_dense)

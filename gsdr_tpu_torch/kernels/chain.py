@@ -30,7 +30,10 @@
     scratch);
   - ``LookBackScratch``: the per-stream scratch of a kernel with a
     decoupled look-back (B5's IIR and the FM chain's de-emphasis,
-    ``csrc/lookback.cuh``), never reset between calls.
+    ``csrc/lookback.cuh``), never reset between calls;
+  - ``CHAIN_CLOCKS`` and ``counted_launch``: the counters of the chain
+    kernels' counted instantiations (``csrc/clocks.cuh``), launched where
+    tracing counts (``utils/profiling.py``).
 """
 
 import contextlib
@@ -49,6 +52,7 @@ from gsdr_tpu_torch.ops.pfb import (
     uniform_bank_front,
     uniform_grid,
 )
+from gsdr_tpu_torch.utils import profiling
 from gsdr_tpu_torch.utils.precision import full_f32
 
 # The fronts' grades and their codes in the C interface: the number of
@@ -166,6 +170,33 @@ class LookBackScratch:
         if capturing:
             hold_for_graph(s)
         return s
+
+
+# The counters of a counted chain kernel, in the order of their slots
+# (csrc/clocks.cuh, Counter): launches and blocks; the SM clocks of the
+# blocks, of their front call, of the consumer and the producer warps'
+# front, and of the warps' waits for a folded chunk (consumers), for a
+# free A tile and for their staging (producers); the look-back's poll
+# clocks (a block's longest thread) and polls (the FM chain's).
+CHAIN_CLOCKS = ("launches", "blocks", "block_clocks", "front_clocks",
+                "consumer_front_clocks", "full_wait_clocks",
+                "producer_front_clocks", "free_wait_clocks",
+                "stage_wait_clocks", "poll_clocks", "polls")
+
+
+def counted_launch(counters, dev, grade, plan, k, q):
+    """The address of ``counters``' buffer on ``dev`` for a PFB-front
+    launch at the grade code ``grade`` and the plan (lanes, fold taps)
+    where tracing counts (``profiling.COUNTERS``) and the launch has a
+    counted instantiation (the chunked kernel at bf16x3), else None. A
+    graph being captured keeps the buffer (``hold_for_graph``)."""
+    if profiling.level < profiling.COUNTERS or grade != GRADES["bf16x3"] \
+            or (plan[0] >= k and plan[1] >= q):
+        return None
+    buf = counters.buffer(dev)
+    if torch.cuda.is_current_stream_capturing():
+        hold_for_graph(buf)
+    return buf.data_ptr()
 
 
 def grade_code(fn, precision):
@@ -505,12 +536,21 @@ def check_operands(fn, operands, dev):
 def load_chain_library(library):
     """The built library ``csrc/<library>.cu``, with the C signatures the
     libraries share declared: ``<library>_error_string`` and, in those that
-    launch a front, ``<library>_fits(pfb, grade, C, T, K, Q, D, *plan)``."""
+    launch a front, ``<library>_fits(pfb, grade, C, T, K, Q, D, *plan)``;
+    in those with a counted kernel, its counter slots checked against
+    ``CHAIN_CLOCKS``."""
     lib = load_library(library)
     if hasattr(lib, library + "_fits"):
         fits = getattr(lib, library + "_fits")
         fits.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
         fits.restype = ctypes.c_int
+    if hasattr(lib, library + "_counter_slots"):
+        slots = getattr(lib, library + "_counter_slots")
+        slots.argtypes = []
+        slots.restype = ctypes.c_int
+        if slots() != len(CHAIN_CLOCKS):
+            raise RuntimeError(f"{library}: {slots()} counter slots in the "
+                               f"library, {len(CHAIN_CLOCKS)} in CHAIN_CLOCKS")
     errs = getattr(lib, library + "_error_string")
     errs.argtypes = [ctypes.c_int]
     errs.restype = ctypes.c_char_p

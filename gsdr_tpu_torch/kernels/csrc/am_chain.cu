@@ -66,14 +66,17 @@ constexpr int am_threads() {
 // output rows, but for the bf16 dense front's chunked kernel, which takes
 // kRows (gsdr::mma_chunk_block: 4, 8 or 16 channels and 256, 128 or 64
 // rows, to fill the card where a large D leaves few blocks).
-template <bool kPfb, int kGrade, bool kChunked = false,
-          int kCh = gsdr::block_channels<kPfb>(), int kRows = kTile>
-__global__ void __launch_bounds__(am_threads<kPfb, kGrade, kCh, kRows>())
-am_chain_tile(
+// am_chain_tile runs it; am_chain_tile_counted, where kCount, also adds
+// its front's clocks into clk (clocks.cuh).
+template <bool kPfb, int kGrade, bool kChunked, int kCh, int kRows,
+          bool kCount>
+__device__ __forceinline__ void am_chain_run(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ ftab, const float* __restrict__ hp,
     const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
-    int M, float* __restrict__ audio, int Uc) {
+    int M, float* __restrict__ audio, int Uc, unsigned long long* clk) {
+  static_assert(!kCount || (kPfb && kChunked),
+                "counters in the chunked PFB front's kernel only");
   static_assert(kRows == kTile ||
                     (!kPfb && kGrade != gsdr::kGradeF32 && kChunked),
                 "fewer rows only in the bf16 dense front's chunked kernel");
@@ -95,10 +98,14 @@ am_chain_tile(
                             reinterpret_cast<const float*>(btab), K, Q, D,
                             blockIdx.y, g0);
     } else if constexpr (kChunked) {
-      out = gsdr::pfb_front_mma_chunked<kGrade, gsdr::kPfbNT>(
+      if constexpr (kCount)
+        gsdr::clocks::block_open(clk, gsdr::clocks::kFront);
+      out = gsdr::pfb_front_mma_chunked<kGrade, gsdr::kPfbNT, kCount>(
           sbytes, buf_re, buf_im, nb, hp,
           reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, blockIdx.y,
-          g0, Tc, Uc);
+          g0, Tc, Uc, clk);
+      if constexpr (kCount)
+        gsdr::clocks::block_close(clk, gsdr::clocks::kFront);
     } else {
       out = gsdr::pfb_front_mma<kGrade, gsdr::kPfbNT>(
           sbytes, buf_re, buf_im, nb, hp,
@@ -146,6 +153,40 @@ am_chain_tile(
         audio[(long)(c0 + c) * M + j] = envelope(acc_re[c], acc_im[c]);
     }
   }
+}
+
+// The AM chain's tile kernel (am_chain_run, above).
+template <bool kPfb, int kGrade, bool kChunked = false,
+          int kCh = gsdr::block_channels<kPfb>(), int kRows = kTile>
+__global__ void __launch_bounds__(am_threads<kPfb, kGrade, kCh, kRows>())
+am_chain_tile(
+    const float* __restrict__ buf_re, const float* __restrict__ buf_im,
+    int nb, const float* __restrict__ ftab, const float* __restrict__ hp,
+    const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
+    int M, float* __restrict__ audio, int Uc) {
+  am_chain_run<kPfb, kGrade, kChunked, kCh, kRows, false>(
+      buf_re, buf_im, nb, ftab, hp, btab, C, T, Tc, K, Q, D, M, audio, Uc,
+      nullptr);
+}
+
+// am_chain_tile of the chunked PFB front with its clock counters
+// (clocks.cuh), added into `counters` at each block's end.
+template <int kGrade>
+__global__ void __launch_bounds__(gsdr::block_threads<true>())
+am_chain_tile_counted(
+    const float* __restrict__ buf_re, const float* __restrict__ buf_im,
+    int nb, const float* __restrict__ hp, const uint2* __restrict__ btab,
+    int C, int T, int Tc, int K, int Q, int D, int M,
+    float* __restrict__ audio, int Uc,
+    unsigned long long* __restrict__ counters) {
+  static_assert(gsdr::block_threads<true>() <= 32 * gsdr::clocks::kWarps,
+                "a counter slot a warp");
+  __shared__ unsigned long long clk[gsdr::clocks::kSlots];
+  gsdr::clocks::block_start(clk);
+  am_chain_run<true, kGrade, true, gsdr::block_channels<true>(), kTile,
+               true>(buf_re, buf_im, nb, nullptr, hp, btab, C, T, Tc, K, Q,
+                     D, M, audio, Uc, clk);
+  gsdr::clocks::block_end(clk, counters);
 }
 
 // The tile kernel of a front (kPfb) and grade for kCh channels a block,
@@ -227,11 +268,27 @@ const void* tile_kernel(bool pfb, int grade, int C, int T, int Tc, int K,
   return nullptr;
 }
 
-template <bool kPfb, int kGrade, bool kChunked, int kCh, int kRows = kTile>
+// The launch of a tile kernel (where kCount, am_chain_tile_counted's,
+// adding into `counters`); returns 0 or the CUDA error.
+template <bool kPfb, int kGrade, bool kChunked, int kCh, int kRows = kTile,
+          bool kCount = false>
 int run_am(const void* buf_re, const void* buf_im, const void* ftab,
            const void* hp, const void* btab, void* audio, int nb, int C,
            int T, int Tc, int K, int Q, int D, int M, int Uc, size_t smem,
-           void* stream) {
+           void* stream, void* counters = nullptr) {
+  if constexpr (kCount) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        am_chain_tile_counted<kGrade>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((M + kTile - 1) / kTile, (C + kCh - 1) / kCh);
+    am_chain_tile_counted<kGrade>
+        <<<grid, gsdr::block_threads<true>(), smem, (cudaStream_t)stream>>>(
+        (const float*)buf_re, (const float*)buf_im, nb, (const float*)hp,
+        (const uint2*)btab, C, T, Tc, K, Q, D, M, (float*)audio, Uc,
+        (unsigned long long*)counters);
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
       am_chain_tile<kPfb, kGrade, kChunked, kCh, kRows>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -274,18 +331,23 @@ struct MmaRun {
 // One call of the front (pfb) at `grade`, its geometry checked by the
 // caller; the dense front stages Tc <= T taps at a time, the PFB front
 // takes the plan (Tc lanes, Uc fold taps) a chunk, whose block must fit
-// the card (else too many resources, before launch).
-template <bool kPfb>
+// the card (else too many resources, before launch). Where kCount, the
+// counted kernel of the chunked PFB plan at bf16x3 (the caller checks
+// both), adding into `counters`.
+template <bool kPfb, bool kCount = false>
 int run_graded(int grade, const void* buf_re, const void* buf_im,
                const void* ftab, const void* hp, const void* btab,
                void* audio, int nb, int C, int T, int Tc, int K, int Q, int D,
-               int M, int Uc, void* stream) {
+               int M, int Uc, void* stream, void* counters = nullptr) {
+  static_assert(!kCount || kPfb, "counters in the PFB front's kernel only");
   size_t smem = 0;
   const bool chunked = kPfb ? gsdr::use_chunked_pfb(Tc, Uc, K, Q)
                             : gsdr::use_chunked_kernel(Tc, T, D);
   const void* kernel = tile_kernel(kPfb, grade, C, T, Tc, K, Q, D, &smem,
                                    chunked, Uc, M);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if constexpr (kCount)   // its own static shared memory: the clocks
+    kernel = (const void*)am_chain_tile_counted<gsdr::kGradeBf16x3>;
   if (!kPfb && chunked && grade != gsdr::kGradeF32) {
     const gsdr::MmaBlock b = mma_block(C, M);
     return grade == gsdr::kGradeBf16x2
@@ -304,6 +366,10 @@ int run_graded(int grade, const void* buf_re, const void* buf_im,
     if (err != cudaSuccess) return (int)err;
     if (!fits) return (int)cudaErrorLaunchOutOfResources;
   }
+  if constexpr (kCount)
+    return run_am<true, gsdr::kGradeBf16x3, true, gsdr::block_channels<true>(),
+                  kTile, true>(buf_re, buf_im, ftab, hp, btab, audio, nb, C,
+                               T, Tc, K, Q, D, M, Uc, smem, stream, counters);
 #define GSDR_AM(G, CH)                                                      \
   run_front<kPfb, G, CH>(chunked, buf_re, buf_im, ftab, hp, btab, audio, nb, \
                          C, T, Tc, K, Q, D, M, Uc, smem, stream)
@@ -334,6 +400,9 @@ int run_graded(int grade, const void* buf_re, const void* buf_im,
 extern "C" const char* am_chain_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+// The slots of the counted kernel's counter buffer (clocks.cuh).
+extern "C" int am_chain_counter_slots() { return gsdr::clocks::kCounters; }
 
 // The block plan of the front at `grade` (0 f32, 2 bf16x2, 3 bf16x3) on
 // the current device, for any channel count C, as fm_chain_fits: the
@@ -406,17 +475,28 @@ extern "C" int am_chain_launch(const void* buf_re, const void* buf_im,
 // (lanes, uc) is the plan (am_chain_fits', or any gsdr::valid_pfb_plan):
 // (K, Q) the one-chunk kernel, else the chunked one, which at bf16x3 and
 // bf16x2 reads hp and btab in its lane order (pfb_chunk_taps,
-// pfb_mma_chunk_tables; as pfb_fm_chain_launch).
+// pfb_mma_chunk_tables; as pfb_fm_chain_launch). counters: null, or an
+// int64 buffer of am_chain_counter_slots() slots that the counted kernel
+// adds into (clocks.cuh), which only the chunked plan at bf16x3 has (else
+// an invalid value).
 extern "C" int pfb_am_chain_launch(const void* buf_re, const void* buf_im,
                                    const void* hp, const void* btab,
                                    void* audio, int nb,
                                    int C, int T, int K, int Q, int D, int M,
                                    int lanes, int uc, int grade,
-                                   void* stream) {
+                                   void* stream, void* counters) {
   if (C < 1 || T < 1 || D < 1 || K < 1 || K % D != 0 || Q < 1 ||
       Q * K < T || M < 1 || M != (nb - T) / D + 1 ||
       !gsdr::valid_pfb_plan(lanes, uc, K, Q))
     return (int)cudaErrorInvalidValue;
+  if (counters != nullptr) {
+    if (!gsdr::use_chunked_pfb(lanes, uc, K, Q) ||
+        grade != gsdr::kGradeBf16x3)
+      return (int)cudaErrorInvalidValue;
+    return run_graded<true, true>(grade, buf_re, buf_im, nullptr, hp, btab,
+                                  audio, nb, C, T, lanes, K, Q, D, M, uc,
+                                  stream, counters);
+  }
   return run_graded<true>(grade, buf_re, buf_im, nullptr, hp, btab, audio,
                           nb, C, T, lanes, K, Q, D, M, uc, stream);
 }

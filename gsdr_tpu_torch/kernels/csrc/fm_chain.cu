@@ -138,16 +138,19 @@ __device__ __forceinline__ float ipow(float a, int k) {
 // words on; polled by the whole block at once), reads further tiles from
 // the scratch, and polls again only the words of a tile that had
 // published neither state. Then it composes forward from that state with
-// the aggregates, in the order of the recursion.
-template <int kW, int kCh>
-__device__ __forceinline__ float start_state(const Scratch& sc,
-                                             unsigned long long* win, int cl,
-                                             int c, int C, int tile, float a,
-                                             float zi, unsigned epoch) {
+// the aggregates, in the order of the recursion. Where kCount, the
+// thread's clocks in the poll loop (the block's longest, clocks.cuh
+// kPollClocks) and its polls go into clk.
+template <int kW, int kCh, bool kCount = false>
+__device__ __forceinline__ float start_state(
+    const Scratch& sc, unsigned long long* win, int cl, int c, int C,
+    int tile, float a, float zi, unsigned epoch,
+    unsigned long long* clk = nullptr) {
   unsigned long long* inc = win + cl;
   unsigned long long* agg = win + kW * kCh + cl;
   const float A = ipow(a, kOut);
   const long long t0 = clock64();
+  [[maybe_unused]] unsigned long long polled = 0, polls = 0;
   float P = 1.f, z = 0.f, v;
   int from = 0;      // the farthest tile distance composed forward
   for (int m = 1;; ++m) {
@@ -163,11 +166,14 @@ __device__ __forceinline__ float start_state(const Scratch& sc,
     unsigned long long wi = near ? inc[(m - 1) * kCh] : ld_relaxed(sc.incl + s);
     unsigned long long wa = near ? agg[(m - 1) * kCh] : ld_relaxed(sc.agg + s);
     // z_start[i] weighs nothing where P is 0: its aggregate is enough
+    if constexpr (kCount) polled -= gsdr::clocks::now();
     while (!unstamp(wa, epoch, v) && (P == 0.f || !unstamp(wi, epoch, v))) {
+      if constexpr (kCount) ++polls;
       gsdr::lookback::spin_since(t0);
       wi = ld_relaxed(sc.incl + s);
       wa = ld_relaxed(sc.agg + s);
     }
+    if constexpr (kCount) polled += gsdr::clocks::now();
     if (near) agg[(m - 1) * kCh] = wa;
     if (P == 0.f) {   // start from 0 before tile i
       from = m;
@@ -184,6 +190,11 @@ __device__ __forceinline__ float start_state(const Scratch& sc,
                     : ld_relaxed(sc.agg + (long)(tile - m) * C + c),
             epoch, v);
     z = fmaf(A, z, v);
+  }
+  if constexpr (kCount) {   // the block's words, warp 0's slots
+    atomicMax(clk + gsdr::clocks::kPollClocks * gsdr::clocks::kWarps,
+              polled);
+    atomicAdd(clk + gsdr::clocks::kPolls * gsdr::clocks::kWarps, polls);
   }
   return z;
 }
@@ -209,12 +220,11 @@ __device__ __forceinline__ int shared_int(const int& v) {
 // chunks of Tc lanes and u-ranges of Uc fold taps where kChunked
 // (fronts.cuh, pfb_chunk, use_chunked_pfb; at the bf16 grades hp and btab
 // are then pfb_chunk_taps and pfb_mma_chunk_tables), else all at once.
-template <bool kPfb, int kGrade, bool kChunked = false,
-          int kCh = gsdr::block_channels<kPfb>()>
-__global__ void __launch_bounds__(
-    gsdr::back_threads(kCh),
-    !kPfb && !kChunked ? 1024 / gsdr::back_threads(kCh) : 1)
-fm_chain_tile(
+// fm_chain_tile runs it; fm_chain_tile_counted, where kCount, also adds
+// its clocks into clk (clocks.cuh: the front's, its warps' waits, the
+// look-back's polls).
+template <bool kPfb, int kGrade, bool kChunked, int kCh, bool kCount>
+__device__ __forceinline__ void fm_chain_run(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ ftab, const float* __restrict__ hp,
     const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
@@ -224,7 +234,10 @@ fm_chain_tile(
     const float* __restrict__ cf_re_in, const float* __restrict__ cf_im_in,
     const float* __restrict__ cz_in, float* __restrict__ audio,
     float* __restrict__ cf_re_out, float* __restrict__ cf_im_out,
-    float* __restrict__ cz_out, Scratch sc, int Uc) {
+    float* __restrict__ cz_out, Scratch sc, int Uc,
+    unsigned long long* clk) {
+  static_assert(!kCount || (kPfb && kChunked),
+                "counters in the chunked PFB front's kernel only");
   constexpr int kBe = gsdr::back_channels(kCh);    // channels a thread
   constexpr int kThreads = gsdr::back_threads(kCh);
   constexpr int kPar = kThreads / kTile;           // groups side by side
@@ -299,10 +312,12 @@ fm_chain_tile(
                           reinterpret_cast<const float*>(btab), K, Q, D,
                           group, g0);
   } else if constexpr (kPfb && kChunked) {
-    out = gsdr::pfb_front_mma_chunked<kGrade, gsdr::kPfbNT>(
+    if constexpr (kCount) gsdr::clocks::block_open(clk, gsdr::clocks::kFront);
+    out = gsdr::pfb_front_mma_chunked<kGrade, gsdr::kPfbNT, kCount>(
         sbytes, buf_re, buf_im, nb, hp,
         reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, group, g0, Tc,
-        Uc);
+        Uc, clk);
+    if constexpr (kCount) gsdr::clocks::block_close(clk, gsdr::clocks::kFront);
   } else if constexpr (kPfb) {
     out = gsdr::pfb_front_mma<kGrade, gsdr::kPfbNT>(
         sbytes, buf_re, buf_im, nb, hp,
@@ -468,9 +483,9 @@ fm_chain_tile(
     __syncthreads();
     if (tid < kCh) {
       z_start[tid] = cg + tid < C
-                         ? start_state<kW, kCh>(sc, win, tid, cg + tid, C,
-                                                tile, a, cz_in[cg + tid],
-                                                epoch)
+                         ? start_state<kW, kCh, kCount>(
+                               sc, win, tid, cg + tid, C, tile, a,
+                               cz_in[cg + tid], epoch, clk)
                          : 0.f;
     }
   }
@@ -491,9 +506,60 @@ fm_chain_tile(
   }
 }
 
-// The one launch of a chain call; returns 0 or the CUDA error.
-template <bool kPfb, int kGrade, bool kChunked,
+// The FM chain's tile kernel (fm_chain_run, above).
+template <bool kPfb, int kGrade, bool kChunked = false,
           int kCh = gsdr::block_channels<kPfb>()>
+__global__ void __launch_bounds__(
+    gsdr::back_threads(kCh),
+    !kPfb && !kChunked ? 1024 / gsdr::back_threads(kCh) : 1)
+fm_chain_tile(
+    const float* __restrict__ buf_re, const float* __restrict__ buf_im,
+    int nb, const float* __restrict__ ftab, const float* __restrict__ hp,
+    const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
+    int M, int ntiles, const float* __restrict__ table,
+    const int* __restrict__ n0_rot,
+    const float* __restrict__ coef, float gain,
+    const float* __restrict__ cf_re_in, const float* __restrict__ cf_im_in,
+    const float* __restrict__ cz_in, float* __restrict__ audio,
+    float* __restrict__ cf_re_out, float* __restrict__ cf_im_out,
+    float* __restrict__ cz_out, Scratch sc, int Uc) {
+  fm_chain_run<kPfb, kGrade, kChunked, kCh, false>(
+      buf_re, buf_im, nb, ftab, hp, btab, C, T, Tc, K, Q, D, M, ntiles, table,
+      n0_rot, coef, gain, cf_re_in, cf_im_in, cz_in, audio, cf_re_out,
+      cf_im_out, cz_out, sc, Uc, nullptr);
+}
+
+// fm_chain_tile of the chunked PFB front with its clock counters
+// (clocks.cuh), added into `counters` at each block's end.
+template <int kGrade, int kCh = gsdr::block_channels<true>()>
+__global__ void __launch_bounds__(gsdr::back_threads(kCh), 1)
+fm_chain_tile_counted(
+    const float* __restrict__ buf_re, const float* __restrict__ buf_im,
+    int nb, const float* __restrict__ ftab, const float* __restrict__ hp,
+    const uint2* __restrict__ btab, int C, int T, int Tc, int K, int Q, int D,
+    int M, int ntiles, const float* __restrict__ table,
+    const int* __restrict__ n0_rot,
+    const float* __restrict__ coef, float gain,
+    const float* __restrict__ cf_re_in, const float* __restrict__ cf_im_in,
+    const float* __restrict__ cz_in, float* __restrict__ audio,
+    float* __restrict__ cf_re_out, float* __restrict__ cf_im_out,
+    float* __restrict__ cz_out, Scratch sc, int Uc,
+    unsigned long long* __restrict__ counters) {
+  static_assert(gsdr::back_threads(kCh) <= 32 * gsdr::clocks::kWarps,
+                "a counter slot a warp");
+  __shared__ unsigned long long clk[gsdr::clocks::kSlots];
+  gsdr::clocks::block_start(clk);
+  fm_chain_run<true, kGrade, true, kCh, true>(
+      buf_re, buf_im, nb, ftab, hp, btab, C, T, Tc, K, Q, D, M, ntiles, table,
+      n0_rot, coef, gain, cf_re_in, cf_im_in, cz_in, audio, cf_re_out,
+      cf_im_out, cz_out, sc, Uc, clk);
+  gsdr::clocks::block_end(clk, counters);
+}
+
+// The one launch of a chain call (where kCount, fm_chain_tile_counted's,
+// adding into `counters`); returns 0 or the CUDA error.
+template <bool kPfb, int kGrade, bool kChunked,
+          int kCh = gsdr::block_channels<kPfb>(), bool kCount = false>
 int run_chain(const void* buf_re, const void* buf_im, const void* ftab,
               const void* hp, const void* btab, const void* table,
               const void* n0_rot, const void* coef, const void* cf_re_in,
@@ -501,12 +567,27 @@ int run_chain(const void* buf_re, const void* buf_im, const void* ftab,
               void* cf_re_out, void* cf_im_out, void* cz_out,
               const Scratch& sc, int nb, int C, int T, int Tc, int K, int Q,
               int D, int M, int ntiles, float gain, size_t smem, void* stream,
-              int Uc = 0) {
+              int Uc = 0, void* counters = nullptr) {
+  const unsigned blocks = (unsigned)ntiles * ((C + kCh - 1) / kCh);
+  if constexpr (kCount) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fm_chain_tile_counted<kGrade, kCh>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    fm_chain_tile_counted<kGrade, kCh>
+        <<<blocks, gsdr::back_threads(kCh), smem, (cudaStream_t)stream>>>(
+        (const float*)buf_re, (const float*)buf_im, nb, (const float*)ftab,
+        (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M, ntiles,
+        (const float*)table, (const int*)n0_rot, (const float*)coef, gain,
+        (const float*)cf_re_in, (const float*)cf_im_in, (const float*)cz_in,
+        (float*)audio, (float*)cf_re_out, (float*)cf_im_out, (float*)cz_out,
+        sc, Uc, (unsigned long long*)counters);
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
       fm_chain_tile<kPfb, kGrade, kChunked, kCh>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)ntiles * ((C + kCh - 1) / kCh);
   fm_chain_tile<kPfb, kGrade, kChunked, kCh>
       <<<blocks, gsdr::back_threads(kCh), smem, (cudaStream_t)stream>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)ftab,
@@ -535,6 +616,9 @@ bool scratch_at(void* scratch, long slots, int ntiles, int C, Scratch* sc) {
 }  // namespace
 
 extern "C" int fm_chain_tile_outputs() { return kOut; }
+
+// The slots of the counted kernel's counter buffer (clocks.cuh).
+extern "C" int fm_chain_counter_slots() { return gsdr::clocks::kCounters; }
 
 // Bytes of de-emphasis scratch for `slots` slots (tiles times channels of
 // a call).
@@ -774,14 +858,18 @@ extern "C" int fm_chain_launch(
 // pfb_chunk_taps' (Q, 8*KBg) and pfb_mma_chunk_tables' (2, KBg,
 // ceil(C/4), 32, 2), KBg blocks of 8 lanes). A plan whose block
 // does not fit the card is refused before launch (too many resources).
-// Other shapes and the scratch as fm_chain_launch.
+// counters: null, or an int64 buffer of fm_chain_counter_slots() slots
+// that the counted kernel adds into (clocks.cuh), which only the chunked
+// plan at bf16x3 has (else an invalid value). Other shapes and the
+// scratch as fm_chain_launch.
 extern "C" int pfb_fm_chain_launch(
     const void* buf_re, const void* buf_im, const void* hp, const void* btab,
     const void* table, const void* n0_rot, const void* coef,
     const void* cf_re_in, const void* cf_im_in, const void* cz_in,
     void* audio, void* cf_re_out, void* cf_im_out, void* cz_out,
     void* scratch, long slots, int nb, int C, int T, int K, int Q, int D,
-    int M, int lanes, int uc, int grade, float gain, void* stream) {
+    int M, int lanes, int uc, int grade, float gain, void* stream,
+    void* counters) {
   const int ntiles = M > 0 ? (M + kOut - 1) / kOut : 0;
   Scratch sc;
   if (C < 1 || T < 1 || D < 1 || K < 1 || K % D != 0 || Q < 1 ||
@@ -789,9 +877,15 @@ extern "C" int pfb_fm_chain_launch(
       !gsdr::valid_pfb_plan(lanes, uc, K, Q) ||
       !scratch_at(scratch, slots, ntiles, C, &sc))
     return (int)cudaErrorInvalidValue;
+  const bool chunked = gsdr::use_chunked_pfb(lanes, uc, K, Q);
+  if (counters != nullptr && !(chunked && grade == gsdr::kGradeBf16x3))
+    return (int)cudaErrorInvalidValue;
   size_t smem = 0;
   const void* kernel = pfb_kernel(grade, lanes, K, Q, D, &smem, uc);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (counters != nullptr)   // its own static shared memory: the clocks
+    kernel = (const void*)fm_chain_tile_counted<gsdr::kGradeBf16x3,
+                                                gsdr::block_channels<true>()>;
   int fits = 0;
   const cudaError_t err = gsdr::block_fits(kernel, smem, &fits);
   if (err != cudaSuccess) return (int)err;
@@ -803,8 +897,13 @@ extern "C" int pfb_fm_chain_launch(
                               C, T, lanes, K, Q, D, M, ntiles, gain, smem,   \
                               stream, uc)
 #define GSDR_PFB_CHAIN(G)                                             \
-  (gsdr::use_chunked_pfb(lanes, uc, K, Q) ? GSDR_PFB_CHAIN_AT(G, true) \
-                                          : GSDR_PFB_CHAIN_AT(G, false))
+  (chunked ? GSDR_PFB_CHAIN_AT(G, true) : GSDR_PFB_CHAIN_AT(G, false))
+  if (counters != nullptr)
+    return run_chain<true, gsdr::kGradeBf16x3, true,
+                     gsdr::block_channels<true>(), true>(
+        buf_re, buf_im, nullptr, hp, btab, table, n0_rot, coef, cf_re_in,
+        cf_im_in, cz_in, audio, cf_re_out, cf_im_out, cz_out, sc, nb, C, T,
+        lanes, K, Q, D, M, ntiles, gain, smem, stream, uc, counters);
   switch (grade) {
     case gsdr::kGradeBf16x2:
       return GSDR_PFB_CHAIN(gsdr::kGradeBf16x2);

@@ -92,6 +92,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "clocks.cuh"
+
 namespace gsdr {
 
 constexpr int kTile = 256;        // output rows a block
@@ -2186,13 +2188,15 @@ __device__ __forceinline__ void pfb_mma_fold(uint4* at, const float* xw,
 // pfb_front_mma_chunked's producers (the threads from kPfbConsumers on):
 // step after step, stage the next step's taps and window and fold the
 // current one into its chunk's A tile, handing each folded chunk over.
-// hq: pfb_chunk_taps (Q, 8*KBg).
-template <int kGrade>
+// hq: pfb_chunk_taps (Q, 8*KBg). Where kCount, each warp adds its front
+// clocks and its waits for its staging and for a free A tile into clk
+// (clocks.cuh).
+template <int kGrade, bool kCount = false>
 __device__ __forceinline__ void pfb_mma_produce(
     uint4* a, float* stage, const float* __restrict__ buf_re,
     const float* __restrict__ buf_im, int nb, const float* __restrict__ hq,
     int K, int Q, int D, long g0, const PfbMmaGeom& geo,
-    const PfbMmaChunkGeom& g) {
+    const PfbMmaChunkGeom& g, unsigned long long* clk = nullptr) {
   constexpr int kProducers = kPfbThreads - kPfbConsumers;
   const int P = geo.P, tq = 8 * geo.KBg, tsize = g.uc * 8 * g.nkb;
   const int tid = threadIdx.x - kPfbConsumers;
@@ -2227,17 +2231,24 @@ __device__ __forceinline__ void pfb_mma_produce(
     cp_async_commit();
   };
 
+  if constexpr (kCount) clocks::warp_open(clk, clocks::kProducerFront);
   PfbStep cur = {0, geo.Dc * P, 0, 0, 0, g.uc};
   cur.kz = min(g.L, cur.glanes);
   issue(cur, 0);
   for (int si = 0, c = 0; cur.p0 < D; ++si) {
+    if constexpr (kCount) clocks::warp_open(clk, clocks::kStageWait);
     cp_async_wait<0>();
+    if constexpr (kCount) clocks::warp_close(clk, clocks::kStageWait);
     named_sync(kBarProducers, kProducers);   // step si in; the other free
     PfbStep nxt = cur;
     pfb_next_step(nxt, D, P, Q, g.L, g.uc);
     if (nxt.p0 < D) issue(nxt, (si + 1) & 1);
     // chunk c's A tile: free once chunk c - 2 is multiplied
-    if (cur.u0 == 0 && c >= 2) named_sync(kBarFree + (c & 1), kPfbThreads);
+    if (cur.u0 == 0 && c >= 2) {
+      if constexpr (kCount) clocks::warp_open(clk, clocks::kFreeWait);
+      named_sync(kBarFree + (c & 1), kPfbThreads);
+      if constexpr (kCount) clocks::warp_close(clk, clocks::kFreeWait);
+    }
     const PfbSpan sp = pfb_span(P, cur.ka, cur.kz);
     const int lf = pfb_mma_pair_stride(frames(cur, sp));
     const float* st = stage + (si & 1) * ssize;
@@ -2251,17 +2262,21 @@ __device__ __forceinline__ void pfb_mma_produce(
     }
     cur = nxt;
   }
+  if constexpr (kCount) clocks::warp_close(clk, clocks::kProducerFront);
 }
 
 // pfb_front_mma_chunked's consumers (the first kPfbConsumers threads):
 // chunk after chunk, stage the next chunk's B rows and multiply the
 // current one from its A tile. btab: pfb_mma_chunk_tables (2, KBg, NT,
-// 32, 2).
-template <int kGrade, int kNT>
+// 32, 2). Where kCount, each warp adds its front clocks and its waits for
+// a folded chunk into clk (clocks.cuh).
+template <int kGrade, int kNT, bool kCount = false>
 __device__ __forceinline__ void pfb_mma_consume(
     float (&d)[2][kNT][4], const uint4* a, uint2* bs,
     const uint2* __restrict__ btab, int NT, int Q, int D, int group,
-    const PfbMmaGeom& geo, const PfbMmaChunkGeom& g) {
+    const PfbMmaGeom& geo, const PfbMmaChunkGeom& g,
+    unsigned long long* clk = nullptr) {
+  if constexpr (kCount) clocks::warp_open(clk, clocks::kConsumerFront);
   const int tid = threadIdx.x, P = geo.P;
   const size_t atile = g.abytes / sizeof(uint4);
   const size_t bsize = g.bbytes / sizeof(uint2);
@@ -2292,13 +2307,16 @@ __device__ __forceinline__ void pfb_mma_consume(
     // chunk c's B in; every consumer is done with chunk c - 1's buffer
     named_sync(kBarConsumers, kPfbConsumers);
     if (c + 1 < nchunks) stage_b(nxt, (c + 1) & 1);
+    if constexpr (kCount) clocks::warp_open(clk, clocks::kFullWait);
     named_sync(kBarFull + (c & 1), kPfbThreads);   // chunk c is folded
+    if constexpr (kCount) clocks::warp_close(clk, clocks::kFullWait);
     pfb_mma_product<kGrade, kNT>(d, a + (c & 1) * atile, bs + (c & 1) * bsize,
                                  (cur.kz - cur.ka + 7) / 8, g.nkb, tid >> 5,
                                  tid & 31);
     if (c + 2 < nchunks) named_arrive(kBarFree + (c & 1), kPfbThreads);
     cur = nxt;
   }
+  if constexpr (kCount) clocks::warp_close(clk, clocks::kConsumerFront);
 }
 
 // The bf16 PFB front in chunks (above), for the 4*kNT channels of channel
@@ -2306,13 +2324,14 @@ __device__ __forceinline__ void pfb_mma_consume(
 // (Q, 8*KBg), btab: pfb_mma_chunk_tables (2, KBg, ceil(C/4), 32, 2), both
 // in the chunks' lane order. Shared memory (pfb_mma_chunk_bytes): two A
 // tiles, two B buffers, two staging buffers. Returns the output tile, as
-// pfb_front_mma.
-template <int kGrade, int kNT>
+// pfb_front_mma. Where kCount, the warps add their front clocks and waits
+// into clk (clocks.cuh).
+template <int kGrade, int kNT, bool kCount = false>
 __device__ __forceinline__ const float* pfb_front_mma_chunked(
     unsigned char* smem, const float* __restrict__ buf_re,
     const float* __restrict__ buf_im, int nb, const float* __restrict__ hq,
     const uint32_t* __restrict__ btab, int C, int K, int Q, int D, int group,
-    long g0, int lanes, int uc) {
+    long g0, int lanes, int uc, unsigned long long* clk = nullptr) {
   static_assert(kGrade == kGradeBf16x3 || kGrade == kGradeBf16x2,
                 "tensor-core grades are bf16x3 and bf16x2");
   static_assert(kPfbConsumers == kTile &&
@@ -2328,11 +2347,12 @@ __device__ __forceinline__ const float* pfb_front_mma_chunked(
   const bool consumer = threadIdx.x < kPfbConsumers;
   float d[2][kNT][4];
   if (consumer)
-    pfb_mma_consume<kGrade, kNT>(d, a, bs, reinterpret_cast<const uint2*>(btab),
-                                 (C + 3) / 4, Q, D, group, geo, g);
+    pfb_mma_consume<kGrade, kNT, kCount>(
+        d, a, bs, reinterpret_cast<const uint2*>(btab), (C + 3) / 4, Q, D,
+        group, geo, g, clk);
   else
-    pfb_mma_produce<kGrade>(a, stage, buf_re, buf_im, nb, hq, K, Q, D, g0,
-                            geo, g);
+    pfb_mma_produce<kGrade, kCount>(a, stage, buf_re, buf_im, nb, hq, K, Q,
+                                    D, g0, geo, g, clk);
   __syncthreads();   // every warp is done: the output tile reuses the space
   if (consumer) {
     const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;

@@ -27,7 +27,10 @@ is ``fm_chain_pallas``'s and
 ``pfb_fm_chain_pallas``'s, and 'bf16x2' on the tensor cores, 'f32' on the
 FP32 FMAs; the plain versions emulate the grade
 (``chain.graded_bank_front``, ``chain.graded_uniform_front``) and default
-to 'f32' (``chain.ChainKernel`` says why).
+to 'f32' (``chain.ChainKernel`` says why). Where tracing counts
+(``utils/profiling.py``, COUNTERS), the PFB front's chunked launch at
+'bf16x3' takes the counted instantiation (``csrc/clocks.cuh``), which adds
+its clocks into ``pfb_counters``.
 """
 
 import ctypes
@@ -37,10 +40,12 @@ import torch
 
 from gsdr_tpu_torch.carray import ComplexArray
 from gsdr_tpu_torch.kernels.chain import (
+    CHAIN_CLOCKS,
     ChainKernel,
     LookBackScratch,
     check_operands,
     check_pfb_tables,
+    counted_launch,
     cuda_error,
     dense_chunk,
     dense_f32_tables,
@@ -55,6 +60,7 @@ from gsdr_tpu_torch.kernels.chain import (
 from gsdr_tpu_torch.ops.channelize import rotate_bank
 from gsdr_tpu_torch.ops.iir import iir_block
 from gsdr_tpu_torch.ops.quad_demod import quad_fm_demod
+from gsdr_tpu_torch.utils.profiling import KernelCounters
 
 _DEEMPH_BLOCK_LEN = 256
 
@@ -148,7 +154,7 @@ def _library():
                                     + [ctypes.c_float, p])
     lib.fm_chain_launch.restype = i
     lib.pfb_fm_chain_launch.argtypes = ([p] * 15 + [lng] + [i] * 10
-                                        + [ctypes.c_float, p])
+                                        + [ctypes.c_float, p, p])
     lib.pfb_fm_chain_launch.restype = i
     lib.fm_chain_tile_outputs.argtypes = []
     lib.fm_chain_tile_outputs.restype = i
@@ -164,14 +170,18 @@ _scratches = LookBackScratch(
     "fm_chain", lambda slots: _library().fm_chain_scratch_bytes(slots),
     1 << 15)
 
+# The counted PFB kernel's counters (kernels/chain.py, CHAIN_CLOCKS)
+pfb_counters = KernelCounters("pfb_fm_chain", CHAIN_CLOCKS)
+
 
 def _launch(fn, front_args, buf, lo_table, n0_rot, c, t, d, gain, deemph,
-            carry_f, carry_z):
+            carry_f, carry_z, counted=()):
     """Check the back end's operands, allocate the outputs, and launch
     ``fn`` of the fm_chain library, one grid launch, on the stream's
     look-back scratch. ``front_args`` are the pointers that come between
     the buffer planes and the table, the ints between C and D, and those
-    between M and the gain."""
+    between M and the gain; ``counted`` the PFB launch's counter buffer
+    (its address, or None: no counted kernel)."""
     dev = buf.re.device
     nb = buf.re.shape[-1]
     check_operands(fn, {
@@ -202,7 +212,7 @@ def _launch(fn, front_args, buf, lo_table, n0_rot, c, t, d, gain, deemph,
             carry_f.re.data_ptr(), carry_f.im.data_ptr(), carry_z.data_ptr(),
             audio.data_ptr(), f_re.data_ptr(), f_im.data_ptr(),
             z_out.data_ptr(), scr.buf.data_ptr(), scr.slots,
-            nb, c, *ints, d, m, *tail_ints, float(gain), stream)
+            nb, c, *ints, d, m, *tail_ints, float(gain), stream, *counted)
     cuda_error("fm_chain", f"{fn} kernel launch", err)
     return audio, ComplexArray(f_re, f_im), z_out
 
@@ -248,11 +258,12 @@ def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
                                 plan)
     taps, btab = pfb_operands(poly_taps, dft_bank, decimation, grade,
                               (lanes, uc))
+    counted = counted_launch(pfb_counters, dev, grade, (lanes, uc), k, q)
     return _launch(
         "pfb_fm_chain",
         ((taps.data_ptr(), btab.data_ptr()), (t, k, q),
          (lanes, uc, grade)), buf, lo_table, n0_rot, c, t, int(decimation),
-        gain, deemph, carry_f, carry_z)
+        gain, deemph, carry_f, carry_z, (counted,))
 
 
 fm_chain = ChainKernel("fm_chain", fm_chain_reference, _launch_dense)

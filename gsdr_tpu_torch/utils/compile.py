@@ -33,6 +33,13 @@ a CPU block it runs the step as it is, the port's plain path.
     ``parallel/`` have) runs over gloo raises before its warm-up: gloo's
     collectives are host calls that no graph holds. Over NCCL the
     collectives are captured.
+  - **Tracing** (``utils/profiling.py``). With tracing on, a call
+    records its spans (``compiled.call``; on the card its children
+    ``compiled.lookup``, with ``compiled.capture`` inside it for a new
+    graph, ``compiled.copy_in``, ``compiled.replay``, ``compiled.clone``)
+    and counts its captures. The spans wrap the code that runs untraced;
+    with tracing off each site costs one check. The device-counter level
+    is part of the signature's settings.
   - **Host-side counts.** What a step counts on the host while it runs
     (``mesh.sent``, through ``tally``) is counted once a call: not in the
     warm-up, and for the capture at every replay, so that it reads the
@@ -53,6 +60,7 @@ import contextvars
 import torch
 
 from gsdr_tpu_torch.kernels.chain import graph_refs
+from gsdr_tpu_torch.utils import profiling
 from gsdr_tpu_torch.utils.tree import tree_flatten, tree_unflatten
 
 _SCALARS = (bool, int, float, complex, str)
@@ -113,10 +121,12 @@ def _spec(leaf):
 
 
 def _settings():
-    """The global float32 settings that a route reads at the capture."""
+    """The global settings that a route reads at the capture: float32's,
+    and whether the kernels count (tracing at ``profiling.COUNTERS``)."""
     return (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32,
-            torch.get_float32_matmul_precision())
+            torch.get_float32_matmul_precision(),
+            profiling.level >= profiling.COUNTERS)
 
 
 def signature(state, block):
@@ -221,14 +231,27 @@ class _Graph:
             srcs.append(x)
         _copy_in(self.state_in, srcs)
 
-    def replay(self, s_leaves, b_leaves):
+    def replay(self, s_leaves, b_leaves, rec=None):
+        """Copy the leaves in, replay, clone ``out``; with the tracing
+        session's recorder ``rec``, each part in its span."""
+        if rec is not None:
+            i = rec.open("compiled.copy_in")
         _copy_in(self.state_in, s_leaves)
         _copy_in(self.block_in, b_leaves)
+        if rec is not None:
+            rec.close(i)
+            i = rec.open("compiled.replay")
         self.graph.replay()
+        if rec is not None:
+            rec.close(i)
         for counter, key, n in self.tallies:
             counter[key] += n
+        if rec is not None:
+            i = rec.open("compiled.clone")
         out = [x.clone() if isinstance(x, torch.Tensor) else x
                for x in self.out]
+        if rec is not None:
+            rec.close(i)
         return self.state_tree, tree_unflatten(self.out_def, out)
 
 
@@ -256,12 +279,17 @@ class CompiledStep:
         return state, out
 
     def _graph(self, state, block):
-        """The graph of (state, block)'s signature, captured if new, with
-        the flattened state and block."""
+        """The graph of (state, block)'s signature, captured if new (in a
+        ``compiled.capture`` span, counted, where tracing is on), with the
+        flattened state and block."""
         check_capturable(self.step, block)
         key, flat_state, flat_block = signature(state, block)
         g = self._graphs.get(key)
         if g is None:
+            rec = profiling.recorder() if profiling.level else None
+            if rec is not None:
+                rec.counts["compiled.capture"] += 1
+                i = rec.open("compiled.capture")
             dev = device_of(block)
             if dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
@@ -270,18 +298,32 @@ class CompiledStep:
                 stream = self._streams[dev] = torch.cuda.Stream(dev)
             g = self._graphs[key] = _Graph(self._run, self.step, flat_state,
                                            flat_block, stream)
+            if rec is not None:
+                rec.close(i)
         return g, flat_state[0], flat_block[0]
 
     def __call__(self, state, block):
-        if device_of(block).type != "cuda":
-            return self._run(state, block)
-        g = self._last
-        b_leaves = None if g is None else g.takes(state, block)
-        if b_leaves is not None:     # the state the last call returned
-            return g.replay((), b_leaves)
-        g, s_leaves, b_leaves = self._graph(state, block)
-        self._last = g
-        return g.replay(s_leaves, b_leaves)
+        rec = profiling.recorder() if profiling.level else None
+        if rec is not None:
+            call = rec.open("compiled.call", call=True)
+        try:
+            if device_of(block).type != "cuda":
+                return self._run(state, block)
+            if rec is not None:
+                i = rec.open("compiled.lookup")
+            g = self._last
+            b_leaves = None if g is None else g.takes(state, block)
+            if b_leaves is None:
+                g, s_leaves, b_leaves = self._graph(state, block)
+                self._last = g
+            else:                    # the state the last call returned
+                s_leaves = ()
+            if rec is not None:
+                rec.close(i)
+            return g.replay(s_leaves, b_leaves, rec)
+        finally:
+            if rec is not None:
+                rec.close(call)
 
     def block_buffer(self, state, block):
         """The static block of (state, block)'s graph, captured if new: a
