@@ -90,7 +90,12 @@ full width, 2^20 planar complex samples per step:
      samples through impl='auto' at bf16x3 counted (the PFB kernel 8
      times, B1 and B3-dense never), tones checked; at each grade through
      impl='pfb' held to the plain version at the grade and to the f32
-     plain chain, compiled bit-equal to the eager steps, timed; the
+     plain chain, compiled bit-equal to the eager steps, timed; both at
+     their 20-ms blocks (160,000 and 160,320 samples: 128-row tiles, 80
+     and 90 blocks on 132 SMs) at bf16x3 and bf16x2 through the step,
+     held to the plain version at the grade, one step counted (launches,
+     the wrapper's row tiles, the counted kernel's blocks a launch), the
+     launch held to one forced to 256 rows and both timed; the
      witnesses K=640, D=64, T=1280 and K=712, D=89, T=2848, B2 and B3-PFB
      at each grade against their plain versions; front_supported over a
      (K, D, Q) sweep in both libraries at each grade, 30 of its cases
@@ -156,7 +161,9 @@ full width, 2^20 planar complex samples per step:
  17. prints one JSON `kernels` line (B1, B2, B3-PFB, B3-dense and B4 once
      per grade, B6, B5, phase 11's seven paths and phase 11b's two paths
      at each grade, these with their `path` and `chunk` (the taps, or the
-     PFB plan's lanes and fold taps); each with its phase-15
+     PFB plan's lanes and fold taps), and phase 11b's two 20-ms blocks at
+     bf16x3 and bf16x2 with their `rows`, `grid`, `chain_us` and
+     `chain_us_256_rows`; each with its phase-15
      `sharded_launches`; each FM entry (B1, B2) with its
      `grid_launches_per_call`, the nodes of a CUDA graph of one call,
      which must be 1: the chain is one grid launch) and, last, {"ok":
@@ -201,10 +208,13 @@ from gsdr_tpu_torch.kernels.am_chain import (
     pfb_am_chain,
     pfb_am_chain_reference,
 )
+from gsdr_tpu_torch.kernels.am_chain import pfb_counters as am_counters
 from gsdr_tpu_torch.kernels.chain import (
+    PFB_ROWS,
     dense_block,
     dense_chunk,
     front_supported,
+    pfb_block,
     pfb_chunk,
 )
 from gsdr_tpu_torch.kernels.channelize import (
@@ -217,6 +227,7 @@ from gsdr_tpu_torch.kernels.fm_chain import (
     pfb_fm_chain,
     pfb_fm_chain_reference,
 )
+from gsdr_tpu_torch.kernels.fm_chain import pfb_counters as fm_counters
 from gsdr_tpu_torch.kernels.iir import iir_filter, iir_kernel
 from gsdr_tpu_torch.kernels.qpsk256 import (
     qpsk256_kernel,
@@ -273,6 +284,7 @@ from gsdr_tpu_torch.stream import (
     run_stream,
 )
 from gsdr_tpu_torch.tools import fm_rx
+from gsdr_tpu_torch.utils import profiling
 from gsdr_tpu_torch.utils.compile import compile_step
 from gsdr_tpu_torch.utils.precision import full_f32
 from gsdr_tpu_torch.utils.timing import time_step as graph_time_step
@@ -2445,6 +2457,117 @@ def pfb_model_path(name, make, signal, tone_of):
     return entries
 
 
+# The benchmark's live blocks (sdr_bench's live20ms cells): 20 ms of each
+# capture, 1000 NFM and 668 airband outputs, which the planner runs in
+# blocks of fewer rows than a capture block's 256 where the card has the
+# SMs for them (fronts.cuh, pfb_mma_rows: 128 rows, 80 and 90 blocks on
+# the H100's 132 SMs)
+LIVE_N = {"pfb_nfm_lmr_320": 160_000, "pfb_airband_480": 160_320}
+LIVE_GRID = {"pfb_nfm_lmr_320": (128, 80), "pfb_airband_480": (128, 90)}
+# the FM audio and de-emphasis state of launches of other row tiles, of
+# max|audio|: their start states are composed over other tile edges
+ROWS_REL_TOL = 1e-6
+
+
+def pfb_live_path(name, make, signal):
+    """One receiver of phase 11b at its 20-ms block (LIVE_N), at bf16x3
+    and bf16x2 through make('pfb', precision=grade).step: the plan's rows
+    and grid (LIVE_GRID on 132 SMs); the step's audio held to its plain
+    version at the grade over two steps; one step counted, its launches,
+    the wrapper's row tiles and, at bf16x3, the counted kernel's launches
+    and blocks zeroed just before it, one launch of the planned rows and
+    grid; the planned launch against one forced to 256 rows (the AM audio
+    and the FM discriminator's carries bit for bit, the FM audio and
+    de-emphasis state within ROWS_REL_TOL of max|audio|), both timed.
+    Returns the kernels-line entries, one a grade."""
+    n = LIVE_N[name]
+    entries = []
+    for grade in ("bf16x3", "bf16x2"):
+        kern = make("pfb", precision=grade)
+        fm = isinstance(kern, FmChannelizer)
+        lib = "pfb_fm_chain" if fm else "pfb_am_chain"
+        kernel = pfb_fm_chain if fm else pfb_am_chain
+        ref = pfb_fm_chain_reference if fm else pfb_am_chain_reference
+        k, d, c = kern.pfb_grid[0], kern.decimation, kern.num_channels
+        q, m = -(-kern.num_taps // k), n // d
+        lanes, uc, rows = pfb_block(lib[4:], "cuda", k, q, d, grade, c, m)
+        grid = -(-m // (rows - fm)) * -(-c // 32)
+        check(lanes < k or uc < q,
+              f"{name} 20 ms at {grade}: plan {(lanes, uc)} is one chunk")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        check(sms != 132 or (rows, grid) == LIVE_GRID[name],
+              f"{name} 20 ms at {grade}: {rows} rows, {grid} blocks on 132 "
+              f"SMs, want {LIVE_GRID[name]}")
+        if fm:
+            max_abs, rel_plain = compare_fm(kern, [PlainAtGrade(kern)],
+                                            signal, n=n)
+        else:
+            max_abs = rel_plain = compare_am([kern, PlainAtGrade(kern)],
+                                             signal, tol=AM_LONG_ATOL, n=n)
+        rf = signal(kern, 0, n, seed=11)
+        kernel.row_tiles = dict.fromkeys(PFB_ROWS, 0)
+        with profiling.tracing(profiling.COUNTERS) as rec:
+            _, got = counted(f"{name} 20 ms at {grade}",
+                             lambda: kern.step(kern.init(), rf), {lib: 1})
+            grid_read = rec.counters().get(
+                (fm_counters if fm else am_counters).kernel, {}) \
+                if grade == "bf16x3" else {}
+        tiles = dict(kernel.row_tiles)
+        check(tiles == {r: int(r == rows) for r in PFB_ROWS},
+              f"{name} 20 ms at {grade}: row tiles {tiles}, want one "
+              f"launch of {rows} rows")
+        if grade == "bf16x3":
+            check(grid_read.get("launches") == 1
+                  and grid_read.get("blocks") == grid,
+                  f"{name} 20 ms at {grade}: counted {grid_read}, want one "
+                  f"launch of {grid} blocks")
+        buf = buffer(kern, rf)
+        args = pfb_args(kern, buf)
+        before = kernel.launches
+        planned = tree_leaves(kernel(*args, precision=grade))
+        whole = tree_leaves(kernel(*args, precision=grade, rows=PFB_ROWS[0]))
+        if fm:
+            scale = float(whole[0].abs().max())
+            for i in (0, 3):
+                err = float((planned[i] - whole[i]).abs().max())
+                check(err <= ROWS_REL_TOL * scale,
+                      f"{name} 20 ms at {grade}: {rows}-row launch leaf {i} "
+                      f"differs from the 256-row one by {err:.3g}")
+            check(all(torch.equal(a, b) for a, b in zip(planned[1:3],
+                                                       whole[1:3])),
+                  f"{name} 20 ms at {grade}: the discriminator's carries "
+                  f"differ between {rows} and 256 rows")
+        else:
+            check(all(torch.equal(a, b) for a, b in zip(planned, whole)),
+                  f"{name} 20 ms at {grade}: the {rows}-row audio differs "
+                  f"from the 256-row audio")
+
+        dev_256 = device_us(
+            lambda: kernel(*args, precision=grade, rows=PFB_ROWS[0]), reps=10)
+        us_256 = sum(v for key, v in dev_256.items() if "chain_tile" in key)
+        kernel.launches = before
+        timing = time_kernel(kernel, ref, pfb_front_library(kern, buf),
+                             args, precision=grade)
+        bnd = bound(*(fm_bound if fm else am_bound)(kern, buf.re.shape[-1],
+                                                    grade))
+        us = sum(v for key, v in timing[1].items() if "chain_tile" in key)
+        main = grade == "bf16x3"
+        entries.append(kernel_entry(
+            lib, "gsdr_tpu_torch/kernels/csrc/"
+            + ("fm_chain.cu" if fm else "am_chain.cu"),
+            "gsdr_tpu/kernels/fm_chain_pallas.py:"
+            + ("414" if fm else "551"), got[lib] if main else 0, max_abs,
+            timing, bnd, grade=grade, main_path=main, path=f"{name}.20ms",
+            chunk=[lanes, uc], rows=rows, grid=grid, chain_us=us,
+            chain_us_256_rows=us_256))
+        print(f"{name} 20 ms at {grade}: plan {(lanes, uc)}, {rows} rows, "
+              f"{grid} blocks (counted {grid_read or 'not at this grade'}), "
+              f"row tiles {tiles}; vs plain {rel_plain:.3g}; equal to the "
+              f"256-row launch; chain kernel {us:.1f} us against {us_256:.1f} "
+              f"at 256 rows")
+    return entries
+
+
 def witness_model(cls, k, d, t, c, grade, impl="pfb"):
     """A receiver on the Fs/k grid at Fs = 1024*k (exact in binary), c
     channels spread over the grid; FM at a tenth of a channel's deviation
@@ -2621,6 +2744,8 @@ def pfb_phase():
                              lmr_tone)
     entries += pfb_model_path("pfb_airband_480", pfb_airband, air_signal,
                               air_tone)
+    entries += pfb_live_path("pfb_nfm_lmr_320", pfb_nfm_lmr, lmr_signal)
+    entries += pfb_live_path("pfb_airband_480", pfb_airband, air_signal)
     pfb_witnesses()
     forced_plan_checks()
     return entries
@@ -3949,15 +4074,16 @@ def f32_registers(reports):
 def pfb_mma_registers(reports):
     """Prints the registers and spill bytes ptxas reports for the bf16
     PFB front's chunked tile kernels (fm_chain_tile and am_chain_tile
-    <true, 3 or 2, chunked>, pfb_front_mma_chunked's block of 8 consumer
-    and 8 producer warps) and fails where one spills, as f32_registers."""
+    <true, 3 or 2, chunked, 32, rows>, pfb_front_mma_chunked's block of 8
+    consumer and 8 producer warps over 256, 128 or 64 rows) and fails
+    where one spills, as f32_registers."""
     out = {}
     for name, args, regs in tile_reports(reports):
         if name != "channelize_tile" and args[:1] == [1] and \
                 args[1] in (2, 3) and args[2] == 1:
-            out[f"{name}<pfb,bf16x{args[1]},chunked>"] = regs
+            out[f"{name}<pfb,bf16x{args[1]},chunked,{args[4]} rows>"] = regs
     check_no_spills("ptxas_pfb_mma", out, reports,
-                    {"fm_chain": 2, "am_chain": 2})
+                    {"fm_chain": 6, "am_chain": 6})
 
 
 CARD = None

@@ -16,7 +16,9 @@ dense front takes any T and D, its taps staged in chunks where the whole
 bank does not fit a block (``chain.dense_chunk``), and the PFB front any
 grid with D | K the JAX package's plans take, its lanes and fold taps
 staged in chunks where its bank, taps or window do not fit
-(``chain.pfb_chunk``). Both fronts run at a
+(``chain.pfb_chunk``), at the bf16 grades in blocks of 256, 128 or 64 rows
+by the call's outputs and channels and the card's SMs
+(``chain.pfb_block``). Both fronts run at a
 grade (``precision``), as in ``fm_chain``: 'bf16x3' (the
 kernels' default, as ``am_chain_pallas``'s), 'bf16x2', 'f32'; the plain
 versions emulate it and default to 'f32'. Where tracing counts
@@ -32,6 +34,7 @@ import torch
 
 from gsdr_tpu_torch.kernels.chain import (
     CHAIN_CLOCKS,
+    PFB_ROWS,
     ChainKernel,
     check_operands,
     check_pfb_tables,
@@ -87,7 +90,7 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.am_chain_launch.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.am_chain_launch.restype = i
-    lib.pfb_am_chain_launch.argtypes = [p] * 5 + [i] * 10 + [p, p]
+    lib.pfb_am_chain_launch.argtypes = [p] * 5 + [i] * 11 + [p, p]
     lib.pfb_am_chain_launch.restype = i
     return lib
 
@@ -102,8 +105,8 @@ pfb_counters = KernelCounters(
 def _launch(fn, ptrs, ints, buf, c, t, d, grade, plan=(), counted=()):
     """Check the buffer, allocate the audio and launch ``fn`` at ``grade``;
     ``ptrs`` and ``ints`` are the front's tables and sizes, ``plan`` the
-    PFB front's (lanes, fold taps), ``counted`` its counter buffer (its
-    address, or None: no counted kernel)."""
+    PFB front's (lanes, fold taps, rows), ``counted`` its counter buffer
+    (its address, or None: no counted kernel)."""
     dev = buf.re.device
     nb = buf.re.shape[-1]
     check_operands(fn, {"buf.re": (buf.re, (nb,)),
@@ -143,8 +146,9 @@ def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation,
 
 
 def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
-                decimation, precision="bf16x3", plan=None):
-    """The PFB-front kernel; ``plan`` as ``chain.ChainKernel`` says."""
+                decimation, precision="bf16x3", plan=None, rows=None):
+    """The PFB-front kernel; ``plan`` and ``rows`` as ``chain.ChainKernel``
+    says."""
     dev = buf.re.device
     grade = grade_code("pfb_am_chain", precision)
     c, k, q = check_pfb_tables("pfb_am_chain", poly_taps, dft_bank,
@@ -153,16 +157,20 @@ def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
         "poly_taps": (poly_taps, (q, k)),
         "dft_bank": (dft_bank, (2 * c, 2 * k))}, dev)
     t = int(num_taps)
-    lanes, uc = pfb_launch_plan("am_chain", dev, k, q, decimation, precision,
-                                plan)
+    m = (buf.re.shape[-1] - t) // max(int(decimation), 1) + 1
+    lanes, uc, rows = pfb_launch_plan("am_chain", dev, k, q, decimation,
+                                      precision, plan, c, m, rows)
     taps, btab = pfb_operands(poly_taps, dft_bank, decimation, grade,
                               (lanes, uc))
     counted = counted_launch(pfb_counters, dev, grade, (lanes, uc), k, q)
-    return _launch("pfb_am_chain", (taps.data_ptr(), btab.data_ptr()),
-                   (t, k, q), buf, c, t, int(decimation), grade,
-                   plan=(lanes, uc), counted=(counted,))
+    out = _launch("pfb_am_chain", (taps.data_ptr(), btab.data_ptr()),
+                  (t, k, q), buf, c, t, int(decimation), grade,
+                  plan=(lanes, uc, rows), counted=(counted,))
+    if grade and (lanes < k or uc < q):
+        pfb_am_chain.row_tiles[rows] += 1
+    return out
 
 
 am_chain = ChainKernel("am_chain", am_chain_reference, _launch_dense)
 pfb_am_chain = ChainKernel("pfb_am_chain", pfb_am_chain_reference,
-                           _launch_pfb)
+                           _launch_pfb, row_tiles=PFB_ROWS)

@@ -59,6 +59,11 @@ from gsdr_tpu_torch.utils.precision import full_f32
 # tensor-core passes, 0 for the FP32-FMA fronts.
 GRADES = {"f32": 0, "bf16x2": 2, "bf16x3": 3}
 
+# The output rows a block of the PFB front's chunked kernel takes at the
+# bf16 grades (csrc/fronts.cuh, pfb_mma_rows; every other block the
+# first, kTile)
+PFB_ROWS = (256, 128, 64)
+
 
 class ChainKernel:
     """Wrapper of one kernel entry point. ``launch(buf, *args, **kw)`` runs
@@ -74,15 +79,21 @@ class ChainKernel:
     plan, ``dense_chunk``), and the PFB-front launches ``plan``, the
     (lanes, fold taps) a block stages at once (default ``pfb_chunk``'s),
     which the card tests force smaller to run the chunked paths at small
-    geometries, and ``fm_chain`` ``channels``, the channels of its bf16
-    block; the plain versions have no such arguments. ``launches``
-    counts kernel launches and nothing else."""
+    geometries, ``fm_chain`` ``channels``, the channels of its bf16
+    block, and the PFB-front launches ``rows``, the output rows of the
+    chunked kernel's block at the bf16 grades (default the library's
+    plan, ``pfb_block``); the plain versions have no such arguments.
+    ``launches`` counts kernel launches and nothing else; ``row_tiles``,
+    of a wrapper made with ``row_tiles=PFB_ROWS``, counts its chunked
+    bf16 launches by the rows of their blocks (as ``launches``, a CUDA
+    graph's capture and not its replays)."""
 
-    def __init__(self, name, plain, launch):
+    def __init__(self, name, plain, launch, row_tiles=()):
         self.name = name
         self.plain = plain
         self.launch = launch
         self.launches = 0
+        self.row_tiles = dict.fromkeys(row_tiles, 0)
 
     def __call__(self, buf, *args, **kwargs):
         dev = buf.device
@@ -633,14 +644,30 @@ def pfb_chunk(library, device, k, q, decimation, precision="f32"):
     launch equals the one-chunk launch. (0, 0) where no block fits, which
     no grid with P = k/D up to a few hundred meets (the JAX package's plans
     take P <= ~117). The library plans it (``csrc/fronts.cuh``,
-    ``pfb_chunk``)."""
+    ``pfb_chunk``), here for a block of any C and M (256 rows;
+    ``pfb_block`` plans for the block of a given C and M)."""
+    return pfb_block(library, device, k, q, decimation, precision)[:2]
+
+
+def pfb_block(library, device, k, q, decimation, precision="f32",
+              num_channels=None, num_outputs=None):
+    """(lanes, fold taps, rows) of the PFB launch ``pfb_chunk`` plans: its
+    plan and the output rows of the block that takes it. The chunked
+    kernel at 'bf16x3' and 'bf16x2' takes 256 rows, or 128 or 64 where
+    the grid of ``num_outputs`` M outputs in row tiles x ceil(C / 32)
+    channel groups (``num_channels`` C) at half the rows still fits one
+    wave of the card's SMs (``csrc/fronts.cuh``, ``pfb_mma_rows``: a 20-ms
+    block of the land-mobile NFM raster, 1000 outputs of 320 channels, in
+    128 rows, 80 blocks on the H100's 132 SMs); every row's fold and every
+    column's sum are the same at any rows. Every other block takes 256."""
     grade = grade_code(library, precision)
     k, d = int(k), int(decimation)
     if d < 1 or k % d:
         raise ValueError(f"{library}: the PFB front needs D | K (D={d}, "
                          f"K={k})")
     return _block_plan(library, _card_index(torch.device(device)), True,
-                       grade, 0, k * int(q), k, int(q), d)[:2]
+                       grade, int(num_channels or 0), k * int(q), k, int(q),
+                       d, int(num_outputs or 0))
 
 
 def front_supported(library, device, num_taps, decimation, k=None,
@@ -683,18 +710,25 @@ def check_pfb_tables(fn, poly_taps, dft_bank, num_taps, decimation):
     return c2 // 2, k, q
 
 
-def pfb_launch_plan(library, device, k, q, decimation, precision, plan):
-    """The (lanes, fold taps) a PFB launch takes: ``plan`` where the caller
-    forces one (a card test's knob), else ``pfb_chunk``'s; raise where no
-    block fits."""
-    if plan is None:
-        plan = pfb_chunk(library, device, k, q, decimation, precision)
-    lanes, uc = (int(v) for v in plan)
+def pfb_launch_plan(library, device, k, q, decimation, precision, plan,
+                    num_channels, num_outputs, rows=None):
+    """The (lanes, fold taps, rows) a PFB launch of C = ``num_channels``
+    and M = ``num_outputs`` takes: ``plan`` where the caller forces one,
+    else ``pfb_block``'s; ``rows`` where the caller forces them (card
+    tests' knobs), else ``pfb_block``'s where the launch runs the chunked
+    kernel at a bf16 grade (so a forced plan keeps the planned block),
+    else 256. Raise where no block fits."""
+    planned = pfb_block(library, device, k, q, decimation, precision,
+                        num_channels, num_outputs)
+    lanes, uc = (int(v) for v in (planned[:2] if plan is None else plan))
     if lanes <= 0:
         raise ValueError(
             f"{library}: no block of the PFB front fits the card for K={k}, "
             f"D={decimation}, Q={q} at precision={precision!r}")
-    return lanes, uc
+    mma = grade_code(library, precision) and (lanes < k or uc < q)
+    if rows is None:
+        rows = planned[2] if mma else PFB_ROWS[0]
+    return lanes, uc, int(rows)
 
 
 def select_front(model, library, impl, shifts, sample_rate, decimation,

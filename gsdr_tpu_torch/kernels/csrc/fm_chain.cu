@@ -90,8 +90,9 @@ using gsdr::lookback::ld_relaxed;
 using gsdr::lookback::st_relaxed;
 using gsdr::lookback::stamp;
 using gsdr::lookback::unstamp;
-constexpr int kOut = kTile - 1;       // new outputs per block
-constexpr int kWarps = kTile / 32;
+// new outputs per block of kTile rows (the dense and one-chunk blocks';
+// the chunked bf16 PFB block of kRows rows makes kRows - 1)
+constexpr int kOut = kTile - 1;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -127,7 +128,8 @@ __device__ __forceinline__ float ipow(float a, int k) {
 
 // The de-emphasis state of channel c at the start of `tile`, z_start[tile],
 // where z_start[0] = zi and z_start[k+1] = fmaf(A, z_start[k], zend[k])
-// with A = a^kOut (every predecessor is a whole tile). The look-back reads
+// with A = a^kNew, kNew a tile's new outputs (every predecessor is a whole
+// tile). The look-back reads
 // the tiles before, nearest first: it stops at the first whose inclusive
 // state (z_start[i+1]) is published, at tile -1 (zi), or at the first i
 // where the composed power A^(tile - i), the weight of z_start[i], is
@@ -141,14 +143,14 @@ __device__ __forceinline__ float ipow(float a, int k) {
 // the aggregates, in the order of the recursion. Where kCount, the
 // thread's clocks in the poll loop (the block's longest, clocks.cuh
 // kPollClocks) and its polls go into clk.
-template <int kW, int kCh, bool kCount = false>
+template <int kW, int kCh, int kNew, bool kCount = false>
 __device__ __forceinline__ float start_state(
     const Scratch& sc, unsigned long long* win, int cl, int c, int C,
     int tile, float a, float zi, unsigned epoch,
     unsigned long long* clk = nullptr) {
   unsigned long long* inc = win + cl;
   unsigned long long* agg = win + kW * kCh + cl;
-  const float A = ipow(a, kOut);
+  const float A = ipow(a, kNew);
   const long long t0 = clock64();
   [[maybe_unused]] unsigned long long polled = 0, polls = 0;
   float P = 1.f, z = 0.f, v;
@@ -203,11 +205,14 @@ __device__ __forceinline__ int shared_int(const int& v) {
   return *reinterpret_cast<const volatile int*>(&v);
 }
 
-// One tile of kOut outputs for kCh channels, in one pass: front, rotor,
-// discriminator and de-emphasis; a block of 32 channels (the
-// PFB front at every grade, the dense front at f32 where C > 16) has two
+// One tile of kRows - 1 new outputs for kCh channels, in one pass: front,
+// rotor, discriminator and de-emphasis; a block of 32 channels (the PFB
+// front at every grade, the dense front at f32 where C > 16) has two
 // threads per output, one for each group of kCG channels, reading the
-// front's output tile, as the f32 dense front's blocks of 8 and 16 do.
+// front's output tile, as the f32 dense front's blocks of 8 and 16 do; the
+// chunked bf16 PFB front's blocks of 128 or 64 rows (fronts.cuh,
+// pfb_mma_rows) keep its 512 threads, 4 or 8 an output of 8 or 4 channels
+// each. Every other block takes kTile rows.
 // A block's tile and channel group come from its ticket t (lookback.cuh):
 // tile t / groups, group t % groups, so that tile k - 1 of a group always
 // holds a lower ticket than tile k (some blocks hold 100-210 KB of shared
@@ -223,7 +228,8 @@ __device__ __forceinline__ int shared_int(const int& v) {
 // fm_chain_tile runs it; fm_chain_tile_counted, where kCount, also adds
 // its clocks into clk (clocks.cuh: the front's, its warps' waits, the
 // look-back's polls).
-template <bool kPfb, int kGrade, bool kChunked, int kCh, bool kCount>
+template <bool kPfb, int kGrade, bool kChunked, int kCh, int kRows,
+          bool kCount>
 __device__ __forceinline__ void fm_chain_run(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
     int nb, const float* __restrict__ ftab, const float* __restrict__ hp,
@@ -238,9 +244,14 @@ __device__ __forceinline__ void fm_chain_run(
     unsigned long long* clk) {
   static_assert(!kCount || (kPfb && kChunked),
                 "counters in the chunked PFB front's kernel only");
-  constexpr int kBe = gsdr::back_channels(kCh);    // channels a thread
+  static_assert(kRows == kTile ||
+                    (kPfb && kChunked && kGrade != gsdr::kGradeF32),
+                "fewer rows only in the bf16 PFB front's chunked kernel");
+  constexpr int kNew = kRows - 1;                  // new outputs a block
+  constexpr int kWarps = kRows / 32;               // warps of rows
   constexpr int kThreads = gsdr::back_threads(kCh);
-  constexpr int kPar = kThreads / kTile;           // groups side by side
+  constexpr int kPar = kThreads / kRows;           // groups side by side
+  constexpr int kBe = kCh / kPar;                  // channels a thread
   constexpr int kOS = 2 * kCh + 1;   // the f32 and PFB fronts' tile stride
   constexpr bool kTileOut = kPfb || kGrade == gsdr::kGradeF32;
   static_assert(kCh == kPar * kBe, "one group of kBe channels a thread");
@@ -286,8 +297,8 @@ __device__ __forceinline__ void fm_chain_run(
     group_s = ticket % groups;
   }
   __syncthreads();
-  const int row = tid % kTile;                     // output row of the tile
-  const int grp = tid / kTile;                     // channel group
+  const int row = tid % kRows;                     // output row of the tile
+  const int grp = tid / kRows;                     // channel group
   const int lane = row & 31;
   const int warp = row >> 5;
 
@@ -301,7 +312,7 @@ __device__ __forceinline__ void fm_chain_run(
   float acc_re[kBe], acc_im[kBe];
   const float* out = nullptr;
   const int group = shared_int(group_s);
-  const long g0 = (long)(shared_int(tile_s) * kOut - 1) * D;
+  const long g0 = (long)(shared_int(tile_s) * kNew - 1) * D;
   unsigned char* sbytes = reinterpret_cast<unsigned char*>(smem4);
   if constexpr (kPfb && kGrade == gsdr::kGradeF32 && kChunked) {
     out = gsdr::pfb_front_chunked(sbytes, buf_re, buf_im, nb, hp,
@@ -313,7 +324,7 @@ __device__ __forceinline__ void fm_chain_run(
                           group, g0);
   } else if constexpr (kPfb && kChunked) {
     if constexpr (kCount) gsdr::clocks::block_open(clk, gsdr::clocks::kFront);
-    out = gsdr::pfb_front_mma_chunked<kGrade, gsdr::kPfbNT, kCount>(
+    out = gsdr::pfb_front_mma_chunked<kGrade, gsdr::kPfbNT, kRows, kCount>(
         sbytes, buf_re, buf_im, nb, hp,
         reinterpret_cast<const uint32_t*>(btab), C, K, Q, D, group, g0, Tc,
         Uc, clk);
@@ -344,7 +355,7 @@ __device__ __forceinline__ void fm_chain_run(
       acc_im[c] = out[row * kOS + 2 * (grp * kBe + c) + 1];
     }
   }
-  const int idx = n0_rot[0] + (shared_int(tile_s) * kOut - 1 + row) * D;
+  const int idx = n0_rot[0] + (shared_int(tile_s) * kNew - 1 + row) * D;
   float fdig[4];
 #pragma unroll
   for (int d = 0; d < 4; ++d) fdig[d] = (float)((idx >> (8 * d)) & 255);
@@ -364,11 +375,11 @@ __device__ __forceinline__ void fm_chain_run(
     acc_im[c] = yr * s + yi * co;
   }
   const int tile = shared_int(tile_s);
-  const int j0 = tile * kOut;
+  const int j0 = tile * kNew;
   const int j = j0 - 1 + row;                      // this thread's output
   const int c0 = shared_int(group_s) * kCh + grp * kBe;
   const bool real = row > 0 && j < M;   // an output this block writes
-  const int n_real = min(kOut, M - j0);   // outputs of this tile
+  const int n_real = min(kNew, M - j0);   // outputs of this tile
   if (j < 0) {   // block 0, thread 0: the carried previous sample
 #pragma unroll
     for (int c = 0; c < kBe; ++c) {
@@ -483,7 +494,7 @@ __device__ __forceinline__ void fm_chain_run(
     __syncthreads();
     if (tid < kCh) {
       z_start[tid] = cg + tid < C
-                         ? start_state<kW, kCh, kCount>(
+                         ? start_state<kW, kCh, kNew, kCount>(
                                sc, win, tid, cg + tid, C, tile, a,
                                cz_in[cg + tid], epoch, clk)
                          : 0.f;
@@ -508,7 +519,7 @@ __device__ __forceinline__ void fm_chain_run(
 
 // The FM chain's tile kernel (fm_chain_run, above).
 template <bool kPfb, int kGrade, bool kChunked = false,
-          int kCh = gsdr::block_channels<kPfb>()>
+          int kCh = gsdr::block_channels<kPfb>(), int kRows = kTile>
 __global__ void __launch_bounds__(
     gsdr::back_threads(kCh),
     !kPfb && !kChunked ? 1024 / gsdr::back_threads(kCh) : 1)
@@ -523,7 +534,7 @@ fm_chain_tile(
     const float* __restrict__ cz_in, float* __restrict__ audio,
     float* __restrict__ cf_re_out, float* __restrict__ cf_im_out,
     float* __restrict__ cz_out, Scratch sc, int Uc) {
-  fm_chain_run<kPfb, kGrade, kChunked, kCh, false>(
+  fm_chain_run<kPfb, kGrade, kChunked, kCh, kRows, false>(
       buf_re, buf_im, nb, ftab, hp, btab, C, T, Tc, K, Q, D, M, ntiles, table,
       n0_rot, coef, gain, cf_re_in, cf_im_in, cz_in, audio, cf_re_out,
       cf_im_out, cz_out, sc, Uc, nullptr);
@@ -531,7 +542,7 @@ fm_chain_tile(
 
 // fm_chain_tile of the chunked PFB front with its clock counters
 // (clocks.cuh), added into `counters` at each block's end.
-template <int kGrade, int kCh = gsdr::block_channels<true>()>
+template <int kGrade, int kRows, int kCh = gsdr::block_channels<true>()>
 __global__ void __launch_bounds__(gsdr::back_threads(kCh), 1)
 fm_chain_tile_counted(
     const float* __restrict__ buf_re, const float* __restrict__ buf_im,
@@ -549,17 +560,19 @@ fm_chain_tile_counted(
                 "a counter slot a warp");
   __shared__ unsigned long long clk[gsdr::clocks::kSlots];
   gsdr::clocks::block_start(clk);
-  fm_chain_run<true, kGrade, true, kCh, true>(
+  fm_chain_run<true, kGrade, true, kCh, kRows, true>(
       buf_re, buf_im, nb, ftab, hp, btab, C, T, Tc, K, Q, D, M, ntiles, table,
       n0_rot, coef, gain, cf_re_in, cf_im_in, cz_in, audio, cf_re_out,
       cf_im_out, cz_out, sc, Uc, clk);
   gsdr::clocks::block_end(clk, counters);
 }
 
-// The one launch of a chain call (where kCount, fm_chain_tile_counted's,
-// adding into `counters`); returns 0 or the CUDA error.
+// The one launch of a chain call, its blocks of kRows rows (where kCount,
+// fm_chain_tile_counted's, adding into `counters`); returns 0 or the CUDA
+// error.
 template <bool kPfb, int kGrade, bool kChunked,
-          int kCh = gsdr::block_channels<kPfb>(), bool kCount = false>
+          int kCh = gsdr::block_channels<kPfb>(), int kRows = kTile,
+          bool kCount = false>
 int run_chain(const void* buf_re, const void* buf_im, const void* ftab,
               const void* hp, const void* btab, const void* table,
               const void* n0_rot, const void* coef, const void* cf_re_in,
@@ -571,10 +584,10 @@ int run_chain(const void* buf_re, const void* buf_im, const void* ftab,
   const unsigned blocks = (unsigned)ntiles * ((C + kCh - 1) / kCh);
   if constexpr (kCount) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fm_chain_tile_counted<kGrade, kCh>,
+        fm_chain_tile_counted<kGrade, kRows, kCh>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    fm_chain_tile_counted<kGrade, kCh>
+    fm_chain_tile_counted<kGrade, kRows, kCh>
         <<<blocks, gsdr::back_threads(kCh), smem, (cudaStream_t)stream>>>(
         (const float*)buf_re, (const float*)buf_im, nb, (const float*)ftab,
         (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M, ntiles,
@@ -585,10 +598,10 @@ int run_chain(const void* buf_re, const void* buf_im, const void* ftab,
     return (int)cudaGetLastError();
   }
   cudaError_t err = cudaFuncSetAttribute(
-      fm_chain_tile<kPfb, kGrade, kChunked, kCh>,
+      fm_chain_tile<kPfb, kGrade, kChunked, kCh, kRows>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fm_chain_tile<kPfb, kGrade, kChunked, kCh>
+  fm_chain_tile<kPfb, kGrade, kChunked, kCh, kRows>
       <<<blocks, gsdr::back_threads(kCh), smem, (cudaStream_t)stream>>>(
       (const float*)buf_re, (const float*)buf_im, nb, (const float*)ftab,
       (const float*)hp, (const uint2*)btab, C, T, Tc, K, Q, D, M, ntiles,
@@ -615,7 +628,12 @@ bool scratch_at(void* scratch, long slots, int ntiles, int C, Scratch* sc) {
 
 }  // namespace
 
-extern "C" int fm_chain_tile_outputs() { return kOut; }
+// New outputs a block of `rows` rows makes (rows - 1, its first row the
+// previous block's last output): a call of M outputs takes ceil(M /
+// fm_chain_tile_outputs(rows)) row tiles, and as many look-back slots a
+// channel. rows: the block's (fm_chain_fits' plan[2]; kTile but for the
+// chunked bf16 PFB front).
+extern "C" int fm_chain_tile_outputs(int rows) { return rows - 1; }
 
 // The slots of the counted kernel's counter buffer (clocks.cuh).
 extern "C" int fm_chain_counter_slots() { return gsdr::clocks::kCounters; }
@@ -636,37 +654,46 @@ const void* dense_tile(bool chunked) {
                  : (const void*)fm_chain_tile<false, kGrade, false, kCh>;
 }
 
-// The PFB tile kernel of a grade, one chunk or chunked.
-template <int kGrade>
-const void* pfb_tile(bool chunked) {
-  return chunked ? (const void*)fm_chain_tile<true, kGrade, true>
-                 : (const void*)fm_chain_tile<true, kGrade, false>;
-}
-
 // The PFB tile kernel of a grade with its dynamic shared memory for
 // (K, Q, D) and the plan of Tc lanes and Uc fold taps a chunk (the chunked
-// kernel where use_chunked_pfb), or nullptr for a grade the library lacks.
+// kernel where use_chunked_pfb, at the bf16 grades in blocks of `rows`
+// rows; every other block kTile: gsdr::with_pfb_tile), or nullptr for a
+// grade the library lacks.
 const void* pfb_kernel(int grade, int Tc, int K, int Q, int D, size_t* smem,
-                       int Uc) {
+                       int Uc, int rows = kTile) {
   const bool ch = gsdr::use_chunked_pfb(Tc, Uc, K, Q);
   switch (grade) {
     case gsdr::kGradeF32:
       *smem = ch ? gsdr::pfb_chunk_bytes(K, Q, D, Tc, Uc)
                  : gsdr::pfb_smem_bytes(K, Q, D);
-      return pfb_tile<gsdr::kGradeF32>(ch);
+      break;
     case gsdr::kGradeBf16x2:
     case gsdr::kGradeBf16x3:
-      *smem = ch ? gsdr::pfb_mma_chunk_bytes(gsdr::kPfbNT, K, Q, D, Tc, Uc)
+      *smem = ch ? gsdr::pfb_mma_chunk_bytes(gsdr::kPfbNT, K, Q, D, Tc, Uc,
+                                             rows)
                  : gsdr::pfb_mma_smem_bytes(gsdr::kPfbNT, K, Q, D);
-      return grade == gsdr::kGradeBf16x2 ? pfb_tile<gsdr::kGradeBf16x2>(ch)
-                                         : pfb_tile<gsdr::kGradeBf16x3>(ch);
+      break;
+    default:
+      return nullptr;
   }
-  return nullptr;
+  return gsdr::with_pfb_tile(grade, ch, rows, [](auto g, auto c, auto r) {
+    return (const void*)fm_chain_tile<true, decltype(g)::value,
+                                      decltype(c)::value, gsdr::kPfbCh,
+                                      decltype(r)::value>;
+  });
+}
+
+// The rows of the chunked PFB block at `grade` for C channels and M
+// outputs: at the bf16 grades gsdr::pfb_mma_rows, its tiles overlapping by
+// the one output whose sample the discriminator carries; at f32 kTile.
+int pfb_rows(int grade, int C, int M) {
+  return grade == gsdr::kGradeF32 ? kTile
+                                  : gsdr::pfb_mma_rows(C, M, kTile - kOut);
 }
 
 // The bf16 chunked kernel's block for C channels and M outputs (M < 1:
-// any M): 4, 8 or 16 channels, kTile rows, since the de-emphasis tile
-// scan spans a block's rows (gsdr::mma_chunk_block).
+// any M): 4, 8 or 16 channels, kTile rows (the dense front's blocks keep
+// them; gsdr::mma_chunk_block).
 gsdr::MmaBlock mma_block(int C, int M) {
   return gsdr::mma_chunk_block(C, M, kCG, kTile, kTile - kOut);
 }
@@ -740,8 +767,10 @@ const void* dense_kernel(int grade, int C, int T, int Tc, int D, int M,
 // fits; 0 only where not even 8 taps fit), plan[1] and plan[2] the
 // channels and rows of the block that launch takes (at the bf16 grades
 // mma_channels: one_chunk_channels(C) for one chunk, mma_block(C, M) for
-// the chunked kernel); for the PFB front (pfb = 1, with K, Q and D)
-// plan[0..1] = the lanes and fold taps a chunk takes (gsdr::pfb_chunk:
+// the chunked kernel); for the PFB front (pfb = 1, with K, Q and D, and C
+// and M, on which the chunked block's rows depend) plan[2] = the rows of
+// the block (pfb_rows for the chunked kernel, else kTile) and plan[0..1] =
+// the lanes and fold taps a chunk of that block takes (gsdr::pfb_chunk:
 // (K, Q) where one chunk fits, (0, 0) where nothing fits). Returns 0 or the
 // CUDA error; an unknown grade is an invalid value.
 extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
@@ -752,14 +781,18 @@ extern "C" int fm_chain_fits(int pfb, int grade, int C, int T, int K, int Q,
   if (pfb) {
     const void* one = pfb_kernel(grade, K, K, Q, D, &smem, Q);
     if (one == nullptr) return (int)cudaErrorInvalidValue;
-    return (int)gsdr::pfb_chunk(
-        one, smem, pfb_kernel(grade, 8, K, Q, D, &b, 1), K, Q, D,
+    // the chunked block's rows, then its chunks for that block's bytes
+    const int rows = pfb_rows(grade, C, M);
+    const cudaError_t err = gsdr::pfb_chunk(
+        one, smem, pfb_kernel(grade, 8, K, Q, D, &b, 1, rows), K, Q, D,
         [=](int lanes, int uc) {
           size_t bytes = 0;
-          pfb_kernel(grade, lanes, K, Q, D, &bytes, uc);
+          pfb_kernel(grade, lanes, K, Q, D, &bytes, uc, rows);
           return bytes;
         },
-        plan);
+        plan, rows);
+    plan[2] = gsdr::use_chunked_pfb(plan[0], plan[1], K, Q) ? rows : kTile;
+    return (int)err;
   }
   const void* one = dense_kernel(grade, C, T, T, D, M, &smem, false);
   if (one == nullptr) return (int)cudaErrorInvalidValue;
@@ -856,62 +889,63 @@ extern "C" int fm_chain_launch(
 // (K, Q) the one-chunk kernel, else the chunked one, which at bf16x3 and
 // bf16x2 reads both tables in its lane order (kernels/chain.py,
 // pfb_chunk_taps' (Q, 8*KBg) and pfb_mma_chunk_tables' (2, KBg,
-// ceil(C/4), 32, 2), KBg blocks of 8 lanes). A plan whose block
-// does not fit the card is refused before launch (too many resources).
-// counters: null, or an int64 buffer of fm_chain_counter_slots() slots
-// that the counted kernel adds into (clocks.cuh), which only the chunked
-// plan at bf16x3 has (else an invalid value). Other shapes and the
-// scratch as fm_chain_launch.
+// ceil(C/4), 32, 2), KBg blocks of 8 lanes). rows: the block's output rows,
+// fm_chain_fits' plan[2]: kTile, or for the chunked kernel at bf16x3 and
+// bf16x2 any of gsdr::valid_pfb_rows (its front's outputs and the
+// discriminator's are the same at every row count; the de-emphasis start
+// states are composed over other tile edges). A plan whose block does not
+// fit the card is refused before launch (too many resources). counters:
+// null, or an int64 buffer of fm_chain_counter_slots() slots that the
+// counted kernel adds into (clocks.cuh), which only the chunked plan at
+// bf16x3 has (else an invalid value). Other shapes and the scratch as
+// fm_chain_launch, its slots >= C * ceil(M / fm_chain_tile_outputs(rows)).
 extern "C" int pfb_fm_chain_launch(
     const void* buf_re, const void* buf_im, const void* hp, const void* btab,
     const void* table, const void* n0_rot, const void* coef,
     const void* cf_re_in, const void* cf_im_in, const void* cz_in,
     void* audio, void* cf_re_out, void* cf_im_out, void* cz_out,
     void* scratch, long slots, int nb, int C, int T, int K, int Q, int D,
-    int M, int lanes, int uc, int grade, float gain, void* stream,
+    int M, int lanes, int uc, int rows, int grade, float gain, void* stream,
     void* counters) {
-  const int ntiles = M > 0 ? (M + kOut - 1) / kOut : 0;
+  const bool chunked = gsdr::use_chunked_pfb(lanes, uc, K, Q);
+  const bool mma = chunked && grade != gsdr::kGradeF32;
   Scratch sc;
   if (C < 1 || T < 1 || D < 1 || K < 1 || K % D != 0 || Q < 1 ||
       Q * K < T || M < 1 || M != (nb - T) / D + 1 ||
       !gsdr::valid_pfb_plan(lanes, uc, K, Q) ||
-      !scratch_at(scratch, slots, ntiles, C, &sc))
+      !(rows == kTile || (mma && gsdr::valid_pfb_rows(rows))))
     return (int)cudaErrorInvalidValue;
-  const bool chunked = gsdr::use_chunked_pfb(lanes, uc, K, Q);
+  const int ntiles = (M + rows - 2) / (rows - 1);
+  if (!scratch_at(scratch, slots, ntiles, C, &sc))
+    return (int)cudaErrorInvalidValue;
   if (counters != nullptr && !(chunked && grade == gsdr::kGradeBf16x3))
     return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  const void* kernel = pfb_kernel(grade, lanes, K, Q, D, &smem, uc);
+  const void* kernel = pfb_kernel(grade, lanes, K, Q, D, &smem, uc, rows);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   if (counters != nullptr)   // its own static shared memory: the clocks
-    kernel = (const void*)fm_chain_tile_counted<gsdr::kGradeBf16x3,
-                                                gsdr::block_channels<true>()>;
+    kernel = gsdr::with_pfb_tile<true>(
+        grade, chunked, rows, [](auto, auto, auto r) {
+          return (const void*)fm_chain_tile_counted<gsdr::kGradeBf16x3,
+                                                    decltype(r)::value>;
+        });
   int fits = 0;
   const cudaError_t err = gsdr::block_fits(kernel, smem, &fits);
   if (err != cudaSuccess) return (int)err;
   if (!fits) return (int)cudaErrorLaunchOutOfResources;
-#define GSDR_PFB_CHAIN_AT(G, CHUNKED)                                        \
-  run_chain<true, G, CHUNKED>(buf_re, buf_im, nullptr, hp, btab, table,      \
-                              n0_rot, coef, cf_re_in, cf_im_in, cz_in,       \
-                              audio, cf_re_out, cf_im_out, cz_out, sc, nb,   \
-                              C, T, lanes, K, Q, D, M, ntiles, gain, smem,   \
-                              stream, uc)
-#define GSDR_PFB_CHAIN(G)                                             \
-  (chunked ? GSDR_PFB_CHAIN_AT(G, true) : GSDR_PFB_CHAIN_AT(G, false))
-  if (counters != nullptr)
-    return run_chain<true, gsdr::kGradeBf16x3, true,
-                     gsdr::block_channels<true>(), true>(
+  // the launch of the kernel pfb_kernel took, where `count` the counted one
+  auto launch = [&](auto count, auto g, auto c, auto r) {
+    return run_chain<true, decltype(g)::value, decltype(c)::value,
+                     gsdr::kPfbCh, decltype(r)::value, decltype(count)::value>(
         buf_re, buf_im, nullptr, hp, btab, table, n0_rot, coef, cf_re_in,
         cf_im_in, cz_in, audio, cf_re_out, cf_im_out, cz_out, sc, nb, C, T,
         lanes, K, Q, D, M, ntiles, gain, smem, stream, uc, counters);
-  switch (grade) {
-    case gsdr::kGradeBf16x2:
-      return GSDR_PFB_CHAIN(gsdr::kGradeBf16x2);
-    case gsdr::kGradeBf16x3:
-      return GSDR_PFB_CHAIN(gsdr::kGradeBf16x3);
-    default:
-      return GSDR_PFB_CHAIN(gsdr::kGradeF32);
-  }
-#undef GSDR_PFB_CHAIN
-#undef GSDR_PFB_CHAIN_AT
+  };
+  if (counters != nullptr)
+    return gsdr::with_pfb_tile<true>(grade, chunked, rows, [&](auto... k) {
+      return launch(std::true_type{}, k...);
+    });
+  return gsdr::with_pfb_tile(grade, chunked, rows, [&](auto... k) {
+    return launch(std::false_type{}, k...);
+  });
 }

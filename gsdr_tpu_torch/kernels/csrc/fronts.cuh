@@ -92,6 +92,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "clocks.cuh"
 
 namespace gsdr {
@@ -109,9 +111,18 @@ constexpr int kPfbCols = 4;        // PFB f32 fronts: channels of a tile
 constexpr int kPfbWideRows = 8;    // pfb_front_chunked: rows of a tile
 constexpr int kPfbConsumers = 256;  // pfb_front_chunked: threads multiplying
 constexpr int kMmaStages = 2;   // toeplitz_front_mma_chunked: chunks a ring
-// pfb_front_mma_chunked: words of an 8-lane block's A tile, the bf16 hi and
-// lo words of the kTile/16 m-tiles' fragments, four a thread
-constexpr int kPfbABlockWords = 2 * (kTile / 16) * 32 * 4;
+// pfb_front_mma_chunked: words of an 8-lane block's A tile for a block of
+// `rows` output rows, the bf16 hi and lo words of the rows/16 m-tiles'
+// fragments, four a thread
+__host__ __device__ constexpr int pfb_a_block_words(int rows) {
+  return 2 * (rows / 16) * 32 * 4;
+}
+// pfb_front_mma_chunked: warps of each role that share an m-tile pair in a
+// block of `rows` rows (kPfbConsumers / 32 warps over rows / 32 pairs): 1
+// at 256 rows, 2 at 128, 4 at 64
+__host__ __device__ constexpr int pfb_mma_split(int rows) {
+  return kPfbConsumers / rows;
+}
 // Grades of the dense front: the number of tensor-core passes; 0 is the
 // FP32-FMA front, toeplitz_front.
 constexpr int kGradeF32 = 0;
@@ -363,15 +374,16 @@ __host__ __device__ inline int pfb_chunk_blocks(int K, int D, int lanes) {
   return nkb < kb0 ? nkb : kb0;
 }
 
-// The most frames a chunk of nkb blocks stages for a u-range of uc taps:
-// (uc - 1)*P + the span of its lanes' s + kTile. A chunk may take the
-// last lanes of one phase and the first of the next (span P - 1) unless
-// the group is one phase (D = 1), whose chunks span 8*nkb - 1 at most.
+// The most frames a chunk of nkb blocks stages for a u-range of uc taps
+// and a block of `rows` output rows: (uc - 1)*P + the span of its lanes'
+// s + rows. A chunk may take the last lanes of one phase and the first of
+// the next (span P - 1) unless the group is one phase (D = 1), whose
+// chunks span 8*nkb - 1 at most.
 __host__ __device__ inline int pfb_chunk_frames(int K, int D, int nkb,
-                                                int uc) {
+                                                int uc, int rows) {
   const int P = K / D;
   const int span = D == 1 && 8 * nkb < P ? 8 * nkb - 1 : P - 1;
-  return (uc - 1) * P + span + kTile;
+  return (uc - 1) * P + span + rows;
 }
 
 // Lanes of a chunk of pfb_front_chunked: 8*nkb, at most a group's.
@@ -398,7 +410,8 @@ __host__ __device__ inline size_t pfb_chunk_stage_floats(int K, int Q, int D,
   if (uc > Q) uc = Q;
   return ((size_t)uc * L + 3) / 4 * 4 +
          2 * (size_t)pfb_chunk_phases(K, D, L) *
-             pfb_chunk_frames(K, D, pfb_chunk_blocks(K, D, lanes), uc);
+             pfb_chunk_frames(K, D, pfb_chunk_blocks(K, D, lanes), uc,
+                              kTile);
 }
 
 // pfb_front_chunked's dynamic shared memory: two buffers of a chunk's bank
@@ -423,9 +436,10 @@ __host__ __device__ inline int pfb_mma_pair_stride(int nfr) {
   return nfr + (24 - nfr % 16) % 16;
 }
 
-// pfb_front_mma_chunked's geometry for the plan (lanes, uc) and nt n-tiles:
-// chunks of nkb 8-lane blocks (L lanes at most) and u-ranges of uc fold
-// taps; per block of 8 lanes, its A tile of kPfbABlockWords words; a
+// pfb_front_mma_chunked's geometry for the plan (lanes, uc), nt n-tiles
+// and `rows` output rows: chunks of nkb 8-lane blocks (L lanes at most) and
+// u-ranges of uc fold taps; per block of 8 lanes, its A tile of
+// pfb_a_block_words(rows) words; a
 // staging buffer holds a u-range's taps [uc][8*nkb] and its window, two
 // planes of at most np2 = ceil(npc/2) phase pairs of 2*Lf words (Lf the
 // pair stride of the most frames a u-range stages). Bytes of one A tile,
@@ -436,32 +450,31 @@ struct PfbMmaChunkGeom {
   size_t abytes, bbytes, sbytes;
 };
 
-__host__ __device__ inline PfbMmaChunkGeom pfb_mma_chunk_geom(int nt, int K,
-                                                              int Q, int D,
-                                                              int lanes,
-                                                              int uc) {
+__host__ __device__ inline PfbMmaChunkGeom pfb_mma_chunk_geom(
+    int nt, int K, int Q, int D, int lanes, int uc, int rows) {
   PfbMmaChunkGeom g;
   g.nkb = pfb_chunk_blocks(K, D, lanes);
   g.L = pfb_chunk_lanes(K, D, lanes);
   g.uc = uc < Q ? uc : Q;
   g.npc = pfb_chunk_phases(K, D, g.L);
-  g.Lf = pfb_mma_pair_stride(pfb_chunk_frames(K, D, g.nkb, g.uc));
-  g.abytes = (size_t)g.nkb * kPfbABlockWords * sizeof(uint32_t);
+  g.Lf = pfb_mma_pair_stride(pfb_chunk_frames(K, D, g.nkb, g.uc, rows));
+  g.abytes = (size_t)g.nkb * pfb_a_block_words(rows) * sizeof(uint32_t);
   g.bbytes = 2 * (size_t)g.nkb * nt * 32 * sizeof(uint2);
   g.sbytes = ((size_t)g.uc * 8 * g.nkb +
               4 * (size_t)((g.npc + 1) / 2) * g.Lf) * sizeof(float);
   return g;
 }
 
-// pfb_front_mma_chunked's dynamic shared memory: two A tiles, two B buffers
-// and two staging buffers (pfb_mma_chunk_geom); the kTile x (8*nt + 1)
-// output tile reuses the space after the product.
+// pfb_front_mma_chunked's dynamic shared memory for a block of `rows`
+// output rows: two A tiles, two B buffers and two staging buffers
+// (pfb_mma_chunk_geom); the rows x (8*nt + 1) output tile reuses the space
+// after the product.
 __host__ __device__ inline size_t pfb_mma_chunk_bytes(int nt, int K, int Q,
                                                       int D, int lanes,
-                                                      int uc) {
-  const PfbMmaChunkGeom g = pfb_mma_chunk_geom(nt, K, Q, D, lanes, uc);
+                                                      int uc, int rows) {
+  const PfbMmaChunkGeom g = pfb_mma_chunk_geom(nt, K, Q, D, lanes, uc, rows);
   const size_t all = 2 * (g.abytes + g.bbytes + g.sbytes);
-  const size_t out = (size_t)kTile * (8 * nt + 1) * sizeof(float);
+  const size_t out = (size_t)rows * (8 * nt + 1) * sizeof(float);
   return all > out ? all : out;
 }
 
@@ -555,30 +568,31 @@ inline int device_sms() {
   return n;
 }
 
-// The block of the bf16 dense front's chunked kernel
-// (toeplitz_front_mma_chunked): `ch` channels (4, 8, 16 or 32: 4*kNT) and
-// `rows` output rows (kTile, or 128 or 64 where the launcher's rows are
-// independent).
+// The block of the bf16 chunked kernels: the dense front's
+// (toeplitz_front_mma_chunked), `ch` channels (4, 8, 16 or 32: 4*kNT), or
+// the PFB front's (pfb_front_mma_chunked), kPfbCh; and `rows` output rows
+// (kTile, or 128 or 64 where the launcher takes them).
 struct MmaBlock {
   int ch, rows;
 };
 
-constexpr int kMmaMinRows = 64;   // the fewest rows of a B3 or B4 block
+constexpr int kMmaMinRows = 64;   // the fewest rows of a chunked bf16 block
 
 // The chunked bf16 block for C channels and M outputs on the current
-// device: the fewest channels of 4, 8, 16 (32 where max_ch is 32) that
-// hold C, so that no block multiplies more than 3 zero channels (am_d128's
-// 8 took a block of 16 before), and kTile rows; then, while the grid with
-// half the rows (down to min_rows) still fits one wave of the card's SMs,
-// half the rows, and after that, while it does with half the channels (down
-// to 4), half the channels. A block of rows r makes ceil(M / (r - overlap))
-// row tiles (the FM chain's tiles overlap by one output). Each n-tile's and
-// each row's sums are independent of the others, so the outputs do not
-// depend on the block. M < 1: any M, the widest block (the most shared
-// memory).
+// device: the fewest channels of min_ch, 2*min_ch, ... up to max_ch (4, 8,
+// 16, 32 for the dense front; the PFB front's kPfbCh alone, min_ch =
+// max_ch) that hold C, so that no block multiplies more than 3 zero
+// channels (am_d128's 8 took a block of 16 before), and kTile rows; then,
+// while the grid with half the rows (down to min_rows) still fits one wave
+// of the card's SMs, half the rows, and after that, while it does with half
+// the channels (down to min_ch), half the channels. A block of rows r makes
+// ceil(M / (r - overlap)) row tiles (the FM chain's tiles overlap by one
+// output). Each n-tile's and each row's sums are independent of the
+// others, so the outputs do not depend on the block. M < 1: any M, the
+// widest block (the most shared memory).
 inline MmaBlock mma_chunk_block(int C, int M, int max_ch, int min_rows,
-                                int overlap) {
-  MmaBlock b{4, kTile};
+                                int overlap, int min_ch = 4) {
+  MmaBlock b{min_ch, kTile};
   while (b.ch < C && b.ch < max_ch) b.ch *= 2;
   const int sms = M >= 1 ? device_sms() : 0;
   if (sms < 1) return b;
@@ -587,8 +601,71 @@ inline MmaBlock mma_chunk_block(int C, int M, int max_ch, int min_rows,
     return (M + out - 1) / out * ((C + ch - 1) / ch);
   };
   while (b.rows > min_rows && blocks(b.ch, b.rows / 2) <= sms) b.rows /= 2;
-  while (b.ch > 4 && blocks(b.ch / 2, b.rows) <= sms) b.ch /= 2;
+  while (b.ch > min_ch && blocks(b.ch / 2, b.rows) <= sms) b.ch /= 2;
   return b;
+}
+
+// The rows of the chunked bf16 PFB front's block (pfb_front_mma_chunked)
+// for C channels and M outputs on the current device: mma_chunk_block's
+// rule with the channels held at kPfbCh, so 256 rows, or 128 or 64 where
+// the grid of ceil(M / (rows - overlap)) row tiles x ceil(C / kPfbCh)
+// channel groups at half the rows still fits one wave (a 20-ms block of
+// the land-mobile NFM raster: 128 rows, 80 blocks on 132 SMs, where 256
+// rows took 40). Every row's fold and every column's sum run over the
+// same lanes in the same order whatever the rows, so the front's outputs
+// do not depend on them. C < 1 or M < 1: any C or M, kTile.
+inline int pfb_mma_rows(int C, int M, int overlap) {
+  return C < 1 ? kTile
+               : mma_chunk_block(C, M, kPfbCh, kMmaMinRows, overlap, kPfbCh)
+                     .rows;
+}
+
+// The rows a chunked bf16 PFB block may take, the choices of pfb_mma_rows
+// (and kernels/chain.py's PFB_ROWS): f(std::integral_constant<int, r>{})
+// for rows r of kTile, kTile / 2 or kMmaMinRows, anything else kTile, one
+// instantiation each.
+template <class F>
+auto with_pfb_rows(int rows, const F& f) {
+  if (rows == kMmaMinRows)
+    return f(std::integral_constant<int, kMmaMinRows>{});
+  if (rows == kTile / 2) return f(std::integral_constant<int, kTile / 2>{});
+  return f(std::integral_constant<int, kTile>{});
+}
+
+// A row count a chunked bf16 PFB launch may take: one of with_pfb_rows'.
+inline bool valid_pfb_rows(int rows) {
+  return with_pfb_rows(rows, [](auto r) { return decltype(r)::value; }) ==
+         rows;
+}
+
+// f(grade, chunked, rows), each a std::integral_constant, for the PFB tile
+// kernel of a launch at `grade` (f32, bf16x2 or bf16x3) whose plan runs
+// the chunked kernel or not (use_chunked_pfb), in blocks of `rows` rows:
+// the chunked kernel at the bf16 grades with_pfb_rows', every other
+// kTile; where kCounted, the counted kernel's (the chunked one at bf16x3,
+// which the caller checks). The launchers' one path into their PFB tile
+// kernels.
+template <bool kCounted = false, class F>
+auto with_pfb_tile(int grade, bool chunked, int rows, const F& f) {
+  using X3 = std::integral_constant<int, kGradeBf16x3>;
+  using X2 = std::integral_constant<int, kGradeBf16x2>;
+  using F32 = std::integral_constant<int, kGradeF32>;
+  using Tile = std::integral_constant<int, kTile>;
+  if constexpr (kCounted) {
+    return with_pfb_rows(
+        rows, [&](auto r) { return f(X3{}, std::true_type{}, r); });
+  } else {
+    if (grade == kGradeF32)
+      return chunked ? f(F32{}, std::true_type{}, Tile{})
+                     : f(F32{}, std::false_type{}, Tile{});
+    if (!chunked)
+      return grade == kGradeBf16x2 ? f(X2{}, std::false_type{}, Tile{})
+                                   : f(X3{}, std::false_type{}, Tile{});
+    return with_pfb_rows(rows, [&](auto r) {
+      return grade == kGradeBf16x2 ? f(X2{}, std::true_type{}, r)
+                                   : f(X3{}, std::true_type{}, r);
+    });
+  }
 }
 
 // f.template run<kCh, kRows>() for the block b of a launcher whose blocks
@@ -666,16 +743,21 @@ cudaError_t dense_chunk(const void* one, const void* chunked, int T,
 // (K, Q), one chunk, where the one-chunk kernel's block fits (`one`, whose
 // dynamic shared memory is one_bytes); else the plan of the chunked
 // kernel (`chunked`, bytes(lanes, uc) dynamic bytes) that stages the
-// fewest windows: a u-range of all Q taps where its block fits at some
-// chunk of lanes, else for each chunk of 8*nkb lanes (nkb <= max_blocks,
-// a group's) the most taps a u-range can take, the plan with the fewest
-// chunks x u-ranges, the larger chunk on a tie. (0, 0) where nothing
-// fits, which does not happen for P = K/D up to a few hundred. Returns 0
-// or the CUDA error. The libraries answer <library>_fits with it for the
-// PFB front.
+// fewest windows: for each chunk of 8*nkb lanes (nkb up to a group's) the
+// most taps a u-range can take (all Q where the block fits), the plan with
+// the fewest chunks x u-ranges, the larger chunk on a tie; but for a
+// chunked block of fewer than kTile rows (`rows`), on a tie the one with
+// the most taps a u-range (the sliding fold takes all Q at once), then
+// the smallest chunk (the most even chunks: the 128-row block of the NFM
+// and airband grids takes chunks of 4 and 4 blocks, where 7 and 1 also
+// fit; its warps split a chunk's blocks between them). (0, 0) where
+// nothing fits, which does not happen for P = K/D up to a few hundred.
+// Returns 0 or the CUDA error. The libraries answer <library>_fits with it
+// for the PFB front.
 template <class Bytes>
 cudaError_t pfb_chunk(const void* one, size_t one_bytes, const void* chunked,
-                      int K, int Q, int D, Bytes bytes, int* plan) {
+                      int K, int Q, int D, Bytes bytes, int* plan,
+                      int rows = kTile) {
   size_t room = 0;
   cudaError_t err = block_room(one, &room);
   if (err != cudaSuccess) return err;
@@ -707,7 +789,8 @@ cudaError_t pfb_chunk(const void* one, size_t one_bytes, const void* chunked,
       chunks += ((np * P + 7) / 8 + nkb - 1) / nkb;
     }
     const long cost = chunks * ((Q + uc - 1) / uc);
-    if (best < 0 || cost < best) {
+    if (best < 0 || cost < best ||
+        (rows < kTile && cost == best && uc >= plan[1])) {
       best = cost;
       plan[0] = 8 * nkb;
       plan[1] = uc;
@@ -1890,18 +1973,28 @@ __device__ __forceinline__ const float* pfb_front_chunked(
 // that nothing overlapped, from a frame-major window where a fold load's
 // frames 8 apart shared a bank. What the design does about it:
 //  - warps specialised, as pfb_front_chunked: the first kPfbConsumers
-//    threads (8 warps of 32 rows, two m-tiles against the kNT n-tiles)
-//    multiply; the other 8 warps (producers) stage and fold. Chunk c's
-//    fold goes into A tile c & 1, the bf16 hi and lo words in fragment
-//    order, [block][hi, lo][m-tile][lane][4] (kPfbABlockWords a block), so
-//    that a consumer loads each fragment with one 16-byte load; the
-//    producers fold chunk c + 1 while the consumers multiply chunk c, handed
-//    over through the named barriers full and free.
-//  - producer thread (gid, tig) of warp pw folds what consumer thread
-//    (gid, tig) reads: lanes tig and tig + 4 of each block, rows gid and
-//    gid + 8 of m-tiles 2*pw and 2*pw + 1, both planes. Between u-ranges
-//    its partials wait as float32 in its own fragment's words of the A
-//    tile; after the last it writes the split there.
+//    threads (8 warps, at 256 rows each 32 rows: two m-tiles against the
+//    kNT n-tiles) multiply; the other 8 warps (producers) stage and fold.
+//    Chunk c's fold goes into A tile c & 1, the bf16 hi and lo words in
+//    fragment order, [block][hi, lo][m-tile][lane][4] (pfb_a_block_words
+//    a block), so that a consumer loads each fragment with one 16-byte
+//    load; the producers fold chunk c + 1 while the consumers multiply
+//    chunk c, handed over through the named barriers full and free.
+//  - producer thread (gid, tig) of the warp of m-tile pair mp folds what
+//    consumer thread (gid, tig) of that pair reads: lanes tig and tig + 4
+//    of each block, rows gid and gid + 8 of m-tiles 2*mp and 2*mp + 1,
+//    both planes. Between u-ranges its partials wait as float32 in its own
+//    fragment's words of the A tile; after the last it writes the split
+//    there.
+//  - a block takes 256, 128 or 64 rows (pfb_mma_rows: fewer where a short
+//    call's grid would leave most of the card's SMs idle) on the same 16
+//    warps, so that a smaller block's SM keeps as many warps in flight and
+//    each does less: at rows r, the r/32 m-tile pairs are each shared by
+//    256/r warps of each role (pfb_mma_split), the consumers splitting the
+//    kNT n-tiles and the producers the 8-lane blocks of a step (block kb
+//    to the warp of residue kb mod 256/r). Every accumulator still takes
+//    its fragments in ascending block and every fold sums in ascending u,
+//    so every row tile gives the 256-row block's values bit for bit.
 //  - the window is staged in phase pairs, frames contiguous
 //    (pfb_mma_stage_window: a frame's pair one 8-byte cp.async where D
 //    is even, pairs pfb_mma_pair_stride frames apart), so a warp's fold
@@ -1983,53 +2076,93 @@ __device__ __forceinline__ void pfb_mma_stage_b(
   }
 }
 
-// d += the products of one chunk's nk blocks of 8 lanes, in ascending
-// block: consumer warp cw takes m-tiles 2*cw and 2*cw + 1 (rows 32*cw +
-// 16*mt + gid and + 8), its A fragments the 16-byte words [kb][part][mt]
-// [lane] of the A tile `at`, its B fragments the words [part][kb][nt][lane]
-// of bs [2][nkb][kNT][32], the values pfb_front_mma forms in registers.
-template <int kGrade, int kNT>
-__device__ __forceinline__ void pfb_mma_product(float (&d)[2][kNT][4],
-                                                const uint4* at,
-                                                const uint2* bs, int nk,
-                                                int nkb, int cw, int lane) {
-  constexpr int kMt = kTile / 16;
-  const uint2* bl = bs + lane;
-  for (int kb = 0; kb < nk; ++kb) {
-    const uint4* af = at + ((size_t)kb * 2 * kMt + 2 * cw) * 32 + lane;
-    uint32_t ah[2][4], al[2][4];
+// The warps of pfb_front_mma_chunked in a block of kRows rows: warp w of
+// either role takes m-tile pair pfb_mma_pair(w) = w % (kRows/32), and is
+// the pfb_mma_share(w) = w / (kRows/32)-th of the pfb_mma_split(kRows)
+// warps of its role on that pair: a consumer multiplies that share of the
+// n-tiles, a producer folds the 8-lane blocks of that residue.
+template <int kRows>
+__device__ __forceinline__ int pfb_mma_pair(int w) {
+  return pfb_mma_split(kRows) == 1 ? w : w % (kRows / 32);
+}
+
+template <int kRows>
+__device__ __forceinline__ int pfb_mma_share(int w) {
+  return pfb_mma_split(kRows) == 1 ? 0 : w / (kRows / 32);
+}
+
+// d += the products of 8-lane block kb of a chunk of nkb blocks, for kNw
+// of the block's kNT n-tiles: the consumer warp of m-tile pair mp takes
+// m-tiles 2*mp and 2*mp + 1 (rows 32*mp + 16*mt + gid and + 8) of a block
+// of kRows rows, its A fragments the 16-byte words [kb][part][mt][lane] of
+// the A tile `at`, its B fragments the words [part][kb][nt][lane] of bl,
+// the thread's words of its n-tiles in bs [2][nkb][kNT][32]; the values
+// pfb_front_mma forms in registers.
+template <int kGrade, int kNT, int kNw, int kRows>
+__device__ __forceinline__ void pfb_mma_block_product(float (&d)[2][kNw][4],
+                                                      const uint4* at,
+                                                      const uint2* bl, int kb,
+                                                      int nkb, int mp,
+                                                      int lane) {
+  constexpr int kMt = kRows / 16;
+  const uint4* af = at + ((size_t)kb * 2 * kMt + 2 * mp) * 32 + lane;
+  uint32_t ah[2][4], al[2][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const uint4 h = af[mt * 32];
-      ah[mt][0] = h.x, ah[mt][1] = h.y, ah[mt][2] = h.z, ah[mt][3] = h.w;
-      if constexpr (kGrade == kGradeBf16x3) {
-        const uint4 l = af[(kMt + mt) * 32];
-        al[mt][0] = l.x, al[mt][1] = l.y, al[mt][2] = l.z, al[mt][3] = l.w;
-      }
+  for (int mt = 0; mt < 2; ++mt) {
+    const uint4 h = af[mt * 32];
+    ah[mt][0] = h.x, ah[mt][1] = h.y, ah[mt][2] = h.z, ah[mt][3] = h.w;
+    if constexpr (kGrade == kGradeBf16x3) {
+      const uint4 l = af[(kMt + mt) * 32];
+      al[mt][0] = l.x, al[mt][1] = l.y, al[mt][2] = l.z, al[mt][3] = l.w;
     }
-    uint32_t bh[kNT][2];
+  }
+  uint32_t bh[kNw][2];
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const uint2 h = bl[(kb * kNT + nt) * 32];
-      bh[nt][0] = h.x;
-      bh[nt][1] = h.y;
+  for (int nt = 0; nt < kNw; ++nt) {
+    const uint2 h = bl[(kb * kNT + nt) * 32];
+    bh[nt][0] = h.x;
+    bh[nt][1] = h.y;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      mma_bf16(d[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNw; ++nt) {
+    const uint2 l = bl[((nkb + kb) * kNT + nt) * 32];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) mma_bf16(d[mt][nt], ah[mt], l.x, l.y);
+  }
+  if constexpr (kGrade == kGradeBf16x3) {
+#pragma unroll
+    for (int nt = 0; nt < kNw; ++nt)
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
-        mma_bf16(d[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const uint2 l = bl[((nkb + kb) * kNT + nt) * 32];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_bf16(d[mt][nt], ah[mt], l.x, l.y);
-    }
-    if constexpr (kGrade == kGradeBf16x3) {
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          mma_bf16(d[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
-    }
+        mma_bf16(d[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+  }
+}
+
+// d += the products of one chunk's nk blocks of 8 lanes, in ascending
+// block (pfb_mma_block_product), for kNw of the block's kNT n-tiles from
+// n0. Below kTile rows a warp's fewer products a block leave its fragment
+// loads exposed, so it takes two blocks at once (the airband's 128-row
+// block 3% faster on the H100); the 256-row block's loop is left to the
+// compiler.
+template <int kGrade, int kNT, int kNw, int kRows>
+__device__ __forceinline__ void pfb_mma_product(float (&d)[2][kNw][4],
+                                                const uint4* at,
+                                                const uint2* bs, int nk,
+                                                int nkb, int mp, int n0,
+                                                int lane) {
+  const uint2* bl = bs + n0 * 32 + lane;
+  if constexpr (kRows < kTile) {
+#pragma unroll 2
+    for (int kb = 0; kb < nk; ++kb)
+      pfb_mma_block_product<kGrade, kNT, kNw, kRows>(d, at, bl, kb, nkb, mp,
+                                                     lane);
+  } else {
+    for (int kb = 0; kb < nk; ++kb)
+      pfb_mma_block_product<kGrade, kNT, kNw, kRows>(d, at, bl, kb, nkb, mp,
+                                                     lane);
   }
 }
 
@@ -2075,28 +2208,30 @@ __device__ __forceinline__ void pfb_mma_fold_slide(float (&fr)[2][4],
 }
 
 // Folds step s (lanes [ka, kz) of a group, fold taps u0..u1-1) into the A
-// tile `at`: producer warp pw, thread (gid, tig), the values of lanes ka +
-// 8*kb + tig + 4*h at rows 32*pw + 16*mt + gid + 8*rr, register q = 2*h +
-// rr of m-tile mt's fragments. The window xw holds the step's phases pa..
+// tile `at` of a block of kRows rows: the producer warp of m-tile pair mp
+// and 8-lane blocks kb = kb0 mod kSplit of the step, thread (gid, tig), the
+// values of lanes ka + 8*kb + tig + 4*h at rows 32*mp + 16*mt + gid + 8*rr,
+// register q = 2*h + rr of m-tile mt's fragments. The window xw holds the
+// step's phases pa..
 // of the group from frame u0*P + s_lo in pairs (pfb_mma_stage_window, lf
 // frames a pair), plane 1 `plane` words on: row r of lane (pl, s) reads
 // frame r + s - s_lo + (u - u0)*P of phase pl - pa; the taps
 // hs[(u - u0)*tl + kappa - ka], zeros past
 // kz, where a lane folds phase pa at s_lo with zero taps (so its values,
 // zeros of either sign, are those a chunked launch always gave it).
-template <int kGrade>
+template <int kGrade, int kRows, int kSplit>
 __device__ __forceinline__ void pfb_mma_fold(uint4* at, const float* xw,
                                              int plane, int lf,
                                              const float* hs, int tl, int P,
                                              int Q, const PfbSpan& sp,
-                                             const PfbStep& s, int pw,
-                                             int lane) {
-  constexpr int kMt = kTile / 16;
+                                             const PfbStep& s, int mp,
+                                             int kb0, int lane) {
+  constexpr int kMt = kRows / 16;
   const int gid = lane >> 2, tig = lane & 3, nu = s.u1 - s.u0;
-  const float* xr = xw + 2 * (32 * pw + gid);
-  for (int kb = 0; kb < tl / 8; ++kb) {
+  const float* xr = xw + 2 * (32 * mp + gid);
+  for (int kb = kb0; kb < tl / 8; kb += kSplit) {
     const float* tp = hs + 8 * kb + tig;   // lane h's tap at tp[4*h]
-    uint4* slot = at + ((size_t)kb * 2 * kMt + 2 * pw) * 32 + lane;
+    uint4* slot = at + ((size_t)kb * 2 * kMt + 2 * mp) * 32 + lane;
     float fr[2][4], fi[2][4];   // [mt][q]
     int u = 0;
     // the main paths' grids, a whole block of lanes: the sliding fold
@@ -2187,17 +2322,20 @@ __device__ __forceinline__ void pfb_mma_fold(uint4* at, const float* xw,
 
 // pfb_front_mma_chunked's producers (the threads from kPfbConsumers on):
 // step after step, stage the next step's taps and window and fold the
-// current one into its chunk's A tile, handing each folded chunk over.
+// current one into its chunk's A tile, handing each folded chunk over; in a
+// block of kRows rows each warp its m-tile pair's 8-lane blocks of its
+// residue (pfb_mma_pair, pfb_mma_share).
 // hq: pfb_chunk_taps (Q, 8*KBg). Where kCount, each warp adds its front
 // clocks and its waits for its staging and for a free A tile into clk
 // (clocks.cuh).
-template <int kGrade, bool kCount = false>
+template <int kGrade, int kRows, bool kCount = false>
 __device__ __forceinline__ void pfb_mma_produce(
     uint4* a, float* stage, const float* __restrict__ buf_re,
     const float* __restrict__ buf_im, int nb, const float* __restrict__ hq,
     int K, int Q, int D, long g0, const PfbMmaGeom& geo,
     const PfbMmaChunkGeom& g, unsigned long long* clk = nullptr) {
   constexpr int kProducers = kPfbThreads - kPfbConsumers;
+  constexpr int kSplit = pfb_mma_split(kRows);
   const int P = geo.P, tq = 8 * geo.KBg, tsize = g.uc * 8 * g.nkb;
   const int tid = threadIdx.x - kPfbConsumers;
   const size_t atile = g.abytes / sizeof(uint4);
@@ -2208,7 +2346,7 @@ __device__ __forceinline__ void pfb_mma_produce(
                      reinterpret_cast<uintptr_t>(buf_im)) & 7) == 0;
   // the window's frames of a step, and its phase stride
   auto frames = [&](const PfbStep& s, const PfbSpan& sp) {
-    return (s.u1 - 1 - s.u0) * P + sp.s_hi - sp.s_lo + kTile;
+    return (s.u1 - 1 - s.u0) * P + sp.s_hi - sp.s_lo + kRows;
   };
   // starts step s's taps and window into staging buffer sb
   auto issue = [&](const PfbStep& s, int sb) {
@@ -2252,10 +2390,12 @@ __device__ __forceinline__ void pfb_mma_produce(
     const PfbSpan sp = pfb_span(P, cur.ka, cur.kz);
     const int lf = pfb_mma_pair_stride(frames(cur, sp));
     const float* st = stage + (si & 1) * ssize;
-    pfb_mma_fold<kGrade>(a + (c & 1) * atile, st + tsize,
-                         2 * ((sp.pb - sp.pa + 2) / 2) * lf, lf, st,
-                         8 * ((cur.kz - cur.ka + 7) / 8), P, Q, sp, cur,
-                         tid >> 5, tid & 31);
+    pfb_mma_fold<kGrade, kRows, kSplit>(
+        a + (c & 1) * atile, st + tsize,
+        2 * ((sp.pb - sp.pa + 2) / 2) * lf, lf, st,
+        8 * ((cur.kz - cur.ka + 7) / 8), P, Q, sp, cur,
+        pfb_mma_pair<kRows>(tid >> 5), pfb_mma_share<kRows>(tid >> 5),
+        tid & 31);
     if (cur.u1 == Q) {   // chunk c is folded: hand it over
       named_arrive(kBarFull + (c & 1), kPfbThreads);
       ++c;
@@ -2267,12 +2407,13 @@ __device__ __forceinline__ void pfb_mma_produce(
 
 // pfb_front_mma_chunked's consumers (the first kPfbConsumers threads):
 // chunk after chunk, stage the next chunk's B rows and multiply the
-// current one from its A tile. btab: pfb_mma_chunk_tables (2, KBg, NT,
-// 32, 2). Where kCount, each warp adds its front clocks and its waits for
-// a folded chunk into clk (clocks.cuh).
-template <int kGrade, int kNT, bool kCount = false>
+// current one from its A tile, each warp its m-tile pair's kNw n-tiles of
+// its share (pfb_mma_pair, pfb_mma_share). btab: pfb_mma_chunk_tables (2,
+// KBg, NT, 32, 2). Where kCount, each warp adds its front clocks and its
+// waits for a folded chunk into clk (clocks.cuh).
+template <int kGrade, int kNT, int kNw, int kRows, bool kCount = false>
 __device__ __forceinline__ void pfb_mma_consume(
-    float (&d)[2][kNT][4], const uint4* a, uint2* bs,
+    float (&d)[2][kNw][4], const uint4* a, uint2* bs,
     const uint2* __restrict__ btab, int NT, int Q, int D, int group,
     const PfbMmaGeom& geo, const PfbMmaChunkGeom& g,
     unsigned long long* clk = nullptr) {
@@ -2293,7 +2434,7 @@ __device__ __forceinline__ void pfb_mma_consume(
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+    for (int nt = 0; nt < kNw; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) d[mt][nt][i] = 0.f;
 
@@ -2310,9 +2451,10 @@ __device__ __forceinline__ void pfb_mma_consume(
     if constexpr (kCount) clocks::warp_open(clk, clocks::kFullWait);
     named_sync(kBarFull + (c & 1), kPfbThreads);   // chunk c is folded
     if constexpr (kCount) clocks::warp_close(clk, clocks::kFullWait);
-    pfb_mma_product<kGrade, kNT>(d, a + (c & 1) * atile, bs + (c & 1) * bsize,
-                                 (cur.kz - cur.ka + 7) / 8, g.nkb, tid >> 5,
-                                 tid & 31);
+    pfb_mma_product<kGrade, kNT, kNw, kRows>(
+        d, a + (c & 1) * atile, bs + (c & 1) * bsize,
+        (cur.kz - cur.ka + 7) / 8, g.nkb, pfb_mma_pair<kRows>(tid >> 5),
+        pfb_mma_share<kRows>(tid >> 5) * kNw, tid & 31);
     if (c + 2 < nchunks) named_arrive(kBarFree + (c & 1), kPfbThreads);
     cur = nxt;
   }
@@ -2320,13 +2462,14 @@ __device__ __forceinline__ void pfb_mma_consume(
 }
 
 // The bf16 PFB front in chunks (above), for the 4*kNT channels of channel
-// group `group`, grade kGrade, the plan (lanes, uc). hq: pfb_chunk_taps
-// (Q, 8*KBg), btab: pfb_mma_chunk_tables (2, KBg, ceil(C/4), 32, 2), both
-// in the chunks' lane order. Shared memory (pfb_mma_chunk_bytes): two A
-// tiles, two B buffers, two staging buffers. Returns the output tile, as
-// pfb_front_mma. Where kCount, the warps add their front clocks and waits
-// into clk (clocks.cuh).
-template <int kGrade, int kNT, bool kCount = false>
+// group `group`, grade kGrade, the plan (lanes, uc), and the kRows output
+// rows (window start g0 + r*D) of the block (256, 128 or 64:
+// pfb_mma_rows). hq: pfb_chunk_taps (Q, 8*KBg), btab: pfb_mma_chunk_tables
+// (2, KBg, ceil(C/4), 32, 2), both in the chunks' lane order. Shared memory
+// (pfb_mma_chunk_bytes): two A tiles, two B buffers, two staging buffers.
+// Returns the kRows x (8*kNT + 1) output tile, as pfb_front_mma. Where
+// kCount, the warps add their front clocks and waits into clk (clocks.cuh).
+template <int kGrade, int kNT, int kRows, bool kCount = false>
 __device__ __forceinline__ const float* pfb_front_mma_chunked(
     unsigned char* smem, const float* __restrict__ buf_re,
     const float* __restrict__ buf_im, int nb, const float* __restrict__ hq,
@@ -2336,32 +2479,39 @@ __device__ __forceinline__ const float* pfb_front_mma_chunked(
                 "tensor-core grades are bf16x3 and bf16x2");
   static_assert(kPfbConsumers == kTile &&
                     kPfbThreads - kPfbConsumers == kTile,
-                "8 consumer warps of 32 rows, 8 producer warps of 32 rows");
+                "8 consumer warps and 8 producer warps");
+  constexpr int kSplit = pfb_mma_split(kRows);
+  static_assert(kRows % 32 == 0 && kSplit >= 1 && kSplit * kRows ==
+                    kPfbConsumers && kNT % kSplit == 0,
+                "each m-tile pair shared by kSplit warps of each role");
+  constexpr int kNw = kNT / kSplit;  // n-tiles a consumer warp multiplies
   constexpr int kOS = 8 * kNT + 1;   // output tile row stride, in floats
   const PfbMmaGeom geo = pfb_mma_geom(K, Q, D);
-  const PfbMmaChunkGeom g = pfb_mma_chunk_geom(kNT, K, Q, D, lanes, uc);
+  const PfbMmaChunkGeom g =
+      pfb_mma_chunk_geom(kNT, K, Q, D, lanes, uc, kRows);
   uint4* a = reinterpret_cast<uint4*>(smem);
   uint2* bs = reinterpret_cast<uint2*>(smem + 2 * g.abytes);
   float* stage = reinterpret_cast<float*>(smem + 2 * (g.abytes + g.bbytes));
   float* out = reinterpret_cast<float*>(smem);
   const bool consumer = threadIdx.x < kPfbConsumers;
-  float d[2][kNT][4];
+  float d[2][kNw][4];
   if (consumer)
-    pfb_mma_consume<kGrade, kNT, kCount>(
+    pfb_mma_consume<kGrade, kNT, kNw, kRows, kCount>(
         d, a, bs, reinterpret_cast<const uint2*>(btab), (C + 3) / 4, Q, D,
         group, geo, g, clk);
   else
-    pfb_mma_produce<kGrade, kCount>(a, stage, buf_re, buf_im, nb, hq, K, Q,
-                                    D, g0, geo, g, clk);
+    pfb_mma_produce<kGrade, kRows, kCount>(a, stage, buf_re, buf_im, nb, hq,
+                                           K, Q, D, g0, geo, g, clk);
   __syncthreads();   // every warp is done: the output tile reuses the space
   if (consumer) {
     const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+    const int n0 = pfb_mma_share<kRows>(threadIdx.x >> 5) * kNw;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
-      const int r = 32 * (threadIdx.x >> 5) + 16 * mt + gid;
+      const int r = 32 * pfb_mma_pair<kRows>(threadIdx.x >> 5) + 16 * mt + gid;
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int col = 8 * nt + 2 * tig;
+      for (int nt = 0; nt < kNw; ++nt) {
+        const int col = 8 * (n0 + nt) + 2 * tig;
         out[r * kOS + col] = d[mt][nt][0];
         out[r * kOS + col + 1] = d[mt][nt][1];
         out[(r + 8) * kOS + col] = d[mt][nt][2];

@@ -21,7 +21,9 @@ the CPU. The dense front takes any T and D: its block stages the taps in
 chunks where the whole bank does not fit (``chain.dense_chunk``); the PFB
 front takes any grid with D | K the JAX package's plans take: its block
 stages the lanes and fold taps in chunks where the whole bank, taps or
-window do not fit (``chain.pfb_chunk``). Either front runs at a grade
+window do not fit (``chain.pfb_chunk``), at the bf16 grades in blocks of
+256, 128 or 64 rows by the call's outputs and channels and the card's SMs
+(``chain.pfb_block``). Either front runs at a grade
 (``precision``, the JAX package's): 'bf16x3', the kernels' default as it
 is ``fm_chain_pallas``'s and
 ``pfb_fm_chain_pallas``'s, and 'bf16x2' on the tensor cores, 'f32' on the
@@ -41,6 +43,7 @@ import torch
 from gsdr_tpu_torch.carray import ComplexArray
 from gsdr_tpu_torch.kernels.chain import (
     CHAIN_CLOCKS,
+    PFB_ROWS,
     ChainKernel,
     LookBackScratch,
     check_operands,
@@ -153,10 +156,10 @@ def _library():
     lib.fm_chain_launch.argtypes = ([p] * 15 + [lng] + [i] * 8
                                     + [ctypes.c_float, p])
     lib.fm_chain_launch.restype = i
-    lib.pfb_fm_chain_launch.argtypes = ([p] * 15 + [lng] + [i] * 10
+    lib.pfb_fm_chain_launch.argtypes = ([p] * 15 + [lng] + [i] * 11
                                         + [ctypes.c_float, p, p])
     lib.pfb_fm_chain_launch.restype = i
-    lib.fm_chain_tile_outputs.argtypes = []
+    lib.fm_chain_tile_outputs.argtypes = [i]
     lib.fm_chain_tile_outputs.restype = i
     lib.fm_chain_scratch_bytes.argtypes = [lng]
     lib.fm_chain_scratch_bytes.restype = lng
@@ -175,11 +178,12 @@ pfb_counters = KernelCounters("pfb_fm_chain", CHAIN_CLOCKS)
 
 
 def _launch(fn, front_args, buf, lo_table, n0_rot, c, t, d, gain, deemph,
-            carry_f, carry_z, counted=()):
+            carry_f, carry_z, counted=(), rows=PFB_ROWS[0]):
     """Check the back end's operands, allocate the outputs, and launch
     ``fn`` of the fm_chain library, one grid launch, on the stream's
-    look-back scratch. ``front_args`` are the pointers that come between
-    the buffer planes and the table, the ints between C and D, and those
+    look-back scratch (a slot a channel and row tile of the block's
+    ``rows`` rows). ``front_args`` are the pointers that come between the
+    buffer planes and the table, the ints between C and D, and those
     between M and the gain; ``counted`` the PFB launch's counter buffer
     (its address, or None: no counted kernel)."""
     dev = buf.re.device
@@ -196,7 +200,7 @@ def _launch(fn, front_args, buf, lo_table, n0_rot, c, t, d, gain, deemph,
         raise ValueError(f"{fn}: Nb={nb} < T={t} or D={d} < 1")
     lib = _library()
     m = (nb - t) // d + 1
-    ntiles = -(-m // lib.fm_chain_tile_outputs())
+    ntiles = -(-m // lib.fm_chain_tile_outputs(rows))
     audio = torch.empty((c, m), dtype=torch.float32, device=dev)
     f_re = torch.empty((c, 1), dtype=torch.float32, device=dev)
     f_im = torch.empty((c, 1), dtype=torch.float32, device=dev)
@@ -244,8 +248,9 @@ def _launch_dense(buf, tap_bank, lo_table, n0_rot, decimation, gain, deemph,
 
 def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
                 decimation, gain, deemph, carry_f, carry_z,
-                precision="bf16x3", plan=None):
-    """The PFB-front kernel; ``plan`` as ``chain.ChainKernel`` says."""
+                precision="bf16x3", plan=None, rows=None):
+    """The PFB-front kernel; ``plan`` and ``rows`` as ``chain.ChainKernel``
+    says."""
     dev = buf.re.device
     grade = grade_code("pfb_fm_chain", precision)
     c, k, q = check_pfb_tables("pfb_fm_chain", poly_taps, dft_bank,
@@ -254,18 +259,22 @@ def _launch_pfb(buf, poly_taps, dft_bank, num_taps, lo_table, n0_rot,
         "poly_taps": (poly_taps, (q, k)),
         "dft_bank": (dft_bank, (2 * c, 2 * k))}, dev)
     t = int(num_taps)
-    lanes, uc = pfb_launch_plan("fm_chain", dev, k, q, decimation, precision,
-                                plan)
+    m = (buf.re.shape[-1] - t) // max(int(decimation), 1) + 1
+    lanes, uc, rows = pfb_launch_plan("fm_chain", dev, k, q, decimation,
+                                      precision, plan, c, m, rows)
     taps, btab = pfb_operands(poly_taps, dft_bank, decimation, grade,
                               (lanes, uc))
     counted = counted_launch(pfb_counters, dev, grade, (lanes, uc), k, q)
-    return _launch(
+    out = _launch(
         "pfb_fm_chain",
         ((taps.data_ptr(), btab.data_ptr()), (t, k, q),
-         (lanes, uc, grade)), buf, lo_table, n0_rot, c, t, int(decimation),
-        gain, deemph, carry_f, carry_z, (counted,))
+         (lanes, uc, rows, grade)), buf, lo_table, n0_rot, c, t,
+        int(decimation), gain, deemph, carry_f, carry_z, (counted,), rows)
+    if grade and (lanes < k or uc < q):
+        pfb_fm_chain.row_tiles[rows] += 1
+    return out
 
 
 fm_chain = ChainKernel("fm_chain", fm_chain_reference, _launch_dense)
 pfb_fm_chain = ChainKernel("pfb_fm_chain", pfb_fm_chain_reference,
-                           _launch_pfb)
+                           _launch_pfb, row_tiles=PFB_ROWS)

@@ -24,6 +24,7 @@ from gsdr_tpu_torch.kernels.chain import (
     dense_block,
     dense_chunk,
     front_supported,
+    pfb_block,
     pfb_chunk,
 )
 from gsdr_tpu_torch.kernels.channelize import (
@@ -1190,16 +1191,107 @@ def test_pfb_chunked_forced_plans_bit_equal_on_card(card, grade):
                     assert torch.equal(a, b), (lib, k, d, plan)
 
 
+# The benchmark's deployments (sdr_bench/configs) and their 20-ms blocks:
+# land-mobile NFM, 320 channels of Fs/640 at 8 MHz (D = 160), and VHF
+# airband AM, 480 channels of Fs/960 at 7.99992 MHz (D = 240)
+LIVE_CELLS = {
+    "fm": dict(fs=8e6, k=640, first=-160, c=320, taps=2560, cutoff=5000.0,
+               d=160, n=160_000),
+    "am": dict(fs=7.99992e6, k=960, first=-240, c=480, taps=3840,
+               cutoff=3000.0, d=240, n=160_320)}
+
+
+def _live_cell(kind, grade):
+    """The deployment's receiver at impl='pfb' and the grade, and its PFB
+    kernel's arguments for one 20-ms block (_witness_args), FM with a
+    de-emphasis state that is not zero."""
+    c = LIVE_CELLS[kind]
+    n = np.arange(c["taps"]) - (c["taps"] - 1) / 2.0
+    h = np.sinc(2 * c["cutoff"] / c["fs"] * n) * np.hamming(c["taps"])
+    kw = dict(sample_rate=c["fs"], tuning_frequency=0.0,
+              channel_frequencies=tuple((c["first"] + i) * c["fs"] / c["k"]
+                                        for i in range(c["c"])),
+              decimation=c["d"], low_pass_taps=tuple(h / h.sum()),
+              impl="pfb", precision=grade, device="cuda")
+    if kind == "fm":
+        model = FmChannelizer(frequency_deviation=2500.0,
+                              deemphasis_tau=75e-6, **kw)
+    else:
+        model = AmReceiver(**kw)
+    args = list(_witness_args(model, c["n"]))
+    if kind == "fm":
+        args[-1] = torch.linspace(-0.3, 0.3, c["c"],
+                                  device="cuda")[:, None].contiguous()
+    return model, tuple(args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
+@pytest.mark.parametrize("kind", ["fm", "am"])
+def test_pfb_row_tiles_bit_equal_on_card(card, kind, grade):
+    """At both deployments' banks and 20-ms blocks the planner takes blocks
+    of 128 rows on the H100 (80 and 90 of them; 256 rows took 40 and 45),
+    chunks of 32 lanes and all 4 fold taps; launches forced to 128 and 64
+    rows equal the forced 256-row launch: the AM audio and the FM
+    discriminator's carry bit for bit (every row's fold and every column's
+    sum are the same), the FM audio and de-emphasis state within 1e-6 of
+    max|audio| (start states composed over other tile edges); the
+    planned launch equals the forced 128-row one bit for bit. The wrapper
+    counts each launch under its rows, and at bf16x3 the counted kernel's
+    blocks a launch are the planned grid."""
+    from gsdr_tpu_torch.kernels import am_chain as am_lib
+    from gsdr_tpu_torch.kernels import fm_chain as fm_lib
+    from gsdr_tpu_torch.utils import profiling
+
+    _, args = _live_cell(kind, grade)
+    fm = kind == "fm"
+    kernel = pfb_fm_chain if fm else pfb_am_chain
+    lib = "fm_chain" if fm else "am_chain"
+    c = LIVE_CELLS[kind]
+    q, m = -(-c["taps"] // c["k"]), c["n"] // c["d"]
+    lanes, uc, rows = pfb_block(lib, "cuda", c["k"], q, c["d"], grade,
+                                c["c"], m)
+    grid = -(-m // (rows - fm)) * -(-c["c"] // 32)
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert (lanes, uc, rows, grid) == (32, 4, 128, 80 if fm else 90)
+    want = _flat(kernel(*args, precision=grade, rows=256))
+    for r in (128, 64):
+        before = dict(kernel.row_tiles)
+        got = _flat(kernel(*args, precision=grade, rows=r))
+        assert kernel.row_tiles[r] == before[r] + 1
+        if not fm:
+            assert torch.equal(got[0], want[0]), r
+            continue
+        scale = float(want[0].abs().max())
+        assert float((got[0] - want[0]).abs().max()) <= 1e-6 * scale, r
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        assert float((got[3] - want[3]).abs().max()) <= 1e-6 * scale, r
+    before = dict(kernel.row_tiles)
+    planned = _flat(kernel(*args, precision=grade))
+    assert kernel.row_tiles[rows] == before[rows] + 1
+    forced = _flat(kernel(*args, precision=grade, rows=rows))
+    for a, b in zip(planned, forced):
+        assert torch.equal(a, b)
+    if grade == "bf16x3":
+        with profiling.tracing(profiling.COUNTERS) as rec:
+            kernel(*args, precision=grade)
+            torch.cuda.synchronize()
+            got = rec.counters()[(fm_lib if fm else am_lib)
+                                 .pfb_counters.kernel]
+        assert got["launches"] == 1 and got["blocks"] == grid
+
+
 @pytest.mark.cuda
 def test_pfb_mma_chunked_tile_kernels_do_not_spill_on_card(card, tmp_path):
     """No bf16 chunked PFB tile kernel (B2 and B3-PFB at bf16x3 and
-    bf16x2: pfb_front_mma_chunked's 8 consumer warps with 64 accumulators
-    each and 8 producer warps under the 512-thread block's 128 registers)
-    spills registers, by ptxas's report."""
+    bf16x2, in blocks of 256, 128 and 64 rows: pfb_front_mma_chunked's 8
+    consumer warps with up to 64 accumulators each and 8 producer warps
+    under the 512-thread block's 128 registers) spills registers, by
+    ptxas's report."""
     spills = _ptxas_spills(tmp_path, ("fm_chain", "am_chain"))
     pattern = r"(fm_chain_tile|am_chain_tile)ILb1ELi[23]ELb1E"
     found = {k: v for k, v in spills.items() if re.search(pattern, k)}
-    assert len(found) == 4, sorted(found)
+    assert len(found) == 12, sorted(found)
     for kernel, (stores, loads) in found.items():
         assert stores == 0 and loads == 0, (kernel, stores, loads)
 
@@ -2471,9 +2563,10 @@ def test_fm_look_back_stress_on_card(card, grade):
     """a = 0.999 (a^255 ~ 0.77: a look-back stops only at an inclusive
     state or tile -1) over many tiles: B1 at 16 channels over 2^22 samples
     (4112 tiles) and B2 at 64 channels, two blocks of 32 a tile, over 2^20
-    samples at D=8 (515 tiles), zi != 0: held to the plain chain at the
-    grade, audio within 1e-4 of max|audio| past the warm-up's first 16384
-    outputs (64 tiles), the
+    samples at D=8 (515 tiles; at the bf16 grades also chunked in blocks
+    of 64 rows, 2081 tiles of 63 new outputs), zi != 0: held to the plain
+    chain at the grade, audio within 1e-4 of max|audio| past the warm-up's
+    first 16384 outputs (64 tiles of 256), the
     de-emphasis state within 1e-4 max(1, max|audio|), the discriminator's
     carry within 1e-4; a second call on the same inputs is bit-equal."""
     deemph = torch.tensor([5e-4, 5e-4, 0.999], device="cuda")
@@ -2494,9 +2587,12 @@ def test_fm_look_back_stress_on_card(card, grade):
                                device="cuda")[:, None].contiguous()
     pargs[-3] = deemph
     pfb = (pfb_fm_chain, pfb_fm_chain_reference, tuple(pargs))
-    for kernel, plain, a in (dense, pfb):
-        got = kernel(*a, precision=grade)
-        again = kernel(*a, precision=grade)
+    runs = [dense + ({},), pfb + ({},)]
+    if grade != "f32":
+        runs.append(pfb + ({"plan": (8, 8), "rows": 64},))
+    for kernel, plain, a, kw in runs:
+        got = kernel(*a, precision=grade, **kw)
+        again = kernel(*a, precision=grade, **kw)
         want = plain(*a, precision=grade)
         torch.cuda.synchronize()
         for x, y in zip(_flat(got), _flat(again)):

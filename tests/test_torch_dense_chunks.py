@@ -664,7 +664,11 @@ def test_mma_chunked_constants_match_the_source():
             "while (b.ch < C && b.ch < max_ch) b.ch *= 2;",
             "while (b.rows > min_rows && blocks(b.ch, b.rows / 2) <= sms) "
             "b.rows /= 2;",
-            "while (b.ch > 4 && blocks(b.ch / 2, b.rows) <= sms) b.ch /= 2;"):
+            # the dense launchers take the default min_ch: 4 channels
+            "int overlap, int min_ch = 4) {",
+            "MmaBlock b{min_ch, kTile};",
+            "while (b.ch > min_ch && blocks(b.ch / 2, b.rows) <= sms) "
+            "b.ch /= 2;"):
         assert line in src, line
     for lib, call in (
             ("fm_chain", "gsdr::mma_chunk_block(C, M, kCG, kTile, "

@@ -23,6 +23,7 @@ from gsdr_tpu.pipelines import AmReceiver as JAm
 from gsdr_tpu.pipelines import FmChannelizer as JFm
 from gsdr_tpu_torch.carray import ComplexArray as TCA
 from gsdr_tpu_torch.kernels.chain import (
+    PFB_ROWS,
     graded_uniform_front,
     pfb_chunk_taps,
     pfb_f32_tables,
@@ -250,11 +251,11 @@ def _chunk_lanes(k, d, lanes):
     return min(8 * nkb, dc * p), nkb
 
 
-def _chunk_frames(k, d, nkb, uc):
-    """pfb_chunk_frames."""
+def _chunk_frames(k, d, nkb, uc, rows=TILE):
+    """pfb_chunk_frames for a block of ``rows`` output rows."""
     p = k // d
     span = 8 * nkb - 1 if d == 1 and 8 * nkb < p else p - 1
-    return (uc - 1) * p + span + TILE
+    return (uc - 1) * p + span + rows
 
 
 def _pfb_front_f32(x, hp, bank, d, group, g0, lanes, uc):
@@ -379,12 +380,27 @@ def _bf16_pair(words):
 
 
 # pfb_front_mma_chunked's block (fronts.cuh; read from the source by
-# test_mma_front_constants_match_the_source): 8 consumer warps of two
-# m-tiles and 8 producer warps of two; per 8-lane block an A tile of the
-# bf16 hi and lo words of every m-tile's fragments, four a thread
-MTILES = TILE // 16
-A_BLOCK_WORDS = 2 * MTILES * 32 * 4     # kPfbABlockWords
+# test_mma_front_constants_match_the_source): 8 consumer and 8 producer
+# warps over the rows/32 m-tile pairs of its 256, 128 or 64 rows, each pair
+# shared by 256/rows warps of each role (pfb_mma_split: the consumers
+# split the n-tiles, the producers the 8-lane blocks); per 8-lane block an
+# A tile of the bf16 hi and lo words of every m-tile's fragments, four a
+# thread
+MMA_ROWS = (256, 128, 64)
 PRODUCERS = PFB_THREADS - CONSUMERS
+
+
+def _a_block_words(rows):
+    """pfb_a_block_words: an 8-lane block's A tile in a block of rows."""
+    return 2 * (rows // 16) * 32 * 4
+
+
+def _split(rows):
+    """pfb_mma_split: warps of each role that share an m-tile pair."""
+    return CONSUMERS // rows
+
+
+A_BLOCK_WORDS = _a_block_words(TILE)
 NAN_WORD = np.uint32(0x7FC0DEAD)        # a NaN's bits: shared memory not written
 # the tags of a word: the step (producers' staging), chunk (consumers' B,
 # the A tile's split) or u-range (a partial fold) that wrote it
@@ -402,24 +418,25 @@ def _chunk_phases(k, d, el):
     return min((el + p - 2) // p + 1, dc)
 
 
-def _mma_chunk_geom(k, q, d, lanes, uc):
+def _mma_chunk_geom(k, q, d, lanes, uc, rows=TILE):
     """pfb_mma_chunk_geom, sizes in 32-bit words: nkb blocks and L lanes a
     chunk, uc taps a u-range, at most npc phases, in pairs of Lf frames
     (two words a frame), a staged window; an A tile, a B buffer and a
-    staging buffer (two of each)."""
+    staging buffer (two of each), for a block of ``rows`` rows."""
     el, nkb = _chunk_lanes(k, d, lanes)
     uc = min(uc, q)
-    lf = _pair_stride(_chunk_frames(k, d, nkb, uc))
+    lf = _pair_stride(_chunk_frames(k, d, nkb, uc, rows))
     npc = _chunk_phases(k, d, el)
-    return dict(nkb=nkb, L=el, uc=uc, npc=npc, Lf=lf, a=nkb * A_BLOCK_WORDS,
-                b=2 * nkb * NTB * 32 * 2, taps=uc * 8 * nkb,
+    return dict(nkb=nkb, L=el, uc=uc, npc=npc, Lf=lf,
+                a=nkb * _a_block_words(rows), b=2 * nkb * NTB * 32 * 2,
+                taps=uc * 8 * nkb,
                 s=uc * 8 * nkb + 4 * ((npc + 1) // 2) * lf)
 
 
-def _mma_chunk_bytes(k, q, d, lanes, uc):
+def _mma_chunk_bytes(k, q, d, lanes, uc, rows=TILE):
     """pfb_mma_chunk_bytes: two of each buffer, or the output tile."""
-    g = _mma_chunk_geom(k, q, d, lanes, uc)
-    return 4 * max(2 * (g["a"] + g["b"] + g["s"]), TILE * OUT_STRIDE)
+    g = _mma_chunk_geom(k, q, d, lanes, uc, rows)
+    return 4 * max(2 * (g["a"] + g["b"] + g["s"]), rows * OUT_STRIDE)
 
 
 def _bf16_split(re, im):
@@ -450,12 +467,18 @@ class _PfbMmaBlock:
     waits for). Every read checks that the word was written by the step,
     chunk or u-range it belongs to and that no copy in flight lands on it;
     every staging checks that each word is written once, inside its
-    buffer."""
+    buffer. A block of ``rows`` rows (256, 128 or 64) holds rows/32 m-tile
+    pairs; producer warp w folds pair w % (rows/32) in the 8-lane blocks kb
+    of residue w // (rows/32) mod 256/rows, consumer warp w multiplies that
+    pair by 8*rows/256 n-tiles from (w // (rows/32))*8*rows/256."""
 
-    def __init__(self, x, hp, bank, k, d, group, g0, lanes, uc, grade):
+    def __init__(self, x, hp, bank, k, d, group, g0, lanes, uc, grade,
+                 rows=TILE):
         q = hp.shape[0]
         self.k, self.q, self.d, self.p = k, q, d, k // d
         self.group, self.g0, self.grade = group, g0, grade
+        self.rows, self.mtiles = rows, rows // 16
+        self.pairs, self.split = rows // 32, _split(rows)
         self.x = (x.real.astype(np.float32), x.imag.astype(np.float32))
         self.hq = pfb_chunk_taps(torch.from_numpy(hp), d).numpy()
         tab = pfb_mma_chunk_tables(torch.from_numpy(bank), d).numpy()
@@ -463,7 +486,7 @@ class _PfbMmaBlock:
         self.btab = tab.reshape(-1).view(np.uint32)
         self.dc = min(d, PHASES)
         self.kb0 = -(-self.dc * self.p // 8)          # blocks a group, KB0
-        self.g = g = _mma_chunk_geom(k, q, d, lanes, uc)
+        self.g = g = _mma_chunk_geom(k, q, d, lanes, uc, rows)
         self.chunks = list(_chunks(k, d, lanes))
         self.steps = [(c, p0, ka, kz, u0, min(q, u0 + g["uc"]))
                       for c, (p0, _, ka, kz, _) in enumerate(self.chunks)
@@ -471,13 +494,15 @@ class _PfbMmaBlock:
         self.b0 = 2 * g["a"]                 # A tiles at 0, then B, stage
         self.s0 = self.b0 + 2 * g["b"]
         size = self.s0 + 2 * g["s"]
-        assert 4 * size <= _mma_chunk_bytes(k, q, d, lanes, uc)
-        self.mem = np.full(max(size, TILE * OUT_STRIDE), NAN_WORD, np.uint32)
+        assert 4 * size <= _mma_chunk_bytes(k, q, d, lanes, uc, rows)
+        self.mem = np.full(max(size, rows * OUT_STRIDE), NAN_WORD, np.uint32)
         self.tag = np.full(self.mem.size, -1, np.int64)
         self.pending = {"p": [], "c": []}
         self.inflight = np.zeros(self.mem.size, bool)
         self.full, self.free = set(), set()
-        self.acc = np.zeros((TILE, 4 * NTB), np.complex128)
+        self.acc = np.zeros((rows, 4 * NTB), np.complex128)
+        # (step, 8-lane block) -> the producer warps that fold it
+        self.folders = {}
         self.folds = {}
         # word indices staged and read, by (kind, step or chunk)
         self.staged, self.seen = {}, {}
@@ -515,7 +540,7 @@ class _PfbMmaBlock:
         """(pa, npc, s_lo, nfr, lf, tl) of a step's window and taps."""
         _, _, ka, kz, u0, u1 = step
         pa, pb, s_lo, s_hi = _lane_span(self.p, ka, kz)
-        nfr = (u1 - 1 - u0) * self.p + s_hi - s_lo + TILE
+        nfr = (u1 - 1 - u0) * self.p + s_hi - s_lo + self.rows
         return pa, pb - pa + 1, s_lo, nfr, _pair_stride(nfr), \
             8 * -(-(kz - ka) // 8)
 
@@ -559,22 +584,28 @@ class _PfbMmaBlock:
                   STEP + si, base, base + g["s"])
 
     def fold(self, si):
-        """pfb_mma_fold of step si into A tile c & 1: producer warp pw,
-        thread (gid, tig), m-tile 2*pw + mt, register q = 2*h + rr, lane
-        ka + 8*kb + tig + 4*h at row 32*pw + 16*mt + gid + 8*rr."""
+        """pfb_mma_fold of step si into A tile c & 1: the producer warp w of
+        pair mp = w % pairs whose residue w // pairs is kb's mod split,
+        thread (gid, tig), m-tile 2*mp + mt, register q = 2*h + rr, lane
+        ka + 8*kb + tig + 4*h at row 32*mp + 16*mt + gid + 8*rr."""
         step = self.steps[si]
         c, p0, ka, kz, u0, u1 = step
         g, p = self.g, self.p
         pa, npc, s_lo, nfr, lf, tl = self.span(step)
         base = self.s0 + (si & 1) * g["s"]
         xw, plane = base + g["taps"], 2 * ((npc + 1) // 2) * lf
-        pw, lane, mt, q = np.ix_(np.arange(8), np.arange(32), np.arange(2),
-                                 np.arange(4))
+        mtiles, pairs = self.mtiles, self.pairs
+        mp, lane, mt, q = np.ix_(np.arange(pairs), np.arange(32),
+                                 np.arange(2), np.arange(4))
         gid, tig, h, rr = lane >> 2, lane & 3, q >> 1, q & 1
-        row = 32 * pw + 16 * mt + gid + 8 * rr
-        shape = (8, 32, 2, 4)
+        row = 32 * mp + 16 * mt + gid + 8 * rr
+        shape = (pairs, 32, 2, 4)
         tag = STEP + si
         for kb in range(tl // 8):
+            # the warps whose loop kb = kb0, kb0 + split, ... visits kb
+            self.folders[(si, kb)] = [
+                w for w in range(PRODUCERS // 32)
+                if kb in range(w // pairs, tl // 8, self.split)]
             kap = ka + 8 * kb + tig + 4 * h
             ok = kap < kz
             pl = kap // p - pa
@@ -583,13 +614,13 @@ class _PfbMmaBlock:
             xr = np.broadcast_to(xw + 2 * row + xo, shape)
             tp = np.broadcast_to(base + 8 * kb + tig + 4 * h, shape)
             slot = np.broadcast_to(
-                (((kb * 2) * MTILES + 2 * pw + mt) * 32 + lane) * 4 + q
+                (((kb * 2) * mtiles + 2 * mp + mt) * 32 + lane) * 4 + q
                 + (c & 1) * g["a"], shape)
-            lo_slot = slot + MTILES * 32 * 4
+            lo_slot = slot + mtiles * 32 * 4
             f32 = np.float32
             if p == 4 and self.q == 4 and u1 - u0 == 4 and \
                     ka + 8 * kb + 8 <= kz:
-                fr, fi = self.fold_slide(xw + 2 * (32 * pw + gid) + xo, h,
+                fr, fi = self.fold_slide(xw + 2 * (32 * mp + gid) + xo, h,
                                          plane, tp, tl, tag, mt, rr)
                 u = u1 - u0
             elif u0 == 0:
@@ -611,7 +642,7 @@ class _PfbMmaBlock:
                 self.store(slot, fr.view(np.uint32), PART + c * 4096 + u1)
                 self.store(lo_slot, fi.view(np.uint32), PART + c * 4096 + u1)
                 continue
-            whole = np.zeros((TILE, 8), np.complex64)
+            whole = np.zeros((self.rows, 8), np.complex64)
             whole[row, np.broadcast_to(tig + 4 * h, shape)] = fr + 1j * fi
             for j in range(8):
                 if ka + 8 * kb + j < kz:
@@ -684,32 +715,41 @@ class _PfbMmaBlock:
                   BROWS + c, base, base + g["b"])
 
     def product(self, c):
-        """pfb_mma_product of chunk c: consumer warp cw reads the 16-byte
-        words [kb][part][2*cw + m][lane] of A tile c & 1 and every B entry
-        of its blocks; A's fragment register q of lane (gid, tig) is lane
-        tig + 4*(q >> 1) at row 32*cw + 16*m + gid + 8*(q & 1). Each pass
-        conj(w) * A, w = (G[c, v], G[c, K + v]), summed in complex128."""
+        """pfb_mma_product of chunk c: consumer warp cw of pair mp = cw %
+        pairs reads the 16-byte words [kb][part][2*mp + m][lane] of A tile
+        c & 1 and the B entries of its n-tiles; A's fragment register
+        q of lane (gid, tig) is lane tig + 4*(q >> 1) at row 32*mp + 16*m +
+        gid + 8*(q & 1). Each pass conj(w) * A, w = (G[c, v], G[c, K + v]),
+        summed in complex128."""
         _, _, _, _, nk = self.chunks[c]
         g = self.g
         at = (c & 1) * g["a"]
         bb = self.b0 + (c & 1) * g["b"]
+        mtiles, pairs, nw = self.mtiles, self.pairs, NTB // self.split
         cw, lane, m, q = np.ix_(np.arange(8), np.arange(32), np.arange(2),
                                 np.arange(4))
-        row = np.broadcast_to(32 * cw + 16 * m + (lane >> 2) + 8 * (q & 1),
+        mp = cw % pairs
+        row = np.broadcast_to(32 * mp + 16 * m + (lane >> 2) + 8 * (q & 1),
                               (8, 32, 2, 4))
         col = np.broadcast_to((lane & 3) + 4 * (q >> 1), (8, 32, 2, 4))
-        hits = np.zeros((TILE, 8), int)
+        hits = np.zeros((self.rows, 8), int)
         np.add.at(hits, (row, col), 1)
-        assert (hits == 1).all()
+        assert (hits == self.split).all()
+        # each (pair, n-tile) is one consumer warp's: its pair, n-tiles n0..
+        owner = np.zeros((pairs, NTB), int)
+        for w in range(8):
+            n0 = w // pairs * nw
+            owner[w % pairs, n0:n0 + nw] += 1
+        assert (owner == 1).all()
         nt, cl, j = np.ix_(np.arange(NTB), np.arange(4), np.arange(8))
         for kb in range(nk):
-            a_at = at + (((kb * 2) * MTILES + 2 * cw + m) * 32 + lane) * 4 + q
-            parts = [a_at] + ([a_at + MTILES * 32 * 4]
+            a_at = at + (((kb * 2) * mtiles + 2 * mp + m) * 32 + lane) * 4 + q
+            parts = [a_at] + ([a_at + mtiles * 32 * 4]
                               if self.grade == "bf16x3" else [])
             a = []
             for at_ in parts:
                 re_, im_ = _bf16_pair(self.read(at_, AFOLD + c))
-                y = np.zeros((TILE, 8), np.complex128)
+                y = np.zeros((self.rows, 8), np.complex128)
                 y[row, col] = re_ + 1j * im_
                 a.append(y)
             w = []
@@ -750,8 +790,8 @@ class _PfbMmaBlock:
 
     def run(self):
         """Both roles to the end, the producers first wherever the barriers
-        let both run: (accumulators (TILE, 32) complex128, {lane kappa of
-        the one-chunk order: its whole fold (TILE,) complex64})."""
+        let both run: (accumulators (rows, 32) complex128, {lane kappa of
+        the one-chunk order: its whole fold (rows,) complex64})."""
         gens = {"p": self.producers(), "c": self.consumers()}
         waits = {"p": None, "c": None}
         while gens:
@@ -772,12 +812,14 @@ class _PfbMmaBlock:
         return self.acc, self.folds
 
 
-def _pfb_front_mma(x, hp, bank, k, d, group, g0, lanes, uc, grade):
-    """``pfb_front_mma_chunked`` for channel group ``group`` and the plan
-    (lanes, uc), in its shared memory (_PfbMmaBlock): (y (TILE, 32)
-    complex128, {kappa: whole fold (TILE,) complex64})."""
-    return _PfbMmaBlock(x, hp, bank, k, d, group, g0, lanes, uc,
-                        grade).run()
+def _pfb_front_mma(x, hp, bank, k, d, group, g0, lanes, uc, grade,
+                   rows=TILE):
+    """``pfb_front_mma_chunked`` for channel group ``group``, the plan
+    (lanes, uc) and a block of ``rows`` rows, in its shared memory
+    (_PfbMmaBlock): (y (rows, 32) complex128, {kappa: whole fold (rows,)
+    complex64})."""
+    return _PfbMmaBlock(x, hp, bank, k, d, group, g0, lanes, uc, grade,
+                        rows).run()
 
 
 def _signal(n, seed):
@@ -944,21 +986,22 @@ SMEM_OPTIN = 232_448
 FM_STATIC = 4_608
 
 
-def _mma_plan(k, q, d, room):
+def _mma_plan(k, q, d, room, rows=TILE):
     """fronts.cuh's pfb_chunk for the bf16 chunked kernel (its one-chunk
-    kernel not fitting): for each chunk of 8*nkb lanes, nkb up to a
-    group's, all Q taps a u-range where the block fits, else the most
-    that do; the plan with the fewest chunks x u-ranges, the larger chunk
-    on a tie."""
+    kernel not fitting) in a block of ``rows`` rows: for each chunk of
+    8*nkb lanes, nkb up to a group's, all Q taps a u-range where the block
+    fits, else the most that do; the plan with the fewest chunks x
+    u-ranges, the larger chunk on a tie, but below 256 rows on a tie the
+    most taps a u-range, then the smallest chunk."""
     p, dc = k // d, min(d, PHASES)
     best, plan = None, (0, 0)
     for nkb in range(min(-(-k // 8), -(-dc * p // 8)), 0, -1):
         uc = q
-        if _mma_chunk_bytes(k, q, d, 8 * nkb, q) > room:
+        if _mma_chunk_bytes(k, q, d, 8 * nkb, q, rows) > room:
             lo, hi = 0, q - 1
             while lo < hi:
                 mid = (lo + hi + 1) // 2
-                if _mma_chunk_bytes(k, q, d, 8 * nkb, mid) <= room:
+                if _mma_chunk_bytes(k, q, d, 8 * nkb, mid, rows) <= room:
                     lo = mid
                 else:
                     hi = mid - 1
@@ -970,7 +1013,8 @@ def _mma_plan(k, q, d, room):
         chunks = sum(-(-(-(-min(dc, d - p0) * p // 8)) // nkb)
                      for p0 in range(0, d, dc))
         cost = chunks * -(-q // uc)
-        if best is None or cost < best:
+        if best is None or cost < best or (
+                rows < TILE and cost == best and uc >= plan[1]):
             best, plan = cost, (8 * nkb, uc)
     return plan
 
@@ -1034,15 +1078,36 @@ def test_mma_front_constants_match_the_source():
     assert int(consts["kPfbConsumers"]) == CONSUMERS == TILE
     assert int(consts["kBarConsumers"]) not in (1, 2, 3, 4, 5)
     for line in (
-            "constexpr int kPfbABlockWords = 2 * (kTile / 16) * 32 * 4;",
+            "return 2 * (rows / 16) * 32 * 4;",
+            "return kPfbConsumers / rows;",
+            "return (uc - 1) * P + span + rows;",
             "return nfr + (24 - nfr % 16) % 16;",
             "g.nkb = pfb_chunk_blocks(K, D, lanes);",
             "g.L = pfb_chunk_lanes(K, D, lanes);",
             "g.npc = pfb_chunk_phases(K, D, g.L);",
-            "g.Lf = pfb_mma_pair_stride(pfb_chunk_frames(K, D, g.nkb, g.uc));",
-            "g.abytes = (size_t)g.nkb * kPfbABlockWords * sizeof(uint32_t);",
+            "g.Lf = pfb_mma_pair_stride(pfb_chunk_frames(K, D, g.nkb, g.uc, "
+            "rows));",
+            "g.abytes = (size_t)g.nkb * pfb_a_block_words(rows) * "
+            "sizeof(uint32_t);",
+            "const size_t out = (size_t)rows * (8 * nt + 1) * sizeof(float);",
+            # the warps of each role over the m-tile pairs (pfb_mma_split)
+            "return pfb_mma_split(kRows) == 1 ? w : w % (kRows / 32);",
+            "return pfb_mma_split(kRows) == 1 ? 0 : w / (kRows / 32);",
+            "for (int kb = kb0; kb < tl / 8; kb += kSplit) {",
+            "pfb_mma_pair<kRows>(tid >> 5), pfb_mma_share<kRows>(tid >> 5),",
+            "(cur.kz - cur.ka + 7) / 8, g.nkb, pfb_mma_pair<kRows>(tid >> 5),",
+            "pfb_mma_share<kRows>(tid >> 5) * kNw, tid & 31);",
+            "const uint2* bl = bs + n0 * 32 + lane;",
+            "const int n0 = pfb_mma_share<kRows>(threadIdx.x >> 5) * kNw;",
+            "const int r = 32 * pfb_mma_pair<kRows>(threadIdx.x >> 5) + 16 * mt "
+            "+ gid;",
+            "const int col = 8 * (n0 + nt) + 2 * tig;",
             "g.bbytes = 2 * (size_t)g.nkb * nt * 32 * sizeof(uint2);",
             "const size_t all = 2 * (g.abytes + g.bbytes + g.sbytes);",
+            "if constexpr (kRows < kTile) {\n#pragma unroll 2\n"
+            "    for (int kb = 0; kb < nk; ++kb)\n"
+            "      pfb_mma_block_product<kGrade, kNT, kNw, kRows>(d, at, bl, kb, "
+            "nkb, mp,",
             "float* d = xw + 2 * (pp * lf + k);",
             "for (int m = 0; m < kN; ++m) w[m] = x[4 * m];"):
         assert line in src, line
@@ -1095,6 +1160,162 @@ def test_chunked_mma_front_transliteration(grade, k, d, t):
         ref = y if ref is None else ref
         assert np.array_equal(y, ref), (lanes, uc)
     assert _rel(ref[:m, :c], want) <= FRONT_TOL
+
+
+@pytest.mark.parametrize("grade", ["bf16x3", "bf16x2"])
+@pytest.mark.parametrize("rows", MMA_ROWS[1:])
+@pytest.mark.parametrize("k,d,t,plan", [(64, 16, 256, (16, 4)),
+                                        (512, 32, 4096, (16, 3)),
+                                        (712, 89, 2848, (24, 40))])
+def test_chunked_mma_front_row_tiles_bit_equal(grade, rows, k, d, t, plan):
+    """pfb_front_mma_chunked in blocks of 128 and 64 rows (at the sliding
+    fold's P = 4, Q = 4, and across u-ranges): the 256/rows blocks that
+    cover the 256-row block's rows give its outputs and every lane's whole
+    fold bit for bit, each 8-lane block of a step folded by one producer
+    warp of each m-tile pair (its residue mod 256/rows), whatever the
+    block's rows."""
+    hp, bank, x, _, _ = _case(k, d, t)
+    g0 = TILE * d
+    want, want_folds = _pfb_front_mma(x, hp, bank, k, d, 0, g0, *plan, grade)
+    pairs = rows // 32
+    for i in range(TILE // rows):
+        block = _PfbMmaBlock(x, hp, bank, k, d, 0, g0 + i * rows * d, *plan,
+                             grade, rows)
+        y, folds = block.run()
+        part = slice(i * rows, (i + 1) * rows)
+        assert np.array_equal(y, want[part]), (rows, i)
+        assert sorted(folds) == sorted(want_folds)
+        for kap, f in folds.items():
+            assert np.array_equal(f, want_folds[kap][part]), (rows, i, kap)
+        for (si, kb), warps in block.folders.items():
+            assert sorted(w % pairs for w in warps) == list(range(pairs)), \
+                (si, kb, warps)
+
+
+# The H100's streaming multiprocessors
+SMS = 132
+MIN_ROWS = 64     # the fewest rows of a chunked bf16 block (kMmaMinRows)
+
+
+def _pfb_rows(c, m, overlap, sms=SMS):
+    """fronts.cuh's pfb_mma_rows, mma_chunk_block's rule with the channels
+    held at 32: 256 rows, halved while the grid of ceil(M / (rows -
+    overlap)) row tiles x ceil(C / 32) channel groups at half the rows
+    still fits one wave of ``sms`` SMs, down to 64; 256 where C or M < 1
+    (any)."""
+    rows = TILE
+    if c < 1 or m < 1:
+        return rows
+
+    def blocks(r):
+        return -(-m // (r - overlap)) * -(-c // PFB_CH)
+    while rows > MIN_ROWS and blocks(rows // 2) <= sms:
+        rows //= 2
+    return rows
+
+
+def _pfb_grid(c, m, overlap, rows):
+    return -(-m // (rows - overlap)) * -(-c // PFB_CH)
+
+
+# (cell, C, M, overlap, rows, blocks): the benchmark's four cells (M the
+# outputs of a block: 160,000 / 160 and 160,320 / 240 live, 983,040 / D
+# captured), the FM chain's tiles overlapping by one output
+CELL_ROWS = [("nfm320.live20ms", 320, 1000, 1, 128, 80),
+             ("airband480.live20ms", 480, 668, 0, 128, 90),
+             ("nfm320.capture", 320, 6144, 1, 256, 250),
+             ("airband480.capture", 480, 4096, 0, 256, 240)]
+
+
+@pytest.mark.parametrize("cell,c,m,overlap,rows,blocks", CELL_ROWS)
+def test_pfb_row_tile_fills_the_card_at_the_cells(cell, c, m, overlap, rows,
+                                                  blocks):
+    """The row rule on the H100's 132 SMs: a live block of either cell
+    takes 128 rows (80 and 90 blocks, where 256 took 40 and 45; 64 would
+    take 160 and 165, more than a wave), a capture block keeps 256 (250
+    and 240 blocks; 128 would take 490 and 480)."""
+    assert _pfb_rows(c, m, overlap) == rows, cell
+    assert _pfb_grid(c, m, overlap, rows) == blocks, cell
+    assert _pfb_grid(c, m, overlap, TILE) <= SMS or rows == TILE
+    if rows > MIN_ROWS:
+        assert _pfb_grid(c, m, overlap, rows // 2) > SMS
+
+
+def test_pfb_row_tile_rule_edges():
+    """Any M or C (< 1) keeps 256 rows; the FM chain's overlap of one
+    output counts (M = 1016 outputs of 32 channels on 16 SMs: 8 tiles of
+    127 new outputs, 17 of 63 at 64 rows, against 8 and 16 tiles of 128
+    and 64 without); one channel group of a short call goes down to 64,
+    and a grid over a wave at 256 rows keeps them."""
+    assert _pfb_rows(320, 0, 1) == TILE and _pfb_rows(0, 1000, 1) == TILE
+    assert _pfb_rows(320, -5, 0) == TILE
+    assert _pfb_rows(32, 1016, 1, sms=16) == 128    # 8 tiles; 64 rows: 17
+    assert _pfb_rows(32, 1016, 0, sms=16) == 64     # 16 tiles of 64
+    assert _pfb_rows(32, 100, 1) == MIN_ROWS
+    assert _pfb_rows(5000, 100, 1) == TILE          # 157 groups: over a wave
+
+
+@pytest.mark.parametrize("k,d,t,room,rows,plan",
+                         [(640, 160, 2560, SMEM_OPTIN - 2_832, 128, (32, 4)),
+                          (960, 240, 3840, SMEM_OPTIN, 128, (32, 4)),
+                          (640, 160, 2560, SMEM_OPTIN - 1_808, 64, (64, 4)),
+                          (960, 240, 3840, SMEM_OPTIN, 64, (64, 4))])
+def test_mma_chunk_plans_at_smaller_row_tiles(k, d, t, room, rows, plan):
+    """The planner for the bytes of the block the cells' live launches
+    take (the FM kernel's static shared memory shrinks with its rows:
+    2,832 B at 128, 1,808 at 64): at 128 rows every fold tap in one
+    u-range and chunks of 4 blocks, two a group (chunks of 7 and 1 fit too
+    and stage as many windows), at 64 rows a whole group a chunk."""
+    q = -(-t // k)
+    assert _mma_plan(k, q, d, room, rows) == plan
+    assert _mma_chunk_bytes(k, q, d, *plan, rows) <= room
+    group = min(d, PHASES) * (k // d)
+    if plan[0] < group:   # a larger chunk fits too, a whole group does not
+        assert _mma_chunk_bytes(k, q, d, plan[0] + 8, q, rows) <= room
+        assert _mma_chunk_bytes(k, q, d, group, q, rows) > room
+
+
+def test_pfb_row_tile_rule_matches_the_sources():
+    """The rule _pfb_rows mirrors is fronts.cuh's (mma_chunk_block with
+    the channels held at kPfbCh) and the launchers take it with their
+    overlaps (the FM chain's tiles share one output, the AM chain's none),
+    plan it before the chunks, and pass the rows through."""
+    import re
+    from gsdr_tpu_torch.kernels import _build
+
+    src = (_build.CSRC / "fronts.cuh").read_text()
+    consts = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
+    assert int(consts["kMmaMinRows"]) == MIN_ROWS
+    for line in (
+            "return C < 1 ? kTile",
+            ": mma_chunk_block(C, M, kPfbCh, kMmaMinRows, overlap, kPfbCh)",
+            "MmaBlock b{min_ch, kTile};",
+            "while (b.rows > min_rows && blocks(b.ch, b.rows / 2) <= sms) "
+            "b.rows /= 2;",
+            "return (M + out - 1) / out * ((C + ch - 1) / ch);",
+            "const long out = rows - overlap;",
+            "if (best < 0 || cost < best ||\n"
+            "        (rows < kTile && cost == best && uc >= plan[1])) {",
+            "if (rows == kTile / 2) return f(std::integral_constant<int, "
+            "kTile / 2>{});",
+            "return f(std::integral_constant<int, kMmaMinRows>{});",
+            "return f(std::integral_constant<int, kTile>{});"):
+        assert line in src, line
+    # the rows with_pfb_rows instantiates are the wrappers' row counters'
+    assert PFB_ROWS == (TILE, TILE // 2, int(consts["kMmaMinRows"]))
+    fm = (_build.CSRC / "fm_chain.cu").read_text()
+    am = (_build.CSRC / "am_chain.cu").read_text()
+    assert "gsdr::pfb_mma_rows(C, M, kTile - kOut)" in fm
+    assert "constexpr int kOut = kTile - 1;" in fm
+    assert "constexpr int kNew = kRows - 1;" in fm
+    assert "extern \"C\" int fm_chain_tile_outputs(int rows) { return rows - 1; }" \
+        in fm
+    assert "gsdr::pfb_mma_rows(C, M, 0)" in am
+    for lib in (fm, am):
+        assert "const int rows = pfb_rows(grade, C, M);" in lib
+        assert "plan, rows);" in lib
+        assert ("plan[2] = gsdr::use_chunked_pfb(plan[0], plan[1], K, Q) ? "
+                "rows : kTile;") in lib
 
 
 # ---------------------------------------------------------------------------

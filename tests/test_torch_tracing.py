@@ -309,6 +309,24 @@ def test_trace_cell_values_from_spans_and_counters():
     assert tc.values(_call(1, 0, [("x", 5)]), {}) == {}
 
 
+def test_trace_cell_reads_the_row_tile_and_grid():
+    """The counted kernels' blocks a launch (their grid) and the rows the
+    wrappers' chunked launches took, beside the counter ratios; nothing
+    for a kernel that did not launch or a wrapper without row counts."""
+    tc = _trace_cell()
+    counters = {"pfb_fm_chain": {"launches": 4, "blocks": 320},
+                "pfb_am_chain": {"launches": 0, "blocks": 0}}
+    wrappers = {"fm_chain": types.SimpleNamespace(),
+                "pfb_fm_chain": types.SimpleNamespace(
+                    row_tiles={256: 0, 128: 2, 64: 0}),
+                "pfb_am_chain": types.SimpleNamespace(
+                    row_tiles={256: 0, 128: 0, 64: 0})}
+    assert tc.engagement(counters, wrappers) == {
+        "pfb_fm_chain.blocks_a_launch": 80.0,
+        "pfb_fm_chain.row_tiles": [128]}
+    assert tc.engagement({}, {}) == {}
+
+
 def test_trace_cell_names_gaps_by_span():
     """Window edges first, then the innermost span open at a gap's start,
     then the runtime call, then the host outside both."""

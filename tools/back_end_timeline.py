@@ -32,9 +32,9 @@ import dense_variants  # noqa: E402
 
 TIMER = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"({}));'
 EDITS = [
-    ("fm_chain.cu", "  __syncthreads();\n  const int row = tid % kTile;",
+    ("fm_chain.cu", "  __syncthreads();\n  const int row = tid % kRows;",
      "  __syncthreads();\n  unsigned long long tl0, tl1, tl2, tl3;\n  "
-     + TIMER.format("tl0") + "\n  const int row = tid % kTile;"),
+     + TIMER.format("tl0") + "\n  const int row = tid % kRows;"),
     ("fm_chain.cu", "  const unsigned epoch = epoch_of(head_s);",
      "  const unsigned epoch = epoch_of(head_s);\n  " + TIMER.format("tl1")),
     ("fm_chain.cu",

@@ -23,9 +23,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import dense_variants  # noqa: E402
 
-PRODUCT_CALL = ("    pfb_mma_product<kGrade, kNT>(d, a + (c & 1) * atile, "
-                "bs + (c & 1) * bsize,")
-FOLD_CALL = "    pfb_mma_fold<kGrade>(a + (c & 1) * atile, st + tsize,"
+PRODUCT_CALL = ("    pfb_mma_product<kGrade, kNT, kNw, kRows>(\n"
+                "        d, a + (c & 1) * atile, bs + (c & 1) * bsize,")
+FOLD_CALL = ("    pfb_mma_fold<kGrade, kRows, kSplit>(\n"
+             "        a + (c & 1) * atile, st + tsize,")
 B_COPY = ("    if (group * kNT + e / 16 < NT)\n"
           "      cp_async_16(dst, reinterpret_cast<const float*>(\n"
           "                           btab + ((long)(part * KBg + kbg0")
@@ -47,13 +48,14 @@ VARIANTS = {
     "no_slide": [("fronts.cuh",
                   "P == 4 && Q == 4 && nu == 4 && s.ka + 8 * kb + 8 <= s.kz;",
                   "false;")],
-    # the product's loop over 8-lane blocks unrolled by 2
+    # the product's loop over 8-lane blocks unrolled by 2 at every row
+    # tile (below 256 rows it is)
     "product_unroll2": [("fronts.cuh",
-                         "  for (int kb = 0; kb < nk; ++kb) {\n"
-                         "    const uint4* af",
+                         "  } else {\n"
+                         "    for (int kb = 0; kb < nk; ++kb)\n",
+                         "  } else {\n"
                          "#pragma unroll 2\n"
-                         "  for (int kb = 0; kb < nk; ++kb) {\n"
-                         "    const uint4* af")],
+                         "    for (int kb = 0; kb < nk; ++kb)\n")],
     # ablations, timed only: no copies of taps, window or B rows; no
     # fold; no product
     "no_stage": [("fronts.cuh", "    pfb_mma_stage_window(st + tsize,",

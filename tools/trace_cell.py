@@ -16,7 +16,9 @@ own warm-up (where a new graph is captured, outside what is read):
      span open at their start (named_gaps);
   4. with spans and device counters on (the counted graph): the
      compiled call's parts and the chain kernels' waits (values), the
-     device-counted launches and look-back polls a block.
+     device-counted launches and look-back polls a block, and beside them
+     the row tile the chunked PFB front took and its blocks a launch
+     (engagement).
 
 Prints its notes on standard error and one JSON line of the readings on
 standard output. Usage, from the repository root:
@@ -70,6 +72,24 @@ def values(spans, counters):
     for name, part, whole in SHARES:
         if total.get(whole) and part in total:
             out[name] = 100.0 * total[part] / total[whole]
+    return out
+
+
+def engagement(counters, wrappers):
+    """{reading: value} of the chunked bf16 PFB front's row tile
+    (csrc/fronts.cuh, pfb_mma_rows): each counted kernel's blocks a launch
+    ({kernel: {counter: count}}: the grid its launches took), and the rows
+    of the blocks each wrapper's chunked launches took (``ChainKernel``'s
+    ``row_tiles``, counted at a graph's capture, not its replays), for
+    those that have any."""
+    out = {}
+    for kernel, got in counters.items():
+        if got.get("launches"):
+            out[f"{kernel}.blocks_a_launch"] = got["blocks"] / got["launches"]
+    for name, wrapper in wrappers.items():
+        took = [r for r, n in getattr(wrapper, "row_tiles", {}).items() if n]
+        if took:
+            out[f"{name}.row_tiles"] = took
     return out
 
 
@@ -169,6 +189,9 @@ def run(name, seed, log):
             out[f"{kernel}.polls_a_block"] = got["polls"] / counted.blocks
         log(f"{kernel} counters: {got}")
     out.update(values(spans, counters))
+    rows = engagement(counters, entry.counters())
+    log(f"row tile and grid: {rows}")
+    out.update(rows)
     return out
 
 
